@@ -33,8 +33,10 @@ setup(
         'TPU-native (JAX/XLA/Pallas) LiDAR 3D detection + temporal-MAE '
         'pretraining framework with the capabilities of T-MAE (ECCV 2024)'
     ),
-    packages=find_packages(include=['tmae_tpu', 'tmae_tpu.*']),
-    package_data={'tmae_tpu': ['csrc/*.cpp', 'csrc/*.so']},
+    packages=find_packages(include=['tmae_tpu', 'tmae_tpu.*',
+                                    'tmae_tpu_torch', 'tmae_tpu_torch.*']),
+    package_data={'tmae_tpu': ['csrc/*.cpp', 'csrc/*.so'],
+                  'tmae_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=['jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy',
                       'pyyaml'],

@@ -1,0 +1,210 @@
+"""SST encoder on the dense BEV carrier, serving path (counterpart of
+``tmae_tpu/models/sst.py:62-97,193-688``).
+
+A stage pads its carrier once, keeps it padded across its shifted-window
+blocks, and unpads once. Each encoder layer runs the combined-bucket serving
+path of the JAX package (``run_combined``): one gather of all planned windows
+(K1, twice in cross mode), the small and mid bucket kernels (K4) and the full
+bucket kernel (K3) updating their row ranges in place, and one scatter back
+into the carrier (K2). Occupied windows beyond a bucket's cap are not in the
+plan, so they keep their input: the layer runs as identity there, and the
+stage reports how many windows that was.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.dense_windows import slot_pos_embed
+from ..ops.encoder_layer import (LayerParams, encoder_layer_rows_full,
+                                 encoder_layer_rows_sel)
+from ..ops.occ_compact import (BucketedCompact, build_bucketed_compact_info,
+                               gather_windows_padded, pad_grid, repad_grid,
+                               scatter_windows_into_padded, unpad_grid)
+from ..ops.voxelize import occupancy_grid, scatter_to_grid
+from .layers import (CARRIER_DTYPE, StridedSparseConvBlock, SubMConvBlock)
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass
+class VoxelSet:
+    """Compact voxel list + grid shape: the VFE-to-backbone interface."""
+
+    feat: torch.Tensor    # [B, V, C]
+    coords: torch.Tensor  # [B, V, 2] (y, x)
+    mask: torch.Tensor    # [B, V] bool
+    grid_hw: tuple
+
+    def to_dense(self):
+        return scatter_to_grid(self.feat, self.coords, self.mask, self.grid_hw)
+
+    def occupancy(self):
+        return occupancy_grid(self.coords, self.mask, self.grid_hw)
+
+
+@dataclasses.dataclass
+class DenseGrid:
+    """Dense BEV activation + occupancy (the carrier)."""
+
+    x: torch.Tensor    # [B, H, W, C]
+    occ: torch.Tensor  # [B, H, W] bool
+
+    @property
+    def grid_hw(self):
+        return (self.x.shape[1], self.x.shape[2])
+
+
+def occ_downsample(occ: torch.Tensor) -> torch.Tensor:
+    """Active output set of a 3x3 / stride 2 / pad 1 sparse conv: a max-pool
+    of the occupancy."""
+    return F.max_pool2d(occ[:, None].float(), 3, 2, 1)[:, 0] > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class OccCaps:
+    """Bucket caps of one pyramid stage (RUNTIME.OCC_*)."""
+
+    full: int
+    small: int
+    small_tokens: int = 16
+    mid: int = 0
+    mid_tokens: int = 48
+
+
+def build_plans(occ, window, caps: OccCaps, kv_occ=None):
+    """One bucket plan per shift, shared by every layer of a stage."""
+    hw = (occ.shape[1], occ.shape[2])
+    return tuple(
+        build_bucketed_compact_info(
+            occ, window, shift, caps.small, caps.full, hw, kv_occ=kv_occ,
+            small_tokens=caps.small_tokens, mid_cap=caps.mid,
+            mid_tokens=caps.mid_tokens)
+        for shift in (False, True))
+
+
+class DenseEncoderLayer(nn.Module):
+    """Cosine window attention + FFN with post-LN residuals over the planned
+    windows of a padded carrier, updated in place. Self mode, or cross mode
+    with keys and values from another frame's carrier."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, window, tau_min=0.01,
+                 cross=False):
+        super().__init__()
+        C, Fd = d_model, dim_feedforward
+        self.nhead, self.window = nhead, window
+        self.tau_min, self.cross = tau_min, cross
+        self.q = nn.Linear(C, C)
+        self.k = nn.Linear(C, C)
+        self.v = nn.Linear(C, C)
+        self.out = nn.Linear(C, C)
+        self.tau = nn.Parameter(torch.ones(1))
+        self.ln1 = nn.LayerNorm(C)
+        self.ffn1 = nn.Linear(C, Fd)
+        self.ffn2 = nn.Linear(Fd, C)
+        self.ln2 = nn.LayerNorm(C)
+        self.register_buffer('pos', slot_pos_embed(window, C).to(COMPUTE_DTYPE),
+                             persistent=False)
+
+    def layer_params(self) -> LayerParams:
+        bf = lambda lin: lin.weight.to(COMPUTE_DTYPE).contiguous()
+        f32 = lambda t: t.float().contiguous()
+        return LayerParams(
+            bf(self.q), f32(self.q.bias), bf(self.k), f32(self.k.bias),
+            bf(self.v), f32(self.v.bias), bf(self.out), f32(self.out.bias),
+            f32(self.tau), f32(self.ln1.weight), f32(self.ln1.bias),
+            bf(self.ffn1), f32(self.ffn1.bias), bf(self.ffn2),
+            f32(self.ffn2.bias), f32(self.ln2.weight), f32(self.ln2.bias))
+
+    def forward(self, xp, kvp, plan: BucketedCompact):
+        p = self.layer_params()
+        w, cross = self.window, self.cross
+        kw = dict(nhead=self.nhead, tau_min=self.tau_min, cross=cross)
+        xw_all = gather_windows_padded(xp, plan.cat_idx, w)
+        kv_all = gather_windows_padded(kvp, plan.cat_idx, w) if cross else None
+        lo = 0
+        for si in (plan.small, plan.mid):
+            if si is None or not si.idx.shape[1]:
+                continue
+            xw_all = encoder_layer_rows_sel(
+                xw_all, kv_all, si.sel, si.ksel if cross else si.sel,
+                si.qmask, si.kmask if cross else si.qmask, self.pos, p,
+                row_lo=lo, **kw)
+            lo += si.idx.shape[1]
+        ci = plan.full
+        if ci.idx.shape[1]:
+            xw_all = encoder_layer_rows_full(
+                xw_all, kv_all, ci.qmask, ci.kmask if cross else ci.qmask,
+                self.pos, p, row_lo=lo, **kw)
+        return scatter_windows_into_padded(xw_all, plan.cat_idx, xp, w)
+
+
+class DenseShiftBlock(nn.Module):
+    """Two encoder layers, shift0 then shift1, on a padded carrier: takes
+    the carrier in shift0 geometry and returns it in shift1 geometry."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, window, tau_min=0.01,
+                 cross=False):
+        super().__init__()
+        self.window, self.cross = window, cross
+        self.EncoderLayer_0 = DenseEncoderLayer(
+            d_model, nhead, dim_feedforward, window, tau_min, cross)
+        self.EncoderLayer_1 = DenseEncoderLayer(
+            d_model, nhead, dim_feedforward, window, tau_min, cross)
+
+    def forward(self, xp, kv_x, plans):
+        w = self.window
+        kvp0 = pad_grid(kv_x.to(COMPUTE_DTYPE), w, False) if self.cross else None
+        xp = self.EncoderLayer_0(xp, kvp0, plans[0])
+        xp = repad_grid(xp, w, False, True)
+        kvp1 = repad_grid(kvp0, w, False, True) if self.cross else None
+        return self.EncoderLayer_1(xp, kvp1, plans[1])
+
+
+class SSTBlock(nn.Module):
+    """One pyramid stage: optional strided conv_down, NUM_BLOCKS shifted
+    window blocks on one padded carrier, residual add, SubM conv_out."""
+
+    def __init__(self, cin, encoder_cfg, caps: OccCaps, window=8):
+        super().__init__()
+        ecfg = encoder_cfg
+        d_model = int(ecfg['D_MODEL'])
+        self.window, self.caps = window, caps
+        self.stride = int(ecfg.get('STRIDE', 1))
+        layer_cfg = ecfg.get('LAYER_CFG', {})
+        if ecfg.get('ACTIVATION', 'gelu') != 'gelu' or not layer_cfg.get(
+                'cosine', True):
+            raise NotImplementedError('the port implements cosine + gelu')
+        if self.stride > 1:
+            self.conv_down = StridedSparseConvBlock(cin, d_model)
+        elif cin != d_model:
+            raise NotImplementedError('stride-1 stage needs cin == D_MODEL')
+        self.blocks = []
+        for i in range(int(ecfg['NUM_BLOCKS'])):
+            blk = DenseShiftBlock(d_model, int(ecfg['NHEAD']),
+                                  int(ecfg['DIM_FEEDFORWARD']), window,
+                                  float(layer_cfg.get('tau_min', 0.01)))
+            self.add_module(f'encoder_{i}', blk)
+            self.blocks.append(blk)
+        self.conv_out = SubMConvBlock(d_model, d_model)
+
+    def forward(self, grid: DenseGrid):
+        """Returns (DenseGrid, overflow [B]: occupied windows over a cap)."""
+        x, occ = grid.x, grid.occ
+        if self.stride > 1:
+            occ = occ_downsample(occ)
+            x = self.conv_down(x, occ)
+        w = self.window
+        plans = build_plans(occ, w, self.caps)
+        xp = pad_grid(x.to(COMPUTE_DTYPE), w, False)
+        for i, blk in enumerate(self.blocks):
+            if i:
+                xp = repad_grid(xp, w, True, False)
+            xp = blk(xp, None, plans)
+        y = x + unpad_grid(xp, (x.shape[1], x.shape[2]), w, True)
+        y = self.conv_out(y.to(CARRIER_DTYPE), occ)
+        return DenseGrid(y, occ), plans[0].overflow() + plans[1].overflow()
