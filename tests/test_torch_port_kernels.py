@@ -385,6 +385,9 @@ def test_port_imports_no_jax():
                     offenders.append(f'{path.relative_to(REPO)}: {name}')
     assert not offenders, offenders
     assert len(files) > 20
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    for module in ('optimization', 'trainer', 'checkpoint'):
+        assert f'tmae_tpu_torch/train/{module}.py' in scanned, module
 
 
 def test_build_detector_needs_a_card_by_default(monkeypatch):

@@ -104,7 +104,7 @@ def test_full_width_sst_stage_and_wca_block(stage):
         v, g, False, mutable=['intermediates']))(v, jgrid)
 
     tcaps = OccCaps(16, 16, 16, 16, 48)
-    tblock = SSTBlock(cin, ecfg, tcaps)
+    tblock = SSTBlock(cin, ecfg, tcaps).eval()
     tblock.load_state_dict(params_from_jax(v), strict=True)
     with torch.no_grad():
         tout, overflow = tblock(DenseGrid(x, torch.from_numpy(occ)))
@@ -126,7 +126,7 @@ def test_full_width_sst_stage_and_wca_block(stage):
                                                    b, False), jcur, jprv)
     vw = random_variables(shapes, 10 + stage)
     jw = jax.jit(lambda v, a, b: jwca.apply(v, a, b, False))(vw, jcur, jprv)
-    twca = WCABlock(ecfg, tcaps)
+    twca = WCABlock(ecfg, tcaps).eval()
     twca.load_state_dict(params_from_jax(vw), strict=True)
     tx = torch.from_numpy(_np(g[0])).to(torch.bfloat16)
     tocc = torch.from_numpy(np.array(g[1]))

@@ -1,13 +1,19 @@
-// Kernels K3 and K4: the cosine-attention SST encoder layer on window rows,
-// updated in place.
+// Kernels K3, K4, K6 and K8: the cosine-attention SST encoder layer on
+// gathered windows.
 //
 // Replace tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full (kernel
 // _kernel_rows_full -> _layer_body) and encoder_layer_rows_sel (kernel
-// _kernel_rows_sel -> _layer_body_sel). Both update rows
-// [row_lo, row_lo + cap) of the gathered window tensor [B, total, 64, C]:
-// K3 runs the layer on all 64 cells of a window and masks its output by the
-// query mask; K4 runs it on S selected cells (S = 16 or 48) and adds the
-// masked delta back onto those cells, so unselected cells pass through.
+// _kernel_rows_sel -> _layer_body_sel), which update rows
+// [row_lo, row_lo + cap) of the gathered window tensor [B, total, 64, C] in
+// place (K3, K4: serving), and _pallas_forward (kernel _kernel ->
+// _layer_body) and _pallas_forward_sel (kernel _kernel_sel ->
+// _layer_body_sel), the same functions out of place on a flat [N, 64, C]
+// window tensor (K6, K8: the training forward, launched as B = 1,
+// total = cap = N, row_lo = 0 with a separate output). K3/K6 run the layer on
+// all 64 cells of a window and mask its output by the query mask; K4/K8 run
+// it on S selected cells (S = 16 or 48) and add the masked delta back onto
+// those cells, so unselected cells pass through (K8 copies them to its
+// output first).
 //
 // Bound: operations. Per window the layer does 2*T*C*C*4 (q, k, v, out) +
 // 2*T*C*F*2 (FFN) + 2*T*T*C*2 (logits, p.v) multiply-adds-as-2-flops,
@@ -39,26 +45,21 @@
 // per head (the TPU packed variant shares one row max across heads, which is
 // the same function where exp does not underflow).
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "wmma_tiles.cuh"
 
 namespace {
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kFC = 128;     // FFN hidden chunk width
 constexpr int kPadB = 8;     // bf16 row padding (elements)
 constexpr int kPadF = 4;     // f32 row padding (elements)
-constexpr int kStLd = 36;    // per-warp f32 staging row stride (16 x up to 32)
 constexpr int kCells = 64;   // cells of an 8 x 8 window
 constexpr int kMaxC = 256;   // LayerNorm passes keep C / 32 values per lane
 
 struct Params {
-  bf16* xw;
+  const bf16* xw;
+  bf16* out;  // == xw for the in-place serving kernels
   const bf16* kvw;
   const int* selq;
   const int* selk;
@@ -70,47 +71,6 @@ struct Params {
   int total, cap, row_lo, C, F, H, cross;
   float tau_min;
 };
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> AFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BColFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRowFrag;
-
-// acc[m][j] += A[16m.., k] * W^T over k < K for output columns n0 + 16j..,
-// where W is a Linear weight [out, in] with row stride ldw (so B(k, n) =
-// W[(n0 + n) * ldw + k], a column-major B). One weight fragment is reused
-// across all MT row blocks.
-template <int MT>
-__device__ __forceinline__ void gemm_rows(AccFrag (&acc)[MT][2], int nj,
-                                          const bf16* A, int lda,
-                                          const bf16* W, int ldw, int n0,
-                                          int K) {
-  AFrag a;
-  BColFrag bw[2];
-  for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (j < nj)
-        wmma::load_matrix_sync(bw[j], W + (long long)(n0 + 16 * j) * ldw + k0,
-                               ldw);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      wmma::load_matrix_sync(a, A + 16 * m * lda + k0, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (j < nj) wmma::mma_sync(acc[m][j], a, bw[j], acc[m][j]);
-    }
-  }
-}
-
-template <int MT>
-__device__ __forceinline__ void zero_acc(AccFrag (&acc)[MT][2]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    wmma::fill_fragment(acc[m][0], 0.f);
-    wmma::fill_fragment(acc[m][1], 0.f);
-  }
-}
 
 // Copies T token rows of a window into shared memory: `raw` gets the bf16
 // values, `with_pos` gets bf16(x + pos[cell]). Either may be null.
@@ -209,19 +169,6 @@ __device__ void project_plain(bf16* dst, const bf16* A, int ld, const bf16* W,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // LayerNorm of one row held as C / 32 values per lane (value c = lane + 32i).
 __device__ __forceinline__ void layer_norm_row(float (&v)[kMaxC / 32], int nc,
                                                const float* scale,
@@ -288,7 +235,13 @@ __global__ void __launch_bounds__(kThreads)
   float* st = st_all + warp * 16 * kStLd;
   const long long slot = (long long)blockIdx.y * p.cap + blockIdx.x;
   const long long row = (long long)blockIdx.y * p.total + p.row_lo + blockIdx.x;
-  bf16* xwin = p.xw + row * kCells * C;
+  const bf16* xwin = p.xw + row * kCells * C;
+  bf16* owin = p.out + row * kCells * C;
+  if (p.selq && owin != xwin) {  // K8: unselected cells pass through
+    for (int t = tid; t < kCells * C / 8; t += kThreads)
+      reinterpret_cast<uint4*>(owin)[t] =
+          reinterpret_cast<const uint4*>(xwin)[t];
+  }
   const bf16* kvwin = p.cross ? p.kvw + row * kCells * C : nullptr;
 
   for (int i = tid; i < T; i += kThreads) {
@@ -481,7 +434,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     layer_norm_row(v, nc, p.ln2s, p.ln2b, lane, C);
     const bool occ = qm_s[i] > 0.f;
-    bf16* dst = xwin + sq_s[i] * C;
+    bf16* dst = owin + sq_s[i] * C;
     if (!sel) {
 #pragma unroll
       for (int u = 0; u < kMaxC / 32; ++u)
@@ -518,18 +471,29 @@ int launch_rows(const Params& p, int B, cudaStream_t stream) {
   return tmae_last_error();
 }
 
+int launch_sel(const Params& p, int B, int S, cudaStream_t s) {
+  switch (S) {
+    case 16: return launch_rows<16>(p, B, s);
+    case 48: return launch_rows<48>(p, B, s);
+    case 64: return launch_rows<64>(p, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 bool shape_ok(int C, int F, int H) {
   if (H <= 0 || C % H) return false;
   const int D = C / H;
   return C % 32 == 0 && C <= kMaxC && (D == 16 || D == 32) && F % kFC == 0;
 }
 
-Params make_params(void* xw, const void* kvw, const void* selq,
+Params make_params(const void* xw, void* out, const void* kvw,
+                   const void* selq,
                    const void* selk, const void* qmask, const void* kmask,
                    const void* pos, const void* const* w, int total, int cap,
                    int row_lo, int C, int F, int H, int cross, float tau_min) {
   Params p;
-  p.xw = static_cast<bf16*>(xw);
+  p.xw = static_cast<const bf16*>(xw);
+  p.out = static_cast<bf16*>(out);
   p.kvw = static_cast<const bf16*>(kvw);
   p.selq = static_cast<const int*>(selq);
   p.selk = static_cast<const int*>(selk);
@@ -575,8 +539,9 @@ extern "C" int launch_encoder_rows_full(void* xw, const void* kvw,
                                         int C, int F, int H, int cross,
                                         float tau_min, void* stream) {
   if (!shape_ok(C, F, H)) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(xw, kvw, nullptr, nullptr, qmask, kmask, pos, w,
-                               total, cap, row_lo, C, F, H, cross, tau_min);
+  const Params p = make_params(xw, xw, kvw, nullptr, nullptr, qmask, kmask,
+                               pos, w, total, cap, row_lo, C, F, H, cross,
+                               tau_min);
   return launch_rows<kCells>(p, B, static_cast<cudaStream_t>(stream));
 }
 
@@ -588,13 +553,34 @@ extern "C" int launch_encoder_rows_sel(void* xw, const void* kvw,
                                        int C, int F, int H, int S, int cross,
                                        float tau_min, void* stream) {
   if (!shape_ok(C, F, H)) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(xw, kvw, selq, selk, qmask, kmask, pos, w,
+  const Params p = make_params(xw, xw, kvw, selq, selk, qmask, kmask, pos, w,
                                total, cap, row_lo, C, F, H, cross, tau_min);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (S) {
-    case 16: return launch_rows<16>(p, B, s);
-    case 48: return launch_rows<48>(p, B, s);
-    case 64: return launch_rows<64>(p, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_sel(p, B, S, static_cast<cudaStream_t>(stream));
+}
+
+// K6: out [N, 64, C] = layer(xw [N, 64, C]).
+extern "C" int launch_encoder_fwd_full(const void* xw, const void* kvw,
+                                       void* out, const void* qmask,
+                                       const void* kmask, const void* pos,
+                                       const void* const* w, int N, int C,
+                                       int F, int H, int cross, float tau_min,
+                                       void* stream) {
+  if (!shape_ok(C, F, H)) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(xw, out, kvw, nullptr, nullptr, qmask, kmask,
+                               pos, w, N, N, 0, C, F, H, cross, tau_min);
+  return launch_rows<kCells>(p, 1, static_cast<cudaStream_t>(stream));
+}
+
+// K8: out [N, 64, C] = xw + the layer's delta on the S selected cells.
+extern "C" int launch_encoder_fwd_sel(const void* xw, const void* kvw,
+                                      void* out, const void* selq,
+                                      const void* selk, const void* qmask,
+                                      const void* kmask, const void* pos,
+                                      const void* const* w, int N, int C,
+                                      int F, int H, int S, int cross,
+                                      float tau_min, void* stream) {
+  if (!shape_ok(C, F, H)) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(xw, out, kvw, selq, selk, qmask, kmask, pos, w,
+                               N, N, 0, C, F, H, cross, tau_min);
+  return launch_sel(p, 1, S, static_cast<cudaStream_t>(stream));
 }

@@ -7,7 +7,8 @@ and unlabelled building- and clutter-scale cuboids, which gives the ground
 rings, object faces and occlusion shadows of real BEV grids. With
 ``density=1.5`` and 100k points a frame has the point count of a real ONCE
 frame. ``frame_pair_batch`` adds the in-range mask, the padding to
-``MAX_POINTS`` and the sorted host voxelization that the serving path ships.
+``MAX_POINTS``, the sorted host voxelization that the serving path ships,
+and the scene's labelled boxes as training takes them.
 """
 
 from __future__ import annotations
@@ -138,16 +139,37 @@ def pad_points(points: np.ndarray, max_points: int):
     return out, mask
 
 
+def gt_from_scene(scene: dict, class_names, max_gt: int):
+    """The scene's boxes of the configured classes as ``gt_boxes``
+    [max_gt, 8] (the label, 1-indexed in ``class_names`` order, in the last
+    column) and ``gt_mask`` [max_gt], as the JAX package's dataset hands
+    them to training (``prepare_data``)."""
+    keep = np.array([n in class_names for n in scene['names']], bool)
+    boxes = scene['boxes'][keep][:max_gt]
+    labels = np.array([class_names.index(n) + 1
+                       for n in scene['names'][keep][:max_gt]], np.float32)
+    gt = np.zeros((max_gt, 8), np.float32)
+    gt[:len(boxes), :7] = boxes
+    gt[:len(boxes), 7] = labels
+    mask = np.zeros((max_gt,), bool)
+    mask[:len(boxes)] = True
+    return gt, mask
+
+
 def frame_pair_batch(spec: VoxelSpec, class_names, indices=(0,),
                      density: float = 1.5, points_per_frame: int = 100000,
-                     n_box: int = 40) -> dict:
+                     n_box: int = 40, max_gt: int = 500) -> dict:
     """Numpy batch of current/previous frame pairs of scenes ``indices``
-    with the sorted host voxelization, keyed as ``models/detectors.py``
-    expects."""
+    with the sorted host voxelization and the labelled boxes
+    (``gt_boxes`` [B, max_gt, 8], ``gt_mask``), keyed as
+    ``models/detectors.py`` expects."""
     pc = spec.pc_range
+    class_names = list(class_names)
     frames = {'cur': [], 'prv': []}
+    gts = []
     for index in indices:
         scene = make_scene(index, pc, class_names, n_box)
+        gts.append(gt_from_scene(scene, class_names, max_gt))
         for which, base in (('cur', 2000), ('prv', 3000)):
             rng = np.random.RandomState(base + index)
             pts = in_range(render_lidar(scene, rng, pc, density,
@@ -167,4 +189,6 @@ def frame_pair_batch(spec: VoxelSpec, class_names, indices=(0,),
         batch[f'vmask_{which}'] = hv['voxel_mask']
         batch[f'vmean_{which}'] = hv['voxel_mean_xyz']
         batch[f'vends_{which}'] = hv['seg_ends']
+    batch['gt_boxes'] = np.stack([g for g, _ in gts])
+    batch['gt_mask'] = np.stack([m for _, m in gts])
     return batch

@@ -1,7 +1,9 @@
-"""CenterHead forward and decode (counterpart of
-``tmae_tpu/models/center_head.py``: ``SeparateHead``, ``CenterHead`` and
+"""CenterHead forward, CenterNet losses and decode (counterpart of
+``tmae_tpu/models/center_head.py``: ``SeparateHead``, ``CenterHead``, the
+focal / L1 losses of ``center_head_loss`` and
 ``decode_and_nms(..., nms_on_device=False)``). Rotated NMS runs on the host
-(``models/detectors.host_nms``)."""
+(``models/detectors.host_nms``). The optional IoU head is not ported: no
+ported config declares one."""
 
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ class SeparateHead(nn.Module):
         for name, hc in head_dict.items():
             for k in range(int(hc['num_conv']) - 1):
                 self.add_module(f'{name}_conv{k}', ConvBNReLU(
-                    cin, cin, kernel=3, use_bias=use_bias, eps=1e-5))
+                    cin, cin, kernel=3, use_bias=use_bias, eps=1e-5,
+                    momentum=0.1))
             self.add_module(f'{name}_out',
                             nn.Conv2d(cin, int(hc['out_channels']), 3))
 
@@ -47,7 +50,7 @@ class CenterHead(nn.Module):
         shared = int(cfg['SHARED_CONV_CHANNEL'])
         use_bias = bool(cfg.get('USE_BIAS_BEFORE_NORM', False))
         self.shared_conv = nn.Conv2d(cin, shared, 3, bias=use_bias)
-        self.shared_bn = BatchNorm2d(shared, eps=1e-5)
+        self.shared_bn = BatchNorm2d(shared, eps=1e-5, momentum=0.1)
         sep = dict(cfg['SEPARATE_HEAD_CFG']['HEAD_DICT'])
         self.heads = []
         for gi, names in enumerate(cfg['CLASS_NAMES_EACH_HEAD']):
@@ -64,6 +67,54 @@ class CenterHead(nn.Module):
                         bias=self.shared_conv.bias, dtype=torch.float32)
         x = F.relu(self.shared_bn(x))
         return [head(x) for head in self.heads]
+
+
+def sigmoid_clamped(x):
+    return torch.clamp(torch.sigmoid(x), 1e-4, 1 - 1e-4)
+
+
+def focal_loss_centernet(pred, gt):
+    """CornerNet focal loss on clamped sigmoids ``pred`` and gaussian targets
+    ``gt`` of the same layout, normalised by the number of centers."""
+    pos = (gt == 1.0).to(pred.dtype)
+    neg = (gt < 1.0).to(pred.dtype)
+    neg_w = torch.pow(1 - gt, 4)
+    pos_loss = (torch.log(pred) * torch.square(1 - pred) * pos).sum()
+    neg_loss = (torch.log(1 - pred) * torch.square(pred) * neg_w * neg).sum()
+    num_pos = pos.sum()
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / num_pos.clamp(min=1.0))
+
+
+def reg_loss_centernet(pred_maps, inds, targets, mask, code_weights):
+    """Masked L1 at the center cells: ``pred_maps`` [B, H, W, D] NHWC,
+    ``inds`` [B, M] flat y * W + x, ``targets`` [B, M, D]."""
+    pred = C.gather_feat_nhwc(pred_maps, inds)
+    m = mask.to(pred.dtype)[..., None]
+    num = m.sum().clamp(min=1.0)
+    per_dim = ((pred - targets).abs() * m).sum((0, 1)) / num
+    return (per_dim * torch.as_tensor(code_weights, dtype=pred.dtype,
+                                      device=pred.device)).sum()
+
+
+def center_head_loss(pred_dicts, target_dicts, head_order, loss_weights):
+    """Total loss over the head groups and its parts
+    ``{hm_loss_head_i, loc_loss_head_i}``."""
+    total = 0.0
+    parts = {}
+    for gi, (pd, td) in enumerate(zip(pred_dicts, target_dicts)):
+        hm = sigmoid_clamped(pd['hm'])
+        hm_loss = focal_loss_centernet(hm, td['heatmap'].permute(0, 2, 3, 1))
+        hm_loss = hm_loss * float(loss_weights['cls_weight'])
+        reg = torch.cat([pd[k] for k in head_order], dim=-1)
+        loc_loss = reg_loss_centernet(
+            reg, td['inds'], td['target_boxes'], td['mask'],
+            [float(c) for c in loss_weights['code_weights']],
+        ) * float(loss_weights['loc_weight'])
+        total = total + hm_loss + loc_loss
+        parts[f'hm_loss_head_{gi}'] = hm_loss
+        parts[f'loc_loss_head_{gi}'] = loc_loss
+    return total, parts
 
 
 def decode(pred_dicts, post_cfg, voxel_size, pc_range,

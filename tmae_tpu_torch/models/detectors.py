@@ -1,15 +1,17 @@
-"""CenterPoint detector with the SiamWCA backbone, the serving path of
+"""CenterPoint detector with the SiamWCA backbone, for
 ``tools/cfgs/once_models/t_mae.yaml`` (counterpart of
-``tmae_tpu/models/detectors.py:45-206,270-297,346-417``):
+``tmae_tpu/models/detectors.py:45-206,270-338,346-417``):
 
 host voxelization → TemporalDynVFE → SiamWCA → SSTBEVBackbone → CenterHead →
-decode → host rotated NMS.
+decode → host rotated NMS when serving (eval mode), and the CenterPoint
+loss (:func:`centerpoint_loss`) when training (train mode).
 
 Batch layout (dict of tensors, as the JAX package's host pipeline ships it):
 ``points``/``points_prev`` [B, P, 4], ``point_mask``/``point_mask_prev``
 [B, P], and per frame (``cur``/``prv``) the host voxelization ``pv_*``,
 ``pvalid_*``, ``vcoords_*``, ``vmask_*`` and the sorted extras ``vmean_*``,
-``vends_*``.
+``vends_*``. Training adds ``gt_boxes`` [B, M, 8] (class 1-indexed in the
+last column) and ``gt_mask`` [B, M].
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.geometry_np import nms_bev
 from ..ops.voxelize import VoxelSpec
+from ..ops.centernet import assign_center_targets
 from .bev import SSTBEVBackbone
-from .center_head import CenterHead, decode
-from .siamwca import SiamWCA, stage_caps
+from .center_head import CenterHead, center_head_loss, decode
+from .siamwca import SiamWCA, remat_stages, stage_caps
 from .sst import VoxelSet
 from .vfe import TemporalDynVFE
 
@@ -50,7 +53,9 @@ def _grid_hw(spec: VoxelSpec):
 
 
 class CenterPoint(nn.Module):
-    """VFE → SiamWCA → BACKBONE_2D → CenterHead, eval mode."""
+    """VFE → SiamWCA → BACKBONE_2D → CenterHead. ``model.train()`` runs the
+    training forward (batch statistics, the training kernels, remat as
+    RUNTIME.VFE_REMAT / REMAT_STAGES say)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -62,13 +67,15 @@ class CenterPoint(nn.Module):
             raise NotImplementedError(
                 'the port runs CenterPoint with TemporalDynVFE + SiamWCA')
         mlps = [list(m) for m in vfe_cfg['MLPS']]
+        runtime = cfg['RUNTIME']
         self.vfe = TemporalDynVFE(
-            self.spec, mlps,
+            self.spec, mlps, remat=bool(runtime.get('VFE_REMAT', True)),
             use_absolute_xyz=vfe_cfg.get('USE_ABSLOTE_XYZ', True),
             use_cluster_xyz=vfe_cfg.get('USE_CLUSTER_XYZ', True),
             with_distance=vfe_cfg.get('WITH_DISTANCE', False))
-        self.backbone_3d = SiamWCA(b3d, stage_caps(cfg['RUNTIME']),
-                                   cin=mlps[-1][-1])
+        self.backbone_3d = SiamWCA(
+            b3d, stage_caps(runtime), cin=mlps[-1][-1],
+            remat=remat_stages(runtime, len(b3d['SST_BLOCK_LIST'])))
         fuse_out = sum(int(b3d['FUSE_LAYER'][s]['NUM_UPSAMPLE_FILTER'])
                        for s in b3d['FEATURES_SOURCE'])
         fuse_out //= len(b3d['FEATURES_SOURCE'])
@@ -102,6 +109,38 @@ def build_detector(cfg, device=None) -> CenterPoint:
     """The eval-mode detector on ``device`` (the card when None; raises when
     there is none)."""
     return CenterPoint(cfg).to(resolve_device(device)).eval()
+
+
+def centerpoint_loss(cfg, outputs, batch):
+    """Training loss of CenterPoint: CenterNet targets per head group
+    (labels remapped to the group's classes), focal heatmap loss and masked
+    L1 box loss. Returns (loss, parts)."""
+    head_cfg = cfg['MODEL']['DENSE_HEAD']
+    if 'iou' in head_cfg['SEPARATE_HEAD_CFG']['HEAD_DICT']:
+        raise NotImplementedError('the IoU head loss is not ported yet')
+    spec = make_voxel_spec(cfg['DATA_CONFIG'], cfg['RUNTIME'])
+    hw = _grid_hw(spec)
+    tac = head_cfg['TARGET_ASSIGNER_CONFIG']
+    stride = int(tac.get('FEATURE_MAP_STRIDE', 1))
+    fm = (hw[1] // stride, hw[0] // stride)  # (x, y) like the reference
+    class_names = list(cfg['CLASS_NAMES'])
+    gt = batch['gt_boxes'].float()
+    labels = gt[..., 7].long().clamp(0, len(class_names))
+    targets = []
+    for names in head_cfg['CLASS_NAMES_EACH_HEAD']:
+        gmap = torch.zeros(len(class_names) + 1, dtype=torch.long)
+        for li, n in enumerate(names):
+            gmap[class_names.index(n) + 1] = li + 1
+        local = gmap.to(gt.device)[labels]
+        boxes = torch.cat([gt[..., :7], local[..., None].float()], -1)
+        targets.append(assign_center_targets(
+            boxes, (local > 0) & batch['gt_mask'], len(names), fm,
+            spec.pc_range, spec.voxel_size, stride,
+            float(tac['GAUSSIAN_OVERLAP']), int(tac['MIN_RADIUS'])))
+    return center_head_loss(
+        outputs['pred_dicts'], targets,
+        list(head_cfg['SEPARATE_HEAD_CFG']['HEAD_ORDER']),
+        head_cfg['LOSS_CONFIG']['LOSS_WEIGHTS'])
 
 
 @torch.no_grad()

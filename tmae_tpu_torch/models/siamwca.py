@@ -36,6 +36,13 @@ class PyramidFuse(nn.Module):
         return self.conv_out(x)
 
 
+def remat_stages(runtime, n_stages: int) -> list:
+    """RUNTIME.REMAT_STAGES: per-stage remat of the SST blocks (empty means
+    every stage)."""
+    flags = runtime.get('REMAT_STAGES') or [True] * n_stages
+    return [bool(f) for f in flags]
+
+
 def stage_caps(runtime) -> list:
     """Per-stage bucket caps from RUNTIME.OCC_* (the serving path needs the
     full and small caps; the mid bucket is optional)."""
@@ -54,12 +61,14 @@ def stage_caps(runtime) -> list:
 class SiamWCAEncoder(nn.Module):
     """Pyramid-encode both frames, then cross-attend each scale."""
 
-    def __init__(self, model_cfg, caps, cin, window=8):
+    def __init__(self, model_cfg, caps, cin, window=8, remat=None):
         super().__init__()
         self.sst_blocks, self.wca_blocks = [], []
-        for i, b in enumerate(model_cfg['SST_BLOCK_LIST']):
+        blocks = model_cfg['SST_BLOCK_LIST']
+        remat = remat or [True] * len(blocks)
+        for i, b in enumerate(blocks):
             ecfg = dict(b['ENCODER'])
-            sst = SSTBlock(cin, ecfg, caps[i], window)
+            sst = SSTBlock(cin, ecfg, caps[i], window, remat=remat[i])
             wca = WCABlock(ecfg, caps[i], window)
             self.add_module(f'sst_block_{i}', sst)
             self.add_module(f'wca_block_{i}', wca)
@@ -90,9 +99,9 @@ class SiamWCAEncoder(nn.Module):
 class SiamWCA(nn.Module):
     """Produces the stride-1 ``spatial_features`` map [B, H, W, C]."""
 
-    def __init__(self, model_cfg, caps, cin):
+    def __init__(self, model_cfg, caps, cin, remat=None):
         super().__init__()
-        self.encoder = SiamWCAEncoder(model_cfg, caps, cin)
+        self.encoder = SiamWCAEncoder(model_cfg, caps, cin, remat=remat)
         self.fuse = PyramidFuse([dict(model_cfg['FUSE_LAYER'][src])
                                  for src in model_cfg['FEATURES_SOURCE']])
 

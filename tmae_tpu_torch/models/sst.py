@@ -1,14 +1,18 @@
-"""SST encoder on the dense BEV carrier, serving path (counterpart of
+"""SST encoder on the dense BEV carrier (counterpart of
 ``tmae_tpu/models/sst.py:62-97,193-688``).
 
 A stage pads its carrier once, keeps it padded across its shifted-window
-blocks, and unpads once. Each encoder layer runs the combined-bucket serving
-path of the JAX package (``run_combined``): one gather of all planned windows
-(K1, twice in cross mode), the small and mid bucket kernels (K4) and the full
-bucket kernel (K3) updating their row ranges in place, and one scatter back
-into the carrier (K2). Occupied windows beyond a bucket's cap are not in the
-plan, so they keep their input: the layer runs as identity there, and the
-stage reports how many windows that was.
+blocks, and unpads once. In eval mode each encoder layer runs the
+combined-bucket serving path of the JAX package (``run_combined``): one
+gather of all planned windows (K1, twice in cross mode), the small and mid
+bucket kernels (K4) and the full bucket kernel (K3) updating their row
+ranges in place, and one scatter back into the carrier (K2). In train mode
+it runs ``run_train_cat``: one differentiable gather, the training kernels
+on row slices (K8 for the small and mid buckets, K6 for the full bucket;
+their backward is K9 / K7), one concat and one differentiable scatter into a
+new carrier. Occupied windows beyond a bucket's cap are not in the plan, so
+they keep their input: the layer runs as identity there, and the stage
+reports how many windows that was.
 """
 
 from __future__ import annotations
@@ -21,12 +25,16 @@ from torch import nn
 
 from ..ops.dense_windows import slot_pos_embed
 from ..ops.encoder_layer import (LayerParams, encoder_layer_rows_full,
-                                 encoder_layer_rows_sel)
+                                 encoder_layer_rows_sel, fused_encoder_layer,
+                                 kernel_params)
 from ..ops.occ_compact import (BucketedCompact, build_bucketed_compact_info,
-                               gather_windows_padded, pad_grid, repad_grid,
-                               scatter_windows_into_padded, unpad_grid)
+                               gather_windows_padded, gather_windows_train,
+                               pad_grid, repad_grid,
+                               scatter_windows_into_padded,
+                               scatter_windows_train, unpad_grid)
 from ..ops.voxelize import occupancy_grid, scatter_to_grid
-from .layers import (CARRIER_DTYPE, StridedSparseConvBlock, SubMConvBlock)
+from .layers import (CARRIER_DTYPE, StridedSparseConvBlock, SubMConvBlock,
+                     remat)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -111,16 +119,55 @@ class DenseEncoderLayer(nn.Module):
                              persistent=False)
 
     def layer_params(self) -> LayerParams:
-        bf = lambda lin: lin.weight.to(COMPUTE_DTYPE).contiguous()
-        f32 = lambda t: t.float().contiguous()
-        return LayerParams(
-            bf(self.q), f32(self.q.bias), bf(self.k), f32(self.k.bias),
-            bf(self.v), f32(self.v.bias), bf(self.out), f32(self.out.bias),
-            f32(self.tau), f32(self.ln1.weight), f32(self.ln1.bias),
-            bf(self.ffn1), f32(self.ffn1.bias), bf(self.ffn2),
-            f32(self.ffn2.bias), f32(self.ln2.weight), f32(self.ln2.bias))
+        """The layer's weights as the kernels take them."""
+        return kernel_params(self.layer_weights())
+
+    def layer_weights(self) -> list:
+        """The 17 layer tensors in :class:`LayerParams` order (f32)."""
+        return [self.q.weight, self.q.bias, self.k.weight, self.k.bias,
+                self.v.weight, self.v.bias, self.out.weight, self.out.bias,
+                self.tau, self.ln1.weight, self.ln1.bias, self.ffn1.weight,
+                self.ffn1.bias, self.ffn2.weight, self.ffn2.bias,
+                self.ln2.weight, self.ln2.bias]
+
+    def forward_train(self, xp, kvp, plan: BucketedCompact):
+        """``run_train_cat``: returns a new carrier (out of place)."""
+        w, cross = self.window, self.cross
+        kw = dict(nhead=self.nhead, tau_min=self.tau_min, cross=cross)
+        weights = self.layer_weights()
+        p = kernel_params(weights)
+        xw_all = gather_windows_train(xp, plan.cat_idx, w)
+        kv_all = gather_windows_train(kvp, plan.cat_idx, w) if cross else None
+        B, _, T, C = xw_all.shape
+        flat = lambda a: None if a is None else a.reshape(-1, *a.shape[2:])
+        rows = lambda a, lo, cap: None if a is None else a[:, lo:lo + cap]
+        outs, lo = [], 0
+        for si in (plan.small, plan.mid):
+            if si is None or not si.idx.shape[1]:
+                continue
+            cap = si.idx.shape[1]
+            out = fused_encoder_layer(
+                flat(rows(xw_all, lo, cap)), flat(rows(kv_all, lo, cap)),
+                flat(si.sel), flat(si.ksel if cross else None),
+                flat(si.qmask), flat(si.kmask if cross else None), self.pos,
+                weights, p, **kw)
+            outs.append(out.reshape(B, cap, T, C))
+            lo += cap
+        ci = plan.full
+        if ci.idx.shape[1]:
+            cap = ci.idx.shape[1]
+            out = fused_encoder_layer(
+                flat(rows(xw_all, lo, cap)), flat(rows(kv_all, lo, cap)),
+                None, None, flat(ci.qmask),
+                flat(ci.kmask if cross else None), self.pos, weights, p,
+                **kw)
+            outs.append(out.reshape(B, cap, T, C))
+        out_all = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+        return scatter_windows_train(out_all, plan.cat_idx, xp, w)
 
     def forward(self, xp, kvp, plan: BucketedCompact):
+        if self.training:
+            return self.forward_train(xp, kvp, plan)
         p = self.layer_params()
         w, cross = self.window, self.cross
         kw = dict(nhead=self.nhead, tau_min=self.tau_min, cross=cross)
@@ -169,11 +216,12 @@ class SSTBlock(nn.Module):
     """One pyramid stage: optional strided conv_down, NUM_BLOCKS shifted
     window blocks on one padded carrier, residual add, SubM conv_out."""
 
-    def __init__(self, cin, encoder_cfg, caps: OccCaps, window=8):
+    def __init__(self, cin, encoder_cfg, caps: OccCaps, window=8,
+                 remat: bool = True):
         super().__init__()
         ecfg = encoder_cfg
         d_model = int(ecfg['D_MODEL'])
-        self.window, self.caps = window, caps
+        self.window, self.caps, self.remat = window, caps, remat
         self.stride = int(ecfg.get('STRIDE', 1))
         layer_cfg = ecfg.get('LAYER_CFG', {})
         if ecfg.get('ACTIVATION', 'gelu') != 'gelu' or not layer_cfg.get(
@@ -195,16 +243,17 @@ class SSTBlock(nn.Module):
     def forward(self, grid: DenseGrid):
         """Returns (DenseGrid, overflow [B]: occupied windows over a cap)."""
         x, occ = grid.x, grid.occ
+        rm = self.training and self.remat  # nn.remat of the JAX package
         if self.stride > 1:
             occ = occ_downsample(occ)
-            x = self.conv_down(x, occ)
+            x = remat(self.conv_down, x, occ, enabled=rm)
         w = self.window
         plans = build_plans(occ, w, self.caps)
         xp = pad_grid(x.to(COMPUTE_DTYPE), w, False)
         for i, blk in enumerate(self.blocks):
             if i:
                 xp = repad_grid(xp, w, True, False)
-            xp = blk(xp, None, plans)
+            xp = remat(blk, xp, None, plans, enabled=rm)
         y = x + unpad_grid(xp, (x.shape[1], x.shape[2]), w, True)
-        y = self.conv_out(y.to(CARRIER_DTYPE), occ)
+        y = remat(self.conv_out, y.to(CARRIER_DTYPE), occ, enabled=rm)
         return DenseGrid(y, occ), plans[0].overflow() + plans[1].overflow()

@@ -1,16 +1,20 @@
 """Two-frame dynamic pillar VFE (counterpart of ``tmae_tpu/models/vfe.py``
 ``DynPillarEncoder`` and ``TemporalDynVFE``): a per-point MLP, then a
 per-pillar max. With host-sorted inputs (``seg_ends`` shipped) the max is
-kernel K5; otherwise the scatter path sorts on the device."""
+kernel K5, differentiated in train mode by the JAX package's tie rule;
+otherwise the scatter path sorts on the device. In train mode the encoder
+runs under remat and its batch norms update their running statistics once
+per frame, current then previous."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..ops.sorted_segments import sorted_segment_max
+from ..ops.sorted_segments import (sorted_segment_max,
+                                   sorted_segment_max_train)
 from ..ops.voxelize import VoxelSpec, segment_max, segment_mean
-from .layers import LinearBNReLU
+from .layers import LinearBNReLU, remat
 
 
 class DynPillarEncoder(nn.Module):
@@ -74,12 +78,12 @@ class DynPillarEncoder(nn.Module):
         x = torch.where(pvalid[..., None], x, 0.0)
 
         sorted_max = 'seg_ends' in vox
+        ssm = sorted_segment_max_train if self.training else sorted_segment_max
         for k, layers in enumerate(self.stacks):
             for layer in layers:
                 x = layer(x, pvalid)
             if sorted_max:
-                x_max = sorted_segment_max(x, pv, vox['seg_ends'],
-                                           vox['voxel_mask'], V)
+                x_max = ssm(x, pv, vox['seg_ends'], vox['voxel_mask'], V)
             else:
                 x_max = segment_max(torch.where(pvalid[..., None], x,
                                                 -torch.inf), pv, V)
@@ -99,12 +103,15 @@ class DynPillarEncoder(nn.Module):
 class TemporalDynVFE(nn.Module):
     """Runs the shared pillar encoder on the current and previous frame."""
 
-    def __init__(self, spec: VoxelSpec, mlps, **kwargs):
+    def __init__(self, spec: VoxelSpec, mlps, remat: bool = True, **kwargs):
         super().__init__()
+        self.remat = remat
         self.encoder = DynPillarEncoder(spec, mlps, **kwargs)
 
     def forward(self, points, point_mask, points_prev, point_mask_prev,
                 vox_cur: dict, vox_prv: dict):
-        cur = self.encoder(points, point_mask, vox_cur)
-        prv = self.encoder(points_prev, point_mask_prev, vox_prv)
+        rm = self.training and self.remat
+        cur = remat(self.encoder, points, point_mask, vox_cur, enabled=rm)
+        prv = remat(self.encoder, points_prev, point_mask_prev, vox_prv,
+                    enabled=rm)
         return cur, prv

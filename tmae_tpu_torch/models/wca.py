@@ -9,7 +9,7 @@ from __future__ import annotations
 from torch import nn
 
 from ..ops.occ_compact import pad_grid, unpad_grid
-from .layers import SubMConvBlock
+from .layers import SubMConvBlock, remat
 from .sst import COMPUTE_DTYPE, DenseGrid, DenseShiftBlock, OccCaps, build_plans
 
 
@@ -34,5 +34,6 @@ class WCABlock(nn.Module):
         xp = pad_grid(grid.x.to(COMPUTE_DTYPE), w, False)
         xp = self.block_0(xp, grid_prv.x, plans)
         y = grid.x + unpad_grid(xp, grid.grid_hw, w, True)
-        y = self.conv_out(y, grid.occ)
+        # the JAX package remats conv_out only, not the cross-attention block
+        y = remat(self.conv_out, y, grid.occ, enabled=self.training)
         return DenseGrid(y, grid.occ), plans[0].overflow() + plans[1].overflow()

@@ -1,13 +1,22 @@
-"""The cosine-attention SST encoder layer on gathered window rows: kernels K3
-(all 64 cells) and K4 (S selected cells) and their plain version
-(counterpart of ``tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full``,
-``encoder_layer_rows_sel``, ``reference_encoder_layer`` and
-``reference_encoder_layer_sel``).
+"""The cosine-attention SST encoder layer on gathered windows, as kernels
+and their plain versions (counterpart of
+``tmae_tpu/ops/pallas_encoder.py``):
 
-Both entry points update rows ``[row_lo, row_lo + cap)`` of the window
-tensor ``xw_all [B, total, 64, C]`` in place and return it. The plain version
-follows the kernels' numerics: bf16 matmul inputs with f32 accumulation,
-bf16 where the TPU kernel casts, f32 LayerNorm residual.
+* serving, in place on rows ``[row_lo, row_lo + cap)`` of the window tensor
+  ``xw_all [B, total, 64, C]``: K3 (all 64 cells,
+  ``encoder_layer_rows_full``) and K4 (S selected cells,
+  ``encoder_layer_rows_sel``);
+* training, out of place on a flat ``[N, 64, C]`` window tensor:
+  :func:`fused_encoder_layer`, an autograd Function whose forward is K6 (all
+  cells, ``_pallas_forward``) or K8 (selected cells, ``_pallas_forward_sel``)
+  and whose backward is K7 (``_pallas_backward``) or K9
+  (``_pallas_backward_sel``).
+
+The plain forward follows the kernels' numerics: bf16 matmul inputs with f32
+accumulation, bf16 where the TPU kernel casts, f32 LayerNorm residual. Its
+bf16 roundings pass gradients straight through, so the plain backward is
+autograd through the plain forward with f32 gradients, as the TPU kernel's
+backward keeps its gradients in f32 between bf16 matmul operands.
 """
 
 from __future__ import annotations
@@ -26,6 +35,15 @@ K3 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_full',
                 [P, P, P, P, P, _W, I, I, I, I, I, I, I, I, CF, P])
 K4 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_sel',
                 [P, P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, I, CF, P])
+K6 = CudaKernel('encoder_layer.cu', 'launch_encoder_fwd_full',
+                [P, P, P, P, P, P, _W, I, I, I, I, I, CF, P])
+K8 = CudaKernel('encoder_layer.cu', 'launch_encoder_fwd_sel',
+                [P, P, P, P, P, P, P, P, _W, I, I, I, I, I, I, CF, P])
+K7 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_full',
+                [_W, _W, _W, _W, I, I, I, I, I, CF, I, P])
+K9 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_sel',
+                [_W, _W, _W, _W, I, I, I, I, I, I, CF, I, P])
+MATRICES = ('wq', 'wk', 'wv', 'wo', 'f1w', 'f2w')
 
 
 class LayerParams(NamedTuple):
@@ -52,12 +70,15 @@ class LayerParams(NamedTuple):
 
 
 def _bf(x):
-    return x.to(torch.bfloat16).float()
+    """Round f32 values to bf16 (kept in f32). Under autograd the rounding
+    passes the gradient through unchanged."""
+    r = x.to(torch.bfloat16).float()
+    return r if not x.requires_grad else x + (r - x).detach()
 
 
 def _mm(a, w):
-    """a (f32 holding bf16 values) @ w.T with w a bf16 Linear weight."""
-    return a @ w.float().t()
+    """a (f32 holding bf16 values) @ bf16(w).T with w a Linear weight."""
+    return a @ _bf(w.float()).t()
 
 
 def _ln(x, scale, bias, eps=1e-5):
@@ -67,54 +88,52 @@ def _ln(x, scale, bias, eps=1e-5):
 
 
 def _take(rows, sel):
-    """rows [B, cap, 64, C], sel [B, cap, S] → [B, cap, S, C]."""
+    """rows [..., 64, C], sel [..., S] → [..., S, C]."""
     C = rows.shape[-1]
-    return torch.gather(rows, 2, sel.long()[..., None].expand(-1, -1, -1, C))
+    return torch.gather(rows, -2, sel.long()[..., None].expand(*sel.shape, C))
 
 
-def reference_encoder_layer_rows(xw_all, kv_all, sel_q, sel_k, qmask, kmask,
-                                 pos, p: LayerParams, nhead: int,
-                                 tau_min: float, cross: bool, row_lo: int):
-    """Plain version of K3 (``sel_q is None``) and K4. In self mode the keys
-    are the query cells: ``kv_all``, ``sel_k`` and ``kmask`` are ignored."""
-    B, total, T64, C = xw_all.shape
-    cap = qmask.shape[1]
-    rows = xw_all[:, row_lo:row_lo + cap]
+def reference_encoder_layer(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
+                            p: LayerParams, nhead: int, tau_min: float,
+                            cross: bool):
+    """Plain version of K6 (``sel_q is None``) and K8, out of place:
+    ``xw``/``kvw`` [..., 64, C], masks and selections [..., T]. Returns the
+    new window content in ``xw.dtype``: the masked layer output (full), or
+    ``xw`` plus the masked delta on the selected cells. In self mode the keys
+    are the query cells: ``kvw``, ``sel_k`` and ``kmask`` are ignored."""
+    C = xw.shape[-1]
     posf = pos.float()
     if sel_q is None:
-        x = rows.float()
-        pq = posf
+        x, pq = xw.float(), posf
     else:
-        x = _take(rows, sel_q).float()
-        pq = posf[sel_q.long()]
+        x, pq = _take(xw, sel_q).float(), posf[sel_q.long()]
     qm = qmask > 0
     if cross:
-        kvr = kv_all[:, row_lo:row_lo + cap]
         if sel_q is None:
-            kv, pk = kvr.float(), posf
+            kv, pk = kvw.float(), posf
         else:
-            kv, pk = _take(kvr, sel_k).float(), posf[sel_k.long()]
+            kv, pk = _take(kvw, sel_k).float(), posf[sel_k.long()]
         km = kmask > 0
     else:
         kv, pk, km = x, pq, qm
     q = _mm(_bf(x + pq), p.wq) + p.bq
     k = _mm(_bf(kv + pk), p.wk) + p.bk
     v = _mm(kv, p.wv) + p.bv
-    T = x.shape[2]
+    lead, T = x.shape[:-2], x.shape[-2]
     H, D = nhead, C // nhead
-    qh = q.reshape(B, cap, T, H, D)
-    kh = k.reshape(B, cap, T, H, D)
-    vh = _bf(v.reshape(B, cap, T, H, D))
+    qh = q.reshape(*lead, T, H, D)
+    kh = k.reshape(*lead, T, H, D)
+    vh = _bf(v.reshape(*lead, T, H, D))
     scale = 1.0 / torch.clamp(p.tau.float(), min=tau_min)
     qn = _bf(qh * torch.rsqrt(qh.square().sum(-1, keepdim=True) + 1e-24)
              * scale)
     kn = _bf(kh * torch.rsqrt(kh.square().sum(-1, keepdim=True) + 1e-24))
-    logits = torch.einsum('bwthd,bwshd->bwhts', qn, kn)
-    logits = torch.where(km[:, :, None, None, :], logits, -30000.0)
+    logits = torch.einsum('...thd,...shd->...hts', qn, kn)
+    logits = torch.where(km[..., None, None, :], logits, -30000.0)
     prob = torch.softmax(logits, dim=-1)
-    prob = torch.where(km.any(-1)[:, :, None, None, None], prob, 0.0)
-    attn = torch.einsum('bwhts,bwshd->bwthd', _bf(prob), vh)
-    o = _mm(_bf(attn.reshape(B, cap, T, C)), p.wo) + p.bo
+    prob = torch.where(km.any(-1)[..., None, None, None], prob, 0.0)
+    attn = torch.einsum('...hts,...shd->...thd', _bf(prob), vh)
+    o = _mm(_bf(attn.reshape(*lead, T, C)), p.wo) + p.bo
     qmc = qm[..., None]
     h = _ln(x + torch.where(qmc, o, 0.0), p.ln1s, p.ln1b)
     h = torch.where(qmc, h, 0.0)
@@ -122,13 +141,24 @@ def reference_encoder_layer_rows(xw_all, kv_all, sel_q, sel_k, qmask, kmask,
     ff = _mm(_bf(ff), p.f2w) + p.f2b
     out = _ln(h + ff, p.ln2s, p.ln2b)
     if sel_q is None:
-        new = torch.where(qmc, out, 0.0).to(xw_all.dtype)
-    else:
-        delta = _bf(torch.where(qmc, out - x, 0.0))
-        vals = (x + delta).to(xw_all.dtype)
-        new = rows.scatter(2, sel_q.long()[..., None].expand(-1, -1, -1, C),
-                           vals)
-    xw_all[:, row_lo:row_lo + cap] = new
+        return torch.where(qmc, out, 0.0).to(xw.dtype)
+    delta = _bf(torch.where(qmc, out - x, 0.0))
+    idx = sel_q.long()[..., None].expand(*delta.shape)
+    delta64 = torch.zeros(xw.shape, dtype=delta.dtype,
+                          device=delta.device).scatter_add(-2, idx, delta)
+    return (xw.float() + delta64).to(xw.dtype)
+
+
+def reference_encoder_layer_rows(xw_all, kv_all, sel_q, sel_k, qmask, kmask,
+                                 pos, p: LayerParams, nhead: int,
+                                 tau_min: float, cross: bool, row_lo: int):
+    """Plain version of K3 (``sel_q is None``) and K4: the layer on rows
+    [row_lo, row_lo + cap) of ``xw_all``, in place."""
+    cap = qmask.shape[1]
+    sl = slice(row_lo, row_lo + cap)
+    xw_all[:, sl] = reference_encoder_layer(
+        xw_all[:, sl], kv_all[:, sl] if cross else None, sel_q, sel_k, qmask,
+        kmask, pos, p, nhead, tau_min, cross)
     return xw_all
 
 
@@ -224,3 +254,195 @@ def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
        total, qmask.shape[1], row_lo, C, p.f1w.shape[0], nhead, S,
        int(cross), float(tau_min), stream_handle())
     return xw_all
+
+
+# ---------------------------------------------------------------------------
+# Training: K6 / K8 forward, K7 / K9 backward, joined by an autograd Function
+# ---------------------------------------------------------------------------
+
+
+def kernel_params(weights) -> LayerParams:
+    """The 17 layer tensors (f32 master weights, Linear layout [out, in]) as
+    the kernels take them: matrices in bf16, the rest in f32. Tensors that
+    are already so are returned as they are, without a copy."""
+    return LayerParams(*[
+        (w.detach().to(torch.bfloat16) if name in MATRICES
+         else w.detach().float()).contiguous()
+        for name, w in zip(LayerParams._fields, weights)])
+
+
+def _check_flat(xw, kv, sel_q, qmask, cross, p, nhead):
+    if xw.dtype != torch.bfloat16 or xw.dim() != 3 or xw.shape[1] != 64:
+        raise ValueError('the training kernels take bf16 windows [N, 64, C]')
+    N, _, C = xw.shape
+    if C % 64 or C > 256 or C % nhead or C // nhead not in (16, 32):
+        raise ValueError(f'kernel takes C % 64 == 0, C <= 256 and head width '
+                         f'16 or 32, not C={C}, nhead={nhead}')
+    if p.f1w.shape[0] % 128:
+        raise ValueError('kernel takes an FFN width that is a multiple of 128')
+    T = 64 if sel_q is None else sel_q.shape[-1]
+    if qmask.shape != (N, T) or (sel_q is not None and T not in (16, 48)):
+        raise ValueError(f'mask / selection shape {tuple(qmask.shape)} does '
+                         'not fit')
+    if cross and (kv is None or kv.shape != xw.shape):
+        raise ValueError('cross mode needs kv windows shaped like xw')
+
+
+def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
+                      p: LayerParams, *, nhead: int, tau_min: float,
+                      cross: bool):
+    """The training forward on flat windows ``xw`` [N, 64, C], out of place:
+    K6 (``sel_q is None``, masks [N, 64]) or K8 (``sel_q`` [N, S]) on the
+    card."""
+    if not on_card(xw, qmask):
+        return reference_encoder_layer(xw, kvw, sel_q, sel_k, qmask, kmask,
+                                       pos, p, nhead, tau_min, cross)
+    xw = xw.contiguous()
+    kvw = kvw.contiguous() if cross else None
+    _check_flat(xw, kvw, sel_q, qmask, cross, p, nhead)
+    N, _, C = xw.shape
+    out = torch.empty_like(xw)
+    qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
+    pos = pos.to(torch.bfloat16).contiguous()
+    ws = _weight_ptrs(p)
+    if sel_q is None:
+        K6(xw.data_ptr(), _ptr(kvw), out.data_ptr(), qmask.data_ptr(),
+           _ptr(kmask), pos.data_ptr(), ws, N, C, p.f1w.shape[0], nhead,
+           int(cross), float(tau_min), stream_handle())
+    else:
+        sel_q, sel_k = _i32(sel_q), _i32(sel_k if cross else None)
+        K8(xw.data_ptr(), _ptr(kvw), out.data_ptr(), sel_q.data_ptr(),
+           _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), ws, N,
+           C, p.f1w.shape[0], nhead, sel_q.shape[-1], int(cross),
+           float(tau_min), stream_handle())
+    return out
+
+
+def reference_encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
+                                weights, g, *, nhead: int, tau_min: float,
+                                cross: bool, want_dpos: bool = False):
+    """Plain version of K7 / K9: autograd through the plain forward. Returns
+    (dx, dkv or None, [17 weight gradients], dpos or None), in f32."""
+    with torch.enable_grad():
+        x = xw.detach().float().requires_grad_()
+        kv = kvw.detach().float().requires_grad_() if cross else None
+        ws = [w.detach().float().requires_grad_() for w in weights]
+        ps = pos.detach().float().requires_grad_(want_dpos)
+        out = reference_encoder_layer(x, kv, sel_q, sel_k, qmask, kmask, ps,
+                                      LayerParams(*ws), nhead, tau_min, cross)
+        wrt = [x] + ([kv] if cross else []) + ws + ([ps] if want_dpos else [])
+        grads = list(torch.autograd.grad(out, wrt, g.float()))
+    dx = grads.pop(0)
+    dkv = grads.pop(0) if cross else None
+    dpos = grads.pop() if want_dpos else None
+    return dx, dkv, grads, dpos
+
+
+def _bwd_workspace(N, T, C, F, H, cross, sel, dpos, splits, dev):
+    """Row workspace of K7 / K9 (see csrc/encoder_layer_bwd.cu)."""
+    R = N * T
+    Rp = -(-R // 64) * 64
+    bf = lambda w: torch.empty(Rp, w, dtype=torch.bfloat16, device=dev)
+    f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)
+    rows_bf = [bf(C), bf(C), bf(C), bf(C) if cross else None,
+               bf(C) if cross else None, bf(C), bf(C), bf(C), bf(F), bf(C),
+               bf(F), bf(C), bf(C), bf(C), bf(C), bf(C)]
+    rows_f = [f32(Rp, C), f32(Rp, C), f32(Rp, H), f32(Rp, H), f32(Rp, C),
+              f32(Rp, C), f32(Rp, C) if sel else None,
+              f32(Rp, C) if sel and cross else None,
+              f32(Rp, C) if dpos else None, f32(Rp // 64, 6 * C + F),
+              f32(N, 3 * C), f32(N * H), f32(splits * C * F)]
+    return rows_bf + rows_f
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[_ptr(t) for t in ts])
+
+
+def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
+                      *, nhead: int, tau_min: float, cross: bool,
+                      want_dpos: bool = False):
+    """Gradients of :func:`encoder_layer_fwd` for upstream ``g`` [N, 64, C]:
+    (dx [N, 64, C], dkv or None, [17 weight gradients f32 in the layout of
+    ``weights``], dpos [64, C] or None). ``weights``: the 17 layer tensors,
+    f32 or as :func:`kernel_params` gives them. dx and dkv are bf16 on the card, as
+    the TPU kernel returns them in the window dtype. K7 / K9 on the card."""
+    if not on_card(xw, qmask, g):
+        return reference_encoder_layer_bwd(
+            xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
+            nhead=nhead, tau_min=tau_min, cross=cross, want_dpos=want_dpos)
+    p = kernel_params(weights)
+    xw, g = xw.contiguous(), g.to(torch.bfloat16).contiguous()
+    kvw = kvw.contiguous() if cross else None
+    _check_flat(xw, kvw, sel_q, qmask, cross, p, nhead)
+    if g.shape != xw.shape:
+        raise ValueError('g must be shaped like xw')
+    sel = sel_q is not None
+    if sel and want_dpos:
+        raise ValueError('the selected-cells backward has no dpos output')
+    N, _, C = xw.shape
+    Fd, T = p.f1w.shape[0], (sel_q.shape[-1] if sel else 64)
+    dev = xw.device
+    splits = max(1, min(64, N * T // 1024))
+    ws = _bwd_workspace(N, T, C, Fd, nhead, cross, sel, want_dpos, splits,
+                        dev)
+    qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
+    sel_q, sel_k = _i32(sel_q), _i32(sel_k if cross else None)
+    pos = pos.to(torch.bfloat16).contiguous()
+    dx = torch.empty_like(xw)
+    dkv = torch.empty_like(xw) if cross else None
+    dpos = (torch.empty(64, C, dtype=torch.float32, device=dev) if want_dpos
+            else None)
+    grads = [torch.empty(w.shape, dtype=torch.float32, device=dev)
+             for w in p]
+    ins = _ptrs([xw, kvw, g, pos, sel_q, sel_k, qmask, kmask])
+    outs = _ptrs([dx, dkv, dpos] + grads)
+    args = (ins, _weight_ptrs(p), _ptrs(ws), outs)
+    if sel:
+        K9(*args, N, T, C, Fd, nhead, int(cross), float(tau_min), splits,
+           stream_handle())
+    else:
+        K7(*args, N, C, Fd, nhead, int(cross), float(tau_min), splits,
+           stream_handle())
+    return dx, dkv, grads, dpos
+
+
+class _FusedEncoderLayer(torch.autograd.Function):
+    """Forward K6 / K8, backward K7 / K9 (plain versions on the CPU). Takes
+    the layer's weights twice: as kernel-ready :class:`LayerParams`, which
+    both kernels read, and as the f32 leaves that receive the gradients."""
+
+    @staticmethod
+    def forward(ctx, xw, kvw, sel_q, sel_k, qmask, kmask, pos, cfg, p,
+                *weights):
+        nhead, tau_min, cross = cfg
+        out = encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, p,
+                                nhead=nhead, tau_min=tau_min, cross=cross)
+        ctx.cfg = cfg
+        ctx.save_for_backward(xw, kvw, sel_q, sel_k, qmask, kmask, pos, *p)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        nhead, tau_min, cross = ctx.cfg
+        xw, kvw, sel_q, sel_k, qmask, kmask, pos, *p = ctx.saved_tensors
+        dx, dkv, grads, dpos = encoder_layer_bwd(
+            xw, kvw, sel_q, sel_k, qmask, kmask, pos, LayerParams(*p), g,
+            nhead=nhead, tau_min=tau_min, cross=cross,
+            want_dpos=ctx.needs_input_grad[6] and sel_q is None)
+        return (dx, dkv, None, None, None, None, dpos, None, None, *grads)
+
+
+def fused_encoder_layer(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights,
+                        params: LayerParams, *, nhead: int, tau_min: float,
+                        cross: bool):
+    """Differentiable training layer on flat windows ``xw`` [N, 64, C]
+    (``kvw`` likewise in cross mode, else None): all 64 cells with masks
+    [N, 64] when ``sel_q`` is None, else the S selected cells ``sel_q`` /
+    ``sel_k`` [N, S]. ``weights``: the 17 f32 layer tensors in
+    :class:`LayerParams` order, which receive the gradients; ``params``:
+    ``kernel_params(weights)``, which the kernels read (a layer converts
+    once for all its bucket calls). Counterpart of ``fused_encoder_layer``
+    and ``fused_encoder_layer_sel``."""
+    return _FusedEncoderLayer.apply(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
+                                    (nhead, tau_min, cross), params, *weights)

@@ -322,3 +322,67 @@ def scatter_windows_into_padded(xw: torch.Tensor, idx: torch.Tensor,
     K2(xw.data_ptr(), idx.data_ptr(), xp.data_ptr(), B, Hp2, Wp, C,
        idx.shape[1], nwy, stream_handle())
     return xp
+
+
+# ---------------------------------------------------------------------------
+# Training: differentiable gather and scatter (custom VJPs built from K1 / K2)
+# ---------------------------------------------------------------------------
+
+
+class _GatherWindows(torch.autograd.Function):
+    """Forward K1; the VJP scatters g into a zero carrier (K2)."""
+
+    @staticmethod
+    def forward(ctx, xp, idx, window):
+        ctx.window, ctx.shape = window, xp.shape
+        ctx.save_for_backward(idx)
+        return gather_windows_padded(xp, idx, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        zeros = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return (scatter_windows_into_padded(g.contiguous(), idx, zeros,
+                                            ctx.window), None, None)
+
+
+class _ScatterWindows(torch.autograd.Function):
+    """Forward K2 into a copy of the carrier; the VJP gathers g at the
+    planned windows (K1) for the windows and scatters zeros into a copy of g
+    there (K2) for the carrier.
+
+    Out of place, unlike the serving scatter: under remat
+    (``torch.utils.checkpoint``) the carrier that goes in is an input of the
+    checkpointed block, and a block replayed in the backward must find it
+    unchanged. An in-place scatter with ``ctx.mark_dirty`` would bump its
+    version and make that replay, and any other saved use of the carrier,
+    fail. The copy costs one carrier pass per layer."""
+
+    @staticmethod
+    def forward(ctx, xw, idx, init, window):
+        ctx.window = window
+        ctx.save_for_backward(idx)
+        return scatter_windows_into_padded(xw.contiguous(), idx, init.clone(),
+                                           window)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g = g.contiguous()
+        dxw = gather_windows_padded(g, idx, ctx.window)
+        dinit = scatter_windows_into_padded(torch.zeros_like(dxw), idx,
+                                            g.clone(), ctx.window)
+        return dxw, None, dinit, None
+
+
+def gather_windows_train(xp, idx, window: int):
+    """Differentiable :func:`gather_windows_padded` (counterpart of the JAX
+    package's ``gather_windows_padded`` custom VJP)."""
+    return _GatherWindows.apply(xp, idx, window)
+
+
+def scatter_windows_train(xw, idx, init, window: int):
+    """Differentiable, out-of-place :func:`scatter_windows_into_padded`:
+    returns a new carrier (counterpart of the JAX package's
+    ``scatter_windows_into_padded`` custom VJP)."""
+    return _ScatterWindows.apply(xw, idx, init, window)

@@ -6,6 +6,7 @@ pillar's points are one contiguous run of rows and ``seg_ends`` names each
 run's last row. The CUDA kernel (``csrc/segment_max.cu``) reduces each run
 with one warp. The plain version repeats the TPU kernel's algorithm: a
 segmented running max over the sorted rows, then one gather at ``seg_ends``.
+Training differentiates it through :func:`sorted_segment_max_train`.
 """
 
 from __future__ import annotations
@@ -73,3 +74,45 @@ def sorted_segment_max(feat: torch.Tensor, seg: torch.Tensor,
     K5(feat.data_ptr(), ends.data_ptr(), mask.data_ptr(), out.data_ptr(),
        B, Pn, V, C, stream_handle())
     return out
+
+
+def sorted_segment_max_bwd(feat, seg, seg_mask, out, g, num_segments: int):
+    """Gradient of the per-segment max for upstream ``g`` [B, V, C]: split
+    evenly among the rows that reach their segment's max (the tie rule of
+    the JAX package's ``_ssm_bwd``, itself jnp there, so plain PyTorch is
+    its port)."""
+    V = num_segments
+    safe = seg.long().clamp(max=V - 1)[..., None].expand_as(feat)
+    eq = (feat == torch.gather(out, 1, safe)) & (seg < V)[..., None]
+    idx = seg.long().clamp(max=V)[..., None].expand_as(feat)
+    cnt = feat.new_zeros(feat.shape[0], V + 1, feat.shape[2]).scatter_add_(
+        1, idx, eq.to(feat.dtype))[:, :V]
+    g = torch.where(seg_mask[:, :V, None], g, 0.0)
+    share = torch.gather(g / cnt.clamp(min=1.0), 1, safe)
+    return torch.where(eq, share, 0.0).to(feat.dtype)
+
+
+class _SortedSegmentMax(torch.autograd.Function):
+    """Forward K5; the backward is :func:`sorted_segment_max_bwd`."""
+
+    @staticmethod
+    def forward(ctx, feat, seg, seg_ends, seg_mask, num_segments):
+        out = sorted_segment_max(feat, seg, seg_ends, seg_mask, num_segments)
+        ctx.num_segments = num_segments
+        ctx.save_for_backward(feat, seg, seg_mask, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, seg, seg_mask, out = ctx.saved_tensors
+        return (sorted_segment_max_bwd(feat, seg, seg_mask, out, g,
+                                       ctx.num_segments),
+                None, None, None, None)
+
+
+def sorted_segment_max_train(feat, seg, seg_ends, seg_mask,
+                             num_segments: int):
+    """Differentiable :func:`sorted_segment_max` (counterpart of the JAX
+    package's custom VJP)."""
+    return _SortedSegmentMax.apply(feat, seg, seg_ends, seg_mask,
+                                   num_segments)

@@ -18,6 +18,10 @@ BatchNorm_0`` → ``bn``, ``Dense_0`` → ``linear``, ``ConvTranspose_0`` →
   ``q`` (first C columns) and ``k`` (last C), as ``models/sst.py`` of the JAX
   package splits it; ``*_kernel``/``*_bias`` → ``*.weight``/``*.bias``,
   ``ln*_scale`` → ``ln*.weight``, ``tau`` stays.
+
+Every rule is linear (a transpose, a split, a flip), so a tree with the
+params' structure that holds gradients or optimizer moments converts with
+the same rules: :func:`tree_from_jax`.
 """
 
 from __future__ import annotations
@@ -104,3 +108,9 @@ def params_from_jax(variables) -> dict:
                 out['.'.join(key)] = torch.from_numpy(
                     np.array(arr, dtype=np.float32, order='C', copy=True))
     return out
+
+
+def tree_from_jax(tree) -> dict:
+    """A tree with the structure of ``params`` (gradients, Adam moments) →
+    the same keys as the ``state_dict``'s parameters."""
+    return params_from_jax({'params': tree})
