@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA H100
-and check them.
+"""Drive the PyTorch port's serving, training and pretraining paths on one
+NVIDIA H100 and check them.
 
     python3 chip_smoke.py            # what the chip check runs
     python3 chip_smoke.py --profile  # also writes per-kernel time tables
@@ -36,6 +36,28 @@ Phases (any failure exits non-zero and prints no result line):
      and the control (the CPU step with the encoder's weights rounded once
      to bf16): loss, every gradient (whole and per tensor, held to the
      control's level) and the batch-norm running statistics compared.
+  8. grid layer: K10 (the grid-native layer of the configs without bucket
+     caps) against its plain version on the layer inputs one train-mode
+     forward of the t_mae_ssl_waymo.yaml pretraining batch hands it (C=128
+     self at shift 0 and 1, C=256 self, C=128 and C=256 cross; captured
+     under deterministic algorithms, so every run checks the same inputs),
+     and its backward (K7 on the windows with an occupied query cell)
+     against autograd through the plain version at C=128 and C=256.
+  9. pretraining, t_mae_ssl_waymo.yaml (no caps: every encoder layer is
+     K10, its backward K7), full width and depth, two synthetic frame pairs
+     (the config's batch is 8), device voxelization, a mask from a seeded
+     generator each step: launch counters set to 0, one step, the counts
+     checked; then timed steps, whose Chamfer loss must stay finite and
+     fall.
+ 10. pretraining, t_mae_ssl.yaml (bucketed path, K1/K2/K6-K9): the same for
+     a few steps, with occ_overflow reported.
+ 11. pretraining reference: one t_mae_ssl_waymo.yaml step on the card and
+     on the CPU at full width on a 64x64 grid, with one mask drawn on the
+     CPU and given to both, held to the control as in phase 7.
+ 12. Waymo serving: the full-width t_mae_waymo.yaml detector (device
+     voxelization, K10 in eval mode) on one frame pair: counters set to 0,
+     one pass, the counts checked, then timed passes; the same detector on
+     the card and on the CPU at full width on a 64x64 grid, as in phase 5.
 Prints the kernels line, the card line and, last, the result line.
 """
 
@@ -49,6 +71,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -57,7 +80,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
-                     'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0}
+                     'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -68,10 +91,23 @@ EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
 # encoder (K5 x2); the WCA attention is not rematerialised.
 EXPECTED_TRAIN_LAUNCHES = {
     'K1': 24 + 18 + 12, 'K2': 18 + 24 + 18 + 12, 'K3': 0, 'K4': 0,
-    'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36}
+    'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
+    'K10': 0}
+NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+# One pretraining step of t_mae_ssl_waymo.yaml (no caps): each of the 18
+# encoder layers is one K10 forward and one K7 backward, and remat replays
+# the 12 SST layers' forward.
+EXPECTED_PRETRAIN_GRID = {**NO_LAUNCHES, 'K10': 18 + 12, 'K7': 18}
+# t_mae_ssl.yaml runs the finetune step's encoder; without host
+# voxelization the VFE takes the scatter path instead of K5.
+EXPECTED_PRETRAIN_BUCKETED = {**EXPECTED_TRAIN_LAUNCHES, 'K5': 0}
+EXPECTED_WAYMO_SERVING = {**NO_LAUNCHES, 'K10': 18}
 REPS = 20                      # timed serving passes
 TRAIN_STEPS = 6                # step 0 counted, steps 1-5 timed
 TRAIN_PAIRS = (0, 1)           # synthetic scenes of the training batch
+SSL_STEPS = 3                  # t_mae_ssl.yaml pretraining steps
+WAYMO_REPS = 5                 # timed t_mae_waymo.yaml serving passes
+BWD_DRAWS = 16                 # random cotangents per grid backward check
 
 
 def log(*a):
@@ -336,17 +372,16 @@ def train_layer_calls(torch, model, batch):
     calls = {}
     real = el._FusedEncoderLayer
 
-    class Capture:
-        @staticmethod
-        def apply(*args):
-            xw, sel_q, (_, _, cross) = args[0], args[2], args[7]
-            key = (xw.shape[-1], cross, 64 if sel_q is None
-                   else sel_q.shape[-1])
-            calls.setdefault(key, args)
-            return real.apply(*args)
+    def capture(*args):
+        xw, sel_q, (_, _, cross) = args[0], args[2], args[7]
+        key = (xw.shape[-1], cross, 64 if sel_q is None else sel_q.shape[-1])
+        calls.setdefault(key, args)
+        return real.apply(*args)
 
     bufs = {n: b.clone() for n, b in model.named_buffers()}
-    el._FusedEncoderLayer = Capture
+    # a namespace, not a class: a class is its own reference cycle and
+    # would keep the captured tensors alive until the cyclic collector runs
+    el._FusedEncoderLayer = types.SimpleNamespace(apply=capture)
     try:
         with torch.no_grad():
             model.train()(batch)
@@ -466,7 +501,18 @@ def kernels():
             'K3': encoder_layer.K3, 'K4': encoder_layer.K4,
             'K5': sorted_segments.K5, 'K6': encoder_layer.K6,
             'K7': encoder_layer.K7, 'K8': encoder_layer.K8,
-            'K9': encoder_layer.K9}
+            'K9': encoder_layer.K9, 'K10': encoder_layer.K10}
+
+
+def counted(torch, fn):
+    """``fn()`` with every launch counter set to 0 just before it; returns
+    (its result, the counts read just after it)."""
+    ks = kernels()
+    for k in ks.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in ks.items()}
 
 
 def serve_once(torch, cfg, model, batch):
@@ -505,26 +551,32 @@ def split_times(torch, cfg, model, batch, reps):
 
 
 def small_grid(cfg):
-    """t_mae.yaml at full width on a 64x64 grid (20.48 m square) with caps
-    to match, and one synthetic frame pair for it."""
+    """A config at full width on a 64x64 grid (20.48 m square, the
+    config's z range) with caps to match where it has caps, and one
+    synthetic frame pair for it (host-voxelized where the config says)."""
     import copy
 
     from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
     from tmae_tpu_torch.models.detectors import make_voxel_spec
 
     small = copy.deepcopy(cfg)
-    small.DATA_CONFIG.POINT_CLOUD_RANGE = [-10.24, -10.24, -5.0, 10.24, 10.24,
-                                          3.0]
-    small.MODEL.DENSE_HEAD.POST_PROCESSING.POST_CENTER_LIMIT_RANGE = \
-        small.DATA_CONFIG.POINT_CLOUD_RANGE
+    z0, z1 = cfg.DATA_CONFIG.POINT_CLOUD_RANGE[2::3]
+    small.DATA_CONFIG.POINT_CLOUD_RANGE = [-10.24, -10.24, z0, 10.24, 10.24,
+                                          z1]
+    if 'DENSE_HEAD' in small.MODEL:
+        small.MODEL.DENSE_HEAD.POST_PROCESSING.POST_CENTER_LIMIT_RANGE = \
+            small.DATA_CONFIG.POINT_CLOUD_RANGE
     small.RUNTIME.MAX_POINTS = 65536
     small.RUNTIME.MAX_VOXELS = [4096, 4096, 4096]
-    small.RUNTIME.OCC_WINDOW_CAPS = [32, 16, 16]
-    small.RUNTIME.OCC_SMALL_CAPS = [32, 16, 16]
-    small.RUNTIME.OCC_MID_CAPS = [32, 16, 16]
+    if small.RUNTIME.get('OCC_WINDOW_CAPS'):
+        small.RUNTIME.OCC_WINDOW_CAPS = [32, 16, 16]
+        small.RUNTIME.OCC_SMALL_CAPS = [32, 16, 16]
+        small.RUNTIME.OCC_MID_CAPS = [32, 16, 16]
     spec = make_voxel_spec(small.DATA_CONFIG, small.RUNTIME)
-    return small, frame_pair_batch(spec, list(small.CLASS_NAMES), indices=(3,),
-                                   max_gt=int(small.RUNTIME.MAX_GT))
+    return small, frame_pair_batch(
+        spec, list(small.CLASS_NAMES), indices=(3,),
+        max_gt=int(small.RUNTIME.MAX_GT),
+        host_voxelize=bool(small.RUNTIME.get('HOST_VOXELIZE')))
 
 
 def card_vs_cpu(torch, cfg, np_batch, seed):
@@ -558,16 +610,59 @@ def card_vs_cpu(torch, cfg, np_batch, seed):
 # ---------------------------------------------------------------------------
 
 
-def make_trainer(cfg, model):
+def make_trainer(cfg, model, generator=None):
     """adam_onecycle over a one-cycle run of NUM_EPOCHS steps (one step per
-    epoch), and the training step with the CenterPoint loss."""
-    from tmae_tpu_torch.models.detectors import centerpoint_loss
+    epoch), and the training step with the config's loss: CenterPoint's, or
+    the Chamfer loss of a TMAE config (whose mask comes from
+    ``generator``)."""
+    from tmae_tpu_torch.models.detectors import centerpoint_loss, tmae_loss
     from tmae_tpu_torch.train.optimization import build_optimizer
     from tmae_tpu_torch.train.trainer import make_train_step
 
+    loss = tmae_loss if cfg.MODEL.NAME == 'TMAE' else centerpoint_loss
     opt, sched = build_optimizer(model.parameters(), cfg.OPTIMIZATION, 1)
-    return make_train_step(model, lambda o, b: centerpoint_loss(cfg, o, b),
-                           opt, sched)
+    return make_train_step(model, lambda o, b: loss(cfg, o, b), opt, sched,
+                           generator)
+
+
+def run_steps(torch, model, step, batch, steps, expected, what):
+    """Step 0 with the launch counters set to 0 just before it and read just
+    after it (they must equal ``expected``), then ``steps - 1`` timed steps.
+    The loss must stay finite and fall, and the parameters finite. Returns
+    (launches, per-step metrics, median ms of the timed steps, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, launches = counted(torch, lambda: step(batch))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    log(f'  launches per {what} step: {launches} (expected {expected})')
+    if launches != expected:
+        raise AssertionError(f'launch counts differ from the {what} path')
+    metrics, times = [first], []
+    for _ in range(steps - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rs = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, r in enumerate(rs):
+        log(f'  step {i}: ' + ', '.join(f'{k} {v:.5g}' for k, v in r.items()))
+    losses = [r['loss'] for r in rs]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'{what} loss is not finite')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'{what} loss did not fall: {losses}')
+    for name, prm in model.named_parameters():
+        if not torch.isfinite(prm).all():
+            raise AssertionError(f'parameter {name} is not finite')
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'  ms per {what} step: median {med:.2f} (min {min(times):.2f}, '
+        f'max {max(times):.2f}, {len(times)} steps; step 0 {first_ms:.1f}); '
+        f'{len(TRAIN_PAIRS) * 1e3 / med:.3f} frame pairs/s; peak device '
+        f'memory {peak:.2f} GiB')
+    return launches, rs, med, peak
 
 
 def train_phase(torch, cfg, spec, rows, profile=False):
@@ -602,46 +697,13 @@ def train_phase(torch, cfg, spec, rows, profile=False):
                     functools.partial(add_row, rows))
     del calls
     step = make_trainer(cfg, model)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ks = kernels()
-    for k in ks.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    metrics = [step(batch)]
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: k.launches for name, k in ks.items()}
-    log(f'  launches per training step: {launches} (expected '
-        f'{EXPECTED_TRAIN_LAUNCHES})')
-    if launches != EXPECTED_TRAIN_LAUNCHES:
-        raise AssertionError('launch counts differ from the training path')
-    times = []
-    for _ in range(TRAIN_STEPS - 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics.append(step(batch))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    steps = [{k: float(v) for k, v in m.items()} for m in metrics]
-    for i, r in enumerate(steps):
-        log(f'  step {i}: ' + ', '.join(f'{k} {v:.5g}' for k, v in r.items()))
-    losses = [r['loss'] for r in steps]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError('training loss is not finite')
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f'training loss did not fall: {losses}')
+    launches, steps, med, peak = run_steps(torch, model, step, batch,
+                                           TRAIN_STEPS,
+                                           EXPECTED_TRAIN_LAUNCHES, 'training')
     if any(r['occ_overflow'] != 0 for r in steps):
         raise AssertionError('occupied windows overflowed a bucket cap')
-    for name, prm in model.named_parameters():
-        if not torch.isfinite(prm).all():
-            raise AssertionError(f'parameter {name} is not finite')
-    med = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r['loss'] for r in steps]
     pairs_s = len(TRAIN_PAIRS) * 1e3 / med
-    log(f'  ms per training step: median {med:.2f} (min {min(times):.2f}, '
-        f'max {max(times):.2f}, {len(times)} steps; step 0 {first_ms:.1f}); '
-        f'{pairs_s:.3f} frame pairs/s; peak device memory {peak:.2f} GiB')
     if profile:
         split = train_split_times(torch, cfg, model, batch)
         log('  median ms by part (separate passes): '
@@ -675,9 +737,10 @@ def train_split_times(torch, cfg, model, batch, reps=3):
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
-def profile_train_step(torch, step, batch):
-    """Device time by kernel name over one training step (torch.profiler);
-    the table ends with the step's self CPU and device time totals."""
+def profile_train_step(torch, step, batch, name='profile_train.txt'):
+    """Device time by kernel name over one training step (torch.profiler),
+    into ``name`` under the output directory; the table ends with the
+    step's self CPU and device time totals."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -685,7 +748,7 @@ def profile_train_step(torch, step, batch):
         step(batch)
         torch.cuda.synchronize()
     avg = prof.key_averages()
-    (OUT_DIR / 'profile_train.txt').write_text(
+    (OUT_DIR / name).write_text(
         avg.table(sort_by='self_cuda_time_total', row_limit=-1))
     log(avg.table(sort_by='self_cuda_time_total', row_limit=50))
 
@@ -700,10 +763,12 @@ def _rel(a, b):
     return float((a - b).norm() / (b.norm() + 1e-30))
 
 
-def train_step_once(torch, cfg, np_batch, seed, dev, round_encoder=False):
+def train_step_once(torch, cfg, np_batch, seed, dev, round_encoder=False,
+                    mae_mask=None):
     """One training step from the seeded weights on ``dev``, with the
-    encoder's weights rounded once to bf16 if asked. Returns (metrics,
-    gradients, state before, state after), on the CPU."""
+    encoder's weights rounded once to bf16 if asked (and, for a TMAE
+    config, the given mask). Returns (metrics, gradients, state before,
+    state after), on the CPU."""
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
 
@@ -716,7 +781,9 @@ def train_step_once(torch, cfg, np_batch, seed, dev, round_encoder=False):
     before = {k: t.detach().cpu().clone()
               for k, t in model.state_dict().items()}
     step = make_trainer(cfg, model)
-    m = {k: float(v) for k, v in step(batch_to_device(np_batch, dev)).items()}
+    kw = {} if mae_mask is None else {'mae_mask': mae_mask.to(dev)}
+    m = {k: float(v) for k, v in step(batch_to_device(np_batch, dev),
+                                      **kw).items()}
     grads = {n: prm.grad.detach().float().cpu()
              for n, prm in model.named_parameters()}
     after = {k: t.detach().cpu() for k, t in model.state_dict().items()}
@@ -736,7 +803,7 @@ def grad_agreement(torch, got, want, names):
     return _rel(a, b), _cos(a, b), per, (ratio[0], ratio[-1]), len(live)
 
 
-def train_card_vs_cpu(torch, cfg, np_batch, seed):
+def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None):
     """One training step with the same seeded weights on the card (kernels)
     and on the CPU (plain versions), and the control: the CPU step from the
     same weights with the encoder's rounded once to bf16, which shows how
@@ -752,10 +819,11 @@ def train_card_vs_cpu(torch, cfg, np_batch, seed):
     its ratio outside). Batch-norm running statistics: the VFE's (f32, two
     updates per step) change by the same amounts to 1e-3 of the change,
     every other statistic's change agrees in cosine >= 0.9."""
-    mk, gk, bk, ak = train_step_once(torch, cfg, np_batch, seed, 'cuda')
-    mp, gp, bp, ap = train_step_once(torch, cfg, np_batch, seed, 'cpu')
+    kw = dict(mae_mask=mae_mask)
+    mk, gk, bk, ak = train_step_once(torch, cfg, np_batch, seed, 'cuda', **kw)
+    mp, gp, bp, ap = train_step_once(torch, cfg, np_batch, seed, 'cpu', **kw)
     mc, gc, _, _ = train_step_once(torch, cfg, np_batch, seed, 'cpu',
-                                   round_encoder=True)
+                                   round_encoder=True, **kw)
     log('  card:    ' + ', '.join(f'{k} {v:.5g}' for k, v in mk.items()))
     log('  cpu:     ' + ', '.join(f'{k} {v:.5g}' for k, v in mp.items()))
     log('  control: ' + ', '.join(f'{k} {v:.5g}' for k, v in mc.items()))
@@ -801,11 +869,374 @@ def train_card_vs_cpu(torch, cfg, np_batch, seed):
         f'cosine of a change {worst_stat[0]:.4f} ({worst_stat[1]})')
 
 
+# ---------------------------------------------------------------------------
+# phases 8-12: the grid layer, pretraining and Waymo serving
+# ---------------------------------------------------------------------------
+
+
+def grid_layer_calls(torch, model, batch, seed, deterministic=True):
+    """The inputs of the grid layer (K10 forward, K7 over its windows
+    backward) as one train-mode forward of ``batch`` hands them over, with
+    the mask drawn from a card generator seeded with ``seed``: the first
+    call per (width, mode, shift). With ``deterministic`` the forward runs
+    under ``torch.use_deterministic_algorithms``: the VFE's segment sums
+    (``scatter_add_``) then add in a fixed order, so every run captures the
+    same inputs bit for bit (with atomics their f32 sums differ in the last
+    bits from run to run). The model's running statistics are left as they
+    were."""
+    from tmae_tpu_torch.ops import encoder_layer as el
+
+    calls = {}
+    real = el._FusedEncoderLayerGrid
+
+    def capture(*args):
+        xg, (_, _, cross, _, shift) = args[0], args[5]
+        calls.setdefault((xg.shape[-1], cross, shift), args)
+        return real.apply(*args)
+
+    bufs = {n: b.clone() for n, b in model.named_buffers()}
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    el._FusedEncoderLayerGrid = types.SimpleNamespace(apply=capture)
+    try:
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        with torch.no_grad():
+            model.train()(batch, generator=torch.Generator(
+                device=batch['points'].device).manual_seed(seed))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        el._FusedEncoderLayerGrid = real
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(bufs[n])
+    return calls
+
+
+def capture_spread(torch, model, batch, seed, first):
+    """How far the captured layer inputs move between two captures, with
+    and without deterministic algorithms: per mode the largest |diff| of
+    the captured tensors against ``first`` (a deterministic capture),
+    logged; the deterministic captures must be equal."""
+    for det in (True, False):
+        a = first if det else grid_layer_calls(torch, model, batch, seed, det)
+        b = grid_layer_calls(torch, model, batch, seed, det)
+        diffs = {}
+        for key in sorted(a):
+            diffs[key] = max(
+                (x.float() - y.float()).abs().max().item()
+                for x, y in zip(a[key][:5], b[key][:5])
+                if isinstance(x, torch.Tensor) and x.is_floating_point())
+        log(f'  capture twice, deterministic={det}: largest |diff| of the '
+            'layer inputs (C, cross, shift) '
+            + ', '.join(f'{k}: {v:.3g}' for k, v in diffs.items()))
+        if det and any(diffs.values()):
+            raise AssertionError('two deterministic captures differ')
+
+
+def grid_check(torch, el, call, gen, entry, backward):
+    """K10 on one captured call against its plain version on the same card
+    (bf16 output over the occupied query cells, max |diff| <= 0.15 and mean
+    <= 2e-3, as K3/K6; every other cell exactly 0), its time and its bound;
+    with ``backward``, the kernel path of its gradient (K7 on the windows
+    with an occupied query cell) for BWD_DRAWS random cotangents against
+    autograd through the plain version over every window, each output but
+    dtau within K7's limits (5e-2 max and 5e-3 mean of its scale) for every
+    cotangent, and the kernel path run twice giving the same bits. dtau is
+    one sum over every window, head and key pair; it is linear in the
+    cotangent and zero on average over random ones, so its error over its
+    value in one draw is a ratio of two zero-mean sums, with no bounded
+    spread (a draw whose dtau lands near 0 reads any ratio). Its error is
+    held within 10% of its value in root mean square over them. The
+    C=128 self shift-0 call goes into the kernels line."""
+    xg, kvg, qocc, kocc, pos, cfg, p, *weights = call
+    nhead, tau_min, cross, window, shift = cfg
+    kw = dict(nhead=nhead, tau_min=tau_min, cross=cross, window=window,
+              shift=shift)
+    label = (f'C={xg.shape[-1]} {"cross" if cross else "self"} '
+             f'shift{int(shift)}')
+    fk = lambda: el.encoder_layer_grid(xg, kvg, qocc, kocc, pos, p, **kw)
+    fp = lambda: el.reference_encoder_layer_grid(
+        xg, kvg, qocc, kocc, pos, p, nhead, tau_min, cross, window, shift)
+    ka, pa = fk(), fp()
+    torch.cuda.synchronize()
+    d = (ka.float() - pa.float()).abs()[qocc]
+    err, mean = d.max().item(), d.mean().item()
+    if not (err <= 0.15 and mean <= 2e-3):
+        raise AssertionError(f'K10 {label} differs from its plain version: '
+                             f'max {err} mean {mean}')
+    if (ka[~qocc] != 0).any():
+        raise AssertionError(f'K10 {label}: an unoccupied cell is not 0')
+    B, H, W, C = xg.shape
+    Fd = p.f1w.shape[0]
+    qw = el._flat_windows(qocc.float(), window, shift).any(-1)
+    nw, n_all = int(qw.sum()), qw.numel()
+    # the bytes the function needs: the whole output grid written, the
+    # query occupancy read (it decides which windows are empty), and x (kv
+    # and the key occupancy in cross mode) read only on the grid cells of
+    # the windows with an occupied query cell; the weights and pos once
+    on_grid = el._flat_windows(torch.ones_like(qocc, dtype=torch.float32),
+                               window, shift)
+    cells = int(on_grid[qw].sum())
+    wbytes = sum(t.numel() * t.element_size() for t in (*p, pos))
+    nbytes = (B * H * W * C * 2 + B * H * W
+              + (2 if cross else 1) * cells * C * 2 + (cells if cross else 0)
+              + wbytes)
+    flops = nw * layer_flops(64, C, Fd)
+    ms = time_ms(torch, fk, iters=10)
+    b, by = bound_ms(nbytes, flops)
+    msg = (f'  K10 {label}: {B}x{H}x{W}, {nw} of {n_all} windows with a '
+           f'query ({d.shape[0]} occupied cells); max_abs_err {err:.3g} '
+           f'(mean {mean:.2g}), kernel {ms:.4f} ms, bound {b:.4f} ms ({by})')
+    if backward:
+        t0 = time.perf_counter()
+        errs, refs, worst, peak = [], [], (0.0, ''), 0.0
+        for _ in range(BWD_DRAWS):
+            g = torch.randn(xg.shape, generator=gen, device=xg.device).to(
+                torch.bfloat16)
+            w, (e, r), pk = grid_bwd_check(torch, el, call, g, label)
+            worst, peak = max(worst, w), max(peak, pk)
+            errs.append(e)
+            refs.append(r)
+        rms = lambda v: math.sqrt(sum(x * x for x in v) / len(v))
+        dtau = rms(errs) / max(rms(refs), 1e-30)
+        if not dtau <= 0.1:
+            raise AssertionError(
+                f'K10/K7 {label}: dtau differs from autograd through the '
+                f'plain version by {dtau:.3g} in root mean square')
+        bk = lambda: el.encoder_layer_grid_bwd(xg, kvg, qocc, kocc, pos, p,
+                                               g, **kw)
+        ms_b = time_ms(torch, bk, iters=3, warmup=1)
+        msg += (f'; backward (views + K7 on {nw} windows) over {BWD_DRAWS} '
+                f'cotangents: worst relative {worst[0]:.3g} ({worst[1]}), '
+                f'dtau relative error {dtau:.3g} in root mean square (each '
+                'draw: ' + ', '.join(f'{e / max(abs(r), 1e-30):.3g}'
+                                     for e, r in zip(errs, refs))
+                + f'); {ms_b:.3f} ms, peak {peak:.3f} GiB above its inputs; '
+                f'{time.perf_counter() - t0:.1f} s')
+    log(msg)
+    if (xg.shape[-1], cross, shift) == (128, False, False):
+        entry('encoder_grid', 'K10', 'tmae_tpu_torch/csrc/encoder_layer.cu',
+              'tmae_tpu/ops/pallas_encoder.py:1483', err, ms,
+              time_ms(torch, fp, iters=3, warmup=1), nbytes, flops, None)
+
+
+def grid_bwd_check(torch, el, call, g, label):
+    """The kernel path of the grid layer's gradient for cotangent ``g``
+    against autograd through the plain version in f32, each output but
+    dtau within K7's limits; a second run of the kernel path must give the
+    same bits (K7 sums in a fixed order). Returns ((worst max |diff| /
+    scale, output), (dtau's error, the plain version's dtau), peak GiB above
+    the inputs)."""
+    xg, kvg, qocc, kocc, pos, cfg, p, *weights = call
+    nhead, tau_min, cross, window, shift = cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bk = lambda: el.encoder_layer_grid_bwd(
+        xg, kvg, qocc, kocc, pos, p, g, nhead=nhead, tau_min=tau_min,
+        cross=cross, window=window, shift=shift)
+    dx, dkv, grads = bk()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    again = bk()
+    for a, b in zip([dx, dkv, *grads], [again[0], again[1], *again[2]]):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f'K10/K7 {label}: two runs of the kernel '
+                                 'path differ')
+    del again
+    with torch.enable_grad():
+        xr = xg.detach().float().requires_grad_()
+        kr = kvg.detach().float().requires_grad_() if cross else None
+        wr = [w.detach().float().requires_grad_() for w in p]
+        out = el.reference_encoder_layer_grid(
+            xr, kr, qocc, kocc, pos, el.LayerParams(*wr), nhead, tau_min,
+            cross, window, shift)
+        out.backward(g.float())
+    names = ['dx', 'dkv'] + list(el.LayerParams._fields)
+    worst, dtau = (0.0, ''), None
+    for name, a, r in zip(names, [dx, dkv, *grads],
+                          [xr.grad, kr.grad if cross else None,
+                           *[w.grad for w in wr]]):
+        if (a is None) != (r is None):
+            raise AssertionError(f'K10/K7 {label}: {name} missing')
+        if a is None:
+            continue
+        a, r = a.float(), r.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f'K10/K7 {label}: {name} not finite')
+        if name == 'tau':
+            dtau = ((a - r).item(), r.item())
+            continue
+        scale = r.abs().max().item()
+        e = (a - r).abs()
+        if not (e.max().item() <= 5e-2 * scale
+                and e.mean().item() <= 5e-3 * scale):
+            raise AssertionError(
+                f'K10/K7 {label}: {name} differs from autograd through '
+                f'the plain version: max {e.max().item()} mean '
+                f'{e.mean().item()} scale {scale}')
+        worst = max(worst, (e.max().item() / max(scale, 1e-30), name))
+    return worst, dtau, peak
+
+
+def pretrain_phase(torch, cfg, steps, expected, rows=None, profile=None):
+    """Pretraining steps of a TMAE config at full width and depth on
+    TRAIN_PAIRS synthetic frame pairs (voxelized on the device unless the
+    config says HOST_VOXELIZE), the mask drawn each step from one seeded
+    generator on the card. With ``rows``, first K10 and its backward
+    against their plain versions on the layer inputs of this batch, and how
+    far those inputs move between captures. Step 0 runs with the launch
+    counters set to 0 just before it and read just after it; then timed
+    steps. The loss must stay finite and fall. With ``profile`` (a file
+    name), a profiled step after them. Returns the launch counts and the
+    phase's numbers."""
+    from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_,
+                                                 make_voxel_spec)
+    from tmae_tpu_torch.ops import encoder_layer as el
+
+    spec = make_voxel_spec(cfg.DATA_CONFIG, cfg.RUNTIME)
+    t0 = time.perf_counter()
+    np_batch = frame_pair_batch(
+        spec, list(cfg.CLASS_NAMES), indices=TRAIN_PAIRS,
+        max_gt=int(cfg.RUNTIME.MAX_GT),
+        host_voxelize=bool(cfg.RUNTIME.get('HOST_VOXELIZE')))
+    log(f'  batch: {len(TRAIN_PAIRS)} frame pairs, '
+        f'{int(np_batch["point_mask"].sum())} current-frame points '
+        f'({time.perf_counter() - t0:.1f} s on the host)')
+    batch = batch_to_device(np_batch, 'cuda')
+    model = init_random_(build_detector(cfg), seed=0)
+    if rows is not None:
+        calls = grid_layer_calls(torch, model, batch, seed=0)
+        log(f'  K10 against its plain version on the layer inputs of this '
+            f'batch ({len(calls)} calls captured)')
+        capture_spread(torch, model, batch, 0, calls)
+        check_gen = torch.Generator(device='cuda').manual_seed(2)
+        for key, backward in (((128, False, False), False),
+                              ((128, False, True), False),
+                              ((256, False, False), True),
+                              ((128, True, False), True),
+                              ((256, True, False), False)):
+            grid_check(torch, el, calls[key], check_gen,
+                       functools.partial(add_row, rows), backward)
+        del calls
+        torch.cuda.empty_cache()
+    step = make_trainer(cfg, model,
+                        torch.Generator(device='cuda').manual_seed(0))
+    launches, rs, med, peak = run_steps(torch, model, step, batch, steps,
+                                        expected, 'pretraining')
+    overflow = [r['occ_overflow'] for r in rs]
+    log(f'  occ_overflow per step {overflow}')
+    if profile:
+        profile_train_step(torch, step, batch, profile)
+    losses = [r['loss'] for r in rs]
+    pairs_s = len(TRAIN_PAIRS) * 1e3 / med
+    return launches, {'ms_per_step': med, 'pairs_per_s': pairs_s,
+                      'peak_gib': peak, 'loss': losses,
+                      'occ_overflow': overflow}
+
+
+def pretrain_card_vs_cpu(torch, cfg, np_batch, seed):
+    """One pretraining step on the card and on the CPU from the same
+    weights, and the control, as :func:`train_card_vs_cpu` holds them, on
+    one mask for all three: drawn on the CPU from a seeded generator over
+    the voxels of this batch (the card's and the CPU's generators give
+    other numbers from one seed)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 make_voxel_spec)
+    from tmae_tpu_torch.models.siamwca import random_voxel_mask
+    from tmae_tpu_torch.ops.voxelize import voxelize
+
+    b = batch_to_device(np_batch, 'cpu')
+    vmask = voxelize(b['points'], b['point_mask'],
+                     make_voxel_spec(cfg.DATA_CONFIG, cfg.RUNTIME))[
+                         'voxel_mask']
+    ratio = float(cfg.MODEL.BACKBONE_3D.MASK_CONFIG.RATIO)
+    mask = random_voxel_mask(vmask, vmask.sum(1), ratio,
+                             torch.Generator().manual_seed(seed))
+    log(f'  mask: {int(mask.sum())} of {int(vmask.sum())} voxels masked')
+    train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=mask)
+
+
+def serve_phase(torch, cfg, model, batch, expected, reps, profile=None):
+    """Serving passes of one frame pair at full width: two warm-up passes;
+    launch counters set to 0, one pass (forward, decode, host NMS), the
+    counts checked against ``expected``; head maps and BEV features of the
+    config's full grid finite, boxes finite; then ``reps`` timed passes and,
+    with ``profile`` (a file name), a profiled one. Returns (launches,
+    median ms per frame pair)."""
+    from tmae_tpu_torch.models.detectors import make_voxel_spec
+
+    for _ in range(2):
+        serve_once(torch, cfg, model, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (out, (boxes, _, _, keep)), launches = counted(
+        torch, lambda: serve_once(torch, cfg, model, batch))
+    log(f'  launches per frame pair: {launches} (expected {expected})')
+    if launches != expected:
+        raise AssertionError('launch counts differ from the serving path')
+    nx, ny, _ = make_voxel_spec(cfg.DATA_CONFIG, cfg.RUNTIME).grid_size
+    for name, t in out['pred_dicts'][0].items():
+        if t.shape[:3] != (1, ny, nx) or not torch.isfinite(t).all():
+            raise AssertionError(f'head map {name}: bad shape or values')
+    sf = out['spatial_features_2d']
+    if sf.shape[:3] != (1, ny, nx) or not torch.isfinite(sf.float()).all():
+        raise AssertionError('spatial_features_2d: bad shape or values')
+    if not torch.isfinite(boxes).all():
+        raise AssertionError('decoded boxes are not finite')
+    log(f'  occ_overflow [sst0, sst1, sst2, wca0, wca1, wca2]: '
+        f'{out["occ_overflow"].cpu().tolist()}')
+    log(f'  detections kept after NMS: {int(keep.sum())} of '
+        f'{keep.shape[1]} candidates')
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_once(torch, cfg, model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    log(f'  ms per frame pair: median {med:.2f} (min {min(times):.2f}, max '
+        f'{max(times):.2f}, {reps} passes); {1e3 / med:.2f} frames/s; peak '
+        'device memory of the serving passes '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    if profile:
+        profile_pass(torch, cfg, model, batch, profile)
+    return launches, med
+
+
+def waymo_serving(torch, cfg, profile=False):
+    """t_mae_waymo.yaml served at full width on one synthetic frame pair
+    (device voxelization, K10 in eval mode), as :func:`serve_phase` serves
+    it; then the detector on the card against the CPU at full width on a
+    64x64 grid. Returns the median ms per frame pair."""
+    from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_,
+                                                 make_voxel_spec)
+
+    spec = make_voxel_spec(cfg.DATA_CONFIG, cfg.RUNTIME)
+    batch = batch_to_device(frame_pair_batch(
+        spec, list(cfg.CLASS_NAMES), indices=(0,), host_voxelize=False),
+        'cuda')
+    model = init_random_(build_detector(cfg), seed=0)
+    _, med = serve_phase(torch, cfg, model, batch, EXPECTED_WAYMO_SERVING,
+                         WAYMO_REPS,
+                         profile and 'profile_waymo_serving.txt')
+    del model, batch
+    log('  card vs CPU, full width on a 64x64 grid')
+    card_vs_cpu(torch, *small_grid(cfg), seed=7)
+    return med
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--profile', action='store_true',
-                    help='also profile one serving pass and one training '
-                    'step by kernel name')
+                    help='also profile a serving pass, a training step, '
+                    'the pretraining steps and a Waymo serving pass by '
+                    'kernel name')
     args = ap.parse_args(argv)
 
     import torch
@@ -820,6 +1251,11 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # torch.use_deterministic_algorithms imports torch._inductor on its
+    # first call, and that import keeps the calling frames (and every tensor
+    # they hold) alive for the rest of the process: make that call here,
+    # not from the grid-layer capture
+    torch.use_deterministic_algorithms(False)
     t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -861,55 +1297,17 @@ def main(argv=None):
     rows = check_kernels(torch, model, batch, 'cuda')
 
     log('phase serving (t_mae.yaml, full width, one frame pair)')
-    for _ in range(2):
-        serve_once(torch, cfg, model, batch)
     torch.cuda.synchronize()
-    peak_start = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.reset_peak_memory_stats()
-    ks = kernels()
-    for k in ks.values():
-        k.launches = 0
-    out, (boxes, scores, labels, keep) = serve_once(torch, cfg, model, batch)
-    torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in ks.items()}
-    log(f'  launches per frame pair: {launches} (expected '
-        f'{EXPECTED_LAUNCHES})')
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError('launch counts differ from the main path')
-    for name, t in out['pred_dicts'][0].items():
-        if t.shape[:3] != (1, 468, 468) or not torch.isfinite(t).all():
-            raise AssertionError(f'head map {name}: bad shape or values')
-    sf = out['spatial_features_2d']
-    if sf.shape != (1, 468, 468, 128) or not torch.isfinite(sf.float()).all():
-        raise AssertionError('spatial_features_2d: bad shape or values')
-    if not torch.isfinite(boxes).all():
-        raise AssertionError('decoded boxes are not finite')
-    overflow = out['occ_overflow'].cpu().tolist()
-    log(f'  occ_overflow [sst0, sst1, sst2, wca0, wca1, wca2]: {overflow}')
-    log(f'  detections kept after NMS: {int(keep.sum())} of '
-        f'{keep.shape[1]} candidates')
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serve_once(torch, cfg, model, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    med = statistics.median(times)
-    log(f'  ms per frame pair: median {med:.2f} (min {min(times):.2f}, max '
-        f'{max(times):.2f}, {REPS} passes); {1e3 / med:.2f} frames/s')
+    log(f'  peak device memory before it (kernels phase) '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    launches, med = serve_phase(torch, cfg, model, batch, EXPECTED_LAUNCHES,
+                                REPS, args.profile and 'profile.txt')
     split = split_times(torch, cfg, model, batch, REPS)
     log('  median ms by part: ' + ', '.join(f'{k} {v:.2f}'
                                             for k, v in split.items()))
-    log(f'  peak device memory of the serving passes '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (of the '
-        f'process before them, kernels phase included, {peak_start:.2f} GiB)')
     for row in rows:
         if not row['name'].startswith('encoder_train'):
             row['launches'] = launches[row.pop('kernel')]
-
-    if args.profile:
-        profile_pass(torch, cfg, model, batch)
 
     log('phase reference: card vs CPU, full size')
     card_vs_cpu(torch, cfg, np_batch, seed=0)
@@ -918,7 +1316,7 @@ def main(argv=None):
 
     log('phase training (t_mae.yaml, full width and depth, '
         f'{len(TRAIN_PAIRS)} frame pairs)')
-    del model, batch, out
+    del model, batch
     torch.cuda.empty_cache()
     train_launches, train = train_phase(torch, cfg, spec, rows, args.profile)
     for row in rows:
@@ -928,10 +1326,42 @@ def main(argv=None):
     log('phase training reference: one step, card vs CPU, full width on a '
         '64x64 grid')
     train_card_vs_cpu(torch, *small_grid(cfg), seed=7)
+    torch.cuda.empty_cache()
+
+    cfgs = ROOT / 'tools/cfgs'
+    ssl_waymo = cfg_from_yaml_file(cfgs / 'waymo_models/t_mae_ssl_waymo.yaml')
+    log('phase grid layer and pretraining (t_mae_ssl_waymo.yaml, full width '
+        f'and depth, {len(TRAIN_PAIRS)} frame pairs)')
+    grid_launches, pre = pretrain_phase(
+        torch, ssl_waymo, TRAIN_STEPS, EXPECTED_PRETRAIN_GRID, rows,
+        args.profile and 'profile_pretrain_waymo.txt')
+    for row in rows:
+        if row['name'] == 'encoder_grid':
+            row['launches'] = grid_launches[row.pop('kernel')]
+    torch.cuda.empty_cache()
+    log('phase pretraining (t_mae_ssl.yaml, bucketed, full width and depth, '
+        f'{len(TRAIN_PAIRS)} frame pairs)')
+    _, pre_once = pretrain_phase(
+        torch, cfg_from_yaml_file(cfgs / 'once_models/t_mae_ssl.yaml'),
+        SSL_STEPS, EXPECTED_PRETRAIN_BUCKETED, None,
+        args.profile and 'profile_pretrain_once.txt')
+    torch.cuda.empty_cache()
+    log('phase pretraining reference: one t_mae_ssl_waymo.yaml step, card vs '
+        'CPU, full width on a 64x64 grid')
+    pretrain_card_vs_cpu(torch, *small_grid(ssl_waymo), seed=7)
+    torch.cuda.empty_cache()
+    log('phase Waymo serving (t_mae_waymo.yaml, full width, one frame pair)')
+    waymo_ms = waymo_serving(
+        torch, cfg_from_yaml_file(cfgs / 'waymo_models/t_mae_waymo.yaml'),
+        args.profile)
 
     log(f'total {time.perf_counter() - t_start:.1f} s')
-    print(json.dumps({'kernels': rows, 'serving_ms_per_pair': med,
-                      'frames_per_s': 1e3 / med, **train}), flush=True)
+    print(json.dumps({
+        'kernels': rows, 'serving_ms_per_pair': med,
+        'frames_per_s': 1e3 / med, **train,
+        **{f'pretrain_waymo_{k}': v for k, v in pre.items()},
+        **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
+        'waymo_serving_ms_per_pair': waymo_ms}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
@@ -939,9 +1369,10 @@ def main(argv=None):
     return 0
 
 
-def profile_pass(torch, cfg, model, batch):
+def profile_pass(torch, cfg, model, batch, name='profile.txt'):
     """Device time by kernel name over one serving pass (torch.profiler):
-    the top rows logged, every row in the file."""
+    the top rows logged, every row in ``name`` under the output
+    directory."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -949,7 +1380,7 @@ def profile_pass(torch, cfg, model, batch):
         serve_once(torch, cfg, model, batch)
         torch.cuda.synchronize()
     avg = prof.key_averages()
-    (OUT_DIR / 'profile.txt').write_text(
+    (OUT_DIR / name).write_text(
         avg.table(sort_by='self_cuda_time_total', row_limit=-1))
     log(avg.table(sort_by='self_cuda_time_total', row_limit=40))
 

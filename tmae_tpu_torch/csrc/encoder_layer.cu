@@ -1,5 +1,5 @@
-// Kernels K3, K4, K6 and K8: the cosine-attention SST encoder layer on
-// gathered windows.
+// Kernels K3, K4, K6, K8 and K10: the cosine-attention SST encoder layer on
+// gathered windows (K3-K8) and on the dense BEV grid (K10).
 //
 // Replace tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full (kernel
 // _kernel_rows_full -> _layer_body) and encoder_layer_rows_sel (kernel
@@ -15,11 +15,26 @@
 // those cells, so unselected cells pass through (K8 copies them to its
 // output first).
 //
+// K10 replaces tmae_tpu/ops/pallas_encoder.py:_grid_forward (kernel
+// _grid_kernel -> _layer_body): the K6 layer on every 8x8 window of a dense
+// [B, H, W, C] grid, the window partition and its inverse done by the
+// addressing. The partition has ceil(H/8) + 1 rows and ceil(W/8) + 1 columns
+// of windows, offset by 8 cells (shift 0) or 4 (shift 1): cell (iy, ix) of
+// window (wy, wx) is grid cell (8 wy + iy - off, 8 wx + ix - off), and a cell
+// off the grid reads as zero and unoccupied. The query and key masks are the
+// occupancy bytes of the grid cells. One block per window; each in-grid cell
+// lies in exactly one window, so the blocks write disjoint cells of the new
+// output grid. A window with no occupied query cell has an all-zero output
+// (it is masked by the query mask), so its block writes zeros and exits: on
+// a LiDAR frame most windows of the stride-1 grid are empty.
+//
 // Bound: operations. Per window the layer does 2*T*C*C*4 (q, k, v, out) +
 // 2*T*C*F*2 (FFN) + 2*T*T*C*2 (logits, p.v) multiply-adds-as-2-flops,
 // ~19 MFLOP at T=64, C=128 and ~71 MFLOP at C=256, against ~34 KB to 66 KB
 // of window data: hundreds of operations per byte, above the card's
-// bf16 ridge.
+// bf16 ridge. K10 reads and writes the whole grid but runs the layer only on
+// windows with an occupied query cell, so on a sparse stride-1 LiDAR grid it
+// is bound by those bytes instead.
 //
 // Design, simple first: one block of 8 warps per window. The block reads its
 // whole window (the S or 64 token rows it needs) into shared memory before it
@@ -70,12 +85,19 @@ struct Params {
   const float *bq, *bk, *bv, *bo, *tau, *ln1s, *ln1b, *b1, *b2, *ln2s, *ln2b;
   int total, cap, row_lo, C, F, H, cross;
   float tau_min;
+  // K10 only (qocc != nullptr): occupancy bytes [B, gh, gw] of the query
+  // (and, in cross mode, key) grid, the grid size, the windows per row and
+  // the partition offset
+  const unsigned char *qocc, *kocc;
+  int gh, gw, nwx, off;
 };
 
-// Copies T token rows of a window into shared memory: `raw` gets the bf16
-// values, `with_pos` gets bf16(x + pos[cell]). Either may be null.
+// Copies T token rows into shared memory: token i is the row at
+// base + offs[i] (zeros where offs[i] < 0, a cell off the grid); `raw` gets
+// the bf16 values, `with_pos` gets bf16(x + pos[cells[i]]). Either may be
+// null.
 __device__ __forceinline__ void load_tokens(bf16* raw, bf16* with_pos,
-                                            const bf16* window,
+                                            const bf16* base, const int* offs,
                                             const int* cells,
                                             const bf16* pos, int C, int ld,
                                             int T) {
@@ -83,11 +105,14 @@ __device__ __forceinline__ void load_tokens(bf16* raw, bf16* with_pos,
   for (int t = threadIdx.x; t < T * vc; t += kThreads) {
     const int i = t / vc;
     const int v = t - i * vc;
-    const int cell = cells[i];
-    const uint4 x = *reinterpret_cast<const uint4*>(window + cell * C + v * 8);
+    const int o = offs[i];
+    const uint4 x = o >= 0
+                        ? *reinterpret_cast<const uint4*>(base + o + v * 8)
+                        : make_uint4(0u, 0u, 0u, 0u);
     if (raw) *reinterpret_cast<uint4*>(raw + i * ld + v * 8) = x;
     if (with_pos) {
-      const uint4 ps = *reinterpret_cast<const uint4*>(pos + cell * C + v * 8);
+      const uint4 ps =
+          *reinterpret_cast<const uint4*>(pos + cells[i] * C + v * 8);
       uint4 o;
       const bf16* xa = reinterpret_cast<const bf16*>(&x);
       const bf16* pa = reinterpret_cast<const bf16*>(&ps);
@@ -222,8 +247,10 @@ __global__ void __launch_bounds__(kThreads)
   float* st_all = reinterpret_cast<float*>(pb + T * ldp);
   float* qm_s = st_all + kWarps * 16 * kStLd;
   float* km_s = qm_s + T;
-  int* sq_s = reinterpret_cast<int*>(km_s + T);
+  int* sq_s = reinterpret_cast<int*>(km_s + T);  // query / key cell (pos row)
   int* sk_s = sq_s + T;
+  int* qoff_s = sk_s + T;  // element offset of each token's row from its base
+  int* koff_s = qoff_s + T;
   // reuse after attention
   float* h32 = reinterpret_cast<float*>(qn);  // spans qn and kn
   bf16* hb = vb;
@@ -233,32 +260,71 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
   float* st = st_all + warp * 16 * kStLd;
-  const long long slot = (long long)blockIdx.y * p.cap + blockIdx.x;
-  const long long row = (long long)blockIdx.y * p.total + p.row_lo + blockIdx.x;
-  const bf16* xwin = p.xw + row * kCells * C;
-  bf16* owin = p.out + row * kCells * C;
-  if (p.selq && owin != xwin) {  // K8: unselected cells pass through
-    for (int t = tid; t < kCells * C / 8; t += kThreads)
-      reinterpret_cast<uint4*>(owin)[t] =
-          reinterpret_cast<const uint4*>(xwin)[t];
-  }
-  const bf16* kvwin = p.cross ? p.kvw + row * kCells * C : nullptr;
-
-  for (int i = tid; i < T; i += kThreads) {
-    const float qm = p.qmask[slot * T + i];
-    qm_s[i] = qm;
-    km_s[i] = p.cross ? p.kmask[slot * T + i] : qm;
-    const int sq = p.selq ? min(max(p.selq[slot * T + i], 0), kCells - 1) : i;
-    sq_s[i] = sq;
-    sk_s[i] = (p.cross && p.selk) ? min(max(p.selk[slot * T + i], 0), kCells - 1)
-                                  : sq;
+  const bool grid = p.qocc != nullptr;  // K10 (T == 64)
+  const bf16* xbase;   // query tokens: xbase + qoff_s[i]
+  const bf16* kvbase;  // key tokens (cross): kvbase + koff_s[i]
+  bf16* obase;         // output rows: obase + qoff_s[i]
+  if (grid) {
+    const long long frame = (long long)blockIdx.y * p.gh * p.gw;
+    xbase = p.xw + frame * C;
+    kvbase = p.cross ? p.kvw + frame * C : nullptr;
+    obase = p.out + frame * C;
+    const int wy = blockIdx.x / p.nwx;
+    const int wx = blockIdx.x - wy * p.nwx;
+    for (int i = tid; i < T; i += kThreads) {
+      const int y = wy * 8 + i / 8 - p.off;
+      const int x = wx * 8 + i % 8 - p.off;
+      const bool in = y >= 0 && y < p.gh && x >= 0 && x < p.gw;
+      const int cell = in ? y * p.gw + x : 0;
+      const float qm = (in && p.qocc[frame + cell]) ? 1.f : 0.f;
+      qm_s[i] = qm;
+      km_s[i] = p.cross ? ((in && p.kocc[frame + cell]) ? 1.f : 0.f) : qm;
+      sq_s[i] = sk_s[i] = i;
+      qoff_s[i] = koff_s[i] = in ? cell * C : -1;
+    }
+  } else {
+    const long long slot = (long long)blockIdx.y * p.cap + blockIdx.x;
+    const long long row =
+        (long long)blockIdx.y * p.total + p.row_lo + blockIdx.x;
+    xbase = p.xw + row * kCells * C;
+    obase = p.out + row * kCells * C;
+    if (p.selq && obase != xbase) {  // K8: unselected cells pass through
+      for (int t = tid; t < kCells * C / 8; t += kThreads)
+        reinterpret_cast<uint4*>(obase)[t] =
+            reinterpret_cast<const uint4*>(xbase)[t];
+    }
+    kvbase = p.cross ? p.kvw + row * kCells * C : nullptr;
+    for (int i = tid; i < T; i += kThreads) {
+      const float qm = p.qmask[slot * T + i];
+      qm_s[i] = qm;
+      km_s[i] = p.cross ? p.kmask[slot * T + i] : qm;
+      const int sq =
+          p.selq ? min(max(p.selq[slot * T + i], 0), kCells - 1) : i;
+      sq_s[i] = sq;
+      sk_s[i] = (p.cross && p.selk)
+                    ? min(max(p.selk[slot * T + i], 0), kCells - 1)
+                    : sq;
+      qoff_s[i] = sq * C;
+      koff_s[i] = sk_s[i] * C;
+    }
   }
   __syncthreads();
+  if (grid && !__syncthreads_or(tid < T && qm_s[tid] > 0.f)) {
+    // no occupied query cell: the masked output is zero everywhere
+    const int vc = C / 8;
+    for (int t = tid; t < T * vc; t += kThreads) {
+      const int i = t / vc;
+      if (qoff_s[i] >= 0)
+        *reinterpret_cast<uint4*>(obase + qoff_s[i] + (t - i * vc) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
   const int has_key = __syncthreads_or(tid < T && km_s[tid] > 0.f);
   const float scale = 1.f / fmaxf(p.tau[0], p.tau_min);
 
   // ---- projections ------------------------------------------------------
-  load_tokens(xs, a0, xwin, sq_s, p.pos, C, ldb, T);
+  load_tokens(xs, a0, xbase, qoff_s, sq_s, p.pos, C, ldb, T);
   __syncthreads();
   project_heads<MT>(qn, a0, ldb, p.wq, p.bq, C, D, H, scale, st, warp, lane);
   if (!p.cross) {
@@ -267,11 +333,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   } else {
     __syncthreads();
-    load_tokens(a0, nullptr, kvwin, sk_s, p.pos, C, ldb, T);
+    load_tokens(a0, nullptr, kvbase, koff_s, sk_s, p.pos, C, ldb, T);
     __syncthreads();
     project_plain<MT>(vb, a0, ldb, p.wv, p.bv, C, st, warp, lane);
     __syncthreads();
-    load_tokens(nullptr, a0, kvwin, sk_s, p.pos, C, ldb, T);
+    load_tokens(nullptr, a0, kvbase, koff_s, sk_s, p.pos, C, ldb, T);
     __syncthreads();
     project_heads<MT>(kn, a0, ldb, p.wk, p.bk, C, D, H, 1.f, st, warp, lane);
     __syncthreads();
@@ -434,8 +500,10 @@ __global__ void __launch_bounds__(kThreads)
       }
     layer_norm_row(v, nc, p.ln2s, p.ln2b, lane, C);
     const bool occ = qm_s[i] > 0.f;
-    bf16* dst = owin + sq_s[i] * C;
-    if (!sel) {
+    bf16* dst = obase + qoff_s[i];
+    if (qoff_s[i] < 0) {
+      // K10: a cell off the grid is padding, not output
+    } else if (!sel) {
 #pragma unroll
       for (int u = 0; u < kMaxC / 32; ++u)
         if (u < nc) dst[lane + 32 * u] = __float2bfloat16(occ ? v[u] : 0.f);
@@ -456,7 +524,7 @@ size_t smem_bytes(int T, int C) {
   const size_t buf = (size_t)T * (C + kPadB) * sizeof(bf16);
   return 5 * buf + (size_t)T * (T + 4) * sizeof(float) +
          (size_t)T * (T + 8) * sizeof(bf16) +
-         (size_t)kWarps * 16 * kStLd * sizeof(float) + 4 * (size_t)T * 4;
+         (size_t)kWarps * 16 * kStLd * sizeof(float) + 6 * (size_t)T * 4;
 }
 
 template <int T>
@@ -526,6 +594,8 @@ Params make_params(const void* xw, void* out, const void* kvw,
   p.H = H;
   p.cross = cross;
   p.tau_min = tau_min;
+  p.qocc = p.kocc = nullptr;
+  p.gh = p.gw = p.nwx = p.off = 0;
   return p;
 }
 
@@ -583,4 +653,29 @@ extern "C" int launch_encoder_fwd_sel(const void* xw, const void* kvw,
   const Params p = make_params(xw, out, kvw, selq, selk, qmask, kmask, pos, w,
                                N, N, 0, C, F, H, cross, tau_min);
   return launch_sel(p, 1, S, static_cast<cudaStream_t>(stream));
+}
+
+// K10: out [B, H, W, C] = the layer on every 8x8 window of the shift's
+// partition of xg [B, H, W, C] (kvg likewise in cross mode), with masks from
+// the occupancy bytes qocc / kocc [B, H, W].
+extern "C" int launch_encoder_grid(const void* xg, const void* kvg, void* out,
+                                   const void* qocc, const void* kocc,
+                                   const void* pos, const void* const* w,
+                                   int B, int H, int W, int C, int F, int nh,
+                                   int cross, int shift, float tau_min,
+                                   void* stream) {
+  if (!shape_ok(C, F, nh) || qocc == nullptr || (cross && kocc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int nwy = (H + 7) / 8 + 1;
+  const int nwx = (W + 7) / 8 + 1;
+  Params p = make_params(xg, out, kvg, nullptr, nullptr, nullptr, nullptr,
+                         pos, w, nwy * nwx, nwy * nwx, 0, C, F, nh, cross,
+                         tau_min);
+  p.qocc = static_cast<const unsigned char*>(qocc);
+  p.kocc = cross ? static_cast<const unsigned char*>(kocc) : nullptr;
+  p.gh = H;
+  p.gw = W;
+  p.nwx = nwx;
+  p.off = shift ? 4 : 8;
+  return launch_rows<kCells>(p, B, static_cast<cudaStream_t>(stream));
 }

@@ -7,8 +7,10 @@ and unlabelled building- and clutter-scale cuboids, which gives the ground
 rings, object faces and occlusion shadows of real BEV grids. With
 ``density=1.5`` and 100k points a frame has the point count of a real ONCE
 frame. ``frame_pair_batch`` adds the in-range mask, the padding to
-``MAX_POINTS``, the sorted host voxelization that the serving path ships,
-and the scene's labelled boxes as training takes them.
+``MAX_POINTS``, the sorted host voxelization that the serving path ships
+(for configs with RUNTIME.HOST_VOXELIZE; without it the model voxelizes on
+the device and the batch ships points only), and the scene's labelled boxes
+as training takes them.
 """
 
 from __future__ import annotations
@@ -158,11 +160,12 @@ def gt_from_scene(scene: dict, class_names, max_gt: int):
 
 def frame_pair_batch(spec: VoxelSpec, class_names, indices=(0,),
                      density: float = 1.5, points_per_frame: int = 100000,
-                     n_box: int = 40, max_gt: int = 500) -> dict:
+                     n_box: int = 40, max_gt: int = 500,
+                     host_voxelize: bool = True) -> dict:
     """Numpy batch of current/previous frame pairs of scenes ``indices``
-    with the sorted host voxelization and the labelled boxes
-    (``gt_boxes`` [B, max_gt, 8], ``gt_mask``), keyed as
-    ``models/detectors.py`` expects."""
+    with the sorted host voxelization (``host_voxelize``; else the points
+    as rendered) and the labelled boxes (``gt_boxes`` [B, max_gt, 8],
+    ``gt_mask``), keyed as ``models/detectors.py`` expects."""
     pc = spec.pc_range
     class_names = list(class_names)
     frames = {'cur': [], 'prv': []}
@@ -180,6 +183,9 @@ def frame_pair_batch(spec: VoxelSpec, class_names, indices=(0,),
                           ('prv', 'points_prev', 'point_mask_prev')):
         pts = np.stack([p for p, _ in frames[which]])
         mask = np.stack([m for _, m in frames[which]])
+        if not host_voxelize:
+            batch[pk], batch[mk] = pts, mask
+            continue
         hv = voxelize_host(pts, mask, spec, sort_points=True)
         batch[pk] = hv['points']
         batch[mk] = hv['point_mask']

@@ -1,17 +1,22 @@
-"""CenterPoint detector with the SiamWCA backbone, for
-``tools/cfgs/once_models/t_mae.yaml`` (counterpart of
-``tmae_tpu/models/detectors.py:45-206,270-338,346-417``):
+"""Detectors of the T-MAE configs (counterpart of
+``tmae_tpu/models/detectors.py:45-297,341-417``):
 
-host voxelization → TemporalDynVFE → SiamWCA → SSTBEVBackbone → CenterHead →
-decode → host rotated NMS when serving (eval mode), and the CenterPoint
-loss (:func:`centerpoint_loss`) when training (train mode).
+* ``CenterPoint`` with the SiamWCA backbone (``t_mae.yaml``,
+  ``t_mae_waymo.yaml``): voxelization (on the host, or on the device when the
+  batch does not ship it) → TemporalDynVFE → SiamWCA → SSTBEVBackbone →
+  CenterHead → decode → host rotated NMS when serving (eval mode), and the
+  CenterPoint loss (:func:`centerpoint_loss`) when training (train mode);
+* ``TMAE``, the temporal masked-autoencoder pretraining shell
+  (``t_mae_ssl.yaml``, ``t_mae_ssl_waymo.yaml``): VFE → SiamWCA_MAE, with
+  the Chamfer loss :func:`tmae_loss`.
 
 Batch layout (dict of tensors, as the JAX package's host pipeline ships it):
 ``points``/``points_prev`` [B, P, 4], ``point_mask``/``point_mask_prev``
-[B, P], and per frame (``cur``/``prv``) the host voxelization ``pv_*``,
-``pvalid_*``, ``vcoords_*``, ``vmask_*`` and the sorted extras ``vmean_*``,
-``vends_*``. Training adds ``gt_boxes`` [B, M, 8] (class 1-indexed in the
-last column) and ``gt_mask`` [B, M].
+[B, P], and, under RUNTIME.HOST_VOXELIZE, per frame (``cur``/``prv``) the
+host voxelization ``pv_*``, ``pvalid_*``, ``vcoords_*``, ``vmask_*`` and the
+sorted extras ``vmean_*``, ``vends_*``. Detection training adds
+``gt_boxes`` [B, M, 8] (class 1-indexed in the last column) and
+``gt_mask`` [B, M].
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from ..ops.voxelize import VoxelSpec
 from ..ops.centernet import assign_center_targets
 from .bev import SSTBEVBackbone
 from .center_head import CenterHead, center_head_loss, decode
-from .siamwca import SiamWCA, remat_stages, stage_caps
+from .siamwca import SiamWCA, SiamWCA_MAE, mae_loss, remat_stages, stage_caps
 from .sst import VoxelSet
 from .vfe import TemporalDynVFE
 
@@ -52,6 +57,47 @@ def _grid_hw(spec: VoxelSpec):
     return (ny, nx)
 
 
+def _temporal_vfe(cfg, spec, backbone: str) -> TemporalDynVFE:
+    model_cfg = cfg['MODEL']
+    vfe_cfg = model_cfg['VFE']
+    if (vfe_cfg['NAME'] != 'TemporalDynVFE'
+            or model_cfg['BACKBONE_3D']['NAME'] != backbone):
+        raise NotImplementedError(f'the port runs {model_cfg["NAME"]} with '
+                                  f'TemporalDynVFE + {backbone}')
+    return TemporalDynVFE(
+        spec, [list(m) for m in vfe_cfg['MLPS']],
+        remat=bool(cfg['RUNTIME'].get('VFE_REMAT', True)),
+        use_absolute_xyz=vfe_cfg.get('USE_ABSLOTE_XYZ', True),
+        use_cluster_xyz=vfe_cfg.get('USE_CLUSTER_XYZ', True),
+        with_distance=vfe_cfg.get('WITH_DISTANCE', False))
+
+
+def _backbone_args(cfg) -> dict:
+    """Bucket caps, VFE output width and remat flags of the SiamWCA
+    backbones."""
+    b3d, runtime = cfg['MODEL']['BACKBONE_3D'], cfg['RUNTIME']
+    n = len(b3d['SST_BLOCK_LIST'])
+    return dict(caps=stage_caps(runtime, n),
+                cin=cfg['MODEL']['VFE']['MLPS'][-1][-1],
+                remat=remat_stages(runtime, n))
+
+
+def _run_vfe(vfe, spec, batch):
+    """Both frames through the VFE: (VoxelSet cur, VoxelSet prv, the
+    current frame's VFE outputs)."""
+    def hostvox(which):
+        return {k: batch[f'{short}_{which}'] for k, short in HOSTVOX_KEYS
+                if f'{short}_{which}' in batch}
+
+    cur, prv = vfe(batch['points'], batch['point_mask'],
+                   batch['points_prev'], batch['point_mask_prev'],
+                   hostvox('cur'), hostvox('prv'))
+    hw = _grid_hw(spec)
+    vs = [VoxelSet(d['voxel_features'], d['voxel_coords'], d['voxel_mask'],
+                   hw) for d in (cur, prv)]
+    return vs[0], vs[1], cur
+
+
 class CenterPoint(nn.Module):
     """VFE → SiamWCA → BACKBONE_2D → CenterHead. ``model.train()`` runs the
     training forward (batch statistics, the training kernels, remat as
@@ -61,21 +107,9 @@ class CenterPoint(nn.Module):
         super().__init__()
         model_cfg = cfg['MODEL']
         self.spec = make_voxel_spec(cfg['DATA_CONFIG'], cfg['RUNTIME'])
-        vfe_cfg = model_cfg['VFE']
         b3d = model_cfg['BACKBONE_3D']
-        if vfe_cfg['NAME'] != 'TemporalDynVFE' or b3d['NAME'] != 'SiamWCA':
-            raise NotImplementedError(
-                'the port runs CenterPoint with TemporalDynVFE + SiamWCA')
-        mlps = [list(m) for m in vfe_cfg['MLPS']]
-        runtime = cfg['RUNTIME']
-        self.vfe = TemporalDynVFE(
-            self.spec, mlps, remat=bool(runtime.get('VFE_REMAT', True)),
-            use_absolute_xyz=vfe_cfg.get('USE_ABSLOTE_XYZ', True),
-            use_cluster_xyz=vfe_cfg.get('USE_CLUSTER_XYZ', True),
-            with_distance=vfe_cfg.get('WITH_DISTANCE', False))
-        self.backbone_3d = SiamWCA(
-            b3d, stage_caps(runtime), cin=mlps[-1][-1],
-            remat=remat_stages(runtime, len(b3d['SST_BLOCK_LIST'])))
+        self.vfe = _temporal_vfe(cfg, self.spec, 'SiamWCA')
+        self.backbone_3d = SiamWCA(b3d, **_backbone_args(cfg))
         fuse_out = sum(int(b3d['FUSE_LAYER'][s]['NUM_UPSAMPLE_FILTER'])
                        for s in b3d['FEATURES_SOURCE'])
         fuse_out //= len(b3d['FEATURES_SOURCE'])
@@ -87,28 +121,53 @@ class CenterPoint(nn.Module):
         """Returns ``pred_dicts`` (NHWC head maps per group),
         ``spatial_features_2d`` and ``occ_overflow`` ([stages*2, B]: occupied
         windows over a bucket cap, SST stages then WCA blocks)."""
-        hw = _grid_hw(self.spec)
-
-        def hostvox(which):
-            return {k: batch[f'{short}_{which}'] for k, short in HOSTVOX_KEYS
-                    if f'{short}_{which}' in batch}
-
-        cur, prv = self.vfe(batch['points'], batch['point_mask'],
-                            batch['points_prev'], batch['point_mask_prev'],
-                            hostvox('cur'), hostvox('prv'))
-        vs = [VoxelSet(d['voxel_features'], d['voxel_coords'],
-                       d['voxel_mask'], hw) for d in (cur, prv)]
-        spatial, overflow = self.backbone_3d(*vs)
+        vs_cur, vs_prv, _ = _run_vfe(self.vfe, self.spec, batch)
+        spatial, overflow = self.backbone_3d(vs_cur, vs_prv)
         spatial2d = self.backbone_2d(spatial)
         return {'pred_dicts': self.dense_head(spatial2d),
                 'spatial_features_2d': spatial2d,
                 'occ_overflow': torch.stack(overflow)}
 
 
-def build_detector(cfg, device=None) -> CenterPoint:
-    """The eval-mode detector on ``device`` (the card when None; raises when
-    there is none)."""
-    return CenterPoint(cfg).to(resolve_device(device)).eval()
+class TMAE(nn.Module):
+    """Pretraining shell: VFE → SiamWCA_MAE (the loss is :func:`tmae_loss`).
+    The mask is drawn from the ``generator`` handed to the forward, or taken
+    as given (``mae_mask``)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.spec = make_voxel_spec(cfg['DATA_CONFIG'], cfg['RUNTIME'])
+        self.vfe = _temporal_vfe(cfg, self.spec, 'SiamWCA_MAE')
+        self.backbone_3d = SiamWCA_MAE(cfg['MODEL']['BACKBONE_3D'],
+                                       spec=self.spec, **_backbone_args(cfg))
+
+    def forward(self, batch: dict, mae_mask=None, generator=None):
+        """Returns the outputs of :class:`SiamWCA_MAE` (predicted and target
+        points, loss weights, the mask, ``occ_overflow``)."""
+        vs_cur, vs_prv, cur = _run_vfe(self.vfe, self.spec, batch)
+        return self.backbone_3d(vs_cur, vs_prv, batch['points'][..., :3],
+                                cur['point_voxel'], cur['point_valid'],
+                                mae_mask=mae_mask, generator=generator)
+
+
+DETECTORS = {'CenterPoint': CenterPoint, 'TMAE': TMAE}
+
+
+def build_detector(cfg, device=None) -> nn.Module:
+    """The eval-mode detector that MODEL.NAME names, on ``device`` (the card
+    when None; raises when there is none)."""
+    name = cfg['MODEL']['NAME']
+    if name not in DETECTORS:
+        raise NotImplementedError(f'detector {name} is not ported yet; have '
+                                  f'{list(DETECTORS)}')
+    return DETECTORS[name](cfg).to(resolve_device(device)).eval()
+
+
+def tmae_loss(cfg, outputs, batch):
+    """Pretraining loss: the Chamfer distance over the masked voxels.
+    Returns (loss, parts)."""
+    loss = mae_loss(outputs)
+    return loss, {'loss_rpn': loss}
 
 
 def centerpoint_loss(cfg, outputs, batch):

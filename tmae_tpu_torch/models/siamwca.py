@@ -1,13 +1,19 @@
-"""SiamWCA finetune backbone (counterpart of
-``tmae_tpu/models/siamwca.py:28-246``): three SST stages encode both frames in
-one batch with shared weights, a WCA block fuses each scale, and
-``PyramidFuse`` merges the pyramid into the stride-1 BEV map."""
+"""SiamWCA backbones (counterpart of ``tmae_tpu/models/siamwca.py``): three
+SST stages encode both frames in one batch with shared weights, a WCA block
+fuses each scale, and ``PyramidFuse`` merges the pyramid into the stride-1
+BEV map. ``SiamWCA`` is the finetune backbone; ``SiamWCA_MAE`` the temporal
+masked-autoencoder pretraining backbone, which masks 75% of the current
+frame's voxels, encodes the rest against the full previous frame, and
+predicts the points of every voxel, scored by a Chamfer loss on the masked
+ones."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops.chamfer import chamfer_distance
+from ..ops.voxelize import gather_from_grid
 from .layers import CARRIER_DTYPE, ConvBNReLU, DeconvBNReLU
 from .sst import DenseGrid, OccCaps, SSTBlock, VoxelSet
 from .wca import WCABlock
@@ -43,15 +49,18 @@ def remat_stages(runtime, n_stages: int) -> list:
     return [bool(f) for f in flags]
 
 
-def stage_caps(runtime) -> list:
-    """Per-stage bucket caps from RUNTIME.OCC_* (the serving path needs the
-    full and small caps; the mid bucket is optional)."""
+def stage_caps(runtime, n_stages: int) -> list:
+    """Per-stage bucket caps from RUNTIME.OCC_* (the full and small caps; the
+    mid bucket is optional), or ``None`` per stage when the config sets no
+    caps: the stages then run the grid-native layers."""
     full = runtime.get('OCC_WINDOW_CAPS')
     small = runtime.get('OCC_SMALL_CAPS')
+    if not full and not small:
+        return [None] * n_stages
     if not full or not small:
         raise NotImplementedError(
-            'the port runs the bucketed serving path: RUNTIME.OCC_WINDOW_CAPS '
-            'and OCC_SMALL_CAPS must be set')
+            'the port runs the bucketed path with RUNTIME.OCC_WINDOW_CAPS and '
+            'OCC_SMALL_CAPS both set, or the grid path with neither')
     mid = runtime.get('OCC_MID_CAPS') or [0] * len(full)
     return [OccCaps(int(f), int(s), int(runtime.get('OCC_SMALL_TOKENS', 16)),
                     int(m), int(runtime.get('OCC_MID_TOKENS', 48)))
@@ -112,3 +121,116 @@ class SiamWCA(nn.Module):
                           vs_prv.occupancy())
         fused, overflow = self.encoder(g_cur, g_prv)
         return self.fuse([f.x for f in fused]), overflow
+
+
+def random_voxel_mask(voxel_mask: torch.Tensor, num_voxels: torch.Tensor,
+                      mask_ratio: float, generator=None) -> torch.Tensor:
+    """Per-sample random masking of the valid voxels: ``mae_mask`` [B, V]
+    f32, 1 where a voxel is masked (removed), 0 where kept or invalid.
+    ``int(num_voxels * (1 - ratio))`` voxels are kept per sample (f32
+    product, truncated), chosen by uniform noise from ``generator``
+    (counterpart of ``random_voxel_mask``; the noise differs from JAX's)."""
+    B, V = voxel_mask.shape
+    dev = voxel_mask.device
+    noise = torch.rand(B, V, generator=generator, device=dev)
+    noise = torch.where(voxel_mask, noise, 2.0)  # invalid voxels rank last
+    order = torch.argsort(noise, dim=1, stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        1, order, torch.arange(V, device=dev).expand(B, V))
+    len_keep = (num_voxels.float() * (1.0 - mask_ratio)).to(torch.int64)
+    keep = ranks < len_keep[:, None]
+    return torch.where(voxel_mask, 1.0 - keep.float(), 0.0)
+
+
+def gather_gt_points(points_xyz, point_voxel, point_valid, V: int, K: int):
+    """The first K points of each voxel in point order (a stable sort by
+    voxel slot), wrap-repeated to fill K; a voxel without points gets K
+    zeros. Returns [B, V, K, 3] (counterpart of ``gather_gt_points``)."""
+    B, P, _ = points_xyz.shape
+    dev = points_xyz.device
+    pv = torch.where(point_valid, point_voxel.long(), V)
+    order = torch.argsort(pv, dim=1, stable=True)
+    s = torch.gather(pv, 1, order)
+    pos = torch.arange(P, device=dev).expand(B, P)
+    newflag = torch.cat([torch.ones_like(s[:, :1], dtype=torch.bool),
+                         s[:, 1:] != s[:, :-1]], 1)
+    starts = torch.cummax(torch.where(newflag, pos, -1), 1).values
+    rank = torch.empty_like(order).scatter_(1, order, pos - starts)
+    dest = torch.where((rank < K) & (pv < V), pv * K + rank, V * K)
+    buf = points_xyz.new_zeros(B, V * K + 1, 3).scatter_(
+        1, dest[..., None].expand(B, P, 3), points_xyz)[:, :-1]
+    cnt = torch.zeros(B, V * K + 1, dtype=torch.int64, device=dev)
+    cnt = cnt.scatter_add_(1, dest, torch.ones_like(dest))[:, :-1]
+    n = cnt.reshape(B, V, K).sum(-1).clamp(1, K)
+    idx = torch.arange(K, device=dev) % n[..., None]
+    return torch.gather(buf.reshape(B, V, K, 3), 2,
+                        idx[..., None].expand(B, V, K, 3))
+
+
+class SiamWCA_MAE(nn.Module):
+    """Pretraining backbone (counterpart of ``SiamWCA_MAE``): the full
+    previous frame and the visible 25% of the current frame through the
+    shared encoder, ``PyramidFuse`` as ``decoder_fuse``, and a linear
+    ``decoder_pred`` of NUM_PRD_POINTS points per voxel, at every voxel
+    slot; the targets are each voxel's first NUM_GT_POINTS points relative
+    to its centre."""
+
+    def __init__(self, model_cfg, caps, cin, spec, remat=None):
+        super().__init__()
+        mask_cfg = model_cfg['MASK_CONFIG']
+        self.ratio = float(mask_cfg['RATIO'])
+        self.n_pred = int(mask_cfg['NUM_PRD_POINTS'])
+        self.n_gt = int(mask_cfg['NUM_GT_POINTS'])
+        self.spec = spec
+        self.encoder = SiamWCAEncoder(model_cfg, caps, cin, remat=remat)
+        fuse = [dict(model_cfg['FUSE_LAYER'][src])
+                for src in model_cfg['FEATURES_SOURCE']]
+        self.decoder_fuse = PyramidFuse(fuse)
+        width = sum(int(f['NUM_UPSAMPLE_FILTER']) for f in fuse) // len(fuse)
+        self.decoder_pred = nn.Linear(width, self.n_pred * 3)
+
+    def forward(self, vs_cur: VoxelSet, vs_prv: VoxelSet, points_xyz,
+                point_voxel, point_valid, mae_mask=None, generator=None):
+        """``mae_mask`` [B, V] (1 = masked) is drawn with ``generator`` when
+        not given. Returns ``pred_points`` [B, V, P, 3], ``gt_points``
+        [B, V, G, 3], ``loss_weights`` [B, V], ``mae_mask``,
+        ``spatial_features`` and ``occ_overflow`` ([stages*2, B])."""
+        if mae_mask is None:
+            mae_mask = random_voxel_mask(vs_cur.mask, vs_cur.mask.sum(1),
+                                         self.ratio, generator)
+        visible = vs_cur.mask & (mae_mask == 0.0)
+        vis = VoxelSet(torch.where(visible[..., None], vs_cur.feat, 0.0),
+                       vs_cur.coords, visible, vs_cur.grid_hw)
+        g_vis = DenseGrid(vis.to_dense().to(CARRIER_DTYPE), vis.occupancy())
+        g_prv = DenseGrid(vs_prv.to_dense().to(CARRIER_DTYPE),
+                          vs_prv.occupancy())
+        fused, overflow = self.encoder(g_vis, g_prv)
+        spatial = self.decoder_fuse([f.x for f in fused])
+        B, V = vs_cur.mask.shape
+        pyr = gather_from_grid(spatial, vs_cur.coords, vs_cur.mask)
+        pred = self.decoder_pred(pyr.float()).reshape(B, V, self.n_pred, 3)
+        gt = gather_gt_points(points_xyz, point_voxel, point_valid, V,
+                              self.n_gt)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
+                                     device=gt.device)
+        vs, rng = f32(self.spec.voxel_size), f32(self.spec.pc_range)
+        cx = (vs_cur.coords[..., 1].float() + 0.5) * vs[0] + rng[0]
+        cy = (vs_cur.coords[..., 0].float() + 0.5) * vs[1] + rng[1]
+        cz = (0.5 * vs[2] + rng[2]).expand_as(cx)
+        centers = torch.stack([cx, cy, cz], -1)
+        return {'pred_points': pred,
+                'gt_points': gt - centers[:, :, None, :],
+                'loss_weights': mae_mask * vs_cur.mask.float(),
+                'mae_mask': mae_mask,
+                'spatial_features': spatial,
+                'occ_overflow': torch.stack(overflow)}
+
+
+def mae_loss(out) -> torch.Tensor:
+    """Chamfer distance over the masked voxels (counterpart of
+    ``SiamWCA_MAE.loss``)."""
+    B, V = out['loss_weights'].shape
+    return chamfer_distance(out['pred_points'].reshape(B * V, -1, 3),
+                            out['gt_points'].reshape(B * V, -1, 3),
+                            out['loss_weights'].reshape(B * V))
+

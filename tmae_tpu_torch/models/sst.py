@@ -13,6 +13,11 @@ their backward is K9 / K7), one concat and one differentiable scatter into a
 new carrier. Occupied windows beyond a bucket's cap are not in the plan, so
 they keep their input: the layer runs as identity there, and the stage
 reports how many windows that was.
+
+A stage without caps (``caps`` None: the config sets no RUNTIME.OCC_*) runs
+every layer on the dense grid instead (``sst.py:461-471``): kernel K10 on
+all windows of the shift's partition, in train and eval mode, and the
+backward through K7 on the windows; no plan and no overflow.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from torch import nn
 from ..ops.dense_windows import slot_pos_embed
 from ..ops.encoder_layer import (LayerParams, encoder_layer_rows_full,
                                  encoder_layer_rows_sel, fused_encoder_layer,
-                                 kernel_params)
+                                 fused_encoder_layer_grid, kernel_params)
 from ..ops.occ_compact import (BucketedCompact, build_bucketed_compact_info,
                                gather_windows_padded, gather_windows_train,
                                pad_grid, repad_grid,
@@ -65,6 +70,11 @@ class DenseGrid:
     @property
     def grid_hw(self):
         return (self.x.shape[1], self.x.shape[2])
+
+
+def no_overflow(occ: torch.Tensor) -> torch.Tensor:
+    """The overflow count [B] of a stage without caps: 0."""
+    return torch.zeros(occ.shape[0], dtype=torch.int32, device=occ.device)
 
 
 def occ_downsample(occ: torch.Tensor) -> torch.Tensor:
@@ -165,6 +175,18 @@ class DenseEncoderLayer(nn.Module):
         out_all = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
         return scatter_windows_train(out_all, plan.cat_idx, xp, w)
 
+    def forward_grid(self, x, kv, occ, kv_occ, shift: bool):
+        """The grid-native layer on [B, H, W, C] grids (K10), returning a new
+        grid with unoccupied cells 0; ``kv``/``kv_occ`` the key frame in
+        cross mode, else None."""
+        weights = self.layer_weights()
+        out = fused_encoder_layer_grid(
+            x.to(COMPUTE_DTYPE), kv.to(COMPUTE_DTYPE) if self.cross else None,
+            occ, kv_occ if self.cross else None, self.pos, weights,
+            kernel_params(weights), nhead=self.nhead, tau_min=self.tau_min,
+            cross=self.cross, window=self.window, shift=shift)
+        return torch.where(occ[..., None], out, 0.0)
+
     def forward(self, xp, kvp, plan: BucketedCompact):
         if self.training:
             return self.forward_train(xp, kvp, plan)
@@ -211,12 +233,18 @@ class DenseShiftBlock(nn.Module):
         kvp1 = repad_grid(kvp0, w, False, True) if self.cross else None
         return self.EncoderLayer_1(xp, kvp1, plans[1])
 
+    def forward_grid(self, x, kv_x, occ, kv_occ):
+        """Both layers on the dense grid (no caps): [B, H, W, C] in and
+        out."""
+        x = self.EncoderLayer_0.forward_grid(x, kv_x, occ, kv_occ, False)
+        return self.EncoderLayer_1.forward_grid(x, kv_x, occ, kv_occ, True)
+
 
 class SSTBlock(nn.Module):
     """One pyramid stage: optional strided conv_down, NUM_BLOCKS shifted
     window blocks on one padded carrier, residual add, SubM conv_out."""
 
-    def __init__(self, cin, encoder_cfg, caps: OccCaps, window=8,
+    def __init__(self, cin, encoder_cfg, caps: OccCaps | None, window=8,
                  remat: bool = True):
         super().__init__()
         ecfg = encoder_cfg
@@ -248,6 +276,13 @@ class SSTBlock(nn.Module):
             occ = occ_downsample(occ)
             x = remat(self.conv_down, x, occ, enabled=rm)
         w = self.window
+        if self.caps is None:
+            g = x.to(COMPUTE_DTYPE)
+            for blk in self.blocks:
+                g = remat(blk.forward_grid, g, None, occ, None, enabled=rm)
+            y = remat(self.conv_out, (x + g).to(CARRIER_DTYPE), occ,
+                      enabled=rm)
+            return DenseGrid(y, occ), no_overflow(occ)
         plans = build_plans(occ, w, self.caps)
         xp = pad_grid(x.to(COMPUTE_DTYPE), w, False)
         for i, blk in enumerate(self.blocks):

@@ -2,9 +2,10 @@
 ``DynPillarEncoder`` and ``TemporalDynVFE``): a per-point MLP, then a
 per-pillar max. With host-sorted inputs (``seg_ends`` shipped) the max is
 kernel K5, differentiated in train mode by the JAX package's tie rule;
-otherwise the scatter path sorts on the device. In train mode the encoder
-runs under remat and its batch norms update their running statistics once
-per frame, current then previous."""
+otherwise the scatter path sorts on the device. A batch without the host
+voxelization (configs without RUNTIME.HOST_VOXELIZE) is voxelized on the
+device. In train mode the encoder runs under remat and its batch norms
+update their running statistics once per frame, current then previous."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from torch import nn
 
 from ..ops.sorted_segments import (sorted_segment_max,
                                    sorted_segment_max_train)
-from ..ops.voxelize import VoxelSpec, segment_max, segment_mean
+from ..ops.voxelize import VoxelSpec, segment_max, segment_mean, voxelize
 from .layers import LinearBNReLU, remat
 
 
@@ -47,8 +48,12 @@ class DynPillarEncoder(nn.Module):
     def forward(self, points, point_mask, vox: dict):
         """points [B, P, 4]; ``vox`` the host voxelization (tensors):
         point_voxel, point_valid, voxel_coords, voxel_mask and optionally
-        voxel_mean_xyz and seg_ends."""
+        voxel_mean_xyz and seg_ends; empty to voxelize on the device.
+        Returns the voxel features, coords and mask, and the point-to-voxel
+        map (point_voxel, point_valid) that the MAE targets take."""
         spec = self.spec
+        if 'point_voxel' not in vox:
+            vox = voxelize(points, point_mask, spec)
         V = spec.max_voxels
         pv = vox['point_voxel'].long()
         pvalid = vox['point_valid']
@@ -97,6 +102,8 @@ class DynPillarEncoder(nn.Module):
             'voxel_features': torch.where(vox['voxel_mask'][..., None], x, 0.0),
             'voxel_coords': vox['voxel_coords'],
             'voxel_mask': vox['voxel_mask'],
+            'point_voxel': vox['point_voxel'],
+            'point_valid': pvalid,
         }
 
 

@@ -35,6 +35,18 @@ def window_view(x: torch.Tensor, window: int, shift: bool) -> torch.Tensor:
     return xw.reshape(B, nwy * nwx, window * window, C)
 
 
+def window_unview(xw: torch.Tensor, grid_hw, window: int,
+                  shift: bool) -> torch.Tensor:
+    """Inverse of :func:`window_view`: [B, NW, window*window, C] →
+    [B, H, W, C]."""
+    H, W = grid_hw
+    B, _, _, C = xw.shape
+    nwy, nwx, Hp, Wp = window_geometry((H, W), window)
+    off = window // 2 if shift else window
+    x = xw.reshape(B, nwy, nwx, window, window, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, Hp, Wp, C)[:, off:off + H, off:off + W]
+
+
 def slot_pos_embed(window: int, feat_dim: int, temperature: float = 1000.0,
                    normalize: bool = False) -> torch.Tensor:
     """Constant per-slot embedding [window*window, feat_dim] f32: the

@@ -10,7 +10,11 @@ and their plain versions (counterpart of
   :func:`fused_encoder_layer`, an autograd Function whose forward is K6 (all
   cells, ``_pallas_forward``) or K8 (selected cells, ``_pallas_forward_sel``)
   and whose backward is K7 (``_pallas_backward``) or K9
-  (``_pallas_backward_sel``).
+  (``_pallas_backward_sel``);
+* on the dense grid, for configs without bucket caps: K10
+  (``_grid_forward``), the full-window layer on every window of a shift's
+  partition of ``[B, H, W, C]``, and :func:`fused_encoder_layer_grid`, whose
+  backward runs K7 on the windows, as ``_grid_bwd`` does.
 
 The plain forward follows the kernels' numerics: bf16 matmul inputs with f32
 accumulation, bf16 where the TPU kernel casts, f32 LayerNorm residual. Its
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from ..device import on_card
 from ..utils.build import CudaKernel, F as CF, I, P, stream_handle
+from .dense_windows import window_unview, window_view
 
 _W = ctypes.POINTER(ctypes.c_void_p)
 K3 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_full',
@@ -43,6 +48,8 @@ K7 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_full',
                 [_W, _W, _W, _W, I, I, I, I, I, CF, I, P])
 K9 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_sel',
                 [_W, _W, _W, _W, I, I, I, I, I, I, CF, I, P])
+K10 = CudaKernel('encoder_layer.cu', 'launch_encoder_grid',
+                 [P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, CF, P])
 MATRICES = ('wq', 'wk', 'wv', 'wo', 'f1w', 'f2w')
 
 
@@ -172,6 +179,14 @@ def _weight_ptrs(p: LayerParams):
     return (ctypes.c_void_p * len(p))(*[t.data_ptr() for t in p])
 
 
+def _check_widths(C, nhead, p, c_multiple=32):
+    if C % c_multiple or C > 256 or C % nhead or C // nhead not in (16, 32):
+        raise ValueError(f'kernel takes C % {c_multiple} == 0, C <= 256 and '
+                         f'head width 16 or 32, not C={C}, nhead={nhead}')
+    if p.f1w.shape[0] % 128:
+        raise ValueError('kernel takes an FFN width that is a multiple of 128')
+
+
 def _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, p, nhead,
                 sel_q=None):
     """What the kernel takes: C a multiple of 32 up to 256, head width 16
@@ -181,11 +196,7 @@ def _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, p, nhead,
     B, total, cells, C = xw_all.shape
     if cells != 64:
         raise ValueError('window rows hold 64 cells')
-    if C % 32 or C > 256 or C % nhead or C // nhead not in (16, 32):
-        raise ValueError(f'kernel takes C % 32 == 0, C <= 256 and head width '
-                         f'16 or 32, not C={C}, nhead={nhead}')
-    if p.f1w.shape[0] % 128:
-        raise ValueError('kernel takes an FFN width that is a multiple of 128')
+    _check_widths(C, nhead, p)
     if qmask.shape[0] != B or qmask.shape[2] not in (16, 48, 64):
         raise ValueError(f'mask shape {tuple(qmask.shape)} does not fit')
     if sel_q is not None and sel_q.shape != qmask.shape:
@@ -275,11 +286,7 @@ def _check_flat(xw, kv, sel_q, qmask, cross, p, nhead):
     if xw.dtype != torch.bfloat16 or xw.dim() != 3 or xw.shape[1] != 64:
         raise ValueError('the training kernels take bf16 windows [N, 64, C]')
     N, _, C = xw.shape
-    if C % 64 or C > 256 or C % nhead or C // nhead not in (16, 32):
-        raise ValueError(f'kernel takes C % 64 == 0, C <= 256 and head width '
-                         f'16 or 32, not C={C}, nhead={nhead}')
-    if p.f1w.shape[0] % 128:
-        raise ValueError('kernel takes an FFN width that is a multiple of 128')
+    _check_widths(C, nhead, p, c_multiple=64)
     T = 64 if sel_q is None else sel_q.shape[-1]
     if qmask.shape != (N, T) or (sel_q is not None and T not in (16, 48)):
         raise ValueError(f'mask / selection shape {tuple(qmask.shape)} does '
@@ -446,3 +453,141 @@ def fused_encoder_layer(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights,
     and ``fused_encoder_layer_sel``."""
     return _FusedEncoderLayer.apply(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
                                     (nhead, tau_min, cross), params, *weights)
+
+
+# ---------------------------------------------------------------------------
+# Grid-native layer: K10 forward, K7 over the windows backward
+# ---------------------------------------------------------------------------
+
+
+def _flat_windows(a, window, shift):
+    """[B, H, W, ...] → [B * NW, window * window, ...]."""
+    squeeze = a.dim() == 3
+    w = window_view(a[..., None] if squeeze else a, window, shift)
+    w = w.reshape(-1, *w.shape[2:])
+    return w[..., 0] if squeeze else w
+
+
+def _unflat_windows(a, B, grid_hw, window, shift):
+    return window_unview(a.reshape(B, -1, *a.shape[1:]), grid_hw, window,
+                         shift)
+
+
+def reference_encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams,
+                                 nhead: int, tau_min: float, cross: bool,
+                                 window: int, shift: bool):
+    """Plain version of K10 (counterpart of ``reference_encoder_layer_grid``):
+    window view of the grid and the occupancy, the plain K6 on every window,
+    inverse view. ``xg``/``kvg`` [B, H, W, C], ``qocc``/``kocc`` [B, H, W]
+    bool; returns [B, H, W, C] in ``xg.dtype``."""
+    qm = _flat_windows(qocc.float(), window, shift)
+    km = _flat_windows(kocc.float(), window, shift) if cross else None
+    out = reference_encoder_layer(
+        _flat_windows(xg, window, shift),
+        _flat_windows(kvg, window, shift) if cross else None, None, None, qm,
+        km, pos, p, nhead, tau_min, cross)
+    return _unflat_windows(out, xg.shape[0], xg.shape[1:3], window, shift)
+
+
+def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
+                       nhead: int, tau_min: float, cross: bool, window: int,
+                       shift: bool):
+    """The layer on every ``window`` x ``window`` window of the shift's
+    partition of ``xg`` [B, H, W, C] (``kvg`` likewise in cross mode), with
+    query / key masks from ``qocc`` / ``kocc`` [B, H, W] bool; returns a new
+    [B, H, W, C] grid. Kernel K10 on the card."""
+    if not on_card(xg, qocc):
+        return reference_encoder_layer_grid(xg, kvg, qocc, kocc, pos, p,
+                                            nhead, tau_min, cross, window,
+                                            shift)
+    xg = xg.contiguous()
+    kvg = kvg.contiguous() if cross else None
+    B, H, W, C = xg.shape
+    if xg.dtype != torch.bfloat16 or window != 8:
+        raise ValueError('the grid kernel takes bf16 grids and 8x8 windows')
+    _check_widths(C, nhead, p)
+    if qocc.shape != (B, H, W) or (cross and (
+            kvg.shape != xg.shape or kocc is None
+            or kocc.shape != (B, H, W))):
+        raise ValueError('occupancy / kv grid shapes do not fit the grid')
+    qocc = qocc.to(torch.bool).contiguous()
+    kocc = kocc.to(torch.bool).contiguous() if cross else None
+    pos = pos.to(torch.bfloat16).contiguous()
+    out = torch.empty_like(xg)
+    K10(xg.data_ptr(), _ptr(kvg), out.data_ptr(), qocc.data_ptr(),
+        _ptr(kocc), pos.data_ptr(), _weight_ptrs(p), B, H, W, C,
+        p.f1w.shape[0], nhead, int(cross), int(shift), float(tau_min),
+        stream_handle())
+    return out
+
+
+def encoder_layer_grid_bwd(xg, kvg, qocc, kocc, pos, weights, g, *,
+                           nhead: int, tau_min: float, cross: bool,
+                           window: int, shift: bool):
+    """Gradients of :func:`encoder_layer_grid` for upstream ``g``
+    [B, H, W, C]: (dx, dkv or None, [17 weight gradients]), as ``_grid_bwd``
+    computes them: window views of x, kv, the masks and g, the backward of
+    the window layer (K7 on the card), inverse views. Only the windows with
+    an occupied query cell go to K7: every other window's output is zero
+    whatever its input, so it adds nothing to any gradient (the selection is
+    one host sync)."""
+    B, hw = xg.shape[0], xg.shape[1:3]
+    qm = _flat_windows(qocc.float(), window, shift)
+    sel = qm.any(-1).nonzero()[:, 0]
+    take = lambda a: _flat_windows(a, window, shift)[sel]
+    N = qm.shape[0]
+    if not len(sel):
+        grads = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                 for w in weights]
+        zero = torch.zeros_like(xg)
+        return zero, (torch.zeros_like(kvg) if cross else None), grads
+    dxw, dkvw, grads, _ = encoder_layer_bwd(
+        take(xg), take(kvg) if cross else None, None, None, qm[sel],
+        take(kocc.float()) if cross else None, pos, weights, take(g),
+        nhead=nhead, tau_min=tau_min, cross=cross)
+
+    def unview(d, like):
+        full = torch.zeros((N, *d.shape[1:]), dtype=like.dtype,
+                           device=like.device)
+        full[sel] = d.to(like.dtype)
+        return _unflat_windows(full, B, hw, window, shift)
+
+    return (unview(dxw, xg), unview(dkvw, kvg) if cross else None, grads)
+
+
+class _FusedEncoderLayerGrid(torch.autograd.Function):
+    """Forward K10, backward :func:`encoder_layer_grid_bwd` (plain versions
+    on the CPU); takes the weights twice, as :class:`_FusedEncoderLayer`."""
+
+    @staticmethod
+    def forward(ctx, xg, kvg, qocc, kocc, pos, cfg, p, *weights):
+        nhead, tau_min, cross, window, shift = cfg
+        out = encoder_layer_grid(xg, kvg, qocc, kocc, pos, p, nhead=nhead,
+                                 tau_min=tau_min, cross=cross, window=window,
+                                 shift=shift)
+        ctx.cfg = cfg
+        ctx.save_for_backward(xg, kvg, qocc, kocc, pos, *p)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        nhead, tau_min, cross, window, shift = ctx.cfg
+        xg, kvg, qocc, kocc, pos, *p = ctx.saved_tensors
+        dx, dkv, grads = encoder_layer_grid_bwd(
+            xg, kvg, qocc, kocc, pos, LayerParams(*p), g, nhead=nhead,
+            tau_min=tau_min, cross=cross, window=window, shift=shift)
+        return (dx, dkv, None, None, None, None, None, *grads)
+
+
+def fused_encoder_layer_grid(xg, kvg, qocc, kocc, pos, weights,
+                             params: LayerParams, *, nhead: int,
+                             tau_min: float, cross: bool, window: int,
+                             shift: bool):
+    """Differentiable grid-native layer (counterpart of
+    ``fused_encoder_layer_grid``): ``xg`` [B, H, W, C] bf16 (``kvg``
+    likewise in cross mode, else None), ``qocc``/``kocc`` [B, H, W] bool;
+    ``weights`` and ``params`` as :func:`fused_encoder_layer` takes them."""
+    return _FusedEncoderLayerGrid.apply(
+        xg, kvg, qocc, kocc, pos, (nhead, tau_min, cross, window, shift),
+        params, *weights)
+

@@ -11,7 +11,9 @@ Conventions:
 
 ``voxelize_host`` is a numpy copy of the JAX package's host voxelizer: the
 serving path voxelizes on the host and ships the slot map, the per-pillar
-mean and the segment ends with the batch.
+mean and the segment ends with the batch. ``voxelize`` is the same
+assignment on the device in torch ops without a host sync, for configs that
+do not set RUNTIME.HOST_VOXELIZE.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .sorted_segments import segmented_running_max
+from .sorted_segments import segmented_running_max, sorted_segment_max_bwd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +127,49 @@ def voxelize_host(points: np.ndarray, point_mask: np.ndarray,
     return out
 
 
+def voxelize(points: torch.Tensor, point_mask: torch.Tensor,
+             spec: VoxelSpec) -> dict:
+    """Assign points to pillars on the device (counterpart of ``voxelize``:
+    ``point_coords`` and the sort-free ``_grid_compact``): an occupancy of
+    the cells, its prefix sum as each occupied cell's slot, slots ascending
+    with the cell id and stopping at ``max_voxels``. Returns the dict of
+    :func:`voxelize_host` (``sort_points=False``) as tensors."""
+    B, P, _ = points.shape
+    V = spec.max_voxels
+    nx, ny, nz = spec.grid_size
+    dev = points.device
+    rng = torch.tensor(spec.pc_range, dtype=points.dtype, device=dev)
+    vs = torch.tensor(spec.voxel_size, dtype=points.dtype, device=dev)
+    grid = torch.tensor((nx, ny, nz), dtype=torch.int32, device=dev)
+    coords = torch.floor((points[..., :3] - rng[:3]) / vs).to(torch.int32)
+    valid = ((coords >= 0) & (coords < grid)).all(-1) & point_mask
+    cells = nx * ny
+    ids = torch.where(valid, coords[..., 1].long() * nx + coords[..., 0],
+                      cells)
+    occ = torch.zeros(B, cells + 1, dtype=torch.int64, device=dev)
+    occ = occ.scatter_(1, ids, 1)[:, :cells]
+    slot_of_cell = occ.cumsum(1) - 1
+    dest = torch.where((occ == 1) & (slot_of_cell < V), slot_of_cell, V)
+    cell_ids = torch.arange(cells, device=dev).expand(B, cells)
+    slot_cell = torch.full((B, V + 1), cells, dtype=torch.int64, device=dev)
+    slot_cell = slot_cell.scatter_(1, dest, cell_ids)[:, :V]
+    point_slot = torch.gather(slot_of_cell, 1, ids.clamp(max=cells - 1))
+    point_valid = valid & (point_slot < V) & (point_slot >= 0)
+    voxel_mask = slot_cell < cells
+    zero = torch.zeros_like(slot_cell)
+    return {
+        'voxel_coords': torch.stack(
+            [torch.where(voxel_mask, slot_cell // nx, zero),
+             torch.where(voxel_mask, slot_cell % nx, zero)],
+            -1).to(torch.int32),
+        'voxel_mask': voxel_mask,
+        'point_voxel': torch.where(point_valid, point_slot, V).to(
+            torch.int32),
+        'point_valid': point_valid,
+        'num_voxels': occ.sum(1).clamp(max=V).to(torch.int32),
+    }
+
+
 def segment_sum(feat: torch.Tensor, seg: torch.Tensor, num_segments: int):
     """feat [B, P, C], seg [B, P] (segment, or >= num_segments to drop) →
     [B, num_segments, C]."""
@@ -150,7 +195,32 @@ def segment_max(feat: torch.Tensor, seg: torch.Tensor, num_segments: int):
     """Batched segment max over unsorted rows, 0 for empty segments and for
     segments whose rows are all ``-inf``. Rows with segment >= num_segments
     are dropped. Sorts the rows by segment, then runs the segmented scan of
-    the sorted path (``sorted_segments.segmented_running_max``)."""
+    the sorted path (``sorted_segments.segmented_running_max``). Its
+    gradient is split evenly among the rows that reach their segment's max,
+    as ``jax.ops.segment_max``'s is (autograd through the scan's pairwise
+    maxima would split a three-way tie 1/2, 1/4, 1/4)."""
+    return _SegmentMax.apply(feat, seg, num_segments)
+
+
+class _SegmentMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, seg, num_segments):
+        out = _segment_max(feat, seg, num_segments)
+        ctx.num_segments = num_segments
+        ctx.save_for_backward(feat, seg, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, seg, out = ctx.saved_tensors
+        V = ctx.num_segments
+        present = torch.ones(out.shape[:2], dtype=torch.bool,
+                             device=out.device)
+        return (sorted_segment_max_bwd(feat, seg, present, out, g, V), None,
+                None)
+
+
+def _segment_max(feat: torch.Tensor, seg: torch.Tensor, num_segments: int):
     B, P, C = feat.shape
     seg = seg.long().clamp(max=num_segments)
     order = torch.argsort(seg, dim=1, stable=True)

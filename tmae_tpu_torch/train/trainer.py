@@ -1,6 +1,8 @@
 """The training step (counterpart of ``tmae_tpu/train/trainer.py``
 ``make_train_step``): forward in train mode, loss, backward through the
-kernels' backward passes, one optimizer update."""
+kernels' backward passes, one optimizer update. Where the JAX step folds
+named random streams (``rng_names``, e.g. the MAE mask) out of its key, this
+one hands a ``torch.Generator`` to the model."""
 
 from __future__ import annotations
 
@@ -19,16 +21,22 @@ class TrainStep:
     """``train_step(batch) -> metrics``; ``step`` counts the updates made
     and picks each update's learning rate and beta1."""
 
-    def __init__(self, model, loss_fn, optimizer, schedules: Schedules):
+    def __init__(self, model, loss_fn, optimizer, schedules: Schedules,
+                 generator=None):
         self.model, self.loss_fn = model, loss_fn
         self.optimizer, self.schedules = optimizer, schedules
+        self.generator = generator
         self.params = [p for g in optimizer.param_groups for p in g['params']]
         self.step = 0
 
-    def __call__(self, batch: dict) -> dict:
+    def __call__(self, batch: dict, **model_kwargs) -> dict:
+        """``model_kwargs`` go to the model's forward (a pretraining test
+        passes the MAE mask this way)."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(batch)
+        if self.generator is not None:
+            model_kwargs.setdefault('generator', self.generator)
+        out = self.model(batch, **model_kwargs)
         loss, parts = self.loss_fn(out, batch)
         loss.backward()
         for p in self.params:  # optax updates every leaf: zero, not absent
@@ -47,8 +55,11 @@ class TrainStep:
                 'occ_overflow': collect_occ_overflow(out)}
 
 
-def make_train_step(model, loss_fn, optimizer, schedules: Schedules):
+def make_train_step(model, loss_fn, optimizer, schedules: Schedules,
+                    generator=None):
     """``loss_fn(outputs, batch) -> (loss, parts)``. Returns a
     :class:`TrainStep`: ``train_step(batch) -> metrics`` with ``loss``,
-    ``grad_norm`` (before clipping), the loss parts and ``occ_overflow``."""
-    return TrainStep(model, loss_fn, optimizer, schedules)
+    ``grad_norm`` (before clipping), the loss parts and ``occ_overflow``.
+    ``generator``: the ``torch.Generator`` (on the model's device) that a
+    pretraining model draws its mask from, step after step."""
+    return TrainStep(model, loss_fn, optimizer, schedules, generator)
