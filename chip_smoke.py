@@ -11,10 +11,11 @@ Phases (any failure exits non-zero and prints no result line):
      per source, all at once).
   3. kernels: each kernel against its plain PyTorch version at the shapes of
      the t_mae.yaml main paths (stage-1 plans of a synthetic frame pair,
-     131072 points), with its time, the plain version's time, one PyTorch
-     library call's time where one computes the same function, and the
-     least time the card could take (bytes / 3.35 TB/s or FLOPs / 989
-     TFLOP/s bf16, counting the windows and points this run's data needs).
+     131072 points; K12 also on stage 2), with its time, the plain
+     version's time, one PyTorch library call's time where one computes the
+     same function, and the least time the card could take (bytes / 3.35
+     TB/s or FLOPs / 989 TFLOP/s bf16, counting the windows and points this
+     run's data needs).
   4. serving: the full-width t_mae.yaml detector with seeded random weights
      on a synthetic LiDAR frame pair (density 1.5, ~100k points per frame):
      launch counters set to 0, one pass (forward, decode, host NMS), the
@@ -22,6 +23,18 @@ Phases (any failure exits non-zero and prints no result line):
   5. reference: the same detector run on the card (kernels) and on the CPU
      (plain versions) with the same weights and frames, head maps compared:
      at full size, and at full width on a 64x64 grid.
+  5a. fused serving: the same detector with the fused in-place layer path
+     (K12, as TMAE_FUSED_INPLACE=1 selects it): counters set to 0, one
+     pass, the counts checked; warm timed passes; head maps held to the
+     default path's on the same weights and frames.
+  5b. streaming serving, on the default and on the fused path: the
+     previous frame encoded alone (``return_hidden``), then the pair served
+     from its cached pyramid (``cached_prev``): counters set to 0, one
+     pass, the counts checked (K5 once: the previous frame's VFE and SST
+     stages are skipped); warm timed passes; the device time of one
+     streaming and one stateless pass; head maps held to the stateless
+     pass's; and the streaming pass on the card against the CPU at full
+     width on a 64x64 grid.
   6. training: finetune steps of t_mae.yaml at full width and depth on two
      synthetic frame pairs (scenes 0 and 1; the config's batch is 6): the
      training kernels K6-K9 against their plain versions on the layer
@@ -80,7 +93,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
-                     'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0}
+                     'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0, 'K12': 0}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -92,8 +105,15 @@ EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
 EXPECTED_TRAIN_LAUNCHES = {
     'K1': 24 + 18 + 12, 'K2': 18 + 24 + 18 + 12, 'K3': 0, 'K4': 0,
     'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
-    'K10': 0}
+    'K10': 0, 'K12': 0}
 NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+# The fused in-place serving path: each of the 18 layers is one K12 launch
+# per bucket (small, mid, full), and nothing else of the encoder.
+EXPECTED_FUSED = {**NO_LAUNCHES, 'K5': 2, 'K12': 18 * 3}
+# A streaming pass skips the previous frame's VFE (one K5) and SST stages;
+# the encoder's launches are those of its path, on a batch of one frame.
+EXPECTED_STREAM = {**EXPECTED_LAUNCHES, 'K5': 1}
+EXPECTED_STREAM_FUSED = {**EXPECTED_FUSED, 'K5': 1}
 # One pretraining step of t_mae_ssl_waymo.yaml (no caps): each of the 18
 # encoder layers is one K10 forward and one K7 backward, and remat replays
 # the 12 SST layers' forward.
@@ -107,7 +127,7 @@ TRAIN_STEPS = 6                # step 0 counted, steps 1-5 timed
 TRAIN_PAIRS = (0, 1)           # synthetic scenes of the training batch
 SSL_STEPS = 3                  # t_mae_ssl.yaml pretraining steps
 WAYMO_REPS = 5                 # timed t_mae_waymo.yaml serving passes
-BWD_DRAWS = 16                 # random cotangents per grid backward check
+BWD_DRAWS = 16                 # random cotangents per backward check
 
 
 def log(*a):
@@ -149,14 +169,16 @@ def layer_flops(T, C, F):
 
 
 def add_row(rows, name, kernel, source, replaces, err, ms, plain_ms, nbytes,
-            flops, library_ms, peak=BF16_FLOPS):
+            flops, library_ms, peak=BF16_FLOPS, **extra):
     """One kernel's entry of the kernels line (its launches are filled in
-    after the main path's run)."""
+    after the run of the path that launches it); ``extra`` keys are added
+    as they are."""
     b, by = bound_ms(nbytes, flops, peak)
     rows.append({'name': name, 'route': 'cuda', 'source': source,
                  'replaces': replaces, 'kernel': kernel,
                  'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-                 'bound_ms': b, 'bound_by': by, 'library_ms': library_ms})
+                 'bound_ms': b, 'bound_by': by, 'library_ms': library_ms,
+                 **extra})
     log(f'  {name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain '
         f'{plain_ms:.4f} ms  bound {b:.4f} ms ({by})  library '
         f'{library_ms if library_ms is None else round(library_ms, 4)}')
@@ -267,6 +289,24 @@ def check_kernels(torch, model, batch, dev):
         for case in layer_cases(el, layer, lplan, kv):
             rows_check(torch, label, case, base, kv is not None, entry)
 
+    # K12: every bucket of the same three layers, straight in the carrier;
+    # the dummy window row holds random values, which must stay
+    xp2 = oc.pad_grid(x2, 8, False).contiguous()
+    for label, layer, lplan, carrier, kvp in (
+            ('stage-1 self', enc.sst_block_0.encoder_0.EncoderLayer_0, plan,
+             xp, None),
+            ('stage-1 cross', enc.wca_block_0.block_0.EncoderLayer_0, wplan,
+             xp[:1].clone(), xp[1:].clone()),
+            ('stage-2 self', enc.sst_block_1.encoder_0.EncoderLayer_0, plan2,
+             xp2, None)):
+        carrier = carrier.clone()
+        carrier[:, -8:] = torch.randn(carrier[:, -8:].shape, generator=g,
+                                      device=dev).to(torch.bfloat16)
+        for name, ci in (('small', lplan.small), ('mid', lplan.mid),
+                         ('full', lplan.full)):
+            fused_check(torch, el, oc, f'{label} {name}', layer, ci,
+                        carrier, kvp, name != 'full', entry)
+
     # K5 on the current frame's host voxelization
     V = model.vfe.encoder.spec.max_voxels
     Pn = batch['points'].shape[1]
@@ -360,6 +400,62 @@ def rows_check(torch, label, case, base, cross, entry):
               nbytes, flops, None)
 
 
+def fused_check(torch, el, oc, label, layer, ci, xp, kvp, sel, entry):
+    """K12 on one bucket plan ``ci`` of the padded carrier ``xp`` (``kvp``
+    the other frame's carrier in cross mode) against its plain version on
+    the same card: on the cells of the plan's windows bf16 outputs within
+    K3/K4's limits (max |diff| <= 0.15, mean <= 2e-3); every other cell of
+    the carrier, the dummy window row with it, exactly as it was. Its time,
+    the plain version's and its bound (the plan's windows read and written,
+    kv read in cross mode, the weights); the stage-1 self full bucket goes
+    into the kernels line, as K12 and as K11, which K12 closes."""
+    p = layer.layer_params()
+    cross = kvp is not None
+    kw = dict(nhead=layer.nhead, tau_min=layer.tau_min, cross=cross,
+              window=8, sel=sel)
+    fk = lambda t: el.encoder_layer_fused_pipelined(t, kvp, ci, layer.pos, p,
+                                                    **kw)
+    fp = lambda t: el.reference_encoder_layer_fused(t, kvp, ci, layer.pos, p,
+                                                    **kw)
+    ka, pa = fk(xp.clone()), fp(xp.clone())
+    torch.cuda.synchronize()
+    B, _, _, C = xp.shape
+    cap = ci.idx.shape[1]
+    ones = torch.ones(B, cap, 64, 1, dtype=torch.bfloat16, device=xp.device)
+    inside = oc.scatter_windows_into_padded_plain(
+        ones, ci.idx, torch.zeros_like(xp[..., :1]), 8)[..., 0] > 0
+    d = (ka.float() - pa.float()).abs()[inside]
+    err, mean = (d.max().item(), d.mean().item()) if d.numel() else (0., 0.)
+    T = ci.sel.shape[-1] if sel else 64
+    if not (err <= 0.15 and mean <= 2e-3):
+        raise AssertionError(f'K12 {label} T={T} differs from its plain '
+                             f'version: max {err} mean {mean}')
+    if not (torch.equal(ka[~inside], xp[~inside])
+            and torch.equal(pa[~inside], xp[~inside])):
+        raise AssertionError(f'K12 {label}: a cell outside the plan\'s '
+                             'windows changed')
+    nw = int(ci.valid.sum())
+    nbytes = (nw * ((3 if cross else 2) * T) * C * 2
+              + sum(t.numel() * t.element_size() for t in p))
+    flops = nw * layer_flops(T, C, p.f1w.shape[0])
+    kt = xp.clone()
+    ms = time_ms(torch, lambda: fk(kt), iters=10)
+    pt = xp.clone()
+    plain_ms = time_ms(torch, lambda: fp(pt), iters=3, warmup=1)
+    b, by = bound_ms(nbytes, flops)
+    log(f'  K12 {label} T={T}: {nw} of {ci.valid.numel()} windows, '
+        f'max_abs_err {err:.3g} (mean {mean:.2g}), {int(inside.sum())} cells '
+        f'inside, the other {int((~inside).sum())} unchanged; kernel '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by})')
+    if label == 'stage-1 self full':
+        site = 'tmae_tpu/ops/pallas_encoder.py:'
+        src = 'tmae_tpu_torch/csrc/encoder_layer.cu'
+        entry('encoder_fused_pipelined', 'K12', src, site + '2121', err, ms,
+              plain_ms, nbytes, flops, None)
+        entry('encoder_fused_inplace', 'K12', src, site + '1933', err, ms,
+              plain_ms, nbytes, flops, None, closed_by='K12')
+
+
 def train_layer_calls(torch, model, batch):
     """The inputs of the training layer (K6 / K8 forward, K7 / K9 backward)
     as one train-mode forward of ``batch`` hands them over: for each width,
@@ -396,12 +492,16 @@ def train_layer_calls(torch, model, batch):
 def train_check(torch, el, call, gen, entry):
     """K6 / K8 and K7 / K9 on one bucket against their plain versions on
     the same card. Forward: bf16 output, max |diff| <= 0.15 and mean <=
-    2e-3 (as K3/K4). Backward, each of dx, dkv, the 17 parameter gradients
-    and (K7) dpos: max |diff| <= 5e-2 and mean <= 5e-3 of the output's
-    scale (the kernels round the backward's matmul operands to bf16 as the
-    TPU kernel does; the plain version is autograd in f32); dtau, one sum
-    over all windows and heads, within 10% of its value. The C=128 self
-    (stage-1) small (S=16) and full buckets go into the kernels line."""
+    2e-3 (as K3/K4). Backward, for each of BWD_DRAWS random cotangents,
+    each of dx, dkv, the 17 parameter gradients but tau and (K7) dpos: max
+    |diff| <= 5e-2 and mean <= 5e-3 of the output's scale (the kernels
+    round the backward's matmul operands to bf16 as the TPU kernel does;
+    the plain version is autograd in f32). dtau, one sum over all windows
+    and heads, is linear in the cotangent and zero on average over random
+    ones, so one draw's error over its value has no bounded spread (see
+    :func:`grid_check`): its error is held within 10% of its value in root
+    mean square over the draws. The C=128 self (stage-1) small (S=16) and
+    full buckets go into the kernels line."""
     x, kvw, sq, sk, qm, km, pos, (nhead, tau_min, cross), p, *weights = call
     S = None if sq is None else sq.shape[-1]
     weights = [w.detach() for w in weights]
@@ -419,38 +519,48 @@ def train_check(torch, el, call, gen, entry):
     if not (ferr <= 0.15 and fmean <= 2e-3):
         raise AssertionError(f'{kname[0]} {label} T={T} differs from its '
                              f'plain version: max {ferr} mean {fmean}')
-    g = torch.randn(x.shape, generator=gen, device=x.device).to(torch.bfloat16)
     dpos = S is None
-    bk = lambda: el.encoder_layer_bwd(*args, weights, g, want_dpos=dpos, **kw)
-    bp = lambda: el.reference_encoder_layer_bwd(*args, weights, g,
-                                                want_dpos=dpos, **kw)
-    rk, rp = bk(), bp()
-    torch.cuda.synchronize()
     names = ['dx', 'dkv'] + list(el.LayerParams._fields) + ['dpos']
-    worst = (0.0, '')
-    for name, a, b in zip(names, [rk[0], rk[1], *rk[2], rk[3]],
-                          [rp[0], rp[1], *rp[2], rp[3]]):
-        if (a is None) != (b is None):
-            raise AssertionError(f'{kname[1]} {label}: {name} missing')
-        if a is None:
-            continue
-        a, b = a.float(), b.float()
-        if not torch.isfinite(a).all():
-            raise AssertionError(f'{kname[1]} {label}: {name} not finite')
-        scale = b.abs().max().item()
-        e = (a - b).abs()
-        if name == 'tau':
-            ok = e.item() <= 0.1 * scale
-        else:
-            ok = (e.max().item() <= 5e-2 * scale
-                  and e.mean().item() <= 5e-3 * scale)
-        if not ok:
-            raise AssertionError(
-                f'{kname[1]} {label} T={T}: {name} differs from its plain '
-                f'version: max {e.max().item()} mean {e.mean().item()} '
-                f'scale {scale}')
-        worst = max(worst, (e.max().item() / max(scale, 1e-30), name))
-    berr = (rk[0].float() - rp[0].float()).abs().max().item()
+    worst, berr, errs, refs = (0.0, ''), 0.0, [], []
+    for _ in range(BWD_DRAWS):
+        g = torch.randn(x.shape, generator=gen, device=x.device).to(
+            torch.bfloat16)
+        bk = lambda: el.encoder_layer_bwd(*args, weights, g, want_dpos=dpos,
+                                          **kw)
+        bp = lambda: el.reference_encoder_layer_bwd(*args, weights, g,
+                                                    want_dpos=dpos, **kw)
+        rk, rp = bk(), bp()
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, [rk[0], rk[1], *rk[2], rk[3]],
+                              [rp[0], rp[1], *rp[2], rp[3]]):
+            if (a is None) != (b is None):
+                raise AssertionError(f'{kname[1]} {label}: {name} missing')
+            if a is None:
+                continue
+            a, b = a.float(), b.float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f'{kname[1]} {label}: {name} not '
+                                     'finite')
+            if name == 'tau':
+                errs.append((a - b).item())
+                refs.append(b.item())
+                continue
+            scale = b.abs().max().item()
+            e = (a - b).abs()
+            if not (e.max().item() <= 5e-2 * scale
+                    and e.mean().item() <= 5e-3 * scale):
+                raise AssertionError(
+                    f'{kname[1]} {label} T={T}: {name} differs from its '
+                    f'plain version: max {e.max().item()} mean '
+                    f'{e.mean().item()} scale {scale}')
+            worst = max(worst, (e.max().item() / max(scale, 1e-30), name))
+        berr = max(berr, (rk[0].float() - rp[0].float()).abs().max().item())
+    rms = lambda v: math.sqrt(sum(t * t for t in v) / len(v))
+    dtau = rms(errs) / max(rms(refs), 1e-30)
+    if not dtau <= 0.1:
+        raise AssertionError(
+            f'{kname[1]} {label} T={T}: dtau differs from its plain version '
+            f'by {dtau:.3g} in root mean square over {BWD_DRAWS} draws')
     C, Fd, N = x.shape[-1], p.f1w.shape[0], x.shape[0]
     nw = int((qm > 0).any(-1).sum())
     win = 64 * C * 2
@@ -471,9 +581,12 @@ def train_check(torch, el, call, gen, entry):
     bb, byb = bound_ms(bwd_bytes, bwd_flops)
     log(f'  {kname[0]}/{kname[1]} {label} T={T}: {nw} of {N} windows; '
         f'forward max_abs_err {ferr:.3g} (mean {fmean:.2g}), {ms_f:.4f} ms, '
-        f'bound {bf:.4f} ms ({byf}); backward dx max_abs_err {berr:.3g}, '
-        f'worst relative {worst[0]:.3g} ({worst[1]}), {ms_b:.4f} ms, bound '
-        f'{bb:.4f} ms ({byb})')
+        f'bound {bf:.4f} ms ({byf}); backward over {BWD_DRAWS} cotangents: '
+        f'dx max_abs_err {berr:.3g}, worst relative {worst[0]:.3g} '
+        f'({worst[1]}), dtau relative error {dtau:.3g} in root mean square '
+        '(each draw: ' + ', '.join(f'{e / max(abs(r), 1e-30):.3g}'
+                                   for e, r in zip(errs, refs))
+        + f'), {ms_b:.4f} ms, bound {bb:.4f} ms ({byb})')
     if label == 'C=128 self' and T in (16, 64):
         full = S is None
         fsrc = 'tmae_tpu_torch/csrc/encoder_layer.cu'
@@ -501,7 +614,16 @@ def kernels():
             'K3': encoder_layer.K3, 'K4': encoder_layer.K4,
             'K5': sorted_segments.K5, 'K6': encoder_layer.K6,
             'K7': encoder_layer.K7, 'K8': encoder_layer.K8,
-            'K9': encoder_layer.K9, 'K10': encoder_layer.K10}
+            'K9': encoder_layer.K9, 'K10': encoder_layer.K10,
+            'K12': encoder_layer.K12}
+
+
+def fill_launches(rows, launches, names):
+    """The launch counts of the path that runs kernels ``names`` into their
+    rows of the kernels line."""
+    for row in rows:
+        if row['kernel'] in names:
+            row['launches'] = launches[row['kernel']]
 
 
 def counted(torch, fn):
@@ -515,11 +637,13 @@ def counted(torch, fn):
     return out, {name: k.launches for name, k in ks.items()}
 
 
-def serve_once(torch, cfg, model, batch):
+def serve_once(torch, cfg, model, batch, **fwd):
+    """One serving pass: the forward (``fwd``: its streaming arguments),
+    decode and host NMS."""
     from tmae_tpu_torch.models.detectors import centerpoint_predict, host_nms
 
     with torch.no_grad():
-        out = model(batch)
+        out = model(batch, **fwd)
         boxes, scores, labels, valid = centerpoint_predict(cfg, out)
         keep = host_nms(cfg, boxes, scores, labels, valid)
     return out, (boxes, scores, labels, keep)
@@ -579,30 +703,50 @@ def small_grid(cfg):
         host_voxelize=bool(small.RUNTIME.get('HOST_VOXELIZE')))
 
 
-def card_vs_cpu(torch, cfg, np_batch, seed):
+def stream_cache(torch, model, batch):
+    """The first step of a stream: the previous frame of ``batch`` encoded
+    alone (``return_hidden``); returns its pyramid, which a streaming pass
+    of the pair takes as ``cached_prev``."""
+    from tmae_tpu_torch.models.detectors import previous_frame_batch
+
+    with torch.no_grad():
+        return model(previous_frame_batch(batch),
+                     return_hidden=True)['hidden_cur']
+
+
+def compare_maps(torch, what, got, want):
+    """Every head map of ``got`` finite and within max |diff| <= 0.1 and
+    mean <= 5e-3 of its scale of ``want``'s (bf16 carriers; summation
+    order differs)."""
+    for name, a in got['pred_dicts'][0].items():
+        b = want['pred_dicts'][0][name]
+        d = (a.float().cpu() - b.float().cpu()).abs()
+        scale = max(1.0, b.abs().max().item())
+        log(f'  {name}: max_abs_err {d.max().item():.3g} (ref max '
+            f'{b.abs().max().item():.3g}, mean err {d.mean().item():.2g})')
+        if not torch.isfinite(a).all():
+            raise AssertionError(f'{name}: non-finite values')
+        if d.max().item() > 0.1 * scale or d.mean().item() > 5e-3 * scale:
+            raise AssertionError(f'{name}: {what} disagree')
+
+
+def card_vs_cpu(torch, cfg, np_batch, seed, stream=False):
     """The detector with the same seeded weights on the card (kernels) and
-    on the CPU (plain versions), same frames: every head map must be finite
-    and agree to max |diff| <= 0.1 and mean <= 5e-3 of its scale (bf16
-    carriers; summation order differs)."""
+    on the CPU (plain versions), same frames, head maps compared by
+    :func:`compare_maps`; with ``stream``, the streaming pass of the pair
+    on both."""
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
 
     outs = []
     for dev in ('cuda', 'cpu'):
         model = init_random_(build_detector(cfg, dev), seed=seed)
+        batch = batch_to_device(np_batch, dev)
+        hid = stream_cache(torch, model, batch) if stream else None
         with torch.no_grad():
-            outs.append(model(batch_to_device(np_batch, dev)))
+            outs.append(model(batch, cached_prev=hid))
     torch.cuda.synchronize()
-    for name, a in outs[0]['pred_dicts'][0].items():
-        b = outs[1]['pred_dicts'][0][name]
-        d = (a.float().cpu() - b.float()).abs()
-        scale = max(1.0, b.abs().max().item())
-        log(f'  {name}: max_abs_err {d.max().item():.3g} (ref max '
-            f'{b.abs().max().item():.3g}, mean err {d.mean().item():.2g})')
-        if not torch.isfinite(a).all():
-            raise AssertionError(f'{name}: non-finite values on the card')
-        if d.max().item() > 0.1 * scale or d.mean().item() > 5e-3 * scale:
-            raise AssertionError(f'{name}: card and CPU disagree')
+    compare_maps(torch, 'card and CPU', *outs)
 
 
 # ---------------------------------------------------------------------------
@@ -1159,21 +1303,23 @@ def pretrain_card_vs_cpu(torch, cfg, np_batch, seed):
     train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=mask)
 
 
-def serve_phase(torch, cfg, model, batch, expected, reps, profile=None):
-    """Serving passes of one frame pair at full width: two warm-up passes;
-    launch counters set to 0, one pass (forward, decode, host NMS), the
-    counts checked against ``expected``; head maps and BEV features of the
-    config's full grid finite, boxes finite; then ``reps`` timed passes and,
-    with ``profile`` (a file name), a profiled one. Returns (launches,
-    median ms per frame pair)."""
+def serve_phase(torch, cfg, model, batch, expected, reps, profile=None,
+                **fwd):
+    """Serving passes of one frame pair at full width (``fwd``: the
+    forward's streaming arguments): two warm-up passes; launch counters set
+    to 0, one pass (forward, decode, host NMS), the counts checked against
+    ``expected``; head maps and BEV features of the config's full grid
+    finite, boxes finite; then ``reps`` timed passes and, with ``profile``
+    (a file name), a profiled one. Returns (launches, median ms per frame
+    pair, the counted pass's outputs)."""
     from tmae_tpu_torch.models.detectors import make_voxel_spec
 
     for _ in range(2):
-        serve_once(torch, cfg, model, batch)
+        serve_once(torch, cfg, model, batch, **fwd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     (out, (boxes, _, _, keep)), launches = counted(
-        torch, lambda: serve_once(torch, cfg, model, batch))
+        torch, lambda: serve_once(torch, cfg, model, batch, **fwd))
     log(f'  launches per frame pair: {launches} (expected {expected})')
     if launches != expected:
         raise AssertionError('launch counts differ from the serving path')
@@ -1194,7 +1340,7 @@ def serve_phase(torch, cfg, model, batch, expected, reps, profile=None):
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve_once(torch, cfg, model, batch)
+        serve_once(torch, cfg, model, batch, **fwd)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
@@ -1203,8 +1349,82 @@ def serve_phase(torch, cfg, model, batch, expected, reps, profile=None):
         'device memory of the serving passes '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     if profile:
-        profile_pass(torch, cfg, model, batch, profile)
-    return launches, med
+        profile_pass(torch, cfg, model, batch, profile, **fwd)
+    return launches, med, out
+
+
+def device_ms(torch, fn):
+    """The device time of one call of ``fn`` in ms: the self device time of
+    the profiler's device events (kernels, copies, sets), summed as its
+    table's "Self CUDA time total" sums them; None where the profiler saw
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, 'is_user_annotation', False)) / 1e3
+    return total or None
+
+
+def fused_serving(torch, cfg, model, batch, stateless, profile=False):
+    """The serving pass on the fused in-place layer path (K12), as
+    TMAE_FUSED_INPLACE=1 selects it: served as :func:`serve_phase` serves,
+    head maps held to ``stateless`` (the default path's, same weights and
+    frames) by :func:`compare_maps`. Returns (launches, median ms, the
+    counted pass's outputs)."""
+    from tmae_tpu_torch.models import sst
+
+    sst._FUSED_INPLACE = True
+    try:
+        launches, med, out = serve_phase(
+            torch, cfg, model, batch, EXPECTED_FUSED, REPS,
+            profile and 'profile_fused.txt')
+        log('  head maps, fused path vs default path')
+        compare_maps(torch, 'fused and default paths', out, stateless)
+    finally:
+        sst._FUSED_INPLACE = False
+    return launches, med, out
+
+
+def streaming_serving(torch, cfg, model, batch, stateless, fused):
+    """Streaming serving on the default or (``fused``) the fused path: the
+    previous frame encoded alone, then served as :func:`serve_phase`
+    serves with ``cached_prev`` (counts: K5 once); head maps held to
+    ``stateless`` (the stateless pass of the same path) by
+    :func:`compare_maps` (the current frame runs alone at batch 1, where
+    the stateless pass batches both frames, so the card may pick other
+    convolution algorithms); the device time of one streaming and one
+    stateless forward; the streaming pass card vs CPU on a 64x64 grid.
+    Returns (median ms per frame, the two device times)."""
+    from tmae_tpu_torch.models import sst
+
+    sst._FUSED_INPLACE = fused
+    try:
+        hid = stream_cache(torch, model, batch)
+        _, med, counted_out = serve_phase(
+            torch, cfg, model, batch,
+            EXPECTED_STREAM_FUSED if fused else EXPECTED_STREAM, REPS,
+            cached_prev=hid)
+        log('  head maps, streaming vs stateless pass')
+        compare_maps(torch, 'streaming and stateless passes', counted_out,
+                     stateless)
+        with torch.no_grad():
+            dev = (device_ms(torch, lambda: model(batch, cached_prev=hid)),
+                   device_ms(torch, lambda: model(batch)))
+        log(f'  device ms per forward: streaming {dev[0]}, stateless '
+            f'{dev[1]}')
+        del hid, counted_out
+        log('  streaming card vs CPU, full width on a 64x64 grid')
+        card_vs_cpu(torch, *small_grid(cfg), seed=7, stream=True)
+    finally:
+        sst._FUSED_INPLACE = False
+    return med, dev
 
 
 def waymo_serving(torch, cfg, profile=False):
@@ -1222,9 +1442,9 @@ def waymo_serving(torch, cfg, profile=False):
         spec, list(cfg.CLASS_NAMES), indices=(0,), host_voxelize=False),
         'cuda')
     model = init_random_(build_detector(cfg), seed=0)
-    _, med = serve_phase(torch, cfg, model, batch, EXPECTED_WAYMO_SERVING,
-                         WAYMO_REPS,
-                         profile and 'profile_waymo_serving.txt')
+    _, med, _ = serve_phase(torch, cfg, model, batch, EXPECTED_WAYMO_SERVING,
+                            WAYMO_REPS,
+                            profile and 'profile_waymo_serving.txt')
     del model, batch
     log('  card vs CPU, full width on a 64x64 grid')
     card_vs_cpu(torch, *small_grid(cfg), seed=7)
@@ -1300,28 +1520,37 @@ def main(argv=None):
     torch.cuda.synchronize()
     log(f'  peak device memory before it (kernels phase) '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    launches, med = serve_phase(torch, cfg, model, batch, EXPECTED_LAUNCHES,
-                                REPS, args.profile and 'profile.txt')
+    launches, med, stateless = serve_phase(
+        torch, cfg, model, batch, EXPECTED_LAUNCHES, REPS,
+        args.profile and 'profile.txt')
     split = split_times(torch, cfg, model, batch, REPS)
     log('  median ms by part: ' + ', '.join(f'{k} {v:.2f}'
                                             for k, v in split.items()))
-    for row in rows:
-        if not row['name'].startswith('encoder_train'):
-            row['launches'] = launches[row.pop('kernel')]
+    fill_launches(rows, launches, ('K1', 'K2', 'K3', 'K4', 'K5'))
 
     log('phase reference: card vs CPU, full size')
     card_vs_cpu(torch, cfg, np_batch, seed=0)
     log('phase reference: card vs CPU, full width on a 64x64 grid')
     card_vs_cpu(torch, *small_grid(cfg), seed=7)
 
+    log('phase fused serving (t_mae.yaml, the fused in-place layer path)')
+    fused_launches, fused_ms, stateless_fused = fused_serving(
+        torch, cfg, model, batch, stateless, args.profile)
+    fill_launches(rows, fused_launches, ('K12',))
+    stream = {}
+    for fused, ref in ((False, stateless), (True, stateless_fused)):
+        path = 'fused' if fused else 'default'
+        log(f'phase streaming serving (t_mae.yaml, {path} path)')
+        stream[path] = streaming_serving(torch, cfg, model, batch, ref,
+                                         fused)
+    del stateless, stateless_fused
+
     log('phase training (t_mae.yaml, full width and depth, '
         f'{len(TRAIN_PAIRS)} frame pairs)')
     del model, batch
     torch.cuda.empty_cache()
     train_launches, train = train_phase(torch, cfg, spec, rows, args.profile)
-    for row in rows:
-        if row['name'].startswith('encoder_train'):
-            row['launches'] = train_launches[row.pop('kernel')]
+    fill_launches(rows, train_launches, ('K6', 'K7', 'K8', 'K9'))
 
     log('phase training reference: one step, card vs CPU, full width on a '
         '64x64 grid')
@@ -1335,9 +1564,7 @@ def main(argv=None):
     grid_launches, pre = pretrain_phase(
         torch, ssl_waymo, TRAIN_STEPS, EXPECTED_PRETRAIN_GRID, rows,
         args.profile and 'profile_pretrain_waymo.txt')
-    for row in rows:
-        if row['name'] == 'encoder_grid':
-            row['launches'] = grid_launches[row.pop('kernel')]
+    fill_launches(rows, grid_launches, ('K10',))
     torch.cuda.empty_cache()
     log('phase pretraining (t_mae_ssl.yaml, bucketed, full width and depth, '
         f'{len(TRAIN_PAIRS)} frame pairs)')
@@ -1356,9 +1583,18 @@ def main(argv=None):
         args.profile)
 
     log(f'total {time.perf_counter() - t_start:.1f} s')
+    for row in rows:
+        del row['kernel']
     print(json.dumps({
         'kernels': rows, 'serving_ms_per_pair': med,
-        'frames_per_s': 1e3 / med, **train,
+        'frames_per_s': 1e3 / med, 'fused_serving_ms_per_pair': fused_ms,
+        **{f'streaming_{path}_ms_per_frame': v[0]
+           for path, v in stream.items()},
+        **{f'streaming_{path}_device_ms': v[1][0]
+           for path, v in stream.items()},
+        **{f'stateless_{path}_device_ms': v[1][1]
+           for path, v in stream.items()},
+        **train,
         **{f'pretrain_waymo_{k}': v for k, v in pre.items()},
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms}), flush=True)
@@ -1369,7 +1605,7 @@ def main(argv=None):
     return 0
 
 
-def profile_pass(torch, cfg, model, batch, name='profile.txt'):
+def profile_pass(torch, cfg, model, batch, name='profile.txt', **fwd):
     """Device time by kernel name over one serving pass (torch.profiler):
     the top rows logged, every row in ``name`` under the output
     directory."""
@@ -1377,7 +1613,7 @@ def profile_pass(torch, cfg, model, batch, name='profile.txt'):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve_once(torch, cfg, model, batch)
+        serve_once(torch, cfg, model, batch, **fwd)
         torch.cuda.synchronize()
     avg = prof.key_averages()
     (OUT_DIR / name).write_text(

@@ -1,5 +1,6 @@
-// Kernels K3, K4, K6, K8 and K10: the cosine-attention SST encoder layer on
-// gathered windows (K3-K8) and on the dense BEV grid (K10).
+// Kernels K3, K4, K6, K8, K10 and K12: the cosine-attention SST encoder layer
+// on gathered windows (K3-K8), on the dense BEV grid (K10) and on the windows
+// of a plan straight in the padded carrier (K12).
 //
 // Replace tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full (kernel
 // _kernel_rows_full -> _layer_body) and encoder_layer_rows_sel (kernel
@@ -27,6 +28,26 @@
 // output grid. A window with no occupied query cell has an all-zero output
 // (it is masked by the query mask), so its block writes zeros and exits: on
 // a LiDAR frame most windows of the stride-1 grid are empty.
+//
+// K12 replaces tmae_tpu/ops/pallas_encoder.py:encoder_layer_fused_pipelined
+// (kernel _kernel_fused_piped) and closes encoder_layer_fused_inplace
+// (kernels _kernel_fused_full, _kernel_fused_sel), which compute the same
+// function: gather DMA, the K3 (full) or K4 (S selected cells) layer, scatter
+// DMA, over the windows of one bucket plan against the padded carrier
+// [B, Hp + 8, Wp, C], aliased. Here the gather and scatter are the
+// addressing: one block per (plan slot, sample) reads its window (wy, wx)
+// from the plan, and token i, a window cell c (c = i, or sel[i]), is the row
+// at carrier cell (8 wy + c / 8, 8 wx + c % 8) of its frame, in kv's carrier
+// at the same offset in cross mode. The block reads every token before it
+// writes (below), and the plan's windows are disjoint, so the update is in
+// place; the full layer writes all 64 cells, the packed one x + delta on its
+// occupied selected cells only, so every other cell keeps its content (the
+// TPU kernel writes the whole window back from VMEM, with the same result).
+// A dummy slot (wy >= nwy: the padding of a plan, which names the window row
+// below the padded grid) exits without writing. The TPU kernel
+// double-buffers its window DMAs across grid steps; here each block loads
+// its own window, and overlapping loads with compute (cp.async / TMA) is
+// later work.
 //
 // Bound: operations. Per window the layer does 2*T*C*C*4 (q, k, v, out) +
 // 2*T*C*F*2 (FFN) + 2*T*T*C*2 (logits, p.v) multiply-adds-as-2-flops,
@@ -90,6 +111,11 @@ struct Params {
   // the partition offset
   const unsigned char *qocc, *kocc;
   int gh, gw, nwx, off;
+  // K12 only (widx != nullptr): the plan's window coordinates [B, cap, 2]
+  // (wy, wx) into the padded carrier [B, gh, gw, C] (gh = Hp + 8 rows,
+  // gw = Wp columns) whose real window rows are 0 .. nwy - 1
+  const int* widx;
+  int nwy;
 };
 
 // Copies T token rows into shared memory: token i is the row at
@@ -284,28 +310,45 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     const long long slot = (long long)blockIdx.y * p.cap + blockIdx.x;
-    const long long row =
-        (long long)blockIdx.y * p.total + p.row_lo + blockIdx.x;
-    xbase = p.xw + row * kCells * C;
-    obase = p.out + row * kCells * C;
-    if (p.selq && obase != xbase) {  // K8: unselected cells pass through
-      for (int t = tid; t < kCells * C / 8; t += kThreads)
-        reinterpret_cast<uint4*>(obase)[t] =
-            reinterpret_cast<const uint4*>(xbase)[t];
+    // element offset of window cell c from the base: the window row of the
+    // gathered tensor (K3-K8), or the carrier cell (K12)
+    int origin = 0, cell_ld = 8;
+    if (p.widx) {  // K12
+      const int wy = p.widx[2 * slot];
+      const int wx = p.widx[2 * slot + 1];
+      if (wy < 0 || wy >= p.nwy || wx < 0 || (wx + 1) * 8 > p.gw)
+        return;  // a dummy slot: no window to update
+      const long long frame = (long long)blockIdx.y * p.gh * p.gw;
+      xbase = p.xw + frame * C;
+      obase = p.out + frame * C;
+      kvbase = p.cross ? p.kvw + frame * C : nullptr;
+      origin = wy * 8 * p.gw + wx * 8;
+      cell_ld = p.gw;
+    } else {
+      const long long row =
+          (long long)blockIdx.y * p.total + p.row_lo + blockIdx.x;
+      xbase = p.xw + row * kCells * C;
+      obase = p.out + row * kCells * C;
+      if (p.selq && obase != xbase) {  // K8: unselected cells pass through
+        for (int t = tid; t < kCells * C / 8; t += kThreads)
+          reinterpret_cast<uint4*>(obase)[t] =
+              reinterpret_cast<const uint4*>(xbase)[t];
+      }
+      kvbase = p.cross ? p.kvw + row * kCells * C : nullptr;
     }
-    kvbase = p.cross ? p.kvw + row * kCells * C : nullptr;
     for (int i = tid; i < T; i += kThreads) {
       const float qm = p.qmask[slot * T + i];
       qm_s[i] = qm;
       km_s[i] = p.cross ? p.kmask[slot * T + i] : qm;
       const int sq =
           p.selq ? min(max(p.selq[slot * T + i], 0), kCells - 1) : i;
+      const int sk = (p.cross && p.selk)
+                         ? min(max(p.selk[slot * T + i], 0), kCells - 1)
+                         : sq;
       sq_s[i] = sq;
-      sk_s[i] = (p.cross && p.selk)
-                    ? min(max(p.selk[slot * T + i], 0), kCells - 1)
-                    : sq;
-      qoff_s[i] = sq * C;
-      koff_s[i] = sk_s[i] * C;
+      sk_s[i] = sk;
+      qoff_s[i] = (origin + (sq >> 3) * cell_ld + (sq & 7)) * C;
+      koff_s[i] = (origin + (sk >> 3) * cell_ld + (sk & 7)) * C;
     }
   }
   __syncthreads();
@@ -596,6 +639,8 @@ Params make_params(const void* xw, void* out, const void* kvw,
   p.tau_min = tau_min;
   p.qocc = p.kocc = nullptr;
   p.gh = p.gw = p.nwx = p.off = 0;
+  p.widx = nullptr;
+  p.nwy = 0;
   return p;
 }
 
@@ -678,4 +723,28 @@ extern "C" int launch_encoder_grid(const void* xg, const void* kvg, void* out,
   p.nwx = nwx;
   p.off = shift ? 4 : 8;
   return launch_rows<kCells>(p, B, static_cast<cudaStream_t>(stream));
+}
+
+// K12: the layer over the windows of one bucket plan idx [B, cap, 2] of the
+// padded carrier xp [B, Hp2, Wp, C], in place (kvp likewise in cross mode,
+// never xp itself): T = 64 (selq null, masks [B, cap, 64]) or the S = T
+// selected cells (selq / selk and masks [B, cap, S]).
+extern "C" int launch_encoder_inplace(void* xp, const void* kvp,
+                                      const void* idx, const void* selq,
+                                      const void* selk, const void* qmask,
+                                      const void* kmask, const void* pos,
+                                      const void* const* w, int B, int Hp2,
+                                      int Wp, int cap, int C, int F, int H,
+                                      int T, int cross, float tau_min,
+                                      void* stream) {
+  if (!shape_ok(C, F, H) || idx == nullptr || Hp2 % 8 || Wp % 8 ||
+      (T != kCells && selq == nullptr) || (cross && kvp == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(xp, xp, kvp, selq, selk, qmask, kmask, pos, w, cap,
+                         cap, 0, C, F, H, cross, tau_min);
+  p.widx = static_cast<const int*>(idx);
+  p.gh = Hp2;
+  p.gw = Wp;
+  p.nwy = Hp2 / 8 - 1;
+  return launch_sel(p, B, T, static_cast<cudaStream_t>(stream));
 }

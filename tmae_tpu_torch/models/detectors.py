@@ -82,20 +82,36 @@ def _backbone_args(cfg) -> dict:
                 remat=remat_stages(runtime, n))
 
 
-def _run_vfe(vfe, spec, batch):
-    """Both frames through the VFE: (VoxelSet cur, VoxelSet prv, the
-    current frame's VFE outputs)."""
+def _run_vfe(vfe, spec, batch, prev_needed: bool = True):
+    """Both frames through the VFE (the current one only when not
+    ``prev_needed``): (VoxelSet cur, VoxelSet prv or None, the current
+    frame's VFE outputs)."""
     def hostvox(which):
         return {k: batch[f'{short}_{which}'] for k, short in HOSTVOX_KEYS
                 if f'{short}_{which}' in batch}
 
     cur, prv = vfe(batch['points'], batch['point_mask'],
-                   batch['points_prev'], batch['point_mask_prev'],
-                   hostvox('cur'), hostvox('prv'))
+                   batch.get('points_prev'), batch.get('point_mask_prev'),
+                   hostvox('cur'), hostvox('prv'), prev_needed=prev_needed)
     hw = _grid_hw(spec)
-    vs = [VoxelSet(d['voxel_features'], d['voxel_coords'], d['voxel_mask'],
+    vs = [None if d is None else
+          VoxelSet(d['voxel_features'], d['voxel_coords'], d['voxel_mask'],
                    hw) for d in (cur, prv)]
     return vs[0], vs[1], cur
+
+
+def previous_frame_batch(batch: dict) -> dict:
+    """The batch with its previous frame in the current frame's place (the
+    points, their mask and every host-voxelization key together), as the
+    first step of a stream encodes it to start the cache; the
+    previous-frame entries stay as they are."""
+    out = dict(batch)
+    out['points'], out['point_mask'] = (batch['points_prev'],
+                                        batch['point_mask_prev'])
+    for _, short in HOSTVOX_KEYS:
+        if f'{short}_prv' in batch:
+            out[f'{short}_cur'] = batch[f'{short}_prv']
+    return out
 
 
 class CenterPoint(nn.Module):
@@ -117,16 +133,30 @@ class CenterPoint(nn.Module):
         self.dense_head = CenterHead(model_cfg['DENSE_HEAD'],
                                      self.backbone_2d.out_channels)
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, cached_prev=None,
+                return_hidden: bool = False):
         """Returns ``pred_dicts`` (NHWC head maps per group),
         ``spatial_features_2d`` and ``occ_overflow`` ([stages*2, B]: occupied
-        windows over a bucket cap, SST stages then WCA blocks)."""
-        vs_cur, vs_prv, _ = _run_vfe(self.vfe, self.spec, batch)
-        spatial, overflow = self.backbone_3d(vs_cur, vs_prv)
+        windows over a bucket cap, SST stages then WCA blocks).
+
+        Streaming serving: ``return_hidden=True`` adds ``hidden_cur``, the
+        current frame's SST pyramid (a list of per-stage ``DenseGrid``);
+        handed to the next frame's pass as ``cached_prev``, it stands for
+        that pass's previous frame, whose VFE and SST stages are then
+        skipped (the batch's previous-frame entries are not read and may be
+        left out)."""
+        vs_cur, vs_prv, _ = _run_vfe(self.vfe, self.spec, batch,
+                                     prev_needed=cached_prev is None)
+        spatial, overflow, *hidden = self.backbone_3d(
+            vs_cur, vs_prv, cached_prev=cached_prev,
+            return_hidden=return_hidden)
         spatial2d = self.backbone_2d(spatial)
-        return {'pred_dicts': self.dense_head(spatial2d),
-                'spatial_features_2d': spatial2d,
-                'occ_overflow': torch.stack(overflow)}
+        out = {'pred_dicts': self.dense_head(spatial2d),
+               'spatial_features_2d': spatial2d,
+               'occ_overflow': torch.stack(overflow)}
+        if return_hidden:
+            out['hidden_cur'] = hidden[0]
+        return out
 
 
 class TMAE(nn.Module):

@@ -85,24 +85,36 @@ class SiamWCAEncoder(nn.Module):
             self.wca_blocks.append(wca)
             cin = int(ecfg['D_MODEL'])
 
-    def forward(self, grid_cur: DenseGrid, grid_prv: DenseGrid):
-        """Returns (fused per-scale grids of the current frame, overflow
-        per stage: a list of [B] counts, SST then WCA)."""
+    def forward(self, grid_cur: DenseGrid, grid_prv: DenseGrid | None,
+                hid_prv=None):
+        """Returns (fused per-scale grids of the current frame, overflow per
+        stage: a list of [B] counts, SST then WCA, the current frame's
+        per-stage pyramid). Both frames run through the SST stages in one
+        batch of 2B; with ``hid_prv``, the previous frame's pyramid from a
+        cache (the previous streaming step's current pyramid), only the
+        current frame does (batch B), ``grid_prv`` is not read, and the SST
+        overflow counts the current frame only."""
         B = grid_cur.x.shape[0]
-        x = DenseGrid(torch.cat([grid_cur.x, grid_prv.x], 0),
-                      torch.cat([grid_cur.occ, grid_prv.occ], 0))
-        fused, overflow = [], []
-        hidden = []
+        if hid_prv is None:
+            x = DenseGrid(torch.cat([grid_cur.x, grid_prv.x], 0),
+                          torch.cat([grid_cur.occ, grid_prv.occ], 0))
+        else:
+            x = grid_cur
+        hid_cur, overflow = [], []
+        prv = [] if hid_prv is None else list(hid_prv)
         for blk in self.sst_blocks:
             x, ov = blk(x)
-            hidden.append(x)
-            overflow.append(ov[:B] + ov[B:])
-        for h, wca in zip(hidden, self.wca_blocks):
-            f, ov = wca(DenseGrid(h.x[:B], h.occ[:B]),
-                        DenseGrid(h.x[B:], h.occ[B:]))
+            hid_cur.append(DenseGrid(x.x[:B], x.occ[:B]))
+            if hid_prv is None:
+                prv.append(DenseGrid(x.x[B:], x.occ[B:]))
+                ov = ov[:B] + ov[B:]
+            overflow.append(ov)
+        fused = []
+        for h, hp, wca in zip(hid_cur, prv, self.wca_blocks):
+            f, ov = wca(h, hp)
             fused.append(f)
             overflow.append(ov)
-        return fused, overflow
+        return fused, overflow, hid_cur
 
 
 class SiamWCA(nn.Module):
@@ -114,13 +126,25 @@ class SiamWCA(nn.Module):
         self.fuse = PyramidFuse([dict(model_cfg['FUSE_LAYER'][src])
                                  for src in model_cfg['FEATURES_SOURCE']])
 
-    def forward(self, vs_cur: VoxelSet, vs_prv: VoxelSet):
+    def forward(self, vs_cur: VoxelSet, vs_prv: VoxelSet | None,
+                cached_prev=None, return_hidden: bool = False):
+        """Returns (spatial features, overflow per stage) and, with
+        ``return_hidden``, the current frame's pyramid. Streaming serving
+        passes the previous step's pyramid as ``cached_prev``: on
+        consecutive frames it is this step's previous-frame pyramid, so the
+        previous frame is not encoded again (``vs_prv`` may be None)."""
         g_cur = DenseGrid(vs_cur.to_dense().to(CARRIER_DTYPE),
                           vs_cur.occupancy())
-        g_prv = DenseGrid(vs_prv.to_dense().to(CARRIER_DTYPE),
-                          vs_prv.occupancy())
-        fused, overflow = self.encoder(g_cur, g_prv)
-        return self.fuse([f.x for f in fused]), overflow
+        g_prv = None
+        if cached_prev is None:
+            g_prv = DenseGrid(vs_prv.to_dense().to(CARRIER_DTYPE),
+                              vs_prv.occupancy())
+        fused, overflow, hidden = self.encoder(g_cur, g_prv,
+                                               hid_prv=cached_prev)
+        spatial = self.fuse([f.x for f in fused])
+        if return_hidden:
+            return spatial, overflow, hidden
+        return spatial, overflow
 
 
 def random_voxel_mask(voxel_mask: torch.Tensor, num_voxels: torch.Tensor,
@@ -204,7 +228,7 @@ class SiamWCA_MAE(nn.Module):
         g_vis = DenseGrid(vis.to_dense().to(CARRIER_DTYPE), vis.occupancy())
         g_prv = DenseGrid(vs_prv.to_dense().to(CARRIER_DTYPE),
                           vs_prv.occupancy())
-        fused, overflow = self.encoder(g_vis, g_prv)
+        fused, overflow, _ = self.encoder(g_vis, g_prv)
         spatial = self.decoder_fuse([f.x for f in fused])
         B, V = vs_cur.mask.shape
         pyr = gather_from_grid(spatial, vs_cur.coords, vs_cur.mask)

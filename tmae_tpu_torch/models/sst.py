@@ -6,13 +6,19 @@ blocks, and unpads once. In eval mode each encoder layer runs the
 combined-bucket serving path of the JAX package (``run_combined``): one
 gather of all planned windows (K1, twice in cross mode), the small and mid
 bucket kernels (K4) and the full bucket kernel (K3) updating their row
-ranges in place, and one scatter back into the carrier (K2). In train mode
-it runs ``run_train_cat``: one differentiable gather, the training kernels
-on row slices (K8 for the small and mid buckets, K6 for the full bucket;
-their backward is K9 / K7), one concat and one differentiable scatter into a
-new carrier. Occupied windows beyond a bucket's cap are not in the plan, so
-they keep their input: the layer runs as identity there, and the stage
-reports how many windows that was.
+ranges in place, and one scatter back into the carrier (K2). With
+``TMAE_FUSED_INPLACE=1`` in the environment when this module is imported
+(and ``TMAE_NO_FUSED_INPLACE`` unset) it runs ``run_fused_inplace``
+instead: one K12 launch per bucket, small, mid, then full, each updating
+its windows straight in the carrier. Each window reads only itself and the
+buckets' windows are disjoint, so the two paths give the same carrier.
+
+In train mode it runs ``run_train_cat``: one differentiable gather, the
+training kernels on row slices (K8 for the small and mid buckets, K6 for
+the full bucket; their backward is K9 / K7), one concat and one
+differentiable scatter into a new carrier. Occupied windows beyond a
+bucket's cap are not in the plan, so they keep their input: the layer runs
+as identity there, and the stage reports how many windows that was.
 
 A stage without caps (``caps`` None: the config sets no RUNTIME.OCC_*) runs
 every layer on the dense grid instead (``sst.py:461-471``): kernel K10 on
@@ -23,13 +29,15 @@ backward through K7 on the windows; no plan and no overflow.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dense_windows import slot_pos_embed
-from ..ops.encoder_layer import (LayerParams, encoder_layer_rows_full,
+from ..ops.encoder_layer import (LayerParams, encoder_layer_fused_pipelined,
+                                 encoder_layer_rows_full,
                                  encoder_layer_rows_sel, fused_encoder_layer,
                                  fused_encoder_layer_grid, kernel_params)
 from ..ops.occ_compact import (BucketedCompact, build_bucketed_compact_info,
@@ -42,6 +50,12 @@ from .layers import (CARRIER_DTYPE, StridedSparseConvBlock, SubMConvBlock,
                      remat)
 
 COMPUTE_DTYPE = torch.bfloat16
+# The serving path's choice, read once at import so that one process never
+# runs both paths by accident: the fused in-place layer (K12) when
+# TMAE_FUSED_INPLACE is set and TMAE_NO_FUSED_INPLACE is not, else the
+# combined gather / rows / scatter path (K1-K4).
+_FUSED_INPLACE = bool(os.environ.get('TMAE_FUSED_INPLACE')) and not bool(
+    os.environ.get('TMAE_NO_FUSED_INPLACE'))
 
 
 @dataclasses.dataclass
@@ -187,9 +201,26 @@ class DenseEncoderLayer(nn.Module):
             cross=self.cross, window=self.window, shift=shift)
         return torch.where(occ[..., None], out, 0.0)
 
+    def forward_fused_inplace(self, xp, kvp, plan: BucketedCompact):
+        """``run_fused_inplace``: K12 on the small, mid and full buckets in
+        turn, each updating its windows of ``xp`` in place."""
+        p = self.layer_params()
+        kw = dict(nhead=self.nhead, tau_min=self.tau_min, cross=self.cross,
+                  window=self.window)
+        for si in (plan.small, plan.mid):
+            if si is not None and si.idx.shape[1]:
+                xp = encoder_layer_fused_pipelined(xp, kvp, si, self.pos, p,
+                                                   sel=True, **kw)
+        if plan.full.idx.shape[1]:
+            xp = encoder_layer_fused_pipelined(xp, kvp, plan.full, self.pos,
+                                               p, sel=False, **kw)
+        return xp
+
     def forward(self, xp, kvp, plan: BucketedCompact):
         if self.training:
             return self.forward_train(xp, kvp, plan)
+        if _FUSED_INPLACE:
+            return self.forward_fused_inplace(xp, kvp, plan)
         p = self.layer_params()
         w, cross = self.window, self.cross
         kw = dict(nhead=self.nhead, tau_min=self.tau_min, cross=cross)

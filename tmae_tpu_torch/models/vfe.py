@@ -116,9 +116,14 @@ class TemporalDynVFE(nn.Module):
         self.encoder = DynPillarEncoder(spec, mlps, **kwargs)
 
     def forward(self, points, point_mask, points_prev, point_mask_prev,
-                vox_cur: dict, vox_prv: dict):
+                vox_cur: dict, vox_prv: dict, prev_needed: bool = True):
+        """(current frame's outputs, previous frame's); with ``prev_needed``
+        False (streaming serving: the previous frame's pyramid comes from a
+        cache) only the current frame runs and the second is None."""
         rm = self.training and self.remat
         cur = remat(self.encoder, points, point_mask, vox_cur, enabled=rm)
+        if not prev_needed:
+            return cur, None
         prv = remat(self.encoder, points_prev, point_mask_prev, vox_prv,
                     enabled=rm)
         return cur, prv

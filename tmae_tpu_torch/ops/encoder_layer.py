@@ -14,7 +14,11 @@ and their plain versions (counterpart of
 * on the dense grid, for configs without bucket caps: K10
   (``_grid_forward``), the full-window layer on every window of a shift's
   partition of ``[B, H, W, C]``, and :func:`fused_encoder_layer_grid`, whose
-  backward runs K7 on the windows, as ``_grid_bwd`` does.
+  backward runs K7 on the windows, as ``_grid_bwd`` does;
+* serving straight against the padded carrier, in place over the windows of
+  one bucket plan: K12 (``encoder_layer_fused_pipelined``, which also closes
+  ``encoder_layer_fused_inplace``), the gather, the K3 / K4 layer and the
+  scatter in one launch.
 
 The plain forward follows the kernels' numerics: bf16 matmul inputs with f32
 accumulation, bf16 where the TPU kernel casts, f32 LayerNorm residual. Its
@@ -34,6 +38,8 @@ import torch.nn.functional as F
 from ..device import on_card
 from ..utils.build import CudaKernel, F as CF, I, P, stream_handle
 from .dense_windows import window_unview, window_view
+from .occ_compact import (gather_windows_padded_plain,
+                          scatter_windows_into_padded_plain)
 
 _W = ctypes.POINTER(ctypes.c_void_p)
 K3 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_full',
@@ -50,6 +56,9 @@ K9 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_sel',
                 [_W, _W, _W, _W, I, I, I, I, I, I, CF, I, P])
 K10 = CudaKernel('encoder_layer.cu', 'launch_encoder_grid',
                  [P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, CF, P])
+K12 = CudaKernel('encoder_layer.cu', 'launch_encoder_inplace',
+                 [P, P, P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, I, CF,
+                  P])
 MATRICES = ('wq', 'wk', 'wv', 'wo', 'f1w', 'f2w')
 
 
@@ -591,3 +600,82 @@ def fused_encoder_layer_grid(xg, kvg, qocc, kocc, pos, weights,
         xg, kvg, qocc, kocc, pos, (nhead, tau_min, cross, window, shift),
         params, *weights)
 
+
+
+# ---------------------------------------------------------------------------
+# Serving straight against the padded carrier: K12
+# ---------------------------------------------------------------------------
+
+
+def reference_encoder_layer_fused(xp, kvp, ci, pos, p: LayerParams, *,
+                                  nhead: int, tau_min: float, cross: bool,
+                                  window: int, sel: bool):
+    """Plain version of K12: gather the plan's windows, the plain layer
+    (all cells, or the selected ones), scatter them back into ``xp`` in
+    place."""
+    xw = gather_windows_padded_plain(xp, ci.idx, window)
+    kvw = gather_windows_padded_plain(kvp, ci.idx, window) if cross else None
+    if sel:
+        sel_k, kmask = (ci.ksel, ci.kmask) if cross else (ci.sel, ci.qmask)
+        out = reference_encoder_layer(xw, kvw, ci.sel, sel_k, ci.qmask,
+                                      kmask, pos, p, nhead, tau_min, cross)
+    else:
+        out = reference_encoder_layer(xw, kvw, None, None, ci.qmask,
+                                      ci.kmask if cross else ci.qmask, pos,
+                                      p, nhead, tau_min, cross)
+    return scatter_windows_into_padded_plain(out, ci.idx, xp, window)
+
+
+def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p: LayerParams, *,
+                                  nhead: int, tau_min: float, cross: bool,
+                                  window: int, sel: bool):
+    """One serving layer over the windows of one bucket plan ``ci``, straight
+    against the padded carrier ``xp`` [B, Hp + w, Wp, C] bf16, updated IN
+    PLACE and returned (counterpart of ``encoder_layer_fused_pipelined``).
+    A full plan (``CompactInfo``) takes ``sel=False``; a small or mid plan
+    (``SmallCompactInfo``, S = 16 or 48) ``sel=True``. Cross mode reads keys
+    and values from ``kvp``, the other frame's carrier, which must not share
+    memory with ``xp``. Windows outside the plan and dummy slots are not
+    touched. Forward only: it refuses inputs that require a gradient.
+    Kernel K12 on the card."""
+    if cross and kvp is not None and (
+            kvp.untyped_storage().data_ptr()
+            == xp.untyped_storage().data_ptr()):
+        raise ValueError('kvp shares memory with the carrier it updates')
+    if torch.is_grad_enabled() and (
+            xp.requires_grad or (cross and kvp.requires_grad)):
+        raise ValueError('the in-place serving layer has no backward: run '
+                         'it in eval mode under torch.no_grad()')
+    kw = dict(nhead=nhead, tau_min=tau_min, cross=cross, window=window,
+              sel=sel)
+    if not on_card(xp, ci.idx):
+        return reference_encoder_layer_fused(xp, kvp, ci, pos, p, **kw)
+    if xp.dtype != torch.bfloat16 or not xp.is_contiguous() or window != 8:
+        raise ValueError('K12 takes a contiguous bf16 carrier and 8x8 '
+                         'windows')
+    B, Hp2, Wp, C = xp.shape
+    _check_widths(C, nhead, p)
+    if cross and (kvp is None or kvp.shape != xp.shape
+                  or kvp.dtype != xp.dtype or not kvp.is_contiguous()):
+        raise ValueError('cross mode needs a contiguous kvp shaped like xp')
+    cap = ci.idx.shape[1]
+    T = ci.sel.shape[-1] if sel else 64
+    if (ci.idx.shape != (B, cap, 2) or ci.qmask.shape != (B, cap, T)
+            or T not in (16, 48, 64) or Hp2 % window or Wp % window):
+        raise ValueError('plan shapes do not fit the carrier')
+    idx = _i32(ci.idx)
+    sel_q = _i32(ci.sel) if sel else None
+    sel_k = _i32(ci.ksel) if sel and cross else None
+    qmask = _f32(ci.qmask)
+    kmask = _f32(ci.kmask) if cross else None
+    pos = pos.to(torch.bfloat16).contiguous()
+    K12(xp.data_ptr(), _ptr(kvp) if cross else None, idx.data_ptr(),
+        _ptr(sel_q), _ptr(sel_k), qmask.data_ptr(), _ptr(kmask),
+        pos.data_ptr(), _weight_ptrs(p), B, Hp2, Wp, cap, C, p.f1w.shape[0],
+        nhead, T, int(cross), float(tau_min), stream_handle())
+    return xp
+
+
+# ``encoder_layer_fused_inplace`` (K11) computes the same function as K12
+# with another DMA schedule; on the card both are the one K12 launch.
+encoder_layer_fused_inplace = encoder_layer_fused_pipelined
