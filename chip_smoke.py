@@ -35,6 +35,17 @@ Phases (any failure exits non-zero and prints no result line):
      streaming and one stateless pass; head maps held to the stateless
      pass's; and the streaming pass on the card against the CPU at full
      width on a 64x64 grid.
+  5c. windowed SubM conv and attention only: the conv_out inputs of one
+     serving forward (3 SST stages, 3 WCA blocks) and the stage-1 and
+     stage-2 grids; launch counters set to 0, then the path of the
+     unpadded window API (gather, scatter, scatter-into and their VJPs:
+     K1, K2 as K13b / K13c) on the stage-1 plans of every occupied window,
+     SubMConvBlock with such a plan (K15, K13b) forward and backward in
+     train mode on the 6 inputs, DenseWindowAttention (K16, seeded
+     weights) on 4 cases; the counts checked; what came out held to the
+     plain versions (window API exactly; the planned conv to the dense
+     block; attention at K3's limits); each kernel against its plain
+     version; K13b, K13c, K15 (stage 1 and 2) and K16 timed.
   6. training: finetune steps of t_mae.yaml at full width and depth on two
      synthetic frame pairs (scenes 0 and 1; the config's batch is 6): the
      training kernels K6-K9 against their plain versions on the layer
@@ -71,12 +82,14 @@ Phases (any failure exits non-zero and prints no result line):
      voxelization, K10 in eval mode) on one frame pair: counters set to 0,
      one pass, the counts checked, then timed passes; the same detector on
      the card and on the CPU at full width on a 64x64 grid, as in phase 5.
-Prints the kernels line, the card line and, last, the result line.
+Prints the kernels line, the card line and, last, the result line; the
+log lines also go to chiprun_out/chip_smoke/log.txt.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -93,7 +106,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
-                     'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0, 'K12': 0}
+                     'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0, 'K12': 0,
+                     'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -105,7 +119,7 @@ EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
 EXPECTED_TRAIN_LAUNCHES = {
     'K1': 24 + 18 + 12, 'K2': 18 + 24 + 18 + 12, 'K3': 0, 'K4': 0,
     'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
-    'K10': 0, 'K12': 0}
+    'K10': 0, 'K12': 0, 'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0}
 NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
 # The fused in-place serving path: each of the 18 layers is one K12 launch
 # per bucket (small, mid, full), and nothing else of the encoder.
@@ -122,6 +136,15 @@ EXPECTED_PRETRAIN_GRID = {**NO_LAUNCHES, 'K10': 18 + 12, 'K7': 18}
 # voxelization the VFE takes the scatter path instead of K5.
 EXPECTED_PRETRAIN_BUCKETED = {**EXPECTED_TRAIN_LAUNCHES, 'K5': 0}
 EXPECTED_WAYMO_SERVING = {**NO_LAUNCHES, 'K10': 18}
+# Phase 5c's path. Window API, per plan (2): one gather (K1) and its VJP, a
+# zero-fill scatter (K2 as K13b); one zero-fill scatter (K13b) and its VJP,
+# a gather; one scatter-into (K2 as K13c) and its VJP, a gather and a
+# scatter-into. SubMConvBlock(plan) on the 6 conv_out inputs: K15 and a
+# zero-fill scatter forward, the plan's cell mask (a zero-fill scatter)
+# backward. DenseWindowAttention: one K16 per call (4).
+EXPECTED_SPARSE_ATTN = {**NO_LAUNCHES, 'K1': 2 * 3, 'K2': 2 * 4 + 6 * 2,
+                        'K13b': 2 * 2 + 6 * 2, 'K13c': 2 * 2, 'K15': 6,
+                        'K16': 4}
 REPS = 20                      # timed serving passes
 TRAIN_STEPS = 6                # step 0 counted, steps 1-5 timed
 TRAIN_PAIRS = (0, 1)           # synthetic scenes of the training batch
@@ -131,7 +154,13 @@ BWD_DRAWS = 16                 # random cotangents per backward check
 
 
 def log(*a):
+    """Print a line, and append it to the output directory's log.txt once
+    the run has made that directory, so that the whole log survives where
+    only the end of the standard output is kept."""
     print(*a, flush=True)
+    if OUT_DIR.is_dir():
+        with open(OUT_DIR / 'log.txt', 'a') as f:
+            print(*a, file=f)
 
 
 def card_line() -> str:
@@ -608,14 +637,17 @@ def train_check(torch, el, call, gen, entry):
 
 
 def kernels():
-    from tmae_tpu_torch.ops import encoder_layer, occ_compact, sorted_segments
+    from tmae_tpu_torch.ops import (encoder_layer, occ_compact, sorted_segments,
+                                    sparse_conv, window_attention)
 
     return {'K1': occ_compact.K1, 'K2': occ_compact.K2,
             'K3': encoder_layer.K3, 'K4': encoder_layer.K4,
             'K5': sorted_segments.K5, 'K6': encoder_layer.K6,
             'K7': encoder_layer.K7, 'K8': encoder_layer.K8,
             'K9': encoder_layer.K9, 'K10': encoder_layer.K10,
-            'K12': encoder_layer.K12}
+            'K12': encoder_layer.K12, 'K13b': occ_compact.K13B,
+            'K13c': occ_compact.K13C, 'K15': sparse_conv.K15,
+            'K16': window_attention.K16}
 
 
 def fill_launches(rows, launches, names):
@@ -1427,6 +1459,516 @@ def streaming_serving(torch, cfg, model, batch, stateless, fused):
     return med, dev
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: the windowed SubM conv (K15), the attention-only window layer
+# (K16) and the unpadded window API (K13b / K13c, served by K2)
+# ---------------------------------------------------------------------------
+
+
+def conv_out_inputs(torch, model, batch):
+    """``[(name, block, y, occ)]``: what reaches each SubMConvBlock
+    ``conv_out`` (the 3 SST stages, then the 3 WCA blocks) in one eval-mode
+    serving forward, taken by forward pre-hooks."""
+    enc = model.backbone_3d.encoder
+    blocks = ([(f'sst{i}', b.conv_out) for i, b in enumerate(enc.sst_blocks)]
+              + [(f'wca{i}', b.conv_out)
+                 for i, b in enumerate(enc.wca_blocks)])
+    caught = {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda m, args, name=name: caught.setdefault(
+            name, (args[0].detach().clone(), args[1].clone())))
+        for name, blk in blocks]
+    try:
+        with torch.no_grad():
+            model(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return [(name, blk, *caught[name]) for name, blk in blocks]
+
+
+def full_plan(oc, occ, shift):
+    """The plan of every occupied window of the shift's partition: cap =
+    round_cap(the most occupied windows of a sample)."""
+    n = (oc.window_cell_counts(occ, 8, shift) > 0).sum((1, 2))
+    plan = oc.build_compact_info(occ, 8, shift, oc.round_cap(int(n.max())),
+                                 (occ.shape[1], occ.shape[2]))
+    if int(plan.overflow().sum()):
+        raise AssertionError('the plan drops an occupied window')
+    return plan
+
+
+def rel_err(torch, what, got, want, max_rel, mean_rel):
+    """max and mean |got - want|, both finite, held to ``max_rel`` and
+    ``mean_rel`` of the scale max(1, max |want|); returns the max."""
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f'{what}: non-finite values')
+    d = (got - want).abs()
+    scale = max(1.0, want.abs().max().item())
+    err, mean = d.max().item(), d.mean().item()
+    log(f'  {what}: max_abs_err {err:.3g} mean {mean:.2g} (scale '
+        f'{scale:.3g})')
+    if err > max_rel * scale or mean > mean_rel * scale:
+        raise AssertionError(f'{what}: beyond max {max_rel} / mean '
+                             f'{mean_rel} of the scale')
+    return err
+
+
+def bf16_err(torch, what, got, want, live, spread=2 ** -7):
+    """``got`` against ``want``, two bf16 results of one function that
+    round differently: bit-equal where the boolean ``live`` (over their
+    leading dims) is False; where it is True each |diff| within
+    2^-6 |want| + ``spread`` rms and the mean |diff| within 2^-7 rms (one
+    bf16 step per element on average), rms the root mean square of
+    ``want`` there. Returns the max |diff|."""
+    if not torch.equal(got[~live], want[~live]):
+        raise AssertionError(f'{what}: differs where it must be exact')
+    g, w = got[live].float(), want[live].float()
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f'{what}: non-finite values')
+    d = (g - w).abs()
+    rms = w.square().mean().sqrt().item()
+    worst = (d / (2 ** -6 * w.abs() + spread * rms)).max().item()
+    err, mean = d.max().item(), d.mean().item()
+    log(f'  {what}: max_abs_err {err:.3g} mean {mean:.3g} on {g.shape[0]} '
+        f'live rows (rms {rms:.3g}); worst |diff| / limit {worst:.3g}, '
+        f'mean / limit {mean / (2 ** -7 * rms):.3g}')
+    if worst > 1 or mean > 2 ** -7 * rms:
+        raise AssertionError(f'{what}: beyond the bf16-step limits')
+    return err
+
+
+def k16_rounded(torch, args, zero_head=False, scale_mult=1.0):
+    """K16's function with the kernel's own bf16 roundings, in torch ops:
+    x + pos, the weights, the normalised and scaled q, the normalised k, v,
+    p and the attention output rounded to bf16, every sum in f32. It
+    differs from the kernel only where an f32 value rounds the other way.
+    ``zero_head`` and ``scale_mult`` plant faults (head 0 zeroed, the
+    softmax scale multiplied)."""
+    (xw, kvw, kmask, pos, wq, bq, wk, bk, wv, bv, wo, bo, tau, nhead,
+     tau_min, cross) = args
+    b, f = torch.bfloat16, torch.float32
+    r = lambda t: t.to(b).to(f)
+    N, T, C = xw.shape
+    H, D = nhead, C // nhead
+    kv = kvw if cross else xw
+    xp = xw + pos.to(b)[None]
+    kvp = kv + pos.to(b)[None] if cross else xp
+
+    def heads(a, w, bias, mult):
+        y = (a.to(f) @ r(w) + bias).reshape(N, T, H, D)
+        return r(y * torch.rsqrt(y.square().sum(-1, keepdim=True) + 1e-24)
+                 * mult)
+
+    scale = scale_mult / torch.clamp(tau[0], min=tau_min)
+    q, k = heads(xp, wq, bq, scale), heads(kvp, wk, bk, 1.0)
+    v = r(kv.to(f) @ r(wv) + bv).reshape(N, T, H, D)
+    logits = torch.einsum('wthd,wshd->whts', q, k)
+    logits = torch.where(kmask[:, None, None, :] > 0, logits, -30000.0)
+    p = r(torch.softmax(logits, dim=-1))
+    p = torch.where((kmask > 0).any(-1)[:, None, None, None], p, 0.0)
+    att = torch.einsum('whts,wshd->wthd', p, v)
+    if zero_head:
+        att[:, :, 0] = 0
+    return (r(att.reshape(N, T, C)) @ r(wo) + bo).to(b)
+
+
+def window_api_run(torch, oc, x, init, plans, cots, plain=False):
+    """Per (shift, plan): gather the planned windows of ``x``, scatter them
+    into zeros and into ``init``, backward with the seeded cotangents.
+    Returns every output and gradient; ``plain`` runs the plain versions."""
+    gather = oc.gather_windows_plain if plain else oc.gather_windows
+    scatter = oc.scatter_windows_plain if plain else functools.partial(
+        oc.scatter_windows, zero_fill=True)
+    into = oc.scatter_windows_into_plain if plain else oc.scatter_windows_into
+    hw = (x.shape[1], x.shape[2])
+    res = []
+    for (shift, plan), (g1, g2) in zip(plans, cots):
+        xs = x.clone().requires_grad_()
+        ini = init.clone().requires_grad_()
+        xw = gather(xs, plan.idx, hw, 8, shift)
+        ys = scatter(xw, plan.idx, hw, 8, shift)
+        zs = into(xw, plan.idx, ini, hw, 8, shift)
+        torch.autograd.backward([ys, zs], [g1, g2])
+        res += [xw.detach(), ys.detach(), zs.detach(), xs.grad, ini.grad]
+    return res
+
+
+def block_forward(blk, y, occ, plan):
+    """SubMConvBlock forward (``plan``, or the dense conv for None) of a
+    copy of ``y`` that wants a gradient: (that copy, the output, the
+    conv's masked output, which the batch norm takes)."""
+    seen = []
+    hook = blk.bn.register_forward_pre_hook(lambda m, args: seen.append(
+        args[0]))
+    try:
+        a = y.clone().requires_grad_()
+        out = blk(a, occ, plan)
+    finally:
+        hook.remove()
+    return a, out, seen[0]
+
+
+def conv_block_run(torch, blk, y, occ, plan, g):
+    """A train-mode SubMConvBlock forward and its backward with cotangent
+    ``g``: (output, the gradient at the conv's masked output)."""
+    _, out, conv = block_forward(blk, y, occ, plan)
+    conv.retain_grad()
+    (out.float() * g).sum().backward()
+    return out.detach(), conv.grad
+
+
+def conv_grads(torch, blk, y, occ, plan, gy):
+    """dx and dW of the block's conv alone (planned or dense) from one
+    upstream gradient ``gy`` at its masked output."""
+    a, _, conv = block_forward(blk, y, occ, plan)
+    return torch.autograd.grad(conv, (a, blk.conv.weight), gy)
+
+
+def attention_cases(torch, sst, caught, dev):
+    """(label, module, grid, kv grid) of the K16 cases: C=128, 8 heads on
+    the stage-1 grid, self at shift 0 and 1 and cross against the previous
+    frame; C=256 self on stage 2. Seeded weights."""
+    from tmae_tpu_torch.models.detectors import init_random_
+
+    (_, _, y1, o1), (_, _, y2, o2) = caught[:2]
+    g1, g2 = sst.DenseGrid(y1, o1), sst.DenseGrid(y2, o2)
+    mk = lambda C, shift, cross, seed: init_random_(
+        sst.DenseWindowAttention(C, 8, 8, shift, cross=cross),
+        seed=seed).to(dev)
+    return [('C=128 self shift 0', mk(128, False, False, 11), g1, None),
+            ('C=128 self shift 1', mk(128, True, False, 12), g1, None),
+            ('C=128 cross', mk(128, False, True, 13),
+             sst.DenseGrid(y1[:1], o1[:1]), sst.DenseGrid(y1[1:], o1[1:])),
+            ('C=256 self', mk(256, False, False, 14), g2, None)]
+
+
+@contextlib.contextmanager
+def plain_attention(sst, wa):
+    """DenseWindowAttention runs the plain version of K16 inside (the
+    module is otherwise unchanged)."""
+    saved = sst.fused_window_attention
+    sst.fused_window_attention = wa.reference_forward
+    try:
+        yield
+    finally:
+        sst.fused_window_attention = saved
+
+
+def grid_cells(torch, idx, valid, hw, dilate):
+    """Grid cells [B, H, W] covered by the real windows of an unshifted
+    plan, grown by one cell with ``dilate`` (a 3x3 conv's halo)."""
+    B = idx.shape[0]
+    H, W = hw
+    nwy, nwx = (H + 7) // 8 + 1, (W + 7) // 8 + 1
+    m = torch.zeros(B, nwy + 1, nwx, dtype=torch.bool, device=idx.device)
+    bi = torch.arange(B, device=idx.device)[:, None].expand_as(valid)
+    m[bi[valid], idx[..., 0][valid].long(), idx[..., 1][valid].long()] = True
+    m = m.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, 8:8 + H, 8:8 + W]
+    if dilate:
+        m = torch.nn.functional.max_pool2d(m[:, None].float(), 3, 1, 1)[:, 0]
+    return m > 0
+
+
+def flat_attention_args(sst, mod, gr, kv):
+    """The flat K16 arguments of one DenseWindowAttention call."""
+    cross = kv is not None
+    view = lambda t: sst.window_view(t, 8, mod.shift)
+    xw = view(gr.x.to(mod.pos.dtype))
+    T, C = xw.shape[2:]
+    xw = xw.reshape(-1, T, C)
+    kvw = view(kv.x.to(mod.pos.dtype)).reshape(-1, T, C) if cross else xw
+    km = view((kv if cross else gr).occ[..., None].float())[..., 0]
+    return (xw, kvw, km.reshape(-1, T), mod.pos, mod.q.weight.t(),
+            mod.q.bias, mod.k.weight.t(), mod.k.bias, mod.v.weight.t(),
+            mod.v.bias, mod.out.weight.t(), mod.out.bias, mod.tau,
+            mod.nhead, mod.tau_min, cross)
+
+
+def window_api_check(torch, oc, y1, wplans, api, init, cots):
+    """The path's window API outputs and VJPs, and the scatter without zero
+    fill, equal to the plain versions."""
+    hw = (y1.shape[1], y1.shape[2])
+    want = window_api_run(torch, oc, y1, init, wplans, cots, plain=True)
+    names = ('gather', 'scatter (zero fill)', 'scatter_into', 'd x',
+             'd init')
+    for i, (a, b) in enumerate(zip(api, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f'window API {names[i % 5]} (shift '
+                                 f'{i // 5}) differs from its plain version')
+    for shift, plan in wplans:
+        xw = oc.gather_windows(y1, plan.idx, hw, 8, shift)
+        if not torch.equal(oc.scatter_windows(xw, plan.idx, hw, 8, shift),
+                           oc.scatter_windows_plain(xw, plan.idx, hw, 8,
+                                                    shift)):
+            raise AssertionError('scatter_windows without zero fill differs')
+    log(f'  window API (stage 1, caps '
+        f'{[p.idx.shape[1] for _, p in wplans]}): gather, scatter, '
+        'scatter_into and their VJPs equal the plain versions')
+
+
+def conv_check(torch, sc, caught, cplans, biases, train_blocks, conv, conv_g,
+               entry):
+    """K15 on each captured conv_out input against its plain version (max
+    1e-2, mean 1e-3 of the scale: 9*Cin-term f32 sums in another order, one
+    bf16 rounding); the planned block against the dense one in eval mode
+    (same limits) and in train mode: the path's output (K7's limits, 5e-2
+    and 5e-3) and the conv's dx and dW from one upstream gradient (the
+    dense block's) at K7's limits. The whole block's dx and dW are not
+    compared: the two forwards round differently, so a ReLU or batch-norm
+    gate can flip at a cell and send the cotangent there down one path
+    only, and the rest of the block's backward is the same code on both.
+    Stage 1 and stage 2 timed into the kernels line, with cuDNN's dense
+    conv2d as the yardstick."""
+    import copy
+
+    for (name, blk, y, o), p, bias, (out_p, _), g in zip(
+            caught, cplans, biases, conv, conv_g):
+        wmat = blk.conv.weight.detach().permute(2, 3, 1, 0).to(
+            torch.bfloat16).contiguous()
+        args = (y, p.idx, p.qmask, wmat, bias, 8)
+        got = sc.subm_conv_windows(*args)
+        want = sc.subm_conv_windows_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_err(torch, f'K15 {name} {tuple(y.shape)} -> '
+                      f'{wmat.shape[3]}, cap {p.idx.shape[1]}', got, want,
+                      1e-2, 1e-3)
+        with torch.no_grad():
+            rel_err(torch, f'  SubMConvBlock(plan) vs dense, eval, {name}',
+                    blk(y, o, (p.idx, p.qmask, 8)), blk(y, o), 1e-2, 1e-3)
+        out_d, gy = conv_block_run(
+            torch, copy.deepcopy(blk).train(), y, o, None, g)
+        rel_err(torch, f'  train forward, {name}', out_p, out_d, 5e-2, 5e-3)
+        same = [conv_grads(torch, blk, y, o, plan, gy)
+                for plan in ((p.idx, p.qmask, 8), None)]
+        for what, a, b in zip(('dx', 'dW'), *same):
+            s = b.float().abs().max().item()
+            rel_err(torch, f'  conv {what} / {s:.3g} from one upstream '
+                    f'gradient, {name}', a.float() / s, b.float() / s, 5e-2,
+                    5e-3)
+        if name not in ('sst0', 'sst1'):
+            continue
+        Cin, Cout = wmat.shape[2:]
+        n_real = int(p.valid.sum())
+        halo = int(grid_cells(torch, p.idx, p.valid, y.shape[1:3],
+                              True).sum())
+        nbytes = (halo * Cin * 2 + wmat.numel() * 2 + n_real * 64 * 4
+                  + got.numel() * 2 + p.idx.numel() * 4)
+        xn = y.permute(0, 3, 1, 2)
+        wo = blk.conv.weight.detach().to(torch.bfloat16)
+        with torch.no_grad():
+            op_ms = time_ms(torch, lambda: sc.subm_conv3x3(
+                y, p.idx, p.qmask, wmat, bias, y.shape[1:3], 8), iters=10)
+            entry(f'subm_conv_{"stage1" if name == "sst0" else "stage2"}',
+                  'K15', 'tmae_tpu_torch/csrc/subm_conv.cu',
+                  'tmae_tpu/ops/sparse_conv.py:101', err,
+                  time_ms(torch, lambda: sc.subm_conv_windows(*args),
+                          iters=10),
+                  time_ms(torch, lambda: sc.subm_conv_windows_plain(*args),
+                          iters=3, warmup=1),
+                  nbytes, 2 * n_real * 64 * 9 * Cin * Cout,
+                  time_ms(torch, lambda: torch.nn.functional.conv2d(
+                      xn, wo, padding=1), iters=10),
+                  op_ms=op_ms, windows=n_real, cap=p.idx.shape[1])
+        log(f'    {name}: {n_real} windows, halo {halo} cells; '
+            f'subm_conv3x3 forward (K15 + K13b) {op_ms:.4f} ms')
+
+
+def planted_faults(torch, args, got, live):
+    """K16's output ``got`` against :func:`k16_rounded` with a fault
+    planted (head 0 zeroed; the softmax scale halved): :func:`bf16_err`
+    must refuse each."""
+    for fault, kw in (('head 0 zeroed', dict(zero_head=True)),
+                      ('softmax scale halved', dict(scale_mult=0.5))):
+        try:
+            bf16_err(torch, f'  planted fault ({fault})', got,
+                     k16_rounded(torch, args, **kw), live)
+        except AssertionError:
+            log('    refused, as it must be')
+            continue
+        raise AssertionError(f'the K16 limits let a fault pass: {fault}')
+
+
+def attention_check(torch, sst, wa, attn, att, gen, entry):
+    """K16 on each case's flat windows, by :func:`bf16_err` on the windows
+    with a key (a window without one is bo on both sides, to the bit):
+    against its plain version (f32 but for the output; each |diff| within
+    2^-6 |want| + 2^-4 rms, the kernel rounding its weights and six
+    intermediates to bf16) and against :func:`k16_rounded` (the kernel's
+    roundings; 2^-6 |want| + 2^-7 rms), with the mean within 2^-7 rms for
+    both; the module's path output against the plain module's on the
+    occupied query cells (zero elsewhere on both sides), as against the
+    plain version; on the stage-1 self case the rounded comparison must
+    refuse a planted fault (:func:`planted_faults`); gradients through the
+    Function against plain autograd (finite, max 0.15 and mean 2e-3 of
+    their scale) for the stage-1 self and cross cases; the stage-1 self
+    call timed into the kernels line."""
+    for (label, mod, gr, kv), out in zip(attn, att):
+        args = flat_attention_args(sst, mod, gr, kv)
+        live = (args[2] > 0).any(-1)
+        with torch.no_grad():
+            got = wa.window_attention_fwd(*args)
+            want = wa.reference_forward(*args)
+            torch.cuda.synchronize()
+            err = bf16_err(torch, f'K16 {label} {list(args[0].shape)}', got,
+                           want, live, spread=2 ** -4)
+            bf16_err(torch, f'  K16 {label} vs its own roundings', got,
+                     k16_rounded(torch, args), live)
+            if label == 'C=128 self shift 0':
+                planted_faults(torch, args, got, live)
+            with plain_attention(sst, wa):
+                bf16_err(torch, f'  DenseWindowAttention vs plain module, '
+                         f'{label}', out, mod(gr, kv), gr.occ,
+                         spread=2 ** -4)
+        if label in ('C=128 self shift 0', 'C=128 cross'):
+            g = torch.randn(gr.x.shape, generator=gen, device=gr.x.device)
+            grads = []
+            for plain in (False, True):
+                mod.zero_grad()
+                x = gr.x.clone().requires_grad_()
+                with (plain_attention(sst, wa) if plain
+                      else contextlib.nullcontext()):
+                    o = mod(sst.DenseGrid(x, gr.occ), kv)
+                (o * g).sum().backward()
+                grads.append([x.grad] + [q.grad.clone()
+                                         for q in mod.parameters()])
+            for i, (a, b) in enumerate(zip(*grads)):
+                s = max(b.float().abs().max().item(), 1e-12)
+                rel_err(torch, f'  gradient {i} / {s:.3g} through the '
+                        f'Function, {label}', a.float() / s, b.float() / s,
+                        0.15, 2e-3)
+        if label != 'C=128 self shift 0':
+            continue
+        xw, km = args[0], args[2]
+        N, T, C = xw.shape
+        n_key = int((km > 0).any(-1).sum())
+        nbytes = (n_key * T * C * 2 + N * T * 4 + N * T * C * 2
+                  + 4 * C * C * 2 + 5 * C * 4 + T * C * 2)
+        with torch.no_grad():
+            entry('window_attention', 'K16',
+                  'tmae_tpu_torch/csrc/encoder_layer.cu',
+                  'tmae_tpu/ops/pallas_attn.py:120', err,
+                  time_ms(torch, lambda: wa.window_attention_fwd(*args),
+                          iters=10),
+                  time_ms(torch, lambda: wa.reference_forward(*args),
+                          iters=3, warmup=1),
+                  nbytes, n_key * (2 * T * C * C * 4 + 2 * T * T * C * 2),
+                  None, windows=N, windows_with_key=n_key)
+
+
+def scatter_rows(torch, oc, y1, init, plan, entry):
+    """K13b and K13c (K2 into a zero carrier and into ``pad_grid(init)``)
+    on the stage-1 unshifted plan against their plain versions, exactly,
+    timed into the kernels line with ``torch.index_put`` on the in-grid
+    cells of the real windows as the yardstick."""
+    B, H, W, C = y1.shape
+    hw = (H, W)
+    idx, valid = plan.idx, plan.valid
+    cap = idx.shape[1]
+    xw = oc.gather_windows(y1, idx, hw, 8, False)
+    iy = torch.arange(8, device=y1.device)
+    r = (idx[..., 0].long()[..., None, None] * 8 - 8
+         + iy[:, None]).expand(B, cap, 8, 8)
+    c = (idx[..., 1].long()[..., None, None] * 8 - 8
+         + iy[None, :]).expand(B, cap, 8, 8)
+    keep = (valid[..., None, None] & (r >= 0) & (r < H) & (c >= 0)
+            & (c < W))
+    bi = torch.arange(B, device=y1.device)[:, None, None, None].expand_as(r)
+    ind = (bi[keep], r[keep], c[keep])
+    sv = xw.reshape(B, cap, 8, 8, C)[keep]
+    zeros = torch.zeros_like(y1)
+    uncovered = B * H * W - int(keep.sum())
+    n_real = int(valid.sum())
+    for name, kern, line, fn, plain_fn, lib, init_read in (
+            ('window_scatter_grid', 'K13b', '407',
+             lambda: oc.scatter_windows(xw, idx, hw, 8, False,
+                                        zero_fill=True),
+             lambda: oc.scatter_windows_plain(xw, idx, hw, 8, False),
+             lambda: torch.index_put(zeros, ind, sv), 0),
+            ('window_scatter_grid_into', 'K13c', '549',
+             lambda: oc.scatter_windows_into(xw, idx, init, hw, 8, False),
+             lambda: oc.scatter_windows_into_plain(xw, idx, init, hw, 8,
+                                                   False),
+             lambda: torch.index_put(init, ind, sv), uncovered)):
+        got, want = fn(), plain_fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f'{kern} differs from its plain version')
+        if not torch.equal(lib(), want):
+            raise AssertionError(f'{kern} library yardstick computes '
+                                 'another function')
+        entry(name, kern, 'tmae_tpu_torch/csrc/windows.cu',
+              f'tmae_tpu/ops/occ_compact.py:{line}', 0.0,
+              time_ms(torch, fn), time_ms(torch, plain_fn, iters=5),
+              n_real * 64 * C * 2 + (init_read + B * H * W) * C * 2
+              + idx.numel() * 4, 0, time_ms(torch, lib), closed_by='K2')
+
+
+def sparse_attn_phase(torch, model, batch, rows):
+    """Phase 5c on the served model and frame pair. Launch counters set to
+    0, then the slice's path: the unpadded window API (gather, zero-fill
+    scatter, scatter-into and their VJPs) on the stage-1 grid with the
+    unshifted and shifted plans of every occupied window; SubMConvBlock
+    with such an unshifted plan (K15, then K2 as K13b) in train mode,
+    forward and backward, on the 6 captured conv_out inputs with each
+    block's weights; DenseWindowAttention (K16) on the 4 cases of
+    :func:`attention_cases`. The counts are held to
+    ``EXPECTED_SPARSE_ATTN``, what came out to the plain versions, and the
+    times of K13b, K13c, K15 and K16 go into the kernels line. Returns the
+    counts."""
+    import copy
+
+    from tmae_tpu_torch.models import sst
+    from tmae_tpu_torch.ops import occ_compact as oc
+    from tmae_tpu_torch.ops import sparse_conv as sc
+    from tmae_tpu_torch.ops import window_attention as wa
+
+    dev = batch['points'].device
+    entry = functools.partial(add_row, rows)
+    caught = conv_out_inputs(torch, model, batch)
+    log('  conv_out inputs: ' + ', '.join(
+        f'{n} {tuple(y.shape)} ({int(o.sum())} occupied)'
+        for n, _, y, o in caught))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(
+        *s, generator=gen, device=dev).to(dt)
+    y1, occ1 = caught[0][2:]
+    wplans = [(shift, full_plan(oc, occ1, shift)) for shift in (False, True)]
+    init = randn(*y1.shape)
+    cots = [(randn(*y1.shape), randn(*y1.shape)) for _ in wplans]
+    cplans = [full_plan(oc, o, False) for _, _, _, o in caught]
+    biases = [0.1 * randn(blk.conv.weight.shape[0], dt=torch.float32)
+              for _, blk, _, _ in caught]
+    conv_g = [randn(*y.shape[:3], blk.conv.weight.shape[0], dt=torch.float32)
+              for _, blk, y, _ in caught]
+    train_blocks = [copy.deepcopy(blk).train() for _, blk, _, _ in caught]
+    attn = attention_cases(torch, sst, caught, dev)
+
+    def path():
+        api = window_api_run(torch, oc, y1, init, wplans, cots)
+        conv = [conv_block_run(torch, tb, y, o, (p.idx, p.qmask, 8), g)
+                for tb, (_, _, y, o), p, g in zip(train_blocks, caught,
+                                                  cplans, conv_g)]
+        with torch.no_grad():
+            att = [m(gr, kv) for _, m, gr, kv in attn]
+        return api, conv, att
+
+    (api, conv, att), launches = counted(torch, path)
+    log(f'  launches on the path: {launches} (expected '
+        f'{EXPECTED_SPARSE_ATTN})')
+    if launches != EXPECTED_SPARSE_ATTN:
+        raise AssertionError('launch counts differ from the slice path')
+    window_api_check(torch, oc, y1, wplans, api, init, cots)
+    del api
+    conv_check(torch, sc, caught, cplans, biases, train_blocks, conv, conv_g,
+               entry)
+    del conv, train_blocks
+    attention_check(torch, sst, wa, attn, att, gen, entry)
+    scatter_rows(torch, oc, y1, init, wplans[0][1], entry)
+    return launches
+
+
 def waymo_serving(torch, cfg, profile=False):
     """t_mae_waymo.yaml served at full width on one synthetic frame pair
     (device voxelization, K10 in eval mode), as :func:`serve_phase` serves
@@ -1477,10 +2019,11 @@ def main(argv=None):
     # not from the grid-layer capture
     torch.use_deterministic_algorithms(False)
     t_start = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / 'log.txt').unlink(missing_ok=True)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f'card: {card}; torch {torch.__version__} cuda {torch.version.cuda}')
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
 
     from tmae_tpu_torch.config import cfg_from_yaml_file
     from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
@@ -1544,6 +2087,14 @@ def main(argv=None):
         stream[path] = streaming_serving(torch, cfg, model, batch, ref,
                                          fused)
     del stateless, stateless_fused
+
+    log('phase windowed SubM conv and attention only (t_mae.yaml stage '
+        'widths on the served pair\'s grids)')
+    t0 = time.perf_counter()
+    sparse_launches = sparse_attn_phase(torch, model, batch, rows)
+    fill_launches(rows, sparse_launches, ('K13b', 'K13c', 'K15', 'K16'))
+    log(f'  phase {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
 
     log('phase training (t_mae.yaml, full width and depth, '
         f'{len(TRAIN_PAIRS)} frame pairs)')

@@ -1,6 +1,7 @@
-// Kernels K3, K4, K6, K8, K10 and K12: the cosine-attention SST encoder layer
-// on gathered windows (K3-K8), on the dense BEV grid (K10) and on the windows
-// of a plan straight in the padded carrier (K12).
+// Kernels K3, K4, K6, K8, K10, K12 and K16: the cosine-attention SST encoder
+// layer on gathered windows (K3-K8), on the dense BEV grid (K10) and on the
+// windows of a plan straight in the padded carrier (K12); and its attention
+// stage alone (K16).
 //
 // Replace tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full (kernel
 // _kernel_rows_full -> _layer_body) and encoder_layer_rows_sel (kernel
@@ -48,6 +49,17 @@
 // double-buffers its window DMAs across grid steps; here each block loads
 // its own window, and overlapping loads with compute (cp.async / TMA) is
 // later work.
+//
+// K16 replaces tmae_tpu/ops/pallas_attn.py:_pallas_forward (kernel _kernel):
+// the attention of K6 on flat windows [N, 64, C] without the residual,
+// LayerNorms and FFN, attn Wo + bo written on all 64 tokens of a window (no
+// query mask), with the attention output rounded to bf16 before Wo as the
+// TPU kernel rounds it to x's dtype. A window with no key gets p = 0, so its
+// output is bo on every token: its block writes bo and exits (most windows
+// of a stride-1 LiDAR grid are empty). One block per window: the TPU
+// kernel's 16-window tiles and their padding have no counterpart. Bound:
+// operations on windows with a key (2*64*C*C*4 + 2*64*64*C*2 flops, ~19
+// MFLOP at C=128), bytes on the empty ones.
 //
 // Bound: operations. Per window the layer does 2*T*C*C*4 (q, k, v, out) +
 // 2*T*C*F*2 (FFN) + 2*T*T*C*2 (logits, p.v) multiply-adds-as-2-flops,
@@ -246,7 +258,10 @@ __device__ __forceinline__ void layer_norm_row(float (&v)[kMaxC / 32], int nc,
     }
 }
 
-template <int T>
+// kAttn (K16): the attention stage alone, out = attn(x) Wo + bo on every
+// token, written to p.out; qmask holds the key mask (see
+// launch_window_attention).
+template <int T, bool kAttn = false>
 __global__ void __launch_bounds__(kThreads)
     encoder_rows_kernel(const Params p) {
   constexpr int MT = T / 16;
@@ -365,6 +380,20 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int has_key = __syncthreads_or(tid < T && km_s[tid] > 0.f);
   const float scale = 1.f / fmaxf(p.tau[0], p.tau_min);
+  if (kAttn && !has_key) {
+    // no key: p = 0, so every token's output is bo
+    const int vc = C / 8;
+    for (int t = tid; t < T * vc; t += kThreads) {
+      const int i = t / vc;
+      const int v = t - i * vc;
+      uint4 packed;
+      bf16* pv = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) pv[c] = __float2bfloat16(p.bo[v * 8 + c]);
+      *reinterpret_cast<uint4*>(obase + qoff_s[i] + v * 8) = packed;
+    }
+    return;
+  }
 
   // ---- projections ------------------------------------------------------
   load_tokens(xs, a0, xbase, qoff_s, sq_s, p.pos, C, ldb, T);
@@ -448,6 +477,32 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
     }
     __syncthreads();
+  }
+
+  if constexpr (kAttn) {
+    // ---- K16: output projection of every token, no residual ----------------
+    const int rr = lane >> 1;
+    const int c0 = (lane & 1) * 8;
+    for (int s = warp; s < C / 16; s += kWarps) {
+      AccFrag acc[MT][2];
+      zero_acc<MT>(acc);
+      gemm_rows<MT>(acc, 1, a0, ldb, p.wo, C, 16 * s, C);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        wmma::store_matrix_sync(st, acc[m][0], kStLd, wmma::mem_row_major);
+        __syncwarp();
+        const int i = 16 * m + rr;
+        uint4 packed;
+        bf16* pv = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          pv[c] = __float2bfloat16(st[rr * kStLd + c0 + c] +
+                                   p.bo[16 * s + c0 + c]);
+        *reinterpret_cast<uint4*>(obase + qoff_s[i] + 16 * s + c0) = packed;
+        __syncwarp();
+      }
+    }
+    return;
   }
 
   // ---- output projection, residual on occupied query cells ---------------
@@ -570,15 +625,15 @@ size_t smem_bytes(int T, int C) {
          (size_t)kWarps * 16 * kStLd * sizeof(float) + 6 * (size_t)T * 4;
 }
 
-template <int T>
+template <int T, bool kAttn = false>
 int launch_rows(const Params& p, int B, cudaStream_t stream) {
   if (p.cap == 0 || B == 0) return 0;
   const size_t smem = smem_bytes(T, p.C);
   cudaError_t e = cudaFuncSetAttribute(
-      encoder_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      encoder_rows_kernel<T, kAttn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  encoder_rows_kernel<T><<<dim3(p.cap, B), kThreads, smem, stream>>>(p);
+  encoder_rows_kernel<T, kAttn><<<dim3(p.cap, B), kThreads, smem, stream>>>(p);
   return tmae_last_error();
 }
 
@@ -747,4 +802,27 @@ extern "C" int launch_encoder_inplace(void* xp, const void* kvp,
   p.gw = Wp;
   p.nwy = Hp2 / 8 - 1;
   return launch_sel(p, B, T, static_cast<cudaStream_t>(stream));
+}
+
+// K16: out [N, 64, C] = the cosine window attention of xw [N, 64, C] (keys
+// and values from kvw in cross mode) with key mask kmask [N, 64], then
+// attn Wo + bo on every token; no LayerNorm, FFN or residual. `w` points at
+// the 9 device pointers wq bq wk bk wv bv wo bo tau (Linear weights
+// [out, in] bf16, the rest f32).
+extern "C" int launch_window_attention(const void* xw, const void* kvw,
+                                       void* out, const void* kmask,
+                                       const void* pos, const void* const* w,
+                                       int N, int C, int H, int cross,
+                                       float tau_min, void* stream) {
+  if (H <= 0 || C % H || C % 32 || C > kMaxC ||
+      (C / H != 16 && C / H != 32) || (cross && kvw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* w17[17] = {w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8],
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr};
+  // the key mask stands in for the query mask: in self mode the kernel
+  // takes its key mask from qmask
+  const Params p = make_params(xw, out, kvw, nullptr, nullptr, kmask, kmask,
+                               pos, w17, N, N, 0, C, 0, H, cross, tau_min);
+  return launch_rows<kCells, true>(p, 1, static_cast<cudaStream_t>(stream));
 }

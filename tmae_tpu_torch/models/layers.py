@@ -21,6 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.sparse_conv import subm_conv3x3
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01   # torch momentum of the sparse-conv and BEV batch norms
 CONV_DTYPE = torch.bfloat16
@@ -189,17 +191,31 @@ class LinearBNReLU(nn.Module):
 
 class SubMConvBlock(nn.Module):
     """Submanifold 3x3 conv as a dense masked conv: outputs masked to the
-    input active set, + masked BN + ReLU."""
+    input active set, + masked BN + ReLU.
+
+    With a compaction ``plan`` (idx [B, cap, 2] windows of the unshifted
+    partition, qmask [B, cap, w*w], window), the conv runs only on the
+    plan's windows (``ops/sparse_conv.py``: K15 on the card) with the same
+    weight; occupied windows beyond the plan's cap give zeros."""
 
     def __init__(self, cin, cout):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 3, bias=False)
         self.bn = MaskedBatchNorm(cout)
 
-    def forward(self, grid, occ):
-        x = conv2d_nhwc(grid, self.conv.weight, 1, 1).to(CARRIER_DTYPE)
-        x = torch.where(occ[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                       device=x.device))
+    def forward(self, grid, occ, plan=None):
+        if plan is not None:
+            idx, qmask, window = plan
+            w = self.conv.weight
+            x = subm_conv3x3(
+                grid.to(CONV_DTYPE), idx, qmask,
+                w.permute(2, 3, 1, 0).to(CONV_DTYPE),
+                torch.zeros(w.shape[0], device=w.device),
+                (grid.shape[1], grid.shape[2]), window).to(CARRIER_DTYPE)
+        else:
+            x = conv2d_nhwc(grid, self.conv.weight, 1, 1).to(CARRIER_DTYPE)
+            x = torch.where(occ[..., None], x,
+                            torch.zeros((), dtype=x.dtype, device=x.device))
         return F.relu(self.bn(x, occ))
 
 

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dense_windows import slot_pos_embed
+from ..ops.dense_windows import slot_pos_embed, window_unview, window_view
 from ..ops.encoder_layer import (LayerParams, encoder_layer_fused_pipelined,
                                  encoder_layer_rows_full,
                                  encoder_layer_rows_sel, fused_encoder_layer,
@@ -46,6 +46,7 @@ from ..ops.occ_compact import (BucketedCompact, build_bucketed_compact_info,
                                scatter_windows_into_padded,
                                scatter_windows_train, unpad_grid)
 from ..ops.voxelize import occupancy_grid, scatter_to_grid
+from ..ops.window_attention import fused_window_attention
 from .layers import (CARRIER_DTYPE, StridedSparseConvBlock, SubMConvBlock,
                      remat)
 
@@ -117,6 +118,50 @@ def build_plans(occ, window, caps: OccCaps, kv_occ=None):
             small_tokens=caps.small_tokens, mid_cap=caps.mid,
             mid_tokens=caps.mid_tokens)
         for shift in (False, True))
+
+
+class DenseWindowAttention(nn.Module):
+    """Cosine multi-head attention over the dense window views of a grid,
+    alone (no LayerNorm, FFN or residual): the counterpart of the JAX
+    package's ``DenseWindowAttention`` (``models/sst.py:110-187``). Cross
+    mode (``cross=True``) takes keys and values from another frame's grid.
+    The flat ``[B * NW, 64, C]`` call is :func:`fused_window_attention`: K16
+    on the card, its plain version on the CPU. Parameters carry the JAX
+    names: self mode's fused ``qk_kernel`` splits into ``q`` and ``k``."""
+
+    def __init__(self, d_model, nhead, window, shift, tau_min=0.01,
+                 cross=False):
+        super().__init__()
+        C = d_model
+        self.nhead, self.window, self.shift = nhead, window, shift
+        self.tau_min, self.cross = tau_min, cross
+        self.q = nn.Linear(C, C)
+        self.k = nn.Linear(C, C)
+        self.v = nn.Linear(C, C)
+        self.out = nn.Linear(C, C)
+        self.tau = nn.Parameter(torch.ones(1))
+        self.register_buffer('pos', slot_pos_embed(window, C).to(COMPUTE_DTYPE),
+                             persistent=False)
+
+    def forward(self, grid: DenseGrid, kv_grid: DenseGrid | None = None):
+        """Returns [B, H, W, C] f32, zero at unoccupied query cells."""
+        if (kv_grid is not None) != self.cross:
+            raise ValueError('cross mode takes a kv grid, self mode none')
+        w, shift = self.window, self.shift
+        xw = window_view(grid.x.to(COMPUTE_DTYPE), w, shift)
+        kvw = (window_view(kv_grid.x.to(COMPUTE_DTYPE), w, shift)
+               if self.cross else xw)
+        src_occ = (kv_grid if self.cross else grid).occ
+        kmask = window_view(src_occ[..., None].float(), w, shift)[..., 0]
+        B, NW, T, C = xw.shape
+        flat = lambda a: a.reshape(B * NW, *a.shape[2:])
+        out = fused_window_attention(
+            flat(xw), flat(kvw), flat(kmask), self.pos, self.q.weight.t(),
+            self.q.bias, self.k.weight.t(), self.k.bias, self.v.weight.t(),
+            self.v.bias, self.out.weight.t(), self.out.bias, self.tau,
+            self.nhead, self.tau_min, self.cross)
+        out = window_unview(out.reshape(B, NW, T, C), grid.grid_hw, w, shift)
+        return torch.where(grid.occ[..., None], out, 0.0).float()
 
 
 class DenseEncoderLayer(nn.Module):

@@ -2,6 +2,13 @@
 the padded carrier, and kernels K1 (gather) and K2 (scatter) with their
 plain versions (counterpart of ``tmae_tpu/ops/occ_compact.py``).
 
+Beside the padded-carrier API, the unpadded window API of the JAX package
+(``gather_windows``, ``scatter_windows``, ``scatter_windows_into`` on
+``[B, H, W, C]`` grids, with their custom VJPs) runs on the card as
+``pad_grid``, K1 or K2, then the crop. K2 serves the JAX package's
+``_scatter_pallas`` (K13b, into a zero carrier) and ``_scatter_into_pallas``
+(K13c, into ``pad_grid(init)``): both are K2's function on another carrier.
+
 Most 8x8 BEV windows of a LiDAR frame are empty. A plan names the occupied
 windows of each sample, classed by occupied-cell count into a small (S=16),
 a mid (S=48) and a full (T=64) bucket. The serving layer gathers all planned
@@ -21,7 +28,7 @@ import torch.nn.functional as F
 
 from ..device import on_card
 from ..utils.build import CudaKernel, I, P, stream_handle
-from .dense_windows import window_geometry, window_view
+from .dense_windows import window_geometry, window_unview, window_view
 
 K1 = CudaKernel('windows.cu', 'launch_gather_windows',
                 [P, P, P, I, I, I, I, I, I, P])
@@ -85,6 +92,14 @@ def _gather_occ_rows(ow: torch.Tensor, idx, nwx: int):
     return torch.gather(ow, 1, flat[..., None].expand(-1, -1, ow.shape[2]))
 
 
+def gather_window_occ(occ: torch.Tensor, idx, grid_hw, window: int,
+                      shift: bool) -> torch.Tensor:
+    """Per-slot occupancy [B, cap, w*w] (f32 0/1) of the planned windows;
+    dummy slots give zeros."""
+    _, nwx, _, _ = window_geometry(grid_hw, window)
+    return _gather_occ_rows(_window_occ_view(occ, window, shift), idx, nwx)
+
+
 def _cell_selection(ow, idx, nwx: int, tokens: int):
     """In-window cell ids, occupied cells first, each group in ascending
     order, and their occupancy: ([B, cap, S] int32, [B, cap, S] f32). The
@@ -112,6 +127,17 @@ class CompactInfo:
 
     def overflow(self) -> torch.Tensor:
         return (self.n_occupied - self.idx.shape[1]).clamp(min=0)
+
+
+def build_compact_info(occ, window: int, shift: bool, cap: int, grid_hw,
+                       kv_occ=None) -> CompactInfo:
+    """One plan of every occupied window (up to ``cap``) of the shift's
+    partition, with the query (and, given ``kv_occ``, key) masks."""
+    idx, valid, nocc = occupied_window_indices(occ, window, shift, cap)
+    qmask = gather_window_occ(occ, idx, grid_hw, window, shift)
+    kmask = (gather_window_occ(kv_occ, idx, grid_hw, window, shift)
+             if kv_occ is not None else None)
+    return CompactInfo(idx, valid, qmask, kmask, nocc)
 
 
 @dataclasses.dataclass
@@ -386,3 +412,151 @@ def scatter_windows_train(xw, idx, init, window: int):
     returns a new carrier (counterpart of the JAX package's
     ``scatter_windows_into_padded`` custom VJP)."""
     return _ScatterWindows.apply(xw, idx, init, window)
+
+
+# ---------------------------------------------------------------------------
+# The unpadded window API: [B, H, W, C] grids in and out
+# ---------------------------------------------------------------------------
+
+
+class LaunchCount:
+    """Launch count of an entry point that another kernel serves: the entry
+    adds one where it launches that kernel."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+K13B = LaunchCount()   # scatter_windows: K2 into a zero carrier
+K13C = LaunchCount()   # scatter_windows_into: K2 into pad_grid(init)
+
+
+def gather_windows_plain(xg, idx, grid_hw, window: int, shift: bool):
+    """Plain version of :func:`gather_windows` (``_gather_ref``)."""
+    _, nwx, _, _ = window_geometry(grid_hw, window)
+    xw = window_view(xg, window, shift)
+    xw = torch.cat([xw, torch.zeros_like(xw[:, :1])], 1)
+    flat = _flat_window(idx, nwx, xw.shape[1] - 1)
+    T, C = xw.shape[2:]
+    return torch.gather(xw, 1, flat[..., None, None].expand(-1, -1, T, C))
+
+
+def scatter_windows_into_plain(xw, idx, init, grid_hw, window: int,
+                               shift: bool):
+    """Plain version of :func:`scatter_windows_into`
+    (``_scatter_into_ref``)."""
+    _, nwx, _, _ = window_geometry(grid_hw, window)
+    buf = window_view(init.to(xw.dtype), window, shift)
+    NW = buf.shape[1]
+    buf = torch.cat([buf, torch.zeros_like(buf[:, :1])], 1)
+    flat = _flat_window(idx, nwx, NW)
+    T, C = xw.shape[2:]
+    buf = buf.scatter(1, flat[..., None, None].expand(-1, -1, T, C), xw)
+    return window_unview(buf[:, :NW], grid_hw, window, shift)
+
+
+def scatter_windows_plain(xw, idx, grid_hw, window: int, shift: bool):
+    """Plain version of :func:`scatter_windows` (``_scatter_ref``): zeros
+    outside the planned windows."""
+    B, _, _, C = xw.shape
+    init = torch.zeros(B, *grid_hw, C, dtype=xw.dtype, device=xw.device)
+    return scatter_windows_into_plain(xw, idx, init, grid_hw, window, shift)
+
+
+def _gather(xg, idx, grid_hw, window, shift):
+    if not on_card(xg, idx):
+        return gather_windows_plain(xg, idx, grid_hw, window, shift)
+    return gather_windows_padded(pad_grid(xg, window, shift).contiguous(),
+                                 idx, window)
+
+
+def _scatter_into(xw, idx, init, grid_hw, window, shift):
+    if not on_card(xw, idx, init):
+        return scatter_windows_into_plain(xw, idx, init, grid_hw, window,
+                                          shift)
+    xp = pad_grid(init.to(xw.dtype), window, shift).contiguous()
+    xp = scatter_windows_into_padded(xw.contiguous(), idx, xp, window)
+    K13C.launches += 1
+    return unpad_grid(xp, grid_hw, window, shift)
+
+
+def _scatter(xw, idx, grid_hw, window, shift):
+    if not on_card(xw, idx):
+        return scatter_windows_plain(xw, idx, grid_hw, window, shift)
+    B, _, _, C = xw.shape
+    _, _, Hp, Wp = window_geometry(grid_hw, window)
+    xp = torch.zeros(B, Hp + window, Wp, C, dtype=xw.dtype, device=xw.device)
+    xp = scatter_windows_into_padded(xw.contiguous(), idx, xp, window)
+    K13B.launches += 1
+    return unpad_grid(xp, grid_hw, window, shift)
+
+
+class _GatherGrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xg, idx, grid_hw, window, shift):
+        ctx.geom = (grid_hw, window, shift)
+        ctx.save_for_backward(idx)
+        return _gather(xg, idx, grid_hw, window, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _scatter(g, idx, *ctx.geom), None, None, None, None
+
+
+class _ScatterGrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xw, idx, grid_hw, window, shift):
+        ctx.geom = (grid_hw, window, shift)
+        ctx.save_for_backward(idx)
+        return _scatter(xw, idx, grid_hw, window, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _gather(g, idx, *ctx.geom), None, None, None, None
+
+
+class _ScatterIntoGrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xw, idx, init, grid_hw, window, shift):
+        ctx.geom = (grid_hw, window, shift)
+        ctx.init_dtype = init.dtype
+        ctx.save_for_backward(idx)
+        return _scatter_into(xw, idx, init, grid_hw, window, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        dxw = _gather(g, idx, *ctx.geom)
+        # the visited windows were overwritten: their init gets no gradient
+        dinit = _scatter_into(torch.zeros_like(dxw), idx, g, *ctx.geom)
+        return dxw, None, dinit.to(ctx.init_dtype), None, None, None
+
+
+def gather_windows(xg, idx, grid_hw, window: int, shift: bool):
+    """The windows named by ``idx`` [B, cap, 2] of the shift's partition of
+    ``xg`` [B, H, W, C]: [B, cap, w*w, C], zeros for dummy slots. Its VJP
+    scatters the cotangent into zeros. K1 on the card."""
+    return _GatherGrid.apply(xg, idx, tuple(grid_hw), window, shift)
+
+
+def scatter_windows(xw, idx, grid_hw, window: int, shift: bool,
+                    zero_fill: bool = False):
+    """Inverse of :func:`gather_windows`: [B, cap, w*w, C] → [B, H, W, C];
+    its VJP gathers the cotangent. Cells of windows not named by ``idx`` are
+    zero whatever ``zero_fill`` says: the JAX package leaves them undefined
+    without ``zero_fill``, and zero is one value of "undefined". K2 into a
+    zero carrier on the card (the JAX package's K13b)."""
+    del zero_fill
+    return _ScatterGrid.apply(xw, idx, tuple(grid_hw), window, shift)
+
+
+def scatter_windows_into(xw, idx, init, grid_hw, window: int, shift: bool):
+    """``init`` [B, H, W, C] with the windows named by ``idx`` replaced by
+    ``xw`` [B, cap, w*w, C], in ``xw``'s dtype; windows not named keep
+    their content. Its VJP gathers the cotangent for ``xw`` and gives
+    ``init`` the cotangent with the visited windows zeroed. K2 into
+    ``pad_grid(init)`` on the card (the JAX package's K13c)."""
+    return _ScatterIntoGrid.apply(xw, idx, init, tuple(grid_hw), window,
+                                  shift)
