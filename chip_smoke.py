@@ -50,7 +50,9 @@ Phases (any failure exits non-zero and prints no result line):
      synthetic frame pairs (scenes 0 and 1; the config's batch is 6): the
      training kernels K6-K9 against their plain versions on the layer
      inputs one train-mode forward of this batch hands them (every bucket,
-     self and cross, C=128 and C=256); launch counters set to 0, one step
+     self and cross, C=128 and C=256; K7/K9 also on cotangents with half
+     the windows zeroed, which they skip, and twice for the same bits);
+     launch counters set to 0, one step
      (forward in train mode, CenterPoint loss, backward through K7/K9 and
      the VJPs of K1/K2/K5, one adam_onecycle update), the counts checked
      per step; then timed steps on the same batch, whose loss must stay
@@ -66,7 +68,8 @@ Phases (any failure exits non-zero and prints no result line):
      self at shift 0 and 1, C=256 self, C=128 and C=256 cross; captured
      under deterministic algorithms, so every run checks the same inputs),
      and its backward (K7 on the windows with an occupied query cell)
-     against autograd through the plain version at C=128 and C=256.
+     against autograd through the plain version at C=128 self, C=256 self
+     and C=128 cross, each run twice for the same bits.
   9. pretraining, t_mae_ssl_waymo.yaml (no caps: every encoder layer is
      K10, its backward K7), full width and depth, two synthetic frame pairs
      (the config's batch is 8), device voxelization, a mask from a seeded
@@ -151,6 +154,10 @@ TRAIN_PAIRS = (0, 1)           # synthetic scenes of the training batch
 SSL_STEPS = 3                  # t_mae_ssl.yaml pretraining steps
 WAYMO_REPS = 5                 # timed t_mae_waymo.yaml serving passes
 BWD_DRAWS = 16                 # random cotangents per backward check
+# the kernels of K7 / K9 (csrc/encoder_layer_bwd.cu) in a profiler table
+BWD_KERNELS = ('(anonymous namespace)::window_bwd_kernel',
+               '(anonymous namespace)::wgrad_kernel',
+               '(anonymous namespace)::reduce_kernel')
 
 
 def log(*a):
@@ -518,7 +525,7 @@ def train_layer_calls(torch, model, batch):
     return calls
 
 
-def train_check(torch, el, call, gen, entry):
+def train_check(torch, el, call, gen, entry, profile=False):
     """K6 / K8 and K7 / K9 on one bucket against their plain versions on
     the same card. Forward: bf16 output, max |diff| <= 0.15 and mean <=
     2e-3 (as K3/K4). Backward, for each of BWD_DRAWS random cotangents,
@@ -529,8 +536,14 @@ def train_check(torch, el, call, gen, entry):
     and heads, is linear in the cotangent and zero on average over random
     ones, so one draw's error over its value has no bounded spread (see
     :func:`grid_check`): its error is held within 10% of its value in root
-    mean square over the draws. The C=128 self (stage-1) small (S=16) and
-    full buckets go into the kernels line."""
+    mean square over the draws. Every other draw zeroes the cotangent of a
+    random half of the windows (the kernel skips a window whose cotangent
+    is 0 on its query cells), and the kernel run twice on draw 0's
+    cotangent (nonzero on every window, as the path hands it over; the
+    times are taken on it too) must give the same bits. The C=128 self
+    (stage-1) small (S=16) and
+    full buckets go into the kernels line; with ``profile``, their
+    backward's device time by kernel name too."""
     x, kvw, sq, sk, qm, km, pos, (nhead, tau_min, cross), p, *weights = call
     S = None if sq is None else sq.shape[-1]
     weights = [w.detach() for w in weights]
@@ -550,10 +563,16 @@ def train_check(torch, el, call, gen, entry):
                              f'plain version: max {ferr} mean {fmean}')
     dpos = S is None
     names = ['dx', 'dkv'] + list(el.LayerParams._fields) + ['dpos']
-    worst, berr, errs, refs = (0.0, ''), 0.0, [], []
-    for _ in range(BWD_DRAWS):
+    worst, berr, errs, refs, live = (0.0, ''), 0.0, [], [], set()
+    qcell = qm > 0
+    for i in range(BWD_DRAWS):
         g = torch.randn(x.shape, generator=gen, device=x.device).to(
             torch.bfloat16)
+        if i % 2:
+            keep = torch.rand(x.shape[0], generator=gen, device=x.device)
+            g = g * (keep < 0.5)[:, None, None].to(g.dtype)
+        gq = g if S is None else el._take(g, sq)
+        live.add(int(((gq != 0).any(-1) & qcell).any(-1).sum()))
         bk = lambda: el.encoder_layer_bwd(*args, weights, g, want_dpos=dpos,
                                           **kw)
         bp = lambda: el.reference_encoder_layer_bwd(*args, weights, g,
@@ -584,12 +603,26 @@ def train_check(torch, el, call, gen, entry):
                     f'{e.mean().item()} scale {scale}')
             worst = max(worst, (e.max().item() / max(scale, 1e-30), name))
         berr = max(berr, (rk[0].float() - rp[0].float()).abs().max().item())
+        if i == 0:  # a cotangent on every window, as the path hands it over
+            g0, rk0 = g, rk
     rms = lambda v: math.sqrt(sum(t * t for t in v) / len(v))
     dtau = rms(errs) / max(rms(refs), 1e-30)
     if not dtau <= 0.1:
         raise AssertionError(
             f'{kname[1]} {label} T={T}: dtau differs from its plain version '
             f'by {dtau:.3g} in root mean square over {BWD_DRAWS} draws')
+    # the same bits again, and the times, on draw 0's full cotangent
+    bk = lambda: el.encoder_layer_bwd(*args, weights, g0, want_dpos=dpos,
+                                      **kw)
+    bp = lambda: el.reference_encoder_layer_bwd(*args, weights, g0,
+                                                want_dpos=dpos, **kw)
+    again = bk()
+    for name, a, b in zip(names, [rk0[0], rk0[1], *rk0[2], rk0[3]],
+                          [again[0], again[1], *again[2], again[3]]):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f'{kname[1]} {label} T={T}: two runs on one '
+                                 f'cotangent differ in {name}')
+    del again
     C, Fd, N = x.shape[-1], p.f1w.shape[0], x.shape[0]
     nw = int((qm > 0).any(-1).sum())
     win = 64 * C * 2
@@ -609,6 +642,8 @@ def train_check(torch, el, call, gen, entry):
     bf, byf = bound_ms(fwd_bytes, fwd_flops)
     bb, byb = bound_ms(bwd_bytes, bwd_flops)
     log(f'  {kname[0]}/{kname[1]} {label} T={T}: {nw} of {N} windows; '
+        f'windows with a nonzero cotangent on a query cell: '
+        f'{sorted(live)} (half the windows zeroed in every other draw); '
         f'forward max_abs_err {ferr:.3g} (mean {fmean:.2g}), {ms_f:.4f} ms, '
         f'bound {bf:.4f} ms ({byf}); backward over {BWD_DRAWS} cotangents: '
         f'dx max_abs_err {berr:.3g}, worst relative {worst[0]:.3g} '
@@ -629,6 +664,8 @@ def train_check(torch, el, call, gen, entry):
               kname[1], bsrc, site + ('752' if full else '1403'), berr, ms_b,
               time_ms(torch, bp, iters=2, warmup=1), bwd_bytes, bwd_flops,
               None)
+        if profile:
+            pass_breakdown(torch, bk, f'profile_bwd_{kname[1]}.txt')
 
 
 # ---------------------------------------------------------------------------
@@ -870,7 +907,7 @@ def train_phase(torch, cfg, spec, rows, profile=False):
     gen = torch.Generator(device='cuda').manual_seed(2)
     for key in sorted(calls):
         train_check(torch, el, calls[key], gen,
-                    functools.partial(add_row, rows))
+                    functools.partial(add_row, rows), profile)
     del calls
     step = make_trainer(cfg, model)
     launches, steps, med, peak = run_steps(torch, model, step, batch,
@@ -917,6 +954,7 @@ def profile_train_step(torch, step, batch, name='profile_train.txt'):
     """Device time by kernel name over one training step (torch.profiler),
     into ``name`` under the output directory; the table ends with the
     step's self CPU and device time totals."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -927,6 +965,39 @@ def profile_train_step(torch, step, batch, name='profile_train.txt'):
     (OUT_DIR / name).write_text(
         avg.table(sort_by='self_cuda_time_total', row_limit=-1))
     log(avg.table(sort_by='self_cuda_time_total', row_limit=50))
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA
+           and not getattr(e, 'is_user_annotation', False)]
+    bwd = sum(e.self_device_time_total for e in dev
+              if any(k in e.key for k in BWD_KERNELS)) / 1e3
+    total = sum(e.self_device_time_total for e in dev) / 1e3
+    log(f'  {name}: K7/K9 (csrc/encoder_layer_bwd.cu) {bwd:.3f} ms of '
+        f'{total:.3f} ms of device time in the step')
+
+
+def pass_breakdown(torch, fn, name):
+    """Device time of one call of ``fn`` by kernel name (torch.profiler,
+    after one warm call): the whole table into ``name`` under the output
+    directory, and one log line of ms and calls per name, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):  # the first profile can miss the early kernels
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    avg = prof.key_averages()
+    (OUT_DIR / name).write_text(
+        avg.table(sort_by='self_cuda_time_total', row_limit=-1))
+    short = lambda k: k.replace('void ', '').replace(
+        '(anonymous namespace)::', '').split('(')[0][:60]
+    ev = sorted(((e.self_device_time_total / 1e3, e.count, short(e.key))
+                 for e in avg if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0), reverse=True)
+    log(f'  {name}: {sum(t for t, _, _ in ev):.4f} ms of device time: '
+        + ', '.join(f'{k} {t:.4f} ms x{c}' for t, c, k in ev))
 
 
 def _cos(a, b):
@@ -1109,7 +1180,7 @@ def capture_spread(torch, model, batch, seed, first):
             raise AssertionError('two deterministic captures differ')
 
 
-def grid_check(torch, el, call, gen, entry, backward):
+def grid_check(torch, el, call, gen, entry, backward, profile=False):
     """K10 on one captured call against its plain version on the same card
     (bf16 output over the occupied query cells, max |diff| <= 0.15 and mean
     <= 2e-3, as K3/K6; every other cell exactly 0), its time and its bound;
@@ -1123,7 +1194,8 @@ def grid_check(torch, el, call, gen, entry, backward):
     value in one draw is a ratio of two zero-mean sums, with no bounded
     spread (a draw whose dtau lands near 0 reads any ratio). Its error is
     held within 10% of its value in root mean square over them. The
-    C=128 self shift-0 call goes into the kernels line."""
+    C=128 self shift-0 call goes into the kernels line; with ``profile``,
+    its backward's device time by kernel name too."""
     xg, kvg, qocc, kocc, pos, cfg, p, *weights = call
     nhead, tau_min, cross, window, shift = cfg
     kw = dict(nhead=nhead, tau_min=tau_min, cross=cross, window=window,
@@ -1182,6 +1254,8 @@ def grid_check(torch, el, call, gen, entry, backward):
         bk = lambda: el.encoder_layer_grid_bwd(xg, kvg, qocc, kocc, pos, p,
                                                g, **kw)
         ms_b = time_ms(torch, bk, iters=3, warmup=1)
+        if profile and (xg.shape[-1], cross, shift) == (128, False, False):
+            pass_breakdown(torch, bk, 'profile_bwd_grid.txt')
         msg += (f'; backward (views + K7 on {nw} windows) over {BWD_DRAWS} '
                 f'cotangents: worst relative {worst[0]:.3g} ({worst[1]}), '
                 f'dtau relative error {dtau:.3g} in root mean square (each '
@@ -1289,13 +1363,14 @@ def pretrain_phase(torch, cfg, steps, expected, rows=None, profile=None):
             f'batch ({len(calls)} calls captured)')
         capture_spread(torch, model, batch, 0, calls)
         check_gen = torch.Generator(device='cuda').manual_seed(2)
-        for key, backward in (((128, False, False), False),
+        for key, backward in (((128, False, False), True),
                               ((128, False, True), False),
                               ((256, False, False), True),
                               ((128, True, False), True),
                               ((256, True, False), False)):
             grid_check(torch, el, calls[key], check_gen,
-                       functools.partial(add_row, rows), backward)
+                       functools.partial(add_row, rows), backward,
+                       bool(profile))
         del calls
         torch.cuda.empty_cache()
     step = make_trainer(cfg, model,

@@ -67,17 +67,30 @@ def stage_caps(runtime, n_stages: int) -> list:
             for f, s, m in zip(full, small, mid)]
 
 
+def _max_tokens(blk) -> int:
+    """The largest ``max_tokens`` of a stage's ``PREPROCESS.DROP_INFO.train``
+    (as ``SiamWCA._max_tokens`` of the JAX package reads it)."""
+    drop = blk['PREPROCESS']['DROP_INFO']['train']
+    return max(int(v['max_tokens']) for v in dict(drop).values())
+
+
 class SiamWCAEncoder(nn.Module):
     """Pyramid-encode both frames, then cross-attend each scale."""
 
     def __init__(self, model_cfg, caps, cin, window=8, remat=None):
         super().__init__()
+        asym = model_cfg.get('ASYMMETRIC') or {}
+        if asym.get('ENABLED', False):
+            raise NotImplementedError(
+                'the port encodes both frames in one pass: ASYMMETRIC.ENABLED '
+                '(with HALF_CHANNELS or SimSiam) is not ported yet')
         self.sst_blocks, self.wca_blocks = [], []
         blocks = model_cfg['SST_BLOCK_LIST']
         remat = remat or [True] * len(blocks)
         for i, b in enumerate(blocks):
             ecfg = dict(b['ENCODER'])
-            sst = SSTBlock(cin, ecfg, caps[i], window, remat=remat[i])
+            sst = SSTBlock(cin, ecfg, caps[i], window, remat=remat[i],
+                           max_tokens=_max_tokens(b))
             wca = WCABlock(ecfg, caps[i], window)
             self.add_module(f'sst_block_{i}', sst)
             self.add_module(f'wca_block_{i}', wca)

@@ -321,10 +321,15 @@ class SSTBlock(nn.Module):
     window blocks on one padded carrier, residual add, SubM conv_out."""
 
     def __init__(self, cin, encoder_cfg, caps: OccCaps | None, window=8,
-                 remat: bool = True):
+                 remat: bool = True, max_tokens: int = 64):
         super().__init__()
         ecfg = encoder_cfg
         d_model = int(ecfg['D_MODEL'])
+        if max_tokens != window * window:
+            raise NotImplementedError(
+                'dense SST path requires max_tokens == window**2 (all T-MAE '
+                f'configs), not {max_tokens}; the list-based path for smaller '
+                'caps is not ported')
         self.window, self.caps, self.remat = window, caps, remat
         self.stride = int(ecfg.get('STRIDE', 1))
         layer_cfg = ecfg.get('LAYER_CFG', {})

@@ -30,13 +30,14 @@ backward keeps its gradients in f32 between bf16 matmul operands.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ..device import on_card
-from ..utils.build import CudaKernel, F as CF, I, P, stream_handle
+from ..utils.build import CudaKernel, F as CF, I, P, library, stream_handle
 from .dense_windows import window_unview, window_view
 from .occ_compact import (gather_windows_padded_plain,
                           scatter_windows_into_padded_plain)
@@ -354,21 +355,48 @@ def reference_encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
     return dx, dkv, grads, dpos
 
 
-def _bwd_workspace(N, T, C, F, H, cross, sel, dpos, splits, dev):
-    """Row workspace of K7 / K9 (see csrc/encoder_layer_bwd.cu)."""
+@functools.lru_cache(maxsize=None)
+def _bwd_sizes(N, T, C, F, H, dpos):
+    """(per-tile partials bytes, scratch bytes, ints of the flags and tile
+    counter) of a K7 / K9 call, from the library (they depend on the card's
+    SM count and on what fits in shared memory)."""
+    fn = library('encoder_layer_bwd.cu').encoder_bwd_sizes
+    fn.argtypes = [I] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 3)()
+    if fn(N, T, C, F, H, int(dpos), out):
+        raise ValueError(f'K7/K9 take no T={T}, C={C}, nhead={H}')
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _bwd_workspace(N, T, C, F, H, cross, dpos, dev):
+    """Workspace of K7 / K9 (see csrc/encoder_layer_bwd.cu): the bf16
+    operands of the six weight-gradient products (rows of live windows
+    only are written and read), the live-window flags with the tile
+    counter, the per-tile partials, the blocks' scratch and the
+    weight-gradient chunks. Returns (tensors, splits)."""
     R = N * T
-    Rp = -(-R // 64) * 64
-    bf = lambda w: torch.empty(Rp, w, dtype=torch.bfloat16, device=dev)
-    f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)
-    rows_bf = [bf(C), bf(C), bf(C), bf(C) if cross else None,
-               bf(C) if cross else None, bf(C), bf(C), bf(C), bf(F), bf(C),
-               bf(F), bf(C), bf(C), bf(C), bf(C), bf(C)]
-    rows_f = [f32(Rp, C), f32(Rp, C), f32(Rp, H), f32(Rp, H), f32(Rp, C),
-              f32(Rp, C), f32(Rp, C) if sel else None,
-              f32(Rp, C) if sel and cross else None,
-              f32(Rp, C) if dpos else None, f32(Rp // 64, 6 * C + F),
-              f32(N, 3 * C), f32(N * H), f32(splits * C * F)]
-    return rows_bf + rows_f
+    bf = lambda w: torch.empty(R, w, dtype=torch.bfloat16, device=dev)
+    ops = [bf(C), bf(C) if cross else None, bf(C), bf(C), bf(C), bf(F),
+           bf(C), bf(C), bf(C), bf(C), bf(F), bf(C)]
+    part_bytes, scratch_bytes, flags = _bwd_sizes(N, T, C, F, H, dpos)
+    # row chunks of the weight-gradient launch: about two blocks per SM over
+    # its 64 x 128 output tiles, and at most 4096 windows a chunk
+    tiles = (4 * (C // 64) * (C // 128) + (F // 64) * (C // 128)
+             + (C // 64) * (F // 128))
+    splits = max(-(-N // 4096), min(N, -(-2 * _sm_count(dev) // tiles)))
+    ws = ops + [
+        torch.empty(flags, dtype=torch.int32, device=dev),
+        torch.empty(part_bytes // 4, dtype=torch.float32, device=dev),
+        torch.empty(scratch_bytes, dtype=torch.uint8, device=dev),
+        torch.empty(splits * (4 * C * C + 2 * C * F), dtype=torch.float32,
+                    device=dev)]
+    return ws, splits
 
 
 def _ptrs(ts):
@@ -399,9 +427,11 @@ def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
     N, _, C = xw.shape
     Fd, T = p.f1w.shape[0], (sel_q.shape[-1] if sel else 64)
     dev = xw.device
-    splits = max(1, min(64, N * T // 1024))
-    ws = _bwd_workspace(N, T, C, Fd, nhead, cross, sel, want_dpos, splits,
-                        dev)
+    if C not in (128, 256) or Fd != 2 * C or nhead != 8:
+        raise ValueError('K7/K9 are compiled for C = 128 or 256 with 8 heads '
+                         f'and an FFN width of 2C, not C={C}, nhead={nhead}, '
+                         f'FFN {Fd}')
+    ws, splits = _bwd_workspace(N, T, C, Fd, nhead, cross, want_dpos, dev)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     sel_q, sel_k = _i32(sel_q), _i32(sel_k if cross else None)
     pos = pos.to(torch.bfloat16).contiguous()
