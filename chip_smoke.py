@@ -158,6 +158,13 @@ BWD_DRAWS = 16                 # random cotangents per backward check
 BWD_KERNELS = ('(anonymous namespace)::window_bwd_kernel',
                '(anonymous namespace)::wgrad_kernel',
                '(anonymous namespace)::reduce_kernel')
+# the launches of K8 / K10 (csrc/encoder_layer_tiled.cu) in a profiler table
+TILED_SRC = 'tmae_tpu_torch/csrc/encoder_layer_tiled.cu'
+FWD_KERNELS = ('(anonymous namespace)::tiled_kernel',
+               '(anonymous namespace)::sel_prepass_kernel',
+               '(anonymous namespace)::grid_prepass_kernel',
+               '(anonymous namespace)::compact_kernel',
+               '(anonymous namespace)::pack_kernel')
 
 
 def log(*a):
@@ -561,6 +568,8 @@ def train_check(torch, el, call, gen, entry, profile=False):
     if not (ferr <= 0.15 and fmean <= 2e-3):
         raise AssertionError(f'{kname[0]} {label} T={T} differs from its '
                              f'plain version: max {ferr} mean {fmean}')
+    if S is not None:
+        sel_bits_check(torch, el, args, p, kw, ka, f'{label} S={S}')
     dpos = S is None
     names = ['dx', 'dkv'] + list(el.LayerParams._fields) + ['dpos']
     worst, berr, errs, refs, live = (0.0, ''), 0.0, [], [], set()
@@ -653,7 +662,7 @@ def train_check(torch, el, call, gen, entry, profile=False):
         + f'), {ms_b:.4f} ms, bound {bb:.4f} ms ({byb})')
     if label == 'C=128 self' and T in (16, 64):
         full = S is None
-        fsrc = 'tmae_tpu_torch/csrc/encoder_layer.cu'
+        fsrc = 'tmae_tpu_torch/csrc/encoder_layer.cu' if full else TILED_SRC
         bsrc = 'tmae_tpu_torch/csrc/encoder_layer_bwd.cu'
         site = 'tmae_tpu/ops/pallas_encoder.py:'
         entry('encoder_train_fwd_full' if full else 'encoder_train_fwd_sel',
@@ -666,6 +675,84 @@ def train_check(torch, el, call, gen, entry, profile=False):
               None)
         if profile:
             pass_breakdown(torch, bk, f'profile_bwd_{kname[1]}.txt')
+
+
+def sel_bits_check(torch, el, args, p, kw, out, label):
+    """K8's exact checks on one captured call whose kernel output is
+    ``out``: every slot without an occupied query cell is x to the bit (the
+    pre-pass copies it; the layer never runs on it); a second run gives the
+    same bits; nothing leaks between the windows of a packed tile (the
+    first live window's tokens changed, every other window's output keeps
+    its bits); and the first windows up to a live count that leaves a
+    partial last tile give the same bits as in the whole call."""
+    x, kvw, sq, sk, qm, km, pos = args
+    live = (qm > 0).any(-1)
+    if not torch.equal(out[~live], x[~live]):
+        raise AssertionError(f'K8 {label}: a slot without a query is not x')
+    if not torch.equal(el.encoder_layer_fwd(*args, p, **kw), out):
+        raise AssertionError(f'K8 {label}: two runs differ')
+    w0 = int(live.nonzero()[0, 0])
+    x2 = x.clone()
+    x2[w0] = -x2[w0]
+    moved = el.encoder_layer_fwd(x2, *args[1:], p, **kw)
+    rest = torch.ones_like(live)
+    rest[w0] = False
+    if not torch.equal(moved[rest], out[rest]):
+        raise AssertionError(f'K8 {label}: changing window {w0} moved the '
+                             'output of another window')
+    if torch.equal(moved[w0], out[w0]):
+        raise AssertionError(f'K8 {label}: window {w0} did not change')
+    per = 4 if sq.shape[-1] == 16 else 1
+    counts = live.int().cumsum(0)
+    ends = torch.cat([((counts % 4 == 2) & (counts > 4)).nonzero(),
+                      (counts % 4 != 0).nonzero()])
+    n = int(ends[0, 0]) + 1 if len(ends) else x.shape[0]
+    cut = lambda a: None if a is None else a[:n]
+    part = el.encoder_layer_fwd(*map(cut, args[:-1]), pos, p, **kw)
+    if not torch.equal(part, out[:n]):
+        raise AssertionError(f'K8 {label}: the first {n} windows differ from '
+                             'the whole call')
+    n_live = int(counts[n - 1])
+    log(f'  K8 {label}: {int((~live).sum())} slots without a query equal x '
+        f'to the bit; the same bits twice; window {w0} changed, the other '
+        f'{x.shape[0] - 1} windows kept their bits; the first {n} windows '
+        f'({n_live} live, {n_live // per} full tiles of {per} and '
+        f'{n_live % per} in the last) give the bits of the whole call')
+
+
+def grid_bits_check(torch, el, call, out, label):
+    """K10's exact checks on one captured call whose kernel output is
+    ``out``: every in-grid cell of a window without an occupied query cell
+    is exactly 0; a second run gives the same bits; the first live window's
+    tokens changed, every cell outside it keeps its bits."""
+    xg, kvg, qocc, kocc, pos, cfg, p, *_ = call
+    nhead, tau_min, cross, window, shift = cfg
+    kw = dict(nhead=nhead, tau_min=tau_min, cross=cross, window=window,
+              shift=shift)
+    fw = lambda a: el._flat_windows(a, window, shift)
+    live = fw(qocc.float()).any(-1)
+    on_grid = fw(torch.ones_like(qocc, dtype=torch.float32)) > 0
+    ov = fw(out)
+    if (ov[~live][on_grid[~live]] != 0).any():
+        raise AssertionError(f'K10 {label}: a window without a query is not '
+                             'zero')
+    if not torch.equal(el.encoder_layer_grid(xg, kvg, qocc, kocc, pos, p,
+                                             **kw), out):
+        raise AssertionError(f'K10 {label}: two runs differ')
+    w0 = int(live.nonzero()[0, 0])
+    one = torch.zeros(live.shape[0], window * window, 1, device=xg.device)
+    one[w0] = 1.0
+    cells = el._unflat_windows(one, xg.shape[0], xg.shape[1:3], window,
+                               shift)[..., 0] > 0
+    x2 = torch.where(cells[..., None], -xg, xg)
+    moved = el.encoder_layer_grid(x2, kvg, qocc, kocc, pos, p, **kw)
+    if not torch.equal(moved[~cells], out[~cells]):
+        raise AssertionError(f'K10 {label}: changing window {w0} moved the '
+                             'output of another window')
+    if torch.equal(moved[cells], out[cells]):
+        raise AssertionError(f'K10 {label}: window {w0} did not change')
+    return (f'; {int((~live).sum())} windows without a query exactly 0, the '
+            f'same bits twice, window {w0} changed and no other cell')
 
 
 # ---------------------------------------------------------------------------
@@ -969,9 +1056,12 @@ def profile_train_step(torch, step, batch, name='profile_train.txt'):
            and not getattr(e, 'is_user_annotation', False)]
     bwd = sum(e.self_device_time_total for e in dev
               if any(k in e.key for k in BWD_KERNELS)) / 1e3
+    fwd = sum(e.self_device_time_total for e in dev
+              if any(k in e.key for k in FWD_KERNELS)) / 1e3
     total = sum(e.self_device_time_total for e in dev) / 1e3
-    log(f'  {name}: K7/K9 (csrc/encoder_layer_bwd.cu) {bwd:.3f} ms of '
-        f'{total:.3f} ms of device time in the step')
+    log(f'  {name}: K7/K9 (csrc/encoder_layer_bwd.cu) {bwd:.3f} ms, K8/K10 '
+        f'(csrc/encoder_layer_tiled.cu) {fwd:.3f} ms of {total:.3f} ms of '
+        'device time in the step')
 
 
 def pass_breakdown(torch, fn, name):
@@ -1121,11 +1211,14 @@ def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None):
 # ---------------------------------------------------------------------------
 
 
-def grid_layer_calls(torch, model, batch, seed, deterministic=True):
+def grid_layer_calls(torch, model, batch, seed, deterministic=True,
+                     train=True):
     """The inputs of the grid layer (K10 forward, K7 over its windows
     backward) as one train-mode forward of ``batch`` hands them over, with
-    the mask drawn from a card generator seeded with ``seed``: the first
-    call per (width, mode, shift). With ``deterministic`` the forward runs
+    the mask drawn from a card generator seeded with ``seed`` (with
+    ``train`` False: as one eval-mode forward, the serving path, hands them
+    over; the model stays in eval mode): the first call per (width, mode,
+    shift). With ``deterministic`` the forward runs
     under ``torch.use_deterministic_algorithms``: the VFE's segment sums
     (``scatter_add_``) then add in a fixed order, so every run captures the
     same inputs bit for bit (with atomics their f32 sums differ in the last
@@ -1148,8 +1241,11 @@ def grid_layer_calls(torch, model, batch, seed, deterministic=True):
     try:
         torch.use_deterministic_algorithms(deterministic, warn_only=True)
         with torch.no_grad():
-            model.train()(batch, generator=torch.Generator(
-                device=batch['points'].device).manual_seed(seed))
+            if train:
+                model.train()(batch, generator=torch.Generator(
+                    device=batch['points'].device).manual_seed(seed))
+            else:
+                model.eval()(batch)
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
         el._FusedEncoderLayerGrid = real
@@ -1183,7 +1279,8 @@ def capture_spread(torch, model, batch, seed, first):
 def grid_check(torch, el, call, gen, entry, backward, profile=False):
     """K10 on one captured call against its plain version on the same card
     (bf16 output over the occupied query cells, max |diff| <= 0.15 and mean
-    <= 2e-3, as K3/K6; every other cell exactly 0), its time and its bound;
+    <= 2e-3, as K3/K6; every other cell exactly 0), the exact checks of
+    :func:`grid_bits_check`, its time and its bound;
     with ``backward``, the kernel path of its gradient (K7 on the windows
     with an occupied query cell) for BWD_DRAWS random cotangents against
     autograd through the plain version over every window, each output but
@@ -1193,9 +1290,9 @@ def grid_check(torch, el, call, gen, entry, backward, profile=False):
     cotangent and zero on average over random ones, so its error over its
     value in one draw is a ratio of two zero-mean sums, with no bounded
     spread (a draw whose dtau lands near 0 reads any ratio). Its error is
-    held within 10% of its value in root mean square over them. The
-    C=128 self shift-0 call goes into the kernels line; with ``profile``,
-    its backward's device time by kernel name too."""
+    held within 10% of its value in root mean square over them. With
+    ``entry``, the C=128 self shift-0 call goes into the kernels line; with
+    ``profile``, its backward's device time by kernel name too."""
     xg, kvg, qocc, kocc, pos, cfg, p, *weights = call
     nhead, tau_min, cross, window, shift = cfg
     kw = dict(nhead=nhead, tau_min=tau_min, cross=cross, window=window,
@@ -1214,6 +1311,7 @@ def grid_check(torch, el, call, gen, entry, backward, profile=False):
                              f'max {err} mean {mean}')
     if (ka[~qocc] != 0).any():
         raise AssertionError(f'K10 {label}: an unoccupied cell is not 0')
+    exact = grid_bits_check(torch, el, call, ka, label)
     B, H, W, C = xg.shape
     Fd = p.f1w.shape[0]
     qw = el._flat_windows(qocc.float(), window, shift).any(-1)
@@ -1234,7 +1332,8 @@ def grid_check(torch, el, call, gen, entry, backward, profile=False):
     b, by = bound_ms(nbytes, flops)
     msg = (f'  K10 {label}: {B}x{H}x{W}, {nw} of {n_all} windows with a '
            f'query ({d.shape[0]} occupied cells); max_abs_err {err:.3g} '
-           f'(mean {mean:.2g}), kernel {ms:.4f} ms, bound {b:.4f} ms ({by})')
+           f'(mean {mean:.2g}), kernel {ms:.4f} ms, bound {b:.4f} ms ({by})'
+           + exact)
     if backward:
         t0 = time.perf_counter()
         errs, refs, worst, peak = [], [], (0.0, ''), 0.0
@@ -1264,8 +1363,9 @@ def grid_check(torch, el, call, gen, entry, backward, profile=False):
                 + f'); {ms_b:.3f} ms, peak {peak:.3f} GiB above its inputs; '
                 f'{time.perf_counter() - t0:.1f} s')
     log(msg)
-    if (xg.shape[-1], cross, shift) == (128, False, False):
-        entry('encoder_grid', 'K10', 'tmae_tpu_torch/csrc/encoder_layer.cu',
+    if entry is not None and (xg.shape[-1], cross, shift) == (128, False,
+                                                              False):
+        entry('encoder_grid', 'K10', TILED_SRC,
               'tmae_tpu/ops/pallas_encoder.py:1483', err, ms,
               time_ms(torch, fp, iters=3, warmup=1), nbytes, flops, None)
 
@@ -1363,13 +1463,11 @@ def pretrain_phase(torch, cfg, steps, expected, rows=None, profile=None):
             f'batch ({len(calls)} calls captured)')
         capture_spread(torch, model, batch, 0, calls)
         check_gen = torch.Generator(device='cuda').manual_seed(2)
-        for key, backward in (((128, False, False), True),
-                              ((128, False, True), False),
-                              ((256, False, False), True),
-                              ((128, True, False), True),
-                              ((256, True, False), False)):
+        backward = {(128, False, False), (256, False, False),
+                    (128, True, False)}
+        for key in sorted(calls):
             grid_check(torch, el, calls[key], check_gen,
-                       functools.partial(add_row, rows), backward,
+                       functools.partial(add_row, rows), key in backward,
                        bool(profile))
         del calls
         torch.cuda.empty_cache()
@@ -2046,9 +2144,12 @@ def sparse_attn_phase(torch, model, batch, rows):
 
 def waymo_serving(torch, cfg, profile=False):
     """t_mae_waymo.yaml served at full width on one synthetic frame pair
-    (device voxelization, K10 in eval mode), as :func:`serve_phase` serves
-    it; then the detector on the card against the CPU at full width on a
-    64x64 grid. Returns the median ms per frame pair."""
+    (device voxelization, K10 in eval mode): first K10 against its plain
+    version on the layer inputs an eval-mode forward of the pair hands it
+    (every width, mode and shift; :func:`grid_check` without the backward);
+    then served as :func:`serve_phase` serves it; then the detector on the
+    card against the CPU at full width on a 64x64 grid. Returns the median
+    ms per frame pair."""
     from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_,
@@ -2059,6 +2160,15 @@ def waymo_serving(torch, cfg, profile=False):
         spec, list(cfg.CLASS_NAMES), indices=(0,), host_voxelize=False),
         'cuda')
     model = init_random_(build_detector(cfg), seed=0)
+    from tmae_tpu_torch.ops import encoder_layer as el
+
+    calls = grid_layer_calls(torch, model, batch, 0, train=False)
+    log(f'  K10 against its plain version on the eval-mode layer inputs of '
+        f'this pair at full grid ({len(calls)} calls captured)')
+    for key in sorted(calls):
+        grid_check(torch, el, calls[key], None, None, False)
+    del calls
+    torch.cuda.empty_cache()
     _, med, _ = serve_phase(torch, cfg, model, batch, EXPECTED_WAYMO_SERVING,
                             WAYMO_REPS,
                             profile and 'profile_waymo_serving.txt')
@@ -2115,7 +2225,7 @@ def main(argv=None):
             f.write(f'== {name} ({info["seconds"]:.1f} s)\n{info["log"]}\n')
     for name, info in built.items():
         regs = [ln.strip() for ln in info['log'].splitlines()
-                if 'registers' in ln]
+                if 'Used' in ln and 'registers' in ln]
         log(f'  built {name} in {info["seconds"]:.1f} s; {regs}')
     log(f'  build wall {time.perf_counter() - t0:.1f} s')
 

@@ -1,34 +1,22 @@
-// Kernels K3, K4, K6, K8, K10, K12 and K16: the cosine-attention SST encoder
-// layer on gathered windows (K3-K8), on the dense BEV grid (K10) and on the
-// windows of a plan straight in the padded carrier (K12); and its attention
-// stage alone (K16).
+// Kernels K3, K4, K6, K12 and K16: the cosine-attention SST encoder layer
+// on gathered windows (K3, K4, K6), on the windows of a plan straight in the
+// padded carrier (K12); and its attention stage alone (K16). K8 and K10,
+// which this template also ran, are encoder_layer_tiled.cu's since the
+// persistent redesign: no entry point here reaches the template's grid
+// addressing (qocc) or its pass-through copy (selq with a separate output)
+// any more.
 //
 // Replace tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full (kernel
 // _kernel_rows_full -> _layer_body) and encoder_layer_rows_sel (kernel
 // _kernel_rows_sel -> _layer_body_sel), which update rows
 // [row_lo, row_lo + cap) of the gathered window tensor [B, total, 64, C] in
 // place (K3, K4: serving), and _pallas_forward (kernel _kernel ->
-// _layer_body) and _pallas_forward_sel (kernel _kernel_sel ->
-// _layer_body_sel), the same functions out of place on a flat [N, 64, C]
-// window tensor (K6, K8: the training forward, launched as B = 1,
-// total = cap = N, row_lo = 0 with a separate output). K3/K6 run the layer on
-// all 64 cells of a window and mask its output by the query mask; K4/K8 run
-// it on S selected cells (S = 16 or 48) and add the masked delta back onto
-// those cells, so unselected cells pass through (K8 copies them to its
-// output first).
-//
-// K10 replaces tmae_tpu/ops/pallas_encoder.py:_grid_forward (kernel
-// _grid_kernel -> _layer_body): the K6 layer on every 8x8 window of a dense
-// [B, H, W, C] grid, the window partition and its inverse done by the
-// addressing. The partition has ceil(H/8) + 1 rows and ceil(W/8) + 1 columns
-// of windows, offset by 8 cells (shift 0) or 4 (shift 1): cell (iy, ix) of
-// window (wy, wx) is grid cell (8 wy + iy - off, 8 wx + ix - off), and a cell
-// off the grid reads as zero and unoccupied. The query and key masks are the
-// occupancy bytes of the grid cells. One block per window; each in-grid cell
-// lies in exactly one window, so the blocks write disjoint cells of the new
-// output grid. A window with no occupied query cell has an all-zero output
-// (it is masked by the query mask), so its block writes zeros and exits: on
-// a LiDAR frame most windows of the stride-1 grid are empty.
+// _layer_body), the same function out of place on a flat [N, 64, C] window
+// tensor (K6: the training forward, launched as B = 1, total = cap = N,
+// row_lo = 0 with a separate output). K3/K6 run the layer on all 64 cells
+// of a window and mask its output by the query mask; K4 runs it on S
+// selected cells (S = 16 or 48) and adds the masked delta back onto those
+// cells, so unselected cells keep their content.
 //
 // K12 replaces tmae_tpu/ops/pallas_encoder.py:encoder_layer_fused_pipelined
 // (kernel _kernel_fused_piped) and closes encoder_layer_fused_inplace
@@ -739,45 +727,6 @@ extern "C" int launch_encoder_fwd_full(const void* xw, const void* kvw,
   const Params p = make_params(xw, out, kvw, nullptr, nullptr, qmask, kmask,
                                pos, w, N, N, 0, C, F, H, cross, tau_min);
   return launch_rows<kCells>(p, 1, static_cast<cudaStream_t>(stream));
-}
-
-// K8: out [N, 64, C] = xw + the layer's delta on the S selected cells.
-extern "C" int launch_encoder_fwd_sel(const void* xw, const void* kvw,
-                                      void* out, const void* selq,
-                                      const void* selk, const void* qmask,
-                                      const void* kmask, const void* pos,
-                                      const void* const* w, int N, int C,
-                                      int F, int H, int S, int cross,
-                                      float tau_min, void* stream) {
-  if (!shape_ok(C, F, H)) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(xw, out, kvw, selq, selk, qmask, kmask, pos, w,
-                               N, N, 0, C, F, H, cross, tau_min);
-  return launch_sel(p, 1, S, static_cast<cudaStream_t>(stream));
-}
-
-// K10: out [B, H, W, C] = the layer on every 8x8 window of the shift's
-// partition of xg [B, H, W, C] (kvg likewise in cross mode), with masks from
-// the occupancy bytes qocc / kocc [B, H, W].
-extern "C" int launch_encoder_grid(const void* xg, const void* kvg, void* out,
-                                   const void* qocc, const void* kocc,
-                                   const void* pos, const void* const* w,
-                                   int B, int H, int W, int C, int F, int nh,
-                                   int cross, int shift, float tau_min,
-                                   void* stream) {
-  if (!shape_ok(C, F, nh) || qocc == nullptr || (cross && kocc == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int nwy = (H + 7) / 8 + 1;
-  const int nwx = (W + 7) / 8 + 1;
-  Params p = make_params(xg, out, kvg, nullptr, nullptr, nullptr, nullptr,
-                         pos, w, nwy * nwx, nwy * nwx, 0, C, F, nh, cross,
-                         tau_min);
-  p.qocc = static_cast<const unsigned char*>(qocc);
-  p.kocc = cross ? static_cast<const unsigned char*>(kocc) : nullptr;
-  p.gh = H;
-  p.gw = W;
-  p.nwx = nwx;
-  p.off = shift ? 4 : 8;
-  return launch_rows<kCells>(p, B, static_cast<cudaStream_t>(stream));
 }
 
 // K12: the layer over the windows of one bucket plan idx [B, cap, 2] of the

@@ -14,7 +14,10 @@ and their plain versions (counterpart of
 * on the dense grid, for configs without bucket caps: K10
   (``_grid_forward``), the full-window layer on every window of a shift's
   partition of ``[B, H, W, C]``, and :func:`fused_encoder_layer_grid`, whose
-  backward runs K7 on the windows, as ``_grid_bwd`` does;
+  backward runs K7 on the windows, as ``_grid_bwd`` does. K8 and K10 are
+  one persistent kernel over tiles of the windows with an occupied query
+  cell (``csrc/encoder_layer_tiled.cu``); :func:`live_windows_plain` and
+  :func:`tile_plan_plain` are the plain versions of its window plan;
 * serving straight against the padded carrier, in place over the windows of
   one bucket plan: K12 (``encoder_layer_fused_pipelined``, which also closes
   ``encoder_layer_fused_inplace``), the gather, the K3 / K4 layer and the
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 
 from ..device import on_card
 from ..utils.build import CudaKernel, F as CF, I, P, library, stream_handle
-from .dense_windows import window_unview, window_view
+from .dense_windows import window_geometry, window_unview, window_view
 from .occ_compact import (gather_windows_padded_plain,
                           scatter_windows_into_padded_plain)
 
@@ -49,13 +52,13 @@ K4 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_sel',
                 [P, P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, I, CF, P])
 K6 = CudaKernel('encoder_layer.cu', 'launch_encoder_fwd_full',
                 [P, P, P, P, P, P, _W, I, I, I, I, I, CF, P])
-K8 = CudaKernel('encoder_layer.cu', 'launch_encoder_fwd_sel',
+K8 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_fwd_sel',
                 [P, P, P, P, P, P, P, P, _W, I, I, I, I, I, I, CF, P])
 K7 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_full',
                 [_W, _W, _W, _W, I, I, I, I, I, CF, I, P])
 K9 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_sel',
                 [_W, _W, _W, _W, I, I, I, I, I, I, CF, I, P])
-K10 = CudaKernel('encoder_layer.cu', 'launch_encoder_grid',
+K10 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_grid',
                  [P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, CF, P])
 K12 = CudaKernel('encoder_layer.cu', 'launch_encoder_inplace',
                  [P, P, P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, I, CF,
@@ -231,6 +234,42 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_tiled_widths(C, nhead, p):
+    if C not in (128, 256) or nhead != 8 or p.f1w.shape[0] != 2 * C:
+        raise ValueError('K8/K10 are compiled for C = 128 or 256 with 8 heads '
+                         f'and an FFN width of 2C, not C={C}, nhead={nhead}, '
+                         f'FFN {p.f1w.shape[0]}')
+
+
+def _tiled_ptrs(p: LayerParams, nwin: int):
+    """The pointer array K8 / K10 take: the 17 layer tensors, then their
+    workspace (see csrc/encoder_layer_tiled.cu): the weights packed into
+    panels (8 C^2 bf16) and int32 [2 nwin + 2] (the windows' live flags,
+    the list of live windows, their count, the tile counter). Returns
+    (array, workspace tensors), which must outlive the launch."""
+    C, dev = p.wq.shape[0], p.wq.device
+    ws = (torch.empty(8 * C * C, dtype=torch.bfloat16, device=dev),
+          torch.empty(2 * nwin + 2, dtype=torch.int32, device=dev))
+    ptrs = list(_weight_ptrs(p)) + [t.data_ptr() for t in ws]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), ws
+
+
+def live_windows_plain(qmask):
+    """Plain version of the K8 / K10 pre-pass and compaction: the indices of
+    the windows with an occupied query cell, in window order, from a query
+    mask [N, T] (K8; for K10 the window view of the occupancy)."""
+    return (qmask > 0).any(-1).nonzero()[:, 0]
+
+
+def tile_plan_plain(live, T):
+    """The tiles of 64 rows K8 / K10 run, as lists of window indices: four
+    live windows a tile at T = 16, one at T = 48 (padded to 64 rows) and
+    T = 64, in the order of ``live``; the last tile may be partial."""
+    per = 4 if T == 16 else 1
+    live = [int(w) for w in live]
+    return [live[i:i + per] for i in range(0, len(live), per)]
+
+
 def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos,
                             p: LayerParams, *, nhead: int, tau_min: float,
                             cross: bool, row_lo: int):
@@ -309,8 +348,8 @@ def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
                       p: LayerParams, *, nhead: int, tau_min: float,
                       cross: bool):
     """The training forward on flat windows ``xw`` [N, 64, C], out of place:
-    K6 (``sel_q is None``, masks [N, 64]) or K8 (``sel_q`` [N, S]) on the
-    card."""
+    K6 (``sel_q is None``, masks [N, 64]) or K8 (``sel_q`` [N, S]; compiled
+    for C = 128 or 256, 8 heads, FFN 2C) on the card."""
     if not on_card(xw, qmask):
         return reference_encoder_layer(xw, kvw, sel_q, sel_k, qmask, kmask,
                                        pos, p, nhead, tau_min, cross)
@@ -321,13 +360,15 @@ def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
     out = torch.empty_like(xw)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     pos = pos.to(torch.bfloat16).contiguous()
-    ws = _weight_ptrs(p)
     if sel_q is None:
+        ws = _weight_ptrs(p)
         K6(xw.data_ptr(), _ptr(kvw), out.data_ptr(), qmask.data_ptr(),
            _ptr(kmask), pos.data_ptr(), ws, N, C, p.f1w.shape[0], nhead,
            int(cross), float(tau_min), stream_handle())
     else:
+        _check_tiled_widths(C, nhead, p)
         sel_q, sel_k = _i32(sel_q), _i32(sel_k if cross else None)
+        ws, _work = _tiled_ptrs(p, N)
         K8(xw.data_ptr(), _ptr(kvw), out.data_ptr(), sel_q.data_ptr(),
            _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), ws, N,
            C, p.f1w.shape[0], nhead, sel_q.shape[-1], int(cross),
@@ -534,7 +575,8 @@ def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
     """The layer on every ``window`` x ``window`` window of the shift's
     partition of ``xg`` [B, H, W, C] (``kvg`` likewise in cross mode), with
     query / key masks from ``qocc`` / ``kocc`` [B, H, W] bool; returns a new
-    [B, H, W, C] grid. Kernel K10 on the card."""
+    [B, H, W, C] grid. Kernel K10 on the card (compiled for C = 128 or 256,
+    8 heads, FFN 2C)."""
     if not on_card(xg, qocc):
         return reference_encoder_layer_grid(xg, kvg, qocc, kocc, pos, p,
                                             nhead, tau_min, cross, window,
@@ -544,7 +586,7 @@ def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
     B, H, W, C = xg.shape
     if xg.dtype != torch.bfloat16 or window != 8:
         raise ValueError('the grid kernel takes bf16 grids and 8x8 windows')
-    _check_widths(C, nhead, p)
+    _check_tiled_widths(C, nhead, p)
     if qocc.shape != (B, H, W) or (cross and (
             kvg.shape != xg.shape or kocc is None
             or kocc.shape != (B, H, W))):
@@ -553,10 +595,11 @@ def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
     kocc = kocc.to(torch.bool).contiguous() if cross else None
     pos = pos.to(torch.bfloat16).contiguous()
     out = torch.empty_like(xg)
+    nwy, nwx, _, _ = window_geometry((H, W), window)
+    ws, _work = _tiled_ptrs(p, B * nwy * nwx)
     K10(xg.data_ptr(), _ptr(kvg), out.data_ptr(), qocc.data_ptr(),
-        _ptr(kocc), pos.data_ptr(), _weight_ptrs(p), B, H, W, C,
-        p.f1w.shape[0], nhead, int(cross), int(shift), float(tau_min),
-        stream_handle())
+        _ptr(kocc), pos.data_ptr(), ws, B, H, W, C, p.f1w.shape[0], nhead,
+        int(cross), int(shift), float(tau_min), stream_handle())
     return out
 
 

@@ -25,8 +25,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
-SOURCES = ('windows.cu', 'encoder_layer.cu', 'encoder_layer_bwd.cu',
-           'segment_max.cu', 'subm_conv.cu')
+SOURCES = ('windows.cu', 'encoder_layer.cu', 'encoder_layer_tiled.cu',
+           'encoder_layer_bwd.cu', 'segment_max.cu', 'subm_conv.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
