@@ -11,7 +11,11 @@ Phases (any failure exits non-zero and prints no result line):
      per source, all at once).
   3. kernels: each kernel against its plain PyTorch version at the shapes of
      the t_mae.yaml main paths (stage-1 plans of a synthetic frame pair,
-     131072 points; K12 also on stage 2), with its time, the plain
+     131072 points; K3, K4 and K12 also on stage 2 and in cross mode; K4
+     also exactly: rows outside its range, windows without a query and
+     cells it does not select keep their bits, the same bits twice, no leak
+     between the windows of a tile, a prefix with a partial last tile gives
+     the whole call's bits), with its time, the plain
      version's time, one PyTorch library call's time where one computes the
      same function, and the least time the card could take (bytes / 3.35
      TB/s or FLOPs / 989 TFLOP/s bf16, counting the windows and points this
@@ -50,8 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
      synthetic frame pairs (scenes 0 and 1; the config's batch is 6): the
      training kernels K6-K9 against their plain versions on the layer
      inputs one train-mode forward of this batch hands them (every bucket,
-     self and cross, C=128 and C=256; K7/K9 also on cotangents with half
-     the windows zeroed, which they skip, and twice for the same bits);
+     self and cross, C=128 and C=256; K6 and K8 also exactly; K7/K9 also on
+     cotangents with half the windows zeroed, which they skip, and twice
+     for the same bits);
      launch counters set to 0, one step
      (forward in train mode, CenterPoint loss, backward through K7/K9 and
      the VJPs of K1/K2/K5, one adam_onecycle update), the counts checked
@@ -158,11 +163,13 @@ BWD_DRAWS = 16                 # random cotangents per backward check
 BWD_KERNELS = ('(anonymous namespace)::window_bwd_kernel',
                '(anonymous namespace)::wgrad_kernel',
                '(anonymous namespace)::reduce_kernel')
-# the launches of K8 / K10 (csrc/encoder_layer_tiled.cu) in a profiler table
+# the launches of K4 / K6 / K8 / K10 (csrc/encoder_layer_tiled.cu) in a
+# profiler table
 TILED_SRC = 'tmae_tpu_torch/csrc/encoder_layer_tiled.cu'
 FWD_KERNELS = ('(anonymous namespace)::tiled_kernel',
                '(anonymous namespace)::sel_prepass_kernel',
                '(anonymous namespace)::grid_prepass_kernel',
+               '(anonymous namespace)::mask_prepass_kernel',
                '(anonymous namespace)::compact_kernel',
                '(anonymous namespace)::pack_kernel')
 
@@ -330,7 +337,7 @@ def check_kernels(torch, model, batch, dev):
             ('stage-2 self', enc.sst_block_1.encoder_0.EncoderLayer_0, plan2,
              xw2, None)):
         for case in layer_cases(el, layer, lplan, kv):
-            rows_check(torch, label, case, base, kv is not None, entry)
+            rows_check(torch, el, label, case, base, kv is not None, entry)
 
     # K12: every bucket of the same three layers, straight in the carrier;
     # the dummy window row holds random values, which must stay
@@ -382,8 +389,10 @@ def check_kernels(torch, model, batch, dev):
 
 
 def layer_cases(el, layer, plan, kv_all):
-    """(kernel, tokens, valid windows, kernel fn, plain fn) for each bucket
-    of one serving layer, each fn updating its argument in place."""
+    """(kernel, tokens, valid windows, kernel fn, plain fn, call) for each
+    bucket of one serving layer, each fn updating its argument in place;
+    ``call`` is (the kernel's arguments after the window tensor, row_lo,
+    keywords) for K4, None for K3."""
     p = layer.layer_params()
     cross = kv_all is not None
     kw = dict(nhead=layer.nhead, tau_min=layer.tau_min, cross=cross)
@@ -395,7 +404,8 @@ def layer_cases(el, layer, plan, kv_all):
                       lambda t, a=args, lo=lo: el.encoder_layer_rows_sel(
                           t, *a, row_lo=lo, **kw),
                       lambda t, a=args, lo=lo: el.reference_encoder_layer_rows(
-                          t, *a, row_lo=lo, **kw)))
+                          t, *a, row_lo=lo, **kw),
+                      (args, lo, kw)))
         lo += si.idx.shape[1]
     fu = plan.full
     km = fu.kmask if cross else fu.qmask
@@ -404,16 +414,17 @@ def layer_cases(el, layer, plan, kv_all):
                       t, kv_all, fu.qmask, km, layer.pos, p, row_lo=lo, **kw),
                   lambda t: el.reference_encoder_layer_rows(
                       t, kv_all, None, None, fu.qmask, km, layer.pos, p,
-                      row_lo=lo, **kw)))
+                      row_lo=lo, **kw), None))
     return cases
 
 
-def rows_check(torch, label, case, base, cross, entry):
+def rows_check(torch, el, label, case, base, cross, entry):
     """One K3/K4 bucket call: kernel against plain version (bf16 output,
     max |diff| <= 0.15 and mean <= 2e-3: summation order can flip a bf16
-    rounding of an intermediate), its time and its bound. Stage-1 self
-    small (S=16) and full buckets go into the kernels line."""
-    kernel, T, valid, p, fk, fp = case
+    rounding of an intermediate), K4's exact checks
+    (:func:`rows_bits_check`), its time and its bound. Stage-1 self small
+    (S=16) and full buckets go into the kernels line."""
+    kernel, T, valid, p, fk, fp, call = case
     ka, pa = fk(base.clone()), fp(base.clone())
     torch.cuda.synchronize()
     d = (ka.float() - pa.float()).abs()
@@ -421,6 +432,8 @@ def rows_check(torch, label, case, base, cross, entry):
     if not (err <= 0.15 and mean <= 2e-3):
         raise AssertionError(f'{kernel} {label} T={T} differs from its plain '
                              f'version: max {err} mean {mean}')
+    if call is not None:
+        rows_bits_check(torch, el, call, fk, base, ka, f'{label} S={T}')
     C = base.shape[-1]
     nw = int(valid.sum())
     out_tokens = 64 if kernel == 'K3' else T
@@ -434,13 +447,73 @@ def rows_check(torch, label, case, base, cross, entry):
         f'max_abs_err {err:.3g} (mean {mean:.2g}), kernel {ms:.4f} ms, '
         f'bound {b:.4f} ms ({by})')
     if label == 'stage-1 self' and T in (16, 64):
-        name = 'encoder_rows_full' if kernel == 'K3' else 'encoder_rows_sel'
-        line = ('tmae_tpu/ops/pallas_encoder.py:1680' if kernel == 'K3'
-                else 'tmae_tpu/ops/pallas_encoder.py:1724')
+        full = kernel == 'K3'
         pt = pa.clone()
-        entry(name, kernel, 'tmae_tpu_torch/csrc/encoder_layer.cu', line,
+        entry('encoder_rows_full' if full else 'encoder_rows_sel', kernel,
+              'tmae_tpu_torch/csrc/encoder_layer.cu' if full else TILED_SRC,
+              'tmae_tpu/ops/pallas_encoder.py:' + ('1680' if full else '1724'),
               err, ms, time_ms(torch, lambda: fp(pt), iters=3, warmup=1),
               nbytes, flops, None)
+
+
+def rows_bits_check(torch, el, call, fk, base, out, label):
+    """K4's exact checks on one bucket call ``fk`` (in place on a copy of
+    ``base``) whose output is ``out``: the rows outside [row_lo, row_lo +
+    cap), the windows without an occupied query cell and every cell that is
+    not an occupied selected one keep their bits; a second run gives the
+    same bits; nothing leaks between the windows of a tile (the first live
+    window's tokens negated: every other row keeps its bits, its written
+    cells change); and the first windows of sample 0 (a prefix of the
+    call's windows w = b cap + j) up to a live count that leaves a partial
+    last tile give the bits of the whole call."""
+    (kv_all, sq, sk, qm, km, pos, p), lo, kw = call
+    B, cap, S = qm.shape
+    live = (qm > 0).any(-1)
+    written = torch.zeros(B, cap, 64, device=qm.device).scatter_add_(
+        -1, sq.long(), (qm > 0).float()) > 0
+    kept = torch.ones(base.shape[:3], dtype=torch.bool, device=qm.device)
+    kept[:, lo:lo + cap] = ~written
+    if not torch.equal(out[kept], base[kept]):
+        raise AssertionError(f'K4 {label}: a cell it does not write changed')
+    if not torch.equal(fk(base.clone()), out):
+        raise AssertionError(f'K4 {label}: two runs differ')
+    if not live[0].any():
+        raise AssertionError(f'K4 {label}: no live window in sample 0 to '
+                             'check the tiles with')
+    b0, j0 = (int(v) for v in live.nonzero()[0])
+    x2 = base.clone()
+    x2[b0, lo + j0] = -x2[b0, lo + j0]
+    moved = fk(x2)
+    rest = torch.ones(base.shape[:2], dtype=torch.bool, device=qm.device)
+    rest[b0, lo + j0] = False
+    if not torch.equal(moved[rest], out[rest]):
+        raise AssertionError(f'K4 {label}: changing window ({b0}, {j0}) '
+                             'moved another window\'s row')
+    cells = written[b0, j0]
+    if torch.equal(moved[b0, lo + j0][cells], out[b0, lo + j0][cells]):
+        raise AssertionError(f'K4 {label}: window ({b0}, {j0}) did not '
+                             'change')
+    per = 4 if S == 16 else 1
+    counts = live[0].int().cumsum(0)
+    ends = torch.cat([((counts % 4 == 2) & (counts > 4)).nonzero(),
+                      (counts % 4 != 0).nonzero()])
+    n = int(ends[0, 0]) + 1 if len(ends) else cap
+    cut = lambda a: None if a is None else a[:1, :n]
+    part = el.encoder_layer_rows_sel(
+        base[:1].clone(), None if kv_all is None else kv_all[:1], cut(sq),
+        cut(sk), cut(qm), cut(km), pos, p, row_lo=lo, **kw)
+    if not (torch.equal(part[:, lo:lo + n], out[:1, lo:lo + n])
+            and torch.equal(part[:, :lo], base[:1, :lo])
+            and torch.equal(part[:, lo + n:], base[:1, lo + n:])):
+        raise AssertionError(f'K4 {label}: the first {n} windows of sample 0 '
+                             'differ from the whole call')
+    n_live = int(counts[n - 1])
+    log(f'  K4 {label}: {int((~live).sum())} windows without a query and '
+        f'{int(kept.sum())} cells it does not write keep their bits; the '
+        f'same bits twice; window ({b0}, {j0}) changed, the other '
+        f'{int(rest.sum())} rows kept their bits; the first {n} windows of '
+        f'sample 0 ({n_live} live, {n_live // per} full tiles of {per} and '
+        f'{n_live % per} in the last) give the bits of the whole call')
 
 
 def fused_check(torch, el, oc, label, layer, ci, xp, kvp, sel, entry):
@@ -568,7 +641,9 @@ def train_check(torch, el, call, gen, entry, profile=False):
     if not (ferr <= 0.15 and fmean <= 2e-3):
         raise AssertionError(f'{kname[0]} {label} T={T} differs from its '
                              f'plain version: max {ferr} mean {fmean}')
-    if S is not None:
+    if S is None:
+        full_bits_check(torch, el, args, p, kw, ka, label)
+    else:
         sel_bits_check(torch, el, args, p, kw, ka, f'{label} S={S}')
     dpos = S is None
     names = ['dx', 'dkv'] + list(el.LayerParams._fields) + ['dpos']
@@ -662,11 +737,11 @@ def train_check(torch, el, call, gen, entry, profile=False):
         + f'), {ms_b:.4f} ms, bound {bb:.4f} ms ({byb})')
     if label == 'C=128 self' and T in (16, 64):
         full = S is None
-        fsrc = 'tmae_tpu_torch/csrc/encoder_layer.cu' if full else TILED_SRC
         bsrc = 'tmae_tpu_torch/csrc/encoder_layer_bwd.cu'
         site = 'tmae_tpu/ops/pallas_encoder.py:'
         entry('encoder_train_fwd_full' if full else 'encoder_train_fwd_sel',
-              kname[0], fsrc, site + ('346' if full else '1038'), ferr, ms_f,
+              kname[0], TILED_SRC, site + ('346' if full else '1038'), ferr,
+              ms_f,
               time_ms(torch, fp, iters=3, warmup=1), fwd_bytes, fwd_flops,
               None)
         entry('encoder_train_bwd_full' if full else 'encoder_train_bwd_sel',
@@ -675,6 +750,41 @@ def train_check(torch, el, call, gen, entry, profile=False):
               None)
         if profile:
             pass_breakdown(torch, bk, f'profile_bwd_{kname[1]}.txt')
+
+
+def full_bits_check(torch, el, args, p, kw, out, label):
+    """K6's exact checks on one captured call whose kernel output is
+    ``out``: every cell of a window without an occupied query cell, and
+    every unoccupied cell of the others, is exactly 0 (the pre-pass writes
+    the zeros of the first; the layer never runs on them); a second run
+    gives the same bits; the first live window's tokens changed, every other
+    window's output keeps its bits and its own changes."""
+    x, kvw, sq, sk, qm, km, pos = args
+    live = (qm > 0).any(-1)
+    if (out[~live] != 0).any() or (out[qm == 0] != 0).any():
+        raise AssertionError(f'K6 {label}: a window or cell without a query '
+                             'is not 0')
+    if not torch.equal(el.encoder_layer_fwd(*args, p, **kw), out):
+        raise AssertionError(f'K6 {label}: two runs differ')
+    msg = (f'  K6 {label}: {int((~live).sum())} windows without a query and '
+           f'the {int((qm[live] == 0).sum())} unoccupied cells of the others '
+           'exactly 0; the same bits twice')
+    if not live.any():
+        log(msg + '; no live window')
+        return
+    w0 = int(live.nonzero()[0, 0])
+    x2 = x.clone()
+    x2[w0] = -x2[w0]
+    moved = el.encoder_layer_fwd(x2, *args[1:], p, **kw)
+    rest = torch.ones_like(live)
+    rest[w0] = False
+    if not torch.equal(moved[rest], out[rest]):
+        raise AssertionError(f'K6 {label}: changing window {w0} moved the '
+                             'output of another window')
+    if torch.equal(moved[w0], out[w0]):
+        raise AssertionError(f'K6 {label}: window {w0} did not change')
+    log(msg + f'; window {w0} changed, the other {x.shape[0] - 1} windows '
+        'kept their bits')
 
 
 def sel_bits_check(torch, el, args, p, kw, out, label):
@@ -1041,7 +1151,6 @@ def profile_train_step(torch, step, batch, name='profile_train.txt'):
     """Device time by kernel name over one training step (torch.profiler),
     into ``name`` under the output directory; the table ends with the
     step's self CPU and device time totals."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1052,16 +1161,23 @@ def profile_train_step(torch, step, batch, name='profile_train.txt'):
     (OUT_DIR / name).write_text(
         avg.table(sort_by='self_cuda_time_total', row_limit=-1))
     log(avg.table(sort_by='self_cuda_time_total', row_limit=50))
+    (bwd, fwd), total = device_sums(avg, BWD_KERNELS, FWD_KERNELS)
+    log(f'  {name}: K7/K9 (csrc/encoder_layer_bwd.cu) {bwd:.3f} ms, '
+        f'K4/K6/K8/K10 (csrc/encoder_layer_tiled.cu) {fwd:.3f} ms of '
+        f'{total:.3f} ms of device time in the step')
+
+
+def device_sums(avg, *groups):
+    """From a profiler's ``key_averages()``: the device ms of the kernels
+    whose names hold one of each group's names, and the device ms of all
+    kernels."""
+    from torch.autograd import DeviceType
+
     dev = [e for e in avg if e.device_type == DeviceType.CUDA
            and not getattr(e, 'is_user_annotation', False)]
-    bwd = sum(e.self_device_time_total for e in dev
-              if any(k in e.key for k in BWD_KERNELS)) / 1e3
-    fwd = sum(e.self_device_time_total for e in dev
-              if any(k in e.key for k in FWD_KERNELS)) / 1e3
-    total = sum(e.self_device_time_total for e in dev) / 1e3
-    log(f'  {name}: K7/K9 (csrc/encoder_layer_bwd.cu) {bwd:.3f} ms, K8/K10 '
-        f'(csrc/encoder_layer_tiled.cu) {fwd:.3f} ms of {total:.3f} ms of '
-        'device time in the step')
+    sums = [sum(e.self_device_time_total for e in dev
+                if any(k in e.key for k in names)) / 1e3 for names in groups]
+    return sums, sum(e.self_device_time_total for e in dev) / 1e3
 
 
 def pass_breakdown(torch, fn, name):
@@ -2355,6 +2471,9 @@ def profile_pass(torch, cfg, model, batch, name='profile.txt', **fwd):
     (OUT_DIR / name).write_text(
         avg.table(sort_by='self_cuda_time_total', row_limit=-1))
     log(avg.table(sort_by='self_cuda_time_total', row_limit=40))
+    (fwd,), total = device_sums(avg, FWD_KERNELS)
+    log(f'  {name}: K4/K6/K8/K10 (csrc/encoder_layer_tiled.cu) {fwd:.3f} ms '
+        f'of {total:.3f} ms of device time in the pass')
 
 
 if __name__ == '__main__':

@@ -1,28 +1,21 @@
-// Kernels K3, K4, K6, K12 and K16: the cosine-attention SST encoder layer
-// on gathered windows (K3, K4, K6), on the windows of a plan straight in the
-// padded carrier (K12); and its attention stage alone (K16). K8 and K10,
-// which this template also ran, are encoder_layer_tiled.cu's since the
-// persistent redesign: no entry point here reaches the template's grid
-// addressing (qocc) or its pass-through copy (selq with a separate output)
-// any more.
+// Kernels K3, K12 and K16: the cosine-attention SST encoder layer on all 64
+// cells of gathered windows (K3), on the windows of a plan straight in the
+// padded carrier (K12); and its attention stage alone (K16). K4, K6, K8 and
+// K10, which this template also ran, are encoder_layer_tiled.cu's since the
+// persistent redesign.
 //
-// Replace tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full (kernel
-// _kernel_rows_full -> _layer_body) and encoder_layer_rows_sel (kernel
-// _kernel_rows_sel -> _layer_body_sel), which update rows
-// [row_lo, row_lo + cap) of the gathered window tensor [B, total, 64, C] in
-// place (K3, K4: serving), and _pallas_forward (kernel _kernel ->
-// _layer_body), the same function out of place on a flat [N, 64, C] window
-// tensor (K6: the training forward, launched as B = 1, total = cap = N,
-// row_lo = 0 with a separate output). K3/K6 run the layer on all 64 cells
-// of a window and mask its output by the query mask; K4 runs it on S
-// selected cells (S = 16 or 48) and adds the masked delta back onto those
-// cells, so unselected cells keep their content.
+// K3 replaces tmae_tpu/ops/pallas_encoder.py:encoder_layer_rows_full (kernel
+// _kernel_rows_full -> _layer_body), which updates rows [row_lo, row_lo +
+// cap) of the gathered window tensor [B, total, 64, C] in place (serving):
+// the layer on all 64 cells of a window, its output masked by the query
+// mask.
 //
 // K12 replaces tmae_tpu/ops/pallas_encoder.py:encoder_layer_fused_pipelined
 // (kernel _kernel_fused_piped) and closes encoder_layer_fused_inplace
 // (kernels _kernel_fused_full, _kernel_fused_sel), which compute the same
-// function: gather DMA, the K3 (full) or K4 (S selected cells) layer, scatter
-// DMA, over the windows of one bucket plan against the padded carrier
+// function: gather DMA, the K3 (full) or K4 (S = 16 or 48 selected cells,
+// the masked delta added back onto those cells) layer, scatter DMA, over
+// the windows of one bucket plan against the padded carrier
 // [B, Hp + 8, Wp, C], aliased. Here the gather and scatter are the
 // addressing: one block per (plan slot, sample) reads its window (wy, wx)
 // from the plan, and token i, a window cell c (c = i, or sel[i]), is the row
@@ -39,23 +32,21 @@
 // later work.
 //
 // K16 replaces tmae_tpu/ops/pallas_attn.py:_pallas_forward (kernel _kernel):
-// the attention of K6 on flat windows [N, 64, C] without the residual,
-// LayerNorms and FFN, attn Wo + bo written on all 64 tokens of a window (no
-// query mask), with the attention output rounded to bf16 before Wo as the
-// TPU kernel rounds it to x's dtype. A window with no key gets p = 0, so its
-// output is bo on every token: its block writes bo and exits (most windows
-// of a stride-1 LiDAR grid are empty). One block per window: the TPU
-// kernel's 16-window tiles and their padding have no counterpart. Bound:
-// operations on windows with a key (2*64*C*C*4 + 2*64*64*C*2 flops, ~19
-// MFLOP at C=128), bytes on the empty ones.
+// the attention of the full-window layer on flat windows [N, 64, C] without
+// the residual, LayerNorms and FFN, attn Wo + bo written on all 64 tokens of
+// a window (no query mask), with the attention output rounded to bf16
+// before Wo as the TPU kernel rounds it to x's dtype. A window with no key
+// gets p = 0, so its output is bo on every token: its block writes bo and
+// exits (most windows of a stride-1 LiDAR grid are empty). One block per
+// window: the TPU kernel's 16-window tiles and their padding have no
+// counterpart. Bound: operations on windows with a key (2*64*C*C*4 +
+// 2*64*64*C*2 flops, ~19 MFLOP at C=128), bytes on the empty ones.
 //
 // Bound: operations. Per window the layer does 2*T*C*C*4 (q, k, v, out) +
 // 2*T*C*F*2 (FFN) + 2*T*T*C*2 (logits, p.v) multiply-adds-as-2-flops,
 // ~19 MFLOP at T=64, C=128 and ~71 MFLOP at C=256, against ~34 KB to 66 KB
 // of window data: hundreds of operations per byte, above the card's
-// bf16 ridge. K10 reads and writes the whole grid but runs the layer only on
-// windows with an occupied query cell, so on a sparse stride-1 LiDAR grid it
-// is bound by those bytes instead.
+// bf16 ridge.
 //
 // Design, simple first: one block of 8 warps per window. The block reads its
 // whole window (the S or 64 token rows it needs) into shared memory before it
@@ -95,7 +86,7 @@ constexpr int kMaxC = 256;   // LayerNorm passes keep C / 32 values per lane
 
 struct Params {
   const bf16* xw;
-  bf16* out;  // == xw for the in-place serving kernels
+  bf16* out;  // == xw for the in-place serving kernels (K3, K12)
   const bf16* kvw;
   const int* selq;
   const int* selk;
@@ -106,22 +97,16 @@ struct Params {
   const float *bq, *bk, *bv, *bo, *tau, *ln1s, *ln1b, *b1, *b2, *ln2s, *ln2b;
   int total, cap, row_lo, C, F, H, cross;
   float tau_min;
-  // K10 only (qocc != nullptr): occupancy bytes [B, gh, gw] of the query
-  // (and, in cross mode, key) grid, the grid size, the windows per row and
-  // the partition offset
-  const unsigned char *qocc, *kocc;
-  int gh, gw, nwx, off;
   // K12 only (widx != nullptr): the plan's window coordinates [B, cap, 2]
   // (wy, wx) into the padded carrier [B, gh, gw, C] (gh = Hp + 8 rows,
   // gw = Wp columns) whose real window rows are 0 .. nwy - 1
   const int* widx;
-  int nwy;
+  int gh, gw, nwy;
 };
 
 // Copies T token rows into shared memory: token i is the row at
-// base + offs[i] (zeros where offs[i] < 0, a cell off the grid); `raw` gets
-// the bf16 values, `with_pos` gets bf16(x + pos[cells[i]]). Either may be
-// null.
+// base + offs[i]; `raw` gets the bf16 values, `with_pos` gets
+// bf16(x + pos[cells[i]]). Either may be null.
 __device__ __forceinline__ void load_tokens(bf16* raw, bf16* with_pos,
                                             const bf16* base, const int* offs,
                                             const int* cells,
@@ -131,10 +116,8 @@ __device__ __forceinline__ void load_tokens(bf16* raw, bf16* with_pos,
   for (int t = threadIdx.x; t < T * vc; t += kThreads) {
     const int i = t / vc;
     const int v = t - i * vc;
-    const int o = offs[i];
-    const uint4 x = o >= 0
-                        ? *reinterpret_cast<const uint4*>(base + o + v * 8)
-                        : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 x =
+        *reinterpret_cast<const uint4*>(base + offs[i] + v * 8);
     if (raw) *reinterpret_cast<uint4*>(raw + i * ld + v * 8) = x;
     if (with_pos) {
       const uint4 ps =
@@ -289,83 +272,45 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
   float* st = st_all + warp * 16 * kStLd;
-  const bool grid = p.qocc != nullptr;  // K10 (T == 64)
   const bf16* xbase;   // query tokens: xbase + qoff_s[i]
   const bf16* kvbase;  // key tokens (cross): kvbase + koff_s[i]
   bf16* obase;         // output rows: obase + qoff_s[i]
-  if (grid) {
+  const long long slot = (long long)blockIdx.y * p.cap + blockIdx.x;
+  // element offset of window cell c from the base: the window row of the
+  // gathered tensor (K3, K16), or the carrier cell (K12)
+  int origin = 0, cell_ld = 8;
+  if (p.widx) {  // K12
+    const int wy = p.widx[2 * slot];
+    const int wx = p.widx[2 * slot + 1];
+    if (wy < 0 || wy >= p.nwy || wx < 0 || (wx + 1) * 8 > p.gw)
+      return;  // a dummy slot: no window to update
     const long long frame = (long long)blockIdx.y * p.gh * p.gw;
     xbase = p.xw + frame * C;
-    kvbase = p.cross ? p.kvw + frame * C : nullptr;
     obase = p.out + frame * C;
-    const int wy = blockIdx.x / p.nwx;
-    const int wx = blockIdx.x - wy * p.nwx;
-    for (int i = tid; i < T; i += kThreads) {
-      const int y = wy * 8 + i / 8 - p.off;
-      const int x = wx * 8 + i % 8 - p.off;
-      const bool in = y >= 0 && y < p.gh && x >= 0 && x < p.gw;
-      const int cell = in ? y * p.gw + x : 0;
-      const float qm = (in && p.qocc[frame + cell]) ? 1.f : 0.f;
-      qm_s[i] = qm;
-      km_s[i] = p.cross ? ((in && p.kocc[frame + cell]) ? 1.f : 0.f) : qm;
-      sq_s[i] = sk_s[i] = i;
-      qoff_s[i] = koff_s[i] = in ? cell * C : -1;
-    }
+    kvbase = p.cross ? p.kvw + frame * C : nullptr;
+    origin = wy * 8 * p.gw + wx * 8;
+    cell_ld = p.gw;
   } else {
-    const long long slot = (long long)blockIdx.y * p.cap + blockIdx.x;
-    // element offset of window cell c from the base: the window row of the
-    // gathered tensor (K3-K8), or the carrier cell (K12)
-    int origin = 0, cell_ld = 8;
-    if (p.widx) {  // K12
-      const int wy = p.widx[2 * slot];
-      const int wx = p.widx[2 * slot + 1];
-      if (wy < 0 || wy >= p.nwy || wx < 0 || (wx + 1) * 8 > p.gw)
-        return;  // a dummy slot: no window to update
-      const long long frame = (long long)blockIdx.y * p.gh * p.gw;
-      xbase = p.xw + frame * C;
-      obase = p.out + frame * C;
-      kvbase = p.cross ? p.kvw + frame * C : nullptr;
-      origin = wy * 8 * p.gw + wx * 8;
-      cell_ld = p.gw;
-    } else {
-      const long long row =
-          (long long)blockIdx.y * p.total + p.row_lo + blockIdx.x;
-      xbase = p.xw + row * kCells * C;
-      obase = p.out + row * kCells * C;
-      if (p.selq && obase != xbase) {  // K8: unselected cells pass through
-        for (int t = tid; t < kCells * C / 8; t += kThreads)
-          reinterpret_cast<uint4*>(obase)[t] =
-              reinterpret_cast<const uint4*>(xbase)[t];
-      }
-      kvbase = p.cross ? p.kvw + row * kCells * C : nullptr;
-    }
-    for (int i = tid; i < T; i += kThreads) {
-      const float qm = p.qmask[slot * T + i];
-      qm_s[i] = qm;
-      km_s[i] = p.cross ? p.kmask[slot * T + i] : qm;
-      const int sq =
-          p.selq ? min(max(p.selq[slot * T + i], 0), kCells - 1) : i;
-      const int sk = (p.cross && p.selk)
-                         ? min(max(p.selk[slot * T + i], 0), kCells - 1)
-                         : sq;
-      sq_s[i] = sq;
-      sk_s[i] = sk;
-      qoff_s[i] = (origin + (sq >> 3) * cell_ld + (sq & 7)) * C;
-      koff_s[i] = (origin + (sk >> 3) * cell_ld + (sk & 7)) * C;
-    }
+    const long long row =
+        (long long)blockIdx.y * p.total + p.row_lo + blockIdx.x;
+    xbase = p.xw + row * kCells * C;
+    obase = p.out + row * kCells * C;
+    kvbase = p.cross ? p.kvw + row * kCells * C : nullptr;
+  }
+  for (int i = tid; i < T; i += kThreads) {
+    const float qm = p.qmask[slot * T + i];
+    qm_s[i] = qm;
+    km_s[i] = p.cross ? p.kmask[slot * T + i] : qm;
+    const int sq = p.selq ? min(max(p.selq[slot * T + i], 0), kCells - 1) : i;
+    const int sk = (p.cross && p.selk)
+                       ? min(max(p.selk[slot * T + i], 0), kCells - 1)
+                       : sq;
+    sq_s[i] = sq;
+    sk_s[i] = sk;
+    qoff_s[i] = (origin + (sq >> 3) * cell_ld + (sq & 7)) * C;
+    koff_s[i] = (origin + (sk >> 3) * cell_ld + (sk & 7)) * C;
   }
   __syncthreads();
-  if (grid && !__syncthreads_or(tid < T && qm_s[tid] > 0.f)) {
-    // no occupied query cell: the masked output is zero everywhere
-    const int vc = C / 8;
-    for (int t = tid; t < T * vc; t += kThreads) {
-      const int i = t / vc;
-      if (qoff_s[i] >= 0)
-        *reinterpret_cast<uint4*>(obase + qoff_s[i] + (t - i * vc) * 8) =
-            make_uint4(0u, 0u, 0u, 0u);
-    }
-    return;
-  }
   const int has_key = __syncthreads_or(tid < T && km_s[tid] > 0.f);
   const float scale = 1.f / fmaxf(p.tau[0], p.tau_min);
   if (kAttn && !has_key) {
@@ -587,9 +532,7 @@ __global__ void __launch_bounds__(kThreads)
     layer_norm_row(v, nc, p.ln2s, p.ln2b, lane, C);
     const bool occ = qm_s[i] > 0.f;
     bf16* dst = obase + qoff_s[i];
-    if (qoff_s[i] < 0) {
-      // K10: a cell off the grid is padding, not output
-    } else if (!sel) {
+    if (!sel) {
 #pragma unroll
       for (int u = 0; u < kMaxC / 32; ++u)
         if (u < nc) dst[lane + 32 * u] = __float2bfloat16(occ ? v[u] : 0.f);
@@ -680,10 +623,8 @@ Params make_params(const void* xw, void* out, const void* kvw,
   p.H = H;
   p.cross = cross;
   p.tau_min = tau_min;
-  p.qocc = p.kocc = nullptr;
-  p.gh = p.gw = p.nwx = p.off = 0;
   p.widx = nullptr;
-  p.nwy = 0;
+  p.gh = p.gw = p.nwy = 0;
   return p;
 }
 
@@ -701,32 +642,6 @@ extern "C" int launch_encoder_rows_full(void* xw, const void* kvw,
                                pos, w, total, cap, row_lo, C, F, H, cross,
                                tau_min);
   return launch_rows<kCells>(p, B, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int launch_encoder_rows_sel(void* xw, const void* kvw,
-                                       const void* selq, const void* selk,
-                                       const void* qmask, const void* kmask,
-                                       const void* pos, const void* const* w,
-                                       int B, int total, int cap, int row_lo,
-                                       int C, int F, int H, int S, int cross,
-                                       float tau_min, void* stream) {
-  if (!shape_ok(C, F, H)) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(xw, xw, kvw, selq, selk, qmask, kmask, pos, w,
-                               total, cap, row_lo, C, F, H, cross, tau_min);
-  return launch_sel(p, B, S, static_cast<cudaStream_t>(stream));
-}
-
-// K6: out [N, 64, C] = layer(xw [N, 64, C]).
-extern "C" int launch_encoder_fwd_full(const void* xw, const void* kvw,
-                                       void* out, const void* qmask,
-                                       const void* kmask, const void* pos,
-                                       const void* const* w, int N, int C,
-                                       int F, int H, int cross, float tau_min,
-                                       void* stream) {
-  if (!shape_ok(C, F, H)) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(xw, out, kvw, nullptr, nullptr, qmask, kmask,
-                               pos, w, N, N, 0, C, F, H, cross, tau_min);
-  return launch_rows<kCells>(p, 1, static_cast<cudaStream_t>(stream));
 }
 
 // K12: the layer over the windows of one bucket plan idx [B, cap, 2] of the

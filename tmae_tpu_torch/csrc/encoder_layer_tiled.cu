@@ -1,41 +1,55 @@
-// Kernels K8 and K10 for Hopper: the packed training forward of the encoder
-// layer on flat windows (K8) and the grid-native layer on the dense BEV grid
-// (K10), as one persistent kernel over tiles of live windows with two
-// addressing modes.
+// Kernels K4, K6, K8 and K10 for Hopper: the cosine-attention encoder layer
+// as one persistent kernel over tiles of live windows, with four addressing
+// modes. Every mode computes one of two functions on 8x8 windows: the
+// full-window layer (T = 64 cells, the output masked to zero where no query:
+// K6, K10) or the packed layer on S = 16 or 48 selected cells (x plus the
+// layer's masked delta on those cells, every other cell kept: K4, K8).
 //
 // K8 replaces tmae_tpu/ops/pallas_encoder.py:995 _pallas_forward_sel (its
 // pallas_call at :1038; kernel _kernel_sel -> _layer_body_sel): out [N, 64,
-// C] is xw [N, 64, C] plus the layer's delta on the S = 16 or 48 cells that
-// sel_q [N, S] names, masked by the query mask; every other cell passes
-// through. K10 replaces :1440 _grid_forward (its pallas_call at :1483;
-// kernel _grid_kernel -> _layer_body): the full-window layer on every 8x8
-// window of the shift's partition of a [B, H, W, C] grid. The partition has
-// ceil(H/8) + 1 rows and ceil(W/8) + 1 columns of windows, offset by 8 cells
-// (shift 0) or 4 (shift 1): cell (iy, ix) of window (wy, wx) is grid cell
-// (8 wy + iy - off, 8 wx + ix - off); a cell off the grid reads as zero and
-// unoccupied and is never written. The masks are the grid's occupancy bytes.
+// C] is xw [N, 64, C] plus the layer's delta on the S cells that sel_q
+// [N, S] names, masked by the query mask; every other cell passes through.
+// K6 replaces :314 _pallas_forward (its pallas_call at :346; kernel _kernel
+// -> _layer_body): out [N, 64, C] is the full-window layer of xw [N, 64, C]
+// with f32 masks [N, 64]. K4 replaces :1696 encoder_layer_rows_sel (its
+// pallas_call at :1724; kernel _kernel_rows_sel -> _layer_body_sel): K8's
+// function in place on rows [row_lo, row_lo + cap) of the gathered window
+// tensor xw_all [B, total, 64, C], masks and selections [B, cap, S]: window
+// w = b cap + j is row b total + row_lo + j, and only its occupied selected
+// cells are written. The update is in place because a tile loads all its
+// rows into shared memory (load_rows) before it writes any, the windows are
+// disjoint, and kv (cross mode) is another tensor. K10 replaces :1440
+// _grid_forward (its pallas_call at :1483; kernel _grid_kernel ->
+// _layer_body): the full-window layer on every 8x8 window of the shift's
+// partition of a [B, H, W, C] grid. The partition has ceil(H/8) + 1 rows and
+// ceil(W/8) + 1 columns of windows, offset by 8 cells (shift 0) or 4 (shift
+// 1): cell (iy, ix) of window (wy, wx) is grid cell (8 wy + iy - off, 8 wx +
+// ix - off); a cell off the grid reads as zero and unoccupied and is never
+// written. The masks are the grid's occupancy bytes.
 //
 // Bound on this card. The layer does ~19 MFLOP on a 64-row window at
 // C = 128 (2*T*C*C*4 + 2*T*C*F*2 + 2*T*T*C*2), so the work on live windows is
-// microseconds of tensor time; both calls are bound by the bytes they must
-// move: K8 copies every unselected cell through (42 MB read and written on
-// the training batch's 2560 slots at C = 128), K10 writes the whole output
-// grid. What held the earlier design (one block of 8 warps per window,
+// microseconds of tensor time: K4 and K6 are bound by those operations on
+// the training and serving buckets, K8 and K10 by the bytes they must move
+// (K8 copies every unselected cell through, 42 MB read and written on the
+// training batch's 2560 slots at C = 128; K10 writes the whole output grid).
+// What held the earlier design (one block of 8 warps per window,
 // encoder_layer.cu) back: a block for every window, live or not (K10 ran
-// 14400 blocks for 1399 live windows; K8 ran every padding slot); every
-// weight fragment read from L2 per window (256 KiB at C = 128); WMMA
-// fragments loaded through registers.
+// 14400 blocks for 1399 live windows; K4, K6 and K8 ran every padding slot);
+// every weight fragment read from L2 per window (256 KiB at C = 128); WMMA
+// fragments loaded through registers; 16-row products at S = 16.
 //
 // Design (four launches on the caller's stream, no host synchronisation):
 //   1. pack_kernel: the six Linear weights into 16 KiB panels in wgmma's
 //      core-matrix layout (below), in the order the products use them.
-//   2. sel_prepass_kernel (K8) / grid_prepass_kernel (K10), one warp per
-//      window: reads the query mask (K8) or the occupancy bytes (K10) and
-//      flags the window live when it has an occupied query cell. A K8
-//      window copies through every cell the main kernel will not write (all
-//      64 when it is not live); a K10 window that is not live writes zeros
-//      on its in-grid cells (16-byte stores). Empty windows cost their bytes
-//      and nothing else.
+//   2. A pre-pass, one warp per window, that flags the window live when it
+//      has an occupied query cell: sel_prepass_kernel (K8) reads the query
+//      mask and copies through every cell the main kernel will not write (all
+//      64 when the window is not live); grid_prepass_kernel (K10) reads the
+//      occupancy bytes and writes zeros on the in-grid cells of a window that
+//      is not live; mask_prepass_kernel reads the query mask and writes
+//      zeros on all 64 cells of such a window (K6) or nothing (K4: its output
+//      is its input). Empty windows cost their bytes and nothing else.
 //   3. compact_kernel, one block: the live windows in window order into a
 //      list, their count, and the tile counter set to 0; both stay on the
 //      device.
@@ -45,9 +59,11 @@
 //      queries see only its own keys and key mask), one window padded to 64
 //      rows at S = 48 (16 rows of zeros with no query or key: the simple
 //      choice; three windows in four tiles would need rows of one window in
-//      two tiles), one window at T = 64 (K10). A partial last tile has rows
-//      of no window, also zeros with no query or key. Rows of no window are
-//      never written.
+//      two tiles), one window at T = 64 (K6, K10). A partial last tile has
+//      rows of no window, also zeros with no query or key. Rows of no window
+//      are never written. The addressing (window rows or grid cells) is a
+//      template parameter, decided once per tile in tile_rows; nothing else
+//      in the tile depends on it.
 //      The producer thread streams the weight panels through a ring in shared
 //      memory with cp.async.bulk (completion counted on an mbarrier), the
 //      same panel sequence for every tile, so each weight byte is read from
@@ -96,13 +112,14 @@
 // per-head softmax; a window with no key gets p = 0; p and the attention
 // output rounded to bf16; the attention delta lands on occupied query cells
 // only, then LayerNorm (eps 1e-5) in f32 and a zero for unoccupied cells;
-// exact-erf GELU on bf16 operands; the f32 residual; LayerNorm. K8 writes x
-// + bf16(y - x) on its occupied selected cells, K10 y on occupied cells and
-// 0 on the other in-grid cells. No sum crosses a window, and every sum runs
-// in a fixed order, so a call gives the same bits from run to run.
+// exact-erf GELU on bf16 operands; the f32 residual; LayerNorm. K4 and K8
+// write x + bf16(y - x) on their occupied selected cells, K6 and K10 y on
+// occupied cells and 0 on the other (in-grid) cells. No sum crosses a
+// window, and every sum runs in a fixed order, so a call gives the same bits
+// from run to run.
 //
 // Compiled for the T-MAE widths only: C = 128 or 256, 8 heads, FFN 2C, and
-// T = 16 or 48 (K8) or 64 (K10).
+// S = 16 or 48 (K4, K8) or T = 64 (K6, K10).
 
 #include <algorithm>
 
@@ -155,9 +172,16 @@ struct Plan {
   static_assert((C + 8) * 2 * kRows <= 2 * kBuf, "output tile does not fit");
 };
 
+// How a tile finds its rows: window rows of a [.., 64, C] tensor (K4, K6,
+// K8) or cells of the grid's shifted partition (K10).
+enum Addr { kWindowRows, kGridCells };
+// What a call computes and where (K8, K4, K6, K10): the pre-pass and the
+// addressing follow.
+enum Mode { kSelOut, kSelInPlace, kFullOut, kGridOut };
+
 struct FwdParams {
   const bf16 *x, *kv, *pos;
-  bf16* out;
+  bf16* out;  // == x for K4 (in place)
   const int *selq, *selk;
   const float *qmask, *kmask;
   const unsigned char *qocc, *kocc;
@@ -169,8 +193,16 @@ struct FwdParams {
   int* counter;  // the next tile to hand out
   int nwin, cross;
   float tau_min;
+  // window rows: window w is row (w / cap) total + row_lo + w % cap of x,
+  // kv and out (K6, K8: total = cap = nwin, row_lo = 0)
+  int total, cap, row_lo;
   int gh, gw, nwy, nwx, off;  // K10: the grid and its partition
 };
+
+__device__ __forceinline__ long long window_row(const FwdParams& p,
+                                                long long w) {
+  return (w / p.cap) * p.total + p.row_lo + w % p.cap;
+}
 
 // ---------------------------------------------------------------------------
 // PTX
@@ -556,6 +588,7 @@ __device__ __forceinline__ void layer_norm(float (&acc)[Plan<C>::NA],
 // the bf16 values, `with_pos` bf16(x + pos[cells[r]]). Either may be null.
 // A warp takes 8 rows x 4 chunks: 64 contiguous bytes of each row from
 // device memory, 8 rows of one core matrix at a time into shared memory.
+// Plain loads, not the read-only path: K4's rows are also its output.
 template <int C>
 __device__ __forceinline__ void load_rows(unsigned char* raw,
                                           unsigned char* with_pos,
@@ -570,8 +603,8 @@ __device__ __forceinline__ void load_rows(unsigned char* raw,
     const int r = (u / (CH / 4)) * 8 + (l & 7);
     const int ch = (u % (CH / 4)) * 4 + (l >> 3);
     const long long o = offs[r];
-    const uint4 x = o >= 0 ? __ldg(reinterpret_cast<const uint4*>(
-                                 base + o + ch * 8))
+    const uint4 x = o >= 0 ? *reinterpret_cast<const uint4*>(base + o +
+                                                             ch * 8)
                            : make_uint4(0u, 0u, 0u, 0u);
     const uint32_t so = ((r >> 3) * CH + ch) * 128 + (r & 7) * 16;
     if (raw) *reinterpret_cast<uint4*>(raw + so) = x;
@@ -698,16 +731,18 @@ __device__ __forceinline__ void attention(uint32_t qn, uint32_t kn,
 }
 
 // The tile's rows: window, query and key cell, offsets and masks of each of
-// the 64 rows (threads 0..63). K8 (T = 16, 48): row r is slot i of window
-// j = r / T of the tile; K10 (T = 64): cell r of the tile's window. Rows of
-// no window read zeros, have no query or key and are not written.
-template <int T, int C>
+// the 64 rows (threads 0..63). Window rows: row r is slot i of window
+// j = r / T of the tile, cell sel[i] of that window's row (K4, K8: T = 16,
+// 48) or cell i (K6: T = 64); grid cells (K10): cell r of the tile's window
+// of the partition. Rows of no window read zeros, have no query or key and
+// are not written.
+template <Addr A, int T, int C>
 __device__ __forceinline__ void tile_rows(const FwdParams& p, int tile,
                                           int count, int r, long long* qoff,
                                           long long* koff, int* qcell,
                                           int* kcell, float* qm, float* km) {
   constexpr int WPT = T == 16 ? 4 : 1;
-  if constexpr (T == kCells) {
+  if constexpr (A == kGridCells) {
     const int win = p.list[tile];
     const int per = p.nwy * p.nwx;
     const int b = win / per;
@@ -729,14 +764,17 @@ __device__ __forceinline__ void tile_rows(const FwdParams& p, int tile,
     if (j < WPT && slot < count) {
       const long long win = p.list[slot];
       const long long e = win * T + i;
-      const int sq = min(max(p.selq[e], 0), kCells - 1);
-      const int sk =
-          (p.cross && p.selk) ? min(max(p.selk[e], 0), kCells - 1) : sq;
+      const long long row = window_row(p, win);
+      int sq = i, sk = i;
+      if constexpr (T != kCells) {
+        sq = min(max(p.selq[e], 0), kCells - 1);
+        sk = (p.cross && p.selk) ? min(max(p.selk[e], 0), kCells - 1) : sq;
+      }
       const float q = p.qmask[e];
       qm[r] = q;
       km[r] = p.cross ? p.kmask[e] : q;
-      qoff[r] = (win * kCells + sq) * C;
-      koff[r] = (win * kCells + sk) * C;
+      qoff[r] = (row * kCells + sq) * C;
+      koff[r] = (row * kCells + sk) * C;
       qcell[r] = sq;
       kcell[r] = sk;
     } else {
@@ -767,7 +805,7 @@ __device__ unsigned long long g_fwd_cycles[16];
   } while (0)
 #endif
 
-template <int T, int C>
+template <Addr A, int T, int C>
 __global__ void __launch_bounds__(kThreads, 1)
     tiled_kernel(const FwdParams p) {
   using P = Plan<C>;
@@ -850,7 +888,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tile >= ntiles) break;
 
     if (tid < kRows)
-      tile_rows<T, C>(p, tile, count, tid, qoff, koff, qcell, kcell, qm, km);
+      tile_rows<A, T, C>(p, tile, count, tid, qoff, koff, qcell, kcell, qm,
+                         km);
     bar_consumers();
     load_rows<C>(XS, A0, p.x, qoff, qcell, p.pos, tid);
     fence_async_smem();
@@ -969,10 +1008,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int c = col(j, w);
         float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
                       acc[4 * j + 3]};
-        if constexpr (T == kCells) {  // K10: zero on unoccupied cells
+        if constexpr (T == kCells) {  // K6, K10: zero on unoccupied cells
           if (!oa) v[0] = v[1] = 0.f;
           if (!ob) v[2] = v[3] = 0.f;
-        } else {  // K8: x + bf16(y - x)
+        } else {  // K4, K8: x + bf16(y - x)
           const float2 xa = ld_pair(XS, w.rA, c, C / 8);
           const float2 xb = ld_pair(XS, w.rB, c, C / 8);
           const float xs[4] = {xa.x, xa.y, xb.x, xb.y};
@@ -1078,6 +1117,27 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// K6 / K4 pre-pass, one warp per window: the live flag from the query mask
+// [nwin, T]; with kZero (K6) zeros on all 64 cells of the output row of a
+// window that is not live. K4 writes nothing here: a window without a query
+// keeps its row, which is already its output.
+template <int T, int C, bool kZero>
+__global__ void __launch_bounds__(256)
+    mask_prepass_kernel(const FwdParams p) {
+  const int lane = threadIdx.x & 31;
+  const long long win = blockIdx.x * 8LL + (threadIdx.x >> 5);
+  if (win >= p.nwin) return;
+  bool occ = false;
+  for (int i = lane; i < T; i += 32) occ |= p.qmask[win * T + i] > 0.f;
+  const bool live = __any_sync(0xffffffffu, occ);
+  if (lane == 0) p.flags[win] = live;
+  if (!kZero || live) return;
+  uint4* dst =
+      reinterpret_cast<uint4*>(p.out + window_row(p, win) * kCells * C);
+  for (int e = lane; e < kCells * C / 8; e += 32)
+    dst[e] = make_uint4(0u, 0u, 0u, 0u);
+}
+
 // One block of 1024 threads: the live windows in window order into `list`
 // (each thread takes a run of consecutive windows; one block-wide scan
 // places the runs), their count, and the tile counter set to 0.
@@ -1168,10 +1228,13 @@ int sm_count() {
 }
 
 // pack, pre-pass, compact, main kernel; a cudaError_t, 0 when all launched
-template <int T, int C>
+template <Mode M, int T, int C>
 int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
   using P = Plan<C>;
   constexpr int WPT = T == 16 ? 4 : 1;
+  constexpr Addr A = M == kGridOut ? kGridCells : kWindowRows;
+  static_assert((M == kFullOut || M == kGridOut) == (T == kCells),
+                "K6 / K10 run T = 64, K4 / K8 S = 16 or 48");
   if (p.nwin == 0) return 0;
   const int packs = P::kPanels * (kPanel / 16);
   pack_kernel<C><<<(packs + 255) / 256, 256, 0, s>>>(
@@ -1181,19 +1244,22 @@ int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
       const_cast<bf16*>(p.panels));
   int e = tmae_last_error();
   if (e) return e;
-  if constexpr (T == kCells)
-    grid_prepass_kernel<C><<<(p.nwin + 7) / 8, 256, 0, s>>>(p);
+  const int warps = (p.nwin + 7) / 8;  // one warp per window
+  if constexpr (M == kGridOut)
+    grid_prepass_kernel<C><<<warps, 256, 0, s>>>(p);
+  else if constexpr (M == kSelOut)
+    sel_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
   else
-    sel_prepass_kernel<T, C><<<(p.nwin + 7) / 8, 256, 0, s>>>(p);
+    mask_prepass_kernel<T, C, M == kFullOut><<<warps, 256, 0, s>>>(p);
   if ((e = tmae_last_error())) return e;
   compact_kernel<<<1, 1024, 0, s>>>(p);
   if ((e = tmae_last_error())) return e;
-  e = (int)cudaFuncSetAttribute(tiled_kernel<T, C>,
+  e = (int)cudaFuncSetAttribute(tiled_kernel<A, T, C>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 P::kSmem);
   if (e) return e;
   const int blocks = std::min(sm_count(), (p.nwin + WPT - 1) / WPT);
-  tiled_kernel<T, C><<<blocks, kThreads, P::kSmem, s>>>(p);
+  tiled_kernel<A, T, C><<<blocks, kThreads, P::kSmem, s>>>(p);
   return tmae_last_error();
 }
 
@@ -1228,6 +1294,7 @@ FwdParams make_params(const void* x, const void* kv, void* out,
   p.nwin = nwin;
   p.cross = cross;
   p.tau_min = tau_min;
+  p.total = p.cap = nwin;
   return p;
 }
 
@@ -1265,10 +1332,60 @@ extern "C" int launch_encoder_fwd_sel(const void* xw, const void* kvw,
   p.kmask = static_cast<const float*>(kmask);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 128)
-    return S == 16 ? launch_tiled<16, 128>(p, w, s)
-                   : launch_tiled<48, 128>(p, w, s);
-  return S == 16 ? launch_tiled<16, 256>(p, w, s)
-                 : launch_tiled<48, 256>(p, w, s);
+    return S == 16 ? launch_tiled<kSelOut, 16, 128>(p, w, s)
+                   : launch_tiled<kSelOut, 48, 128>(p, w, s);
+  return S == 16 ? launch_tiled<kSelOut, 16, 256>(p, w, s)
+                 : launch_tiled<kSelOut, 48, 256>(p, w, s);
+}
+
+// K6: out [N, 64, C] = the full-window layer of xw [N, 64, C] (keys and
+// values from kvw in cross mode) with masks qmask / kmask [N, 64], zero on
+// cells without a query. `w` as for K8.
+extern "C" int launch_encoder_fwd_full(const void* xw, const void* kvw,
+                                       void* out, const void* qmask,
+                                       const void* kmask, const void* pos,
+                                       const void* const* w, int N, int C,
+                                       int F, int H, int cross, float tau_min,
+                                       void* stream) {
+  if (!widths_ok(C, F, H) || qmask == nullptr ||
+      (cross && (kvw == nullptr || kmask == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  FwdParams p = make_params(xw, kvw, out, pos, w, N, cross, tau_min);
+  p.qmask = static_cast<const float*>(qmask);
+  p.kmask = static_cast<const float*>(kmask);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return C == 128 ? launch_tiled<kFullOut, kCells, 128>(p, w, s)
+                  : launch_tiled<kFullOut, kCells, 256>(p, w, s);
+}
+
+// K4: K8's layer in place on rows [row_lo, row_lo + cap) of xw [B, total,
+// 64, C] (kvw likewise in cross mode, another tensor), selections and masks
+// [B, cap, S]. `w` as for K8, with nwin = B cap.
+extern "C" int launch_encoder_rows_sel(void* xw, const void* kvw,
+                                       const void* selq, const void* selk,
+                                       const void* qmask, const void* kmask,
+                                       const void* pos, const void* const* w,
+                                       int B, int total, int cap, int row_lo,
+                                       int C, int F, int H, int S, int cross,
+                                       float tau_min, void* stream) {
+  if (!widths_ok(C, F, H) || (S != 16 && S != 48) || qmask == nullptr ||
+      selq == nullptr || row_lo < 0 || cap < 0 || row_lo + cap > total ||
+      (cross && (kvw == nullptr || kmask == nullptr || kvw == xw)))
+    return (int)cudaErrorInvalidValue;
+  FwdParams p = make_params(xw, kvw, xw, pos, w, B * cap, cross, tau_min);
+  p.total = total;
+  p.cap = cap;
+  p.row_lo = row_lo;
+  p.selq = static_cast<const int*>(selq);
+  p.selk = static_cast<const int*>(selk);
+  p.qmask = static_cast<const float*>(qmask);
+  p.kmask = static_cast<const float*>(kmask);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 128)
+    return S == 16 ? launch_tiled<kSelInPlace, 16, 128>(p, w, s)
+                   : launch_tiled<kSelInPlace, 48, 128>(p, w, s);
+  return S == 16 ? launch_tiled<kSelInPlace, 16, 256>(p, w, s)
+                 : launch_tiled<kSelInPlace, 48, 256>(p, w, s);
 }
 
 // K10: out [B, H, W, C] = the layer on every 8x8 window of the shift's
@@ -1296,6 +1413,6 @@ extern "C" int launch_encoder_grid(const void* xg, const void* kvg, void* out,
   p.nwx = nwx;
   p.off = shift ? 4 : 8;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return C == 128 ? launch_tiled<kCells, 128>(p, w, s)
-                  : launch_tiled<kCells, 256>(p, w, s);
+  return C == 128 ? launch_tiled<kGridOut, kCells, 128>(p, w, s)
+                  : launch_tiled<kGridOut, kCells, 256>(p, w, s);
 }

@@ -14,10 +14,11 @@ and their plain versions (counterpart of
 * on the dense grid, for configs without bucket caps: K10
   (``_grid_forward``), the full-window layer on every window of a shift's
   partition of ``[B, H, W, C]``, and :func:`fused_encoder_layer_grid`, whose
-  backward runs K7 on the windows, as ``_grid_bwd`` does. K8 and K10 are
-  one persistent kernel over tiles of the windows with an occupied query
-  cell (``csrc/encoder_layer_tiled.cu``); :func:`live_windows_plain` and
-  :func:`tile_plan_plain` are the plain versions of its window plan;
+  backward runs K7 on the windows, as ``_grid_bwd`` does. K4, K6, K8 and
+  K10 are one persistent kernel over tiles of the windows with an occupied
+  query cell (``csrc/encoder_layer_tiled.cu``); :func:`live_windows_plain`,
+  :func:`tile_plan_plain` and :func:`window_rows_plain` are the plain
+  versions of its window plan and of K4's row addressing;
 * serving straight against the padded carrier, in place over the windows of
   one bucket plan: K12 (``encoder_layer_fused_pipelined``, which also closes
   ``encoder_layer_fused_inplace``), the gather, the K3 / K4 layer and the
@@ -48,9 +49,9 @@ from .occ_compact import (gather_windows_padded_plain,
 _W = ctypes.POINTER(ctypes.c_void_p)
 K3 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_full',
                 [P, P, P, P, P, _W, I, I, I, I, I, I, I, I, CF, P])
-K4 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_sel',
+K4 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_rows_sel',
                 [P, P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, I, CF, P])
-K6 = CudaKernel('encoder_layer.cu', 'launch_encoder_fwd_full',
+K6 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_fwd_full',
                 [P, P, P, P, P, P, _W, I, I, I, I, I, CF, P])
 K8 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_fwd_sel',
                 [P, P, P, P, P, P, P, P, _W, I, I, I, I, I, I, CF, P])
@@ -182,19 +183,23 @@ def reference_encoder_layer_rows(xw_all, kv_all, sel_q, sel_k, qmask, kmask,
     return xw_all
 
 
-def _weight_ptrs(p: LayerParams):
-    for name, t in zip(p._fields, p):
-        want = torch.bfloat16 if name in ('wq', 'wk', 'wv', 'wo', 'f1w',
-                                          'f2w') else torch.float32
-        if t.dtype != want or not t.is_contiguous() or not t.is_cuda:
+_WANT = tuple(torch.bfloat16 if name in MATRICES else torch.float32
+              for name in LayerParams._fields)
+
+
+def _weight_ptrs(p: LayerParams, extra=()):
+    """The 17 layer tensors' pointers, then ``extra``, as a ctypes array."""
+    for name, t, want in zip(p._fields, p, _WANT):
+        if t.dtype != want or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f'layer parameter {name} must be a contiguous '
                              f'CUDA {want} tensor')
-    return (ctypes.c_void_p * len(p))(*[t.data_ptr() for t in p])
+    ptrs = [t.data_ptr() for t in p] + list(extra)
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _check_widths(C, nhead, p, c_multiple=32):
-    if C % c_multiple or C > 256 or C % nhead or C // nhead not in (16, 32):
-        raise ValueError(f'kernel takes C % {c_multiple} == 0, C <= 256 and '
+def _check_widths(C, nhead, p):
+    if C % 32 or C > 256 or C % nhead or C // nhead not in (16, 32):
+        raise ValueError('kernel takes C % 32 == 0, C <= 256 and '
                          f'head width 16 or 32, not C={C}, nhead={nhead}')
     if p.f1w.shape[0] % 128:
         raise ValueError('kernel takes an FFN width that is a multiple of 128')
@@ -235,39 +240,52 @@ def _ptr(t):
 
 
 def _check_tiled_widths(C, nhead, p):
+    """The widths the tiled kernel (K4, K6, K8, K10) and the training
+    backward (K7, K9) are compiled for."""
     if C not in (128, 256) or nhead != 8 or p.f1w.shape[0] != 2 * C:
-        raise ValueError('K8/K10 are compiled for C = 128 or 256 with 8 heads '
-                         f'and an FFN width of 2C, not C={C}, nhead={nhead}, '
-                         f'FFN {p.f1w.shape[0]}')
+        raise ValueError('K4 and K6-K10 are compiled for C = 128 or 256 with '
+                         f'8 heads and an FFN width of 2C, not C={C}, '
+                         f'nhead={nhead}, FFN {p.f1w.shape[0]}')
 
 
 def _tiled_ptrs(p: LayerParams, nwin: int):
-    """The pointer array K8 / K10 take: the 17 layer tensors, then their
-    workspace (see csrc/encoder_layer_tiled.cu): the weights packed into
+    """The pointer array K4 / K6 / K8 / K10 take: the 17 layer tensors, then
+    their workspace (see csrc/encoder_layer_tiled.cu): the weights packed into
     panels (8 C^2 bf16) and int32 [2 nwin + 2] (the windows' live flags,
-    the list of live windows, their count, the tile counter). Returns
-    (array, workspace tensors), which must outlive the launch."""
-    C, dev = p.wq.shape[0], p.wq.device
-    ws = (torch.empty(8 * C * C, dtype=torch.bfloat16, device=dev),
-          torch.empty(2 * nwin + 2, dtype=torch.int32, device=dev))
-    ptrs = list(_weight_ptrs(p)) + [t.data_ptr() for t in ws]
-    return (ctypes.c_void_p * len(ptrs))(*ptrs), ws
+    the list of live windows, their count, the tile counter), both in one
+    allocation. Returns (array, workspace tensor); the tensor must outlive
+    the launch."""
+    panel_bytes = 16 * p.wq.shape[0] ** 2
+    ws = torch.empty(panel_bytes + 4 * (2 * nwin + 2), dtype=torch.uint8,
+                     device=p.wq.device)
+    return _weight_ptrs(p, (ws.data_ptr(), ws.data_ptr() + panel_bytes)), ws
 
 
 def live_windows_plain(qmask):
-    """Plain version of the K8 / K10 pre-pass and compaction: the indices of
-    the windows with an occupied query cell, in window order, from a query
-    mask [N, T] (K8; for K10 the window view of the occupancy)."""
+    """Plain version of the K4 / K6 / K8 / K10 pre-pass and compaction: the
+    indices of the windows with an occupied query cell, in window order,
+    from a query mask [N, T] (K4: [B, cap, S] flattened to [B cap, S]; for
+    K10 the window view of the occupancy)."""
     return (qmask > 0).any(-1).nonzero()[:, 0]
 
 
 def tile_plan_plain(live, T):
-    """The tiles of 64 rows K8 / K10 run, as lists of window indices: four
-    live windows a tile at T = 16, one at T = 48 (padded to 64 rows) and
-    T = 64, in the order of ``live``; the last tile may be partial."""
+    """The tiles of 64 rows the tiled kernel runs, as lists of window
+    indices: four live windows a tile at T = 16, one at T = 48 (padded to 64
+    rows) and T = 64, in the order of ``live``; the last tile may be
+    partial."""
     per = 4 if T == 16 else 1
     live = [int(w) for w in live]
     return [live[i:i + per] for i in range(0, len(live), per)]
+
+
+def window_rows_plain(w, cap, total, row_lo):
+    """Plain version of K4's row addressing: window ``w`` = b cap + j of a
+    call on rows [row_lo, row_lo + cap) of ``xw_all`` [B, total, 64, C] is
+    row b total + row_lo + j of ``xw_all`` viewed as [B total, 64, C]. K6
+    and K8 address their flat windows with cap = total = N and row_lo = 0,
+    where window w is row w."""
+    return (w // cap) * total + row_lo + w % cap
 
 
 def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos,
@@ -296,23 +314,31 @@ def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
                            p: LayerParams, *, nhead: int, tau_min: float,
                            cross: bool, row_lo: int):
     """Packed layer on the S selected cells of rows [row_lo, row_lo + cap),
-    in place; ``sel_q``/``qmask`` [B, cap, S]. Kernel K4 on the card."""
+    in place; ``sel_q``/``qmask`` [B, cap, S]. Kernel K4 on the card
+    (compiled for C = 128 or 256, 8 heads, FFN 2C); in cross mode
+    ``kv_all`` must not share memory with ``xw_all``."""
     if not on_card(xw_all, qmask):
         return reference_encoder_layer_rows(
             xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos, p, nhead,
             tau_min, cross, row_lo)
     _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, p, nhead, sel_q)
     B, total, _, C = xw_all.shape
-    S = qmask.shape[2]
+    _check_tiled_widths(C, nhead, p)
+    if qmask.shape[2] not in (16, 48):
+        raise ValueError('K4 takes S = 16 or 48 selected cells')
+    if cross and (kv_all.untyped_storage().data_ptr()
+                  == xw_all.untyped_storage().data_ptr()):
+        raise ValueError('kv_all shares memory with the rows K4 updates')
+    cap, S = qmask.shape[1:]
     sel_q = _i32(sel_q)
     sel_k = _i32(sel_k if cross else None)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     pos = pos.to(torch.bfloat16).contiguous()
-    ws = _weight_ptrs(p)
+    ws, _work = _tiled_ptrs(p, B * cap)
     K4(xw_all.data_ptr(), _ptr(kv_all) if cross else None, sel_q.data_ptr(),
        _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), ws, B,
-       total, qmask.shape[1], row_lo, C, p.f1w.shape[0], nhead, S,
-       int(cross), float(tau_min), stream_handle())
+       total, cap, row_lo, C, p.f1w.shape[0], nhead, S, int(cross),
+       float(tau_min), stream_handle())
     return xw_all
 
 
@@ -335,7 +361,7 @@ def _check_flat(xw, kv, sel_q, qmask, cross, p, nhead):
     if xw.dtype != torch.bfloat16 or xw.dim() != 3 or xw.shape[1] != 64:
         raise ValueError('the training kernels take bf16 windows [N, 64, C]')
     N, _, C = xw.shape
-    _check_widths(C, nhead, p, c_multiple=64)
+    _check_tiled_widths(C, nhead, p)
     T = 64 if sel_q is None else sel_q.shape[-1]
     if qmask.shape != (N, T) or (sel_q is not None and T not in (16, 48)):
         raise ValueError(f'mask / selection shape {tuple(qmask.shape)} does '
@@ -348,8 +374,8 @@ def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
                       p: LayerParams, *, nhead: int, tau_min: float,
                       cross: bool):
     """The training forward on flat windows ``xw`` [N, 64, C], out of place:
-    K6 (``sel_q is None``, masks [N, 64]) or K8 (``sel_q`` [N, S]; compiled
-    for C = 128 or 256, 8 heads, FFN 2C) on the card."""
+    K6 (``sel_q is None``, masks [N, 64]) or K8 (``sel_q`` [N, S]) on the
+    card, both compiled for C = 128 or 256, 8 heads, FFN 2C."""
     if not on_card(xw, qmask):
         return reference_encoder_layer(xw, kvw, sel_q, sel_k, qmask, kmask,
                                        pos, p, nhead, tau_min, cross)
@@ -360,15 +386,13 @@ def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
     out = torch.empty_like(xw)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     pos = pos.to(torch.bfloat16).contiguous()
+    ws, _work = _tiled_ptrs(p, N)
     if sel_q is None:
-        ws = _weight_ptrs(p)
         K6(xw.data_ptr(), _ptr(kvw), out.data_ptr(), qmask.data_ptr(),
            _ptr(kmask), pos.data_ptr(), ws, N, C, p.f1w.shape[0], nhead,
            int(cross), float(tau_min), stream_handle())
     else:
-        _check_tiled_widths(C, nhead, p)
         sel_q, sel_k = _i32(sel_q), _i32(sel_k if cross else None)
-        ws, _work = _tiled_ptrs(p, N)
         K8(xw.data_ptr(), _ptr(kvw), out.data_ptr(), sel_q.data_ptr(),
            _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), ws, N,
            C, p.f1w.shape[0], nhead, sel_q.shape[-1], int(cross),
@@ -468,10 +492,6 @@ def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
     N, _, C = xw.shape
     Fd, T = p.f1w.shape[0], (sel_q.shape[-1] if sel else 64)
     dev = xw.device
-    if C not in (128, 256) or Fd != 2 * C or nhead != 8:
-        raise ValueError('K7/K9 are compiled for C = 128 or 256 with 8 heads '
-                         f'and an FFN width of 2C, not C={C}, nhead={nhead}, '
-                         f'FFN {Fd}')
     ws, splits = _bwd_workspace(N, T, C, Fd, nhead, cross, want_dpos, dev)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     sel_q, sel_k = _i32(sel_q), _i32(sel_k if cross else None)

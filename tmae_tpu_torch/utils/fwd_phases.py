@@ -1,26 +1,34 @@
-"""Where the persistent forward kernel (K8 / K10,
-``csrc/encoder_layer_tiled.cu``) spends its time, phase by phase, on the
-card.
+"""Where the persistent tiled kernel (K4 / K6 / K8 / K10,
+``csrc/encoder_layer_tiled.cu``) spends its time, phase by phase and
+launch by launch, on the card.
 
     python3 -m tmae_tpu_torch.utils.fwd_phases
 
 Builds the library a second time with ``-DTMAE_FWD_PROFILE`` (consumer
 thread 0 of each block then adds the clock cycles of every phase of its
-tiles, and its tile count, into a device array), runs K8 (S = 16, C = 128
-self, 2560 slots as the t_mae.yaml training batch's stage-1 bucket hands
-them, 56% of them live) and K10 (C = 128 self on a 4 x 468 x 468 grid and
-C = 256 self on 4 x 234 x 234, about 10% and 17% of the windows live, as
-the t_mae_ssl_waymo.yaml pretraining batch's) on seeded random inputs, and
-prints each call's time (CUDA events, the normal build), each phase's
-cycles per tile and share, and beside each product phase the cycles its
-tensor work would take at the card's dense bf16 peak (4096 FLOP a cycle
-an SM). Needs a CUDA device.
+tiles, and its tile count, into a device array), and runs on seeded random
+inputs: K8 (S = 16, C = 128 self, 2560 slots as the t_mae.yaml training
+batch's stage-1 bucket hands them, 56% of them live); K10 (C = 128 self on
+a 4 x 468 x 468 grid and C = 256 self on 4 x 234 x 234, about 10% and 17%
+of the windows live, as the t_mae_ssl_waymo.yaml pretraining batch's); K6
+(T = 64, C = 128 self, 512 slots, 46% live, as the training batch's
+stage-1 full bucket); K4 in place (S = 16 on rows [0, 640) of a
+[2, 960, 64, C] window tensor at C = 128, 48% live, as a served pair's
+stage-1 small bucket, and on rows [0, 256) of [2, 512, 64, C] at C = 256,
+40% live). For each call it prints its time (CUDA events, the normal
+build; and the host time to enqueue it: the wrapper's Python and its
+launches), each launch's device time (torch.profiler: the weight pack, the
+pre-pass, the compaction, the tiled kernel), each phase's cycles per tile
+and share, and beside each product phase the cycles its tensor work would
+take at the card's dense bf16 peak (4096 FLOP a cycle an SM). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import subprocess
+import time
 
 import numpy as np
 
@@ -57,7 +65,7 @@ def _weights(torch, rng, C):
 def sel_case(torch, N, S, C, live, seed=0):
     """A bucket of N slots: windows with zeros at unoccupied cells, a
     fraction ``live`` of them with an occupied cell, occupied-first
-    selections of S cells."""
+    selections of S cells (S = 64: every cell in cell order)."""
     rng = np.random.RandomState(seed)
     bf = lambda a: torch.tensor(np.asarray(a, np.float32),
                                 device='cuda').to(torch.bfloat16)
@@ -65,12 +73,24 @@ def sel_case(torch, N, S, C, live, seed=0):
     occ[rng.rand(N) >= live] = False
     xw = bf(np.where(occ[..., None], rng.normal(0, 1, (N, 64, C)), 0))
     s = np.argsort(-(occ * (64 - np.arange(64))), -1, kind='stable')
-    s = s[:, :S].astype(np.int32)
+    if S == 64:
+        s = np.broadcast_to(np.arange(64), (N, 64))
+    s = np.ascontiguousarray(s[:, :S], np.int32)
     qm = np.take_along_axis(occ, s, -1).astype(np.float32)
     pos = bf(rng.normal(0, 0.5, (64, C)))
     return ((xw, None, torch.tensor(s, device='cuda'), None,
              torch.tensor(qm, device='cuda'), None, pos),
             _weights(torch, rng, C))
+
+
+def rows_case(torch, B, total, cap, S, C, live, seed=0):
+    """A gathered window tensor [B, total, 64, C] and a bucket of ``cap``
+    windows a sample on rows [0, cap), as :func:`sel_case` makes them."""
+    (xw, _, s, _, qm, _, pos), w = sel_case(torch, B * total, S, C, live,
+                                            seed)
+    xw = xw.reshape(B, total, 64, C)
+    rows = lambda a: a.reshape(B, total, -1)[:, :cap].contiguous()
+    return (xw, None, rows(s), None, rows(qm), None, pos), w
 
 
 def grid_case(torch, B, H, W, C, live, seed=0):
@@ -89,6 +109,25 @@ def grid_case(torch, B, H, W, C, live, seed=0):
             _weights(torch, rng, C))
 
 
+def by_launch(torch, call):
+    """Device ms of each launch of one call (torch.profiler, after a warm
+    call), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    short = lambda k: k.replace('void ', '').replace(
+        '(anonymous namespace)::', '').split('<')[0].split('(')[0]
+    return [(short(e.key), e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def main(argv=None):
     import torch
 
@@ -102,31 +141,44 @@ def main(argv=None):
     prof.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     prof.restype = ctypes.c_int
     cycles = (ctypes.c_ulonglong * 16)()
-    cases = (('K8 S=16 C=128 self, 2560 slots', el.K8, 16, 128,
+    kw = dict(nhead=8, tau_min=0.05, cross=False)
+    cases = (('K8 S=16 C=128 self, 2560 slots', el.K8, 'sel', 128,
               sel_case(torch, 2560, 16, 128, 0.56)),
-             ('K10 C=128 self, 4x468x468', el.K10, 64, 128,
+             ('K10 C=128 self, 4x468x468', el.K10, 'grid', 128,
               grid_case(torch, 4, 468, 468, 128, 0.1)),
-             ('K10 C=256 self, 4x234x234', el.K10, 64, 256,
-              grid_case(torch, 4, 234, 234, 256, 0.17)))
-    for name, kern, T, C, (args, weights) in cases:
+             ('K10 C=256 self, 4x234x234', el.K10, 'grid', 256,
+              grid_case(torch, 4, 234, 234, 256, 0.17)),
+             ('K6 T=64 C=128 self, 512 slots', el.K6, 'flat', 128,
+              sel_case(torch, 512, 64, 128, 0.46)),
+             ('K4 S=16 C=128 self, rows [0, 640) of 2x960', el.K4, 'rows',
+              128, rows_case(torch, 2, 960, 640, 16, 128, 0.48)),
+             ('K4 S=16 C=256 self, rows [0, 256) of 2x512', el.K4, 'rows',
+              256, rows_case(torch, 2, 512, 256, 16, 256, 0.4)))
+    for name, kern, mode, C, (args, weights) in cases:
         p = el.kernel_params(weights)
-        if T == 64:
+        if mode == 'grid':
             live = int(el._flat_windows(args[2].float(), 8, False).any(-1)
                        .sum())
             call = lambda: el.encoder_layer_grid(
-                *args, p, nhead=8, tau_min=0.05, cross=False, window=8,
-                shift=False)
+                *args, p, window=8, shift=False, **kw)
+        elif mode == 'rows':
+            live = int((args[4] > 0).any(-1).sum())
+            call = lambda: el.encoder_layer_rows_sel(*args, p, row_lo=0,
+                                                     **kw)
         else:
             live = int((args[4] > 0).any(-1).sum())
-            call = lambda: el.encoder_layer_fwd(*args, p, nhead=8,
-                                                tau_min=0.05, cross=False)
+            if mode == 'flat':  # all 64 cells: no selection
+                args = (args[0], None, None, None, args[4], None, args[6])
+            call = lambda: el.encoder_layer_fwd(*args, p, **kw)
         for _ in range(3):
             call()
         torch.cuda.synchronize()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
+        h0 = time.perf_counter()
         for _ in range(10):
             call()
+        host = (time.perf_counter() - h0) * 1e2  # ms a call, enqueued
         t1.record()
         torch.cuda.synchronize()
         ms = t0.elapsed_time(t1) / 10
@@ -149,8 +201,12 @@ def main(argv=None):
         flops = {'q': 2 * 64 * C * C, 'k': 2 * 64 * C * C,
                  'v': 2 * 64 * C * C, 'o, LN1': 2 * 64 * C * C,
                  'FFN 1': 4 * 64 * C * C, 'FFN 2, LN2': 4 * 64 * C * C}
+        launches = by_launch(torch, call)
         print(f'{name}: {live} live windows, {cycles[10]} tiles; {ms:.4f} '
-              f'ms a call; {total:.0f} cycles a tile (thread 0 of a block): '
+              f'ms a call ({host:.4f} ms of host time to enqueue it); by '
+              'launch ' + ', '.join(
+                  f'{k} {v:.4f} ms' for k, v in launches)
+              + f'; {total:.0f} cycles a tile (thread 0 of a block): '
               + ', '.join(
                   f'{ph} {c:.0f} ({100 * c / total:.1f}%'
                   + (f'; tensor work {flops[ph] / FLOP_PER_CYCLE:.0f})'
