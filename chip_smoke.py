@@ -11,11 +11,15 @@ Phases (any failure exits non-zero and prints no result line):
      per source, all at once).
   3. kernels: each kernel against its plain PyTorch version at the shapes of
      the t_mae.yaml main paths (stage-1 plans of a synthetic frame pair,
-     131072 points; K3, K4 and K12 also on stage 2 and in cross mode; K4
-     also exactly: rows outside its range, windows without a query and
-     cells it does not select keep their bits, the same bits twice, no leak
-     between the windows of a tile, a prefix with a partial last tile gives
-     the whole call's bits), with its time, the plain
+     131072 points; K3, K4 and K12 also on stage 2 and in cross mode, with
+     the layer's weights prepared once as a served forward prepares them,
+     and timed also with weights prepared in the call; K3, K4 and K12 also
+     exactly: rows and cells outside their range or plan (the dummy window
+     row too), windows without a query and cells they do not select keep
+     their bits or are 0 as the layer makes them, the same bits twice, no
+     leak between the windows of a tile, a prefix with a partial last tile
+     gives the whole call's bits; the weight panels of a served layer bit
+     for bit against their plain version), with its time, the plain
      version's time, one PyTorch library call's time where one computes the
      same function, and the least time the card could take (bytes / 3.35
      TB/s or FLOPs / 989 TFLOP/s bf16, counting the windows and points this
@@ -113,9 +117,14 @@ OUT_DIR = ROOT / 'chiprun_out' / 'chip_smoke'
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
 F32_FLOPS = 67e12              # f32 outside the tensor cores
+# One served t_mae.yaml pair: 18 encoder layers, each one gather (two in
+# cross mode), K4 on the small and mid buckets, K3 on the full bucket and
+# one scatter, after one pack of the layer's weight panels (PACK: not a TPU
+# kernel's port, the panels K3, K4 and K12 read); the VFE runs K5 once per
+# frame.
 EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
                      'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0, 'K12': 0,
-                     'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0}
+                     'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0, 'PACK': 18}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -127,11 +136,13 @@ EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
 EXPECTED_TRAIN_LAUNCHES = {
     'K1': 24 + 18 + 12, 'K2': 18 + 24 + 18 + 12, 'K3': 0, 'K4': 0,
     'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
-    'K10': 0, 'K12': 0, 'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0}
+    'K10': 0, 'K12': 0, 'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0,
+    'PACK': 0}
 NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
-# The fused in-place serving path: each of the 18 layers is one K12 launch
-# per bucket (small, mid, full), and nothing else of the encoder.
-EXPECTED_FUSED = {**NO_LAUNCHES, 'K5': 2, 'K12': 18 * 3}
+# The fused in-place serving path: each of the 18 layers is one pack of its
+# panels and one K12 call per bucket (small, mid, full), and nothing else
+# of the encoder.
+EXPECTED_FUSED = {**NO_LAUNCHES, 'K5': 2, 'K12': 18 * 3, 'PACK': 18}
 # A streaming pass skips the previous frame's VFE (one K5) and SST stages;
 # the encoder's launches are those of its path, on a batch of one frame.
 EXPECTED_STREAM = {**EXPECTED_LAUNCHES, 'K5': 1}
@@ -163,13 +174,14 @@ BWD_DRAWS = 16                 # random cotangents per backward check
 BWD_KERNELS = ('(anonymous namespace)::window_bwd_kernel',
                '(anonymous namespace)::wgrad_kernel',
                '(anonymous namespace)::reduce_kernel')
-# the launches of K4 / K6 / K8 / K10 (csrc/encoder_layer_tiled.cu) in a
-# profiler table
+# the launches of K3 / K4 / K6 / K8 / K10 / K12 (csrc/encoder_layer_tiled.cu)
+# in a profiler table
 TILED_SRC = 'tmae_tpu_torch/csrc/encoder_layer_tiled.cu'
 FWD_KERNELS = ('(anonymous namespace)::tiled_kernel',
                '(anonymous namespace)::sel_prepass_kernel',
                '(anonymous namespace)::grid_prepass_kernel',
                '(anonymous namespace)::mask_prepass_kernel',
+               '(anonymous namespace)::plan_prepass_kernel',
                '(anonymous namespace)::compact_kernel',
                '(anonymous namespace)::pack_kernel')
 
@@ -318,7 +330,8 @@ def check_kernels(torch, model, batch, dev):
           2 * n_real * win + idx.numel() * 4, 0, time_ms(torch, lib))
 
     # K3 / K4: every bucket of a stage-1 self layer (timed into the kernels
-    # line), a stage-1 cross (WCA) layer and a stage-2 (C=256) self layer
+    # line), a stage-1 cross (WCA) layer and a stage-2 (C=256) self layer,
+    # each with the layer's weights prepared once (TiledWeights)
     wplan = build_plans(occ[:1], 8, caps, kv_occ=occ[1:])[0]
     xc = oc.gather_windows_padded(xp[:1].contiguous(), wplan.cat_idx, 8)
     kc = oc.gather_windows_padded(xp[1:].contiguous(), wplan.cat_idx, 8)
@@ -357,6 +370,21 @@ def check_kernels(torch, model, batch, dev):
             fused_check(torch, el, oc, f'{label} {name}', layer, ci,
                         carrier, kvp, name != 'full', entry)
 
+    # the panels a served layer packs once per forward (PACK, from the f32
+    # master weights) against their plain version bit for bit: the six
+    # matrices rounded to bf16 to nearest even, in the tiled kernel's layout
+    for layer in (enc.sst_block_0.encoder_0.EncoderLayer_0,
+                  enc.sst_block_1.encoder_0.EncoderLayer_0):
+        tw = layer.tiled_weights()
+        want = el.pack_panels_plain(el.LayerParams(*layer.layer_weights()))
+        if not torch.equal(tw.panels, want):
+            raise AssertionError(f'PACK C={tw.width} differs from its plain '
+                                 'version')
+        log(f'  PACK C={tw.width}: {want.numel()} bf16 values equal to the '
+            'plain panels bit for bit; '
+            f'{time_ms(torch, layer.tiled_weights):.4f} ms to prepare a '
+            'layer\'s weights')
+
     # K5 on the current frame's host voxelization
     V = model.vfe.encoder.spec.max_voxels
     Pn = batch['points'].shape[1]
@@ -389,41 +417,49 @@ def check_kernels(torch, model, batch, dev):
 
 
 def layer_cases(el, layer, plan, kv_all):
-    """(kernel, tokens, valid windows, kernel fn, plain fn, call) for each
-    bucket of one serving layer, each fn updating its argument in place;
-    ``call`` is (the kernel's arguments after the window tensor, row_lo,
-    keywords) for K4, None for K3."""
-    p = layer.layer_params()
+    """(kernel, tokens, valid windows, plain weights, kernel fn, plain fn,
+    call) for each bucket of one serving layer, each fn updating its
+    argument in place: the kernel fn takes the layer's weights prepared once
+    for all its buckets (``TiledWeights``, as a served forward prepares
+    them) unless it is given others; the plain fn ``kernel_params`` of
+    them. ``call`` is (the kernel's arguments after the window tensor, the
+    prepared weights last, row_lo, keywords)."""
+    tw = layer.tiled_weights()
+    p = el.kernel_params(layer.layer_weights())
     cross = kv_all is not None
     kw = dict(nhead=layer.nhead, tau_min=layer.tau_min, cross=cross)
     cases, lo = [], 0
     for si in (plan.small, plan.mid):
         ksel, km = (si.ksel, si.kmask) if cross else (si.sel, si.qmask)
-        args = (kv_all, si.sel, ksel, si.qmask, km, layer.pos, p)
+        args = (kv_all, si.sel, ksel, si.qmask, km, layer.pos)
         cases.append(('K4', si.sel.shape[-1], si.valid, p,
-                      lambda t, a=args, lo=lo: el.encoder_layer_rows_sel(
-                          t, *a, row_lo=lo, **kw),
+                      lambda t, w=tw, a=args, lo=lo:
+                          el.encoder_layer_rows_sel(t, *a, w, row_lo=lo,
+                                                    **kw),
                       lambda t, a=args, lo=lo: el.reference_encoder_layer_rows(
-                          t, *a, row_lo=lo, **kw),
-                      (args, lo, kw)))
+                          t, *a, p, row_lo=lo, **kw),
+                      (args + (tw,), lo, kw)))
         lo += si.idx.shape[1]
     fu = plan.full
     km = fu.kmask if cross else fu.qmask
+    args = (kv_all, fu.qmask, km, layer.pos)
     cases.append(('K3', 64, fu.valid, p,
-                  lambda t: el.encoder_layer_rows_full(
-                      t, kv_all, fu.qmask, km, layer.pos, p, row_lo=lo, **kw),
-                  lambda t: el.reference_encoder_layer_rows(
+                  lambda t, w=tw, lo=lo: el.encoder_layer_rows_full(
+                      t, *args, w, row_lo=lo, **kw),
+                  lambda t, lo=lo: el.reference_encoder_layer_rows(
                       t, kv_all, None, None, fu.qmask, km, layer.pos, p,
-                      row_lo=lo, **kw), None))
+                      row_lo=lo, **kw), (args + (tw,), lo, kw)))
     return cases
 
 
 def rows_check(torch, el, label, case, base, cross, entry):
     """One K3/K4 bucket call: kernel against plain version (bf16 output,
     max |diff| <= 0.15 and mean <= 2e-3: summation order can flip a bf16
-    rounding of an intermediate), K4's exact checks
-    (:func:`rows_bits_check`), its time and its bound. Stage-1 self small
-    (S=16) and full buckets go into the kernels line."""
+    rounding of an intermediate), the exact checks (:func:`rows_bits_check`
+    for K4, :func:`full_rows_bits_check` for K3), its time with the layer's
+    prepared weights and with weights prepared in the call (a pack launch
+    more), and its bound. Stage-1 self small (S=16) and full buckets go into
+    the kernels line."""
     kernel, T, valid, p, fk, fp, call = case
     ka, pa = fk(base.clone()), fp(base.clone())
     torch.cuda.synchronize()
@@ -432,8 +468,10 @@ def rows_check(torch, el, label, case, base, cross, entry):
     if not (err <= 0.15 and mean <= 2e-3):
         raise AssertionError(f'{kernel} {label} T={T} differs from its plain '
                              f'version: max {err} mean {mean}')
-    if call is not None:
+    if kernel == 'K4':
         rows_bits_check(torch, el, call, fk, base, ka, f'{label} S={T}')
+    else:
+        full_rows_bits_check(torch, call, fk, base, ka, label)
     C = base.shape[-1]
     nw = int(valid.sum())
     out_tokens = 64 if kernel == 'K3' else T
@@ -442,18 +480,24 @@ def rows_check(torch, el, label, case, base, cross, entry):
     flops = nw * layer_flops(T, C, p.f1w.shape[0])
     kt = base.clone()
     ms = time_ms(torch, lambda: fk(kt), iters=10)
+    ms_unprep = time_ms(torch, lambda: fk(kt, p), iters=10)
     b, by = bound_ms(nbytes, flops)
     log(f'  {kernel} {label} T={T}: {nw} of {valid.numel()} windows, '
-        f'max_abs_err {err:.3g} (mean {mean:.2g}), kernel {ms:.4f} ms, '
-        f'bound {b:.4f} ms ({by})')
+        f'max_abs_err {err:.3g} (mean {mean:.2g}), kernel {ms:.4f} ms '
+        f'({ms_unprep:.4f} ms with its weights prepared in the call), bound '
+        f'{b:.4f} ms ({by})')
     if label == 'stage-1 self' and T in (16, 64):
         full = kernel == 'K3'
         pt = pa.clone()
+        dev_ms = device_ms(torch, lambda: fk(kt))
+        log(f'  {kernel} {label} T={T}: {dev_ms} ms of device time a call, '
+            'its launches summed (profiler)')
         entry('encoder_rows_full' if full else 'encoder_rows_sel', kernel,
-              'tmae_tpu_torch/csrc/encoder_layer.cu' if full else TILED_SRC,
+              TILED_SRC,
               'tmae_tpu/ops/pallas_encoder.py:' + ('1680' if full else '1724'),
               err, ms, time_ms(torch, lambda: fp(pt), iters=3, warmup=1),
-              nbytes, flops, None)
+              nbytes, flops, None, ms_unprepared=ms_unprep,
+              device_ms=dev_ms)
 
 
 def rows_bits_check(torch, el, call, fk, base, out, label):
@@ -494,10 +538,7 @@ def rows_bits_check(torch, el, call, fk, base, out, label):
         raise AssertionError(f'K4 {label}: window ({b0}, {j0}) did not '
                              'change')
     per = 4 if S == 16 else 1
-    counts = live[0].int().cumsum(0)
-    ends = torch.cat([((counts % 4 == 2) & (counts > 4)).nonzero(),
-                      (counts % 4 != 0).nonzero()])
-    n = int(ends[0, 0]) + 1 if len(ends) else cap
+    n = prefix_slots(torch, live[0], cap)
     cut = lambda a: None if a is None else a[:1, :n]
     part = el.encoder_layer_rows_sel(
         base[:1].clone(), None if kv_all is None else kv_all[:1], cut(sq),
@@ -507,7 +548,7 @@ def rows_bits_check(torch, el, call, fk, base, out, label):
             and torch.equal(part[:, lo + n:], base[:1, lo + n:])):
         raise AssertionError(f'K4 {label}: the first {n} windows of sample 0 '
                              'differ from the whole call')
-    n_live = int(counts[n - 1])
+    n_live = int(live[0, :n].sum())
     log(f'  K4 {label}: {int((~live).sum())} windows without a query and '
         f'{int(kept.sum())} cells it does not write keep their bits; the '
         f'same bits twice; window ({b0}, {j0}) changed, the other '
@@ -516,21 +557,79 @@ def rows_bits_check(torch, el, call, fk, base, out, label):
         f'{n_live % per} in the last) give the bits of the whole call')
 
 
+def prefix_slots(torch, live, cap):
+    """The length of a prefix of one sample's slots (``live`` [cap] bool)
+    that leaves a partial last tile of four live windows (S = 16), the
+    first such prefix with more than one full tile where there is one; the
+    whole sample where no prefix does."""
+    counts = live.int().cumsum(0)
+    ends = torch.cat([((counts % 4 == 2) & (counts > 4)).nonzero(),
+                      (counts % 4 != 0).nonzero()])
+    return int(ends[0, 0]) + 1 if len(ends) else cap
+
+
+def full_rows_bits_check(torch, call, fk, base, out, label):
+    """K3's exact checks on one bucket call ``fk`` (in place on a copy of
+    ``base``) whose output is ``out``: the rows outside [row_lo, row_lo +
+    cap) keep their bits; every cell of a window without an occupied query
+    cell, and every unoccupied cell of the others, is exactly 0 (the
+    pre-pass writes the zeros of the first; the layer never runs on them); a
+    second run gives the same bits; the first live window's tokens negated:
+    every other row keeps its bits, its own changes."""
+    (kv_all, qm, km, pos, tw), lo, kw = call
+    cap = qm.shape[1]
+    live = (qm > 0).any(-1)
+    rows = torch.zeros(base.shape[:2], dtype=torch.bool, device=qm.device)
+    rows[:, lo:lo + cap] = True
+    if not torch.equal(out[~rows], base[~rows]):
+        raise AssertionError(f'K3 {label}: a row outside its range changed')
+    mine = out[:, lo:lo + cap]
+    if (mine[~live] != 0).any() or (mine[qm == 0] != 0).any():
+        raise AssertionError(f'K3 {label}: a window or cell without a query '
+                             'is not 0')
+    if not torch.equal(fk(base.clone()), out):
+        raise AssertionError(f'K3 {label}: two runs differ')
+    msg = (f'  K3 {label}: the {int((~rows).sum())} rows outside its range '
+           f'keep their bits; {int((~live).sum())} windows without a query '
+           f'and the {int((qm[live] == 0).sum())} unoccupied cells of the '
+           'others exactly 0; the same bits twice')
+    if not live.any():
+        log(msg + '; no live window')
+        return
+    b0, j0 = (int(v) for v in live.nonzero()[0])
+    x2 = base.clone()
+    x2[b0, lo + j0] = -x2[b0, lo + j0]
+    moved = fk(x2)
+    rest = torch.ones(base.shape[:2], dtype=torch.bool, device=qm.device)
+    rest[b0, lo + j0] = False
+    if not torch.equal(moved[rest], out[rest]):
+        raise AssertionError(f'K3 {label}: changing window ({b0}, {j0}) '
+                             'moved another window\'s row')
+    if torch.equal(moved[b0, lo + j0], out[b0, lo + j0]):
+        raise AssertionError(f'K3 {label}: window ({b0}, {j0}) did not '
+                             'change')
+    log(msg + f'; window ({b0}, {j0}) changed, the other {int(rest.sum())} '
+        'rows kept their bits')
+
+
 def fused_check(torch, el, oc, label, layer, ci, xp, kvp, sel, entry):
     """K12 on one bucket plan ``ci`` of the padded carrier ``xp`` (``kvp``
     the other frame's carrier in cross mode) against its plain version on
     the same card: on the cells of the plan's windows bf16 outputs within
     K3/K4's limits (max |diff| <= 0.15, mean <= 2e-3); every other cell of
-    the carrier, the dummy window row with it, exactly as it was. Its time,
-    the plain version's and its bound (the plan's windows read and written,
-    kv read in cross mode, the weights); the stage-1 self full bucket goes
-    into the kernels line, as K12 and as K11, which K12 closes."""
-    p = layer.layer_params()
+    the carrier, the dummy window row with it, exactly as it was; the exact
+    checks of :func:`plan_bits_check`. Its time with the layer's prepared
+    weights and with weights prepared in the call, the plain version's and
+    its bound (the plan's windows read and written, kv read in cross mode,
+    the weights); the stage-1 self full bucket goes into the kernels line,
+    as K12 and as K11, which K12 closes."""
+    tw = layer.tiled_weights()
+    p = el.kernel_params(layer.layer_weights())
     cross = kvp is not None
     kw = dict(nhead=layer.nhead, tau_min=layer.tau_min, cross=cross,
               window=8, sel=sel)
-    fk = lambda t: el.encoder_layer_fused_pipelined(t, kvp, ci, layer.pos, p,
-                                                    **kw)
+    fk = lambda t, w=tw, c=ci, kv=kvp: el.encoder_layer_fused_pipelined(
+        t, kv, c, layer.pos, w, **kw)
     fp = lambda t: el.reference_encoder_layer_fused(t, kvp, ci, layer.pos, p,
                                                     **kw)
     ka, pa = fk(xp.clone()), fp(xp.clone())
@@ -550,26 +649,132 @@ def fused_check(torch, el, oc, label, layer, ci, xp, kvp, sel, entry):
             and torch.equal(pa[~inside], xp[~inside])):
         raise AssertionError(f'K12 {label}: a cell outside the plan\'s '
                              'windows changed')
+    plan_bits_check(torch, el, ci, fk, xp, kvp, ka, f'{label} T={T}', T)
     nw = int(ci.valid.sum())
     nbytes = (nw * ((3 if cross else 2) * T) * C * 2
               + sum(t.numel() * t.element_size() for t in p))
     flops = nw * layer_flops(T, C, p.f1w.shape[0])
     kt = xp.clone()
     ms = time_ms(torch, lambda: fk(kt), iters=10)
+    ms_unprep = time_ms(torch, lambda: fk(kt, p), iters=10)
     pt = xp.clone()
     plain_ms = time_ms(torch, lambda: fp(pt), iters=3, warmup=1)
     b, by = bound_ms(nbytes, flops)
     log(f'  K12 {label} T={T}: {nw} of {ci.valid.numel()} windows, '
         f'max_abs_err {err:.3g} (mean {mean:.2g}), {int(inside.sum())} cells '
         f'inside, the other {int((~inside).sum())} unchanged; kernel '
-        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by})')
+        f'{ms:.4f} ms ({ms_unprep:.4f} ms with its weights prepared in the '
+        f'call), plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by})')
     if label == 'stage-1 self full':
         site = 'tmae_tpu/ops/pallas_encoder.py:'
-        src = 'tmae_tpu_torch/csrc/encoder_layer.cu'
-        entry('encoder_fused_pipelined', 'K12', src, site + '2121', err, ms,
-              plain_ms, nbytes, flops, None)
-        entry('encoder_fused_inplace', 'K12', src, site + '1933', err, ms,
-              plain_ms, nbytes, flops, None, closed_by='K12')
+        dev_ms = device_ms(torch, lambda: fk(kt))
+        log(f'  K12 {label}: {dev_ms} ms of device time a call, its '
+            'launches summed (profiler)')
+        entry('encoder_fused_pipelined', 'K12', TILED_SRC, site + '2121', err,
+              ms, plain_ms, nbytes, flops, None, ms_unprepared=ms_unprep,
+              device_ms=dev_ms)
+        entry('encoder_fused_inplace', 'K12', TILED_SRC, site + '1933', err,
+              ms, plain_ms, nbytes, flops, None, closed_by='K12',
+              ms_unprepared=ms_unprep, device_ms=dev_ms)
+
+
+def plan_bits_check(torch, el, ci, fk, xp, kvp, out, label, T):
+    """K12's exact checks on one bucket call ``fk`` (in place on a copy of
+    the carrier ``xp``) whose output is ``out`` (the caller checks that the
+    cells outside the plan's real windows, the dummy row with them, keep
+    their bits): at T = 64 every unoccupied cell of a real window is exactly
+    0, at S = 16, 48 every cell of a real window that is not an occupied
+    selected one keeps its bits; a second run gives the same bits; the last
+    live slot made non-live (its query mask zeroed, as no plan of the path
+    holds one) gets zeros on its 64 cells at T = 64 and keeps its bits at
+    S = 16, 48, while every other cell keeps the whole call's bits; the
+    first live window's tokens negated move no cell outside it and change
+    its written cells (no leak between the windows of a tile); the first
+    slots of sample 0 up to a live count that leaves a partial last tile
+    give the whole call's bits on their windows and leave every other cell
+    as it was."""
+    B, Hp2, Wp, C = xp.shape
+    cap = ci.idx.shape[1]
+    dev = xp.device
+    flat = lambda a: a.reshape(-1, C)
+    real = el.plan_real_plain(ci.idx, Hp2, Wp)
+    occ = (ci.qmask > 0) & real[..., None]
+    live = occ.any(-1)
+    every = torch.arange(64, device=dev).expand(B, cap, 64)
+    cells = el.plan_cells_plain(ci.idx, every, Hp2, Wp)
+    toks = el.plan_cells_plain(ci.idx, every if T == 64 else ci.sel, Hp2, Wp)
+    n_cells = B * Hp2 * Wp
+    written = torch.zeros(n_cells, dtype=torch.bool, device=dev)
+    written[toks[occ]] = True
+    inside = torch.zeros(n_cells, dtype=torch.bool, device=dev)
+    inside[cells[real].reshape(-1)] = True
+    rest = inside & ~written
+    if T == 64 and (flat(out)[rest] != 0).any():
+        raise AssertionError(f'K12 {label}: an unoccupied cell of a real '
+                             'window is not 0')
+    if T != 64 and not torch.equal(flat(out)[rest], flat(xp)[rest]):
+        raise AssertionError(f'K12 {label}: a cell it does not write changed')
+    if not torch.equal(fk(xp.clone()), out):
+        raise AssertionError(f'K12 {label}: two runs differ')
+    msg = (f'  K12 {label}: {int(rest.sum())} cells of real windows it does '
+           f'not write {"exactly 0" if T == 64 else "keep their bits"}; the '
+           'same bits twice; the dummy row and the cells outside the plan\'s '
+           f'{int(real.sum())} real windows keep their bits')
+    if not live.any():
+        log(msg + '; no live slot')
+        return
+    lv = live.nonzero()
+    b1, j1 = (int(v) for v in lv[-1])
+    qm2 = ci.qmask.clone()
+    qm2[b1, j1] = 0
+    dead = fk(xp.clone(), c=type(ci)(**{**vars(ci), 'qmask': qm2}))
+    win1 = cells[b1, j1]
+    other = torch.ones(n_cells, dtype=torch.bool, device=dev)
+    other[win1] = False
+    kept = (not flat(dead)[win1].any() if T == 64
+            else torch.equal(flat(dead)[win1], flat(xp)[win1]))
+    if not (kept and torch.equal(flat(dead)[other], flat(out)[other])):
+        raise AssertionError(f'K12 {label}: slot ({b1}, {j1}) made non-live '
+                             'is not its pre-pass output, or moved another '
+                             'cell')
+    b0, j0 = (int(v) for v in lv[0])
+    win0 = cells[b0, j0]
+    x2 = xp.clone()
+    flat(x2)[win0] = -flat(x2)[win0]
+    moved = fk(x2)
+    other = torch.ones(n_cells, dtype=torch.bool, device=dev)
+    other[win0] = False
+    if not torch.equal(flat(moved)[other], flat(out)[other]):
+        raise AssertionError(f'K12 {label}: changing window ({b0}, {j0}) '
+                             'moved a cell outside it')
+    w0 = toks[b0, j0][occ[b0, j0]]
+    if torch.equal(flat(moved)[w0], flat(out)[w0]):
+        raise AssertionError(f'K12 {label}: window ({b0}, {j0}) did not '
+                             'change')
+    # a prefix of the slots of sample b0 (the first with a live slot),
+    # called alone on that frame
+    n = prefix_slots(torch, live[b0], cap)
+    one = slice(b0, b0 + 1)
+    cut = lambda a: a if a is None else (a[one, :n] if a.dim() > 1
+                                         else a[one])
+    part = fk(xp[one].clone(), c=type(ci)(**{k: cut(v)
+                                               for k, v in vars(ci).items()}),
+              kv=None if kvp is None else kvp[one])
+    mine = torch.zeros(n_cells, dtype=torch.bool, device=dev)
+    mine[cells[b0, :n][real[b0, :n]].reshape(-1)] = True
+    mine = mine.reshape(B, -1)[b0]
+    if not (torch.equal(flat(part)[mine], flat(out[one])[mine])
+            and torch.equal(flat(part)[~mine], flat(xp[one])[~mine])):
+        raise AssertionError(f'K12 {label}: the first {n} slots of sample '
+                             f'{b0} differ from the whole call')
+    per = 4 if T == 16 else 1
+    n_live = int(live[b0, :n].sum())
+    log(msg + f'; slot ({b1}, {j1}) made non-live '
+        f'{"zeros" if T == 64 else "keeps its bits"}, no other cell moves; '
+        f'window ({b0}, {j0}) changed and no cell outside it; the first {n} '
+        f'slots of sample {b0} ({n_live} live, {n_live // per} full tiles '
+        f'of {per} and {n_live % per} in the last) give the bits of the '
+        'whole call')
 
 
 def train_layer_calls(torch, model, batch):
@@ -881,7 +1086,7 @@ def kernels():
             'K9': encoder_layer.K9, 'K10': encoder_layer.K10,
             'K12': encoder_layer.K12, 'K13b': occ_compact.K13B,
             'K13c': occ_compact.K13C, 'K15': sparse_conv.K15,
-            'K16': window_attention.K16}
+            'K16': window_attention.K16, 'PACK': encoder_layer.PACK}
 
 
 def fill_launches(rows, launches, names):
@@ -1163,7 +1368,7 @@ def profile_train_step(torch, step, batch, name='profile_train.txt'):
     log(avg.table(sort_by='self_cuda_time_total', row_limit=50))
     (bwd, fwd), total = device_sums(avg, BWD_KERNELS, FWD_KERNELS)
     log(f'  {name}: K7/K9 (csrc/encoder_layer_bwd.cu) {bwd:.3f} ms, '
-        f'K4/K6/K8/K10 (csrc/encoder_layer_tiled.cu) {fwd:.3f} ms of '
+        f'the tiled kernel (csrc/encoder_layer_tiled.cu) {fwd:.3f} ms of '
         f'{total:.3f} ms of device time in the step')
 
 
@@ -2472,8 +2677,8 @@ def profile_pass(torch, cfg, model, batch, name='profile.txt', **fwd):
         avg.table(sort_by='self_cuda_time_total', row_limit=-1))
     log(avg.table(sort_by='self_cuda_time_total', row_limit=40))
     (fwd,), total = device_sums(avg, FWD_KERNELS)
-    log(f'  {name}: K4/K6/K8/K10 (csrc/encoder_layer_tiled.cu) {fwd:.3f} ms '
-        f'of {total:.3f} ms of device time in the pass')
+    log(f'  {name}: the tiled kernel\'s launches (csrc/encoder_layer_tiled.'
+        f'cu) {fwd:.3f} ms of {total:.3f} ms of device time in the pass')
 
 
 if __name__ == '__main__':

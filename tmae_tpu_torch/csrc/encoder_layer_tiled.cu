@@ -1,9 +1,10 @@
-// Kernels K4, K6, K8 and K10 for Hopper: the cosine-attention encoder layer
-// as one persistent kernel over tiles of live windows, with four addressing
-// modes. Every mode computes one of two functions on 8x8 windows: the
-// full-window layer (T = 64 cells, the output masked to zero where no query:
-// K6, K10) or the packed layer on S = 16 or 48 selected cells (x plus the
-// layer's masked delta on those cells, every other cell kept: K4, K8).
+// Kernels K3, K4, K6, K8, K10 and K12 for Hopper: the cosine-attention
+// encoder layer as one persistent kernel over tiles of live windows, with
+// three addressings. Every call computes one of two functions on 8x8
+// windows: the full-window layer (T = 64 cells, the output masked to zero
+// where no query: K3, K6, K10, K12 on a full plan) or the packed layer on S =
+// 16 or 48 selected cells (x plus the layer's masked delta on those cells,
+// every other cell kept: K4, K8, K12 on a small or mid plan).
 //
 // K8 replaces tmae_tpu/ops/pallas_encoder.py:995 _pallas_forward_sel (its
 // pallas_call at :1038; kernel _kernel_sel -> _layer_body_sel): out [N, 64,
@@ -16,10 +17,22 @@
 // function in place on rows [row_lo, row_lo + cap) of the gathered window
 // tensor xw_all [B, total, 64, C], masks and selections [B, cap, S]: window
 // w = b cap + j is row b total + row_lo + j, and only its occupied selected
-// cells are written. The update is in place because a tile loads all its
-// rows into shared memory (load_rows) before it writes any, the windows are
-// disjoint, and kv (cross mode) is another tensor. K10 replaces :1440
-// _grid_forward (its pallas_call at :1483; kernel _grid_kernel ->
+// cells are written. K3 replaces :1654 encoder_layer_rows_full (its
+// pallas_call at :1680; kernel _kernel_rows_full -> _layer_body): K6's
+// function in place on K4's rows, masks [B, cap, 64]. K12 replaces :2066
+// encoder_layer_fused_pipelined (its pallas_call at :2121; kernel
+// _kernel_fused_piped) and closes :1875 encoder_layer_fused_inplace (:1933),
+// which compute the same function: the K3 (T = 64) or K4 (S = 16, 48) layer
+// on the windows of one bucket plan idx [B, cap, 2], read and written
+// straight in the padded carrier [B, Hp + 8, Wp, C]: window w = b cap + j is
+// (wy, wx) = idx[b, j], and its cell c is carrier cell (8 wy + c / 8, 8 wx +
+// c % 8) of frame b (kv's carrier at the same cell in cross mode). A dummy
+// slot (wy >= nwy = (Hp + 8) / 8 - 1: the plan's padding, which names the
+// window row below the grid) is never a window here: never read, never
+// written. The in-place updates (K3, K4, K12) are safe because a tile loads
+// all its rows into shared memory (load_rows) before it writes any, the
+// windows are disjoint, and kv (cross mode) is another tensor. K10 replaces
+// :1440 _grid_forward (its pallas_call at :1483; kernel _grid_kernel ->
 // _layer_body): the full-window layer on every 8x8 window of the shift's
 // partition of a [B, H, W, C] grid. The partition has ceil(H/8) + 1 rows and
 // ceil(W/8) + 1 columns of windows, offset by 8 cells (shift 0) or 4 (shift
@@ -29,27 +42,36 @@
 //
 // Bound on this card. The layer does ~19 MFLOP on a 64-row window at
 // C = 128 (2*T*C*C*4 + 2*T*C*F*2 + 2*T*T*C*2), so the work on live windows is
-// microseconds of tensor time: K4 and K6 are bound by those operations on
-// the training and serving buckets, K8 and K10 by the bytes they must move
-// (K8 copies every unselected cell through, 42 MB read and written on the
-// training batch's 2560 slots at C = 128; K10 writes the whole output grid).
+// microseconds of tensor time: K3, K4, K6 and K12 are bound by those
+// operations on the training and serving buckets, K8 and K10 by the bytes
+// they must move (K8 copies every unselected cell through, 42 MB read and
+// written on the training batch's 2560 slots at C = 128; K10 writes the
+// whole output grid).
 // What held the earlier design (one block of 8 warps per window,
 // encoder_layer.cu) back: a block for every window, live or not (K10 ran
-// 14400 blocks for 1399 live windows; K4, K6 and K8 ran every padding slot);
-// every weight fragment read from L2 per window (256 KiB at C = 128); WMMA
-// fragments loaded through registers; 16-row products at S = 16.
+// 14400 blocks for 1399 live windows; K3, K4, K6, K8 and K12 ran every
+// padding slot); every weight fragment read from L2 per window (256 KiB at
+// C = 128); WMMA fragments loaded through registers; 16-row products at
+// S = 16.
 //
-// Design (four launches on the caller's stream, no host synchronisation):
+// Design (launches on the caller's stream, no host synchronisation):
 //   1. pack_kernel: the six Linear weights into 16 KiB panels in wgmma's
-//      core-matrix layout (below), in the order the products use them.
+//      core-matrix layout (below), in the order the products use them. The
+//      training calls (K6, K8, K10) pack their bf16 weights in every call;
+//      a served layer packs its f32 master weights once per forward
+//      (launch_pack_panels, rounding each to bf16 to nearest even) for all
+//      its bucket calls, and K3, K4 and K12 take the panels as they are.
 //   2. A pre-pass, one warp per window, that flags the window live when it
 //      has an occupied query cell: sel_prepass_kernel (K8) reads the query
 //      mask and copies through every cell the main kernel will not write (all
 //      64 when the window is not live); grid_prepass_kernel (K10) reads the
 //      occupancy bytes and writes zeros on the in-grid cells of a window that
 //      is not live; mask_prepass_kernel reads the query mask and writes
-//      zeros on all 64 cells of such a window (K6) or nothing (K4: its output
-//      is its input). Empty windows cost their bytes and nothing else.
+//      zeros on all 64 cells of such a window (K6, K3) or nothing (K4: its
+//      output is its input); plan_prepass_kernel (K12) also never flags a
+//      dummy slot, and at T = 64 writes zeros on the 64 carrier cells of a
+//      real slot without a query (at S = 16, 48 nothing). Empty windows cost
+//      their bytes and nothing else.
 //   3. compact_kernel, one block: the live windows in window order into a
 //      list, their count, and the tile counter set to 0; both stay on the
 //      device.
@@ -59,9 +81,9 @@
 //      queries see only its own keys and key mask), one window padded to 64
 //      rows at S = 48 (16 rows of zeros with no query or key: the simple
 //      choice; three windows in four tiles would need rows of one window in
-//      two tiles), one window at T = 64 (K6, K10). A partial last tile has
-//      rows of no window, also zeros with no query or key. Rows of no window
-//      are never written. The addressing (window rows or grid cells) is a
+//      two tiles), one window at T = 64. A partial last tile has rows of no
+//      window, also zeros with no query or key. Rows of no window are never
+//      written. The addressing (window rows, plan cells or grid cells) is a
 //      template parameter, decided once per tile in tile_rows; nothing else
 //      in the tile depends on it.
 //      The producer thread streams the weight panels through a ring in shared
@@ -105,21 +127,22 @@
 // the FFN hidden [64 x 2C], then the output tile): 176 KiB at C = 128, 208
 // KiB at C = 256.
 //
-// Numerics held to the TPU kernel (and encoder_layer.cu): q = (x+pos)Wq+bq
-// and k = (kv+pos)Wk+bk with x+pos rounded to bf16; per-head L2
-// normalisation rsqrt(sum^2 + 1e-24) in f32, q scaled by 1/max(tau,
-// tau_min), both rounded to bf16; masked keys filled with -30000 before a
-// per-head softmax; a window with no key gets p = 0; p and the attention
-// output rounded to bf16; the attention delta lands on occupied query cells
-// only, then LayerNorm (eps 1e-5) in f32 and a zero for unoccupied cells;
-// exact-erf GELU on bf16 operands; the f32 residual; LayerNorm. K4 and K8
-// write x + bf16(y - x) on their occupied selected cells, K6 and K10 y on
+// Numerics held to the TPU kernel: q = (x+pos)Wq+bq and k = (kv+pos)Wk+bk
+// with x+pos rounded to bf16; per-head L2 normalisation rsqrt(sum^2 + 1e-24)
+// in f32, q scaled by 1/max(tau, tau_min), both rounded to bf16; masked keys
+// filled with -30000 before a per-head softmax; a window with no key gets
+// p = 0; p and the attention output rounded to bf16; the attention delta
+// lands on occupied query cells only, then LayerNorm (eps 1e-5) in f32 and
+// a zero for unoccupied cells; exact-erf GELU on bf16 operands; the f32
+// residual; LayerNorm. The packed
+// layer (K4, K8, K12 at S = 16, 48) writes x + bf16(y - x) on its occupied
+// selected cells, the full-window layer (K3, K6, K10, K12 at T = 64) y on
 // occupied cells and 0 on the other (in-grid) cells. No sum crosses a
 // window, and every sum runs in a fixed order, so a call gives the same bits
 // from run to run.
 //
 // Compiled for the T-MAE widths only: C = 128 or 256, 8 heads, FFN 2C, and
-// S = 16 or 48 (K4, K8) or T = 64 (K6, K10).
+// S = 16 or 48 (K4, K8, K12) or T = 64 (K3, K6, K10, K12).
 
 #include <algorithm>
 
@@ -172,19 +195,22 @@ struct Plan {
   static_assert((C + 8) * 2 * kRows <= 2 * kBuf, "output tile does not fit");
 };
 
-// How a tile finds its rows: window rows of a [.., 64, C] tensor (K4, K6,
-// K8) or cells of the grid's shifted partition (K10).
-enum Addr { kWindowRows, kGridCells };
-// What a call computes and where (K8, K4, K6, K10): the pre-pass and the
-// addressing follow.
-enum Mode { kSelOut, kSelInPlace, kFullOut, kGridOut };
+// How a tile finds its rows: window rows of a [.., 64, C] tensor (K3, K4,
+// K6, K8), cells of a plan's windows in the padded carrier (K12) or cells of
+// the grid's shifted partition (K10).
+enum Addr { kWindowRows, kPlanCells, kGridCells };
+// What a call computes and where (K8, K4, K6, K3, K10, K12): the pre-pass,
+// the addressing and whether the call packs its weights follow.
+enum Mode { kSelOut, kSelInPlace, kFullOut, kFullInPlace, kGridOut,
+            kPlanInPlace };
 
 struct FwdParams {
   const bf16 *x, *kv, *pos;
-  bf16* out;  // == x for K4 (in place)
+  bf16* out;  // == x for K3, K4 and K12 (in place)
   const int *selq, *selk;
   const float *qmask, *kmask;
   const unsigned char *qocc, *kocc;
+  const int* widx;  // K12: the plan's windows (wy, wx) [nwin, 2]
   const float *bq, *bk, *bv, *bo, *tau, *ln1s, *ln1b, *b1, *b2, *ln2s, *ln2b;
   const bf16* panels;
   int* flags;    // [nwin] the window has an occupied query cell
@@ -194,14 +220,37 @@ struct FwdParams {
   int nwin, cross;
   float tau_min;
   // window rows: window w is row (w / cap) total + row_lo + w % cap of x,
-  // kv and out (K6, K8: total = cap = nwin, row_lo = 0)
+  // kv and out (K6, K8: total = cap = nwin, row_lo = 0); plan cells: window
+  // w is frame w / cap of the carrier
   int total, cap, row_lo;
-  int gh, gw, nwy, nwx, off;  // K10: the grid and its partition
+  // K10: the grid [gh, gw] and its partition; K12: the carrier [gh = Hp + 8,
+  // gw = Wp] and its nwy = gh / 8 - 1 rows of real windows
+  int gh, gw, nwy, nwx, off;
 };
 
 __device__ __forceinline__ long long window_row(const FwdParams& p,
                                                 long long w) {
   return (w / p.cap) * p.total + p.row_lo + w % p.cap;
+}
+
+// K12: slot w of the plan names a window of the carrier, not the dummy row
+__device__ __forceinline__ bool plan_real(const FwdParams& p, long long w) {
+  const int wy = p.widx[2 * w], wx = p.widx[2 * w + 1];
+  return wy >= 0 && wy < p.nwy && wx >= 0 && (wx + 1) * 8 <= p.gw;
+}
+
+// The element offset of cell c of window w: in its window row (K3, K4, K6,
+// K8), or at carrier cell (8 wy + c / 8, 8 wx + c % 8) of frame w / cap (K12)
+template <Addr A, int C>
+__device__ __forceinline__ long long cell_offset(const FwdParams& p,
+                                                 long long w, int c) {
+  if constexpr (A == kPlanCells) {
+    const long long b = w / p.cap;
+    const long long wy = p.widx[2 * w], wx = p.widx[2 * w + 1];
+    return ((b * p.gh + 8 * wy + (c >> 3)) * p.gw + 8 * wx + (c & 7)) * C;
+  } else {
+    return (window_row(p, w) * kCells + c) * C;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -588,7 +637,8 @@ __device__ __forceinline__ void layer_norm(float (&acc)[Plan<C>::NA],
 // the bf16 values, `with_pos` bf16(x + pos[cells[r]]). Either may be null.
 // A warp takes 8 rows x 4 chunks: 64 contiguous bytes of each row from
 // device memory, 8 rows of one core matrix at a time into shared memory.
-// Plain loads, not the read-only path: K4's rows are also its output.
+// Plain loads, not the read-only path: K3's, K4's and K12's rows are also
+// their output.
 template <int C>
 __device__ __forceinline__ void load_rows(unsigned char* raw,
                                           unsigned char* with_pos,
@@ -731,11 +781,11 @@ __device__ __forceinline__ void attention(uint32_t qn, uint32_t kn,
 }
 
 // The tile's rows: window, query and key cell, offsets and masks of each of
-// the 64 rows (threads 0..63). Window rows: row r is slot i of window
-// j = r / T of the tile, cell sel[i] of that window's row (K4, K8: T = 16,
-// 48) or cell i (K6: T = 64); grid cells (K10): cell r of the tile's window
-// of the partition. Rows of no window read zeros, have no query or key and
-// are not written.
+// the 64 rows (threads 0..63). Window rows and plan cells: row r is slot i
+// of window j = r / T of the tile, cell sel[i] of that window (K4, K8, K12:
+// T = 16, 48) or cell i (K3, K6, K12: T = 64), addressed by cell_offset;
+// grid cells (K10): cell r of the tile's window of the partition. Rows of
+// no window read zeros, have no query or key and are not written.
 template <Addr A, int T, int C>
 __device__ __forceinline__ void tile_rows(const FwdParams& p, int tile,
                                           int count, int r, long long* qoff,
@@ -764,7 +814,6 @@ __device__ __forceinline__ void tile_rows(const FwdParams& p, int tile,
     if (j < WPT && slot < count) {
       const long long win = p.list[slot];
       const long long e = win * T + i;
-      const long long row = window_row(p, win);
       int sq = i, sk = i;
       if constexpr (T != kCells) {
         sq = min(max(p.selq[e], 0), kCells - 1);
@@ -773,8 +822,8 @@ __device__ __forceinline__ void tile_rows(const FwdParams& p, int tile,
       const float q = p.qmask[e];
       qm[r] = q;
       km[r] = p.cross ? p.kmask[e] : q;
-      qoff[r] = (row * kCells + sq) * C;
-      koff[r] = (row * kCells + sk) * C;
+      qoff[r] = cell_offset<A, C>(p, win, sq);
+      koff[r] = cell_offset<A, C>(p, win, sk);
       qcell[r] = sq;
       kcell[r] = sk;
     } else {
@@ -1117,10 +1166,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// K6 / K4 pre-pass, one warp per window: the live flag from the query mask
-// [nwin, T]; with kZero (K6) zeros on all 64 cells of the output row of a
-// window that is not live. K4 writes nothing here: a window without a query
-// keeps its row, which is already its output.
+// K6 / K3 / K4 pre-pass, one warp per window: the live flag from the query
+// mask [nwin, T]; with kZero (K6, K3) zeros on all 64 cells of the output
+// row of a window that is not live. K4 writes nothing here: a window without
+// a query keeps its row, which is already its output.
 template <int T, int C, bool kZero>
 __global__ void __launch_bounds__(256)
     mask_prepass_kernel(const FwdParams p) {
@@ -1136,6 +1185,33 @@ __global__ void __launch_bounds__(256)
       reinterpret_cast<uint4*>(p.out + window_row(p, win) * kCells * C);
   for (int e = lane; e < kCells * C / 8; e += 32)
     dst[e] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// K12 pre-pass, one warp per plan slot: live when the slot names a window of
+// the carrier (not the dummy row) with an occupied query cell. At T = 64 a
+// real slot that is not live gets zeros on its 64 carrier cells (8 rows of
+// 8 C contiguous values), the layer's output there; a dummy slot is never
+// written, and at S = 16 or 48 nothing is (such a window keeps its cells).
+template <int T, int C>
+__global__ void __launch_bounds__(256)
+    plan_prepass_kernel(const FwdParams p) {
+  const int lane = threadIdx.x & 31;
+  const long long win = blockIdx.x * 8LL + (threadIdx.x >> 5);
+  if (win >= p.nwin) return;
+  const bool real = plan_real(p, win);
+  bool occ = false;
+  if (real)
+    for (int i = lane; i < T; i += 32) occ |= p.qmask[win * T + i] > 0.f;
+  const bool live = __any_sync(0xffffffffu, occ);
+  if (lane == 0) p.flags[win] = live;
+  if constexpr (T == kCells) {
+    if (!real || live) return;
+    for (int iy = 0; iy < 8; ++iy) {
+      uint4* dst = reinterpret_cast<uint4*>(
+          p.out + cell_offset<kPlanCells, C>(p, win, 8 * iy));
+      for (int e = lane; e < C; e += 32) dst[e] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 }
 
 // One block of 1024 threads: the live windows in window order into `list`
@@ -1179,12 +1255,25 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// The six Linear weights [out, in] into panels (layout in the header), one
-// 16-byte core-matrix row a thread.
-template <int C>
+// 8 elements of a weight row as bf16: copied (bf16 weights), or rounded to
+// nearest even as torch's .to(torch.bfloat16) rounds them (f32 weights)
+__device__ __forceinline__ uint4 load8(const bf16* src) {
+  return *reinterpret_cast<const uint4*>(src);
+}
+
+__device__ __forceinline__ uint4 load8(const float* src) {
+  const float4 a = reinterpret_cast<const float4*>(src)[0];
+  const float4 b = reinterpret_cast<const float4*>(src)[1];
+  return make_uint4(pack2(a.x, a.y), pack2(a.z, a.w), pack2(b.x, b.y),
+                    pack2(b.z, b.w));
+}
+
+// The six Linear weights [out, in] (bf16 or f32) into bf16 panels (layout in
+// the header), one 16-byte core-matrix row a thread.
+template <typename W, int C>
 __global__ void __launch_bounds__(256)
-    pack_kernel(const bf16* wq, const bf16* wk, const bf16* wv,
-                const bf16* wo, const bf16* w1, const bf16* w2, bf16* out) {
+    pack_kernel(const W* wq, const W* wk, const W* wv, const W* wo,
+                const W* w1, const W* w2, bf16* out) {
   using P = Plan<C>;
   constexpr int kRowsPerPanel = kPanel / 16;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1195,24 +1284,35 @@ __global__ void __launch_bounds__(256)
   const int n = (t / (kKP / 8)) * 8 + (u & 7);
   const int kc = t % (kKP / 8);
   // the matrix, its input width and panels a pass, and q within it
-  const bf16* W;
+  const W* Wm;
   int ld = C, per = P::PC, r = q;
   if (r < 4 * P::NPC * P::PC) {
-    const bf16* ws[4] = {wq, wk, wv, wo};
-    W = ws[r / (P::NPC * P::PC)];
+    const W* ws[4] = {wq, wk, wv, wo};
+    Wm = ws[r / (P::NPC * P::PC)];
     r %= P::NPC * P::PC;
   } else if ((r -= 4 * P::NPC * P::PC) < (P::F / kPass) * P::PC) {
-    W = w1;
+    Wm = w1;
   } else {
     r -= (P::F / kPass) * P::PC;
-    W = w2;
+    Wm = w2;
     ld = P::F;
     per = P::PF;
   }
   const int pass = r / per;
   const int kq = r % per;
-  reinterpret_cast<uint4*>(out)[e] = *reinterpret_cast<const uint4*>(
-      W + (long long)(pass * kPass + n) * ld + kq * kKP + kc * 8);
+  reinterpret_cast<uint4*>(out)[e] =
+      load8(Wm + (long long)(pass * kPass + n) * ld + kq * kKP + kc * 8);
+}
+
+template <typename W, int C>
+int launch_pack(const void* const* m, void* out, cudaStream_t s) {
+  constexpr int packs = Plan<C>::kPanels * (kPanel / 16);
+  pack_kernel<W, C><<<(packs + 255) / 256, 256, 0, s>>>(
+      static_cast<const W*>(m[0]), static_cast<const W*>(m[1]),
+      static_cast<const W*>(m[2]), static_cast<const W*>(m[3]),
+      static_cast<const W*>(m[4]), static_cast<const W*>(m[5]),
+      static_cast<bf16*>(out));
+  return tmae_last_error();
 }
 
 int sm_count() {
@@ -1227,48 +1327,63 @@ int sm_count() {
   return n;
 }
 
-// pack, pre-pass, compact, main kernel; a cudaError_t, 0 when all launched
+// [pack,] pre-pass, compact, main kernel; a cudaError_t, 0 when all
+// launched. The training modes (K8, K6, K10) pack the bf16 weights w[0],
+// w[2], w[4], w[6], w[11], w[13] into p.panels; the serving modes (K4, K3,
+// K12) take panels packed once per forward (launch_pack_panels).
 template <Mode M, int T, int C>
 int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
   using P = Plan<C>;
   constexpr int WPT = T == 16 ? 4 : 1;
-  constexpr Addr A = M == kGridOut ? kGridCells : kWindowRows;
-  static_assert((M == kFullOut || M == kGridOut) == (T == kCells),
-                "K6 / K10 run T = 64, K4 / K8 S = 16 or 48");
+  constexpr Addr A = M == kGridOut       ? kGridCells
+                     : M == kPlanInPlace ? kPlanCells
+                                         : kWindowRows;
+  constexpr bool kFull = M == kFullOut || M == kFullInPlace || M == kGridOut;
+  static_assert(kFull ? T == kCells : (M == kPlanInPlace || T != kCells),
+                "K3 / K6 / K10 run T = 64, K4 / K8 S = 16 or 48");
   if (p.nwin == 0) return 0;
-  const int packs = P::kPanels * (kPanel / 16);
-  pack_kernel<C><<<(packs + 255) / 256, 256, 0, s>>>(
-      static_cast<const bf16*>(w[0]), static_cast<const bf16*>(w[2]),
-      static_cast<const bf16*>(w[4]), static_cast<const bf16*>(w[6]),
-      static_cast<const bf16*>(w[11]), static_cast<const bf16*>(w[13]),
-      const_cast<bf16*>(p.panels));
-  int e = tmae_last_error();
-  if (e) return e;
+  int e = 0;
+  if constexpr (M == kSelOut || M == kFullOut || M == kGridOut) {
+    const void* m[6] = {w[0], w[2], w[4], w[6], w[11], w[13]};
+    if ((e = launch_pack<bf16, C>(m, const_cast<bf16*>(p.panels), s)))
+      return e;
+  }
   const int warps = (p.nwin + 7) / 8;  // one warp per window
   if constexpr (M == kGridOut)
     grid_prepass_kernel<C><<<warps, 256, 0, s>>>(p);
   else if constexpr (M == kSelOut)
     sel_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
+  else if constexpr (M == kPlanInPlace)
+    plan_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
   else
-    mask_prepass_kernel<T, C, M == kFullOut><<<warps, 256, 0, s>>>(p);
+    mask_prepass_kernel<T, C, M == kFullOut || M == kFullInPlace>
+        <<<warps, 256, 0, s>>>(p);
   if ((e = tmae_last_error())) return e;
   compact_kernel<<<1, 1024, 0, s>>>(p);
   if ((e = tmae_last_error())) return e;
-  e = (int)cudaFuncSetAttribute(tiled_kernel<A, T, C>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                P::kSmem);
-  if (e) return e;
+  // the shared-memory limit, set once per device for each instance
+  static unsigned long long set_on = 0;
+  int dev = 0;
+  if ((e = (int)cudaGetDevice(&dev))) return e;
+  if (dev >= 64 || !(set_on >> dev & 1ULL)) {
+    e = (int)cudaFuncSetAttribute(tiled_kernel<A, T, C>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  P::kSmem);
+    if (e) return e;
+    if (dev < 64) set_on |= 1ULL << dev;
+  }
   const int blocks = std::min(sm_count(), (p.nwin + WPT - 1) / WPT);
   tiled_kernel<A, T, C><<<blocks, kThreads, P::kSmem, s>>>(p);
   return tmae_last_error();
 }
 
-// The 17 layer tensors (wq bq wk bk wv bv wo bo tau ln1s ln1b w1 b1 w2 b2
-// ln2s ln2b), then the workspace: w[17] the panels (8 C^2 bf16), w[18]
-// int32 [2 nwin + 2] (flags, list, count, counter).
+// w: the 17 layer tensors (wq bq wk bk wv bv wo bo tau ln1s ln1b w1 b1 w2 b2
+// ln2s ln2b), then w[17] the panels (8 C^2 bf16); `ints` the int32
+// workspace [2 nwin + 2] (flags, list, count, counter). The serving modes
+// read no matrix of w: those pointers may be null.
 FwdParams make_params(const void* x, const void* kv, void* out,
-                      const void* pos, const void* const* w, int nwin,
-                      int cross, float tau_min) {
+                      const void* pos, const void* const* w, void* ints_,
+                      int nwin, int cross, float tau_min) {
   FwdParams p{};
   p.x = static_cast<const bf16*>(x);
   p.kv = static_cast<const bf16*>(kv);
@@ -1286,7 +1401,7 @@ FwdParams make_params(const void* x, const void* kv, void* out,
   p.ln2s = static_cast<const float*>(w[15]);
   p.ln2b = static_cast<const float*>(w[16]);
   p.panels = static_cast<const bf16*>(w[17]);
-  int* ints = static_cast<int*>(const_cast<void*>(w[18]));
+  int* ints = static_cast<int*>(ints_);
   p.flags = ints;
   p.list = ints + nwin;
   p.count = ints + 2 * nwin;
@@ -1313,8 +1428,23 @@ extern "C" int tmae_fwd_profile(unsigned long long* out16) {
 }
 #endif
 
+// The panels of a served layer, once per forward: m points at the six
+// Linear weights wq wk wv wo w1 w2 ([out, in], contiguous; f32 when `f32`,
+// else bf16), `out` at 8 C^2 bf16. K3, K4 and K12 read them.
+extern "C" int launch_pack_panels(const void* const* m, int f32, void* out,
+                                  int C, void* stream) {
+  if (C != 128 && C != 256) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return C == 128 ? launch_pack<float, 128>(m, out, s)
+                    : launch_pack<float, 256>(m, out, s);
+  return C == 128 ? launch_pack<bf16, 128>(m, out, s)
+                  : launch_pack<bf16, 256>(m, out, s);
+}
+
 // K8: out [N, 64, C] = xw + the layer's delta on the S selected cells.
-// `w`: the 17 layer tensors and the workspace (make_params).
+// `w`: the 17 layer tensors, the panels' workspace and the int32 workspace
+// (make_params, ints = w[18]).
 extern "C" int launch_encoder_fwd_sel(const void* xw, const void* kvw,
                                       void* out, const void* selq,
                                       const void* selk, const void* qmask,
@@ -1325,7 +1455,8 @@ extern "C" int launch_encoder_fwd_sel(const void* xw, const void* kvw,
   if (!widths_ok(C, F, H) || (S != 16 && S != 48) || qmask == nullptr ||
       selq == nullptr || (cross && (kvw == nullptr || kmask == nullptr)))
     return (int)cudaErrorInvalidValue;
-  FwdParams p = make_params(xw, kvw, out, pos, w, N, cross, tau_min);
+  FwdParams p = make_params(xw, kvw, out, pos, w, const_cast<void*>(w[18]),
+                            N, cross, tau_min);
   p.selq = static_cast<const int*>(selq);
   p.selk = static_cast<const int*>(selk);
   p.qmask = static_cast<const float*>(qmask);
@@ -1350,7 +1481,8 @@ extern "C" int launch_encoder_fwd_full(const void* xw, const void* kvw,
   if (!widths_ok(C, F, H) || qmask == nullptr ||
       (cross && (kvw == nullptr || kmask == nullptr)))
     return (int)cudaErrorInvalidValue;
-  FwdParams p = make_params(xw, kvw, out, pos, w, N, cross, tau_min);
+  FwdParams p = make_params(xw, kvw, out, pos, w, const_cast<void*>(w[18]),
+                            N, cross, tau_min);
   p.qmask = static_cast<const float*>(qmask);
   p.kmask = static_cast<const float*>(kmask);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1360,19 +1492,22 @@ extern "C" int launch_encoder_fwd_full(const void* xw, const void* kvw,
 
 // K4: K8's layer in place on rows [row_lo, row_lo + cap) of xw [B, total,
 // 64, C] (kvw likewise in cross mode, another tensor), selections and masks
-// [B, cap, S]. `w` as for K8, with nwin = B cap.
+// [B, cap, S]. `w`: the 17 layer tensors (matrices unused) and the packed
+// panels; `ints` the int32 workspace [2 B cap + 2].
 extern "C" int launch_encoder_rows_sel(void* xw, const void* kvw,
                                        const void* selq, const void* selk,
                                        const void* qmask, const void* kmask,
                                        const void* pos, const void* const* w,
-                                       int B, int total, int cap, int row_lo,
-                                       int C, int F, int H, int S, int cross,
-                                       float tau_min, void* stream) {
+                                       void* ints, int B, int total, int cap,
+                                       int row_lo, int C, int F, int H, int S,
+                                       int cross, float tau_min,
+                                       void* stream) {
   if (!widths_ok(C, F, H) || (S != 16 && S != 48) || qmask == nullptr ||
       selq == nullptr || row_lo < 0 || cap < 0 || row_lo + cap > total ||
       (cross && (kvw == nullptr || kmask == nullptr || kvw == xw)))
     return (int)cudaErrorInvalidValue;
-  FwdParams p = make_params(xw, kvw, xw, pos, w, B * cap, cross, tau_min);
+  FwdParams p = make_params(xw, kvw, xw, pos, w, ints, B * cap, cross,
+                            tau_min);
   p.total = total;
   p.cap = cap;
   p.row_lo = row_lo;
@@ -1386,6 +1521,72 @@ extern "C" int launch_encoder_rows_sel(void* xw, const void* kvw,
                    : launch_tiled<kSelInPlace, 48, 128>(p, w, s);
   return S == 16 ? launch_tiled<kSelInPlace, 16, 256>(p, w, s)
                  : launch_tiled<kSelInPlace, 48, 256>(p, w, s);
+}
+
+// K3: K6's layer in place on rows [row_lo, row_lo + cap) of xw [B, total,
+// 64, C] (kvw likewise in cross mode, another tensor), masks [B, cap, 64];
+// a window without a query gets zeros. `w` and `ints` as for K4.
+extern "C" int launch_encoder_rows_full(void* xw, const void* kvw,
+                                        const void* qmask, const void* kmask,
+                                        const void* pos, const void* const* w,
+                                        void* ints, int B, int total, int cap,
+                                        int row_lo, int C, int F, int H,
+                                        int cross, float tau_min,
+                                        void* stream) {
+  if (!widths_ok(C, F, H) || qmask == nullptr || row_lo < 0 || cap < 0 ||
+      row_lo + cap > total ||
+      (cross && (kvw == nullptr || kmask == nullptr || kvw == xw)))
+    return (int)cudaErrorInvalidValue;
+  FwdParams p = make_params(xw, kvw, xw, pos, w, ints, B * cap, cross,
+                            tau_min);
+  p.total = total;
+  p.cap = cap;
+  p.row_lo = row_lo;
+  p.qmask = static_cast<const float*>(qmask);
+  p.kmask = static_cast<const float*>(kmask);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return C == 128 ? launch_tiled<kFullInPlace, kCells, 128>(p, w, s)
+                  : launch_tiled<kFullInPlace, kCells, 256>(p, w, s);
+}
+
+// K12: the layer over the windows of one bucket plan idx [B, cap, 2] of the
+// padded carrier xp [B, Hp2, Wp, C], in place (kvp likewise in cross mode,
+// never xp itself): T = 64 (selq null, masks [B, cap, 64]) or the S = T
+// selected cells (selq / selk and masks [B, cap, S]). `w` and `ints` as for
+// K4, with nwin = B cap.
+extern "C" int launch_encoder_inplace(void* xp, const void* kvp,
+                                      const void* idx, const void* selq,
+                                      const void* selk, const void* qmask,
+                                      const void* kmask, const void* pos,
+                                      const void* const* w, void* ints, int B,
+                                      int Hp2, int Wp, int cap, int C, int F,
+                                      int H, int T, int cross, float tau_min,
+                                      void* stream) {
+  if (!widths_ok(C, F, H) || idx == nullptr || qmask == nullptr ||
+      Hp2 % 8 || Wp % 8 || (T != 16 && T != 48 && T != kCells) ||
+      (T != kCells && selq == nullptr) ||
+      (cross && (kvp == nullptr || kmask == nullptr || kvp == xp)))
+    return (int)cudaErrorInvalidValue;
+  FwdParams p = make_params(xp, kvp, xp, pos, w, ints, B * cap, cross,
+                            tau_min);
+  p.cap = cap;
+  p.widx = static_cast<const int*>(idx);
+  p.gh = Hp2;
+  p.gw = Wp;
+  p.nwy = Hp2 / 8 - 1;
+  p.selq = static_cast<const int*>(selq);
+  p.selk = static_cast<const int*>(selk);
+  p.qmask = static_cast<const float*>(qmask);
+  p.kmask = static_cast<const float*>(kmask);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 128) {
+    if (T == 16) return launch_tiled<kPlanInPlace, 16, 128>(p, w, s);
+    if (T == 48) return launch_tiled<kPlanInPlace, 48, 128>(p, w, s);
+    return launch_tiled<kPlanInPlace, kCells, 128>(p, w, s);
+  }
+  if (T == 16) return launch_tiled<kPlanInPlace, 16, 256>(p, w, s);
+  if (T == 48) return launch_tiled<kPlanInPlace, 48, 256>(p, w, s);
+  return launch_tiled<kPlanInPlace, kCells, 256>(p, w, s);
 }
 
 // K10: out [B, H, W, C] = the layer on every 8x8 window of the shift's
@@ -1403,8 +1604,8 @@ extern "C" int launch_encoder_grid(const void* xg, const void* kvg, void* out,
     return (int)cudaErrorInvalidValue;
   const int nwy = (H + 7) / 8 + 1;
   const int nwx = (W + 7) / 8 + 1;
-  FwdParams p = make_params(xg, kvg, out, pos, w, B * nwy * nwx, cross,
-                            tau_min);
+  FwdParams p = make_params(xg, kvg, out, pos, w, const_cast<void*>(w[18]),
+                            B * nwy * nwx, cross, tau_min);
   p.qocc = static_cast<const unsigned char*>(qocc);
   p.kocc = cross ? static_cast<const unsigned char*>(kocc) : nullptr;
   p.gh = H;

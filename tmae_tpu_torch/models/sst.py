@@ -6,7 +6,9 @@ blocks, and unpads once. In eval mode each encoder layer runs the
 combined-bucket serving path of the JAX package (``run_combined``): one
 gather of all planned windows (K1, twice in cross mode), the small and mid
 bucket kernels (K4) and the full bucket kernel (K3) updating their row
-ranges in place, and one scatter back into the carrier (K2). With
+ranges in place, and one scatter back into the carrier (K2). The layer's
+weights are prepared once per forward (``TiledWeights``: one pack of its
+panels) for all its bucket calls. With
 ``TMAE_FUSED_INPLACE=1`` in the environment when this module is imported
 (and ``TMAE_NO_FUSED_INPLACE`` unset) it runs ``run_fused_inplace``
 instead: one K12 launch per bucket, small, mid, then full, each updating
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dense_windows import slot_pos_embed, window_unview, window_view
-from ..ops.encoder_layer import (LayerParams, encoder_layer_fused_pipelined,
+from ..ops.encoder_layer import (TiledWeights, encoder_layer_fused_pipelined,
                                  encoder_layer_rows_full,
                                  encoder_layer_rows_sel, fused_encoder_layer,
                                  fused_encoder_layer_grid, kernel_params)
@@ -187,9 +189,10 @@ class DenseEncoderLayer(nn.Module):
         self.register_buffer('pos', slot_pos_embed(window, C).to(COMPUTE_DTYPE),
                              persistent=False)
 
-    def layer_params(self) -> LayerParams:
-        """The layer's weights as the kernels take them."""
-        return kernel_params(self.layer_weights())
+    def tiled_weights(self) -> TiledWeights:
+        """The layer's weights prepared once for the bucket calls of one
+        eval-mode forward (K3, K4, K12)."""
+        return TiledWeights(self.layer_weights(), self.nhead)
 
     def layer_weights(self) -> list:
         """The 17 layer tensors in :class:`LayerParams` order (f32)."""
@@ -249,7 +252,7 @@ class DenseEncoderLayer(nn.Module):
     def forward_fused_inplace(self, xp, kvp, plan: BucketedCompact):
         """``run_fused_inplace``: K12 on the small, mid and full buckets in
         turn, each updating its windows of ``xp`` in place."""
-        p = self.layer_params()
+        p = self.tiled_weights()
         kw = dict(nhead=self.nhead, tau_min=self.tau_min, cross=self.cross,
                   window=self.window)
         for si in (plan.small, plan.mid):
@@ -266,7 +269,7 @@ class DenseEncoderLayer(nn.Module):
             return self.forward_train(xp, kvp, plan)
         if _FUSED_INPLACE:
             return self.forward_fused_inplace(xp, kvp, plan)
-        p = self.layer_params()
+        p = self.tiled_weights()
         w, cross = self.window, self.cross
         kw = dict(nhead=self.nhead, tau_min=self.tau_min, cross=cross)
         xw_all = gather_windows_padded(xp, plan.cat_idx, w)

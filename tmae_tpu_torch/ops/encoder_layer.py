@@ -14,15 +14,21 @@ and their plain versions (counterpart of
 * on the dense grid, for configs without bucket caps: K10
   (``_grid_forward``), the full-window layer on every window of a shift's
   partition of ``[B, H, W, C]``, and :func:`fused_encoder_layer_grid`, whose
-  backward runs K7 on the windows, as ``_grid_bwd`` does. K4, K6, K8 and
-  K10 are one persistent kernel over tiles of the windows with an occupied
-  query cell (``csrc/encoder_layer_tiled.cu``); :func:`live_windows_plain`,
-  :func:`tile_plan_plain` and :func:`window_rows_plain` are the plain
-  versions of its window plan and of K4's row addressing;
+  backward runs K7 on the windows, as ``_grid_bwd`` does;
 * serving straight against the padded carrier, in place over the windows of
   one bucket plan: K12 (``encoder_layer_fused_pipelined``, which also closes
   ``encoder_layer_fused_inplace``), the gather, the K3 / K4 layer and the
-  scatter in one launch.
+  scatter in one call.
+
+K3, K4, K6, K8, K10 and K12 are one persistent kernel over tiles of the
+windows with an occupied query cell (``csrc/encoder_layer_tiled.cu``);
+:func:`live_windows_plain`, :func:`tile_plan_plain`,
+:func:`window_rows_plain`, :func:`plan_cells_plain` and
+:func:`pack_panels_plain` are the plain versions of its window plan, of
+K3's / K4's row addressing, of K12's carrier addressing and of its weight
+panels. A served layer prepares its weights once per forward
+(:class:`TiledWeights`: validated once, panels packed by one launch) and
+hands them to each of its bucket calls.
 
 The plain forward follows the kernels' numerics: bf16 matmul inputs with f32
 accumulation, bf16 where the TPU kernel casts, f32 LayerNorm residual. Its
@@ -47,10 +53,13 @@ from .occ_compact import (gather_windows_padded_plain,
                           scatter_windows_into_padded_plain)
 
 _W = ctypes.POINTER(ctypes.c_void_p)
-K3 = CudaKernel('encoder_layer.cu', 'launch_encoder_rows_full',
-                [P, P, P, P, P, _W, I, I, I, I, I, I, I, I, CF, P])
+PACK = CudaKernel('encoder_layer_tiled.cu', 'launch_pack_panels',
+                  [_W, I, P, I, P])
+K3 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_rows_full',
+                [P, P, P, P, P, _W, P, I, I, I, I, I, I, I, I, CF, P])
 K4 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_rows_sel',
-                [P, P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, I, CF, P])
+                [P, P, P, P, P, P, P, _W, P, I, I, I, I, I, I, I, I, I, CF,
+                 P])
 K6 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_fwd_full',
                 [P, P, P, P, P, P, _W, I, I, I, I, I, CF, P])
 K8 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_fwd_sel',
@@ -61,9 +70,9 @@ K9 = CudaKernel('encoder_layer_bwd.cu', 'launch_encoder_bwd_sel',
                 [_W, _W, _W, _W, I, I, I, I, I, I, CF, I, P])
 K10 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_grid',
                  [P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, CF, P])
-K12 = CudaKernel('encoder_layer.cu', 'launch_encoder_inplace',
-                 [P, P, P, P, P, P, P, P, _W, I, I, I, I, I, I, I, I, I, CF,
-                  P])
+K12 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_inplace',
+                 [P, P, P, P, P, P, P, P, _W, P, I, I, I, I, I, I, I, I, I,
+                  CF, P])
 MATRICES = ('wq', 'wk', 'wv', 'wo', 'f1w', 'f2w')
 
 
@@ -197,25 +206,15 @@ def _weight_ptrs(p: LayerParams, extra=()):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _check_widths(C, nhead, p):
-    if C % 32 or C > 256 or C % nhead or C // nhead not in (16, 32):
-        raise ValueError('kernel takes C % 32 == 0, C <= 256 and '
-                         f'head width 16 or 32, not C={C}, nhead={nhead}')
-    if p.f1w.shape[0] % 128:
-        raise ValueError('kernel takes an FFN width that is a multiple of 128')
-
-
-def _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, p, nhead,
-                sel_q=None):
-    """What the kernel takes: C a multiple of 32 up to 256, head width 16
-    or 32, FFN width a multiple of 128, T (the mask width) 16, 48 or 64."""
+def _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, T, sel_q=None):
+    """The window tensor, masks and row range K3 (T = 64) and K4 (T = S =
+    16 or 48) take."""
     if xw_all.dtype != torch.bfloat16 or not xw_all.is_contiguous():
         raise ValueError('xw_all must be a contiguous bf16 tensor')
     B, total, cells, C = xw_all.shape
     if cells != 64:
         raise ValueError('window rows hold 64 cells')
-    _check_widths(C, nhead, p)
-    if qmask.shape[0] != B or qmask.shape[2] not in (16, 48, 64):
+    if qmask.dim() != 3 or qmask.shape[0] != B or qmask.shape[2] not in T:
         raise ValueError(f'mask shape {tuple(qmask.shape)} does not fit')
     if sel_q is not None and sel_q.shape != qmask.shape:
         raise ValueError('sel_q and qmask differ in shape')
@@ -225,14 +224,29 @@ def _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, p, nhead,
     if cross and (kv_all is None or kv_all.shape != xw_all.shape
                   or not kv_all.is_contiguous() or kmask is None):
         raise ValueError('cross mode needs kv_all shaped like xw_all and kmask')
+    if cross and _shares_memory(kv_all, xw_all):
+        raise ValueError('kv_all shares memory with the rows the layer '
+                         'updates')
+
+
+def _shares_memory(a, b):
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+def _as(t, dtype):
+    """``t`` as a contiguous ``dtype`` tensor: itself when it is one (no
+    dispatch, which a serving call pays per argument), else a copy."""
+    if t is None or (t.dtype == dtype and t.is_contiguous()):
+        return t
+    return t.to(dtype).contiguous()
 
 
 def _f32(t):
-    return None if t is None else t.to(torch.float32).contiguous()
+    return _as(t, torch.float32)
 
 
 def _i32(t):
-    return None if t is None else t.to(torch.int32).contiguous()
+    return _as(t, torch.int32)
 
 
 def _ptr(t):
@@ -240,16 +254,16 @@ def _ptr(t):
 
 
 def _check_tiled_widths(C, nhead, p):
-    """The widths the tiled kernel (K4, K6, K8, K10) and the training
-    backward (K7, K9) are compiled for."""
+    """The widths the tiled kernel (K3, K4, K6, K8, K10, K12) and the
+    training backward (K7, K9) are compiled for."""
     if C not in (128, 256) or nhead != 8 or p.f1w.shape[0] != 2 * C:
-        raise ValueError('K4 and K6-K10 are compiled for C = 128 or 256 with '
-                         f'8 heads and an FFN width of 2C, not C={C}, '
+        raise ValueError('K3, K4 and K6-K12 are compiled for C = 128 or 256 '
+                         f'with 8 heads and an FFN width of 2C, not C={C}, '
                          f'nhead={nhead}, FFN {p.f1w.shape[0]}')
 
 
 def _tiled_ptrs(p: LayerParams, nwin: int):
-    """The pointer array K4 / K6 / K8 / K10 take: the 17 layer tensors, then
+    """The pointer array K6 / K8 / K10 take: the 17 layer tensors, then
     their workspace (see csrc/encoder_layer_tiled.cu): the weights packed into
     panels (8 C^2 bf16) and int32 [2 nwin + 2] (the windows' live flags,
     the list of live windows, their count, the tile counter), both in one
@@ -261,11 +275,90 @@ def _tiled_ptrs(p: LayerParams, nwin: int):
     return _weight_ptrs(p, (ws.data_ptr(), ws.data_ptr() + panel_bytes)), ws
 
 
+class TiledWeights:
+    """A served layer's weights, prepared once for all its bucket calls of
+    one forward (K3, K4, K12): on the card, validated once, the six Linear
+    weights packed into the tiled kernel's panels by one launch (``PACK``,
+    from f32 master weights rounded to bf16 to nearest even, as
+    :func:`kernel_params` rounds them; bf16 weights are copied) and the 11
+    vectors in f32, behind one pointer array; on the CPU, ``params``: the
+    :class:`LayerParams` the plain versions take. ``weights``: the 17 layer
+    tensors in :class:`LayerParams` order, Linear weights ``[out, in]``."""
+
+    def __init__(self, weights, nhead: int):
+        p = LayerParams(*[w.detach() for w in weights])
+        self.nhead, self.width, self.ffn = nhead, p.wq.shape[0], p.f1w.shape[0]
+        if not on_card(*p):
+            self.params, self.panels, self.ptrs = kernel_params(p), None, None
+            return
+        C, Fd = self.width, self.ffn
+        _check_tiled_widths(C, nhead, p)
+        mats = [getattr(p, name) for name in MATRICES]
+        f32 = mats[0].dtype == torch.float32
+        mat_dtype = torch.float32 if f32 else torch.bfloat16
+        shapes = dict(wq=(C, C), wk=(C, C), wv=(C, C), wo=(C, C),
+                      f1w=(Fd, C), f2w=(C, Fd), f1b=(Fd,), tau=(1,))
+        for name, t in zip(p._fields, p):
+            want = mat_dtype if name in MATRICES else torch.float32
+            shape = shapes.get(name, (C,))
+            if (t.dtype != want or not t.is_contiguous()
+                    or tuple(t.shape) != shape):
+                raise ValueError(f'layer parameter {name} must be a '
+                                 f'contiguous {want} tensor of shape {shape}')
+        self.params = None
+        # ptrs points into these: they live as long as the prepared weights
+        self.vectors = [t for name, t in zip(p._fields, p)
+                        if name not in MATRICES]
+        self.panels = torch.empty(8 * C * C, dtype=torch.bfloat16,
+                                  device=p.wq.device)
+        PACK((ctypes.c_void_p * 6)(*[m.data_ptr() for m in mats]), int(f32),
+             self.panels.data_ptr(), C, stream_handle())
+        ptrs = [None if name in MATRICES else t.data_ptr()
+                for name, t in zip(p._fields, p)]
+        self.ptrs = (ctypes.c_void_p * 18)(*ptrs, self.panels.data_ptr())
+
+
+def _prepared(p, C: int, nhead: int) -> TiledWeights:
+    """The prepared weights of a call on the card: ``p`` itself when it is
+    :class:`TiledWeights` for this width, else prepared from the
+    :class:`LayerParams` ``p`` for this call alone (validation and one pack
+    launch)."""
+    if not isinstance(p, TiledWeights):
+        return TiledWeights(p, nhead)
+    if p.ptrs is None:
+        raise ValueError('weights prepared on the CPU for a call on the card')
+    if p.width != C or p.nhead != nhead:
+        raise ValueError(f'weights prepared for C={p.width}, nhead='
+                         f'{p.nhead}, not C={C}, nhead={nhead}')
+    return p
+
+
+def _plain_params(p) -> LayerParams:
+    """The :class:`LayerParams` the plain versions take."""
+    return p.params if isinstance(p, TiledWeights) else p
+
+
+def pack_panels_plain(p: LayerParams) -> torch.Tensor:
+    """Plain version of the weight pack: the six Linear weights rounded to
+    bf16, panel by panel in the order the tiled kernel streams them (q, k,
+    v, o, then the FFN's two products; in each, pass by pass of 128 output
+    rows, the panels of 64 input columns along the input), each panel's
+    element (n, k) at ((n // 8) * 8 + k // 8) * 64 + (n % 8) * 8 + k % 8.
+    Returns the flat bf16 panels (8 C^2 values)."""
+    out = []
+    for name in MATRICES:
+        w = getattr(p, name).detach().to(torch.bfloat16)
+        o, i = w.shape
+        blocks = w.reshape(o // 128, 16, 8, i // 64, 8, 8)
+        out.append(blocks.permute(0, 3, 1, 4, 2, 5).reshape(-1))
+    return torch.cat(out)
+
+
 def live_windows_plain(qmask):
-    """Plain version of the K4 / K6 / K8 / K10 pre-pass and compaction: the
+    """Plain version of the tiled kernel's pre-pass and compaction: the
     indices of the windows with an occupied query cell, in window order,
-    from a query mask [N, T] (K4: [B, cap, S] flattened to [B cap, S]; for
-    K10 the window view of the occupancy)."""
+    from a query mask [N, T] (K3, K4, K12: [B, cap, T] flattened to
+    [B cap, T]; for K10 the window view of the occupancy)."""
     return (qmask > 0).any(-1).nonzero()[:, 0]
 
 
@@ -280,65 +373,97 @@ def tile_plan_plain(live, T):
 
 
 def window_rows_plain(w, cap, total, row_lo):
-    """Plain version of K4's row addressing: window ``w`` = b cap + j of a
-    call on rows [row_lo, row_lo + cap) of ``xw_all`` [B, total, 64, C] is
-    row b total + row_lo + j of ``xw_all`` viewed as [B total, 64, C]. K6
-    and K8 address their flat windows with cap = total = N and row_lo = 0,
-    where window w is row w."""
+    """Plain version of K3's and K4's row addressing: window ``w`` = b cap +
+    j of a call on rows [row_lo, row_lo + cap) of ``xw_all`` [B, total, 64,
+    C] is row b total + row_lo + j of ``xw_all`` viewed as [B total, 64, C].
+    K6 and K8 address their flat windows with cap = total = N and row_lo =
+    0, where window w is row w."""
     return (w // cap) * total + row_lo + w % cap
 
 
-def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos,
-                            p: LayerParams, *, nhead: int, tau_min: float,
-                            cross: bool, row_lo: int):
+def plan_real_plain(idx, Hp2: int, Wp: int):
+    """Plain version of K12's slot test: slot (b, j) of a plan ``idx`` [B,
+    cap, 2] names a window (wy, wx) of the padded carrier [B, Hp2, Wp, C]
+    when 0 <= wy < Hp2 / 8 - 1 and 0 <= wx, 8 wx + 8 <= Wp; a dummy slot
+    (wy = Hp2 / 8 - 1, the window row below the grid) does not. [B, cap]
+    bool."""
+    wy, wx = idx[..., 0].long(), idx[..., 1].long()
+    return (wy >= 0) & (wy < Hp2 // 8 - 1) & (wx >= 0) & (8 * wx + 8 <= Wp)
+
+
+def plan_cells_plain(idx, cells, Hp2: int, Wp: int):
+    """Plain version of K12's carrier addressing: cell ``cells[b, j, i]``
+    (c = i at T = 64, the selection at S = 16 or 48) of the window (wy, wx)
+    = ``idx[b, j]`` is carrier cell (8 wy + c // 8, 8 wx + c % 8) of frame
+    b, i.e. row (b Hp2 + 8 wy + c // 8) Wp + 8 wx + c % 8 of the carrier
+    viewed as [B Hp2 Wp, C]; -1 for every cell of a dummy slot. Returns
+    int64 [B, cap, T]."""
+    B = idx.shape[0]
+    wy = idx[..., 0].long()[..., None]
+    wx = idx[..., 1].long()[..., None]
+    c = cells.long()
+    b = torch.arange(B, device=idx.device).reshape(B, 1, 1)
+    rows = ((b * Hp2 + 8 * wy + c // 8) * Wp + 8 * wx + c % 8)
+    return torch.where(plan_real_plain(idx, Hp2, Wp)[..., None], rows, -1)
+
+
+def _work(nwin: int, device):
+    """The int32 workspace of a serving call: the windows' live flags, the
+    list of live windows, their count and the tile counter."""
+    return torch.empty(2 * nwin + 2, dtype=torch.int32, device=device)
+
+
+def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos, p, *,
+                            nhead: int, tau_min: float, cross: bool,
+                            row_lo: int):
     """Full-window layer over rows [row_lo, row_lo + cap) of ``xw_all``, in
-    place; ``qmask``/``kmask`` [B, cap, 64]. Kernel K3 on the card."""
-    if not on_card(xw_all, qmask):
-        return reference_encoder_layer_rows(
-            xw_all, kv_all, None, None, qmask, kmask, pos, p, nhead, tau_min,
-            cross, row_lo)
-    _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, p, nhead)
-    if qmask.shape[2] != 64:
-        raise ValueError('the full-window kernel takes [B, cap, 64] masks')
-    B, total, _, C = xw_all.shape
-    qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
-    pos = pos.to(torch.bfloat16).contiguous()
-    ws = _weight_ptrs(p)
-    K3(xw_all.data_ptr(), _ptr(kv_all) if cross else None, qmask.data_ptr(),
-       _ptr(kmask), pos.data_ptr(), ws, B, total, qmask.shape[1], row_lo, C,
-       p.f1w.shape[0], nhead, int(cross), float(tau_min), stream_handle())
-    return xw_all
-
-
-def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
-                           p: LayerParams, *, nhead: int, tau_min: float,
-                           cross: bool, row_lo: int):
-    """Packed layer on the S selected cells of rows [row_lo, row_lo + cap),
-    in place; ``sel_q``/``qmask`` [B, cap, S]. Kernel K4 on the card
+    place; ``qmask``/``kmask`` [B, cap, 64]; a window without an occupied
+    query cell gets zeros. ``p``: :class:`TiledWeights`, or
+    :class:`LayerParams` (prepared for this call). Kernel K3 on the card
     (compiled for C = 128 or 256, 8 heads, FFN 2C); in cross mode
     ``kv_all`` must not share memory with ``xw_all``."""
     if not on_card(xw_all, qmask):
         return reference_encoder_layer_rows(
-            xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos, p, nhead,
-            tau_min, cross, row_lo)
-    _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, p, nhead, sel_q)
+            xw_all, kv_all, None, None, qmask, kmask, pos, _plain_params(p),
+            nhead, tau_min, cross, row_lo)
+    _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, (64,))
     B, total, _, C = xw_all.shape
-    _check_tiled_widths(C, nhead, p)
-    if qmask.shape[2] not in (16, 48):
-        raise ValueError('K4 takes S = 16 or 48 selected cells')
-    if cross and (kv_all.untyped_storage().data_ptr()
-                  == xw_all.untyped_storage().data_ptr()):
-        raise ValueError('kv_all shares memory with the rows K4 updates')
+    tw = _prepared(p, C, nhead)
+    cap = qmask.shape[1]
+    qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
+    pos = _as(pos, torch.bfloat16)
+    work = _work(B * cap, xw_all.device)
+    K3(xw_all.data_ptr(), _ptr(kv_all) if cross else None, qmask.data_ptr(),
+       _ptr(kmask), pos.data_ptr(), tw.ptrs, work.data_ptr(), B, total, cap,
+       row_lo, C, tw.ffn, nhead, int(cross), float(tau_min), stream_handle())
+    return xw_all
+
+
+def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
+                           p, *, nhead: int, tau_min: float, cross: bool,
+                           row_lo: int):
+    """Packed layer on the S selected cells of rows [row_lo, row_lo + cap),
+    in place; ``sel_q``/``qmask`` [B, cap, S]. ``p`` as for
+    :func:`encoder_layer_rows_full`. Kernel K4 on the card (compiled for C =
+    128 or 256, 8 heads, FFN 2C); in cross mode ``kv_all`` must not share
+    memory with ``xw_all``."""
+    if not on_card(xw_all, qmask):
+        return reference_encoder_layer_rows(
+            xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
+            _plain_params(p), nhead, tau_min, cross, row_lo)
+    _check_rows(xw_all, kv_all, qmask, kmask, cross, row_lo, (16, 48), sel_q)
+    B, total, _, C = xw_all.shape
+    tw = _prepared(p, C, nhead)
     cap, S = qmask.shape[1:]
     sel_q = _i32(sel_q)
     sel_k = _i32(sel_k if cross else None)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
-    pos = pos.to(torch.bfloat16).contiguous()
-    ws, _work = _tiled_ptrs(p, B * cap)
+    pos = _as(pos, torch.bfloat16)
+    work = _work(B * cap, xw_all.device)
     K4(xw_all.data_ptr(), _ptr(kv_all) if cross else None, sel_q.data_ptr(),
-       _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), ws, B,
-       total, cap, row_lo, C, p.f1w.shape[0], nhead, S, int(cross),
-       float(tau_min), stream_handle())
+       _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), tw.ptrs,
+       work.data_ptr(), B, total, cap, row_lo, C, tw.ffn, nhead, S,
+       int(cross), float(tau_min), stream_handle())
     return xw_all
 
 
@@ -719,9 +844,9 @@ def reference_encoder_layer_fused(xp, kvp, ci, pos, p: LayerParams, *,
     return scatter_windows_into_padded_plain(out, ci.idx, xp, window)
 
 
-def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p: LayerParams, *,
-                                  nhead: int, tau_min: float, cross: bool,
-                                  window: int, sel: bool):
+def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p, *, nhead: int,
+                                  tau_min: float, cross: bool, window: int,
+                                  sel: bool):
     """One serving layer over the windows of one bucket plan ``ci``, straight
     against the padded carrier ``xp`` [B, Hp + w, Wp, C] bf16, updated IN
     PLACE and returned (counterpart of ``encoder_layer_fused_pipelined``).
@@ -729,11 +854,11 @@ def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p: LayerParams, *,
     (``SmallCompactInfo``, S = 16 or 48) ``sel=True``. Cross mode reads keys
     and values from ``kvp``, the other frame's carrier, which must not share
     memory with ``xp``. Windows outside the plan and dummy slots are not
-    touched. Forward only: it refuses inputs that require a gradient.
-    Kernel K12 on the card."""
-    if cross and kvp is not None and (
-            kvp.untyped_storage().data_ptr()
-            == xp.untyped_storage().data_ptr()):
+    touched. ``p``: :class:`TiledWeights`, or :class:`LayerParams`
+    (prepared for this call). Forward only: it refuses inputs that require a
+    gradient. Kernel K12 on the card (compiled for C = 128 or 256, 8 heads,
+    FFN 2C)."""
+    if cross and kvp is not None and _shares_memory(kvp, xp):
         raise ValueError('kvp shares memory with the carrier it updates')
     if torch.is_grad_enabled() and (
             xp.requires_grad or (cross and kvp.requires_grad)):
@@ -742,12 +867,12 @@ def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p: LayerParams, *,
     kw = dict(nhead=nhead, tau_min=tau_min, cross=cross, window=window,
               sel=sel)
     if not on_card(xp, ci.idx):
-        return reference_encoder_layer_fused(xp, kvp, ci, pos, p, **kw)
+        return reference_encoder_layer_fused(xp, kvp, ci, pos,
+                                             _plain_params(p), **kw)
     if xp.dtype != torch.bfloat16 or not xp.is_contiguous() or window != 8:
         raise ValueError('K12 takes a contiguous bf16 carrier and 8x8 '
                          'windows')
     B, Hp2, Wp, C = xp.shape
-    _check_widths(C, nhead, p)
     if cross and (kvp is None or kvp.shape != xp.shape
                   or kvp.dtype != xp.dtype or not kvp.is_contiguous()):
         raise ValueError('cross mode needs a contiguous kvp shaped like xp')
@@ -756,16 +881,18 @@ def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p: LayerParams, *,
     if (ci.idx.shape != (B, cap, 2) or ci.qmask.shape != (B, cap, T)
             or T not in (16, 48, 64) or Hp2 % window or Wp % window):
         raise ValueError('plan shapes do not fit the carrier')
+    tw = _prepared(p, C, nhead)
     idx = _i32(ci.idx)
     sel_q = _i32(ci.sel) if sel else None
     sel_k = _i32(ci.ksel) if sel and cross else None
     qmask = _f32(ci.qmask)
     kmask = _f32(ci.kmask) if cross else None
-    pos = pos.to(torch.bfloat16).contiguous()
+    pos = _as(pos, torch.bfloat16)
+    work = _work(B * cap, xp.device)
     K12(xp.data_ptr(), _ptr(kvp) if cross else None, idx.data_ptr(),
         _ptr(sel_q), _ptr(sel_k), qmask.data_ptr(), _ptr(kmask),
-        pos.data_ptr(), _weight_ptrs(p), B, Hp2, Wp, cap, C, p.f1w.shape[0],
-        nhead, T, int(cross), float(tau_min), stream_handle())
+        pos.data_ptr(), tw.ptrs, work.data_ptr(), B, Hp2, Wp, cap, C,
+        tw.ffn, nhead, T, int(cross), float(tau_min), stream_handle())
     return xp
 
 

@@ -1,4 +1,4 @@
-"""Where the persistent tiled kernel (K4 / K6 / K8 / K10,
+"""Where the persistent tiled kernel (K3 / K4 / K6 / K8 / K10 / K12,
 ``csrc/encoder_layer_tiled.cu``) spends its time, phase by phase and
 launch by launch, on the card.
 
@@ -6,27 +6,37 @@ launch by launch, on the card.
 
 Builds the library a second time with ``-DTMAE_FWD_PROFILE`` (consumer
 thread 0 of each block then adds the clock cycles of every phase of its
-tiles, and its tile count, into a device array), and runs on seeded random
-inputs: K8 (S = 16, C = 128 self, 2560 slots as the t_mae.yaml training
-batch's stage-1 bucket hands them, 56% of them live); K10 (C = 128 self on
-a 4 x 468 x 468 grid and C = 256 self on 4 x 234 x 234, about 10% and 17%
-of the windows live, as the t_mae_ssl_waymo.yaml pretraining batch's); K6
-(T = 64, C = 128 self, 512 slots, 46% live, as the training batch's
-stage-1 full bucket); K4 in place (S = 16 on rows [0, 640) of a
-[2, 960, 64, C] window tensor at C = 128, 48% live, as a served pair's
-stage-1 small bucket, and on rows [0, 256) of [2, 512, 64, C] at C = 256,
-40% live). For each call it prints its time (CUDA events, the normal
-build; and the host time to enqueue it: the wrapper's Python and its
-launches), each launch's device time (torch.profiler: the weight pack, the
-pre-pass, the compaction, the tiled kernel), each phase's cycles per tile
-and share, and beside each product phase the cycles its tensor work would
-take at the card's dense bf16 peak (4096 FLOP a cycle an SM). Needs a CUDA
-device.
-"""
+tiles, and its tile count, into a device array), and runs on seeded
+random inputs: K8 (S = 16, C = 128 self, 2560 slots as the t_mae.yaml
+training batch's stage-1 bucket hands them, 56% of them live); K10 (C =
+128 self on a 4 x 468 x 468 grid and C = 256 self on 4 x 234 x 234,
+about 10% and 17% of the windows live, as the t_mae_ssl_waymo.yaml
+pretraining batch's); K6 (T = 64, C = 128 self, 512 slots, 46% live, as
+the training batch's stage-1 full bucket); K4 in place (S = 16 on rows
+[0, 640) of a [2, 960, 64, C] window tensor at C = 128, 48% live, as a
+served pair's stage-1 small bucket, and on rows [0, 256) of [2, 512, 64,
+C] at C = 256, 40% live); K3 in place (T = 64 on rows [0, 128) of [2,
+960, 64, C] at C = 128, 43% live, as a served pair's stage-1 full
+bucket: 109 real windows in 2 x 128 slots); K12 straight in the padded
+carrier of a 2 x 468 x 468 grid at C = 128 (T=64: a full plan of 128
+slots a sample, 55 of them real windows, the rest dummy slots; S=16: a
+small plan of 640 slots a sample, 314 real). For each call it prints its
+time (CUDA events, the normal build; and the host time to enqueue it:
+the wrapper's Python and its launches, the median of 7 rounds of 20
+calls; for the serving calls K3, K4 and K12 with the weights prepared
+once, as a served forward prepares them, and with ``LayerParams``,
+prepared in the call), each launch's device time (torch.profiler: the
+pack where the call packs, the pre-pass, the compaction, the tiled
+kernel), each phase's cycles per tile and share, and beside each product
+phase the cycles its tensor work would take at the card's dense bf16
+peak (4096 FLOP a cycle an SM); then the device time of a served layer's
+pack of its panels from f32 weights, at C = 128 and 256. Needs a CUDA
+device."""
 
 from __future__ import annotations
 
 import ctypes
+import statistics
 import subprocess
 import time
 
@@ -93,6 +103,39 @@ def rows_case(torch, B, total, cap, S, C, live, seed=0):
     return (xw, None, rows(s), None, rows(qm), None, pos), w
 
 
+def plan_case(torch, B, H, W, cap, n_real, T, C, seed=0):
+    """The padded carrier [B, Hp + 8, Wp, C] of a H x W grid and a bucket
+    plan of ``cap`` slots a sample: ``n_real`` distinct windows in raster
+    order, each with occupied cells, then dummy slots (nwy, 0); at T = 16
+    occupied-first selections. Returns ((carrier, plan, pos), weights)."""
+    import types
+
+    from ..ops.dense_windows import window_geometry
+
+    rng = np.random.RandomState(seed)
+    nwy, nwx, Hp, Wp = window_geometry((H, W), 8)
+    xp = torch.tensor(rng.normal(0, 1, (B, Hp + 8, Wp, C)).astype(
+        np.float32), device='cuda').to(torch.bfloat16)
+    idx = np.zeros((B, cap, 2), np.int32)
+    idx[..., 0] = nwy
+    occ = rng.rand(B, cap, 64) < rng.uniform(0.3, 0.9, (B, cap, 1))
+    occ[:, :, 0] = True
+    occ[:, n_real:] = False
+    for b in range(B):
+        w = np.sort(rng.choice(nwy * nwx, n_real, replace=False))
+        idx[b, :n_real, 0], idx[b, :n_real, 1] = w // nwx, w % nwx
+    s = np.argsort(-(occ * (64 - np.arange(64))), -1, kind='stable')
+    s = np.ascontiguousarray(s[..., :T], np.int32)
+    qm = (np.take_along_axis(occ, s, -1) if T != 64 else occ).astype(
+        np.float32)
+    dev = lambda a: torch.tensor(a, device='cuda')
+    ci = types.SimpleNamespace(idx=dev(idx), sel=dev(s), ksel=None,
+                               qmask=dev(qm), kmask=None)
+    pos = torch.tensor(rng.normal(0, 0.5, (64, C)).astype(np.float32),
+                       device='cuda').to(torch.bfloat16)
+    return (xp, ci, pos), _weights(torch, rng, C)
+
+
 def grid_case(torch, B, H, W, C, live, seed=0):
     """A [B, H, W, C] grid whose occupied cells fill 8x8 blocks (offset by
     4 cells from the shift-0 windows, so a block touches four windows),
@@ -107,6 +150,21 @@ def grid_case(torch, B, H, W, C, live, seed=0):
     pos = bf(rng.normal(0, 0.5, (64, C)))
     return ((x, None, torch.tensor(occ, device='cuda'), None, pos),
             _weights(torch, rng, C))
+
+
+def host_ms(torch, call, rounds=7, n=20):
+    """The host ms to enqueue one call: the median over ``rounds`` of ``n``
+    calls back to back (each round after a synchronisation), which the
+    host's other work spreads less than one round."""
+    per = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        per.append((time.perf_counter() - t0) * 1e3 / n)
+    torch.cuda.synchronize()
+    return statistics.median(per)
 
 
 def by_launch(torch, call):
@@ -153,9 +211,19 @@ def main(argv=None):
              ('K4 S=16 C=128 self, rows [0, 640) of 2x960', el.K4, 'rows',
               128, rows_case(torch, 2, 960, 640, 16, 128, 0.48)),
              ('K4 S=16 C=256 self, rows [0, 256) of 2x512', el.K4, 'rows',
-              256, rows_case(torch, 2, 512, 256, 16, 256, 0.4)))
+              256, rows_case(torch, 2, 512, 256, 16, 256, 0.4)),
+             ('K3 T=64 C=128 self, rows [0, 128) of 2x960', el.K3,
+              'rows_full', 128, rows_case(torch, 2, 960, 128, 64, 128, 0.43)),
+             ('K12 T=64 C=128 self, 128 slots (55 real) of 2x468x468',
+              el.K12, 'plan', 128,
+              plan_case(torch, 2, 468, 468, 128, 55, 64, 128)),
+             ('K12 S=16 C=128 self, 640 slots (314 real) of 2x468x468',
+              el.K12, 'plan', 128,
+              plan_case(torch, 2, 468, 468, 640, 314, 16, 128)))
     for name, kern, mode, C, (args, weights) in cases:
         p = el.kernel_params(weights)
+        tw = el.TiledWeights(weights, 8)
+        call_unprep = None
         if mode == 'grid':
             live = int(el._flat_windows(args[2].float(), 8, False).any(-1)
                        .sum())
@@ -163,8 +231,21 @@ def main(argv=None):
                 *args, p, window=8, shift=False, **kw)
         elif mode == 'rows':
             live = int((args[4] > 0).any(-1).sum())
-            call = lambda: el.encoder_layer_rows_sel(*args, p, row_lo=0,
-                                                     **kw)
+            call = lambda w=tw: el.encoder_layer_rows_sel(
+                *args, w, row_lo=0, **kw)
+            call_unprep = lambda: call(p)
+        elif mode == 'rows_full':
+            live = int((args[4] > 0).any(-1).sum())
+            call = lambda w=tw: el.encoder_layer_rows_full(
+                args[0], None, args[4], None, args[6], w, row_lo=0, **kw)
+            call_unprep = lambda: call(p)
+        elif mode == 'plan':
+            xp, ci, pos = args
+            live = int((ci.qmask > 0).any(-1).sum())
+            T = ci.qmask.shape[-1]
+            call = lambda w=tw: el.encoder_layer_fused_pipelined(
+                xp, None, ci, pos, w, window=8, sel=T != 64, **kw)
+            call_unprep = lambda: call(p)
         else:
             live = int((args[4] > 0).any(-1).sum())
             if mode == 'flat':  # all 64 cells: no selection
@@ -175,13 +256,17 @@ def main(argv=None):
         torch.cuda.synchronize()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
-        h0 = time.perf_counter()
         for _ in range(10):
             call()
-        host = (time.perf_counter() - h0) * 1e2  # ms a call, enqueued
         t1.record()
         torch.cuda.synchronize()
         ms = t0.elapsed_time(t1) / 10
+        host_note = (f'{host_ms(torch, call):.4f} ms of host time to enqueue '
+                     'it')
+        if call_unprep is not None:
+            host_note += (' with the weights prepared once, '
+                          f'{host_ms(torch, call_unprep):.4f} ms with '
+                          'LayerParams')
         normal = kern._fn
         fn = getattr(lib, normal.__name__)
         fn.argtypes, fn.restype = normal.argtypes, normal.restype
@@ -203,7 +288,7 @@ def main(argv=None):
                  'FFN 1': 4 * 64 * C * C, 'FFN 2, LN2': 4 * 64 * C * C}
         launches = by_launch(torch, call)
         print(f'{name}: {live} live windows, {cycles[10]} tiles; {ms:.4f} '
-              f'ms a call ({host:.4f} ms of host time to enqueue it); by '
+              f'ms a call ({host_note}); by '
               'launch ' + ', '.join(
                   f'{k} {v:.4f} ms' for k, v in launches)
               + f'; {total:.0f} cycles a tile (thread 0 of a block): '
@@ -212,6 +297,12 @@ def main(argv=None):
                   + (f'; tensor work {flops[ph] / FLOP_PER_CYCLE:.0f})'
                      if ph in flops else ')')
                   for ph, c in zip(PHASES, per)), flush=True)
+    for C in (128, 256):
+        weights = _weights(torch, np.random.RandomState(C), C)
+        launches = by_launch(torch, lambda: el.TiledWeights(weights, 8))
+        print(f'a served layer\'s weights prepared at C={C} (f32 to bf16 '
+              'panels): by launch ' + ', '.join(
+                  f'{k} {v:.4f} ms' for k, v in launches), flush=True)
 
 
 if __name__ == '__main__':
