@@ -47,13 +47,20 @@ Phases (any failure exits non-zero and prints no result line):
      serving forward (3 SST stages, 3 WCA blocks) and the stage-1 and
      stage-2 grids; launch counters set to 0, then the path of the
      unpadded window API (gather, scatter, scatter-into and their VJPs:
-     K1, K2 as K13b / K13c) on the stage-1 plans of every occupied window,
+     K1, K2 as K13b, K13c) on the stage-1 plans of every occupied window,
      SubMConvBlock with such a plan (K15, K13b) forward and backward in
      train mode on the 6 inputs, DenseWindowAttention (K16, seeded
      weights) on 4 cases; the counts checked; what came out held to the
      plain versions (window API exactly; the planned conv to the dense
      block; attention at K3's limits); each kernel against its plain
-     version; K13b, K13c, K15 (stage 1 and 2) and K16 timed.
+     version; K15 also exactly (dummy and query-less slots zero, the same
+     bits twice, permuted slots, a partial last tile, the windows on all
+     four grid edges against the same windows in a zero-padded grid);
+     K13b and K13c bit for bit against their plain versions and
+     index_put, shifted and not, K13c also with occupied windows left out
+     of the plan, its VJP and a contiguous output; K13b, K13c, K15 (stage
+     1 and 2) and K16 timed, with cuDNN's dense conv2d and index_put as
+     the yardsticks.
   6. training: finetune steps of t_mae.yaml at full width and depth on two
      synthetic frame pairs (scenes 0 and 1; the config's batch is 6): the
      training kernels K6-K9 against their plain versions on the layer
@@ -157,11 +164,11 @@ EXPECTED_PRETRAIN_BUCKETED = {**EXPECTED_TRAIN_LAUNCHES, 'K5': 0}
 EXPECTED_WAYMO_SERVING = {**NO_LAUNCHES, 'K10': 18}
 # Phase 5c's path. Window API, per plan (2): one gather (K1) and its VJP, a
 # zero-fill scatter (K2 as K13b); one zero-fill scatter (K13b) and its VJP,
-# a gather; one scatter-into (K2 as K13c) and its VJP, a gather and a
-# scatter-into. SubMConvBlock(plan) on the 6 conv_out inputs: K15 and a
-# zero-fill scatter forward, the plan's cell mask (a zero-fill scatter)
+# a gather; one scatter-into (K13c, its own kernel) and its VJP, a gather
+# and a scatter-into. SubMConvBlock(plan) on the 6 conv_out inputs: K15 and
+# a zero-fill scatter forward, the plan's cell mask (a zero-fill scatter)
 # backward. DenseWindowAttention: one K16 per call (4).
-EXPECTED_SPARSE_ATTN = {**NO_LAUNCHES, 'K1': 2 * 3, 'K2': 2 * 4 + 6 * 2,
+EXPECTED_SPARSE_ATTN = {**NO_LAUNCHES, 'K1': 2 * 3, 'K2': 2 * 2 + 6 * 2,
                         'K13b': 2 * 2 + 6 * 2, 'K13c': 2 * 2, 'K15': 6,
                         'K16': 4}
 REPS = 20                      # timed serving passes
@@ -2233,6 +2240,7 @@ def conv_check(torch, sc, caught, cplans, biases, train_blocks, conv, conv_g,
                     blk(y, o, (p.idx, p.qmask, 8)), blk(y, o), 1e-2, 1e-3)
         out_d, gy = conv_block_run(
             torch, copy.deepcopy(blk).train(), y, o, None, g)
+        conv_bits_check(torch, sc, name, y, p, wmat, bias, got)
         rel_err(torch, f'  train forward, {name}', out_p, out_d, 5e-2, 5e-3)
         same = [conv_grads(torch, blk, y, o, plan, gy)
                 for plan in ((p.idx, p.qmask, 8), None)]
@@ -2243,6 +2251,7 @@ def conv_check(torch, sc, caught, cplans, biases, train_blocks, conv, conv_g,
                     5e-3)
         if name not in ('sst0', 'sst1'):
             continue
+        conv_edge_check(torch, sc, name, y.shape, wmat, bias)
         Cin, Cout = wmat.shape[2:]
         n_real = int(p.valid.sum())
         halo = int(grid_cells(torch, p.idx, p.valid, y.shape[1:3],
@@ -2254,19 +2263,108 @@ def conv_check(torch, sc, caught, cplans, biases, train_blocks, conv, conv_g,
         with torch.no_grad():
             op_ms = time_ms(torch, lambda: sc.subm_conv3x3(
                 y, p.idx, p.qmask, wmat, bias, y.shape[1:3], 8), iters=10)
+            call = lambda: sc.subm_conv_windows(*args)
             entry(f'subm_conv_{"stage1" if name == "sst0" else "stage2"}',
                   'K15', 'tmae_tpu_torch/csrc/subm_conv.cu',
                   'tmae_tpu/ops/sparse_conv.py:101', err,
-                  time_ms(torch, lambda: sc.subm_conv_windows(*args),
-                          iters=10),
+                  time_ms(torch, call, iters=10),
                   time_ms(torch, lambda: sc.subm_conv_windows_plain(*args),
                           iters=3, warmup=1),
                   nbytes, 2 * n_real * 64 * 9 * Cin * Cout,
                   time_ms(torch, lambda: torch.nn.functional.conv2d(
                       xn, wo, padding=1), iters=10),
-                  op_ms=op_ms, windows=n_real, cap=p.idx.shape[1])
+                  op_ms=op_ms, windows=n_real, cap=p.idx.shape[1],
+                  device_ms=device_ms(torch, call))
         log(f'    {name}: {n_real} windows, halo {halo} cells; '
             f'subm_conv3x3 forward (K15 + K13b) {op_ms:.4f} ms')
+
+
+def same_bits(torch, a, b):
+    """True when two tensors hold the same bits (0.0 and -0.0 differ)."""
+    kind = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(kind), b.view(kind)))
+
+
+def conv_bits_check(torch, sc, name, y, plan, wmat, bias, got):
+    """K15's exact checks on one plan call whose output is ``got``: dummy
+    slots and real slots without a query (every third real slot's qmask
+    zeroed) are all zero, and that leaves every other slot's bits; the same
+    bits twice; the plan's slots permuted in each sample (other windows
+    share the tiles) give the same rows, permuted, bit for bit; the first
+    slots of sample 0 up to an odd number of live windows (a partial last
+    tile) give the whole call's rows."""
+    idx, qm = plan.idx, plan.qmask
+    B, cap = idx.shape[:2]
+    k15 = lambda i, q: sc.subm_conv_windows(y, i, q, wmat, bias, 8)
+    if not same_bits(torch, k15(idx, qm), got):
+        raise AssertionError(f'K15 {name}: two runs differ')
+    if got[~plan.valid].any():
+        raise AssertionError(f'K15 {name}: a dummy slot is not zero')
+    ar = torch.arange(cap, device=y.device)
+    drop = plan.valid & (ar % 3 == 0)
+    out = k15(idx, qm.masked_fill(drop[..., None], 0.0))
+    if out[drop].any() or not same_bits(torch, out[~drop], got[~drop]):
+        raise AssertionError(f'K15 {name}: a query-less real slot is not '
+                             'zero, or another slot moved')
+    gen = torch.Generator(device='cpu').manual_seed(cap)
+    perm = torch.stack([torch.randperm(cap, generator=gen)
+                        for _ in range(B)]).to(y.device)
+    take = lambda a: a.gather(1, perm.reshape(
+        B, cap, *([1] * (a.dim() - 2))).expand(a.shape))
+    if not same_bits(torch, k15(take(idx), take(qm)), take(got)):
+        raise AssertionError(f'K15 {name}: permuted slots give other rows')
+    live = plan.valid & (qm != 0).any(-1)
+    odd = (live[0].int().cumsum(0) % 2 == 1).nonzero()
+    if not len(odd):
+        raise AssertionError(f'K15 {name}: no live slot in sample 0')
+    n = int(odd[-1, 0]) + 1
+    part = sc.subm_conv_windows(y[:1], idx[:1, :n].contiguous(),
+                                qm[:1, :n].contiguous(), wmat, bias, 8)
+    if not same_bits(torch, part, got[:1, :n].contiguous()):
+        raise AssertionError(f'K15 {name}: the first {n} slots of sample 0 '
+                             'differ from the whole call')
+    log(f'    K15 {name} exactly: {int((~plan.valid).sum())} dummy slots and '
+        f'{int(drop.sum())} query-less real slots zero, the others kept; the '
+        f'same bits twice; permuted slots the same rows; the first {n} slots '
+        f'of sample 0 ({int(live[0, :n].sum())} live: a partial last tile) '
+        "the whole call's rows")
+
+
+def conv_edge_check(torch, sc, name, shape, wmat, bias):
+    """K15 on every window along the four edges of a seeded random grid of
+    ``shape`` (half their cells with a query, and a dummy slot), exactly
+    against the same windows one window inwards in that grid padded with 8
+    zero cells on every side, where the halo's cells off the grid are real
+    zeros (the kernel's zero fill); and against the plain version (1e-2 /
+    1e-3 of the scale)."""
+    B, H, W, C = shape
+    dev = wmat.device
+    gen = torch.Generator(device=dev).manual_seed(C)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    nwy, nwx = (H + 7) // 8 + 1, (W + 7) // 8 + 1
+    edge = [(wy, wx) for wy in range(1, nwy) for wx in range(1, nwx)
+            if wy in (1, nwy - 1) or wx in (1, nwx - 1)]
+    idx = torch.tensor(edge + [(nwy, 0)], dtype=torch.int32, device=dev)
+    idx = idx[None].expand(B, -1, -1).contiguous()
+    qm = (torch.rand(idx.shape[:2] + (64,), generator=gen, device=dev)
+          < 0.5).float()
+    qm[:, :, 0] = 1.0
+    qm[:, -1] = 0.0
+    got = sc.subm_conv_windows(x, idx, qm, wmat, bias, 8)
+    xp = torch.nn.functional.pad(x, (0, 0, 8, 8, 8, 8))
+    inner = idx + 1
+    inner[:, -1] = torch.tensor([(H + 16 + 7) // 8 + 1, 0],  # its dummy row
+                                dtype=torch.int32)
+    moved = sc.subm_conv_windows(xp, inner, qm, wmat, bias, 8)
+    if not same_bits(torch, moved[:, :-1], got[:, :-1]) or got[:, -1].any():
+        raise AssertionError(f'K15 {name}: edge windows differ from the '
+                             'same windows inside a zero-padded grid, or '
+                             'the dummy slot is not zero')
+    rel_err(torch, f'    K15 {name} on {len(edge)} edge windows of a '
+            f'random {tuple(shape)} grid, exactly as inside a zero-padded '
+            'grid; vs plain', got,
+            sc.subm_conv_windows_plain(x, idx, qm, wmat, bias, 8), 1e-2, 1e-3)
 
 
 def planted_faults(torch, args, got, live):
@@ -2351,52 +2449,95 @@ def attention_check(torch, sst, wa, attn, att, gen, entry):
                   None, windows=N, windows_with_key=n_key)
 
 
-def scatter_rows(torch, oc, y1, init, plan, entry):
-    """K13b and K13c (K2 into a zero carrier and into ``pad_grid(init)``)
-    on the stage-1 unshifted plan against their plain versions, exactly,
-    timed into the kernels line with ``torch.index_put`` on the in-grid
-    cells of the real windows as the yardstick."""
+def scatter_rows(torch, oc, y1, init, wplans, entry):
+    """K13b (K2 into a zero carrier) and K13c (its own kernel) on the
+    stage-1 plans of every occupied window, unshifted and shifted, against
+    their plain versions and ``torch.index_put`` on the in-grid cells of the
+    real windows, bit for bit; K13c's output contiguous; K13c with every
+    other real slot of the unshifted plan made a dummy slot (the windows it
+    leaves out keep ``init``'s bits); K13c's VJP (``dinit``, contiguous,
+    and ``dxw``) against the plain version's, bit for bit. The unshifted
+    calls are timed into the kernels line with ``torch.index_put`` as the
+    yardstick."""
     B, H, W, C = y1.shape
     hw = (H, W)
-    idx, valid = plan.idx, plan.valid
-    cap = idx.shape[1]
-    xw = oc.gather_windows(y1, idx, hw, 8, False)
     iy = torch.arange(8, device=y1.device)
-    r = (idx[..., 0].long()[..., None, None] * 8 - 8
-         + iy[:, None]).expand(B, cap, 8, 8)
-    c = (idx[..., 1].long()[..., None, None] * 8 - 8
-         + iy[None, :]).expand(B, cap, 8, 8)
-    keep = (valid[..., None, None] & (r >= 0) & (r < H) & (c >= 0)
-            & (c < W))
-    bi = torch.arange(B, device=y1.device)[:, None, None, None].expand_as(r)
-    ind = (bi[keep], r[keep], c[keep])
-    sv = xw.reshape(B, cap, 8, 8, C)[keep]
     zeros = torch.zeros_like(y1)
-    uncovered = B * H * W - int(keep.sum())
-    n_real = int(valid.sum())
-    for name, kern, line, fn, plain_fn, lib, init_read in (
-            ('window_scatter_grid', 'K13b', '407',
-             lambda: oc.scatter_windows(xw, idx, hw, 8, False,
-                                        zero_fill=True),
-             lambda: oc.scatter_windows_plain(xw, idx, hw, 8, False),
-             lambda: torch.index_put(zeros, ind, sv), 0),
-            ('window_scatter_grid_into', 'K13c', '549',
-             lambda: oc.scatter_windows_into(xw, idx, init, hw, 8, False),
-             lambda: oc.scatter_windows_into_plain(xw, idx, init, hw, 8,
-                                                   False),
-             lambda: torch.index_put(init, ind, sv), uncovered)):
-        got, want = fn(), plain_fn()
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f'{kern} differs from its plain version')
-        if not torch.equal(lib(), want):
-            raise AssertionError(f'{kern} library yardstick computes '
-                                 'another function')
-        entry(name, kern, 'tmae_tpu_torch/csrc/windows.cu',
-              f'tmae_tpu/ops/occ_compact.py:{line}', 0.0,
-              time_ms(torch, fn), time_ms(torch, plain_fn, iters=5),
-              n_real * 64 * C * 2 + (init_read + B * H * W) * C * 2
-              + idx.numel() * 4, 0, time_ms(torch, lib), closed_by='K2')
+    for shift, plan in wplans:
+        idx, valid = plan.idx, plan.valid
+        cap = idx.shape[1]
+        off = 4 if shift else 8
+        xw = oc.gather_windows(y1, idx, hw, 8, shift)
+        r = (idx[..., 0].long()[..., None, None] * 8 - off
+             + iy[:, None]).expand(B, cap, 8, 8)
+        c = (idx[..., 1].long()[..., None, None] * 8 - off
+             + iy[None, :]).expand(B, cap, 8, 8)
+        keep = (valid[..., None, None] & (r >= 0) & (r < H) & (c >= 0)
+                & (c < W))
+        bi = torch.arange(B, device=y1.device)[:, None, None, None]
+        ind = (bi.expand_as(r)[keep], r[keep], c[keep])
+        sv = xw.reshape(B, cap, 8, 8, C)[keep]
+        uncovered = B * H * W - int(keep.sum())
+        n_real = int(valid.sum())
+        for name, kern, line, fn, plain_fn, lib, init_read, src in (
+                ('window_scatter_grid', 'K13b', '407',
+                 lambda: oc.scatter_windows(xw, idx, hw, 8, shift,
+                                            zero_fill=True),
+                 lambda: oc.scatter_windows_plain(xw, idx, hw, 8, shift),
+                 lambda: torch.index_put(zeros, ind, sv), 0,
+                 dict(closed_by='K2')),
+                ('window_scatter_grid_into', 'K13c', '549',
+                 lambda: oc.scatter_windows_into(xw, idx, init, hw, 8,
+                                                 shift),
+                 lambda: oc.scatter_windows_into_plain(xw, idx, init, hw, 8,
+                                                       shift),
+                 lambda: torch.index_put(init, ind, sv), uncovered, {})):
+            got, want = fn(), plain_fn()
+            torch.cuda.synchronize()
+            if not same_bits(torch, got, want):
+                raise AssertionError(f'{kern} (shift {shift}) differs from '
+                                     'its plain version')
+            if not same_bits(torch, lib(), want):
+                raise AssertionError(f'{kern} library yardstick computes '
+                                     'another function')
+            if kern == 'K13c' and got.is_cuda and not got.is_contiguous():
+                raise AssertionError('K13c gives a non-contiguous grid')
+            if shift:
+                continue
+            entry(name, kern, 'tmae_tpu_torch/csrc/windows.cu',
+                  f'tmae_tpu/ops/occ_compact.py:{line}', 0.0,
+                  time_ms(torch, fn), time_ms(torch, plain_fn, iters=5),
+                  n_real * 64 * C * 2 + (init_read + B * H * W) * C * 2
+                  + idx.numel() * 4, 0, time_ms(torch, lib),
+                  device_ms=device_ms(torch, fn), **src)
+        g = torch.randn(y1.shape, device=y1.device).to(y1.dtype)
+        grads = []
+        for into in (oc.scatter_windows_into, oc.scatter_windows_into_plain):
+            a, b = xw.clone().requires_grad_(), init.clone().requires_grad_()
+            into(a, idx, b, hw, 8, shift).backward(g)
+            grads.append((a.grad, b.grad))
+        if not ((grads[0][1].is_contiguous() or not g.is_cuda)
+                and all(same_bits(torch, u, v) for u, v in zip(*grads))):
+            raise AssertionError(f'K13c VJP (shift {shift}) differs from the '
+                                 'plain version\'s')
+        msg = (f'  K13b, K13c (shift {shift}, cap {cap}, {n_real} real '
+               'windows): bit-equal to their plain versions and to '
+               'index_put, K13c contiguous, its VJP bit-equal')
+        if not shift:
+            drop = valid & (torch.arange(cap, device=y1.device) % 2 == 0)
+            idx_d = idx.clone()
+            idx_d[drop] = torch.tensor([(H + 7) // 8 + 1, 0],
+                                       dtype=torch.int32, device=y1.device)
+            got = oc.scatter_windows_into(xw, idx_d, init, hw, 8, shift)
+            left = grid_cells(torch, idx, drop, hw, False)
+            if not (same_bits(torch, got, oc.scatter_windows_into_plain(
+                    xw, idx_d, init, hw, 8, shift))
+                    and same_bits(torch, got[left], init[left])):
+                raise AssertionError('K13c with windows left out of the plan '
+                                     'differs, or moved their init')
+            msg += (f'; {int(drop.sum())} occupied windows left out of the '
+                    f'plan keep init\'s bits on their {int(left.sum())} cells')
+        log(msg)
 
 
 def sparse_attn_phase(torch, model, batch, rows):
@@ -2459,7 +2600,7 @@ def sparse_attn_phase(torch, model, batch, rows):
                entry)
     del conv, train_blocks
     attention_check(torch, sst, wa, attn, att, gen, entry)
-    scatter_rows(torch, oc, y1, init, wplans[0][1], entry)
+    scatter_rows(torch, oc, y1, init, wplans, entry)
     return launches
 
 

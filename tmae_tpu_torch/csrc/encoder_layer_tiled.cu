@@ -146,20 +146,16 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kRows = 64;                  // rows of a tile: wgmma's M
 constexpr int kCells = 64;                 // cells of an 8 x 8 window
 constexpr int kHeads = 8;
 constexpr int kConsumers = 256;            // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
-constexpr int kPanel = 16384;              // bytes of a weight panel:
-constexpr int kPass = 128;                 // its output rows (64 a warpgroup)
-constexpr int kKP = 64;                    // by its input columns
+// a panel's kPass output rows: 64 for each warpgroup (wgmma_tiles.cuh)
 
 // Sizes and the shared-memory plan (byte offsets) at width C.
 template <int C>
@@ -257,100 +253,10 @@ __device__ __forceinline__ long long cell_offset(const FwdParams& p,
 // PTX
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
-          bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed. A
-// phase that never completes (a fault in the pipeline) traps after ~2^34
-// cycles, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0)
-      t0 = clock64();
-    else if (clock64() - t0 > (1LL << 34))
-      __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // the 256 consumer threads (named barrier 1; the producer never joins it)
 __device__ __forceinline__ void bar_consumers() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
-
-// generic-proxy writes to shared memory, made visible to wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator accesses across a wgmma
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, no swizzle, K-major: 8 x 16-byte core
-// matrices, K-adjacent ones 128 bytes apart, 8-row groups `sbo` apart.
-__device__ __forceinline__ uint64_t gdesc(uint32_t addr, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
 
 // The m64n64k16 bf16 product with f32 accumulators; A and B from shared
 // memory (K-major descriptors), D += A B when `accumulate`, else D = A B.
@@ -402,15 +308,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
 // byte offset of element (r, c) of a core-matrix row buffer with `ch`
 // 8-column chunks a row
 __device__ __forceinline__ uint32_t core(int r, int c, int ch) {
@@ -427,10 +324,6 @@ __device__ __forceinline__ float2 ld_pair(const unsigned char* buf, int r,
 __device__ __forceinline__ void st_pair(unsigned char* buf, int r, int c,
                                         int ch, float lo, float hi) {
   *reinterpret_cast<uint32_t*>(buf + core(r, c, ch)) = pack2(lo, hi);
-}
-
-__device__ __forceinline__ float2 ldg2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -461,18 +354,6 @@ __device__ __forceinline__ int col(int j, const Who& w) {
 template <int NA>
 __device__ __forceinline__ float (&pass_acc(float (&acc)[NA], int pass))[32] {
   return *reinterpret_cast<float(*)[32]>(acc + 32 * pass);
-}
-
-// The weight-panel ring as the consumers walk it: `pc` counts the panels
-// taken so far (the producer streams the same sequence).
-struct Ring {
-  uint32_t ring, full, empty;
-  int pc;
-};
-
-__device__ __forceinline__ void release(uint32_t bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
 }
 
 // One pass: acc (+)= A W^T over `npanels` panels of the ring: A is the row
@@ -1214,47 +1095,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// One block of 1024 threads: the live windows in window order into `list`
-// (each thread takes a run of consecutive windows; one block-wide scan
-// places the runs), their count, and the tile counter set to 0.
-__global__ void __launch_bounds__(1024)
-    compact_kernel(const FwdParams p) {
-  __shared__ int sums[32];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int per = (p.nwin + 1023) / 1024;
-  const int lo = min(p.nwin, tid * per);
-  const int hi = min(p.nwin, lo + per);
-  int n = 0;
-  for (int i = lo; i < hi; ++i) n += p.flags[i] != 0;
-  int incl = n;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int s = sums[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += v;
-    }
-    sums[lane] = s;
-  }
-  __syncthreads();
-  int k = (warp ? sums[warp - 1] : 0) + incl - n;
-  for (int i = lo; i < hi; ++i)
-    if (p.flags[i]) p.list[k++] = i;
-  if (tid == 1023) {
-    *p.count = k;
-    *p.counter = 0;
-  }
-}
-
 // 8 elements of a weight row as bf16: copied (bf16 weights), or rounded to
 // nearest even as torch's .to(torch.bfloat16) rounds them (f32 weights)
 __device__ __forceinline__ uint4 load8(const bf16* src) {
@@ -1315,18 +1155,6 @@ int launch_pack(const void* const* m, void* out, cudaStream_t s) {
   return tmae_last_error();
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
 // [pack,] pre-pass, compact, main kernel; a cudaError_t, 0 when all
 // launched. The training modes (K8, K6, K10) pack the bf16 weights w[0],
 // w[2], w[4], w[6], w[11], w[13] into p.panels; the serving modes (K4, K3,
@@ -1359,19 +1187,13 @@ int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
     mask_prepass_kernel<T, C, M == kFullOut || M == kFullInPlace>
         <<<warps, 256, 0, s>>>(p);
   if ((e = tmae_last_error())) return e;
-  compact_kernel<<<1, 1024, 0, s>>>(p);
+  compact_kernel<<<1, 1024, 0, s>>>(p.flags, p.list, p.count, p.counter,
+                                   p.nwin);
   if ((e = tmae_last_error())) return e;
-  // the shared-memory limit, set once per device for each instance
-  static unsigned long long set_on = 0;
-  int dev = 0;
-  if ((e = (int)cudaGetDevice(&dev))) return e;
-  if (dev >= 64 || !(set_on >> dev & 1ULL)) {
-    e = (int)cudaFuncSetAttribute(tiled_kernel<A, T, C>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  P::kSmem);
-    if (e) return e;
-    if (dev < 64) set_on |= 1ULL << dev;
-  }
+  static unsigned long long set_on = 0;  // for each instance
+  if ((e = smem_limit_once((const void*)tiled_kernel<A, T, C>, P::kSmem,
+                           set_on)))
+    return e;
   const int blocks = std::min(sm_count(), (p.nwin + WPT - 1) / WPT);
   tiled_kernel<A, T, C><<<blocks, kThreads, P::kSmem, s>>>(p);
   return tmae_last_error();

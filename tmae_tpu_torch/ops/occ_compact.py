@@ -4,10 +4,12 @@ plain versions (counterpart of ``tmae_tpu/ops/occ_compact.py``).
 
 Beside the padded-carrier API, the unpadded window API of the JAX package
 (``gather_windows``, ``scatter_windows``, ``scatter_windows_into`` on
-``[B, H, W, C]`` grids, with their custom VJPs) runs on the card as
-``pad_grid``, K1 or K2, then the crop. K2 serves the JAX package's
-``_scatter_pallas`` (K13b, into a zero carrier) and ``_scatter_into_pallas``
-(K13c, into ``pad_grid(init)``): both are K2's function on another carrier.
+``[B, H, W, C]`` grids, with their custom VJPs) runs on the card. The
+gather is ``pad_grid`` then K1, and the scatter K2 into a zero carrier
+(the JAX package's ``_scatter_pallas``, K13b), then the crop. The
+scatter-into (``_scatter_into_pallas``, K13c) is its own kernel, which
+writes the unpadded grid in one pass: each window of the shift's partition
+from its plan slot or from ``init``.
 
 Most 8x8 BEV windows of a LiDAR frame are empty. A plan names the occupied
 windows of each sample, classed by occupied-cell count into a small (S=16),
@@ -34,6 +36,8 @@ K1 = CudaKernel('windows.cu', 'launch_gather_windows',
                 [P, P, P, I, I, I, I, I, I, P])
 K2 = CudaKernel('windows.cu', 'launch_scatter_windows',
                 [P, P, P, I, I, I, I, I, I, P])
+K13C = CudaKernel('windows.cu', 'launch_scatter_into_grid',
+                  [P, P, P, P, P, I, I, I, I, I, I, I, I, P])
 
 
 def round_cap(cap: int, mult: int = 16) -> int:
@@ -428,7 +432,6 @@ class LaunchCount:
 
 
 K13B = LaunchCount()   # scatter_windows: K2 into a zero carrier
-K13C = LaunchCount()   # scatter_windows_into: K2 into pad_grid(init)
 
 
 def gather_windows_plain(xg, idx, grid_hw, window: int, shift: bool):
@@ -455,6 +458,44 @@ def scatter_windows_into_plain(xw, idx, init, grid_hw, window: int,
     return window_unview(buf[:, :NW], grid_hw, window, shift)
 
 
+def slot_map_plain(idx, grid_hw, window: int):
+    """Plain version of K13c's map: [B, nwy, nwx] int32, the slot s = b cap
+    + j that names each window of the partition, -1 where none does (dummy
+    slots, wy >= nwy, name none). The plan names each window at most
+    once."""
+    B, cap = idx.shape[:2]
+    nwy, nwx, _, _ = window_geometry(grid_hw, window)
+    m = torch.full((B, nwy, nwx), -1, dtype=torch.int32, device=idx.device)
+    wy, wx = idx[..., 0].long(), idx[..., 1].long()
+    real = (wy >= 0) & (wy < nwy) & (wx >= 0) & (wx < nwx)
+    b = torch.arange(B, device=idx.device)[:, None].expand(B, cap)
+    s = torch.arange(B * cap, dtype=torch.int32,
+                     device=idx.device).reshape(B, cap)
+    m[b[real], wy[real], wx[real]] = s[real]
+    return m
+
+
+def scatter_into_grid_plain(xw, idx, init, grid_hw, window: int,
+                            shift: bool):
+    """K13c's pass in torch ops: every cell (y, x) of the grid lies in
+    window (wy, wx) = ((y + off) // 8, (x + off) // 8) of the partition
+    (off = 4 shifted, 8 not), at cell (y + off) % 8, (x + off) % 8; it is
+    read from that cell of slot map[b, wy, wx] of ``xw`` when the map names
+    one, else from ``init`` (in ``xw``'s dtype). Same function as
+    :func:`scatter_windows_into_plain`."""
+    B, cap, T, C = xw.shape
+    H, W = grid_hw
+    off = window // 2 if shift else window
+    m = slot_map_plain(idx, grid_hw, window).long()
+    y = torch.arange(H, device=xw.device) + off
+    x = torch.arange(W, device=xw.device) + off
+    s = m[:, y // window][:, :, x // window]          # [B, H, W]
+    cell = (y % window)[:, None] * window + (x % window)[None, :]
+    rows = xw.reshape(B * cap * T, C)[
+        (s.clamp(min=0) * T + cell).reshape(-1)].reshape(B, H, W, C)
+    return torch.where((s >= 0)[..., None], rows, init.to(xw.dtype))
+
+
 def scatter_windows_plain(xw, idx, grid_hw, window: int, shift: bool):
     """Plain version of :func:`scatter_windows` (``_scatter_ref``): zeros
     outside the planned windows."""
@@ -471,13 +512,32 @@ def _gather(xg, idx, grid_hw, window, shift):
 
 
 def _scatter_into(xw, idx, init, grid_hw, window, shift):
+    """K13c on the card: the map of the plan's slots, then one pass that
+    writes the contiguous [B, H, W, C] output."""
     if not on_card(xw, idx, init):
         return scatter_windows_into_plain(xw, idx, init, grid_hw, window,
                                           shift)
-    xp = pad_grid(init.to(xw.dtype), window, shift).contiguous()
-    xp = scatter_windows_into_padded(xw.contiguous(), idx, xp, window)
-    K13C.launches += 1
-    return unpad_grid(xp, grid_hw, window, shift)
+    B, cap, T, C = xw.shape
+    H, W = grid_hw
+    vc, rem = divmod(C * xw.element_size(), 16)
+    if window != 8 or rem or init.shape != (B, H, W, C):
+        raise ValueError('the scatter-into kernel takes 8x8 windows, cells '
+                         'of a multiple of 16 bytes and init [B, H, W, C]')
+    if idx.dtype != torch.int32 or idx.shape != (B, cap, 2):
+        raise ValueError('window plan must be int32 [B, cap, 2]')
+    xw, idx = xw.contiguous(), idx.contiguous()
+    init = init.to(xw.dtype).contiguous()
+    if xw.data_ptr() % 16 or init.data_ptr() % 16:
+        raise ValueError('the scatter-into kernel takes 16-byte aligned '
+                         'windows and init')
+    nwy, nwx, _, _ = window_geometry(grid_hw, window)
+    out = torch.empty(B, H, W, C, dtype=xw.dtype, device=xw.device)
+    slot_map = torch.empty(B * nwy * nwx, dtype=torch.int32,
+                           device=xw.device)
+    K13C(xw.data_ptr(), idx.data_ptr(), init.data_ptr(), out.data_ptr(),
+         slot_map.data_ptr(), B, H, W, vc, cap, nwy, nwx,
+         window // 2 if shift else window, stream_handle())
+    return out
 
 
 def _scatter(xw, idx, grid_hw, window, shift):
@@ -556,7 +616,7 @@ def scatter_windows_into(xw, idx, init, grid_hw, window: int, shift: bool):
     """``init`` [B, H, W, C] with the windows named by ``idx`` replaced by
     ``xw`` [B, cap, w*w, C], in ``xw``'s dtype; windows not named keep
     their content. Its VJP gathers the cotangent for ``xw`` and gives
-    ``init`` the cotangent with the visited windows zeroed. K2 into
-    ``pad_grid(init)`` on the card (the JAX package's K13c)."""
+    ``init`` the cotangent with the visited windows zeroed (the same
+    kernel). K13c on the card, into a new contiguous grid."""
     return _ScatterIntoGrid.apply(xw, idx, init, tuple(grid_hw), window,
                                   shift)

@@ -167,20 +167,21 @@ def host_ms(torch, call, rounds=7, n=20):
     return statistics.median(per)
 
 
-def by_launch(torch, call):
-    """Device ms of each launch of one call (torch.profiler, after a warm
-    call), by kernel name."""
+def by_launch(torch, call, calls=1):
+    """Device ms of each launch of one call (torch.profiler over ``calls``
+    calls after a warm one, averaged), by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
+        for _ in range(calls):
+            call()
         torch.cuda.synchronize()
     short = lambda k: k.replace('void ', '').replace(
         '(anonymous namespace)::', '').split('<')[0].split('(')[0]
-    return [(short(e.key), e.self_device_time_total / 1e3)
+    return [(short(e.key), e.self_device_time_total / 1e3 / calls)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
