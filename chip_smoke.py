@@ -19,7 +19,10 @@ Phases (any failure exits non-zero and prints no result line):
      their bits or are 0 as the layer makes them, the same bits twice, no
      leak between the windows of a tile, a prefix with a partial last tile
      gives the whole call's bits; the weight panels of a served layer bit
-     for bit against their plain version), with its time, the plain
+     for bit against their plain version; K5 bit for bit also on int64
+     slots and on a skewed case of two frames: a 551-row pillar over nine
+     slices, pillars ending on a slice edge, negative rows, absent slots,
+     out-of-range rows, twice for the same bits), with its time, the plain
      version's time, one PyTorch library call's time where one computes the
      same function, and the least time the card could take (bytes / 3.35
      TB/s or FLOPs / 989 TFLOP/s bf16, counting the windows and points this
@@ -53,9 +56,13 @@ Phases (any failure exits non-zero and prints no result line):
      weights) on 4 cases; the counts checked; what came out held to the
      plain versions (window API exactly; the planned conv to the dense
      block; attention at K3's limits); each kernel against its plain
-     version; K15 also exactly (dummy and query-less slots zero, the same
-     bits twice, permuted slots, a partial last tile, the windows on all
-     four grid edges against the same windows in a zero-padded grid);
+     version; K16 also exactly (bo to the bit on windows without a key,
+     the same bits twice, no leak between windows, a prefix of the
+     windows, the windows with a key and no query cell of the cross case)
+     and its panels bit for bit; K15 also exactly (dummy and query-less
+     slots zero, the same bits twice, permuted slots, a partial last tile,
+     the windows on all four grid edges against the same windows in a
+     zero-padded grid);
      K13b and K13c bit for bit against their plain versions and
      index_put, shifted and not, K13c also with occupied windows left out
      of the plan, its VJP and a contiguous output; K13b, K13c, K15 (stage
@@ -167,7 +174,8 @@ EXPECTED_WAYMO_SERVING = {**NO_LAUNCHES, 'K10': 18}
 # a gather; one scatter-into (K13c, its own kernel) and its VJP, a gather
 # and a scatter-into. SubMConvBlock(plan) on the 6 conv_out inputs: K15 and
 # a zero-fill scatter forward, the plan's cell mask (a zero-fill scatter)
-# backward. DenseWindowAttention: one K16 per call (4).
+# backward. DenseWindowAttention: one K16 per call (4), which packs its
+# four weight panels itself.
 EXPECTED_SPARSE_ATTN = {**NO_LAUNCHES, 'K1': 2 * 3, 'K2': 2 * 2 + 6 * 2,
                         'K13b': 2 * 2 + 6 * 2, 'K13c': 2 * 2, 'K15': 6,
                         'K16': 4}
@@ -181,14 +189,15 @@ BWD_DRAWS = 16                 # random cotangents per backward check
 BWD_KERNELS = ('(anonymous namespace)::window_bwd_kernel',
                '(anonymous namespace)::wgrad_kernel',
                '(anonymous namespace)::reduce_kernel')
-# the launches of K3 / K4 / K6 / K8 / K10 / K12 (csrc/encoder_layer_tiled.cu)
-# in a profiler table
+# the launches of K3 / K4 / K6 / K8 / K10 / K12 / K16
+# (csrc/encoder_layer_tiled.cu) in a profiler table
 TILED_SRC = 'tmae_tpu_torch/csrc/encoder_layer_tiled.cu'
 FWD_KERNELS = ('(anonymous namespace)::tiled_kernel',
                '(anonymous namespace)::sel_prepass_kernel',
                '(anonymous namespace)::grid_prepass_kernel',
                '(anonymous namespace)::mask_prepass_kernel',
                '(anonymous namespace)::plan_prepass_kernel',
+               '(anonymous namespace)::attn_prepass_kernel',
                '(anonymous namespace)::compact_kernel',
                '(anonymous namespace)::pack_kernel')
 
@@ -401,8 +410,13 @@ def check_kernels(torch, model, batch, dev):
     want = ss.sorted_segment_max_plain(feat, seg, ends, vmask, V)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    if err != 0:
+    if err != 0 or not same_bits(torch, got, want):
         raise AssertionError(f'K5 differs from its plain version: {err}')
+    # the VFE hands K5 its slots as int64
+    if not same_bits(torch, ss.sorted_segment_max(feat, seg.long(), ends,
+                                                  vmask, V), got):
+        raise AssertionError('K5 on int64 slots differs from int32')
+    segmax_skewed_check(torch, ss, g, Pn, V)
     seg_lib = seg.long().clamp(max=V)[0][:, None].expand(Pn, 128)
     out_lib = torch.zeros(V + 1, 128, device=dev)
     lib = lambda: out_lib.zero_().scatter_reduce_(0, seg_lib, feat[0], 'amax',
@@ -412,15 +426,84 @@ def check_kernels(torch, model, batch, dev):
                        want[0]):
         raise AssertionError('K5 library yardstick computes another function')
     n_pts = int(batch['pvalid_cur'].sum())
+    call = lambda: ss.sorted_segment_max(feat, seg, ends, vmask, V)
     entry('sorted_segment_max', 'K5', 'tmae_tpu_torch/csrc/segment_max.cu',
-          'tmae_tpu/ops/sorted_segments.py:87', err,
-          time_ms(torch, lambda: ss.sorted_segment_max(feat, seg, ends, vmask,
-                                                       V)),
+          'tmae_tpu/ops/sorted_segments.py:87', err, time_ms(torch, call),
           time_ms(torch, lambda: ss.sorted_segment_max_plain(
               feat, seg, ends, vmask, V), iters=5),
           n_pts * 128 * 4 + V * 128 * 4 + V * 4 + V, n_pts * 128,
-          time_ms(torch, lib), peak=F32_FLOPS)
+          time_ms(torch, lib), peak=F32_FLOPS,
+          **launch_times(torch, 'K5', call))
     return rows
+
+
+def launch_times(torch, name, call):
+    """One call's device ms by launch (profiler, CUDA activity only, the
+    mean of 5 calls) and its host ms to enqueue (the median of 7 rounds of
+    20 calls), logged; returned as the ``device_ms`` (the launches summed),
+    ``by_launch`` and ``host_ms`` of its kernels-line row."""
+    from tmae_tpu_torch.utils.fwd_phases import by_launch, host_ms
+
+    launches = by_launch(torch, call, calls=5)
+    dev = sum(ms for _, ms in launches) or None
+    host = host_ms(torch, call)
+    log(f'  {name}: {dev} ms of device time a call (' + ', '.join(
+        f'{k} {v:.4f}' for k, v in launches) + f'); {host:.4f} ms of host '
+        'time to enqueue it')
+    return dict(device_ms=dev, host_ms=host,
+                by_launch={k: v for k, v in launches})
+
+
+def segmax_skewed_check(torch, ss, g, Pn, V, C=128):
+    """K5 on a skewed synthetic case at the main path's sizes (B = 2, Pn
+    rows, V slots, C = 128), bit for bit against its plain version and
+    twice for the same bits: batch row 0 holds a 551-row pillar over nine
+    slices, pillars that end exactly on a slice edge and geometric sizes
+    (median 3); every value of batch row 1 is negative; absent slots follow
+    the present ones and out-of-range rows (slot V) the last pillar."""
+    R = ss.SLICE_ROWS
+    dev = g.device
+    segs, ends, masks = [], [], []
+    for b in range(2):
+        u = torch.rand(V // 2, generator=torch.Generator().manual_seed(7 + b))
+        sizes = (torch.log(u) / math.log(0.75)).long().clamp(max=300) + 1
+        sizes[:6] = torch.tensor([551, 41, R, 2 * R, 1, 3 * R - 1])
+        sizes = sizes[sizes.cumsum(0) <= Pn - 1000 - b * 7000]
+        n = len(sizes)
+        seg = torch.full((Pn,), V, dtype=torch.int32)
+        seg[:int(sizes.sum())] = torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32), sizes)
+        end = torch.zeros(V, dtype=torch.int32)
+        end[:n] = (sizes.cumsum(0) - 1).int()
+        mask = torch.zeros(V, dtype=torch.bool)
+        mask[:n] = True
+        segs.append(seg), ends.append(end), masks.append(mask)
+    seg, end, mask = (torch.stack(a).to(dev) for a in (segs, ends, masks))
+    feat = torch.randn(2, Pn, C, generator=g, device=dev)
+    feat[1] = -feat[1].abs() - 0.5
+    first = torch.cat([torch.zeros_like(end[:, :1]), end[:, :-1] + 1], 1)
+    spans = (end // R - first // R)[mask]
+    on_edge = ((end + 1) % R == 0)[mask]
+    if spans.max() < 2 or not on_edge.any():
+        raise AssertionError('the skewed K5 case lost its premises')
+    got = ss.sorted_segment_max(feat, seg, end, mask, V)
+    want = ss.sorted_segment_max_plain(feat, seg, end, mask, V)
+    again = ss.sorted_segment_max(feat, seg, end, mask, V)
+    torch.cuda.synchronize()
+    if not same_bits(torch, got, want):
+        err = (got - want).abs().max().item()
+        raise AssertionError(f'K5 skewed case differs from its plain '
+                             f'version: {err}')
+    if not same_bits(torch, again, got):
+        raise AssertionError('K5 skewed case: two runs differ')
+    if not (got[1][mask[1]] < 0).all():
+        raise AssertionError('K5 skewed case: a negative pillar read 0')
+    log(f'  K5 skewed case: B=2, {int(mask.sum())} pillars '
+        f'({int((spans > 0).sum())} over two slices or more, the longest '
+        f'over {int(spans.max()) + 1}; {int(on_edge.sum())} ending on a '
+        f'slice edge), {int((seg == V).sum())} out-of-range rows, '
+        f'{int((~mask).sum())} absent slots: equal to the plain version bit '
+        'for bit, the same bits twice')
 
 
 def layer_cases(el, layer, plan, kv_all):
@@ -2382,6 +2465,103 @@ def planted_faults(torch, args, got, live):
         raise AssertionError(f'the K16 limits let a fault pass: {fault}')
 
 
+def k16_bits_check(torch, wa, args, got, rounded, label):
+    """K16's exact checks on one call ``args`` whose output is ``got``
+    (``rounded``: :func:`k16_rounded` of the same call): every token of a
+    window without a key is bf16(bo) to the bit (the writer warp); a
+    second run gives the same bits; nothing leaks between windows (the
+    first window with a key and a query cell negated: every other window
+    keeps its bits, its own change); a prefix of the windows whose count
+    of windows with a key is odd and not a multiple of the SM count (a
+    partial last round of tiles) gives the whole call's bits on them; the
+    windows with a key and no occupied query cell (x zero there: cross
+    mode) are run, held to ``rounded`` as the others are, and are not
+    bo."""
+    xw, kvw, kmask = args[:3]
+    cross = args[-1]
+    live = (kmask > 0).any(-1)
+    bo = args[11].detach().to(torch.bfloat16)
+    if not torch.equal(got[~live], bo.expand(int((~live).sum()), 64, -1)):
+        raise AssertionError(f'K16 {label}: a window without a key is not '
+                             'bo')
+    if not same_bits(torch, wa.window_attention_fwd(*args), got):
+        raise AssertionError(f'K16 {label}: two runs differ')
+    has_x = (xw != 0).flatten(1).any(-1)
+    w0 = int((live & has_x).nonzero()[0, 0])
+    x2 = xw.clone()
+    x2[w0] = -x2[w0]
+    moved = wa.window_attention_fwd(x2, kvw if cross else x2, *args[2:])
+    rest = torch.ones(len(xw), dtype=torch.bool, device=xw.device)
+    rest[w0] = False
+    if not same_bits(torch, moved[rest], got[rest]):
+        raise AssertionError(f'K16 {label}: changing window {w0} moved '
+                             'another window')
+    if torch.equal(moved[w0], got[w0]):
+        raise AssertionError(f'K16 {label}: window {w0} did not change')
+    counts = live.int().cumsum(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    odd = ((counts % 2 == 1) & (counts % sms != 0) & (counts > sms))
+    n = int(odd.nonzero()[0, 0]) + 1 if odd.any() else len(xw)
+    part = wa.window_attention_fwd(xw[:n], kvw[:n] if cross else None,
+                                   kmask[:n], *args[3:])
+    if not same_bits(torch, part, got[:n]):
+        raise AssertionError(f'K16 {label}: the first {n} windows differ '
+                             'from the whole call')
+    noq = live & ~has_x
+    if cross:
+        if not noq.any():
+            raise AssertionError(f'K16 {label}: no window with a key and no '
+                                 'query cell to check')
+        bf16_err(torch, f'  K16 {label} on the {int(noq.sum())} windows with '
+                 'a key and no query cell, vs its own roundings', got[noq],
+                 rounded[noq], torch.ones(int(noq.sum()), dtype=torch.bool,
+                                          device=xw.device))
+        if (got[noq] == bo).all(-1).all(-1).any():
+            raise AssertionError(f'K16 {label}: a window with a key and no '
+                                 'query cell is bo')
+    log(f'  K16 {label}: {int((~live).sum())} windows without a key bo to '
+        f'the bit, the same bits twice, no leak from window {w0}, the first '
+        f'{n} windows ({int(counts[n - 1])} with a key) as in the whole '
+        f'call; {int(noq.sum())} windows with a key and no query cell')
+
+
+def panels_check(torch, wa, args, got):
+    """The panels a K16 call packs for itself, read from its workspace
+    after the call, bit for bit against their plain version (q, k, v and o
+    rounded to bf16 to nearest even, in the tiled kernel's layout); and
+    the call's output ``got`` (weights as DenseWindowAttention passes them:
+    transposed views of f32 Linear weights) the same bits from the same
+    weights handed as contiguous f32 [C_in, C_out] (the wrapper copies
+    them), as a mix of one bf16 and three f32 (all packed from f32) and as
+    bf16 (packed from bf16), each call's panels equal to the first's."""
+    from tmae_tpu_torch.ops.encoder_layer import panels_plain
+
+    xw, C = args[0], args[0].shape[-1]
+    ws = args[4:12:2]
+    want = panels_plain([w.t() for w in ws])
+    jax_layout = [w.detach().contiguous() for w in ws]
+    forms = (('transposed Linear views', list(ws)),
+             ('contiguous f32 [C_in, C_out]', jax_layout),
+             ('one bf16, three f32', [jax_layout[0].to(torch.bfloat16)]
+              + jax_layout[1:]),
+             ('bf16', [w.to(torch.bfloat16) for w in jax_layout]))
+    for form, mats in forms:
+        a = list(args)
+        a[4:12:2] = mats
+        work = wa.workspace(len(xw), C, xw.device)
+        out = wa.window_attention_fwd(*a, ws=work)
+        panels = work[:8 * C * C].view(torch.bfloat16)
+        if not same_bits(torch, panels, want):
+            raise AssertionError(f'K16 panels from {form} differ from their '
+                                 'plain version')
+        if not same_bits(torch, out, got):
+            raise AssertionError(f'K16 from {form} weights differs from the '
+                                 'transposed views\' output')
+    log(f'  K16 panels C={C}: {want.numel()} bf16 values from its workspace '
+        'equal to the plain panels bit for bit, and the same output bits, '
+        'from ' + ', '.join(f for f, _ in forms) + ' weights')
+
+
 def attention_check(torch, sst, wa, attn, att, gen, entry):
     """K16 on each case's flat windows, by :func:`bf16_err` on the windows
     with a key (a window without one is bo on both sides, to the bit):
@@ -2392,23 +2572,28 @@ def attention_check(torch, sst, wa, attn, att, gen, entry):
     both; the module's path output against the plain module's on the
     occupied query cells (zero elsewhere on both sides), as against the
     plain version; on the stage-1 self case the rounded comparison must
-    refuse a planted fault (:func:`planted_faults`); gradients through the
-    Function against plain autograd (finite, max 0.15 and mean 2e-3 of
-    their scale) for the stage-1 self and cross cases; the stage-1 self
-    call timed into the kernels line."""
+    refuse a planted fault (:func:`planted_faults`); the exact checks of
+    :func:`k16_bits_check` on every case; gradients through the Function
+    against plain autograd (finite, max 0.15 and mean 2e-3 of their scale)
+    for the stage-1 self and cross cases; the stage-1 self call timed into
+    the kernels line, with its device time."""
     for (label, mod, gr, kv), out in zip(attn, att):
         args = flat_attention_args(sst, mod, gr, kv)
         live = (args[2] > 0).any(-1)
         with torch.no_grad():
             got = wa.window_attention_fwd(*args)
             want = wa.reference_forward(*args)
+            rounded = k16_rounded(torch, args)
             torch.cuda.synchronize()
             err = bf16_err(torch, f'K16 {label} {list(args[0].shape)}', got,
                            want, live, spread=2 ** -4)
             bf16_err(torch, f'  K16 {label} vs its own roundings', got,
-                     k16_rounded(torch, args), live)
+                     rounded, live)
             if label == 'C=128 self shift 0':
                 planted_faults(torch, args, got, live)
+            k16_bits_check(torch, wa, args, got, rounded, label)
+            if label in ('C=128 self shift 0', 'C=256 self'):
+                panels_check(torch, wa, args, got)
             with plain_attention(sst, wa):
                 bf16_err(torch, f'  DenseWindowAttention vs plain module, '
                          f'{label}', out, mod(gr, kv), gr.occ,
@@ -2438,15 +2623,15 @@ def attention_check(torch, sst, wa, attn, att, gen, entry):
         nbytes = (n_key * T * C * 2 + N * T * 4 + N * T * C * 2
                   + 4 * C * C * 2 + 5 * C * 4 + T * C * 2)
         with torch.no_grad():
-            entry('window_attention', 'K16',
-                  'tmae_tpu_torch/csrc/encoder_layer.cu',
+            call = lambda: wa.window_attention_fwd(*args)
+            entry('window_attention', 'K16', TILED_SRC,
                   'tmae_tpu/ops/pallas_attn.py:120', err,
-                  time_ms(torch, lambda: wa.window_attention_fwd(*args),
-                          iters=10),
+                  time_ms(torch, call, iters=10),
                   time_ms(torch, lambda: wa.reference_forward(*args),
                           iters=3, warmup=1),
                   nbytes, n_key * (2 * T * C * C * 4 + 2 * T * T * C * 2),
-                  None, windows=N, windows_with_key=n_key)
+                  None, windows=N, windows_with_key=n_key,
+                  **launch_times(torch, f'K16 {label}', call))
 
 
 def scatter_rows(torch, oc, y1, init, wplans, entry):

@@ -1,10 +1,11 @@
-// Kernels K3, K4, K6, K8, K10 and K12 for Hopper: the cosine-attention
+// Kernels K3, K4, K6, K8, K10, K12 and K16 for Hopper: the cosine-attention
 // encoder layer as one persistent kernel over tiles of live windows, with
-// three addressings. Every call computes one of two functions on 8x8
+// three addressings. Every call computes one of three functions on 8x8
 // windows: the full-window layer (T = 64 cells, the output masked to zero
-// where no query: K3, K6, K10, K12 on a full plan) or the packed layer on S =
+// where no query: K3, K6, K10, K12 on a full plan), the packed layer on S =
 // 16 or 48 selected cells (x plus the layer's masked delta on those cells,
-// every other cell kept: K4, K8, K12 on a small or mid plan).
+// every other cell kept: K4, K8, K12 on a small or mid plan), or the
+// layer's attention stage alone (K16).
 //
 // K8 replaces tmae_tpu/ops/pallas_encoder.py:995 _pallas_forward_sel (its
 // pallas_call at :1038; kernel _kernel_sel -> _layer_body_sel): out [N, 64,
@@ -38,7 +39,16 @@
 // ceil(W/8) + 1 columns of windows, offset by 8 cells (shift 0) or 4 (shift
 // 1): cell (iy, ix) of window (wy, wx) is grid cell (8 wy + iy - off, 8 wx +
 // ix - off); a cell off the grid reads as zero and unoccupied and is never
-// written. The masks are the grid's occupancy bytes.
+// written. The masks are the grid's occupancy bytes. K16 replaces
+// tmae_tpu/ops/pallas_attn.py:109 _pallas_forward (its pallas_call at :120;
+// kernel _kernel at :55): on flat windows xw [N, 64, C] (keys and values
+// from kvw in cross mode) with the key mask kmask [N, 64], the layer's q, k,
+// v, attention and output projection, attn Wo + bo on all 64 tokens (no
+// query mask, residual, LayerNorm or FFN). A window is live when it has a
+// key; a window without one gets p = 0, so its output is bo on every token:
+// most of K16's bytes (below), written by an extra warp of the tiled
+// kernel's blocks while the consumers run the live windows, so those writes
+// and the tiles overlap.
 //
 // Bound on this card. The layer does ~19 MFLOP on a 64-row window at
 // C = 128 (2*T*C*C*4 + 2*T*C*F*2 + 2*T*T*C*2), so the work on live windows is
@@ -46,13 +56,16 @@
 // operations on the training and serving buckets, K8 and K10 by the bytes
 // they must move (K8 copies every unselected cell through, 42 MB read and
 // written on the training batch's 2560 slots at C = 128; K10 writes the
-// whole output grid).
-// What held the earlier design (one block of 8 warps per window,
-// encoder_layer.cu) back: a block for every window, live or not (K10 ran
+// whole output grid; K16 writes every token of every window, bo on the
+// windows without a key: 118 MB at C = 128 on a served pair's stage-1
+// partition, 7200 windows, about 880 of them with a key).
+// What held the first port's design (one block of 8 warps per window)
+// back: a block for every window, live or not (K10 ran
 // 14400 blocks for 1399 live windows; K3, K4, K6, K8 and K12 ran every
-// padding slot); every weight fragment read from L2 per window (256 KiB at
-// C = 128); WMMA fragments loaded through registers; 16-row products at
-// S = 16.
+// padding slot; K16 a block for every window, with a key or not); every
+// weight fragment read from L2 per window (256 KiB at C = 128); WMMA
+// fragments loaded through registers, heads one after another; 16-row
+// products at S = 16.
 //
 // Design (launches on the caller's stream, no host synchronisation):
 //   1. pack_kernel: the six Linear weights into 16 KiB panels in wgmma's
@@ -60,7 +73,9 @@
 //      training calls (K6, K8, K10) pack their bf16 weights in every call;
 //      a served layer packs its f32 master weights once per forward
 //      (launch_pack_panels, rounding each to bf16 to nearest even) for all
-//      its bucket calls, and K3, K4 and K12 take the panels as they are.
+//      its bucket calls, and K3, K4 and K12 take the panels as they are;
+//      a K16 call packs its four attention weights (q, k, v, o) first, from
+//      f32 or bf16.
 //   2. A pre-pass, one warp per window, that flags the window live when it
 //      has an occupied query cell: sel_prepass_kernel (K8) reads the query
 //      mask and copies through every cell the main kernel will not write (all
@@ -70,7 +85,8 @@
 //      zeros on all 64 cells of such a window (K6, K3) or nothing (K4: its
 //      output is its input); plan_prepass_kernel (K12) also never flags a
 //      dummy slot, and at T = 64 writes zeros on the 64 carrier cells of a
-//      real slot without a query (at S = 16, 48 nothing). Empty windows cost
+//      real slot without a query (at S = 16, 48 nothing);
+//      attn_prepass_kernel (K16) reads the key mask. Empty windows cost
 //      their bytes and nothing else.
 //   3. compact_kernel, one block: the live windows in window order into a
 //      list, their count, and the tile counter set to 0; both stay on the
@@ -93,12 +109,12 @@
 //      the next tile while the consumers finish this one. The tile index
 //      goes from producer to consumers through a two-slot mbarrier ring.
 //      The consumers run the q, k, v and output projections and both FFN
-//      products as wgmma m64n64k16 (bf16 in, f32 accumulators in
-//      registers), with A (the tile's rows) and B (the panel) in shared
-//      memory, in passes of 128 output columns, 64 for each warpgroup: 32
-//      accumulators a thread a pass keep a thread of the 288-thread block
-//      within its 168 registers at C = 256 (m64n128 products, 64 a thread,
-//      spilled). Epilogues run on the accumulator fragments: bias, per-head
+//      products (K16: q, k, v and o only) as wgmma m64n64k16 (bf16 in, f32
+//      accumulators in registers), with A (the tile's rows) and B (the
+//      panel) in shared memory, in passes of 128 output columns, 64 for
+//      each warpgroup: 32 accumulators a thread a pass keep a thread of
+//      the 288-thread block within its 168 registers at C = 256 (m64n128
+//      products, 64 a thread, spilled). Epilogues run on the accumulator fragments: bias, per-head
 //      L2 normalisation (a head's columns lie in one thread quad), GELU,
 //      and the LayerNorm rows (quad shuffles, then one exchange of row sums
 //      between the two warpgroups through shared memory). The residual h1
@@ -116,7 +132,7 @@
 // 8-row groups 1 KiB apart (its stride byte offset), no swizzle. Warpgroup
 // g reads rows [64 g, 64 g + 64). Order: for q, k, v, o, the FFN's first and
 // second product in turn, pass by pass, the panels along the input: 16
-// panels a tile at C = 128, 64 at C = 256.
+// panels a tile at C = 128, 64 at C = 256 (K16: the first 8 / 32, q to o).
 // The tile's row buffers [64 x width] use the same core-matrix layout, so
 // every wgmma operand is a descriptor into shared memory.
 //
@@ -137,12 +153,12 @@
 // residual; LayerNorm. The packed
 // layer (K4, K8, K12 at S = 16, 48) writes x + bf16(y - x) on its occupied
 // selected cells, the full-window layer (K3, K6, K10, K12 at T = 64) y on
-// occupied cells and 0 on the other (in-grid) cells. No sum crosses a
-// window, and every sum runs in a fixed order, so a call gives the same bits
-// from run to run.
+// occupied cells and 0 on the other (in-grid) cells; K16 bf16(attn Wo + bo)
+// on every token. No sum crosses a window, and every sum runs in a fixed
+// order, so a call gives the same bits from run to run.
 //
 // Compiled for the T-MAE widths only: C = 128 or 256, 8 heads, FFN 2C, and
-// S = 16 or 48 (K4, K8, K12) or T = 64 (K3, K6, K10, K12).
+// S = 16 or 48 (K4, K8, K12) or T = 64 (K3, K6, K10, K12, K16).
 
 #include <algorithm>
 
@@ -155,6 +171,9 @@ constexpr int kCells = 64;                 // cells of an 8 x 8 window
 constexpr int kHeads = 8;
 constexpr int kConsumers = 256;            // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
+// K16 adds a warp that writes bo on its block's share of the windows
+// without a key while the others run the tiles
+constexpr int kAttnThreads = kThreads + 32;
 // a panel's kPass output rows: 64 for each warpgroup (wgmma_tiles.cuh)
 
 // Sizes and the shared-memory plan (byte offsets) at width C.
@@ -169,6 +188,7 @@ struct Plan {
   // q k v o: NPC passes of PC panels; the FFN: F / kPass passes of PC, then
   // NPC passes of PF
   static constexpr int kPanels = 4 * NPC * PC + (F / kPass) * PC + NPC * PF;
+  static constexpr int kAttnPanels = 4 * NPC * PC;  // K16: q, k, v, o
   static constexpr int kStages = C == 128 ? 6 : 3;
   static constexpr int kBuf = kRows * C * 2;
   static constexpr int oXS = kStages * kPanel;
@@ -195,16 +215,17 @@ struct Plan {
 // K6, K8), cells of a plan's windows in the padded carrier (K12) or cells of
 // the grid's shifted partition (K10).
 enum Addr { kWindowRows, kPlanCells, kGridCells };
-// What a call computes and where (K8, K4, K6, K3, K10, K12): the pre-pass,
-// the addressing and whether the call packs its weights follow.
+// What a call computes and where (K8, K4, K6, K3, K10, K12, K16): the
+// pre-pass, the addressing, whether the call packs its weights and whether
+// the tile stops after the output projection follow.
 enum Mode { kSelOut, kSelInPlace, kFullOut, kFullInPlace, kGridOut,
-            kPlanInPlace };
+            kPlanInPlace, kAttnOut };
 
 struct FwdParams {
   const bf16 *x, *kv, *pos;
   bf16* out;  // == x for K3, K4 and K12 (in place)
   const int *selq, *selk;
-  const float *qmask, *kmask;
+  const float *qmask, *kmask;  // K16: qmask is kmask (every token written)
   const unsigned char *qocc, *kocc;
   const int* widx;  // K12: the plan's windows (wy, wx) [nwin, 2]
   const float *bq, *bk, *bv, *bo, *tau, *ln1s, *ln1b, *b1, *b2, *ln2s, *ln2b;
@@ -280,6 +301,13 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned `src` into L2, no wait
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src),
+               "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -519,8 +547,35 @@ __device__ __forceinline__ void layer_norm(float (&acc)[Plan<C>::NA],
 // A warp takes 8 rows x 4 chunks: 64 contiguous bytes of each row from
 // device memory, 8 rows of one core matrix at a time into shared memory.
 // Plain loads, not the read-only path: K3's, K4's and K12's rows are also
-// their output.
-template <int C>
+// their output. With kGrouped (K16 at C = 128) a thread issues the loads of
+// four of its chunks before their stores, so that their latencies overlap:
+// on an H100, a third fewer cycles in the rows phase and 10% fewer in
+// K16's tiles on a served pair's stage-1 partition. At C = 256 the grouped
+// loads spill (over 1 KiB a thread) and K16's tiles ran 46% slower, so
+// there, and in the layer (whose FFN holds more registers live), a thread
+// keeps one chunk at a time.
+__device__ __forceinline__ void row_chunk(int e, int CH, int& r, int& ch) {
+  const int l = e & 31;
+  const int u = e >> 5;
+  r = (u / (CH / 4)) * 8 + (l & 7);
+  ch = (u % (CH / 4)) * 4 + (l >> 3);
+}
+
+__device__ __forceinline__ uint4 add_pos(uint4 x, uint4 ps) {
+  const uint32_t* xa = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(&ps);
+  uint4 s;
+  uint32_t* sa = reinterpret_cast<uint32_t*>(&s);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 xf = unpack2(xa[k]);
+    const float2 pf = unpack2(pa[k]);
+    sa[k] = pack2(xf.x + pf.x, xf.y + pf.y);
+  }
+  return s;
+}
+
+template <int C, bool kGrouped>
 __device__ __forceinline__ void load_rows(unsigned char* raw,
                                           unsigned char* with_pos,
                                           const bf16* base,
@@ -528,31 +583,46 @@ __device__ __forceinline__ void load_rows(unsigned char* raw,
                                           const int* cells, const bf16* pos,
                                           int ctid) {
   constexpr int CH = C / 8;
-  for (int e = ctid; e < kRows * CH; e += kConsumers) {
-    const int l = e & 31;
-    const int u = e >> 5;
-    const int r = (u / (CH / 4)) * 8 + (l & 7);
-    const int ch = (u % (CH / 4)) * 4 + (l >> 3);
-    const long long o = offs[r];
-    const uint4 x = o >= 0 ? *reinterpret_cast<const uint4*>(base + o +
-                                                             ch * 8)
-                           : make_uint4(0u, 0u, 0u, 0u);
-    const uint32_t so = ((r >> 3) * CH + ch) * 128 + (r & 7) * 16;
-    if (raw) *reinterpret_cast<uint4*>(raw + so) = x;
-    if (with_pos) {
-      const uint4 ps = __ldg(
-          reinterpret_cast<const uint4*>(pos + cells[r] * C + ch * 8));
-      const uint32_t* xa = reinterpret_cast<const uint32_t*>(&x);
-      const uint32_t* pa = reinterpret_cast<const uint32_t*>(&ps);
-      uint4 s;
-      uint32_t* sa = reinterpret_cast<uint32_t*>(&s);
+  if constexpr (!kGrouped) {
+    for (int e = ctid; e < kRows * CH; e += kConsumers) {
+      int r, ch;
+      row_chunk(e, CH, r, ch);
+      const long long o = offs[r];
+      const uint4 x = o >= 0 ? *reinterpret_cast<const uint4*>(base + o +
+                                                               ch * 8)
+                             : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t so = ((r >> 3) * CH + ch) * 128 + (r & 7) * 16;
+      if (raw) *reinterpret_cast<uint4*>(raw + so) = x;
+      if (with_pos)
+        *reinterpret_cast<uint4*>(with_pos + so) = add_pos(
+            x, __ldg(reinterpret_cast<const uint4*>(pos + cells[r] * C +
+                                                    ch * 8)));
+    }
+  } else {
+    constexpr int kG = 4;
+    static_assert(kRows * CH % (kG * kConsumers) == 0, "uneven row groups");
+#pragma unroll 1
+    for (int e0 = ctid; e0 < kRows * CH; e0 += kG * kConsumers) {
+      uint4 x[kG], ps[kG];
+      uint32_t so[kG];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 xf = unpack2(xa[k]);
-        const float2 pf = unpack2(pa[k]);
-        sa[k] = pack2(xf.x + pf.x, xf.y + pf.y);
+      for (int k = 0; k < kG; ++k) {
+        int r, ch;
+        row_chunk(e0 + k * kConsumers, CH, r, ch);
+        const long long o = offs[r];
+        x[k] = o >= 0 ? *reinterpret_cast<const uint4*>(base + o + ch * 8)
+                      : make_uint4(0u, 0u, 0u, 0u);
+        if (with_pos)
+          ps[k] = __ldg(
+              reinterpret_cast<const uint4*>(pos + cells[r] * C + ch * 8));
+        so[k] = ((r >> 3) * CH + ch) * 128 + (r & 7) * 16;
       }
-      *reinterpret_cast<uint4*>(with_pos + so) = s;
+#pragma unroll
+      for (int k = 0; k < kG; ++k) {
+        if (raw) *reinterpret_cast<uint4*>(raw + so[k]) = x[k];
+        if (with_pos)
+          *reinterpret_cast<uint4*>(with_pos + so[k]) = add_pos(x[k], ps[k]);
+      }
     }
   }
 }
@@ -735,11 +805,31 @@ __device__ unsigned long long g_fwd_cycles[16];
   } while (0)
 #endif
 
-template <Addr A, int T, int C>
-__global__ void __launch_bounds__(kThreads, 1)
+// K16's writer warp: bf16(bo) on every token of the windows without a key
+// among blockIdx.x, blockIdx.x + gridDim.x, ... (the pre-pass flagged them).
+template <int C>
+__device__ __forceinline__ void write_bo(const FwdParams& p, int lane) {
+  // a lane stores the same 8 channels of every token: 32 is a multiple of
+  // C / 8 (16 or 32)
+  const float* bo = p.bo + 8 * (lane % (C / 8));
+  const uint4 v = make_uint4(
+      pack2(__ldg(bo), __ldg(bo + 1)), pack2(__ldg(bo + 2), __ldg(bo + 3)),
+      pack2(__ldg(bo + 4), __ldg(bo + 5)), pack2(__ldg(bo + 6), __ldg(bo + 7)));
+  for (long long w = blockIdx.x; w < p.nwin; w += gridDim.x) {
+    if (p.flags[w]) continue;
+    uint4* dst = reinterpret_cast<uint4*>(p.out + w * kCells * C);
+#pragma unroll 4
+    for (int e = lane; e < kCells * C / 8; e += 32) dst[e] = v;
+  }
+}
+
+template <Addr A, int T, int C, bool kAttn>
+__global__ void __launch_bounds__(kAttn ? kAttnThreads : kThreads, 1)
     tiled_kernel(const FwdParams p) {
   using P = Plan<C>;
   constexpr int WPT = T == 16 ? 4 : 1;
+  constexpr int kTilePanels = kAttn ? P::kAttnPanels : P::kPanels;
+  constexpr bool kGroupRows = kAttn && C == 128;  // load_rows
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* const XS = smem + P::oXS;
   unsigned char* const A0 = smem + P::oA0;
@@ -775,6 +865,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (tid >= kConsumers) {
+    if constexpr (kAttn) {
+      if (tid >= kThreads) {
+        write_bo<C>(p, tid & 31);
+        return;
+      }
+    }
     // ---- producer: tile indices, and the panels of every tile -----------
     if (tid != kConsumers) return;
     const uint32_t ring = saddr(smem);
@@ -785,7 +881,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       tile_q[tc & 1] = tile;
       mbar_arrive(tfull + 8 * (tc & 1));
       if (tile >= ntiles) return;
-      for (int q = 0; q < P::kPanels; ++q, ++pc) {
+      if constexpr (kAttn) {
+        // K16: the tile's window (and kv's) and key mask into L2 while the
+        // consumers finish the tile before it (the writer warp's stores
+        // lengthen the DRAM latency of the consumers' row loads)
+        const long long win = p.list[tile];
+        prefetch_l2(p.x + win * kCells * C, kCells * C * 2);
+        if (p.cross) prefetch_l2(p.kv + win * kCells * C, kCells * C * 2);
+        prefetch_l2(p.kmask + win * kCells, kCells * 4);
+      }
+      for (int q = 0; q < kTilePanels; ++q, ++pc) {
         const int slot = pc % P::kStages;
         mbar_wait(empty + 8 * slot, ((pc / P::kStages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * slot, kPanel);
@@ -821,7 +926,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tile_rows<A, T, C>(p, tile, count, tid, qoff, koff, qcell, kcell, qm,
                          km);
     bar_consumers();
-    load_rows<C>(XS, A0, p.x, qoff, qcell, p.pos, tid);
+    load_rows<C, kGroupRows>(XS, A0, p.x, qoff, qcell, p.pos, tid);
     fence_async_smem();
     bar_consumers();
     PHASE(1);
@@ -836,7 +941,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     PHASE(2);
     if (p.cross) {
       bar_consumers();  // both warpgroups are done with A0
-      load_rows<C>(nullptr, A0, p.kv, koff, kcell, p.pos, tid);
+      load_rows<C, kGroupRows>(nullptr, A0, p.kv, koff, kcell, p.pos, tid);
       fence_async_smem();
       bar_consumers();
     }
@@ -849,7 +954,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     PHASE(3);
     if (p.cross) {
       bar_consumers();
-      load_rows<C>(A0, nullptr, p.kv, koff, kcell, p.pos, tid);
+      load_rows<C, kGroupRows>(A0, nullptr, p.kv, koff, kcell, p.pos, tid);
       fence_async_smem();
       bar_consumers();
     }
@@ -867,6 +972,42 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_async_smem();
     bar_consumers();
     PHASE(5);
+
+    if constexpr (kAttn) {
+      // K16: bf16(attn Wo + bo) on every row, pass by pass into the output
+      // tile [64][C + 8] over KN..VB (attention, their last reader, is done)
+      bf16* const stage = reinterpret_cast<bf16*>(KN);
+      constexpr int ld = C + 8;
+#pragma unroll 1
+      for (int pass = 0; pass < P::NPC; ++pass) {
+        float a[32];
+        product<C>(a, aA0, C / 8, P::PC, false, rg, w);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = col(8 * pass + j, w);
+          const float2 b = ldg2(p.bo + c);
+          *reinterpret_cast<uint32_t*>(stage + w.rA * ld + c) =
+              pack2(a[4 * j] + b.x, a[4 * j + 1] + b.y);
+          *reinterpret_cast<uint32_t*>(stage + w.rB * ld + c) =
+              pack2(a[4 * j + 2] + b.x, a[4 * j + 3] + b.y);
+        }
+      }
+      PHASE(6);
+      bar_consumers();
+      for (int e = tid; e < kRows * C / 8; e += kConsumers) {
+        const int r = e / (C / 8);
+        const int ch = e - r * (C / 8);
+        if (qoff[r] >= 0)
+          *reinterpret_cast<uint4*>(p.out + qoff[r] + ch * 8) =
+              *reinterpret_cast<const uint4*>(stage + r * ld + ch * 8);
+      }
+      bar_consumers();  // the next tile overwrites the rows and buffers
+      PHASE(9);
+#ifdef TMAE_FWD_PROFILE
+      if (tid == 0) ++prof[10];
+#endif
+      continue;
+    }
 
     // output projection, the residual on occupied query cells, LN1; h1
     // stays in acc (f32) to the end of the tile
@@ -1095,6 +1236,20 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// K16 pre-pass, one warp per window: the live flag (a key in kmask). The
+// writer warp of the tiled kernel writes bo on the other windows (p = 0
+// there), while its consumers run the live ones.
+__global__ void __launch_bounds__(256) attn_prepass_kernel(const FwdParams p) {
+  const int lane = threadIdx.x & 31;
+  const long long win = blockIdx.x * 8LL + (threadIdx.x >> 5);
+  if (win >= p.nwin) return;
+  bool key = false;
+  for (int i = lane; i < kCells; i += 32)
+    key |= p.kmask[win * kCells + i] > 0.f;
+  const bool live = __any_sync(0xffffffffu, key);
+  if (lane == 0) p.flags[win] = live;
+}
+
 // 8 elements of a weight row as bf16: copied (bf16 weights), or rounded to
 // nearest even as torch's .to(torch.bfloat16) rounds them (f32 weights)
 __device__ __forceinline__ uint4 load8(const bf16* src) {
@@ -1113,11 +1268,11 @@ __device__ __forceinline__ uint4 load8(const float* src) {
 template <typename W, int C>
 __global__ void __launch_bounds__(256)
     pack_kernel(const W* wq, const W* wk, const W* wv, const W* wo,
-                const W* w1, const W* w2, bf16* out) {
+                const W* w1, const W* w2, bf16* out, int npanels) {
   using P = Plan<C>;
   constexpr int kRowsPerPanel = kPanel / 16;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= P::kPanels * kRowsPerPanel) return;
+  if (e >= npanels * kRowsPerPanel) return;
   const int q = e / kRowsPerPanel;  // the panel, in stream order
   const int u = e - q * kRowsPerPanel;
   const int t = u >> 3;  // the core matrix: (n / 8) * (kKP / 8) + k / 8
@@ -1144,21 +1299,25 @@ __global__ void __launch_bounds__(256)
       load8(Wm + (long long)(pass * kPass + n) * ld + kq * kKP + kc * 8);
 }
 
+// The first `npanels` panels of the stream: all of them (the layer), or
+// q, k, v and o alone (K16, which reads no FFN matrix: m[4], m[5] unused).
 template <typename W, int C>
-int launch_pack(const void* const* m, void* out, cudaStream_t s) {
-  constexpr int packs = Plan<C>::kPanels * (kPanel / 16);
+int launch_pack(const void* const* m, void* out, cudaStream_t s,
+                int npanels = Plan<C>::kPanels) {
+  const int packs = npanels * (kPanel / 16);
   pack_kernel<W, C><<<(packs + 255) / 256, 256, 0, s>>>(
       static_cast<const W*>(m[0]), static_cast<const W*>(m[1]),
       static_cast<const W*>(m[2]), static_cast<const W*>(m[3]),
       static_cast<const W*>(m[4]), static_cast<const W*>(m[5]),
-      static_cast<bf16*>(out));
+      static_cast<bf16*>(out), npanels);
   return tmae_last_error();
 }
 
 // [pack,] pre-pass, compact, main kernel; a cudaError_t, 0 when all
 // launched. The training modes (K8, K6, K10) pack the bf16 weights w[0],
 // w[2], w[4], w[6], w[11], w[13] into p.panels; the serving modes (K4, K3,
-// K12) take panels packed once per forward (launch_pack_panels).
+// K12) take panels packed once per forward (launch_pack_panels), K16 the
+// panels its launcher packed.
 template <Mode M, int T, int C>
 int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
   using P = Plan<C>;
@@ -1166,9 +1325,11 @@ int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
   constexpr Addr A = M == kGridOut       ? kGridCells
                      : M == kPlanInPlace ? kPlanCells
                                          : kWindowRows;
-  constexpr bool kFull = M == kFullOut || M == kFullInPlace || M == kGridOut;
+  constexpr bool kAttn = M == kAttnOut;
+  constexpr bool kFull =
+      M == kFullOut || M == kFullInPlace || M == kGridOut || kAttn;
   static_assert(kFull ? T == kCells : (M == kPlanInPlace || T != kCells),
-                "K3 / K6 / K10 run T = 64, K4 / K8 S = 16 or 48");
+                "K3 / K6 / K10 / K16 run T = 64, K4 / K8 S = 16 or 48");
   if (p.nwin == 0) return 0;
   int e = 0;
   if constexpr (M == kSelOut || M == kFullOut || M == kGridOut) {
@@ -1183,6 +1344,8 @@ int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
     sel_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
   else if constexpr (M == kPlanInPlace)
     plan_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
+  else if constexpr (kAttn)
+    attn_prepass_kernel<<<warps, 256, 0, s>>>(p);
   else
     mask_prepass_kernel<T, C, M == kFullOut || M == kFullInPlace>
         <<<warps, 256, 0, s>>>(p);
@@ -1191,11 +1354,12 @@ int launch_tiled(FwdParams p, const void* const* w, cudaStream_t s) {
                                    p.nwin);
   if ((e = tmae_last_error())) return e;
   static unsigned long long set_on = 0;  // for each instance
-  if ((e = smem_limit_once((const void*)tiled_kernel<A, T, C>, P::kSmem,
-                           set_on)))
+  if ((e = smem_limit_once((const void*)tiled_kernel<A, T, C, kAttn>,
+                           P::kSmem, set_on)))
     return e;
   const int blocks = std::min(sm_count(), (p.nwin + WPT - 1) / WPT);
-  tiled_kernel<A, T, C><<<blocks, kThreads, P::kSmem, s>>>(p);
+  tiled_kernel<A, T, C, kAttn>
+      <<<blocks, kAttn ? kAttnThreads : kThreads, P::kSmem, s>>>(p);
   return tmae_last_error();
 }
 
@@ -1438,4 +1602,58 @@ extern "C" int launch_encoder_grid(const void* xg, const void* kvg, void* out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return C == 128 ? launch_tiled<kGridOut, kCells, 128>(p, w, s)
                   : launch_tiled<kGridOut, kCells, 256>(p, w, s);
+}
+
+// K16: out [N, 64, C] = attn Wo + bo on every token of the windows xw [N,
+// 64, C] (keys and values from kvw in cross mode), key mask kmask [N, 64]
+// (f32); a window without a key gets bo. `w`: wq wk wv wo ([out, in],
+// contiguous; f32 when `f32`, else bf16), then bq bk bv bo tau (f32); `ws`
+// the workspace: the q, k, v, o panels (8 C^2 bytes, packed here by
+// launch_pack, the pack of launch_pack_panels), then int32 [2 N + 2]. Four
+// launches: pack, pre-pass, compact, tiles.
+extern "C" int launch_window_attention(const void* xw, const void* kvw,
+                                       void* out, const void* kmask,
+                                       const void* pos, const void* const* w,
+                                       int f32, void* ws, int N, int C, int H,
+                                       int cross, float tau_min,
+                                       void* stream) {
+  if ((C != 128 && C != 256) || H != kHeads || kmask == nullptr ||
+      (cross && kvw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* m[6] = {w[0], w[1], w[2], w[3], nullptr, nullptr};
+  int e = 0;
+  if (C == 128)
+    e = f32 ? launch_pack<float, 128>(m, ws, s, Plan<128>::kAttnPanels)
+            : launch_pack<bf16, 128>(m, ws, s, Plan<128>::kAttnPanels);
+  else
+    e = f32 ? launch_pack<float, 256>(m, ws, s, Plan<256>::kAttnPanels)
+            : launch_pack<bf16, 256>(m, ws, s, Plan<256>::kAttnPanels);
+  if (e) return e;
+  FwdParams p{};
+  p.x = static_cast<const bf16*>(xw);
+  p.kv = static_cast<const bf16*>(kvw);
+  p.out = static_cast<bf16*>(out);
+  p.pos = static_cast<const bf16*>(pos);
+  p.kmask = static_cast<const float*>(kmask);
+  p.qmask = p.kmask;
+  p.bq = static_cast<const float*>(w[4]);
+  p.bk = static_cast<const float*>(w[5]);
+  p.bv = static_cast<const float*>(w[6]);
+  p.bo = static_cast<const float*>(w[7]);
+  p.tau = static_cast<const float*>(w[8]);
+  p.panels = static_cast<const bf16*>(ws);
+  int* ints = reinterpret_cast<int*>(static_cast<unsigned char*>(ws) +
+                                     8LL * C * C);
+  p.flags = ints;
+  p.list = ints + N;
+  p.count = ints + 2 * N;
+  p.counter = ints + 2 * N + 1;
+  p.nwin = N;
+  p.cross = cross;
+  p.tau_min = tau_min;
+  p.total = p.cap = N;
+  return C == 128 ? launch_tiled<kAttnOut, kCells, 128>(p, w, s)
+                  : launch_tiled<kAttnOut, kCells, 256>(p, w, s);
 }

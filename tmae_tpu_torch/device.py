@@ -24,9 +24,21 @@ def resolve_device(device=None) -> torch.device:
 def on_card(*tensors) -> bool:
     """True when every given tensor lies on a CUDA device, False when all lie
     on the CPU. Mixed placements are a caller error."""
-    kinds = {t.device.type for t in tensors if t is not None}
+    # is_cuda first: a wrapper pays this on every call, and it makes no
+    # device object
+    kinds = {'cuda' if t.is_cuda else t.device.type
+             for t in tensors if t is not None}
     if kinds == {'cuda'}:
         return True
     if kinds == {'cpu'}:
         return False
     raise ValueError(f'tensors on mixed or unsupported devices: {kinds}')
+
+
+def as_kernel_arg(t, dtype):
+    """``t`` as a contiguous ``dtype`` tensor: itself when it is one (no
+    dispatch, which a wrapper pays per argument on every call), else a
+    copy."""
+    if t is None or (t.dtype == dtype and t.is_contiguous()):
+        return t
+    return t.to(dtype).contiguous()

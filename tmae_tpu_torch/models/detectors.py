@@ -69,7 +69,8 @@ def _temporal_vfe(cfg, spec, backbone: str) -> TemporalDynVFE:
         remat=bool(cfg['RUNTIME'].get('VFE_REMAT', True)),
         use_absolute_xyz=vfe_cfg.get('USE_ABSLOTE_XYZ', True),
         use_cluster_xyz=vfe_cfg.get('USE_CLUSTER_XYZ', True),
-        with_distance=vfe_cfg.get('WITH_DISTANCE', False))
+        with_distance=vfe_cfg.get('WITH_DISTANCE', False),
+        compute_dtype=str(cfg['RUNTIME'].get('VFE_COMPUTE', 'f32')))
 
 
 def _backbone_args(cfg) -> dict:

@@ -23,9 +23,14 @@ class DynPillarEncoder(nn.Module):
 
     def __init__(self, spec: VoxelSpec, mlps, num_point_features=4,
                  use_absolute_xyz=True, use_cluster_xyz=True,
-                 with_distance=False):
+                 with_distance=False, compute_dtype='f32'):
         super().__init__()
         self.spec = spec
+        # 'bf16' rounds the point features once to bf16 before the MLPs, as
+        # the JAX package casts them there; its f32 Linear weights promote
+        # the products back to f32, so nothing after that rounding changes.
+        # Any other value runs in f32, as in the JAX package.
+        self.round_bf16 = compute_dtype == 'bf16'
         self.mlps = [list(m) for m in mlps]
         self.use_absolute_xyz = use_absolute_xyz
         self.use_cluster_xyz = use_cluster_xyz
@@ -81,6 +86,8 @@ class DynPillarEncoder(nn.Module):
                                            keepdim=True))
         x = torch.cat(feats, -1)
         x = torch.where(pvalid[..., None], x, 0.0)
+        if self.round_bf16:
+            x = x.to(torch.bfloat16).float()
 
         sorted_max = 'seg_ends' in vox
         ssm = sorted_segment_max_train if self.training else sorted_segment_max

@@ -46,7 +46,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..device import on_card
+from ..device import as_kernel_arg, on_card
 from ..utils.build import CudaKernel, F as CF, I, P, library, stream_handle
 from .dense_windows import window_geometry, window_unview, window_view
 from .occ_compact import (gather_windows_padded_plain,
@@ -233,20 +233,12 @@ def _shares_memory(a, b):
     return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
-def _as(t, dtype):
-    """``t`` as a contiguous ``dtype`` tensor: itself when it is one (no
-    dispatch, which a serving call pays per argument), else a copy."""
-    if t is None or (t.dtype == dtype and t.is_contiguous()):
-        return t
-    return t.to(dtype).contiguous()
-
-
 def _f32(t):
-    return _as(t, torch.float32)
+    return as_kernel_arg(t, torch.float32)
 
 
 def _i32(t):
-    return _as(t, torch.int32)
+    return as_kernel_arg(t, torch.int32)
 
 
 def _ptr(t):
@@ -338,20 +330,27 @@ def _plain_params(p) -> LayerParams:
     return p.params if isinstance(p, TiledWeights) else p
 
 
-def pack_panels_plain(p: LayerParams) -> torch.Tensor:
-    """Plain version of the weight pack: the six Linear weights rounded to
-    bf16, panel by panel in the order the tiled kernel streams them (q, k,
-    v, o, then the FFN's two products; in each, pass by pass of 128 output
-    rows, the panels of 64 input columns along the input), each panel's
-    element (n, k) at ((n // 8) * 8 + k // 8) * 64 + (n % 8) * 8 + k % 8.
-    Returns the flat bf16 panels (8 C^2 values)."""
+def panels_plain(mats) -> torch.Tensor:
+    """Plain version of the weight pack of the Linear weights ``mats``
+    ([out, in], in stream order): each rounded to bf16, pass by pass of 128
+    output rows, the panels of 64 input columns along the input, each
+    panel's element (n, k) at ((n // 8) * 8 + k // 8) * 64 + (n % 8) * 8 +
+    k % 8. Returns the flat bf16 panels."""
     out = []
-    for name in MATRICES:
-        w = getattr(p, name).detach().to(torch.bfloat16)
+    for w in mats:
+        w = w.detach().to(torch.bfloat16)
         o, i = w.shape
         blocks = w.reshape(o // 128, 16, 8, i // 64, 8, 8)
         out.append(blocks.permute(0, 3, 1, 4, 2, 5).reshape(-1))
     return torch.cat(out)
+
+
+def pack_panels_plain(p: LayerParams) -> torch.Tensor:
+    """Plain version of a layer's weight pack: its six Linear weights in
+    the order the tiled kernel streams them (q, k, v, o, then the FFN's two
+    products), by :func:`panels_plain`: the flat bf16 panels (8 C^2
+    values)."""
+    return panels_plain([getattr(p, name) for name in MATRICES])
 
 
 def live_windows_plain(qmask):
@@ -431,7 +430,7 @@ def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos, p, *,
     tw = _prepared(p, C, nhead)
     cap = qmask.shape[1]
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
-    pos = _as(pos, torch.bfloat16)
+    pos = as_kernel_arg(pos, torch.bfloat16)
     work = _work(B * cap, xw_all.device)
     K3(xw_all.data_ptr(), _ptr(kv_all) if cross else None, qmask.data_ptr(),
        _ptr(kmask), pos.data_ptr(), tw.ptrs, work.data_ptr(), B, total, cap,
@@ -458,7 +457,7 @@ def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
     sel_q = _i32(sel_q)
     sel_k = _i32(sel_k if cross else None)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
-    pos = _as(pos, torch.bfloat16)
+    pos = as_kernel_arg(pos, torch.bfloat16)
     work = _work(B * cap, xw_all.device)
     K4(xw_all.data_ptr(), _ptr(kv_all) if cross else None, sel_q.data_ptr(),
        _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), tw.ptrs,
@@ -887,7 +886,7 @@ def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p, *, nhead: int,
     sel_k = _i32(ci.ksel) if sel and cross else None
     qmask = _f32(ci.qmask)
     kmask = _f32(ci.kmask) if cross else None
-    pos = _as(pos, torch.bfloat16)
+    pos = as_kernel_arg(pos, torch.bfloat16)
     work = _work(B * cap, xp.device)
     K12(xp.data_ptr(), _ptr(kvp) if cross else None, idx.data_ptr(),
         _ptr(sel_q), _ptr(sel_k), qmask.data_ptr(), _ptr(kmask),

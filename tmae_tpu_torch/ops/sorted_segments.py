@@ -3,21 +3,24 @@ version (counterpart of ``tmae_tpu/ops/sorted_segments.py``).
 
 The serving path voxelizes on the host with ``sort_points=True``, so a
 pillar's points are one contiguous run of rows and ``seg_ends`` names each
-run's last row. The CUDA kernel (``csrc/segment_max.cu``) reduces each run
-with one warp. The plain version repeats the TPU kernel's algorithm: a
-segmented running max over the sorted rows, then one gather at ``seg_ends``.
-Training differentiates it through :func:`sorted_segment_max_train`.
+run's last row. The CUDA kernel (``csrc/segment_max.cu``) splits the work by
+rows: slices of ``SLICE_ROWS`` rows, each reduced by one warp, then a merge
+of the pillars that span slices. The plain version repeats the TPU kernel's
+algorithm: a segmented running max over the sorted rows, then one gather at
+``seg_ends``. Training differentiates it through
+:func:`sorted_segment_max_train`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..device import on_card
+from ..device import as_kernel_arg, on_card
 from ..utils.build import CudaKernel, I, P, stream_handle
 
 K5 = CudaKernel('segment_max.cu', 'launch_sorted_segment_max',
-                [P, P, P, P, I, I, I, I, P])
+                [P, P, I, P, P, P, P, I, I, I, I, P])
+SLICE_ROWS = 64  # rows a warp of the kernel's first pass (kSlice)
 
 
 def segmented_running_max(feat: torch.Tensor, seg: torch.Tensor):
@@ -55,25 +58,41 @@ def sorted_segment_max(feat: torch.Tensor, seg: torch.Tensor,
     [B, V] index of each segment's last row; seg_mask [B, V] segment-present
     flags. Returns [B, V, C] with 0 for absent segments.
 
-    The CUDA kernel reads only ``seg_ends`` and ``seg_mask``: it takes
-    segment v to be rows ``(seg_ends[v-1], seg_ends[v]]`` (row 0 onward for
-    v = 0), which holds for ``voxelize_host(..., sort_points=True)`` output,
-    whose present slots are 0..n-1 in ascending order.
+    The CUDA kernel reads ``seg`` for the slices and ``seg_ends`` and
+    ``seg_mask`` for the merge: it takes segment v to be rows
+    ``(seg_ends[v-1], seg_ends[v]]`` (row 0 onward for v = 0), which holds
+    for ``voxelize_host(..., sort_points=True)`` output, whose present slots
+    are 0..n-1 in ascending order. One call is two launches, counted once.
     """
-    if not on_card(feat, seg_ends, seg_mask):
+    if not on_card(feat, seg, seg_ends, seg_mask):
         return sorted_segment_max_plain(feat, seg, seg_ends, seg_mask,
                                         num_segments)
     B, Pn, C = feat.shape
     V = num_segments
     if feat.dtype != torch.float32 or C % 4:
         raise ValueError('sorted_segment_max kernel takes f32 with C % 4 == 0')
-    feat = feat.contiguous()
-    ends = seg_ends[:, :V].to(torch.int32).contiguous()
-    mask = seg_mask[:, :V].to(torch.bool).contiguous()
-    out = torch.empty(B, V, C, dtype=torch.float32, device=feat.device)
-    K5(feat.data_ptr(), ends.data_ptr(), mask.data_ptr(), out.data_ptr(),
-       B, Pn, V, C, stream_handle())
-    return out
+    # no dispatch for an argument that is already as the kernel takes it
+    # (a call's host time is most of its time)
+    if not feat.is_contiguous():
+        feat = feat.contiguous()
+    if feat.data_ptr() % 16:
+        raise ValueError('sorted_segment_max kernel takes 16-byte aligned '
+                         'rows')
+    seg = as_kernel_arg(seg, seg.dtype if seg.dtype == torch.int64
+                        else torch.int32)
+    ends = as_kernel_arg(seg_ends if seg_ends.shape[1] == V
+                         else seg_ends[:, :V], torch.int32)
+    mask = as_kernel_arg(seg_mask if seg_mask.shape[1] == V
+                         else seg_mask[:, :V], torch.bool)
+    # out, then the slices' head / tail maxima, in one allocation
+    ns = -(-Pn // SLICE_ROWS)
+    buf = torch.empty(B * (V + 2 * ns) * C, dtype=torch.float32,
+                      device=feat.device)
+    base = buf.data_ptr()
+    K5(feat.data_ptr(), seg.data_ptr(), int(seg.dtype == torch.int64),
+       ends.data_ptr(), mask.data_ptr(), base, base + 4 * B * V * C, B, Pn,
+       V, C, stream_handle())
+    return buf.as_strided((B, V, C), (V * C, C, 1))
 
 
 def sorted_segment_max_bwd(feat, seg, seg_mask, out, g, num_segments: int):

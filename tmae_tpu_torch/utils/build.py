@@ -25,8 +25,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
-SOURCES = ('windows.cu', 'encoder_layer.cu', 'encoder_layer_tiled.cu',
-           'encoder_layer_bwd.cu', 'segment_max.cu', 'subm_conv.cu')
+SOURCES = ('windows.cu', 'encoder_layer_tiled.cu', 'encoder_layer_bwd.cu',
+           'segment_max.cu', 'subm_conv.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -126,6 +126,11 @@ class CudaKernel:
 
 
 def stream_handle() -> int:
+    """The current CUDA stream of the current device as an int, as
+    ``torch.cuda.current_stream().cuda_stream`` gives it, through torch's
+    raw C accessors: no Stream object (7.6 us against 0.7 on the H100's
+    host), which a wrapper pays on every call."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    c = torch._C
+    return c._cuda_getCurrentRawStream(c._cuda_getDevice())

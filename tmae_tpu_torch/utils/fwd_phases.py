@@ -1,6 +1,7 @@
-"""Where the persistent tiled kernel (K3 / K4 / K6 / K8 / K10 / K12,
+"""Where the persistent tiled kernel (K3 / K4 / K6 / K8 / K10 / K12 / K16,
 ``csrc/encoder_layer_tiled.cu``) spends its time, phase by phase and
-launch by launch, on the card.
+launch by launch, on the card; and K5 (``csrc/segment_max.cu``) launch
+by launch.
 
     python3 -m tmae_tpu_torch.utils.fwd_phases
 
@@ -20,7 +21,10 @@ C] at C = 256, 40% live); K3 in place (T = 64 on rows [0, 128) of [2,
 bucket: 109 real windows in 2 x 128 slots); K12 straight in the padded
 carrier of a 2 x 468 x 468 grid at C = 128 (T=64: a full plan of 128
 slots a sample, 55 of them real windows, the rest dummy slots; S=16: a
-small plan of 640 slots a sample, 314 real). For each call it prints its
+small plan of 640 slots a sample, 314 real); K16 (C = 128 self, shift 0,
+the 7200 flat windows of a served pair's stage-1 partition, 880 of them
+with a key; C = 256 self, the 1922 windows of its stage-2 partition, 398
+with a key; its launcher packs its four weights). For each call it prints its
 time (CUDA events, the normal build; and the host time to enqueue it:
 the wrapper's Python and its launches, the median of 7 rounds of 20
 calls; for the serving calls K3, K4 and K12 with the weights prepared
@@ -30,8 +34,10 @@ pack where the call packs, the pre-pass, the compaction, the tiled
 kernel), each phase's cycles per tile and share, and beside each product
 phase the cycles its tensor work would take at the card's dense bf16
 peak (4096 FLOP a cycle an SM); then the device time of a served layer's
-pack of its panels from f32 weights, at C = 128 and 256. Needs a CUDA
-device."""
+pack of its panels from f32 weights, at C = 128 and 256; and K5's time,
+host enqueue time and device time by launch on a served frame's sizes
+(131072 rows, 32768 slots, C = 128; 6852 pillars of skewed sizes, median
+3 rows, up to 551). Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -152,6 +158,46 @@ def grid_case(torch, B, H, W, C, live, seed=0):
             _weights(torch, rng, C))
 
 
+def attn_case(torch, N, C, n_key, seed=0):
+    """K16's flat windows [N, 64, C] of a grid's partition: ``n_key`` of
+    them (spread over the N) with 10-90% of their cells occupied, keys
+    where occupied, zeros elsewhere; weights [C_in, C_out] as
+    DenseWindowAttention passes them, transposes of Linear weights."""
+    rng = np.random.RandomState(seed)
+    occ = np.zeros((N, 64), bool)
+    keyed = rng.choice(N, n_key, replace=False)
+    occ[keyed] = rng.rand(n_key, 64) < rng.uniform(0.1, 0.9, (n_key, 1))
+    occ[keyed, 0] = True
+    dev = lambda a: torch.tensor(np.asarray(a, np.float32), device='cuda')
+    xw = dev(np.where(occ[..., None], rng.normal(0, 1, (N, 64, C)), 0)).to(
+        torch.bfloat16)
+    pos = dev(rng.normal(0, 0.5, (64, C))).to(torch.bfloat16)
+    lin = lambda: dev(rng.normal(0, 1, (C, C)) / np.sqrt(C)).t()
+    vec = lambda: dev(0.1 * rng.normal(size=(C,)))
+    return (xw, xw, dev(occ), pos, lin(), vec(), lin(), vec(), lin(), vec(),
+            lin(), vec(), dev([0.3]))
+
+
+def segmax_case(torch, Pn=131072, V=32768, C=128, n_pillars=6852, seed=0):
+    """K5's inputs at a served frame's sizes: ``n_pillars`` pillars of
+    log-normal sizes (median 3 rows, clipped at 551) sorted by slot, the
+    out-of-range slot V on the rows after them."""
+    rng = np.random.RandomState(seed)
+    sizes = np.clip(np.round(3 * np.exp(1.73 * rng.normal(size=n_pillars))),
+                    1, 551).astype(np.int64)
+    sizes = sizes[np.cumsum(sizes) <= Pn]
+    n = len(sizes)
+    seg = np.full((1, Pn), V, np.int32)
+    seg[0, :sizes.sum()] = np.repeat(np.arange(n), sizes)
+    ends = np.zeros((1, V), np.int32)
+    ends[0, :n] = np.cumsum(sizes) - 1
+    mask = np.zeros((1, V), bool)
+    mask[0, :n] = True
+    dev = lambda a: torch.tensor(a, device='cuda')
+    feat = dev(rng.normal(size=(1, Pn, C)).astype(np.float32))
+    return (feat, dev(seg), dev(ends), dev(mask), V), sizes
+
+
 def host_ms(torch, call, rounds=7, n=20):
     """The host ms to enqueue one call: the median over ``rounds`` of ``n``
     calls back to back (each round after a synchronisation), which the
@@ -169,7 +215,9 @@ def host_ms(torch, call, rounds=7, n=20):
 
 def by_launch(torch, call, calls=1):
     """Device ms of each launch of one call (torch.profiler over ``calls``
-    calls after a warm one, averaged), by kernel name."""
+    calls after a warm one), by kernel name: the mean of the kernel's
+    events times its launches a call (events / calls, rounded), so that an
+    event the profiler drops does not count as zero time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -181,7 +229,8 @@ def by_launch(torch, call, calls=1):
         torch.cuda.synchronize()
     short = lambda k: k.replace('void ', '').replace(
         '(anonymous namespace)::', '').split('<')[0].split('(')[0]
-    return [(short(e.key), e.self_device_time_total / 1e3 / calls)
+    return [(short(e.key), e.self_device_time_total / 1e3 / e.count
+             * max(1, round(e.count / calls)))
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
@@ -191,6 +240,7 @@ def main(argv=None):
     import torch
 
     from ..ops import encoder_layer as el
+    from ..ops import window_attention as wa
 
     if not torch.cuda.is_available():
         raise SystemExit('fwd_phases: no CUDA device')
@@ -220,12 +270,20 @@ def main(argv=None):
               plan_case(torch, 2, 468, 468, 128, 55, 64, 128)),
              ('K12 S=16 C=128 self, 640 slots (314 real) of 2x468x468',
               el.K12, 'plan', 128,
-              plan_case(torch, 2, 468, 468, 640, 314, 16, 128)))
+              plan_case(torch, 2, 468, 468, 640, 314, 16, 128)),
+             ('K16 C=128 self shift 0, 7200 windows (880 with a key)',
+              wa.K16, 'attn', 128, (attn_case(torch, 7200, 128, 880), None)),
+             ('K16 C=256 self, 1922 windows (398 with a key)', wa.K16,
+              'attn', 256, (attn_case(torch, 1922, 256, 398), None)))
     for name, kern, mode, C, (args, weights) in cases:
-        p = el.kernel_params(weights)
-        tw = el.TiledWeights(weights, 8)
         call_unprep = None
-        if mode == 'grid':
+        if weights is not None:
+            p = el.kernel_params(weights)
+            tw = el.TiledWeights(weights, 8)
+        if mode == 'attn':
+            live = int((args[2] > 0).any(-1).sum())
+            call = lambda: wa.window_attention_fwd(*args, 8, 0.05, False)
+        elif mode == 'grid':
             live = int(el._flat_windows(args[2].float(), 8, False).any(-1)
                        .sum())
             call = lambda: el.encoder_layer_grid(
@@ -285,8 +343,10 @@ def main(argv=None):
         per = [cycles[k] / tiles for k in range(len(PHASES))]
         total = sum(per)
         flops = {'q': 2 * 64 * C * C, 'k': 2 * 64 * C * C,
-                 'v': 2 * 64 * C * C, 'o, LN1': 2 * 64 * C * C,
-                 'FFN 1': 4 * 64 * C * C, 'FFN 2, LN2': 4 * 64 * C * C}
+                 'v': 2 * 64 * C * C, 'o, LN1': 2 * 64 * C * C}
+        if mode != 'attn':  # K16 stops after the output projection
+            flops.update({'FFN 1': 4 * 64 * C * C,
+                          'FFN 2, LN2': 4 * 64 * C * C})
         launches = by_launch(torch, call)
         print(f'{name}: {live} live windows, {cycles[10]} tiles; {ms:.4f} '
               f'ms a call ({host_note}); by '
@@ -304,6 +364,35 @@ def main(argv=None):
         print(f'a served layer\'s weights prepared at C={C} (f32 to bf16 '
               'panels): by launch ' + ', '.join(
                   f'{k} {v:.4f} ms' for k, v in launches), flush=True)
+    segmax_phases(torch)
+
+
+def segmax_phases(torch):
+    """K5 on :func:`segmax_case`: time (CUDA events), host enqueue time and
+    device time by launch, checked once against its plain version."""
+    from ..ops import sorted_segments as ss
+
+    build.build_all(('segment_max.cu',))
+    args, sizes = segmax_case(torch)
+    call = lambda: ss.sorted_segment_max(*args)
+    if not torch.equal(call(), ss.sorted_segment_max_plain(*args)):
+        raise SystemExit('fwd_phases: K5 differs from its plain version')
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(20):
+        call()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / 20
+    launches = by_launch(torch, call, calls=5)
+    print(f'K5 C=128, {len(sizes)} pillars of {int(sizes.sum())} rows '
+          f'(median {int(np.median(sizes))}, max {int(sizes.max())}): '
+          f'{ms:.4f} ms a call ({host_ms(torch, call):.4f} ms of host time '
+          'to enqueue it); by launch ' + ', '.join(
+              f'{k} {v:.4f} ms' for k, v in launches), flush=True)
 
 
 if __name__ == '__main__':
