@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and pretraining paths on one
-NVIDIA H100 and check them.
+"""Drive the PyTorch port's serving, training, pretraining and evaluation
+paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py            # what the chip check runs
     python3 chip_smoke.py --profile  # also writes per-kernel time tables
@@ -29,8 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
      run's data needs).
   4. serving: the full-width t_mae.yaml detector with seeded random weights
      on a synthetic LiDAR frame pair (density 1.5, ~100k points per frame):
-     launch counters set to 0, one pass (forward, decode, host NMS), the
-     counts checked per frame pair; then warm timed passes.
+     launch counters set to 0, one pass (forward, decode, host NMS: the
+     native host ops, ``utils/native.py``), the counts checked per frame
+     pair; host NMS timed on that pass's candidates by the native and by
+     the numpy path (and so in 5a, 5b and 12); then warm timed passes.
   5. reference: the same detector run on the card (kernels) and on the CPU
      (plain versions) with the same weights and frames, head maps compared:
      at full size, and at full width on a 64x64 grid.
@@ -108,6 +110,18 @@ Phases (any failure exits non-zero and prints no result line):
      voxelization, K10 in eval mode) on one frame pair: counters set to 0,
      one pass, the counts checked, then timed passes; the same detector on
      the card and on the CPU at full width on a 64x64 grid, as in phase 5.
+ 13. ONCE evaluation: seeded random weights of the full-width
+     t_mae_synth.yaml detector (t_mae.yaml's MODEL, batch 1) saved by
+     ``save_checkpoint``; ``python -m tmae_tpu_torch.tools.test``'s ``main``
+     run in this process on the card over 4 synthetic lidar frame pairs
+     (the loader, host voxelization, forward, decode, native host NMS,
+     ONCE AP, result.pkl): launch counters set to 0, the counts checked (4
+     x a served pair's); the native library built from the repository's
+     source; each batch's kept mask equal to the numpy NMS on the same
+     candidates; the AP dict equal to its numpy recomputation; result.pkl
+     with the 4 frame ids in order; every AP finite; occ_overflow 0;
+     sec_per_sample, loader ms per batch and host NMS ms per pair (native
+     and numpy) printed.
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -122,6 +136,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -180,6 +195,7 @@ EXPECTED_SPARSE_ATTN = {**NO_LAUNCHES, 'K1': 2 * 3, 'K2': 2 * 2 + 6 * 2,
                         'K13b': 2 * 2 + 6 * 2, 'K13c': 2 * 2, 'K15': 6,
                         'K16': 4}
 REPS = 20                      # timed serving passes
+ONCE_EVAL_SAMPLES = 4          # frame pairs of phase 13 (the config has 32)
 TRAIN_STEPS = 6                # step 0 counted, steps 1-5 timed
 TRAIN_PAIRS = (0, 1)           # synthetic scenes of the training batch
 SSL_STEPS = 3                  # t_mae_ssl.yaml pretraining steps
@@ -1200,24 +1216,44 @@ def counted(torch, fn):
 
 def serve_once(torch, cfg, model, batch, **fwd):
     """One serving pass: the forward (``fwd``: its streaming arguments),
-    decode and host NMS."""
+    decode and host NMS (native, as serving runs it). Returns (the
+    forward's outputs, (boxes, scores, labels, valid before NMS, kept))."""
     from tmae_tpu_torch.models.detectors import centerpoint_predict, host_nms
 
     with torch.no_grad():
         out = model(batch, **fwd)
         boxes, scores, labels, valid = centerpoint_predict(cfg, out)
         keep = host_nms(cfg, boxes, scores, labels, valid)
-    return out, (boxes, scores, labels, keep)
+    return out, (boxes, scores, labels, valid, keep)
+
+
+def nms_split(cfg, cands, reps=5):
+    """Host NMS of one pass's candidates (``cands``: boxes, scores, labels,
+    valid as numpy or tensors) by the native path, which serving runs, and
+    by the numpy path: (median ms of each over ``reps`` calls, their kept
+    masks)."""
+    from tmae_tpu_torch.models.detectors import host_nms
+
+    cands = [a.cpu().numpy() if hasattr(a, 'cpu') else a for a in cands]
+    ms, kept = {}, {}
+    for path, native in (('native', True), ('numpy', False)):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            kept[path] = host_nms(cfg, *cands, native=native)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[path] = statistics.median(times)
+    return ms, kept
 
 
 def split_times(torch, cfg, model, batch, reps):
     """Median host ms of the parts of a serving pass: the forward's
     dispatch (host returns), the forward until the card is done, decode
-    (ends in a sync), host NMS."""
+    (ends in a sync), host NMS (the native path)."""
     from tmae_tpu_torch.models.detectors import centerpoint_predict, host_nms
 
     parts = {'forward_dispatch': [], 'forward_done': [], 'decode': [],
-             'host_nms': []}
+             'host_nms_native': []}
     with torch.no_grad():
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -1934,8 +1970,9 @@ def serve_phase(torch, cfg, model, batch, expected, reps, profile=None,
         serve_once(torch, cfg, model, batch, **fwd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    (out, (boxes, _, _, keep)), launches = counted(
+    (out, cands), launches = counted(
         torch, lambda: serve_once(torch, cfg, model, batch, **fwd))
+    boxes, keep = cands[0], cands[4]
     log(f'  launches per frame pair: {launches} (expected {expected})')
     if launches != expected:
         raise AssertionError('launch counts differ from the serving path')
@@ -1951,7 +1988,11 @@ def serve_phase(torch, cfg, model, batch, expected, reps, profile=None,
     log(f'  occ_overflow [sst0, sst1, sst2, wca0, wca1, wca2]: '
         f'{out["occ_overflow"].cpu().tolist()}')
     log(f'  detections kept after NMS: {int(keep.sum())} of '
-        f'{keep.shape[1]} candidates')
+        f'{keep.shape[1]} candidates (native host NMS)')
+    nms_ms, kept = nms_split(cfg, cands[:4])
+    log(f'  host NMS ms per frame pair on these candidates: native (the '
+        f'path served) {nms_ms["native"]:.3f}, numpy {nms_ms["numpy"]:.3f}; '
+        f'same kept set: {bool((kept["native"] == kept["numpy"]).all())}')
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -2825,6 +2866,121 @@ def waymo_serving(torch, cfg, profile=False):
     return med
 
 
+def once_eval_phase(torch):
+    """ONCE evaluation through the port's own entry point: the full-width
+    t_mae_synth.yaml detector (t_mae.yaml's MODEL, batch 1) with seeded
+    random weights saved by ``save_checkpoint``; ``tools/test.py``'s
+    ``main`` on the card over ONCE_EVAL_SAMPLES synthetic frame pairs
+    (``build_dataloader``, host voxelization in the prefetch thread),
+    launch counters set to 0 just before it and read just after; then the
+    checks: the native host ops built from the repository's source and
+    loaded, the launch counts (ONCE_EVAL_SAMPLES x EXPECTED_LAUNCHES), each
+    batch's native kept mask equal to the numpy NMS on the same candidates,
+    the AP dict equal to the one recomputed with the numpy IoU and
+    accumulators, result.pkl with one dict per frame in the dataset's
+    order, every AP finite, occ_overflow 0. Returns its numbers."""
+    import pickle
+
+    import numpy as np
+
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+    from tmae_tpu_torch.datasets.dataset import build_dataloader
+    from tmae_tpu_torch.models.detectors import build_detector, init_random_
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.train import evaluator
+    from tmae_tpu_torch.train.checkpoint import save_checkpoint
+    from tmae_tpu_torch.utils import native
+
+    cfg_file = ROOT / 'tools/cfgs/once_models/t_mae_synth.yaml'
+    cfg = cfg_from_yaml_file(cfg_file)
+    n_cfg = cfg.DATA_CONFIG.NUM_SYNTHETIC_SAMPLES
+    log(f'  NUM_SYNTHETIC_SAMPLES cut from {n_cfg} to {ONCE_EVAL_SAMPLES} '
+        'for time')
+    cfg.DATA_CONFIG.NUM_SYNTHETIC_SAMPLES = ONCE_EVAL_SAMPLES
+    # the checkpoint (~50 MB) goes to a temporary directory, result.pkl
+    # and the config log to the output directory
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = save_checkpoint(
+        Path(tmp.name) / 'random_seed0.pth',
+        init_random_(build_detector(cfg, 'cpu'), seed=0), None, 0)
+    captured = []
+    served_nms = evaluator.host_nms
+
+    def recording(cfg, boxes, scores, labels, valid):
+        keep = served_nms(cfg, boxes, scores, labels, valid)
+        captured.append((boxes, scores, labels, valid, keep))
+        return keep
+
+    evaluator.host_nms = recording
+    test_cli.OUTPUT_ROOT = OUT_DIR / 'once_eval'
+    argv = ['--cfg_file', str(cfg_file), '--ckpt', str(ckpt), '--set',
+            'DATA_CONFIG.NUM_SYNTHETIC_SAMPLES', str(ONCE_EVAL_SAMPLES)]
+    log(f'  python -m tmae_tpu_torch.tools.test {" ".join(argv)}')
+    t0 = time.perf_counter()
+    try:
+        results, launches = counted(torch, lambda: test_cli.main(argv))
+    finally:
+        evaluator.host_nms = served_nms
+        tmp.cleanup()
+    log(f'  main: {time.perf_counter() - t0:.1f} s')
+
+    lib, targets = native.library_path(), native.build_targets()
+    log(f'  native host ops: {lib.relative_to(ROOT)} built from '
+        f'{native.SRC.relative_to(ROOT)} with g++ '
+        f'{" ".join(targets.get(lib, ()))}')
+    if (native.SRC != ROOT / 'tmae_tpu_torch/csrc/host_ops.cpp'
+            or lib not in targets):
+        raise AssertionError('the native host ops were not built from the '
+                             'repository\'s source')
+
+    want = {k: ONCE_EVAL_SAMPLES * v for k, v in EXPECTED_LAUNCHES.items()}
+    log(f'  launches: {launches} (expected {want})')
+    if launches != want:
+        raise AssertionError('launch counts differ from the evaluation path')
+
+    if len(captured) != ONCE_EVAL_SAMPLES:
+        raise AssertionError(f'{len(captured)} batches went through host NMS')
+    times = {'native': [], 'numpy': []}
+    for i, (*cands, keep) in enumerate(captured):
+        ms, kept = nms_split(cfg, cands)
+        for path in times:
+            times[path].append(ms[path])
+        if not (np.array_equal(kept['native'], keep)
+                and np.array_equal(kept['numpy'], keep)):
+            raise AssertionError(f'batch {i}: native and numpy NMS keep '
+                                 'different boxes')
+        log(f'  batch {i}: {int(cands[3].sum())} candidates, '
+            f'{int(keep.sum())} kept by both paths; host NMS native '
+            f'{ms["native"]:.3f} ms, numpy {ms["numpy"]:.3f} ms')
+
+    (result_dir, ap), = results.items()
+    annos = pickle.loads((result_dir / 'result.pkl').read_bytes())
+    ids = [a['frame_id'] for a in annos]
+    dataset, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 1,
+                                  False, runtime_cfg=cfg.RUNTIME)
+    if ids != [f'synth_{i:06d}' for i in range(ONCE_EVAL_SAMPLES)]:
+        raise AssertionError(f'result.pkl frame ids {ids}')
+    ap_table, ap_numpy = dataset.evaluation(annos, cfg.CLASS_NAMES,
+                                            native=False)
+    log('  ' + ap_table.strip().replace('\n', '\n  '))
+    aps = {k: v for k, v in ap.items() if k.startswith('AP_')}
+    if aps != ap_numpy:
+        raise AssertionError('AP differs from its numpy recomputation')
+    if not all(math.isfinite(v) for v in aps.values()):
+        raise AssertionError('an AP is not finite')
+    if ap['occ_overflow'] != 0:
+        raise AssertionError(f'occ_overflow {ap["occ_overflow"]}')
+    out = {'once_eval_sec_per_sample': ap['sec_per_sample'],
+           'once_eval_loader_ms_per_batch': ap['loader_ms_per_batch'],
+           'once_eval_host_nms_ms_per_batch': ap['host_nms_ms_per_batch'],
+           'host_nms_native_ms_per_pair': statistics.median(times['native']),
+           'host_nms_numpy_ms_per_pair': statistics.median(times['numpy'])}
+    log(f'  {len(annos)} frames in result.pkl, AP dict equal to the numpy '
+        f'recomputation, occ_overflow 0; ' + ', '.join(
+            f'{k} {v:.4f}' for k, v in out.items()))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--profile', action='store_true',
@@ -2965,6 +3121,11 @@ def main(argv=None):
         torch, cfg_from_yaml_file(cfgs / 'waymo_models/t_mae_waymo.yaml'),
         args.profile)
 
+    torch.cuda.empty_cache()
+    log('phase ONCE evaluation (t_mae_synth.yaml through '
+        'tmae_tpu_torch.tools.test on the card)')
+    once_eval = once_eval_phase(torch)
+
     log(f'total {time.perf_counter() - t_start:.1f} s')
     for row in rows:
         del row['kernel']
@@ -2980,7 +3141,7 @@ def main(argv=None):
         **train,
         **{f'pretrain_waymo_{k}': v for k, v in pre.items()},
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
-        'waymo_serving_ms_per_pair': waymo_ms}), flush=True)
+        'waymo_serving_ms_per_pair': waymo_ms, **once_eval}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

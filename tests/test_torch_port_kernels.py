@@ -386,8 +386,11 @@ def test_port_imports_no_jax():
     assert not offenders, offenders
     assert len(files) > 20
     scanned = {str(f.relative_to(REPO)) for f in files}
-    for module in ('optimization', 'trainer', 'checkpoint'):
+    for module in ('optimization', 'trainer', 'checkpoint', 'evaluator'):
         assert f'tmae_tpu_torch/train/{module}.py' in scanned, module
+    for module in ('tools/test', 'utils/native', 'datasets/dataset',
+                   'datasets/once_temporal', 'datasets/once_eval'):
+        assert f'tmae_tpu_torch/{module}.py' in scanned, module
 
 
 def test_build_detector_needs_a_card_by_default(monkeypatch):

@@ -1,7 +1,8 @@
 """Config system: YAML with single-level ``_BASE_CONFIG_`` inheritance (the
 port's copy of ``tmae_tpu/config.py``; it reads the same files under
 ``tools/cfgs/``). Configs are nested ``Cfg`` dicts with attribute access,
-created per entry point.
+created per entry point; ``cfg_from_list`` applies a CLI's ``--set`` pairs
+and ``log_config_to_file`` logs a config key by key.
 """
 
 from __future__ import annotations
@@ -85,3 +86,45 @@ def cfg_from_yaml_file(cfg_file) -> Cfg:
     parts = cfg_file.resolve().parts
     cfg.EXP_GROUP_PATH = parts[-2] if len(parts) >= 2 else ''
     return cfg
+
+
+def cfg_from_list(cfg_list, config: Cfg) -> Cfg:
+    """Set config keys via dotted-path list, e.g.
+    ``['MODEL.VFE.NAME', 'DynVFE', 'OPTIMIZATION.LR', '0.001']``: values
+    parsed as YAML, each of the type the key had (ints and floats mix)."""
+    if len(cfg_list) % 2:
+        raise ValueError('override list must be key value pairs')
+    for key, raw in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_parts = key.split('.')
+        d = config
+        for sub in key_parts[:-1]:
+            if sub not in d:
+                raise KeyError(f'config key path not found: {key} (at {sub})')
+            d = d[sub]
+        leaf = key_parts[-1]
+        try:
+            value = yaml.safe_load(raw) if isinstance(raw, str) else raw
+        except yaml.YAMLError:
+            value = raw
+        if leaf in d and d[leaf] is not None and value is not None:
+            old = d[leaf]
+            if not isinstance(value, type(old)) and not (
+                isinstance(old, (int, float)) and isinstance(value, (int, float))
+            ):
+                raise TypeError(
+                    f'type mismatch for {key}: {type(old).__name__} vs {type(value).__name__}'
+                )
+        d[leaf] = Cfg.from_dict(value) if isinstance(value, dict) else value
+    return config
+
+
+def log_config_to_file(cfg: Cfg, pre='cfg', logger=None):
+    """Every key of ``cfg`` as a ``pre.KEY: value`` line, to ``logger.info``
+    (or printed)."""
+    emit = logger.info if logger is not None else print
+    for key, val in cfg.items():
+        if isinstance(val, Cfg):
+            emit(f'{pre}.{key} = edict()')
+            log_config_to_file(val, pre=f'{pre}.{key}', logger=logger)
+        else:
+            emit(f'{pre}.{key}: {val}')

@@ -1,5 +1,7 @@
 """Synthetic two-frame LiDAR scenes at production occupancy (the port's own
-copy of the lidar mode of ``tmae_tpu/datasets/once_temporal.py:269-389``).
+copy of the lidar mode of ``tmae_tpu/datasets/once_temporal.py:269-389``); ``make_scene`` and
+``render_lidar`` also make the scenes and frames of
+``datasets/once_temporal.SyntheticONCEDataset`` in its lidar mode.
 
 A 40-beam spinning LiDAR (ONCE sensor class: -25..+15 deg elevation, sensor
 ~1.9 m above ground) is ray-cast against a rough ground plane, labelled boxes

@@ -4,8 +4,9 @@
 * ``CenterPoint`` with the SiamWCA backbone (``t_mae.yaml``,
   ``t_mae_waymo.yaml``): voxelization (on the host, or on the device when the
   batch does not ship it) → TemporalDynVFE → SiamWCA → SSTBEVBackbone →
-  CenterHead → decode → host rotated NMS when serving (eval mode), and the
-  CenterPoint loss (:func:`centerpoint_loss`) when training (train mode);
+  CenterHead → decode → native host rotated NMS when serving (eval mode),
+  and the CenterPoint loss (:func:`centerpoint_loss`) when training (train
+  mode);
 * ``TMAE``, the temporal masked-autoencoder pretraining shell
   (``t_mae_ssl.yaml``, ``t_mae_ssl_waymo.yaml``): VFE → SiamWCA_MAE, with
   the Chamfer loss :func:`tmae_loss`.
@@ -29,6 +30,7 @@ from ..device import resolve_device
 from ..ops.geometry_np import nms_bev
 from ..ops.voxelize import VoxelSpec
 from ..ops.centernet import assign_center_targets
+from ..utils import native as host
 from .bev import SSTBEVBackbone
 from .center_head import CenterHead, center_head_loss, decode
 from .siamwca import SiamWCA, SiamWCA_MAE, mae_loss, remat_stages, stage_caps
@@ -280,9 +282,11 @@ def centerpoint_predict(cfg, outputs):
                   spec.voxel_size, spec.pc_range, stride, id_maps)
 
 
-def host_nms(cfg, boxes, scores, labels, valid):
-    """Greedy rotated-BEV NMS per sample on score-sorted candidates (numpy).
-    Returns the updated valid mask."""
+def host_nms(cfg, boxes, scores, labels, valid, native: bool = True):
+    """Greedy rotated-BEV NMS per sample on score-sorted candidates: the
+    native host ops (``utils/native.nms_bev_sorted``), or the numpy
+    ``nms_bev`` when asked (``native=False``). Returns the updated valid
+    mask."""
     nms_cfg = cfg['MODEL']['DENSE_HEAD']['POST_PROCESSING']['NMS_CONFIG']
     to_np = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else \
         np.asarray(a)
@@ -293,9 +297,13 @@ def host_nms(cfg, boxes, scores, labels, valid):
         n = int(valid[b].sum())
         if n == 0:
             continue
-        kept = nms_bev(boxes[b, :n, :7].astype(np.float64), scores[b, :n],
-                       thresh, post_maxsize=post)
-        keep = np.zeros(n, bool)
-        keep[kept] = True
+        # candidates are sorted by score, the valid ones first
+        cand = boxes[b, :n, :7].astype(np.float64)
+        if native:
+            keep = host.nms_bev_sorted(cand, thresh, post)
+        else:
+            kept = nms_bev(cand, scores[b, :n], thresh, post_maxsize=post)
+            keep = np.zeros(n, bool)
+            keep[kept] = True
         valid[b, :n] &= keep
     return valid

@@ -1,13 +1,19 @@
-"""Host-side (numpy) greedy rotated-BEV NMS (counterpart of
-``tmae_tpu/ops/geometry_np.py:nms_bev``, which the JAX package's host NMS
-falls back to).
+"""Host-side rotated-box geometry: BEV and 3D IoU, greedy rotated NMS
+(counterpart of ``tmae_tpu/ops/geometry_np.py``).
+
+The IoU functions compute the intersection areas with the native host ops
+(``utils/native.py``) by default, as the JAX package does when its library
+is built, and with numpy when asked (``native=False``): the numpy version is
+the plain version the tests hold the native one against. ``nms_bev`` is the
+numpy NMS, the plain version of ``utils/native.nms_bev_sorted``.
 
 Intersection of two rotated rectangles = convex hull of (corners of A inside
 B) ∪ (corners of B inside A) ∪ (edge-edge crossings); area by angle-sorted
 shoelace. Boxes are ``[x, y, z, dx, dy, dz, heading]``.
 
-The JAX package computes the intersection for every pair of candidates.
-Here it is computed only for pairs whose circumscribed circles meet; every
+The JAX package's numpy NMS computes the intersection for every pair of
+candidates. ``nms_bev`` computes it only for pairs whose circumscribed
+circles meet; every
 other pair has no intersection, so its IoU is exactly 0. Each computed pair
 goes through the same arithmetic as there, so the kept set is the same.
 """
@@ -15,6 +21,8 @@ goes through the same arithmetic as there, so the kept set is the same.
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils import native as host
 
 _EPS = 1e-8
 
@@ -93,6 +101,66 @@ def pair_intersection_area(A: np.ndarray, B: np.ndarray) -> np.ndarray:
     cross = rel_sorted[..., 0] * nxt[..., 1] - rel_sorted[..., 1] * nxt[..., 0]
     area = 0.5 * np.abs(cross.sum(-1))
     return np.where(has, area, 0.0)
+
+
+def _pairwise_intersection_area(boxes_a: np.ndarray,
+                                boxes_b: np.ndarray) -> np.ndarray:
+    """[N, 7] x [M, 7] → BEV intersection area [N, M] (numpy)."""
+    N, M = len(boxes_a), len(boxes_b)
+    if N == 0 or M == 0:
+        return np.zeros((N, M))
+    A = np.broadcast_to(boxes_a[:, None, :], (N, M, 7)).reshape(N * M, 7)
+    B = np.broadcast_to(boxes_b[None, :, :], (N, M, 7)).reshape(N * M, 7)
+    return pair_intersection_area(A, B).reshape(N, M)
+
+
+def intersection_area_bev(boxes_a, boxes_b, chunk: int = 256,
+                          native: bool = True) -> np.ndarray:
+    """Pairwise BEV intersection area [N, M]: the native host ops, or
+    (``native=False``) numpy in chunks of ``chunk`` rows (bounded peak
+    memory)."""
+    if native:
+        return host.intersection_area_bev(np.asarray(boxes_a, np.float64),
+                                          np.asarray(boxes_b, np.float64))
+    N = len(boxes_a)
+    out = np.zeros((N, len(boxes_b)))
+    for i in range(0, N, chunk):
+        out[i:i + chunk] = _pairwise_intersection_area(boxes_a[i:i + chunk],
+                                                       boxes_b)
+    return out
+
+
+def boxes_iou_bev(boxes_a, boxes_b, native: bool = True) -> np.ndarray:
+    """Rotated BEV IoU [N, M]."""
+    inter = intersection_area_bev(boxes_a, boxes_b, native=native)
+    area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
+    area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
+    return inter / np.clip(area_a + area_b - inter, 1e-6, None)
+
+
+def boxes_iou3d(boxes_a, boxes_b, native: bool = True) -> np.ndarray:
+    """3D IoU [N, M]: the BEV intersection times the z overlap."""
+    inter_bev = intersection_area_bev(boxes_a, boxes_b, native=native)
+    amax = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    amin = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    bmax = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    bmin = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    inter_h = np.clip(np.minimum(amax, bmax) - np.maximum(amin, bmin), 0, None)
+    inter = inter_bev * inter_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter / np.clip(vol_a + vol_b - inter, 1e-6, None)
+
+
+def boxes_iou3d_with_heading(boxes_a, boxes_b,
+                             native: bool = True) -> np.ndarray:
+    """The ONCE evaluation's 3D IoU: zero where the headings differ by more
+    than pi/2."""
+    iou = boxes_iou3d(boxes_a, boxes_b, native=native)
+    diff = np.abs(boxes_a[:, 6][:, None] - boxes_b[None, :, 6])
+    diff = np.where(diff >= np.pi, 2 * np.pi - diff, diff)
+    iou[diff > np.pi / 2] = 0.0
+    return iou
 
 
 def nms_bev(boxes: np.ndarray, scores: np.ndarray, thresh: float,
