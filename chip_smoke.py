@@ -122,6 +122,28 @@ Phases (any failure exits non-zero and prints no result line):
      with the 4 frame ids in order; every AP finite; occ_overflow 0;
      sec_per_sample, loader ms per batch and host NMS ms per pair (native
      and numpy) printed.
+ 14. training through the CLIs (``python -m tmae_tpu_torch.tools.train``'s
+     ``main`` in this process, on the card; everything written to a
+     temporary directory).
+     14a. full width: a ONCE-layout tree of 12 synthetic LiDAR sweeps
+     (~97k points each) with their boxes; the port's ``create_once_infos``
+     (infos, GT database); t_mae_ssl.yaml pretraining 1 epoch; t_mae.yaml
+     finetuning 1 epoch from that checkpoint (every transferred entry equal
+     to the checkpoint's, the BEV backbone and head at their initial
+     values), with gt_sampling, flip, rotation and scaling; the same command
+     with --epochs 2 --max_ckpt_save_num 1 --num_epochs_to_eval 1: resumed
+     from the newest checkpoint (the step continues, the first lr is the
+     schedule's at that step, ckpt/ pruned to one file), then evaluated.
+     Only DATA_PATH and the batch (2) differ from the configs. Each run with
+     the launch counters set to 0 just before it and read just after, each
+     step's launches against phase 6's or 10's; loss finite; occ_overflow,
+     metrics.jsonl, every AP finite, result.pkl's frame ids in order; ms
+     per step (data and step), peak memory and sec_per_sample printed.
+     14b. the overfit oracle of tests/test_overfit_ap.py
+     (``tests/test_torch_port_overfit_ap.run_overfit``): its 6-frame raw
+     fixture, 2 pretraining and 250 finetune epochs of its config (with a
+     small bucket beside its full one, caps that hold every window),
+     ``tools.test``; max score > 0.3, Vehicle AP > 30, occ_overflow 0.
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -196,6 +218,8 @@ EXPECTED_SPARSE_ATTN = {**NO_LAUNCHES, 'K1': 2 * 3, 'K2': 2 * 2 + 6 * 2,
                         'K16': 4}
 REPS = 20                      # timed serving passes
 ONCE_EVAL_SAMPLES = 4          # frame pairs of phase 13 (the config has 32)
+ONCE_TREE_FRAMES = 12          # phase 14a's sweeps: 4 intervals of 3 frames
+CLI_BATCH = 2                  # phase 14a's batch (t_mae.yaml 6, _ssl 8)
 TRAIN_STEPS = 6                # step 0 counted, steps 1-5 timed
 TRAIN_PAIRS = (0, 1)           # synthetic scenes of the training batch
 SSL_STEPS = 3                  # t_mae_ssl.yaml pretraining steps
@@ -1351,11 +1375,11 @@ def card_vs_cpu(torch, cfg, np_batch, seed, stream=False):
 # ---------------------------------------------------------------------------
 
 
-def make_trainer(cfg, model, generator=None):
+def make_trainer(cfg, model, mask_seed=None):
     """adam_onecycle over a one-cycle run of NUM_EPOCHS steps (one step per
     epoch), and the training step with the config's loss: CenterPoint's, or
-    the Chamfer loss of a TMAE config (whose mask comes from
-    ``generator``)."""
+    the Chamfer loss of a TMAE config (whose mask each step draws from a
+    generator seeded from ``mask_seed`` and the step)."""
     from tmae_tpu_torch.models.detectors import centerpoint_loss, tmae_loss
     from tmae_tpu_torch.train.optimization import build_optimizer
     from tmae_tpu_torch.train.trainer import make_train_step
@@ -1363,7 +1387,7 @@ def make_trainer(cfg, model, generator=None):
     loss = tmae_loss if cfg.MODEL.NAME == 'TMAE' else centerpoint_loss
     opt, sched = build_optimizer(model.parameters(), cfg.OPTIMIZATION, 1)
     return make_train_step(model, lambda o, b: loss(cfg, o, b), opt, sched,
-                           generator)
+                           mask_seed=mask_seed)
 
 
 def run_steps(torch, model, step, batch, steps, expected, what):
@@ -1918,8 +1942,7 @@ def pretrain_phase(torch, cfg, steps, expected, rows=None, profile=None):
                        bool(profile))
         del calls
         torch.cuda.empty_cache()
-    step = make_trainer(cfg, model,
-                        torch.Generator(device='cuda').manual_seed(0))
+    step = make_trainer(cfg, model, mask_seed=0)
     launches, rs, med, peak = run_steps(torch, model, step, batch, steps,
                                         expected, 'pretraining')
     overflow = [r['occ_overflow'] for r in rs]
@@ -2901,8 +2924,8 @@ def once_eval_phase(torch):
     # and the config log to the output directory
     tmp = tempfile.TemporaryDirectory()
     ckpt = save_checkpoint(
-        Path(tmp.name) / 'random_seed0.pth',
-        init_random_(build_detector(cfg, 'cpu'), seed=0), None, 0)
+        Path(tmp.name), init_random_(build_detector(cfg, 'cpu'), seed=0),
+        None, 0)
     captured = []
     served_nms = evaluator.host_nms
 
@@ -2979,6 +3002,338 @@ def once_eval_phase(torch):
         f'recomputation, occ_overflow 0; ' + ', '.join(
             f'{k} {v:.4f}' for k, v in out.items()))
     return out
+
+
+def write_once_tree(root, cfg, n_frames):
+    """A ONCE-layout tree of one sequence, ``000000``: ``n_frames`` sweeps
+    of the port's synthetic LiDAR (density 1.5, ~97k points a frame; one
+    scene per interval of SCAN_WINDOW frames, each frame its own sweep,
+    identity poses) with the scene's labelled boxes, and the split files
+    ``train``, ``val`` and ``raw_large`` (t_mae_ssl.yaml's) naming it.
+    Returns the points of each frame."""
+    import numpy as np
+
+    from tmae_tpu_torch.datasets.synthetic import make_scene, render_lidar
+
+    seq = '000000'
+    lidar = root / 'data' / seq / 'lidar_roof'
+    lidar.mkdir(parents=True)
+    (root / 'ImageSets').mkdir()
+    pc = list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    window = int(cfg.DATA_CONFIG.SCAN_WINDOW)
+    frames, n_points = [], []
+    for fi in range(n_frames):
+        scene = make_scene(fi // window, pc, list(cfg.CLASS_NAMES))
+        pts = render_lidar(scene, np.random.RandomState(5000 + fi), pc)
+        frame_id = f'{1000 + fi}'
+        pts.astype(np.float32).tofile(lidar / f'{frame_id}.bin')
+        n_points.append(len(pts))
+        frames.append({'frame_id': frame_id, 'timestamp': fi,
+                       'pose': [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0],
+                       'annos': {'names': scene['names'].tolist(),
+                                 'boxes_3d': scene['boxes'][:, :7].tolist()}})
+    (root / 'data' / seq / f'{seq}.json').write_text(
+        json.dumps({'frames': frames}))
+    for split in ('train', 'val', 'raw_large'):
+        (root / 'ImageSets' / f'{split}.txt').write_text(seq + '\n')
+    return n_points
+
+
+@contextlib.contextmanager
+def cli_hooks(torch, record):
+    """While open: each training step's launches (counter deltas, the
+    counters are not reset) appended to ``record['steps']``, each
+    post-train evaluation's to ``record['eval']``, and each pretrained
+    transfer of the training CLI checked: every entry it copied equals the
+    pretraining checkpoint's, every entry it kept (the BEV backbone and the
+    head among them) kept its initial value, and only the VFE and the 3D
+    backbone were copied."""
+    from tmae_tpu_torch.tools import train as train_cli
+    from tmae_tpu_torch.train import trainer
+
+    def deltas(fn):
+        ks = kernels()
+        before = {n: k.launches for n, k in ks.items()}
+        out = fn()
+        return out, {n: k.launches - before[n] for n, k in ks.items()}
+
+    step_call, eval_fn = trainer.TrainStep.__call__, train_cli.eval_one_epoch
+    transfer = train_cli.load_pretrained_params
+
+    def counted_step(self, batch, **kw):
+        out, d = deltas(lambda: step_call(self, batch, **kw))
+        record['steps'].append(d)
+        return out
+
+    def counted_eval(*a, **kw):
+        out, d = deltas(lambda: eval_fn(*a, **kw))
+        record['eval'].append(d)
+        return out
+
+    def checked_transfer(path, model):
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        copied, kept = transfer(path, model)
+        src = torch.load(path, map_location='cpu', weights_only=True)['model']
+        now = model.state_dict()
+        differ = [k for k in copied if not torch.equal(now[k].cpu(), src[k])]
+        moved = [k for k in kept if not torch.equal(now[k], init[k])]
+        head = [k for k in now if k.startswith(('dense_head.',
+                                                'backbone_2d.'))]
+        log(f'  pretrained transfer: {len(copied)} entries copied (VFE and 3D '
+            f'backbone), {len(kept)} kept at init ({len(head)} of the BEV '
+            f'backbone and head); {len(differ)} copied entries differ from '
+            f'the checkpoint, {len(moved)} kept entries moved')
+        if (differ or moved or not copied or not set(head) <= set(kept)
+                or not all(k.startswith(('vfe.', 'backbone_3d.'))
+                           for k in copied)):
+            raise AssertionError('the pretrained transfer copied or kept the '
+                                 'wrong entries')
+        record['transfers'].append((copied, kept))
+        return copied, kept
+
+    trainer.TrainStep.__call__ = counted_step
+    train_cli.eval_one_epoch = counted_eval
+    train_cli.load_pretrained_params = checked_transfer
+    try:
+        yield record
+    finally:
+        trainer.TrainStep.__call__ = step_call
+        train_cli.eval_one_epoch = eval_fn
+        train_cli.load_pretrained_params = transfer
+
+
+def cli_run(torch, argv, expected, what):
+    """``python -m tmae_tpu_torch.tools.train`` with ``argv`` in this
+    process, launch counters set to 0 just before it and read just after;
+    each step's launches against ``expected``; the loss finite. Returns
+    (the CLI's summary, the launches of the run, each step's, each
+    evaluation's, the peak device memory in GiB)."""
+    from tmae_tpu_torch.tools import train as train_cli
+
+    log(f'  python -m tmae_tpu_torch.tools.train {" ".join(argv)}')
+    record = {'steps': [], 'eval': [], 'transfers': []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with cli_hooks(torch, record):
+        res, launches = counted(torch, lambda: train_cli.main(argv))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = res['steps']
+    log(f'  {what}: {time.perf_counter() - t0:.1f} s, {len(steps)} steps '
+        f'from step {res["start_step"]} ({res["steps_per_epoch"]} a epoch); '
+        f'launches {launches}')
+    path_kernels = [k for k, v in expected.items() if v]
+    for s, d in zip(steps, record['steps']):
+        log(f'  step {s["step"]}: loss {s["loss"]:.5g}, grad_norm '
+            f'{s["grad_norm"]:.5g}, lr {s["lr"]:.6g}, occ_overflow '
+            f'{s["occ_overflow"]}, data {s["data_s"] * 1e3:.1f} ms, step '
+            f'{s["step_s"] * 1e3:.1f} ms')
+        if d == expected:
+            log(f'    launches equal to phase 6/10\'s {what} step')
+        else:
+            log(f'    launches {d}, not the synthetic batch\'s {expected}')
+            if not all(d[k] > 0 for k in path_kernels):
+                raise AssertionError(f'a kernel of the {what} path was not '
+                                     'launched')
+        if not math.isfinite(s['loss']):
+            raise AssertionError(f'{what} loss is not finite')
+    for e in res['epochs']:
+        log(f'  epoch {e["epoch"]}: {e["steps"]} steps in '
+            f'{e["seconds"] * 1e3:.1f} ms of wall time '
+            f'({e["seconds"] * 1e3 / e["steps"]:.1f} ms a step, data '
+            f'{e["data_s"] * 1e3:.1f} ms, fwd {e["fwd_s"] * 1e3:.1f} ms)')
+    if len(record['steps']) != len(steps):
+        raise AssertionError('steps ran outside the CLI\'s loop')
+    return res, launches, record, peak
+
+
+def cli_training_phase(torch):
+    """Phase 14a: training through the port's CLIs at full width, on a
+    ONCE-layout tree written here (ONCE_TREE_FRAMES synthetic LiDAR
+    sweeps), everything written to a temporary directory: the port's
+    ``create_once_infos`` (train, val, raw_large, the GT database);
+    t_mae_ssl.yaml pretraining for 1 epoch; t_mae.yaml finetuning for 1
+    epoch from the pretraining checkpoint (``--pretrained_model``, the
+    transfer checked), with gt_sampling, flip, rotation and scaling; the
+    same command with ``--epochs 2 --max_ckpt_save_num 1
+    --num_epochs_to_eval 1``, which resumes from the newest checkpoint (the
+    step continues, the first lr is the schedule's at that step, ``ckpt/``
+    pruned to one file) and evaluates the trained model. Only DATA_PATH
+    (``--set``) and the batch (``--batch_size``) differ from the configs.
+    Returns its numbers."""
+    import pickle
+
+    import numpy as np
+
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+    from tmae_tpu_torch.tools import create_once_infos as coi
+    from tmae_tpu_torch.tools import train as train_cli
+    from tmae_tpu_torch.train.optimization import build_optimizer
+
+    cfgs = ROOT / 'tools/cfgs/once_models'
+    ssl_file, ft_file = cfgs / 't_mae_ssl.yaml', cfgs / 't_mae.yaml'
+    ft_cfg = cfg_from_yaml_file(ft_file)
+    for f in (ssl_file, ft_file):
+        n = cfg_from_yaml_file(f).OPTIMIZATION.BATCH_SIZE_PER_GPU
+        log(f'  {f.name}: batch cut from {n} to {CLI_BATCH} for time')
+    tmp = tempfile.TemporaryDirectory()
+    saved_root = train_cli.OUTPUT_ROOT
+    try:
+        root = Path(tmp.name) / 'once'
+        t0 = time.perf_counter()
+        n_points = write_once_tree(root, ft_cfg, ONCE_TREE_FRAMES)
+        log(f'  ONCE tree: {ONCE_TREE_FRAMES} frames of one sequence, '
+            f'{min(n_points)}-{max(n_points)} points a frame '
+            f'({time.perf_counter() - t0:.1f} s)')
+        t0 = time.perf_counter()
+        coi.main(['--data_path', str(root), '--splits', 'train', 'val',
+                  'raw_large'])
+        db = pickle.loads((root / 'once_dbinfos_train.pkl').read_bytes())
+        log(f'  create_once_infos: {time.perf_counter() - t0:.1f} s; GT '
+            'database ' + ', '.join(f'{k} {len(v)}' for k, v in db.items()))
+        train_cli.OUTPUT_ROOT = Path(tmp.name) / 'output'
+        common = ['--set', 'DATA_CONFIG.DATA_PATH', str(root),
+                  '--batch_size', str(CLI_BATCH), '--fix_random_seed',
+                  '--extra_tag', 'chip_smoke']
+
+        pre, _, _, pre_peak = cli_run(
+            torch, ['--cfg_file', str(ssl_file), '--epochs', '1'] + common,
+            EXPECTED_PRETRAIN_BUCKETED, 'pretraining')
+        pre_ckpt = pre['checkpoints'][-1]
+        ft_argv = ['--cfg_file', str(ft_file), '--pretrained_model',
+                   str(pre_ckpt)] + common
+        ft, _, ft_rec, ft_peak = cli_run(
+            torch, ft_argv + ['--epochs', '1'], EXPECTED_TRAIN_LAUNCHES,
+            'training')
+        if len(ft_rec['transfers']) != 1:
+            raise AssertionError('the finetune run made no transfer')
+        res, _, res_rec, res_peak = cli_run(
+            torch, ft_argv + ['--epochs', '2', '--max_ckpt_save_num', '1',
+                              '--num_epochs_to_eval', '1',
+                              '--fixed_gap_eval', '1'],
+            EXPECTED_TRAIN_LAUNCHES, 'training')
+
+        spe = res['steps_per_epoch']
+        lr_fn = build_optimizer([torch.zeros(1, requires_grad=True)],
+                                dict(ft_cfg.OPTIMIZATION, NUM_EPOCHS=2),
+                                spe)[1].lr
+        first = res['steps'][0]
+        names = [p.name for p in res['checkpoints']]
+        log(f'  resumed at step {res["start_step"]}: first lr '
+            f'{first["lr"]:.9g}, schedule {lr_fn(spe):.9g}; ckpt/ holds '
+            f'{names}')
+        if (res['start_step'] != spe or first['step'] != spe + 1
+                or first['lr'] != lr_fn(spe)
+                or names != [f'checkpoint_{2 * spe}.pth']):
+            raise AssertionError('the run did not resume where the first '
+                                 'finetune epoch ended')
+        for r in (pre, ft, res):
+            jsonl = r['out_dir'] / 'metrics.jsonl'
+            if not jsonl.is_file() or not jsonl.read_text().strip():
+                raise AssertionError(f'no metrics.jsonl in {r["out_dir"]}')
+
+        ap = res['eval']
+        (eval_launches,) = res_rec['eval']
+        infos = pickle.loads((root / 'once_infos_val.pkl').read_bytes())
+        window = int(ft_cfg.DATA_CONFIG.SCAN_WINDOW)
+        want_ids = [i['frame_id'] for i in infos[window - 1::window]]
+        annos = pickle.loads((res['out_dir'] / 'eval' / 'result.pkl')
+                             .read_bytes())
+        n_batches = math.ceil(len(want_ids) / CLI_BATCH)
+        want = {k: n_batches * v for k, v in EXPECTED_LAUNCHES.items()}
+        log(f'  evaluation: {len(annos)} frames, launches {eval_launches} '
+            f'(expected {want}), occ_overflow {ap["occ_overflow"]}, '
+            f'{ap["sec_per_sample"]:.4f} sec/sample, loader '
+            f'{ap["loader_ms_per_batch"]:.1f} ms a batch')
+        if [a['frame_id'] for a in annos] != want_ids:
+            raise AssertionError(f'result.pkl frame ids '
+                                 f'{[a["frame_id"] for a in annos]}')
+        if eval_launches != want:
+            raise AssertionError('launch counts differ from the evaluation '
+                                 'path')
+        aps = {k: v for k, v in ap.items() if k.startswith('AP_')}
+        if not aps or not all(math.isfinite(v) for v in aps.values()):
+            raise AssertionError('an AP is not finite')
+    finally:
+        train_cli.OUTPUT_ROOT = saved_root
+        tmp.cleanup()
+
+    def med(runs, key):
+        return statistics.median(s[key] * 1e3 for r in runs
+                                 for s in r['steps'])
+
+    def wall(runs):
+        es = [e for r in runs for e in r['epochs']]
+        return sum(e['seconds'] for e in es) * 1e3 / sum(e['steps']
+                                                         for e in es)
+
+    out = {'cli_pretrain_ms_per_step': med([pre], 'step_s'),
+           'cli_train_ms_per_step': med([ft, res], 'step_s'),
+           'cli_pretrain_wall_ms_per_step': wall([pre]),
+           'cli_train_wall_ms_per_step': wall([ft, res]),
+           'cli_loader_ms_per_step': med([pre, ft, res], 'data_s'),
+           'cli_peak_gib': max(pre_peak, ft_peak, res_peak),
+           'cli_eval_sec_per_sample': ap['sec_per_sample'],
+           'cli_occ_overflow': [s['occ_overflow'] for r in (pre, ft, res)
+                                for s in r['steps']]}
+    log(f'  {card_line()}: ' + ', '.join(f'{k} {v}' for k, v in out.items()))
+    return out
+
+
+def overfit_phase(torch):
+    """Phase 14b: the overfit oracle of tests/test_overfit_ap.py through the
+    port's CLIs on the card (``tests/test_torch_port_overfit_ap.run_overfit``:
+    the raw fixture, pretraining, finetuning from it, ``tools.test``),
+    launch counters set to 0 just before it and read just after; passes
+    only if the max score and the Vehicle AP clear the oracle's thresholds
+    and no window overflowed a cap. Returns its numbers."""
+    # the repository's tests/ as the package ``tests``: a package of that
+    # name installed on the machine would take the import before the
+    # namespace package of tests/
+    pkg = types.ModuleType('tests')
+    pkg.__path__ = [str(ROOT / 'tests')]
+    sys.modules['tests'] = pkg
+    from tests.test_torch_port_overfit_ap import (SCORE_MIN, VEHICLE_AP_MIN,
+                                                  run_overfit)
+    # of the repository, only the port and these two test modules
+    foreign = sorted(m for m in sys.modules
+                     if m.split('.')[0] == 'tmae_tpu' or (
+                         m.startswith('tests.') and m not in (
+                             'tests.once_fixture',
+                             'tests.test_torch_port_overfit_ap')))
+    if foreign:
+        raise AssertionError(f'the overfit phase loaded {foreign}')
+
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    try:
+        res, launches = counted(torch, lambda: run_overfit(
+            Path(tmp.name), log=lambda s: log(f'  {s}')))
+    finally:
+        tmp.cleanup()
+    secs = time.perf_counter() - t0
+    ft_steps = res['finetune']['steps']
+    log('  ' + res['ap_str'].strip().replace('\n', '\n  '))
+    log(f'  {secs:.1f} s; launches {launches}; finetune step median '
+        f'{statistics.median(s["step_s"] for s in ft_steps) * 1e3:.1f} ms; '
+        f'max score {res["max_score"]:.4f} (> {SCORE_MIN}), Vehicle AP '
+        f'{res["vehicle_ap"]:.2f} (> {VEHICLE_AP_MIN}); occ_overflow '
+        f'{max(res["occ_overflow"])} in training, '
+        f'{res["eval"]["occ_overflow"]} in evaluation')
+    if any(res['occ_overflow']) or res['eval']['occ_overflow']:
+        raise AssertionError('an occupied window overflowed a cap')
+    if not all(launches[k] > 0 for k in ('K1', 'K2', 'K3', 'K4', 'K6', 'K7',
+                                         'K8', 'K9')):
+        raise AssertionError('a kernel of the path was not launched')
+    if not (res['max_score'] > SCORE_MIN
+            and res['vehicle_ap'] > VEHICLE_AP_MIN):
+        raise AssertionError('the overfit oracle did not reach its '
+                             'thresholds')
+    return {'overfit_max_score': res['max_score'],
+            'overfit_vehicle_ap': res['vehicle_ap'],
+            'overfit_seconds': secs,
+            'overfit_ms_per_finetune_step': statistics.median(
+                s['step_s'] * 1e3 for s in ft_steps)}
 
 
 def main(argv=None):
@@ -3126,6 +3481,17 @@ def main(argv=None):
         'tmae_tpu_torch.tools.test on the card)')
     once_eval = once_eval_phase(torch)
 
+    torch.cuda.empty_cache()
+    log('phase training through the CLIs (t_mae_ssl.yaml -> t_mae.yaml, full '
+        'width, a ONCE-layout tree)')
+    t0 = time.perf_counter()
+    cli = cli_training_phase(torch)
+    log(f'  phase {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    log('phase overfit oracle through the CLIs (tests/test_overfit_ap.py\'s '
+        'config)')
+    overfit = overfit_phase(torch)
+
     log(f'total {time.perf_counter() - t_start:.1f} s')
     for row in rows:
         del row['kernel']
@@ -3141,7 +3507,8 @@ def main(argv=None):
         **train,
         **{f'pretrain_waymo_{k}': v for k, v in pre.items()},
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
-        'waymo_serving_ms_per_pair': waymo_ms, **once_eval}), flush=True)
+        'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
+        **overfit}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

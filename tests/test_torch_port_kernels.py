@@ -367,11 +367,16 @@ def test_sorted_segment_max_plain_matches_pallas_interpret():
 def test_port_imports_no_jax():
     """Static scan (this image imports jax at interpreter start, so a
     sys.modules check could not tell): no module of the port imports jax,
-    flax or the JAX package."""
+    flax or the JAX package, nor do chip_smoke.py and the two test modules
+    it loads, which import no other module of the tests."""
     banned = ('jax', 'flax', 'tmae_tpu')
     offenders = []
+    # chip_smoke.py also loads the overfit oracle's port test and its
+    # fixture, and of the tests nothing else
+    smoke_tests = [REPO / 'tests/test_torch_port_overfit_ap.py',
+                   REPO / 'tests/once_fixture.py']
     files = sorted((REPO / 'tmae_tpu_torch').rglob('*.py')) + [
-        REPO / 'chip_smoke.py']
+        REPO / 'chip_smoke.py'] + smoke_tests
     for path in files:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -381,7 +386,10 @@ def test_port_imports_no_jax():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or '']
             for name in names:
-                if name.split('.')[0] in banned:
+                if name.split('.')[0] in banned or (
+                        name.split('.')[0] == 'tests' and name not in (
+                            'tests', 'tests.once_fixture',
+                            'tests.test_torch_port_overfit_ap')):
                     offenders.append(f'{path.relative_to(REPO)}: {name}')
     assert not offenders, offenders
     assert len(files) > 20
@@ -389,7 +397,10 @@ def test_port_imports_no_jax():
     for module in ('optimization', 'trainer', 'checkpoint', 'evaluator'):
         assert f'tmae_tpu_torch/train/{module}.py' in scanned, module
     for module in ('tools/test', 'utils/native', 'datasets/dataset',
-                   'datasets/once_temporal', 'datasets/once_eval'):
+                   'datasets/once_temporal', 'datasets/once_eval',
+                   'tools/train', 'tools/create_once_infos',
+                   'tools/convert_torch_ckpt', 'utils/metrics',
+                   'utils/torch_convert'):
         assert f'tmae_tpu_torch/{module}.py' in scanned, module
 
 

@@ -1,8 +1,9 @@
 """The PyTorch port (tmae_tpu_torch) against the JAX package on the CPU, at
 module and slice level: one full-width SST stage and one full-width WCA
 block of t_mae.yaml, the whole tiny-config CenterPoint with its weights
-carried across by ``params_from_jax``, and decode + host NMS on identical
-head maps. The JAX modules run on the CPU through their jnp reference
+carried across by ``params_from_jax`` (and with reference-named weights
+through each side's converter), and decode + host NMS on identical head
+maps. The JAX modules run on the CPU through their jnp reference
 layers (f32 weights), the port through the plain versions of its kernels
 (bf16 weights, as the kernels take them), so tolerances cover bf16 weight
 rounding; each is stated beside its comparison."""
@@ -137,10 +138,10 @@ def test_full_width_sst_stage_and_wca_block(stage):
 
 
 @pytest.fixture(scope='module')
-def tiny_slice():
-    """The tiny-config CenterPoint with a mid bucket, on host-voxelized
-    sorted inputs: JAX apply(train=False) and the port with the same
-    weights, on the CPU."""
+def tiny_forward():
+    """The tiny-config CenterPoint with a mid bucket, its host-voxelized
+    sorted inputs and JAX's compiled apply(train=False), shared by the
+    tests that hand it weights."""
     cfg = copy.deepcopy(tiny_cfg())
     cfg.RUNTIME.OCC_MID_CAPS = [16, 16, 16]
     batch = synth_batch(np.random.RandomState(0))
@@ -152,10 +153,19 @@ def tiny_slice():
         for key, short in HOSTVOX:
             batch[f'{short}_{which}'] = hv[key]
     jmodel = jdet.build_detector(cfg)
+    return cfg, batch, jmodel, jax.jit(
+        lambda v, b: jmodel.apply(v, b, train=False))
+
+
+@pytest.fixture(scope='module')
+def tiny_slice(tiny_forward):
+    """JAX's tiny slice and the port with the same random weights, on the
+    CPU."""
+    cfg, batch, jmodel, jfwd = tiny_forward
     shapes = jax.eval_shape(lambda b: jmodel.init(jax.random.PRNGKey(0), b,
                                                   train=False), batch)
     v = random_variables(shapes, 0)
-    jout = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(v, batch)
+    jout = jfwd(v, batch)
     tmodel = tdet.build_detector(cfg, 'cpu')
     tmodel.load_state_dict(params_from_jax(v), strict=True)
     with torch.no_grad():
@@ -178,6 +188,41 @@ def test_tiny_slice_head_maps_and_features(tiny_slice):
                  - _np(jout['spatial_features_2d']))
     assert err.max() <= 0.04 and err.mean() <= 3e-3, err.max()
     assert tout['occ_overflow'].shape == (6, 2)
+
+
+def test_converted_reference_weights_head_maps(tiny_forward):
+    """A reference-named state dict of the tiny model
+    (``tests/test_convert_mapping.py``, its values brought to the ranges of
+    :func:`random_variables`: weights at 1 / sqrt(fan_in), norm scales
+    1 + 0.1 N, biases and means 0.1 N) through JAX's ``convert_state_dict``
+    into JAX's forward, and through the port's converter into the port (a
+    strict load): the head maps agree within the tiny slice's
+    tolerances."""
+    from tests.test_convert_mapping import make_reference_state_dict
+    from tmae_tpu.utils.torch_convert import convert_state_dict as j_convert
+    from tmae_tpu_torch.utils.torch_convert import convert_state_dict
+
+    def ranged(k, v):
+        if v.ndim >= 2:
+            return v / np.sqrt(np.prod(v.shape[1:]))
+        if k.endswith(('running_var', '.tau')):
+            return v
+        return 1 + 0.1 * v if k.endswith('.weight') else 0.1 * v
+
+    cfg, batch, _, jfwd = tiny_forward
+    sd = {k: ranged(k, v).astype(np.float32) for k, v in
+          make_reference_state_dict(np.random.RandomState(4)).items()}
+    params, stats, _ = j_convert(sd)
+    jp = jfwd({'params': params, 'batch_stats': stats}, batch)[
+        'pred_dicts'][0]
+    tmodel = tdet.build_detector(cfg, 'cpu')
+    tmodel.load_state_dict(convert_state_dict(sd)[0], strict=True)
+    with torch.no_grad():
+        tp = tmodel(tdet.batch_to_device(batch, 'cpu'))['pred_dicts'][0]
+    assert sorted(jp) == sorted(tp)
+    for name in jp:
+        err = np.abs(tp[name].numpy() - _np(jp[name]))
+        assert err.max() <= 0.03 and err.mean() <= 3e-3, (name, err.max())
 
 
 def test_tiny_slice_decode_and_host_nms(tiny_slice):

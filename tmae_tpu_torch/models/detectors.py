@@ -263,10 +263,49 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
+@torch.no_grad()
+def init_training_(model: nn.Module, seed: int) -> nn.Module:
+    """The JAX package's initial values for training from scratch (flax's
+    defaults as its modules set them): kernels LeCun normal (truncated at 2
+    standard deviations, variance 1 / fan_in, fan_in over the input channels
+    and the kernel window), biases 0 but the heatmap outputs' -2.19, norm
+    scales 1, running means 0 and variances 1, tau 1. Drawn on the CPU from
+    one ``torch.Generator`` seeded with ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    std_of_trunc = 0.87962566103423978  # std of N(0, 1) cut at +-2
+    for mname, mod in model.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if name == 'tau' or (name == 'weight' and p.dim() == 1):
+                p.fill_(1.0)
+            elif p.dim() >= 2:
+                deconv = isinstance(mod, nn.ConvTranspose2d)
+                fan_in = p[:, 0].numel() if deconv else p[0].numel()
+                w = torch.empty(p.shape)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+                p.copy_(w * (fan_in ** -0.5 / std_of_trunc))
+            elif mname.rsplit('.', 1)[-1] == 'hm_out':
+                p.fill_(-2.19)
+            else:
+                p.zero_()
+        for name, b in mod.named_buffers(recurse=False):
+            if name == 'running_mean':
+                b.zero_()
+            elif name == 'running_var':
+                b.fill_(1.0)
+    return model
+
+
 def batch_to_device(batch: dict, device) -> dict:
-    """Numpy batch from the host pipeline → tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items() if isinstance(v, np.ndarray)}
+    """Numpy batch from the host pipeline → tensors on ``device``. A copy to
+    the card goes through pinned memory and returns without waiting for
+    the work already queued on the card."""
+    pin = torch.device(device).type == 'cuda'
+
+    def put(v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        return (t.pin_memory() if pin else t).to(device, non_blocking=pin)
+
+    return {k: put(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
 def centerpoint_predict(cfg, outputs):
