@@ -144,6 +144,28 @@ Phases (any failure exits non-zero and prints no result line):
      fixture, 2 pretraining and 250 finetune epochs of its config (with a
      small bucket beside its full one, caps that hold every window),
      ``tools.test``; max score > 0.3, Vehicle AP > 30, occ_overflow 0.
+ 15. Waymo through the CLIs (everything in a temporary directory).
+     15a. full width: one TFRecord of 8 frames of the port's synthetic top
+     LiDAR (``datasets/synthetic.waymo_sequence``: 64 x 2650 range
+     images with range, intensity, elongation and NLZ, pixel poses, the
+     calibration, a moving vehicle's poses, labelled boxes; 100k-131072
+     points in range a frame), named by the train and val splits; the
+     port's ``create_waymo_infos`` (decode, infos, point files, GT
+     database); t_mae_ssl_waymo.yaml pretraining 1 epoch; t_mae_waymo.yaml
+     finetuning 1 epoch from that checkpoint (the transfer checked), then
+     resumed for a second epoch; ``tools.test`` over the val split's 4
+     pairs. Only DATA_PATH and the batch (2) differ from the configs. Each
+     run with the launch counters set to 0 just before it and read just
+     after: each pretraining step's launches against phase 9's, each
+     finetune step's against EXPECTED_FINETUNE_GRID, the evaluation's
+     against a served Waymo pair's per batch; losses finite, occ_overflow
+     0, result.pkl's frame ids in order, the prediction file written,
+     boxes kept, every AP and APH at LEVEL_1 / LEVEL_2 finite and equal
+     to its recomputation with the numpy IoU; decode ms a frame, infos s,
+     loader and step ms, peak memory, sec_per_sample printed.
+     15b. one t_mae_waymo.yaml finetune step on the card and on the CPU at
+     full width on a 64x64 grid, on a loader batch of that tree (5 point
+     features), held to the control as in phase 7.
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -206,6 +228,11 @@ EXPECTED_PRETRAIN_GRID = {**NO_LAUNCHES, 'K10': 18 + 12, 'K7': 18}
 # voxelization the VFE takes the scatter path instead of K5.
 EXPECTED_PRETRAIN_BUCKETED = {**EXPECTED_TRAIN_LAUNCHES, 'K5': 0}
 EXPECTED_WAYMO_SERVING = {**NO_LAUNCHES, 'K10': 18}
+# One finetune step of t_mae_waymo.yaml (no caps, no host voxelization):
+# the pretraining step's encoder, K10 for each of the 18 layers and for the
+# 12 SST layers remat replays, K7 for each layer's backward; the VFE takes
+# the scatter path (no K5).
+EXPECTED_FINETUNE_GRID = {**NO_LAUNCHES, 'K10': 18 + 12, 'K7': 18}
 # Phase 5c's path. Window API, per plan (2): one gather (K1) and its VJP, a
 # zero-fill scatter (K2 as K13b); one zero-fill scatter (K13b) and its VJP,
 # a gather; one scatter-into (K13c, its own kernel) and its VJP, a gather
@@ -220,6 +247,7 @@ REPS = 20                      # timed serving passes
 ONCE_EVAL_SAMPLES = 4          # frame pairs of phase 13 (the config has 32)
 ONCE_TREE_FRAMES = 12          # phase 14a's sweeps: 4 intervals of 3 frames
 CLI_BATCH = 2                  # phase 14a's batch (t_mae.yaml 6, _ssl 8)
+WAYMO_SEQ_FRAMES = 8           # phase 15's frames: 4 pairs at SCAN_WINDOW 2
 TRAIN_STEPS = 6                # step 0 counted, steps 1-5 timed
 TRAIN_PAIRS = (0, 1)           # synthetic scenes of the training batch
 SSL_STEPS = 3                  # t_mae_ssl.yaml pretraining steps
@@ -1302,7 +1330,8 @@ def small_grid(cfg):
     import copy
 
     from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
-    from tmae_tpu_torch.models.detectors import make_voxel_spec
+    from tmae_tpu_torch.models.detectors import (make_voxel_spec,
+                                                 num_point_features)
 
     small = copy.deepcopy(cfg)
     z0, z1 = cfg.DATA_CONFIG.POINT_CLOUD_RANGE[2::3]
@@ -1321,7 +1350,8 @@ def small_grid(cfg):
     return small, frame_pair_batch(
         spec, list(small.CLASS_NAMES), indices=(3,),
         max_gt=int(small.RUNTIME.MAX_GT),
-        host_voxelize=bool(small.RUNTIME.get('HOST_VOXELIZE')))
+        host_voxelize=bool(small.RUNTIME.get('HOST_VOXELIZE')),
+        num_point_features=num_point_features(small))
 
 
 def stream_cache(torch, model, batch):
@@ -1914,7 +1944,8 @@ def pretrain_phase(torch, cfg, steps, expected, rows=None, profile=None):
     from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_,
-                                                 make_voxel_spec)
+                                                 make_voxel_spec,
+                                                 num_point_features)
     from tmae_tpu_torch.ops import encoder_layer as el
 
     spec = make_voxel_spec(cfg.DATA_CONFIG, cfg.RUNTIME)
@@ -1922,7 +1953,8 @@ def pretrain_phase(torch, cfg, steps, expected, rows=None, profile=None):
     np_batch = frame_pair_batch(
         spec, list(cfg.CLASS_NAMES), indices=TRAIN_PAIRS,
         max_gt=int(cfg.RUNTIME.MAX_GT),
-        host_voxelize=bool(cfg.RUNTIME.get('HOST_VOXELIZE')))
+        host_voxelize=bool(cfg.RUNTIME.get('HOST_VOXELIZE')),
+        num_point_features=num_point_features(cfg))
     log(f'  batch: {len(TRAIN_PAIRS)} frame pairs, '
         f'{int(np_batch["point_mask"].sum())} current-frame points '
         f'({time.perf_counter() - t0:.1f} s on the host)')
@@ -2864,12 +2896,13 @@ def waymo_serving(torch, cfg, profile=False):
     from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_,
-                                                 make_voxel_spec)
+                                                 make_voxel_spec,
+                                                 num_point_features)
 
     spec = make_voxel_spec(cfg.DATA_CONFIG, cfg.RUNTIME)
     batch = batch_to_device(frame_pair_batch(
-        spec, list(cfg.CLASS_NAMES), indices=(0,), host_voxelize=False),
-        'cuda')
+        spec, list(cfg.CLASS_NAMES), indices=(0,), host_voxelize=False,
+        num_point_features=num_point_features(cfg)), 'cuda')
     model = init_random_(build_detector(cfg), seed=0)
     from tmae_tpu_torch.ops import encoder_layer as el
 
@@ -3102,10 +3135,11 @@ def cli_hooks(torch, record):
         train_cli.load_pretrained_params = transfer
 
 
-def cli_run(torch, argv, expected, what):
+def cli_run(torch, argv, expected, what, ref="phase 6/10's"):
     """``python -m tmae_tpu_torch.tools.train`` with ``argv`` in this
     process, launch counters set to 0 just before it and read just after;
-    each step's launches against ``expected``; the loss finite. Returns
+    each step's launches against ``expected`` (those of ``ref``); the loss
+    finite. Returns
     (the CLI's summary, the launches of the run, each step's, each
     evaluation's, the peak device memory in GiB)."""
     from tmae_tpu_torch.tools import train as train_cli
@@ -3129,7 +3163,7 @@ def cli_run(torch, argv, expected, what):
             f'{s["occ_overflow"]}, data {s["data_s"] * 1e3:.1f} ms, step '
             f'{s["step_s"] * 1e3:.1f} ms')
         if d == expected:
-            log(f'    launches equal to phase 6/10\'s {what} step')
+            log(f'    launches equal to {ref} {what} step')
         else:
             log(f'    launches {d}, not the synthetic batch\'s {expected}')
             if not all(d[k] > 0 for k in path_kernels):
@@ -3280,6 +3314,18 @@ def cli_training_phase(torch):
     return out
 
 
+def check_no_foreign_modules(what):
+    """Of the repository, only the port and the two test modules of phase
+    14b may be loaded: nothing of the JAX package, none of its tests."""
+    foreign = sorted(m for m in sys.modules
+                     if m.split('.')[0] == 'tmae_tpu' or (
+                         m.startswith('tests.') and m not in (
+                             'tests.once_fixture',
+                             'tests.test_torch_port_overfit_ap')))
+    if foreign:
+        raise AssertionError(f'{what} loaded {foreign}')
+
+
 def overfit_phase(torch):
     """Phase 14b: the overfit oracle of tests/test_overfit_ap.py through the
     port's CLIs on the card (``tests/test_torch_port_overfit_ap.run_overfit``:
@@ -3295,14 +3341,7 @@ def overfit_phase(torch):
     sys.modules['tests'] = pkg
     from tests.test_torch_port_overfit_ap import (SCORE_MIN, VEHICLE_AP_MIN,
                                                   run_overfit)
-    # of the repository, only the port and these two test modules
-    foreign = sorted(m for m in sys.modules
-                     if m.split('.')[0] == 'tmae_tpu' or (
-                         m.startswith('tests.') and m not in (
-                             'tests.once_fixture',
-                             'tests.test_torch_port_overfit_ap')))
-    if foreign:
-        raise AssertionError(f'the overfit phase loaded {foreign}')
+    check_no_foreign_modules('the overfit phase')
 
     tmp = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
@@ -3334,6 +3373,273 @@ def overfit_phase(torch):
             'overfit_seconds': secs,
             'overfit_ms_per_finetune_step': statistics.median(
                 s['step_s'] * 1e3 for s in ft_steps)}
+
+
+def waymo_tree(root, cfg):
+    """A Waymo-layout tree of one sequence, ``seq_waymo``: WAYMO_SEQ_FRAMES
+    frames of the port's synthetic top LiDAR (``synthetic.waymo_sequence``:
+    64 x 2650 range images with pixel poses, a moving vehicle, labelled
+    boxes) in ``raw/seq_waymo.tfrecord``, and the split files ``train`` and
+    ``val`` naming it. Returns (the frames' in-range point counts, seconds
+    to render and write them)."""
+    from tmae_tpu_torch.datasets.synthetic import waymo_sequence
+    from tmae_tpu_torch.datasets.waymo_decode import write_tfrecord
+
+    (root / 'raw').mkdir(parents=True)
+    (root / 'ImageSets').mkdir()
+    for split in ('train', 'val'):
+        (root / 'ImageSets' / f'{split}.txt').write_text('seq_waymo\n')
+    t0 = time.perf_counter()
+    frames, counts = waymo_sequence(
+        0, WAYMO_SEQ_FRAMES, list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
+        list(cfg.CLASS_NAMES), 'seq_waymo')
+    write_tfrecord(root / 'raw' / 'seq_waymo.tfrecord', frames)
+    return counts, time.perf_counter() - t0
+
+
+def labelled_detections(ds, seed=0):
+    """One detection for each labelled box of each of ``ds``'s intervals
+    (the last frame's labels, 'unknown' dropped), the centre moved by
+    N(0, 0.1) m and a score drawn from U(0.2, 1): a result the evaluation
+    must score above 0."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    det = []
+    for itv in ds.intervals:
+        annos = ds.infos[itv[1] - 1]['annos']
+        keep = np.asarray(annos['name']) != 'unknown'
+        boxes = np.asarray(annos['gt_boxes_lidar'])[keep][:, :7].astype(
+            np.float64)
+        boxes[:, :3] += rng.normal(0, 0.1, (len(boxes), 3))
+        det.append({'name': np.asarray(annos['name'])[keep],
+                    'score': rng.uniform(0.2, 1, len(boxes)),
+                    'boxes_3d': boxes})
+    return det
+
+
+def waymo_cli_phase(torch):
+    """Phase 15: Waymo through the port's CLIs, everything written to a
+    temporary directory. 15a at full width: a synthetic Waymo TFRecord
+    (``waymo_tree``); the port's ``create_waymo_infos`` (decode, infos,
+    point files, GT database); t_mae_ssl_waymo.yaml pretraining for 1 epoch;
+    t_mae_waymo.yaml finetuning for 1 epoch from that checkpoint (the
+    transfer checked), then the same command with ``--epochs 2
+    --max_ckpt_save_num 1``, which resumes; ``tools.test`` over the val
+    split's pairs. Only DATA_PATH and the batch (CLI_BATCH) differ from the
+    configs. Each run with the launch counters set to 0 just before it and
+    read just after: each pretraining step's launches against phase 9's,
+    each finetune step's against EXPECTED_FINETUNE_GRID, the evaluation's
+    against a served Waymo pair's per batch; losses finite; occ_overflow
+    0; result.pkl's frame ids in order; boxes kept, and every AP and APH
+    finite and equal to its recomputation with the numpy IoU; then, since
+    random weights after a few steps score 0 everywhere, detections made
+    from the val pairs' own labels (centres moved by N(0, 0.1) m) through
+    the dataset's evaluation, native and numpy alike: equal, every class's
+    AP above 0; the prediction file of ``create_prediction_files`` written
+    and equal to result.pkl.
+    15b: one t_mae_waymo.yaml finetune step on the card and on the CPU at
+    full width on a 64x64 grid, on a batch of the loader over the same
+    tree, held to the control as phase 7 holds it. Returns its numbers."""
+    import copy
+    import pickle
+
+    import numpy as np
+
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+    from tmae_tpu_torch.datasets.dataset import build_dataloader
+    from tmae_tpu_torch.tools import create_waymo_infos as cwi
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.tools import train as train_cli
+    from tmae_tpu_torch.train.optimization import build_optimizer
+
+    cfgs = ROOT / 'tools/cfgs/waymo_models'
+    ssl_file, ft_file = cfgs / 't_mae_ssl_waymo.yaml', cfgs / 't_mae_waymo.yaml'
+    ft_cfg = cfg_from_yaml_file(ft_file)
+    for f in (ssl_file, ft_file):
+        n = cfg_from_yaml_file(f).OPTIMIZATION.BATCH_SIZE_PER_GPU
+        log(f'  {f.name}: batch cut from {n} to {CLI_BATCH} for time')
+    tmp = tempfile.TemporaryDirectory()
+    saved = train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT
+    decode = cwi.decode_tfrecord_sequence
+    try:
+        root = Path(tmp.name) / 'waymo'
+        counts, write_s = waymo_tree(root, ft_cfg)
+        log(f'  Waymo TFRecord: {WAYMO_SEQ_FRAMES} frames of one sequence, '
+            f'{min(counts)}-{max(counts)} points in range a frame (the '
+            f'range image 64 x 2650); rendered and written in {write_s:.1f} '
+            f's ({write_s * 1e3 / WAYMO_SEQ_FRAMES:.0f} ms a frame)')
+        if not all(100000 <= n < int(ft_cfg.RUNTIME.MAX_POINTS)
+                   for n in counts):
+            raise AssertionError('a frame is outside 100k points to '
+                                 'RUNTIME.MAX_POINTS')
+        decoded = []
+
+        def timed_decode(path, backend='native'):
+            t0 = time.perf_counter()
+            frames = decode(path, backend)
+            decoded.append((len(frames), time.perf_counter() - t0))
+            return frames
+
+        cwi.decode_tfrecord_sequence = timed_decode
+        t0 = time.perf_counter()
+        written = cwi.main(['--raw_dir', str(root / 'raw'), '--out_dir',
+                            str(root / 'waymo_processed_data'), '--splits',
+                            'train', 'val', '--with_gt_database'])
+        infos_s = time.perf_counter() - t0
+        cwi.decode_tfrecord_sequence = decode
+        decode_ms = (sum(s for _, s in decoded) * 1e3
+                     / sum(n for n, _ in decoded))
+        db = pickle.loads((root / 'waymo_dbinfos_train.pkl').read_bytes())
+        log(f'  create_waymo_infos: {infos_s:.1f} s ({len(written["train"])} '
+            f'train, {len(written["val"])} val frame infos); decode '
+            f'{decode_ms:.1f} ms a frame; GT database '
+            + ', '.join(f'{k} {len(v)}' for k, v in db.items()))
+
+        out_root = Path(tmp.name) / 'output'
+        train_cli.OUTPUT_ROOT = test_cli.OUTPUT_ROOT = out_root
+        common = ['--set', 'DATA_CONFIG.DATA_PATH', str(root),
+                  '--batch_size', str(CLI_BATCH), '--fix_random_seed',
+                  '--extra_tag', 'chip_smoke']
+        pre, _, _, pre_peak = cli_run(
+            torch, ['--cfg_file', str(ssl_file), '--epochs', '1'] + common,
+            EXPECTED_PRETRAIN_GRID, 'pretraining', "phase 9's")
+        ft_argv = ['--cfg_file', str(ft_file), '--pretrained_model',
+                   str(pre['checkpoints'][-1])] + common
+        ft, _, ft_rec, ft_peak = cli_run(
+            torch, ft_argv + ['--epochs', '1'], EXPECTED_FINETUNE_GRID,
+            'finetuning', 'the expected')
+        if len(ft_rec['transfers']) != 1:
+            raise AssertionError('the finetune run made no transfer')
+        res, _, _, res_peak = cli_run(
+            torch, ft_argv + ['--epochs', '2', '--max_ckpt_save_num', '1'],
+            EXPECTED_FINETUNE_GRID, 'finetuning', 'the expected')
+        spe = res['steps_per_epoch']
+        lr_fn = build_optimizer([torch.zeros(1, requires_grad=True)],
+                                dict(ft_cfg.OPTIMIZATION, NUM_EPOCHS=2),
+                                spe)[1].lr
+        names = [p.name for p in res['checkpoints']]
+        log(f'  resumed at step {res["start_step"]}: first lr '
+            f'{res["steps"][0]["lr"]:.9g}, schedule {lr_fn(spe):.9g}; '
+            f'ckpt/ holds {names}')
+        if (res['start_step'] != spe or res['steps'][0]['step'] != spe + 1
+                or res['steps'][0]['lr'] != lr_fn(spe)
+                or names != [f'checkpoint_{2 * spe}.pth']):
+            raise AssertionError('the run did not resume where the first '
+                                 'finetune epoch ended')
+
+        keys = [f'{c}/L{lv}/{m}' for c in ft_cfg.CLASS_NAMES
+                for lv in (1, 2) for m in ('AP', 'APH')]
+        eval_cfg = copy.deepcopy(ft_cfg.DATA_CONFIG)
+        eval_cfg.DATA_PATH = str(root)
+        ds, _ = build_dataloader(eval_cfg, ft_cfg.CLASS_NAMES, CLI_BATCH,
+                                 training=False)
+        window = int(ft_cfg.DATA_CONFIG.SCAN_WINDOW)
+        want_ids = [i['frame_id'] for i in written['val'][window - 1::window]]
+        n_batches = math.ceil(len(want_ids) / CLI_BATCH)
+        want = {k: n_batches * v for k, v in EXPECTED_WAYMO_SERVING.items()}
+        argv = ['--cfg_file', str(ft_file), '--set', 'DATA_CONFIG.DATA_PATH',
+                str(root), '--batch_size', str(CLI_BATCH), '--extra_tag',
+                'chip_smoke', '--ckpt', str(res['checkpoints'][-1])]
+        log(f'  python -m tmae_tpu_torch.tools.test {" ".join(argv)}')
+        t0 = time.perf_counter()
+        results, launches = counted(torch, lambda: test_cli.main(argv))
+        eval_s = time.perf_counter() - t0
+        (result_dir, ap), = results.items()
+        annos = pickle.loads((result_dir / 'result.pkl').read_bytes())
+        kept = sum(len(a['name']) for a in annos)
+        log(f'  evaluation: {len(annos)} frames in {eval_s:.1f} s, launches '
+            f'{launches} (expected {want}), occ_overflow '
+            f'{ap["occ_overflow"]}, {ap["sec_per_sample"]:.4f} sec/sample, '
+            f'loader {ap["loader_ms_per_batch"]:.1f} ms a batch, {kept} '
+            'boxes kept')
+        if [a['frame_id'] for a in annos] != want_ids:
+            raise AssertionError(f'result.pkl frame ids '
+                                 f'{[a["frame_id"] for a in annos]}')
+        if launches != want:
+            raise AssertionError('launch counts differ from the Waymo '
+                                 'serving path')
+        pred_file = ds.create_prediction_files(annos, result_dir / 'waymo')
+        dumped = pickle.loads(pred_file.read_bytes())
+        if len(dumped) != len(annos) or any(
+                a.keys() != b.keys()
+                or not all(np.array_equal(a[k], b[k]) for k in a)
+                for a, b in zip(dumped, annos)):
+            raise AssertionError('the Waymo prediction file differs from '
+                                 'result.pkl')
+        if not kept:  # the recomputation below must match boxes
+            raise AssertionError('the evaluation kept no box')
+        t0 = time.perf_counter()
+        table, again = ds.evaluation(annos, list(ft_cfg.CLASS_NAMES),
+                                     native=False)
+        log(f'  AP/APH recomputed with the numpy IoU in '
+            f'{time.perf_counter() - t0:.1f} s:'
+            + table.rstrip().replace('\n', '\n  '))
+        if not all(math.isfinite(ap[k]) for k in keys):
+            raise AssertionError('an AP or APH is not finite')
+        if any(again[k] != ap[k] for k in keys):
+            raise AssertionError('AP/APH differ from the numpy '
+                                 'recomputation')
+        if ap['occ_overflow'] or any(s['occ_overflow'] for r in (pre, ft, res)
+                                     for s in r['steps']):
+            raise AssertionError('an occupied window overflowed')
+        labelled = labelled_detections(ds)
+        t0 = time.perf_counter()
+        label_ap = ds.evaluation(copy.deepcopy(labelled),
+                                 list(ft_cfg.CLASS_NAMES))[1]
+        label_s = time.perf_counter() - t0
+        label_np = ds.evaluation(labelled, list(ft_cfg.CLASS_NAMES),
+                                 native=False)[1]
+        present = sorted({str(n) for d in labelled for n in d['name']})
+        log(f'  AP/APH of the val pairs\' labels, centres moved by '
+            f'N(0, 0.1) m ({sum(len(d["name"]) for d in labelled)} boxes '
+            f'of {present}), native in {label_s:.1f} s: '
+            + ', '.join(f'{k} {label_ap[k]:.4f}' for k in keys))
+        if any(label_np[k] != label_ap[k] for k in keys):
+            raise AssertionError('AP/APH of the labelled detections differ '
+                                 'between the native and numpy IoU')
+        if not present or any(not label_ap[f'{c}/L1/AP'] > 0
+                               for c in present):
+            raise AssertionError('a class with labels scored no AP')
+
+        log('  15b: one t_mae_waymo.yaml finetune step, card vs CPU, full '
+            'width on a 64x64 grid, on a loader batch of this tree')
+        small, _ = small_grid(ft_cfg)
+        small.DATA_CONFIG.DATA_PATH = str(root)
+        _, loader = build_dataloader(small.DATA_CONFIG, small.CLASS_NAMES,
+                                     CLI_BATCH, training=True,
+                                     runtime_cfg=small.RUNTIME, seed=3)
+        np_batch = {k: v for k, v in next(iter(loader)).items()
+                    if k != 'frame_id'}
+        log(f'  batch: {int(np_batch["point_mask"].sum())} current-frame '
+            f'points, {int(np_batch["gt_mask"].sum())} boxes, '
+            f'{np_batch["points"].shape[-1]} point features')
+        train_card_vs_cpu(torch, small, np_batch, seed=7)
+    finally:
+        cwi.decode_tfrecord_sequence = decode
+        train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT = saved
+        tmp.cleanup()
+    check_no_foreign_modules('the Waymo phase')
+
+    def med(runs, key):
+        return statistics.median(s[key] * 1e3 for r in runs
+                                 for s in r['steps'])
+
+    out = {'waymo_points_per_frame': counts,
+           'waymo_write_ms_per_frame': write_s * 1e3 / WAYMO_SEQ_FRAMES,
+           'waymo_decode_ms_per_frame': decode_ms,
+           'waymo_infos_s': infos_s,
+           'waymo_cli_pretrain_ms_per_step': med([pre], 'step_s'),
+           'waymo_cli_finetune_ms_per_step': med([ft, res], 'step_s'),
+           'waymo_cli_loader_ms_per_step': med([pre, ft, res], 'data_s'),
+           'waymo_cli_peak_gib': max(pre_peak, ft_peak, res_peak),
+           'waymo_eval_sec_per_sample': ap['sec_per_sample'],
+           'waymo_eval_loader_ms_per_batch': ap['loader_ms_per_batch'],
+           'waymo_eval_s': eval_s, 'waymo_eval_boxes_kept': kept,
+           'waymo_ap': {k: float(ap[k]) for k in keys},
+           'waymo_label_ap': {k: float(label_ap[k]) for k in keys}}
+    log(f'  {card_line()}: ' + ', '.join(f'{k} {v}' for k, v in out.items()))
+    return out
 
 
 def main(argv=None):
@@ -3492,6 +3798,14 @@ def main(argv=None):
         'config)')
     overfit = overfit_phase(torch)
 
+    torch.cuda.empty_cache()
+    log('phase Waymo through the CLIs (create_waymo_infos -> '
+        't_mae_ssl_waymo.yaml -> t_mae_waymo.yaml -> tools.test, full width, '
+        'a synthetic Waymo TFRecord)')
+    t0 = time.perf_counter()
+    waymo_cli = waymo_cli_phase(torch)
+    log(f'  phase {time.perf_counter() - t0:.1f} s')
+
     log(f'total {time.perf_counter() - t_start:.1f} s')
     for row in rows:
         del row['kernel']
@@ -3508,7 +3822,7 @@ def main(argv=None):
         **{f'pretrain_waymo_{k}': v for k, v in pre.items()},
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
-        **overfit}), flush=True)
+        **overfit, **waymo_cli}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

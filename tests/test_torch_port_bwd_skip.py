@@ -25,6 +25,7 @@ import torch
 
 from tests.test_torch_port_train import _train_cfg_and_batch
 from tests.tiny_cfg import synth_batch, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.models import detectors as jdet
 from tmae_tpu_torch.config import cfg_from_yaml_file
 from tmae_tpu_torch.models import detectors as tdet

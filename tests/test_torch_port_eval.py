@@ -38,6 +38,7 @@ import yaml
 
 from tests.test_torch_port_model import random_variables
 from tests.tiny_cfg import CLASS_NAMES, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.datasets.dataset import build_dataloader as j_build
 from tmae_tpu.datasets.once_eval import \
     get_evaluation_results as j_get_evaluation_results

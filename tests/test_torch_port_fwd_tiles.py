@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.ops import pallas_encoder as jpe
 from tmae_tpu.ops.dense_windows import slot_pos_embed as j_slot_pos_embed
 from tmae_tpu_torch.ops.encoder_layer import (LayerParams, _flat_windows,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.ops import occ_compact as joc
 from tmae_tpu.ops import pallas_encoder as jpe
 from tmae_tpu.ops import sorted_segments as jss
@@ -400,7 +401,9 @@ def test_port_imports_no_jax():
                    'datasets/once_temporal', 'datasets/once_eval',
                    'tools/train', 'tools/create_once_infos',
                    'tools/convert_torch_ckpt', 'utils/metrics',
-                   'utils/torch_convert'):
+                   'utils/torch_convert', 'datasets/waymo_pb',
+                   'datasets/waymo_decode', 'datasets/waymo_temporal',
+                   'datasets/waymo_eval', 'tools/create_waymo_infos'):
         assert f'tmae_tpu_torch/{module}.py' in scanned, module
 
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tests.tiny_cfg import synth_batch, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.config import cfg_from_yaml_file
 from tmae_tpu.models import detectors as jdet
 from tmae_tpu.models.sst import DenseGrid as JDenseGrid

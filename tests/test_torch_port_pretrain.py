@@ -4,14 +4,17 @@ caps (without them every encoder layer is the grid-native layer, K10's plain
 version, as in ``t_mae_ssl_waymo.yaml``; with them the bucketed path of
 ``t_mae_ssl.yaml``), on device-voxelized points and on JAX's own mask, with
 the weights carried across by ``params_from_jax`` (strict load); one
-``adam_onecycle`` step of the capless config against JAX's
-``make_train_step(..., rng_names=('mae_mask',))``, held to the control (JAX's
-own step from the encoder's weights rounded once to bf16, as
-``tests/test_torch_port_train.py`` does); and the tiny capless CenterPoint
-(the ``t_mae_waymo.yaml`` serving shape). The JAX model runs its jnp
-reference layers (f32 weights), the port the plain versions of its kernels
-(bf16 weights), so tolerances cover bf16 rounding; each is stated beside its
-comparison."""
+``adam_onecycle`` step of the capless config with Waymo's five point
+features against JAX's ``make_train_step(..., rng_names=('mae_mask',))``,
+held to the control (JAX's own step from the encoder's weights rounded once
+to bf16, as ``tests/test_torch_port_train.py`` does); and the tiny capless
+CenterPoint with Waymo's five point features and three classes (the
+``t_mae_waymo.yaml`` serving shape), its head maps and loss. The Waymo
+cases give the config Waymo's ``POINT_FEATURE_ENCODING`` (x, y, z,
+intensity, elongation), so the port's VFE reads 5 columns, and the batch an
+elongation column. The JAX model runs its jnp reference layers (f32
+weights), the port the plain versions of its kernels (bf16 weights), so
+tolerances cover bf16 rounding; each is stated beside its comparison."""
 
 import copy
 
@@ -24,6 +27,7 @@ from tests.test_torch_port_model import random_variables
 from tests.test_torch_port_train import _adam_state, _cos, _encoder_rounded, \
     _pre_bn_bias, _rel
 from tests.tiny_cfg import synth_batch, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.models import detectors as jdet
 from tmae_tpu.train import optimization as jopt
 from tmae_tpu.train import trainer as jtr
@@ -34,16 +38,44 @@ from tmae_tpu_torch.utils.from_jax import params_from_jax, tree_from_jax
 
 STEPS_PER_EPOCH = 10
 OCC_KEYS = ('OCC_WINDOW_CAPS', 'OCC_SMALL_CAPS', 'OCC_SMALL_TOKENS')
+WAYMO_FEATURES = ['x', 'y', 'z', 'intensity', 'elongation']
+WAYMO_CLASSES = ['Vehicle', 'Pedestrian', 'Cyclist']
 
 
-def _cfg(mae: bool, caps: bool):
+def _cfg(mae: bool, caps: bool, waymo: bool = False):
     """The tiny config, with its OCC caps or without them (the grid
-    path)."""
+    path); ``waymo``: Waymo's point features and, for CenterPoint, its
+    three classes in one head."""
     cfg = copy.deepcopy(tiny_cfg(mae=mae))
     if not caps:
         for k in OCC_KEYS:
             del cfg.RUNTIME[k]
+    if waymo:
+        cfg.DATA_CONFIG.POINT_FEATURE_ENCODING = {
+            'encoding_type': 'absolute_coordinates_encoding',
+            'used_feature_list': WAYMO_FEATURES,
+            'src_feature_list': WAYMO_FEATURES}
+        if not mae:
+            cfg.CLASS_NAMES = WAYMO_CLASSES
+            cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD = [WAYMO_CLASSES]
     return cfg
+
+
+def _batch(seed: int, waymo: bool = False):
+    """``synth_batch``; ``waymo``: an elongation column after the
+    intensity (U(0, 1.5) on real points, 0 on padding) and labels in 1..3."""
+    rng = np.random.RandomState(seed)
+    batch = synth_batch(rng)
+    if waymo:
+        for pts, mask in (('points', 'point_mask'),
+                          ('points_prev', 'point_mask_prev')):
+            elong = rng.uniform(0, 1.5, batch[mask].shape) * batch[mask]
+            batch[pts] = np.concatenate(
+                [batch[pts], elong[..., None].astype(np.float32)], -1)
+        labels = batch['gt_boxes'][..., 7]
+        batch['gt_boxes'][..., 7] = np.where(labels > 0,
+                                             (labels - 1) % 3 + 1, 0)
+    return batch
 
 
 def _jax_model(cfg, batch):
@@ -55,21 +87,31 @@ def _jax_model(cfg, batch):
     return jmodel, random_variables(shapes, 0)
 
 
+def _vfe_width(tmodel):
+    """Input width of the VFE's first Linear: 3 + the point features + 3
+    (the cluster offsets)."""
+    return next(m for m in tmodel.vfe.modules()
+                if isinstance(m, torch.nn.Linear)).in_features
+
+
 def _port_model(cfg, v):
     tmodel = tdet.build_detector(cfg, 'cpu')
     tmodel.load_state_dict(params_from_jax(v), strict=True)
     return tmodel
 
 
-@pytest.mark.parametrize('caps', [False, True], ids=['grid', 'bucketed'])
-def test_tmae_forward_and_loss_match_jax(caps):
+@pytest.mark.parametrize('caps,waymo', [(False, False), (True, False),
+                                        (False, True)],
+                         ids=['grid', 'bucketed', 'grid-waymo'])
+def test_tmae_forward_and_loss_match_jax(caps, waymo):
     """The eval-mode TMAE forward on JAX's mask: the mask, loss weights and
     point targets equal (targets to 1e-6: XLA may fuse the voxel centre's
     multiply-add), predicted points within 0.03 (bf16 carriers, max value
     ~0.6) and 2e-3 in the mean, the Chamfer loss within 1e-3 relative;
-    ``occ_overflow`` is [stages*2, B] and 0 without caps."""
-    cfg = _cfg(True, caps)
-    batch = synth_batch(np.random.RandomState(0))
+    ``occ_overflow`` is [stages*2, B] and 0 without caps. ``grid-waymo``:
+    five point features, the VFE's first layer 5 + 3 wide."""
+    cfg = _cfg(True, caps, waymo)
+    batch = _batch(0, waymo)
     jmodel, v = _jax_model(cfg, batch)
     jout = jax.jit(lambda v, b: jmodel.apply(
         v, b, train=False, rngs={'mae_mask': jax.random.PRNGKey(3)}))(
@@ -94,15 +136,17 @@ def test_tmae_forward_and_loss_match_jax(caps):
     assert tout['occ_overflow'].shape == (6, 2)
     if not caps:
         assert not tout['occ_overflow'].any()
+    assert _vfe_width(tmodel) == 3 + (5 if waymo else 4) + 3
 
 
 @pytest.fixture(scope='module')
 def capless_step():
-    """One pretraining step of the capless tiny TMAE in both packages from
-    the same weights and on JAX's mask for the step's key, and the control:
+    """One pretraining step of the capless tiny TMAE with Waymo's five point
+    features (the ``t_mae_ssl_waymo.yaml`` shape) in both packages from the
+    same weights and on JAX's mask for the step's key, and the control:
     JAX's step from the encoder's weights rounded once to bf16."""
-    cfg = _cfg(True, False)
-    batch = synth_batch(np.random.RandomState(1))
+    cfg = _cfg(True, False, waymo=True)
+    batch = _batch(1, waymo=True)
     jmodel, v = _jax_model(cfg, batch)
     tx, _ = jopt.build_optimizer(cfg.OPTIMIZATION, STEPS_PER_EPOCH)
 
@@ -173,19 +217,32 @@ def test_pretrain_step_gradients_match_jax_within_control(capless_step):
 
 
 def test_capless_centerpoint_forward_matches_jax():
-    """The tiny CenterPoint without caps and without host voxelization (the
-    ``t_mae_waymo.yaml`` serving shape: device voxelization, the scatter
-    VFE, grid-native layers) in eval mode: head maps within 0.03 and 3e-3
-    in the mean, as the bucketed tiny slice is held; no overflow."""
-    cfg = _cfg(False, False)
-    batch = synth_batch(np.random.RandomState(2))
+    """The tiny CenterPoint without caps and without host voxelization, with
+    Waymo's five point features and three classes (the ``t_mae_waymo.yaml``
+    serving shape: device voxelization, the scatter VFE, grid-native
+    layers) in eval mode: head maps within 0.03 and 3e-3 in the mean, as
+    the bucketed tiny slice is held; no overflow; ``centerpoint_loss`` on
+    each side's head maps and the batch's boxes, and its per-head parts,
+    within 1%, as the first training step's are held."""
+    cfg = _cfg(False, False, waymo=True)
+    batch = _batch(2, waymo=True)
     jmodel, v = _jax_model(cfg, batch)
     jout = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(v, batch)
     tmodel = _port_model(cfg, v)
+    assert _vfe_width(tmodel) == 3 + 5 + 3
     with torch.no_grad():
         tout = tmodel(tdet.batch_to_device(batch, 'cpu'))
+    assert jout['pred_dicts'][0]['hm'].shape[-1] == 3
     for name, a in jout['pred_dicts'][0].items():
         err = np.abs(tout['pred_dicts'][0][name].numpy()
                      - np.asarray(a, np.float32))
         assert err.max() <= 0.03 and err.mean() <= 3e-3, (name, err.max())
     assert not tout['occ_overflow'].any()
+    jl, jparts = jdet.centerpoint_loss(
+        cfg, jout, {k: jax.numpy.asarray(a) for k, a in batch.items()})
+    tl, tparts = tdet.centerpoint_loss(
+        cfg, tout, tdet.batch_to_device(batch, 'cpu'))
+    for k in ('hm_loss_head_0', 'loc_loss_head_0'):
+        assert abs(float(tparts[k]) - float(jparts[k])) <= \
+            0.01 * abs(float(jparts[k])), k
+    assert abs(float(tl) - float(jl)) <= 0.01 * abs(float(jl))

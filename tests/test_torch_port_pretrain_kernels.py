@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.models import siamwca as jsw
 from tmae_tpu.ops import chamfer as jch
 from tmae_tpu.ops import pallas_encoder as jpe

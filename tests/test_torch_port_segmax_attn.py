@@ -21,6 +21,7 @@ import torch
 
 from tests.test_torch_port_kernels import _bf16_np, _t
 from tests.test_torch_port_sparse_attn import _attn_inputs, _tb
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.ops import pallas_attn as jpa
 from tmae_tpu.ops import sorted_segments as jss
 from tmae_tpu_torch.ops import encoder_layer as tel

@@ -14,6 +14,7 @@ import torch
 
 from tests.test_torch_port_kernels import _bf16_np, _t
 from tests.test_torch_port_model import random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.models.layers import SubMConvBlock as JSubMConvBlock
 from tmae_tpu.models.sst import DenseGrid as JDenseGrid
 from tmae_tpu.models.sst import DenseWindowAttention as JDenseWindowAttention

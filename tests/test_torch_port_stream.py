@@ -20,6 +20,7 @@ from tests.test_torch_port_kernels import (_bf16_np, _layer_params,
                                            _port_params, _t)
 from tests.test_torch_port_model import HOSTVOX, T_MAE, random_variables
 from tests.tiny_cfg import synth_batch, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.models import detectors as jdet
 from tmae_tpu.ops import occ_compact as joc
 from tmae_tpu.ops import pallas_encoder as jpe

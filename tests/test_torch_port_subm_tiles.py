@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_kernels import _bf16_np, _t
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.ops import occ_compact as joc
 from tmae_tpu.ops import sparse_conv as jsc
 from tmae_tpu_torch.ops import occ_compact as toc

@@ -44,6 +44,7 @@ import torch
 
 from tests.test_torch_port_tiled_rows import (_bf16_np, _jparams, _port,
                                               _pos, _t, _weights)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.ops import pallas_encoder as jpe
 from tmae_tpu_torch.models.sst import DenseEncoderLayer, OccCaps, build_plans
 from tmae_tpu_torch.ops import occ_compact as toc

@@ -28,6 +28,7 @@ import torch
 
 from tests.test_torch_port_model import HOSTVOX, random_variables
 from tests.tiny_cfg import synth_batch, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.models import detectors as jdet
 from tmae_tpu.ops import centernet as jcn
 from tmae_tpu.ops.voxelize import voxelize_host as j_voxelize_host
@@ -141,7 +142,7 @@ def two_steps():
                         tmodel.state_dict().items()})
     return dict(cfg=cfg, v=v, jm=jm, jstates=jstates, jctrl=jctrl, tm=tm,
                 moments=moments, tstates=tstates, start=start,
-                model=tmodel, opt=opt, step=tstep)
+                model=tmodel, opt=opt, step=tstep, tb=tb)
 
 
 def test_train_step_metrics_match_jax(two_steps):
@@ -315,8 +316,7 @@ def test_checkpoint_round_trip(two_steps, tmp_path):
     for p, q in zip(model.parameters(), fresh.parameters()):
         for k, t in opt.state[p].items():
             assert torch.equal(fopt.state[q][k], t), k
-    _, batch = _train_cfg_and_batch()
-    tb = tdet.batch_to_device(batch, 'cpu')
+    tb = two_steps['tb']
     fstep = make_train_step(fresh, lambda o, b: tdet.centerpoint_loss(
         cfg, o, b), fopt, fsched)
     fstep.step = two_steps['step'].step

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.ops import occ_compact as joc
 from tmae_tpu.ops import pallas_encoder as jpe
 from tmae_tpu.ops import sorted_segments as jss

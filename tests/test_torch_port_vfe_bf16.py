@@ -15,6 +15,7 @@ import torch
 
 from tests.test_torch_port_model import HOSTVOX, _np, random_variables
 from tests.tiny_cfg import synth_batch, tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.models import detectors as jdet
 from tmae_tpu.ops.voxelize import voxelize_host as j_voxelize_host
 from tmae_tpu_torch.models import detectors as tdet

@@ -211,7 +211,6 @@ class DataLoader:
 
 _DATASETS = {}
 NOT_PORTED = {
-    'WaymoTemporalDataset': 'ROADMAP.md, module 7: Waymo data',
     'ONCEDataset': 'ROADMAP.md, module 9: single-frame data',
     'WaymoDataset': 'ROADMAP.md, module 9: single-frame data',
 }
@@ -231,6 +230,7 @@ def build_dataloader(dataset_cfg, class_names, batch_size, training,
     (from ``seed``) and drops the last partial batch when ``training``."""
     name = dataset_cfg.get('DATASET', 'SyntheticONCEDataset')
     from . import once_temporal  # noqa: F401  (registers datasets)
+    from . import waymo_temporal  # noqa: F401
     if name in NOT_PORTED:
         raise NotImplementedError(
             f'{name} is not ported yet ({NOT_PORTED[name]})')

@@ -12,7 +12,8 @@ frame. ``frame_pair_batch`` adds the in-range mask, the padding to
 ``MAX_POINTS``, the sorted host voxelization that the serving path ships
 (for configs with RUNTIME.HOST_VOXELIZE; without it the model voxelizes on
 the device and the batch ships points only), and the scene's labelled boxes
-as training takes them.
+as training takes them. ``waymo_sequence`` renders the same scenes as
+Waymo TFRecord frames: the top LiDAR's range images from a moving vehicle.
 """
 
 from __future__ import annotations
@@ -84,13 +85,33 @@ def render_lidar(scene: dict, rng: np.random.RandomState, pc_range,
     dx = ce[:, None] * ca[None, :]
     dy = ce[:, None] * sa[None, :]
     dz = np.broadcast_to(se[:, None], dx.shape)
+    t_best = ray_cast(np.concatenate([boxes, occluders], axis=0), dx, dy, dz,
+                      rng)
+    r_max = float(max(pc[3], pc[4])) * 1.5
+    hit = np.isfinite(t_best) & (t_best < r_max)
+    t = (t_best + rng.normal(0, 0.02, t_best.shape))[hit]
+    px = (dx[hit] * t).astype(np.float32)
+    py = (dy[hit] * t).astype(np.float32)
+    pz = (dz[hit] * t).astype(np.float32)
+    inten = rng.uniform(0, 1, len(px)).astype(np.float32)
+    pts = np.stack([px, py, pz, inten], -1)
+    if len(pts) > max_points:
+        pts = pts[rng.choice(len(pts), max_points, replace=False)]
+    return pts.astype(np.float32)
+
+
+def ray_cast(cuboids, dx, dy, dz, rng, ground=-1.9):
+    """Distance along each unit ray (dx, dy, dz) from the sensor at the
+    origin to its first hit: a rough ground plane ``ground`` m below it
+    (drawn from ``rng``) or a cuboid of ``cuboids`` [N, 7]; inf where
+    nothing is hit."""
     t_best = np.full(dx.shape, np.inf, np.float32)
-    zg = -1.9 + rng.uniform(-0.05, 0.05)
+    zg = ground + rng.uniform(-0.05, 0.05)
     zray = zg + rng.normal(0, 0.10, dx.shape)
     with np.errstate(divide='ignore'):
         t_g = np.where(dz < -1e-6, zray / dz, np.inf)
     t_best = np.minimum(t_best, t_g)
-    for b in np.concatenate([boxes, occluders], axis=0):
+    for b in cuboids:
         c, s = np.cos(b[6]), np.sin(b[6])
         ox = -(b[0] * c + b[1] * s)
         oy = -(-b[0] * s + b[1] * c)
@@ -114,17 +135,7 @@ def render_lidar(scene: dict, rng: np.random.RandomState, pc_range,
             tmax = np.minimum(tmax, hi)
         t_hit = np.where((tmax >= tmin) & (tmin > 0.5), tmin, np.inf)
         t_best = np.minimum(t_best, t_hit)
-    r_max = float(max(pc[3], pc[4])) * 1.5
-    hit = np.isfinite(t_best) & (t_best < r_max)
-    t = (t_best + rng.normal(0, 0.02, t_best.shape))[hit]
-    px = (dx[hit] * t).astype(np.float32)
-    py = (dy[hit] * t).astype(np.float32)
-    pz = (dz[hit] * t).astype(np.float32)
-    inten = rng.uniform(0, 1, len(px)).astype(np.float32)
-    pts = np.stack([px, py, pz, inten], -1)
-    if len(pts) > max_points:
-        pts = pts[rng.choice(len(pts), max_points, replace=False)]
-    return pts.astype(np.float32)
+    return t_best
 
 
 def in_range(points: np.ndarray, pc_range) -> np.ndarray:
@@ -163,11 +174,14 @@ def gt_from_scene(scene: dict, class_names, max_gt: int):
 def frame_pair_batch(spec: VoxelSpec, class_names, indices=(0,),
                      density: float = 1.5, points_per_frame: int = 100000,
                      n_box: int = 40, max_gt: int = 500,
-                     host_voxelize: bool = True) -> dict:
+                     host_voxelize: bool = True,
+                     num_point_features: int = 4) -> dict:
     """Numpy batch of current/previous frame pairs of scenes ``indices``
     with the sorted host voxelization (``host_voxelize``; else the points
     as rendered) and the labelled boxes (``gt_boxes`` [B, max_gt, 8],
-    ``gt_mask``), keyed as ``models/detectors.py`` expects."""
+    ``gt_mask``), keyed as ``models/detectors.py`` expects. Points carry
+    x, y, z, intensity and, past 4 ``num_point_features`` (Waymo's
+    elongation), columns drawn uniform in [0, 0.2) after the render."""
     pc = spec.pc_range
     class_names = list(class_names)
     frames = {'cur': [], 'prv': []}
@@ -177,8 +191,10 @@ def frame_pair_batch(spec: VoxelSpec, class_names, indices=(0,),
         gts.append(gt_from_scene(scene, class_names, max_gt))
         for which, base in (('cur', 2000), ('prv', 3000)):
             rng = np.random.RandomState(base + index)
-            pts = in_range(render_lidar(scene, rng, pc, density,
-                                        points_per_frame), pc)
+            pts = render_lidar(scene, rng, pc, density, points_per_frame)
+            extra = rng.uniform(0, 0.2, (len(pts), num_point_features - 4))
+            pts = in_range(np.concatenate(
+                [pts, extra.astype(np.float32)], 1), pc)
             frames[which].append(pad_points(pts, spec.max_points))
     batch = {}
     for which, pk, mk in (('cur', 'points', 'point_mask'),
@@ -200,3 +216,119 @@ def frame_pair_batch(spec: VoxelSpec, class_names, indices=(0,),
     batch['gt_boxes'] = np.stack([g for g, _ in gts])
     batch['gt_mask'] = np.stack([m for _, m in gts])
     return batch
+
+
+# ---------------------------------------------------------------------------
+# Waymo sequences: the scenes above seen by Waymo's top LiDAR from a moving
+# vehicle, written as TFRecords of Frame protos (datasets/waymo_decode.py)
+# ---------------------------------------------------------------------------
+
+WAYMO_BEAMS, WAYMO_COLUMNS = 64, 2650      # the top LiDAR's range image
+WAYMO_INCLINATION = (np.deg2rad(-17.6), np.deg2rad(2.4))
+WAYMO_TOP_HEIGHT = 1.9   # the sensor above the vehicle frame's ground
+WAYMO_TYPES = {'Vehicle': 1, 'Pedestrian': 2, 'Cyclist': 4}
+TOP_LIDAR = 1            # LaserName.TOP
+
+
+def waymo_pose(fi: int) -> np.ndarray:
+    """Vehicle-to-world pose [4, 4] of frame ``fi`` (10 Hz) of a vehicle
+    that drives at 10 m/s and turns at 0.05 rad/s."""
+    yaw = 0.005 * fi
+    pose = np.eye(4)
+    pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    pose[:2, 3] = [fi * np.cos(yaw / 2), fi * np.sin(yaw / 2)]
+    return pose
+
+
+def boxes_in_frame(boxes: np.ndarray, pose: np.ndarray,
+                   z_offset: float = 0.0) -> np.ndarray:
+    """World boxes [N, 7] in the frame of the vehicle at ``pose``, then
+    ``z_offset`` added to their z."""
+    inv = np.linalg.inv(pose)
+    out = np.asarray(boxes, np.float64).copy()
+    out[:, :3] = boxes[:, :3] @ inv[:3, :3].T + inv[:3, 3]
+    out[:, 2] += z_offset
+    out[:, 6] = (boxes[:, 6] - np.arctan2(pose[1, 0], pose[0, 0])
+                 + np.pi) % (2 * np.pi) - np.pi
+    return out
+
+
+def render_range_image(scene: dict, pose: np.ndarray,
+                       rng: np.random.RandomState, pc_range):
+    """One sweep of the top LiDAR from the vehicle at ``pose`` over the
+    world ``scene`` (whose ground is 1.9 m below the sensor): range
+    image [64, 2650, 4] (range, -1 where nothing is hit within 75 m;
+    intensity; elongation; NLZ, 1 inside the scene's no-label zones
+    ``scene['nlz']`` and -1 elsewhere) in the decoder's beam and column
+    convention (``waymo_decode.range_image_to_points``: row 0 the highest
+    beam, column 0 just under +pi azimuth), and the count of its points
+    inside the x/y range of ``pc_range``."""
+    H, W = WAYMO_BEAMS, WAYMO_COLUMNS
+    incl = np.linspace(*WAYMO_INCLINATION, H)[::-1]
+    azimuth = ((np.arange(W, 0, -1) - 0.5) / W * 2 - 1) * np.pi
+    ci, si = np.cos(incl)[:, None], np.sin(incl)[:, None]
+    dx = ci * np.cos(azimuth)[None, :]
+    dy = ci * np.sin(azimuth)[None, :]
+    dz = np.broadcast_to(si, dx.shape)
+    # the cuboids in the sensor's frame (the scene's z is the sensor's)
+    cuboids = boxes_in_frame(np.concatenate([scene['boxes'],
+                                             scene['occluders']]), pose)
+    t = ray_cast(cuboids, dx, dy, dz, rng)
+    # a return lost on a quarter of the rays (dark or specular surfaces)
+    hit = np.isfinite(t) & (t < 75.0) & (rng.uniform(size=t.shape) >= 0.25)
+    rng_m = np.where(hit, t + rng.normal(0, 0.02, t.shape), -1.0)
+    ri = np.zeros((H, W, 4), np.float32)
+    ri[..., 0] = rng_m
+    ri[..., 1] = np.where(hit, rng.uniform(0, 1.5, t.shape), 0)
+    ri[..., 2] = np.where(hit, rng.uniform(0, 0.2, t.shape), 0)
+    xy = np.stack([dx * rng_m, dy * rng_m], -1)
+    nlz = np.zeros(t.shape, bool)
+    for zone in scene['nlz']:
+        c = zone[:2] - pose[:2, 3]
+        rot = pose[:2, :2].T @ c
+        nlz |= np.all(np.abs(xy - rot) <= zone[2:4] / 2, -1)
+    ri[..., 3] = np.where(hit & nlz, 1.0, -1.0)
+    n_in_range = int((hit & (np.abs(xy[..., 0]) <= pc_range[3])
+                      & (np.abs(xy[..., 1]) <= pc_range[4])).sum())
+    return ri, n_in_range
+
+
+def waymo_sequence(index: int, n_frames: int, pc_range, class_names,
+                   name: str):
+    """Frame protos (bytes) of a ``n_frames`` sequence of scene ``index``
+    (``make_scene``, static in the world; two 12 m no-label zones beside
+    the path) seen from a vehicle moving as ``waymo_pose`` says: per
+    frame the top
+    LiDAR's range image with its pixel poses (the frame's pose at every
+    pixel), the calibration (the sensor 1.9 m above the vehicle frame,
+    64 beams between -17.6 and +2.4 degrees), the pose and the labelled
+    boxes in the vehicle frame. Returns (frames, in-range point count of
+    each frame)."""
+    from .waymo_decode import encode_frame
+
+    scene = make_scene(index, pc_range, list(class_names))
+    # (x, y, dx, dy) of the no-label zones, beside the vehicle's path
+    scene['nlz'] = np.array([[5.0, 15.0, 12.0, 12.0],
+                             [-10.0, -20.0, 12.0, 12.0]])
+    extrinsic = np.eye(4)
+    extrinsic[2, 3] = WAYMO_TOP_HEIGHT
+    calib = {TOP_LIDAR: (extrinsic, *WAYMO_INCLINATION, ())}
+    keep = np.array([n in WAYMO_TYPES for n in scene['names']], bool)
+    frames, counts = [], []
+    for fi in range(n_frames):
+        pose = waymo_pose(fi)
+        ri, n_in_range = render_range_image(
+            scene, pose, np.random.RandomState(8000 + 100 * index + fi),
+            pc_range)
+        yaw = np.arctan2(pose[1, 0], pose[0, 0])
+        pixel_pose = np.zeros(ri.shape[:2] + (6,), np.float32)
+        pixel_pose[..., 2] = yaw
+        pixel_pose[..., 3:5] = pose[:2, 3]
+        boxes = boxes_in_frame(scene['boxes'][keep], pose, WAYMO_TOP_HEIGHT)
+        labels = [(b, WAYMO_TYPES[n])
+                  for b, n in zip(boxes, scene['names'][keep])]
+        frames.append(encode_frame(
+            name, 1_000_000 + 100_000 * fi, pose,
+            {TOP_LIDAR: (ri, pixel_pose)}, calib, labels))
+        counts.append(n_in_range)
+    return frames, counts

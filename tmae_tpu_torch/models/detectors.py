@@ -12,10 +12,12 @@
   the Chamfer loss :func:`tmae_loss`.
 
 Batch layout (dict of tensors, as the JAX package's host pipeline ships it):
-``points``/``points_prev`` [B, P, 4], ``point_mask``/``point_mask_prev``
-[B, P], and, under RUNTIME.HOST_VOXELIZE, per frame (``cur``/``prv``) the
-host voxelization ``pv_*``, ``pvalid_*``, ``vcoords_*``, ``vmask_*`` and the
-sorted extras ``vmean_*``, ``vends_*``. Detection training adds
+``points``/``points_prev`` [B, P, C] (C = :func:`num_point_features`: x, y,
+z, intensity on ONCE, and elongation on Waymo), ``point_mask``/
+``point_mask_prev`` [B, P], and, under RUNTIME.HOST_VOXELIZE, per frame
+(``cur``/``prv``) the host voxelization ``pv_*``, ``pvalid_*``,
+``vcoords_*``, ``vmask_*`` and the sorted extras ``vmean_*``, ``vends_*``.
+Detection training adds
 ``gt_boxes`` [B, M, 8] (class 1-indexed in the last column) and
 ``gt_mask`` [B, M].
 """
@@ -59,6 +61,14 @@ def _grid_hw(spec: VoxelSpec):
     return (ny, nx)
 
 
+def num_point_features(cfg) -> int:
+    """Point channels the model reads: the length of the config's
+    ``POINT_FEATURE_ENCODING.used_feature_list`` (4 on ONCE, 5 on Waymo),
+    4 without one (the JAX package's VFE takes its width from the data)."""
+    pfe = cfg['DATA_CONFIG'].get('POINT_FEATURE_ENCODING')
+    return len(pfe['used_feature_list']) if pfe else 4
+
+
 def _temporal_vfe(cfg, spec, backbone: str) -> TemporalDynVFE:
     model_cfg = cfg['MODEL']
     vfe_cfg = model_cfg['VFE']
@@ -68,6 +78,7 @@ def _temporal_vfe(cfg, spec, backbone: str) -> TemporalDynVFE:
                                   f'TemporalDynVFE + {backbone}')
     return TemporalDynVFE(
         spec, [list(m) for m in vfe_cfg['MLPS']],
+        num_point_features=num_point_features(cfg),
         remat=bool(cfg['RUNTIME'].get('VFE_REMAT', True)),
         use_absolute_xyz=vfe_cfg.get('USE_ABSLOTE_XYZ', True),
         use_cluster_xyz=vfe_cfg.get('USE_CLUSTER_XYZ', True),

@@ -51,7 +51,7 @@ class DynPillarEncoder(nn.Module):
             cin = 2 * cin  # per-point features + pillar max, when not last
 
     def forward(self, points, point_mask, vox: dict):
-        """points [B, P, 4]; ``vox`` the host voxelization (tensors):
+        """points [B, P, C] (x, y, z, then C - 3 features); ``vox`` the host voxelization (tensors):
         point_voxel, point_valid, voxel_coords, voxel_mask and optionally
         voxel_mean_xyz and seg_ends; empty to voxelize on the device.
         Returns the voxel features, coords and mask, and the point-to-voxel

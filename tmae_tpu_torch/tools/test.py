@@ -1,10 +1,14 @@
 """Evaluation CLI of the port (counterpart of ``tools/test.py``): loads a
 checkpoint saved by ``train/checkpoint.save_checkpoint`` (one, or each new
 one of the checkpoint directory with ``--eval_all``) and runs the dataset's
-ONCE AP evaluation through ``train/evaluator.eval_one_epoch``.
+evaluation through ``train/evaluator.eval_one_epoch``: ONCE AP, or, on
+Waymo (``t_mae_waymo.yaml``, ``EVAL_METRIC: waymo_custom``), AP and APH at
+LEVEL_1 / LEVEL_2.
 
     python -m tmae_tpu_torch.tools.test \\
         --cfg_file tools/cfgs/once_models/t_mae_synth.yaml --ckpt <file>
+    python -m tmae_tpu_torch.tools.test \\
+        --cfg_file tools/cfgs/waymo_models/t_mae_waymo.yaml --ckpt <file>
     python -m tmae_tpu_torch.tools.test ... --device cpu   # plain versions
 
 Writes ``output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>/eval/<tag>/result.pkl``

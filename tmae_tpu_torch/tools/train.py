@@ -9,6 +9,11 @@ of the trained model.
         --cfg_file tools/cfgs/once_models/t_mae.yaml \\
         --pretrained_model output/.../ckpt/checkpoint_<step>.pth \\
         --num_epochs_to_eval 1
+    python -m tmae_tpu_torch.tools.train \\
+        --cfg_file tools/cfgs/waymo_models/t_mae_ssl_waymo.yaml
+    python -m tmae_tpu_torch.tools.train \\
+        --cfg_file tools/cfgs/waymo_models/t_mae_waymo.yaml \\
+        --pretrained_model output/.../ckpt/checkpoint_<step>.pth
     python -m tmae_tpu_torch.tools.train ... --device cpu   # plain versions
 
 Writes under ``output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>/``: the log

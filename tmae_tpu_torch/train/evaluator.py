@@ -1,7 +1,8 @@
 """Evaluation loop (counterpart of ``tmae_tpu/train/evaluator.py``): per
 batch the forward and decode on the model's device, one copy of the
 candidates to the host, native host NMS, prediction dicts and the recall
-bookkeeping; then ``result.pkl`` and the dataset's ONCE AP.
+bookkeeping; then ``result.pkl`` and the dataset's AP: ONCE AP, or Waymo AP
+and APH at LEVEL_1 / LEVEL_2.
 """
 
 from __future__ import annotations
