@@ -166,6 +166,34 @@ Phases (any failure exits non-zero and prints no result line):
      15b. one t_mae_waymo.yaml finetune step on the card and on the CPU at
      full width on a 64x64 grid, on a loader batch of that tree (5 point
      features), held to the control as in phase 7.
+ 16. device IoU and NMS, the IoU head, the asymmetric encoder and the
+     remaining evaluation options (``csrc/iou_nms.cu``).
+     16a. IOU_PAIRS (BEV and 3D), IOU_ALIGNED, NMS_MASK and NMS_SCAN
+     against their plain versions on the 500 candidates of phase 4's pair
+     (served again in 16b) and on 500 crowded synthetic boxes: IoU to
+     1e-5; the mask bit for bit, a flipped bit printed with its IoU's
+     distance from the threshold (under 1e-5 or the run fails); the scan
+     exactly on the kernel's mask; the keep mask against the plain greedy
+     NMS, for nms_gpu at 0.5 and multi_class_nms at [0.7, 0.6, 0.55,
+     0.55, 0.55]; their times, plain times, bounds and host native NMS's.
+     16b. t_mae.yaml served with ``centerpoint_predict(nms_on_device=
+     True)``: counters set to 0, one pass (phase 4's launches plus one
+     NMS_MASK and one NMS_SCAN); the kept set equal to native host NMS on
+     the same candidates; ms a pair with device and with host NMS in turns,
+     the NMS kernels' device ms.
+     16c. a t_mae.yaml variant with the IoU head and multi_class_nms
+     (IoU-rectified scores): one finetune step at phase 6's batch (phase
+     6's launches plus one IOU_ALIGNED, iou_loss_head_0 finite), then one
+     served pair whose device and host multi-class NMS keep the same set.
+     16d. one t_mae.yaml finetune step each with ASYMMETRIC {ENABLED} and
+     {ENABLED, SimSiam}: launches against phase 6's (EXPECTED_ASYM,
+     EXPECTED_SIMSIAM), every loss part finite.
+     16e. phase 13's checkpoint through ``tools.test``, ``tools.eval_asym``
+     (the same detections) and ``tools.test --fuse_conv_bn`` (the same
+     kept boxes but for overlapping pairs that NMS decided the other way
+     and boxes within 0.01 of the other run's lowest kept score, counted;
+     the folded head maps on one batch within (0.1, 5e-3) of the
+     unfused).
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -197,7 +225,9 @@ F32_FLOPS = 67e12              # f32 outside the tensor cores
 # frame.
 EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
                      'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0, 'K12': 0,
-                     'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0, 'PACK': 18}
+                     'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0, 'PACK': 18,
+                     'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0,
+                     'NMS_SCAN': 0}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -210,7 +240,7 @@ EXPECTED_TRAIN_LAUNCHES = {
     'K1': 24 + 18 + 12, 'K2': 18 + 24 + 18 + 12, 'K3': 0, 'K4': 0,
     'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
     'K10': 0, 'K12': 0, 'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0,
-    'PACK': 0}
+    'PACK': 0, 'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0, 'NMS_SCAN': 0}
 NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
 # The fused in-place serving path: each of the 18 layers is one pack of its
 # panels and one K12 call per bucket (small, mid, full), and nothing else
@@ -240,6 +270,19 @@ EXPECTED_FINETUNE_GRID = {**NO_LAUNCHES, 'K10': 18 + 12, 'K7': 18}
 # a zero-fill scatter forward, the plan's cell mask (a zero-fill scatter)
 # backward. DenseWindowAttention: one K16 per call (4), which packs its
 # four weight panels itself.
+# One t_mae.yaml finetune step with ASYMMETRIC.ENABLED: the 12 SST layers
+# run twice (each frame's pass on the batch of one frame), forward, remat
+# replay and backward; the 6 WCA layers and the VFE as in phase 6.
+EXPECTED_ASYM = {**EXPECTED_TRAIN_LAUNCHES, 'K1': 36 + 30 + 24,
+                 'K2': 30 + 36 + 30 + 24, 'K6': 30 + 24, 'K7': 30,
+                 'K8': 60 + 48, 'K9': 60}
+# With SimSiam the previous frame's pyramid is detached: its 12 SST layers
+# and its VFE run forward only (no backward, no remat replay), and the WCA
+# layers' gather of the previous frame's windows needs no VJP (K2 18, not
+# 24, for the gathers' VJPs).
+EXPECTED_SIMSIAM = {**EXPECTED_TRAIN_LAUNCHES, 'K1': 36 + 18 + 12,
+                    'K2': 30 + 18 + 18 + 12, 'K5': 2 + 1, 'K6': 30 + 12,
+                    'K8': 60 + 24}
 EXPECTED_SPARSE_ATTN = {**NO_LAUNCHES, 'K1': 2 * 3, 'K2': 2 * 2 + 6 * 2,
                         'K13b': 2 * 2 + 6 * 2, 'K13c': 2 * 2, 'K15': 6,
                         'K16': 4}
@@ -1234,8 +1277,9 @@ def grid_bits_check(torch, el, call, out, label):
 
 
 def kernels():
-    from tmae_tpu_torch.ops import (encoder_layer, occ_compact, sorted_segments,
-                                    sparse_conv, window_attention)
+    from tmae_tpu_torch.ops import (encoder_layer, geometry, occ_compact,
+                                    sorted_segments, sparse_conv,
+                                    window_attention)
 
     return {'K1': occ_compact.K1, 'K2': occ_compact.K2,
             'K3': encoder_layer.K3, 'K4': encoder_layer.K4,
@@ -1244,7 +1288,10 @@ def kernels():
             'K9': encoder_layer.K9, 'K10': encoder_layer.K10,
             'K12': encoder_layer.K12, 'K13b': occ_compact.K13B,
             'K13c': occ_compact.K13C, 'K15': sparse_conv.K15,
-            'K16': window_attention.K16, 'PACK': encoder_layer.PACK}
+            'K16': window_attention.K16, 'PACK': encoder_layer.PACK,
+            'IOU_PAIRS': geometry.IOU_PAIRS,
+            'IOU_ALIGNED': geometry.IOU_ALIGNED,
+            'NMS_MASK': geometry.NMS_MASK, 'NMS_SCAN': geometry.NMS_SCAN}
 
 
 def fill_launches(rows, launches, names):
@@ -1274,7 +1321,8 @@ def serve_once(torch, cfg, model, batch, **fwd):
 
     with torch.no_grad():
         out = model(batch, **fwd)
-        boxes, scores, labels, valid = centerpoint_predict(cfg, out)
+        boxes, scores, labels, valid = centerpoint_predict(
+            cfg, out, nms_on_device=False)
         keep = host_nms(cfg, boxes, scores, labels, valid)
     return out, (boxes, scores, labels, valid, keep)
 
@@ -1314,7 +1362,7 @@ def split_times(torch, cfg, model, batch, reps):
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            dec = centerpoint_predict(cfg, out)
+            dec = centerpoint_predict(cfg, out, nms_on_device=False)
             t3 = time.perf_counter()
             host_nms(cfg, *dec)
             t4 = time.perf_counter()
@@ -3642,6 +3690,539 @@ def waymo_cli_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: device IoU and NMS (csrc/iou_nms.cu), the IoU head with
+# multi-class NMS, the asymmetric encoder modes and the eval_asym /
+# --fuse_conv_bn CLIs
+# ---------------------------------------------------------------------------
+
+GEOMETRY_SRC = 'tmae_tpu_torch/csrc/iou_nms.cu'
+IOU_TOL = 1e-5                 # IoU kernel vs plain; an NMS flip's margin
+MULTI_NMS = {'NMS_TYPE': 'multi_class_nms',
+             'IOU_RECTIFIER': [0.68, 0.71, 0.65, 0.65, 0.68],
+             'NMS_THRESH': [0.7, 0.6, 0.55, 0.55, 0.55],
+             'NMS_PRE_MAXSIZE': [4096] * 5, 'NMS_POST_MAXSIZE': [500] * 5}
+# folded vs unfused head maps, max and mean |diff|: the bf16 rounding of the
+# scaled weights, about half of these on t_mae_synth.yaml's model (PERF.md)
+FUSED_MAP_TOL = (0.1, 5e-3)
+FUSED_SCORE_TOL = 0.01         # a box cut at the other run's boundary
+
+
+def crowded_boxes(torch, K=500, clusters=25, seed=0):
+    """K boxes in clusters of heavy overlap over a t_mae.yaml scene, all
+    headings, distinct scores (descending, as decode sorts them), labels
+    1..5; the last 20 invalid."""
+    g = torch.Generator().manual_seed(seed)
+    centres = (torch.rand(clusters, 2, generator=g) - 0.5) * 120
+    c = torch.randint(0, clusters, (K,), generator=g)
+    boxes = torch.cat([
+        centres[c] + torch.randn(K, 2, generator=g) * 0.7,
+        torch.rand(K, 1, generator=g) * 2 - 1,
+        torch.rand(K, 1, generator=g) * 4 + 1,
+        torch.rand(K, 1, generator=g) * 2 + 1,
+        torch.rand(K, 1, generator=g) * 2 + 1,
+        (torch.rand(K, 1, generator=g) * 2 - 1) * math.pi], 1)
+    labels = torch.randint(1, 6, (K,), generator=g)
+    valid = torch.arange(K) < K - 20
+    return [t[None].cuda() for t in (boxes, labels, valid)]
+
+
+def first_flips(torch, geo, boxes, got, want, labels, threshs, what):
+    """Where two keep masks of the same score-sorted candidates differ:
+    for each sample (and class, with labels), the first differing row and
+    the distance of its IoU with the rows kept before it (by either mask)
+    from the threshold, the smallest over those rows; later differences
+    follow from the first. Prints each; fails unless every distance is
+    under IOU_TOL. Returns the number of differing rows."""
+    diff = (got != want).nonzero().tolist()
+    firsts = {}
+    for b, i in diff:
+        c = int(labels[b, i]) - 1 if labels is not None else 0
+        firsts.setdefault((b, c), i)
+    for (b, c), i in sorted(firsts.items()):
+        before = (got[b, :i] | want[b, :i])
+        if labels is not None:
+            before &= labels[b, :i] == c + 1
+        th = threshs[c]
+        if before.any():
+            iou = geo.boxes_iou_bev_plain(boxes[b, i:i + 1, :7],
+                                          boxes[b, :i][before][:, :7])[0]
+            dist = float((iou - th).abs().min())
+        else:
+            dist = float('inf')
+        log(f'    {what}: sample {b} class {c + 1} row {i} flips; its IoU '
+            f'is {dist:.3g} from the threshold {th}')
+        if dist >= IOU_TOL:
+            raise AssertionError(f'{what}: a flip {dist:.3g} from the '
+                                 'threshold')
+    return len(diff)
+
+
+def mask_flips(torch, geo, boxes, valid, labels, threshs, what):
+    """``NMS_MASK`` against :func:`nms_mask_plain`: each flipped bit with
+    its IoU's distance from the threshold (must be under IOU_TOL). Returns
+    the kernel's packed mask."""
+    K = valid.shape[1]
+    bits = geo.nms_mask_bits(boxes, valid, threshs, labels)
+    got = geo.unpack_mask(bits, K)
+    want = geo.nms_mask_plain(boxes, valid, labels, threshs)
+    flips = (got != want).nonzero().tolist()
+    worst = 0.0
+    for b, i, j in flips:
+        c = int(labels[b, i]) - 1 if labels is not None else 0
+        iou = float(geo.boxes_iou_bev_plain(boxes[b, i:i + 1, :7],
+                                            boxes[b, j:j + 1, :7])[0, 0])
+        worst = max(worst, abs(iou - threshs[c]))
+        log(f'    {what}: bit ({i}, {j}) flips, IoU {iou:.7f} against '
+            f'{threshs[c]}')
+    log(f'  {what}: NMS_MASK {int(want.sum())} bits set of '
+        f'{want.numel()}, {len(flips)} flipped (worst {worst:.3g} from the '
+        'threshold)')
+    if worst >= IOU_TOL:
+        raise AssertionError(f'{what}: NMS_MASK flips a bit {worst:.3g} from '
+                             'the threshold')
+    return bits
+
+
+def greedy_plain(torch, geo, boxes, valid, labels, threshs, posts):
+    """The JAX package's greedy NMS per sample (per class: on the class's
+    own candidates, in order), on the plain IoU."""
+    keep = torch.zeros_like(valid)
+    for b in range(valid.shape[0]):
+        for c, (th, po) in enumerate(zip(threshs, posts)):
+            sel = valid[b] if labels is None else valid[b] & (
+                labels[b] == c + 1)
+            idx = sel.nonzero()[:, 0]
+            if len(idx):
+                keep[b, idx] = geo.nms_bev_mask_plain(
+                    boxes[b, idx, :7], torch.ones_like(idx, dtype=torch.bool),
+                    th, po)
+    return keep
+
+
+def nms_case(torch, geo, boxes, valid, labels, threshs, posts, what):
+    """NMS_MASK and NMS_SCAN on one candidate set: the mask bit for bit
+    against the plain relation (flips only within IOU_TOL of the
+    threshold), the scan exactly against the plain scan of the kernel's
+    own mask, the keep mask against the plain greedy NMS (equal, or flips
+    explained by the mask's). Returns the kernel's packed mask."""
+    bits = mask_flips(torch, geo, boxes, valid, labels, threshs, what)
+    K = valid.shape[1]
+    keep = geo.nms_keep(boxes, valid, threshs if labels is not None
+                        else threshs[0], posts if labels is not None
+                        else posts[0], labels=labels)
+    scan = geo.nms_scan_bits(bits, valid, posts, labels)
+    plain_scan = geo.nms_scan_plain(geo.unpack_mask(bits, K), valid, labels,
+                                    posts)
+    if not (torch.equal(scan, plain_scan) and torch.equal(scan, keep)):
+        raise AssertionError(f'{what}: NMS_SCAN differs from its plain '
+                             'version on the kernel\'s mask')
+    want = greedy_plain(torch, geo, boxes, valid, labels, threshs, posts)
+    n = first_flips(torch, geo, boxes, keep, want, labels, threshs, what)
+    log(f'  {what}: kept {int(keep.sum())} of {int(valid.sum())} valid; '
+        f'NMS_SCAN equal to its plain version on the same mask; {n} rows '
+        'differ from the plain greedy NMS')
+    return bits
+
+
+def geometry_phase(torch, served, host_ms, rows):
+    """16a: IOU_PAIRS, IOU_ALIGNED, NMS_MASK and NMS_SCAN against their
+    plain versions on the served pair's 500 candidates (``served``: boxes,
+    labels, valid) and on a crowded synthetic set, for nms_gpu at 0.5 and
+    multi_class_nms at MULTI_NMS's thresholds; their times and bounds
+    (``host_ms``: native host NMS of the served candidates). Returns the
+    launches of IOU_PAIRS's path (one BEV and one 3D call)."""
+    from tmae_tpu_torch.ops import geometry as geo
+
+    cases = {'served pair': served, 'crowded set': crowded_boxes(torch)}
+    th_multi = [float(t) for t in MULTI_NMS['NMS_THRESH']]
+    posts_multi = [int(p) for p in MULTI_NMS['NMS_POST_MAXSIZE']]
+    for what, (boxes, labels, valid) in cases.items():
+        b = boxes[0, :, :7].contiguous()
+        for fn in ('boxes_iou_bev', 'boxes_iou3d'):
+            err = float((getattr(geo, fn)(b, b) - getattr(
+                geo, f'{fn}_plain')(b, b)).abs().max())
+            log(f'  {what}: {fn} {b.shape[0]}x{b.shape[0]} max |kernel - '
+                f'plain| {err:.3g}')
+            if not err <= IOU_TOL:
+                raise AssertionError(f'{what}: {fn} differs from its plain '
+                                     'version')
+        shifted = b + torch.tensor([0.4, -0.3, 0.2, 0.3, -0.2, 0.1, 0.5],
+                                   device=b.device)
+        err = float((geo.boxes_iou3d_aligned(b, shifted)
+                     - geo.boxes_iou3d_aligned_plain(b, shifted)).abs().max())
+        log(f'  {what}: boxes_iou3d_aligned max |kernel - plain| {err:.3g}')
+        if not err <= IOU_TOL:
+            raise AssertionError(f'{what}: boxes_iou3d_aligned differs')
+        nms_case(torch, geo, boxes, valid, None, [0.5], [500],
+                 f'{what}, nms_gpu 0.5')
+        nms_case(torch, geo, boxes, valid, labels, th_multi, posts_multi,
+                 f'{what}, multi_class_nms')
+
+    boxes, labels, valid = served
+    b = boxes[0, :, :7].contiguous()
+    K = valid.shape[1]
+    bits = geo.nms_mask_bits(boxes, valid, [0.5])
+    mask_err = float((geo.unpack_mask(bits, K) != geo.nms_mask_plain(
+        boxes, valid, None, [0.5])).any())
+    scan_err = float((geo.nms_scan_bits(bits, valid, [500])
+                      != geo.nms_scan_plain(geo.unpack_mask(bits, K), valid,
+                                            None, [500])).any())
+    _, launches = counted(torch, lambda: (geo.boxes_iou_bev(b, b),
+                                          geo.boxes_iou3d(b, b)))
+    log(f'  IOU_PAIRS path (one BEV, one 3D call): {launches["IOU_PAIRS"]} '
+        'launches')
+    live = valid[0]
+    n = int(live.sum())
+    pairs = n * (n - 1) // 2
+    box_bytes = K * 7 * 4
+    mask_bytes = K * (-(-K // 64)) * 8
+    shifted = b + 0.3
+    timed = {name: launch_times(torch, name, call) for name, call in (
+        ('IOU_PAIRS', lambda: geo.boxes_iou_bev(b, b)),
+        ('IOU_ALIGNED', lambda: geo.boxes_iou3d_aligned(b, shifted)),
+        ('NMS_MASK', lambda: geo.nms_mask_bits(boxes, valid, [0.5])),
+        ('NMS_SCAN', lambda: geo.nms_scan_bits(bits, valid, [500])))}
+    add_row(rows, 'iou_pairs', 'IOU_PAIRS', GEOMETRY_SRC,
+            'tmae_tpu/ops/geometry.py:159 boxes_iou_bev (plain JAX)',
+            float((geo.boxes_iou_bev(b, b)
+                   - geo.boxes_iou_bev_plain(b, b)).abs().max()),
+            time_ms(torch, lambda: geo.boxes_iou_bev(b, b)),
+            time_ms(torch, lambda: geo.boxes_iou_bev_plain(b, b), iters=5),
+            2 * box_bytes + K * K * 4, K * K * geo.PAIR_CLIP_FLOPS, None,
+            peak=F32_FLOPS, **timed['IOU_PAIRS'])
+    add_row(rows, 'iou_aligned', 'IOU_ALIGNED', GEOMETRY_SRC,
+            'tmae_tpu/ops/geometry.py:179 boxes_iou3d_aligned (plain JAX)',
+            float((geo.boxes_iou3d_aligned(b, shifted)
+                   - geo.boxes_iou3d_aligned_plain(b, shifted)).abs().max()),
+            time_ms(torch, lambda: geo.boxes_iou3d_aligned(b, shifted)),
+            time_ms(torch, lambda: geo.boxes_iou3d_aligned_plain(b, shifted),
+                    iters=5),
+            2 * box_bytes + K * 4, K * geo.PAIR_CLIP_FLOPS, None,
+            peak=F32_FLOPS, **timed['IOU_ALIGNED'])
+    add_row(rows, 'nms_mask', 'NMS_MASK', GEOMETRY_SRC,
+            'tmae_tpu/ops/geometry.py:199 nms_bev_mask (plain JAX)', mask_err,
+            time_ms(torch, lambda: geo.nms_mask_bits(boxes, valid, [0.5])),
+            time_ms(torch, lambda: geo.nms_mask_plain(boxes, valid, None,
+                                                      [0.5]), iters=3),
+            box_bytes + K + mask_bytes, pairs * geo.PAIR_CLIP_FLOPS, None,
+            peak=F32_FLOPS, host_native_ms=host_ms, valid=n,
+            **timed['NMS_MASK'])
+    add_row(rows, 'nms_scan', 'NMS_SCAN', GEOMETRY_SRC,
+            'tmae_tpu/ops/geometry.py:199 nms_bev_mask (plain JAX)', scan_err,
+            time_ms(torch, lambda: geo.nms_scan_bits(bits, valid, [500])),
+            time_ms(torch, lambda: geo.nms_scan_plain(
+                geo.unpack_mask(bits, K), valid, None, [500]), iters=3),
+            mask_bytes + 2 * K, 0, None, peak=F32_FLOPS,
+            host_native_ms=host_ms, **timed['NMS_SCAN'])
+    return launches
+
+
+def serve_device_nms(torch, cfg, model, batch):
+    """One served pair with device NMS: forward, decode and NMS on the
+    card, the kept boxes copied to the host."""
+    from tmae_tpu_torch.models.detectors import centerpoint_predict
+
+    with torch.no_grad():
+        out = model(batch)
+        boxes, scores, labels, valid = centerpoint_predict(cfg, out)
+        return out, (boxes, scores, labels, valid, valid.cpu())
+
+
+def device_vs_host(torch, cfg, out, dev_valid, what):
+    """The device NMS's kept set against the native host NMS on the same
+    candidates (flips only within IOU_TOL of the threshold). Returns the
+    candidates (on the card) and the host's kept mask."""
+    from tmae_tpu_torch.models.detectors import centerpoint_predict, host_nms
+    from tmae_tpu_torch.ops import geometry as geo
+
+    cands = centerpoint_predict(cfg, out, nms_on_device=False)
+    host = torch.from_numpy(host_nms(cfg, *cands)).to(dev_valid.device)
+    nms = cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG
+    multi = nms['NMS_TYPE'] == 'multi_class_nms'
+    threshs = ([float(t) for t in nms['NMS_THRESH']] if multi
+               else [float(nms['NMS_THRESH'])])
+    n = first_flips(torch, geo, cands[0], dev_valid, host,
+                    cands[2] if multi else None, threshs, what)
+    log(f'  {what}: device NMS kept {int(dev_valid.sum())}, host NMS '
+        f'(native) {int(host.sum())}; {n} rows differ')
+    return cands, host
+
+
+def device_nms_serving(torch, cfg, np_batch):
+    """16b: t_mae.yaml pairs served with ``centerpoint_predict(
+    nms_on_device=True)``: one counted pass (phase 4's launches plus one
+    NMS_MASK and one NMS_SCAN), its kept set against native host NMS on the
+    same candidates, then ms a pair with device and host NMS in turns, the
+    NMS kernels' device ms a pair. Returns (launches, numbers, the served
+    candidates as (boxes, labels, valid), host NMS ms)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector,
+                                                 centerpoint_predict,
+                                                 init_random_)
+    from tmae_tpu_torch.ops import geometry as geo
+
+    model = init_random_(build_detector(cfg), seed=0)
+    batch = batch_to_device(np_batch, 'cuda')
+    for _ in range(2):
+        serve_device_nms(torch, cfg, model, batch)
+    (out, dec), launches = counted(
+        torch, lambda: serve_device_nms(torch, cfg, model, batch))
+    want = {**EXPECTED_LAUNCHES, 'NMS_MASK': 1, 'NMS_SCAN': 1}
+    log(f'  launches per frame pair: {launches} (expected {want})')
+    if launches != want:
+        raise AssertionError('launch counts differ from the device-NMS '
+                             'serving path')
+    if not torch.isfinite(dec[0]).all():
+        raise AssertionError('decoded boxes are not finite')
+    cands, _ = device_vs_host(torch, cfg, out, dec[3], 'served pair')
+    host_ms, _ = nms_split(cfg, cands)
+    times = {'device_nms': [], 'host_nms': []}
+    for _ in range(REPS):
+        for path in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if path == 'device_nms':
+                serve_device_nms(torch, cfg, model, batch)
+            else:
+                serve_once(torch, cfg, model, batch)
+            torch.cuda.synchronize()
+            times[path].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    boxes, _, labels, valid = cands
+    log(f'  ms per frame pair (median of {REPS}, in turns): device NMS '
+        f'{med["device_nms"]:.2f}, host NMS {med["host_nms"]:.2f}; host NMS '
+        f'alone (native) {host_ms["native"]:.3f} ms')
+    nms_dev = launch_times(torch, 'the NMS kernels a pair',
+                           lambda: geo.nms_keep(boxes, valid, 0.5, 500))
+    del model, batch, out
+    return launches, {'device_nms_ms_per_pair': med['device_nms'],
+                      'host_nms_ms_per_pair': med['host_nms'],
+                      'nms_kernels_device_ms': nms_dev['device_ms']}, \
+        (boxes, labels, valid), host_ms['native']
+
+
+def iou_head_cfg(cfg):
+    """t_mae.yaml with the IoU head (``iou`` in HEAD_DICT, iou_weight 1)
+    and multi_class_nms with IoU-rectified scores, as
+    tests/test_center_head_iou.py builds its variant."""
+    import copy
+
+    var = copy.deepcopy(cfg)
+    hd = var.MODEL.DENSE_HEAD
+    hd.SEPARATE_HEAD_CFG.HEAD_DICT['iou'] = {'out_channels': 1,
+                                             'num_conv': 2}
+    hd.LOSS_CONFIG.LOSS_WEIGHTS['iou_weight'] = 1.0
+    hd.POST_PROCESSING.NMS_CONFIG = copy.deepcopy(MULTI_NMS)
+    return var
+
+
+def train_batch(cfg):
+    from tmae_tpu_torch.datasets.synthetic import frame_pair_batch
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 make_voxel_spec)
+
+    spec = make_voxel_spec(cfg.DATA_CONFIG, cfg.RUNTIME)
+    return batch_to_device(frame_pair_batch(
+        spec, list(cfg.CLASS_NAMES), indices=TRAIN_PAIRS,
+        max_gt=int(cfg.RUNTIME.MAX_GT)), 'cuda')
+
+
+def one_counted_step(torch, cfg, batch, expected, what):
+    """A seeded full-width model's first training step on ``batch`` with
+    the launch counters set to 0 just before it and read just after it
+    (they must equal ``expected``); every loss part finite. Returns (the
+    model, its metrics, the launches)."""
+    from tmae_tpu_torch.models.detectors import build_detector, init_random_
+
+    model = init_random_(build_detector(cfg), seed=0).train()
+    step = make_trainer(cfg, model)
+    metrics, launches = counted(torch, lambda: step(batch))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    log(f'  {what}: ' + ', '.join(f'{k} {v:.5g}' for k, v in metrics.items()))
+    log(f'  {what}: launches {launches}')
+    log(f'  {what}: expected {expected}; phase 6\'s '
+        f'{EXPECTED_TRAIN_LAUNCHES}')
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f'{what}: a loss part is not finite')
+    if launches != expected:
+        raise AssertionError(f'{what}: launch counts differ from the '
+                             'expected')
+    return model, metrics, launches
+
+
+def iou_head_phase(torch, cfg, np_batch):
+    """16c: the IoU-head variant of t_mae.yaml: one finetune step at phase
+    6's batch (phase 6's launches plus one IOU_ALIGNED; iou_loss_head_0
+    present and finite), then one served pair with multi-class NMS on the
+    card against the host's."""
+    from tmae_tpu_torch.models.detectors import batch_to_device
+
+    var = iou_head_cfg(cfg)
+    model, metrics, launches = one_counted_step(
+        torch, var, train_batch(var),
+        {**EXPECTED_TRAIN_LAUNCHES, 'IOU_ALIGNED': 1}, 'IoU-head step')
+    if 'iou_loss_head_0' not in metrics:
+        raise AssertionError('the IoU loss term is missing')
+    model.eval()
+    out, dec = serve_device_nms(torch, var, model,
+                                batch_to_device(np_batch, 'cuda'))
+    device_vs_host(torch, var, out, dec[3], 'IoU head, multi_class_nms')
+    return launches, {'iou_loss_head_0': metrics['iou_loss_head_0']}
+
+
+def asymmetric_phase(torch, cfg):
+    """16d: one t_mae.yaml finetune step each with ASYMMETRIC {ENABLED} and
+    {ENABLED, SimSiam} at phase 6's batch: launches against phase 6's
+    (EXPECTED_ASYM, EXPECTED_SIMSIAM), every loss part finite."""
+    import copy
+
+    out = {}
+    batch = None
+    for name, asym, want in (
+            ('ENABLED', {'ENABLED': True}, EXPECTED_ASYM),
+            ('SimSiam', {'ENABLED': True, 'SimSiam': True},
+             EXPECTED_SIMSIAM)):
+        var = copy.deepcopy(cfg)
+        var.MODEL.BACKBONE_3D['ASYMMETRIC'] = asym
+        batch = batch if batch is not None else train_batch(var)
+        _, metrics, _ = one_counted_step(torch, var, batch, want,
+                                         f'ASYMMETRIC {name} step')
+        out[f'asym_{name.lower()}_loss'] = metrics['loss']
+        torch.cuda.empty_cache()
+    return out
+
+
+def unmatched_boxes(np, a, b, tol=0.05):
+    """Indices of the boxes of one frame's prediction dict ``a`` with no box
+    of the same class in ``b`` whose centre lies within ``tol`` m."""
+    out = []
+    for i, (box, n) in enumerate(zip(a['boxes_3d'], a['name'])):
+        same = b['boxes_3d'][b['name'] == n]
+        if not len(same) or np.hypot(*(same[:, :2] - box[:2]).T).min() > tol:
+            out.append(i)
+    return out
+
+
+def swapped_boxes(np, a, b, thresh):
+    """The boxes kept by only one of two runs on the same frame (``a``,
+    ``b``: prediction dicts). Each must be explained: it overlaps (BEV IoU
+    above 0.8 x the NMS threshold, the same class) a box the other run
+    keeps (NMS decided that pair the other way: the boxes and scores
+    moved a little), or its score is at most FUSED_SCORE_TOL above the
+    other run's lowest kept score (the other run cut it at its top-K or
+    its cap). Returns the counts of both kinds; fails on a box that is
+    neither."""
+    from tmae_tpu_torch.ops.geometry_np import boxes_iou_bev
+
+    ia, ib = unmatched_boxes(np, a, b), unmatched_boxes(np, b, a)
+    pairs = edge = 0
+    for (x, i_x), (y, i_y) in (((a, ia), (b, ib)), ((b, ib), (a, ia))):
+        if not i_x:
+            continue
+        iou = boxes_iou_bev(x['boxes_3d'][i_x, :7].astype(np.float64),
+                            y['boxes_3d'][:, :7].astype(np.float64))
+        floor = float(y['score'].min()) if len(y['score']) else 1.0
+        for r, i in enumerate(i_x):
+            if ((iou[r] > 0.8 * thresh) & (y['name'] == x['name'][i])).any():
+                pairs += 1
+            elif x['score'][i] <= floor + FUSED_SCORE_TOL:
+                edge += 1
+            else:
+                raise AssertionError(
+                    f'{x["frame_id"]}: a {x["name"][i]} of score '
+                    f'{x["score"][i]:.4f} kept by one run only, with no '
+                    'overlapping partner, above the other run\'s lowest '
+                    f'kept score {floor:.4f}')
+    return pairs, edge
+
+
+def eval_cli_phase(torch):
+    """16e: phase 13's seeded checkpoint of t_mae_synth.yaml over
+    ONCE_EVAL_SAMPLES pairs through ``tools.test``, ``tools.eval_asym``
+    (the same detections: the model is symmetric) and ``tools.test
+    --fuse_conv_bn`` (the same kept boxes but for those that
+    :func:`swapped_boxes` explains), and the
+    folded model's head maps on one loader batch against the unfused
+    model's (FUSED_MAP_TOL)."""
+    import pickle
+
+    import numpy as np
+
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+    from tmae_tpu_torch.datasets.dataset import build_dataloader
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+    from tmae_tpu_torch.tools import eval_asym
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from tmae_tpu_torch.utils.fuse import fuse_conv_bn
+
+    cfg_file = ROOT / 'tools/cfgs/once_models/t_mae_synth.yaml'
+    cfg = cfg_from_yaml_file(cfg_file)
+    cfg.DATA_CONFIG.NUM_SYNTHETIC_SAMPLES = ONCE_EVAL_SAMPLES
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        ckpt = save_checkpoint(
+            Path(tmp.name), init_random_(build_detector(cfg, 'cpu'), seed=0),
+            None, 0)
+        test_cli.OUTPUT_ROOT = OUT_DIR / 'eval_cli'
+        argv = ['--cfg_file', str(cfg_file), '--ckpt', str(ckpt), '--set',
+                'DATA_CONFIG.NUM_SYNTHETIC_SAMPLES', str(ONCE_EVAL_SAMPLES)]
+        annos, secs = {}, {}
+        for name, fn, extra in (
+                ('test', test_cli.main, []),
+                ('eval_asym', eval_asym.main, []),
+                ('fused', test_cli.main, ['--fuse_conv_bn'])):
+            t0 = time.perf_counter()
+            (rdir, _), = fn(argv + extra + ['--extra_tag', name]).items()
+            secs[name] = time.perf_counter() - t0
+            annos[name] = pickle.loads((rdir / 'result.pkl').read_bytes())
+            log(f'  {name}: {secs[name]:.1f} s, '
+                f'{sum(len(a["score"]) for a in annos[name])} boxes kept')
+
+        dataset, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 1,
+                                      False, runtime_cfg=cfg.RUNTIME)
+        batch = batch_to_device(dataset.collate_batch([dataset[0]]), 'cuda')
+        model = build_detector(cfg)
+        restore_checkpoint(ckpt, model)
+        with torch.no_grad():
+            before = model(batch)['pred_dicts'][0]
+            folded = fuse_conv_bn(model)
+            after = model(batch)['pred_dicts'][0]
+    finally:
+        tmp.cleanup()
+    for a, b in zip(annos['test'], annos['eval_asym']):
+        if a['frame_id'] != b['frame_id'] or not all(
+                np.array_equal(a[k], b[k]) for k in ('name', 'score',
+                                                     'boxes_3d')):
+            raise AssertionError('eval_asym detections differ from '
+                                 'tools.test\'s')
+    log('  eval_asym: the same detections as tools.test')
+    worst = {}
+    for name, want in before.items():
+        err = (after[name] - want).abs()
+        worst[name] = (float(err.max()), float(err.mean()))
+    log(f'  --fuse_conv_bn: {folded} conv-BN pairs folded; head maps max / '
+        f'mean |folded - unfused| {worst} (limits {FUSED_MAP_TOL})')
+    if any(m > FUSED_MAP_TOL[0] or a > FUSED_MAP_TOL[1]
+           for m, a in worst.values()):
+        raise AssertionError('the folded head maps differ from the unfused')
+    thresh = float(
+        cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
+    pairs = edge = 0
+    for a, b in zip(annos['test'], annos['fused']):
+        p, e = swapped_boxes(np, a, b, thresh)
+        pairs, edge = pairs + p, edge + e
+    total = sum(len(a['score']) for a in annos['fused'])
+    log(f'  --fuse_conv_bn: {pairs + edge} of {total} kept boxes kept by one '
+        f'run only: {pairs} overlap a box the other run keeps, {edge} '
+        f'score within {FUSED_SCORE_TOL} of the other run\'s lowest kept '
+        'score')
+    return {'eval_cli_s': secs, 'fused_only_kept': pairs + edge}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--profile', action='store_true',
@@ -3806,6 +4387,33 @@ def main(argv=None):
     waymo_cli = waymo_cli_phase(torch)
     log(f'  phase {time.perf_counter() - t0:.1f} s')
 
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    log('phase 16b: serving with device NMS (t_mae.yaml, full width, phase '
+        '4\'s model and frame pair)')
+    nms_launches, dev_nms, served, host_ms = device_nms_serving(
+        torch, cfg, np_batch)
+    log('phase 16a: the IoU and NMS kernels (csrc/iou_nms.cu) against '
+        'their plain versions')
+    iou_pairs_launches = geometry_phase(torch, served, host_ms, rows)
+    fill_launches(rows, nms_launches, ('NMS_MASK', 'NMS_SCAN'))
+    fill_launches(rows, iou_pairs_launches, ('IOU_PAIRS',))
+    del served
+    torch.cuda.empty_cache()
+    log('phase 16c: the IoU head and multi_class_nms (t_mae.yaml variant, '
+        'full width)')
+    iou_launches, iou_head = iou_head_phase(torch, cfg, np_batch)
+    fill_launches(rows, iou_launches, ('IOU_ALIGNED',))
+    torch.cuda.empty_cache()
+    log('phase 16d: ASYMMETRIC ENABLED and SimSiam (t_mae.yaml, full width '
+        'and depth)')
+    asym = asymmetric_phase(torch, cfg)
+    torch.cuda.empty_cache()
+    log('phase 16e: tools.eval_asym and tools.test --fuse_conv_bn '
+        '(t_mae_synth.yaml, phase 13\'s checkpoint)')
+    eval_cli = eval_cli_phase(torch)
+    log(f'  phase 16 {time.perf_counter() - t16:.1f} s')
+
     log(f'total {time.perf_counter() - t_start:.1f} s')
     for row in rows:
         del row['kernel']
@@ -3822,7 +4430,8 @@ def main(argv=None):
         **{f'pretrain_waymo_{k}': v for k, v in pre.items()},
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
-        **overfit, **waymo_cli}), flush=True)
+        **overfit, **waymo_cli, **dev_nms, **iou_head, **asym,
+        **eval_cli}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

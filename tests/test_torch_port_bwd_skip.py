@@ -1,9 +1,9 @@
 """Config refusals of the PyTorch port that match the JAX package, and the
 premise of the training backward's window skip, on the CPU.
 
-* ``MODEL.BACKBONE_3D.ASYMMETRIC.ENABLED`` (alone or with ``SimSiam``) is
-  refused: the port encodes both frames in one pass, where JAX encodes them
-  in separate passes.
+* ``MODEL.BACKBONE_3D.ASYMMETRIC``: ``ENABLED`` (alone or with
+  ``SimSiam``) builds the two-pass encoder; ``HALF_CHANNELS`` is refused
+  (the encoder kernels are compiled for C = 128/256 with 8 heads only).
 * A ``PREPROCESS.DROP_INFO.train`` maximum other than window² is refused,
   as JAX's ``SSTBlock`` refuses it on the same config; every shipped
   ``t_mae*.yaml`` still builds.
@@ -39,15 +39,27 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize('asym', [{'ENABLED': True},
-                                  {'ENABLED': True, 'SimSiam': True}],
-                         ids=['enabled', 'simsiam'])
+                                  {'ENABLED': True, 'SimSiam': True},
+                                  {'ENABLED': True, 'HALF_CHANNELS': True}],
+                         ids=['enabled', 'simsiam', 'half_channels'])
 def test_asymmetric_encoder_refused(asym):
+    """``ENABLED`` and ``SimSiam`` build the two-pass encoder (held against
+    JAX in ``tests/test_torch_port_asym.py``); only ``HALF_CHANNELS`` is
+    refused, naming the widths the kernels lack; with ``ENABLED`` false
+    every mode builds the one-pass encoder."""
     cfg = copy.deepcopy(tiny_cfg())
     cfg.MODEL.BACKBONE_3D['ASYMMETRIC'] = asym
-    with pytest.raises(NotImplementedError, match='ASYMMETRIC'):
-        tdet.build_detector(cfg, 'cpu')
+    if asym.get('HALF_CHANNELS'):
+        with pytest.raises(NotImplementedError,
+                           match='HALF_CHANNELS.*C = 128/256 with 8 heads'):
+            tdet.build_detector(cfg, 'cpu')
+    else:
+        enc = tdet.build_detector(cfg, 'cpu').backbone_3d.encoder
+        assert enc.asymmetric
+        assert enc.simsiam == bool(asym.get('SimSiam', False))
     cfg.MODEL.BACKBONE_3D['ASYMMETRIC'] = {**asym, 'ENABLED': False}
-    tdet.build_detector(cfg, 'cpu')
+    enc = tdet.build_detector(cfg, 'cpu').backbone_3d.encoder
+    assert not enc.asymmetric and not enc.simsiam
 
 
 def test_max_tokens_below_window_area_refused_as_jax():

@@ -23,7 +23,8 @@
   ground truth, where the AP is not 0.
 * The CLI ``main`` (``python -m tmae_tpu_torch.tools.test``) on a checkpoint
   saved by the port, ``--device cpu``: ``result.pkl``, ``--eval_all`` with
-  its polling cut short by ``--max_waiting_mins 0``, and the refusals.
+  its polling cut short by ``--max_waiting_mins 0``, ``--fuse_conv_bn``,
+  and the refusals.
 """
 
 import copy
@@ -342,13 +343,45 @@ def test_cli_main_evaluates_a_port_checkpoint(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('flags,match', [
-    (['--fuse_conv_bn'], 'fuse_conv_bn'),
     (['--launcher', 'pytorch'], 'multi-process'),
     (['--set', 'MODEL.NAME', 'SECONDNet'], 'SECONDNet')],
-    ids=['fuse-conv-bn', 'launcher', 'detector'])
+    ids=['launcher', 'detector'])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, match):
     monkeypatch.setattr(cli, 'OUTPUT_ROOT', tmp_path / 'output')
     cfg_file = write_cfg(eval_cfg(), tmp_path / 'once_models' / 'tiny.yaml')
     with pytest.raises(NotImplementedError, match=match):
         cli.main(['--cfg_file', str(cfg_file), '--device', 'cpu',
                   '--ckpt', str(tmp_path / 'none.pth'), *flags])
+
+
+def test_cli_fuse_conv_bn_folds_after_loading(tmp_path, monkeypatch):
+    """``--fuse_conv_bn``: the checkpoint loads, every conv–BN pair is folded
+    (each folded BN is then the identity plus a bias), and the evaluation
+    writes result.pkl with the same frames as the unfused run, whose
+    candidates it keeps within the bf16 rounding of the folded weights
+    (scores of the boxes both keep within 0.01)."""
+    from tmae_tpu_torch.utils import fuse
+
+    monkeypatch.setattr(cli, 'OUTPUT_ROOT', tmp_path / 'output')
+    cfg_file = write_cfg(eval_cfg(), tmp_path / 'once_models' / 'tiny.yaml')
+    model = tdet.init_random_(tdet.build_detector(eval_cfg(), 'cpu'), seed=3)
+    ckpt = save_checkpoint(tmp_path / 'weights.pth', model, None, 7)
+    folded = []
+    monkeypatch.setattr(cli, 'fuse_conv_bn', lambda m: folded.append(
+        m) or fuse.fuse_conv_bn(m))
+    base = ['--cfg_file', str(cfg_file), '--device', 'cpu', '--ckpt',
+            str(ckpt), '--set', 'DATA_CONFIG.NUM_SYNTHETIC_SAMPLES', '2']
+    (fdir, _), = cli.main(base + ['--fuse_conv_bn', '--extra_tag',
+                                  'fused']).items()
+    (udir, _), = cli.main(base + ['--extra_tag', 'plain']).items()
+    bns = [m.bn for m in folded[0].modules() if hasattr(m, 'bn')]
+    assert bns and all(bool((b.running_mean == 0).all()) for b in bns)
+    fa = pickle.loads((fdir / 'result.pkl').read_bytes())
+    ua = pickle.loads((udir / 'result.pkl').read_bytes())
+    assert [a['frame_id'] for a in fa] == [a['frame_id'] for a in ua]
+    for f, u in zip(fa, ua):
+        both = min(len(f['score']), len(u['score']))
+        assert both > 0
+        np.testing.assert_allclose(np.sort(f['score'])[::-1][:both],
+                                   np.sort(u['score'])[::-1][:both],
+                                   atol=0.01)

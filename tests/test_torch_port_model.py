@@ -235,7 +235,7 @@ def test_tiny_slice_decode_and_host_nms(tiny_slice):
     jkeep = jdet.host_nms(cfg, jb, js, jl, jv)
     maps = {'pred_dicts': [{k: torch.from_numpy(_np(a)) for k, a in
                             jout['pred_dicts'][0].items()}]}
-    tb, ts, tl, tv = tdet.centerpoint_predict(cfg, maps)
+    tb, ts, tl, tv = tdet.centerpoint_predict(cfg, maps, nms_on_device=False)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-5, rtol=0)

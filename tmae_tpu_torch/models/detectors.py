@@ -4,9 +4,10 @@
 * ``CenterPoint`` with the SiamWCA backbone (``t_mae.yaml``,
   ``t_mae_waymo.yaml``): voxelization (on the host, or on the device when the
   batch does not ship it) → TemporalDynVFE → SiamWCA → SSTBEVBackbone →
-  CenterHead → decode → native host rotated NMS when serving (eval mode),
-  and the CenterPoint loss (:func:`centerpoint_loss`) when training (train
-  mode);
+  CenterHead → decode → rotated NMS on the card (or the native host NMS
+  after a decode without it) when serving (eval mode), and the CenterPoint
+  loss (:func:`centerpoint_loss`, with the IoU head's term where the config
+  has one) when training (train mode);
 * ``TMAE``, the temporal masked-autoencoder pretraining shell
   (``t_mae_ssl.yaml``, ``t_mae_ssl_waymo.yaml``): VFE → SiamWCA_MAE, with
   the Chamfer loss :func:`tmae_loss`.
@@ -29,6 +30,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.geometry import class_params
 from ..ops.geometry_np import nms_bev
 from ..ops.voxelize import VoxelSpec
 from ..ops.centernet import assign_center_targets
@@ -216,11 +218,10 @@ def tmae_loss(cfg, outputs, batch):
 
 def centerpoint_loss(cfg, outputs, batch):
     """Training loss of CenterPoint: CenterNet targets per head group
-    (labels remapped to the group's classes), focal heatmap loss and masked
-    L1 box loss. Returns (loss, parts)."""
+    (labels remapped to the group's classes), focal heatmap loss, masked
+    L1 box loss and, when ``HEAD_DICT`` has an ``iou`` entry, the IoU-head
+    loss. Returns (loss, parts)."""
     head_cfg = cfg['MODEL']['DENSE_HEAD']
-    if 'iou' in head_cfg['SEPARATE_HEAD_CFG']['HEAD_DICT']:
-        raise NotImplementedError('the IoU head loss is not ported yet')
     spec = make_voxel_spec(cfg['DATA_CONFIG'], cfg['RUNTIME'])
     hw = _grid_hw(spec)
     tac = head_cfg['TARGET_ASSIGNER_CONFIG']
@@ -240,10 +241,14 @@ def centerpoint_loss(cfg, outputs, batch):
             boxes, (local > 0) & batch['gt_mask'], len(names), fm,
             spec.pc_range, spec.voxel_size, stride,
             float(tac['GAUSSIAN_OVERLAP']), int(tac['MIN_RADIUS'])))
+    iou_cfg = None
+    if 'iou' in head_cfg['SEPARATE_HEAD_CFG']['HEAD_DICT']:
+        iou_cfg = {'voxel_size': spec.voxel_size, 'pc_range': spec.pc_range,
+                   'feature_map_stride': stride}
     return center_head_loss(
         outputs['pred_dicts'], targets,
         list(head_cfg['SEPARATE_HEAD_CFG']['HEAD_ORDER']),
-        head_cfg['LOSS_CONFIG']['LOSS_WEIGHTS'])
+        head_cfg['LOSS_CONFIG']['LOSS_WEIGHTS'], iou_cfg=iou_cfg)
 
 
 @torch.no_grad()
@@ -319,9 +324,13 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: put(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
-def centerpoint_predict(cfg, outputs):
-    """Decode → (boxes [B, K, 7], scores, labels 1-indexed, valid), score
-    sorted; rotated NMS is left to :func:`host_nms`."""
+def centerpoint_predict(cfg, outputs, nms_on_device: bool = True,
+                        exact_topk: bool = True):
+    """Decode and rotated NMS → (boxes [B, K, 7], scores, labels 1-indexed,
+    valid), score sorted. ``nms_on_device=False`` leaves the NMS to
+    :func:`host_nms` (``valid`` is then the decode's). The top-K is exact
+    either way: ``exact_topk=False`` asks the JAX package for the TPU's
+    approximate top-K, which the card does not need."""
     head_cfg = cfg['MODEL']['DENSE_HEAD']
     spec = make_voxel_spec(cfg['DATA_CONFIG'], cfg['RUNTIME'])
     stride = int(head_cfg['TARGET_ASSIGNER_CONFIG'].get('FEATURE_MAP_STRIDE', 1))
@@ -329,18 +338,42 @@ def centerpoint_predict(cfg, outputs):
     id_maps = [np.asarray([class_names.index(n) for n in g], np.int64)
                for g in head_cfg['CLASS_NAMES_EACH_HEAD']]
     return decode(outputs['pred_dicts'], dict(head_cfg['POST_PROCESSING']),
-                  spec.voxel_size, spec.pc_range, stride, id_maps)
+                  spec.voxel_size, spec.pc_range, stride, id_maps,
+                  nms_on_device=nms_on_device)
+
+
+def _host_nms_sorted(cand, scores, thresh, post, native):
+    """Keep mask of score-sorted candidates [n, 7] (f64)."""
+    if native:
+        return host.nms_bev_sorted(cand, thresh, post)
+    keep = np.zeros(len(cand), bool)
+    keep[nms_bev(cand, scores, thresh, post_maxsize=post)] = True
+    return keep
 
 
 def host_nms(cfg, boxes, scores, labels, valid, native: bool = True):
-    """Greedy rotated-BEV NMS per sample on score-sorted candidates: the
-    native host ops (``utils/native.nms_bev_sorted``), or the numpy
-    ``nms_bev`` when asked (``native=False``). Returns the updated valid
+    """Greedy rotated-BEV NMS per sample on score-sorted candidates (from
+    ``centerpoint_predict(..., nms_on_device=False)``): the native host ops
+    (``utils/native.nms_bev_sorted``), or the numpy ``nms_bev`` when asked
+    (``native=False``); ``multi_class_nms`` runs per class on that class's
+    candidates with its threshold and cap. Returns the updated valid
     mask."""
     nms_cfg = cfg['MODEL']['DENSE_HEAD']['POST_PROCESSING']['NMS_CONFIG']
     to_np = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else \
         np.asarray(a)
     boxes, scores, valid = to_np(boxes), to_np(scores), to_np(valid).copy()
+    if str(nms_cfg.get('NMS_TYPE', 'nms_gpu')) == 'multi_class_nms':
+        threshs, posts = class_params(nms_cfg['NMS_THRESH'],
+                                      nms_cfg['NMS_POST_MAXSIZE'], True)
+        labels = to_np(labels)
+        for b in range(boxes.shape[0]):
+            for c, (th, po) in enumerate(zip(threshs, posts)):
+                sel = np.nonzero(valid[b] & (labels[b] == c + 1))[0]
+                if sel.size:
+                    valid[b, sel] &= _host_nms_sorted(
+                        boxes[b, sel, :7].astype(np.float64),
+                        scores[b, sel], th, po, native)
+        return valid
     thresh = float(nms_cfg['NMS_THRESH'])
     post = int(nms_cfg['NMS_POST_MAXSIZE'])
     for b in range(boxes.shape[0]):
@@ -348,12 +381,6 @@ def host_nms(cfg, boxes, scores, labels, valid, native: bool = True):
         if n == 0:
             continue
         # candidates are sorted by score, the valid ones first
-        cand = boxes[b, :n, :7].astype(np.float64)
-        if native:
-            keep = host.nms_bev_sorted(cand, thresh, post)
-        else:
-            kept = nms_bev(cand, scores[b, :n], thresh, post_maxsize=post)
-            keep = np.zeros(n, bool)
-            keep[kept] = True
-        valid[b, :n] &= keep
+        valid[b, :n] &= _host_nms_sorted(boxes[b, :n, :7].astype(np.float64),
+                                         scores[b, :n], thresh, post, native)
     return valid

@@ -1,6 +1,8 @@
 """SiamWCA backbones (counterpart of ``tmae_tpu/models/siamwca.py``): three
-SST stages encode both frames in one batch with shared weights, a WCA block
-fuses each scale, and ``PyramidFuse`` merges the pyramid into the stride-1
+SST stages encode both frames in one batch with shared weights (with
+``ASYMMETRIC.ENABLED``, in two passes, the previous frame's first, and with
+``SimSiam`` the previous frame's pyramid detached), a WCA block fuses each
+scale, and ``PyramidFuse`` merges the pyramid into the stride-1
 BEV map. ``SiamWCA`` is the finetune backbone; ``SiamWCA_MAE`` the temporal
 masked-autoencoder pretraining backbone, which masks 75% of the current
 frame's voxels, encodes the rest against the full previous frame, and
@@ -80,10 +82,14 @@ class SiamWCAEncoder(nn.Module):
     def __init__(self, model_cfg, caps, cin, window=8, remat=None):
         super().__init__()
         asym = model_cfg.get('ASYMMETRIC') or {}
-        if asym.get('ENABLED', False):
+        self.asymmetric = bool(asym.get('ENABLED', False))
+        if self.asymmetric and asym.get('HALF_CHANNELS', False):
             raise NotImplementedError(
-                'the port encodes both frames in one pass: ASYMMETRIC.ENABLED '
-                '(with HALF_CHANNELS or SimSiam) is not ported yet')
+                'ASYMMETRIC.HALF_CHANNELS runs the previous frame at half '
+                'width (C = 64 at stage 1, head dimension 8), and the '
+                'encoder kernels are compiled for C = 128/256 with 8 heads '
+                'only (ROADMAP.md)')
+        self.simsiam = self.asymmetric and bool(asym.get('SimSiam', False))
         self.sst_blocks, self.wca_blocks = [], []
         blocks = model_cfg['SST_BLOCK_LIST']
         remat = remat or [True] * len(blocks)
@@ -103,11 +109,17 @@ class SiamWCAEncoder(nn.Module):
         """Returns (fused per-scale grids of the current frame, overflow per
         stage: a list of [B] counts, SST then WCA, the current frame's
         per-stage pyramid). Both frames run through the SST stages in one
-        batch of 2B; with ``hid_prv``, the previous frame's pyramid from a
-        cache (the previous streaming step's current pyramid), only the
-        current frame does (batch B), ``grid_prv`` is not read, and the SST
-        overflow counts the current frame only."""
+        batch of 2B (asymmetric: one pass each, the previous frame's first);
+        with ``hid_prv``, the previous frame's pyramid from a cache (the
+        previous streaming step's current pyramid), only the current frame
+        does (batch B), ``grid_prv`` is not read, and the SST overflow
+        counts the current frame only."""
         B = grid_cur.x.shape[0]
+        if self.asymmetric:
+            if hid_prv is not None:
+                raise ValueError('the streaming cache needs the shared-weight '
+                                 'encoder: the model is ASYMMETRIC')
+            return self._forward_asymmetric(grid_cur, grid_prv)
         if hid_prv is None:
             x = DenseGrid(torch.cat([grid_cur.x, grid_prv.x], 0),
                           torch.cat([grid_cur.occ, grid_prv.occ], 0))
@@ -122,12 +134,35 @@ class SiamWCAEncoder(nn.Module):
                 prv.append(DenseGrid(x.x[B:], x.occ[B:]))
                 ov = ov[:B] + ov[B:]
             overflow.append(ov)
+        return self._fuse(hid_cur, prv, overflow)
+
+    def _fuse(self, hid_cur, hid_prv, overflow):
         fused = []
-        for h, hp, wca in zip(hid_cur, prv, self.wca_blocks):
+        for h, hp, wca in zip(hid_cur, hid_prv, self.wca_blocks):
             f, ov = wca(h, hp)
             fused.append(f)
             overflow.append(ov)
         return fused, overflow, hid_cur
+
+    def _pyramid(self, x):
+        hidden, overflow = [], []
+        for blk in self.sst_blocks:
+            x, ov = blk(x)
+            hidden.append(x)
+            overflow.append(ov)
+        return hidden, overflow
+
+    def _forward_asymmetric(self, grid_cur, grid_prv):
+        """The two frames in separate passes through the shared SST
+        stages, the previous frame's first (its batch-norm statistics
+        update first); ``SimSiam`` stops the gradient at the previous
+        frame's pyramid."""
+        hid_prv, ov_prv = self._pyramid(grid_prv)
+        if self.simsiam:
+            hid_prv = [DenseGrid(h.x.detach(), h.occ) for h in hid_prv]
+        hid_cur, ov_cur = self._pyramid(grid_cur)
+        overflow = [a + b for a, b in zip(ov_cur, ov_prv)]
+        return self._fuse(hid_cur, hid_prv, overflow)
 
 
 class SiamWCA(nn.Module):

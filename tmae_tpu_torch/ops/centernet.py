@@ -37,8 +37,9 @@ def assign_center_targets(gt_boxes, gt_mask, num_classes: int,
                           gaussian_overlap: float = 0.1, min_radius: int = 2):
     """gt_boxes [B, M, 8] (x, y, z, dx, dy, dz, heading, class 1-indexed),
     gt_mask [B, M] bool; ``feature_map_size`` is (W, H). Returns heatmap
-    [B, num_classes, H, W], target_boxes [B, M, 8], inds [B, M] and mask
-    [B, M] (the box lies on the map with a positive footprint)."""
+    [B, num_classes, H, W], target_boxes [B, M, 8], inds [B, M], mask
+    [B, M] (the box lies on the map with a positive footprint) and
+    iou_boxes [B, M, 7] (each slot's box, the IoU head's target)."""
     W, H = feature_map_size
     pc, vs = point_cloud_range, voxel_size
     B, M, _ = gt_boxes.shape
@@ -81,7 +82,8 @@ def assign_center_targets(gt_boxes, gt_mask, num_classes: int,
     tb = torch.where(valid[..., None], tb, 0.0)
     inds = torch.where(valid, cy_int * W + cx_int, 0)
     return {'heatmap': heatmap, 'target_boxes': tb, 'inds': inds,
-            'mask': valid}
+            'mask': valid,
+            'iou_boxes': torch.where(valid[..., None], gt_boxes[..., :7], 0.0)}
 
 
 def gather_feat_nhwc(feat: torch.Tensor, inds: torch.Tensor):

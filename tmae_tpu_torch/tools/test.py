@@ -10,6 +10,10 @@ LEVEL_1 / LEVEL_2.
     python -m tmae_tpu_torch.tools.test \\
         --cfg_file tools/cfgs/waymo_models/t_mae_waymo.yaml --ckpt <file>
     python -m tmae_tpu_torch.tools.test ... --device cpu   # plain versions
+    python -m tmae_tpu_torch.tools.test ... --fuse_conv_bn  # BN folded
+
+``--fuse_conv_bn`` folds every conv–BN pair (``utils/fuse.py``) after the
+checkpoint loads.
 
 Writes ``output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>/eval/<tag>/result.pkl``
 (``<tag>``: ``single``, or the checkpoint's file name with ``--eval_all``)
@@ -31,6 +35,7 @@ from ..device import resolve_device
 from ..models.detectors import build_detector
 from ..train.checkpoint import latest_checkpoint, restore_checkpoint
 from ..train.evaluator import eval_one_epoch
+from ..utils.fuse import fuse_conv_bn
 
 REPO = Path(__file__).resolve().parents[2]
 OUTPUT_ROOT = REPO / 'output'
@@ -49,7 +54,7 @@ def parse_config(argv=None):
     parser.add_argument('--device', type=str, default=None,
                         help='torch device (default: the card)')
     parser.add_argument('--fuse_conv_bn', action='store_true',
-                        help='not ported yet')
+                        help='fold BN into the convolutions after loading')
     parser.add_argument('--launcher', choices=['none', 'jax', 'pytorch',
                                                'slurm'], default='none',
                         help='only none is ported')
@@ -79,10 +84,11 @@ def write_config_log(cfg, path: Path):
 def main(argv=None):
     """Returns ``{result directory: AP dict}`` of every checkpoint it
     evaluated."""
-    args, cfg = parse_config(argv)
-    if args.fuse_conv_bn:
-        raise NotImplementedError('--fuse_conv_bn is not ported yet '
-                                  '(ROADMAP.md, module 11)')
+    return run(*parse_config(argv))
+
+
+def run(args, cfg):
+    """:func:`main` on parsed arguments and a config."""
     if args.launcher != 'none':
         raise NotImplementedError('multi-process evaluation is not ported '
                                   'yet (ROADMAP.md, module 8)')
@@ -107,6 +113,8 @@ def main(argv=None):
 
     def run_one(ckpt_path, tag):
         step = restore_checkpoint(ckpt_path, model)
+        if args.fuse_conv_bn:
+            logger.info('folded %d conv-BN pairs', fuse_conv_bn(model))
         result_dir = eval_dir / tag
         ap_str, ap_dict = eval_one_epoch(
             cfg, model, loader, dataset, cfg.CLASS_NAMES,

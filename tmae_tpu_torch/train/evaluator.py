@@ -50,7 +50,8 @@ def make_eval_step(model, cfg):
     @torch.no_grad()
     def eval_step(batch):
         out = model(batch)
-        boxes, scores, labels, valid = centerpoint_predict(cfg, out)
+        boxes, scores, labels, valid = centerpoint_predict(
+            cfg, out, nms_on_device=False)
         # one f32 buffer: labels, validity and the count are small integers,
         # exact in f32
         B, K = scores.shape

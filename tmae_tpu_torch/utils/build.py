@@ -26,9 +26,16 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
 SOURCES = ('windows.cu', 'encoder_layer_tiled.cu', 'encoder_layer_bwd.cu',
-           'segment_max.cu', 'subm_conv.cu')
+           'segment_max.cu', 'subm_conv.cu', 'iou_nms.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# iou_nms.cu repeats its plain version's roundings: no contraction of a
+# product and a sum into one fused multiply-add
+SOURCE_FLAGS = {'iou_nms.cu': ('-fmad=false',)}
+
+
+def _flags(source: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -53,7 +60,7 @@ def _target(source: str) -> Path:
     h = hashlib.sha256()
     for part in sorted(CSRC.glob('*.cuh')) + [src]:
         h.update(part.read_bytes())
-    h.update(' '.join(NVCC_FLAGS).encode())
+    h.update(' '.join(_flags(source)).encode())
     return BUILD_DIR / f'{src.stem}-{h.hexdigest()[:16]}.so'
 
 
@@ -67,7 +74,7 @@ def build_all(sources=SOURCES) -> dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_name(f'{out.stem}.{os.getpid()}.tmp.so')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / name)]
+        cmd = [_nvcc(), *_flags(name), '-o', str(tmp), str(CSRC / name)]
         started[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out, time.perf_counter())
