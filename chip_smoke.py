@@ -4,6 +4,8 @@ paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py            # what the chip check runs
     python3 chip_smoke.py --profile  # also writes per-kernel time tables
+    python3 chip_smoke.py --nms-parent PATH  # phase 16 also runs PATH's
+                                             # iou_nms.cu (a parent's)
 
 Phases (any failure exits non-zero and prints no result line):
   1. card: fail without CUDA; print ``nvidia-smi`` name and power limit.
@@ -175,12 +177,22 @@ Phases (any failure exits non-zero and prints no result line):
      distance from the threshold (under 1e-5 or the run fails); the scan
      exactly on the kernel's mask; the keep mask against the plain greedy
      NMS, for nms_gpu at 0.5 and multi_class_nms at [0.7, 0.6, 0.55,
-     0.55, 0.55]; their times, plain times, bounds and host native NMS's.
+     0.55, 0.55]; the NMS checks also on crowded sets of K = 1, 77 and
+     2100 with B = 2, for nms_gpu and for those thresholds with per-class
+     caps [120, 40, 10, 3, 0]; their times, plain times, bounds and host
+     native NMS's. NMS_MASK's and NMS_SCAN's device ms by launch and host
+     enqueue ms come from ``python3 -m tmae_tpu_torch.utils.nms_phases``
+     in a process of its own on the served candidates (late in this
+     script this process's profiler loses device records: PERF.md
+     section 7); with ``--nms-parent``
+     it also builds and runs the given iou_nms.cu on every set (parent,
+     this, this, parent) and fails unless the bits are the same.
      16b. t_mae.yaml served with ``centerpoint_predict(nms_on_device=
      True)``: counters set to 0, one pass (phase 4's launches plus one
      NMS_MASK and one NMS_SCAN); the kept set equal to native host NMS on
-     the same candidates; ms a pair with device and with host NMS in turns,
-     the NMS kernels' device ms.
+     the same candidates; ms a pair with device and with host NMS in turns
+     (with ``--nms-parent``, also with the parent's NMS kernels), the NMS
+     kernels' device ms on the pair's candidates (the fresh process's).
      16c. a t_mae.yaml variant with the IoU head and multi_class_nms
      (IoU-rectified scores): one finetune step at phase 6's batch (phase
      6's launches plus one IOU_ALIGNED, iou_loss_head_0 finite), then one
@@ -555,12 +567,14 @@ def launch_times(torch, name, call):
     ``by_launch`` and ``host_ms`` of its kernels-line row."""
     from tmae_tpu_torch.utils.fwd_phases import by_launch, host_ms
 
-    launches = by_launch(torch, call, calls=5)
+    stats = {}
+    launches = by_launch(torch, call, calls=5, stats=stats)
     dev = sum(ms for _, ms in launches) or None
     host = host_ms(torch, call)
     log(f'  {name}: {dev} ms of device time a call (' + ', '.join(
         f'{k} {v:.4f}' for k, v in launches) + f'); {host:.4f} ms of host '
-        'time to enqueue it')
+        f'time to enqueue it; {stats.get("empty", 0)} profiler sessions saw '
+        'no device activity and were run again')
     return dict(device_ms=dev, host_ms=host,
                 by_launch={k: v for k, v in launches})
 
@@ -3708,25 +3722,6 @@ FUSED_MAP_TOL = (0.1, 5e-3)
 FUSED_SCORE_TOL = 0.01         # a box cut at the other run's boundary
 
 
-def crowded_boxes(torch, K=500, clusters=25, seed=0):
-    """K boxes in clusters of heavy overlap over a t_mae.yaml scene, all
-    headings, distinct scores (descending, as decode sorts them), labels
-    1..5; the last 20 invalid."""
-    g = torch.Generator().manual_seed(seed)
-    centres = (torch.rand(clusters, 2, generator=g) - 0.5) * 120
-    c = torch.randint(0, clusters, (K,), generator=g)
-    boxes = torch.cat([
-        centres[c] + torch.randn(K, 2, generator=g) * 0.7,
-        torch.rand(K, 1, generator=g) * 2 - 1,
-        torch.rand(K, 1, generator=g) * 4 + 1,
-        torch.rand(K, 1, generator=g) * 2 + 1,
-        torch.rand(K, 1, generator=g) * 2 + 1,
-        (torch.rand(K, 1, generator=g) * 2 - 1) * math.pi], 1)
-    labels = torch.randint(1, 6, (K,), generator=g)
-    valid = torch.arange(K) < K - 20
-    return [t[None].cuda() for t in (boxes, labels, valid)]
-
-
 def first_flips(torch, geo, boxes, got, want, labels, threshs, what):
     """Where two keep masks of the same score-sorted candidates differ:
     for each sample (and class, with labels), the first differing row and
@@ -3825,16 +3820,133 @@ def nms_case(torch, geo, boxes, valid, labels, threshs, posts, what):
     return bits
 
 
-def geometry_phase(torch, served, host_ms, rows):
+def scan_random_check(torch, geo):
+    """NMS_SCAN on arbitrary masks (bits anywhere, classes mixed), K = 65,
+    2100 and 5000 (one, two and three removed words a lane), B = 2, five
+    classes with caps [120, 40, 10, 3, 0], a tenth of the rows invalid and
+    labels -1, 0 and 6 among them: the keep mask equal to nms_scan_plain's
+    exactly."""
+    g = torch.Generator().manual_seed(16)
+    caps = [120, 40, 10, 3, 0]
+    for K in (65, 2100, 5000):
+        sup = (torch.rand(2, K, K, generator=g) < 6.0 / K).cuda()
+        W = -(-K // 64)
+        pad = torch.zeros(2, K, W * 64, dtype=torch.int64, device='cuda')
+        pad[..., :K] = sup.long()
+        bit = torch.arange(64, device='cuda')
+        words = (pad.view(2, K, W, 64) << bit).sum(-1)  # wraps as uint64
+        valid = (torch.rand(2, K, generator=g) > 0.1).cuda()
+        labels = torch.where(torch.rand(2, K, generator=g) < 0.85,
+                             torch.randint(1, 6, (2, K), generator=g),
+                             torch.randint(-1, 7, (2, K), generator=g))
+        labels = labels.int().cuda()
+        if not torch.equal(geo.unpack_mask(words, K), sup):
+            raise AssertionError('scan check: the packed mask is wrong')
+        got = geo.nms_scan_bits(words, valid, caps, labels)
+        want = geo.nms_scan_plain(sup, valid, labels, caps)
+        if not torch.equal(got, want):
+            raise AssertionError(f'NMS_SCAN differs from nms_scan_plain on '
+                                 f'an arbitrary mask, K = {K}')
+        log(f'  NMS_SCAN on an arbitrary mask, K = {K}, B = 2, five '
+            f'classes with caps {caps}: {int(want.sum())} of '
+            f'{int(valid.sum())} kept, equal to nms_scan_plain')
+
+
+def clips_needed(torch, geo, boxes, valid, labels, threshs):
+    """The pairs j > i that NMS_MASK clips: both take part, one class, and
+    circumscribed circles that may meet (the kernel's test, in f32 torch
+    ops; a negative threshold clips every pair of its class). Summed over
+    the samples."""
+    n = 0
+    ncls = len(threshs)
+    th = torch.tensor(threshs, device=boxes.device)
+    for b in range(valid.shape[0]):
+        x = boxes[b, :, :7].float()
+        if labels is None:
+            cls = torch.where(valid[b], 0, -1)
+        else:
+            lab = labels[b].long()
+            cls = torch.where(valid[b] & (lab >= 1) & (lab <= ncls), lab - 1,
+                              -1)
+        rad = 0.5 * torch.sqrt(x[:, 3] * x[:, 3] + x[:, 4] * x[:, 4])
+        dx = x[:, None, 0] - x[None, :, 0]
+        dy = x[:, None, 1] - x[None, :, 1]
+        scale = (x[:, None, 0].abs() + x[:, None, 1].abs()
+                 + x[None, :, 0].abs() + x[None, :, 1].abs() + rad[:, None]
+                 + rad[None, :])
+        reach = (rad[:, None] + rad[None, :] + geo.SKIP_ABS
+                 + geo.SKIP_REL * scale)
+        apart = (dx * dx + dy * dy > reach * reach) & (
+            th[cls.clamp(min=0)] >= 0)[:, None]
+        same = (cls[:, None] == cls[None, :]) & (cls[:, None] >= 0)
+        n += int((same & ~apart).triu(1).sum())
+    return n
+
+
+def nms_fresh_process(torch, cfg, served, parent):
+    """``python3 -m tmae_tpu_torch.utils.nms_phases`` in a process of its
+    own, on the served candidates (written to the output directory) with
+    the config's nms_gpu threshold and cap, and with ``parent``'s
+    iou_nms.cu beside this one when given. Logs its lines; returns its
+    readings by set."""
+    nms = cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG
+    boxes, _, valid = served
+    cands = OUT_DIR / 'served_candidates.pt'
+    torch.save({'boxes': boxes[..., :7].float().cpu(), 'valid': valid.cpu(),
+                'thresh': float(nms['NMS_THRESH']),
+                'post': int(nms['NMS_POST_MAXSIZE'])}, cands)
+    out = OUT_DIR / 'nms_phases.json'
+    cmd = [sys.executable, '-m', 'tmae_tpu_torch.utils.nms_phases',
+           '--candidates', str(cands), '--json', str(out)]
+    if parent:
+        cmd += ['--parent', str(parent)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError('nms_phases failed:\n' + proc.stdout[-4000:]
+                             + proc.stderr[-4000:])
+    log(f'  nms_phases in its own process: {time.perf_counter() - t0:.1f} s')
+    return json.loads(out.read_text())
+
+
+def fresh_row_keys(fresh, kernel):
+    """A kernels-line row's readings of ``kernel`` from the fresh process:
+    the served candidates' device ms by launch, host enqueue ms and events
+    ms, every set's device ms, and the parent's where it ran."""
+    served = fresh['served K=500']
+    out = {}
+    for v in ('change', 'parent'):
+        if v not in served:
+            continue
+        r = served[v][kernel]
+        pre = '' if v == 'change' else 'parent_'
+        out.update({f'{pre}device_ms': r['device_ms'],
+                    f'{pre}by_launch': r['by_launch'],
+                    f'{pre}host_ms': r['host_ms'],
+                    f'{pre}events_ms_fresh': r['ms'],
+                    f'{pre}device_ms_by_set': {
+                        name: rs[v][kernel]['device_ms']
+                        for name, rs in fresh.items() if v in rs}})
+    return out
+
+
+def geometry_phase(torch, served, host_ms, rows, fresh):
     """16a: IOU_PAIRS, IOU_ALIGNED, NMS_MASK and NMS_SCAN against their
     plain versions on the served pair's 500 candidates (``served``: boxes,
     labels, valid) and on a crowded synthetic set, for nms_gpu at 0.5 and
-    multi_class_nms at MULTI_NMS's thresholds; their times and bounds
-    (``host_ms``: native host NMS of the served candidates). Returns the
-    launches of IOU_PAIRS's path (one BEV and one 3D call)."""
+    multi_class_nms at MULTI_NMS's thresholds; NMS_MASK and NMS_SCAN also
+    on nms_phases' sets of K = 1, 77 and 2100 (B = 2, with and without
+    classes and caps); their times and bounds (``host_ms``: native host
+    NMS of the served candidates; ``fresh``: nms_phases' readings).
+    Returns the launches of IOU_PAIRS's path (one BEV and one 3D call)."""
     from tmae_tpu_torch.ops import geometry as geo
+    from tmae_tpu_torch.utils import nms_phases
 
-    cases = {'served pair': served, 'crowded set': crowded_boxes(torch)}
+    cases = {'served pair': served,
+             'crowded set': nms_phases.crowded_boxes(torch)}
     th_multi = [float(t) for t in MULTI_NMS['NMS_THRESH']]
     posts_multi = [int(p) for p in MULTI_NMS['NMS_POST_MAXSIZE']]
     for what, (boxes, labels, valid) in cases.items():
@@ -3858,6 +3970,14 @@ def geometry_phase(torch, served, host_ms, rows):
                  f'{what}, nms_gpu 0.5')
         nms_case(torch, geo, boxes, valid, labels, th_multi, posts_multi,
                  f'{what}, multi_class_nms')
+    for what, (boxes, labels, valid, threshs, posts) in nms_phases.cases(
+            torch).items():
+        if what.startswith('K='):
+            nms_case(torch, geo, boxes, valid, labels, threshs, posts, what)
+            clips = clips_needed(torch, geo, boxes, valid, labels, threshs)
+            log(f'  {what}: NMS_MASK clips {clips} pairs')
+
+    scan_random_check(torch, geo)
 
     boxes, labels, valid = served
     b = boxes[0, :, :7].contiguous()
@@ -3875,14 +3995,15 @@ def geometry_phase(torch, served, host_ms, rows):
     live = valid[0]
     n = int(live.sum())
     pairs = n * (n - 1) // 2
+    clips = clips_needed(torch, geo, boxes, valid, None, [0.5])
+    log(f'  served pair, nms_gpu 0.5: NMS_MASK clips {clips} of {pairs} '
+        'pairs')
     box_bytes = K * 7 * 4
     mask_bytes = K * (-(-K // 64)) * 8
     shifted = b + 0.3
     timed = {name: launch_times(torch, name, call) for name, call in (
         ('IOU_PAIRS', lambda: geo.boxes_iou_bev(b, b)),
-        ('IOU_ALIGNED', lambda: geo.boxes_iou3d_aligned(b, shifted)),
-        ('NMS_MASK', lambda: geo.nms_mask_bits(boxes, valid, [0.5])),
-        ('NMS_SCAN', lambda: geo.nms_scan_bits(bits, valid, [500])))}
+        ('IOU_ALIGNED', lambda: geo.boxes_iou3d_aligned(b, shifted)))}
     add_row(rows, 'iou_pairs', 'IOU_PAIRS', GEOMETRY_SRC,
             'tmae_tpu/ops/geometry.py:159 boxes_iou_bev (plain JAX)',
             float((geo.boxes_iou_bev(b, b)
@@ -3900,21 +4021,25 @@ def geometry_phase(torch, served, host_ms, rows):
                     iters=5),
             2 * box_bytes + K * 4, K * geo.PAIR_CLIP_FLOPS, None,
             peak=F32_FLOPS, **timed['IOU_ALIGNED'])
+    # the bound counts the clips this data needs (pairs whose circles may
+    # meet); bound_all_pairs_ms, every pair of valid boxes
     add_row(rows, 'nms_mask', 'NMS_MASK', GEOMETRY_SRC,
             'tmae_tpu/ops/geometry.py:199 nms_bev_mask (plain JAX)', mask_err,
             time_ms(torch, lambda: geo.nms_mask_bits(boxes, valid, [0.5])),
             time_ms(torch, lambda: geo.nms_mask_plain(boxes, valid, None,
                                                       [0.5]), iters=3),
-            box_bytes + K + mask_bytes, pairs * geo.PAIR_CLIP_FLOPS, None,
-            peak=F32_FLOPS, host_native_ms=host_ms, valid=n,
-            **timed['NMS_MASK'])
+            box_bytes + K + mask_bytes, clips * geo.PAIR_CLIP_FLOPS, None,
+            peak=F32_FLOPS, host_native_ms=host_ms, valid=n, clips=clips,
+            pairs=pairs, bound_all_pairs_ms=bound_ms(
+                box_bytes + K + mask_bytes, pairs * geo.PAIR_CLIP_FLOPS,
+                F32_FLOPS)[0], **fresh_row_keys(fresh, 'NMS_MASK'))
     add_row(rows, 'nms_scan', 'NMS_SCAN', GEOMETRY_SRC,
             'tmae_tpu/ops/geometry.py:199 nms_bev_mask (plain JAX)', scan_err,
             time_ms(torch, lambda: geo.nms_scan_bits(bits, valid, [500])),
             time_ms(torch, lambda: geo.nms_scan_plain(
                 geo.unpack_mask(bits, K), valid, None, [500]), iters=3),
             mask_bytes + 2 * K, 0, None, peak=F32_FLOPS,
-            host_native_ms=host_ms, **timed['NMS_SCAN'])
+            host_native_ms=host_ms, **fresh_row_keys(fresh, 'NMS_SCAN'))
     return launches
 
 
@@ -3949,18 +4074,21 @@ def device_vs_host(torch, cfg, out, dev_valid, what):
     return cands, host
 
 
-def device_nms_serving(torch, cfg, np_batch):
+def device_nms_serving(torch, cfg, np_batch, parent=None):
     """16b: t_mae.yaml pairs served with ``centerpoint_predict(
     nms_on_device=True)``: one counted pass (phase 4's launches plus one
     NMS_MASK and one NMS_SCAN), its kept set against native host NMS on the
-    same candidates, then ms a pair with device and host NMS in turns, the
-    NMS kernels' device ms a pair. Returns (launches, numbers, the served
-    candidates as (boxes, labels, valid), host NMS ms)."""
+    same candidates, then ms a pair with device and host NMS in turns (and
+    with ``parent``'s NMS kernels, nms_phases.parent_kernels, when given),
+    the NMS kernels' device ms a pair as this process's profiler reads it.
+    Returns (launches, numbers, the served candidates as (boxes, labels,
+    valid), host NMS ms)."""
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector,
                                                  centerpoint_predict,
                                                  init_random_)
     from tmae_tpu_torch.ops import geometry as geo
+    from tmae_tpu_torch.utils.nms_phases import using
 
     model = init_random_(build_detector(cfg), seed=0)
     batch = batch_to_device(np_batch, 'cuda')
@@ -3978,27 +4106,35 @@ def device_nms_serving(torch, cfg, np_batch):
     cands, _ = device_vs_host(torch, cfg, out, dec[3], 'served pair')
     host_ms, _ = nms_split(cfg, cands)
     times = {'device_nms': [], 'host_nms': []}
+    if parent:
+        times['device_nms_parent'] = []
     for _ in range(REPS):
         for path in times:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if path == 'device_nms':
-                serve_device_nms(torch, cfg, model, batch)
-            else:
+            if path == 'host_nms':
                 serve_once(torch, cfg, model, batch)
+            else:
+                with using(parent if path == 'device_nms_parent' else None):
+                    serve_device_nms(torch, cfg, model, batch)
             torch.cuda.synchronize()
             times[path].append((time.perf_counter() - t0) * 1e3)
     med = {k: statistics.median(v) for k, v in times.items()}
     boxes, _, labels, valid = cands
     log(f'  ms per frame pair (median of {REPS}, in turns): device NMS '
-        f'{med["device_nms"]:.2f}, host NMS {med["host_nms"]:.2f}; host NMS '
-        f'alone (native) {host_ms["native"]:.3f} ms')
-    nms_dev = launch_times(torch, 'the NMS kernels a pair',
+        f'{med["device_nms"]:.2f}, host NMS {med["host_nms"]:.2f}'
+        + (f', device NMS with the parent\'s kernels '
+           f'{med["device_nms_parent"]:.2f}' if parent else '')
+        + f'; host NMS alone (native) {host_ms["native"]:.3f} ms')
+    nms_dev = launch_times(torch, 'the NMS kernels a pair, this process',
                            lambda: geo.nms_keep(boxes, valid, 0.5, 500))
     del model, batch, out
-    return launches, {'device_nms_ms_per_pair': med['device_nms'],
-                      'host_nms_ms_per_pair': med['host_nms'],
-                      'nms_kernels_device_ms': nms_dev['device_ms']}, \
+    return launches, {
+        'device_nms_ms_per_pair': med['device_nms'],
+        'host_nms_ms_per_pair': med['host_nms'],
+        **({'device_nms_parent_ms_per_pair': med['device_nms_parent']}
+           if parent else {}),
+        'nms_kernels_device_ms_in_process': nms_dev['device_ms']}, \
         (boxes, labels, valid), host_ms['native']
 
 
@@ -4229,7 +4365,12 @@ def main(argv=None):
                     help='also profile a serving pass, a training step, '
                     'the pretraining steps and a Waymo serving pass by '
                     'kernel name')
+    ap.add_argument('--nms-parent', metavar='PATH',
+                    help='phase 16 also builds and runs this iou_nms.cu (a '
+                    'parent checkout\'s) beside the repo\'s')
     args = ap.parse_args(argv)
+    if args.nms_parent:
+        args.nms_parent = str(Path(args.nms_parent).resolve())
 
     import torch
 
@@ -4391,11 +4532,27 @@ def main(argv=None):
     t16 = time.perf_counter()
     log('phase 16b: serving with device NMS (t_mae.yaml, full width, phase '
         '4\'s model and frame pair)')
+    parent = None
+    if args.nms_parent:
+        from tmae_tpu_torch.utils.nms_phases import parent_kernels
+        parent = parent_kernels(args.nms_parent)
     nms_launches, dev_nms, served, host_ms = device_nms_serving(
-        torch, cfg, np_batch)
+        torch, cfg, np_batch, parent)
+    log(f'  phase 16b {time.perf_counter() - t16:.1f} s')
+    fresh = nms_fresh_process(torch, cfg, served, args.nms_parent)
+    served_ms = [fresh['served K=500']['change'][k]['device_ms']
+                 for k in ('NMS_MASK', 'NMS_SCAN')]
+    if None in served_ms:
+        raise AssertionError('nms_phases read no device time for the NMS '
+                             'kernels on the served candidates')
+    dev_nms['nms_kernels_device_ms'] = sum(served_ms)
+    log(f'  the NMS kernels a pair: {dev_nms["nms_kernels_device_ms"]} ms '
+        'of device time on its candidates (nms_phases, its own process)')
     log('phase 16a: the IoU and NMS kernels (csrc/iou_nms.cu) against '
         'their plain versions')
-    iou_pairs_launches = geometry_phase(torch, served, host_ms, rows)
+    t0 = time.perf_counter()
+    iou_pairs_launches = geometry_phase(torch, served, host_ms, rows, fresh)
+    log(f'  phase 16a {time.perf_counter() - t0:.1f} s')
     fill_launches(rows, nms_launches, ('NMS_MASK', 'NMS_SCAN'))
     fill_launches(rows, iou_pairs_launches, ('IOU_PAIRS',))
     del served

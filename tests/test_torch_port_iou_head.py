@@ -199,3 +199,30 @@ def test_iou_head_serving_device_nms_equals_host(iou_model):
     np.testing.assert_array_equal(
         valid.numpy(), jdet.host_nms(cfg, jb, js, jl, jv))
     assert valid.sum() > 0
+
+
+def test_no_backbone_2d_head_maps_match_jax():
+    """A config without ``BACKBONE_2D`` (the tiny config cut to one SST
+    stage): the port builds no 2D backbone, as JAX's ``_backbone_2d``
+    skips it, loads JAX's weights strictly and gives its head maps within
+    the tiny slice's bounds (max |diff| <= 0.03, mean <= 3e-3: bf16 weight
+    rounding, ``tests/test_torch_port_model.py``)."""
+    cfg, batch = _train_cfg_and_batch()
+    cfg = one_stage(cfg)
+    del cfg.MODEL['BACKBONE_2D']
+    jmodel = jdet.build_detector(cfg)
+    shapes = jax.eval_shape(lambda b: jmodel.init(jax.random.PRNGKey(0), b,
+                                                  train=False), batch)
+    v = random_variables(shapes, 0)
+    assert 'backbone_2d' not in v['params']
+    jout = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(v, batch)
+    tmodel = tdet.build_detector(cfg, 'cpu')
+    assert tmodel.backbone_2d is None
+    tmodel.load_state_dict(params_from_jax(v), strict=True)
+    with torch.no_grad():
+        tout = tmodel(tdet.batch_to_device(batch, 'cpu'))
+    jp, tp = jout['pred_dicts'][0], tout['pred_dicts'][0]
+    assert sorted(jp) == sorted(tp)
+    for name in jp:
+        err = np.abs(tp[name].numpy() - np.asarray(jp[name], np.float32))
+        assert err.max() <= 0.03 and err.mean() <= 3e-3, (name, err.max())

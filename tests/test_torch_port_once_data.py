@@ -21,6 +21,7 @@ from tmae_tpu.datasets.dataset import build_dataloader as j_build
 from tmae_tpu_torch.datasets.dataset import build_dataloader as t_build
 
 from tests.once_fixture import CLASSES, make_raw_once
+from tests.tiny_cfg import tiny_cfg
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / 'tools'))
 
@@ -242,3 +243,16 @@ def test_not_ported_parts_refuse(raw_once, change, training, match):
                             runtime_cfg=runtime(False, 1024),
                             root_path=str(raw_once), seed=0)
         next(iter(loader))
+
+
+@pytest.mark.parametrize('name', ['BaseBEVBackbone', 'NoSuchBackbone'])
+def test_not_ported_backbone_2d_refuses(name):
+    """A ``BACKBONE_2D`` other than ``SSTBEVBackbone`` raises at build
+    time, naming the backbone, where the port once built SSTBEVBackbone
+    whatever the name said."""
+    from tmae_tpu_torch.models.detectors import build_detector
+
+    cfg = copy.deepcopy(tiny_cfg())
+    cfg.MODEL.BACKBONE_2D.NAME = name
+    with pytest.raises(NotImplementedError, match=name):
+        build_detector(cfg, 'cpu')

@@ -130,10 +130,24 @@ def previous_frame_batch(batch: dict) -> dict:
     return out
 
 
+def _backbone_2d(cfg2d, cin):
+    """The 2D backbone that ``BACKBONE_2D`` names, as the JAX package picks
+    it: none without the key (the head then takes the pyramid's width),
+    ``SSTBEVBackbone``, or a refusal of any other name at build time."""
+    if cfg2d is None:
+        return None
+    if cfg2d['NAME'] != 'SSTBEVBackbone':
+        raise NotImplementedError(
+            f'BACKBONE_2D {cfg2d["NAME"]} is not ported yet (the port builds '
+            'SSTBEVBackbone or none; BaseBEVBackbone comes with the other '
+            'detector families, ROADMAP.md queue 1 item 4)')
+    return SSTBEVBackbone(cfg2d, cin)
+
+
 class CenterPoint(nn.Module):
-    """VFE → SiamWCA → BACKBONE_2D → CenterHead. ``model.train()`` runs the
-    training forward (batch statistics, the training kernels, remat as
-    RUNTIME.VFE_REMAT / REMAT_STAGES say)."""
+    """VFE → SiamWCA → BACKBONE_2D (when the config has one) → CenterHead.
+    ``model.train()`` runs the training forward (batch statistics, the
+    training kernels, remat as RUNTIME.VFE_REMAT / REMAT_STAGES say)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -145,9 +159,11 @@ class CenterPoint(nn.Module):
         fuse_out = sum(int(b3d['FUSE_LAYER'][s]['NUM_UPSAMPLE_FILTER'])
                        for s in b3d['FEATURES_SOURCE'])
         fuse_out //= len(b3d['FEATURES_SOURCE'])
-        self.backbone_2d = SSTBEVBackbone(model_cfg['BACKBONE_2D'], fuse_out)
-        self.dense_head = CenterHead(model_cfg['DENSE_HEAD'],
-                                     self.backbone_2d.out_channels)
+        self.backbone_2d = _backbone_2d(model_cfg.get('BACKBONE_2D'),
+                                        fuse_out)
+        self.dense_head = CenterHead(
+            model_cfg['DENSE_HEAD'], fuse_out if self.backbone_2d is None
+            else self.backbone_2d.out_channels)
 
     def forward(self, batch: dict, cached_prev=None,
                 return_hidden: bool = False):
@@ -166,7 +182,8 @@ class CenterPoint(nn.Module):
         spatial, overflow, *hidden = self.backbone_3d(
             vs_cur, vs_prv, cached_prev=cached_prev,
             return_hidden=return_hidden)
-        spatial2d = self.backbone_2d(spatial)
+        spatial2d = (spatial if self.backbone_2d is None
+                     else self.backbone_2d(spatial))
         out = {'pred_dicts': self.dense_head(spatial2d),
                'spatial_features_2d': spatial2d,
                'occ_overflow': torch.stack(overflow)}

@@ -15,9 +15,13 @@ one pair in registers with the same arithmetic:
 * ``NMS_MASK``: the suppression bitmask of each sample's score-sorted
   candidates, uint64 [B, K, ceil(K / 64)]: bit j of row i is set when
   j > i, both are valid (in multi-class mode: of the same class) and
-  their BEV IoU exceeds the (class's) threshold;
-* ``NMS_SCAN``: one block per sample walks the rows in order and writes
-  the keep mask [B, K], counting kept boxes (per class) against the cap.
+  their BEV IoU exceeds the (class's) threshold. It clips only the pairs
+  of one class whose circumscribed circles may meet (``SKIP_ABS``,
+  ``SKIP_REL``: a pair further apart has IoU exactly 0), spread over the
+  threads of blocks of 16 row boxes against 64 column boxes;
+* ``NMS_SCAN``: one warp per sample walks the rows in blocks of 64, its
+  removed words in registers, and writes the keep mask [B, K], counting
+  kept boxes (per class) against the cap; K at most ``SCAN_MAX_K``.
 
 The per-class thresholds and caps (at most 32 classes) go to the launch by
 value from the host.
@@ -45,6 +49,14 @@ NMS_SCAN = CudaKernel('iou_nms.cu', 'launch_nms_scan',
                       [P, P, P, P, I, I, I, P, P])
 
 SLOTS = 8  # vertex slots: a rectangle clipped by a rectangle has at most 8
+# NMS_MASK skips a pair when the distance of the centres exceeds the sum of
+# the half diagonals plus SKIP_ABS metres plus SKIP_REL times the pair's
+# coordinate scale (|x| + |y| of both centres and both radii): a margin
+# over the f32 rounding of the corners and of the clip (csrc/iou_nms.cu
+# kSkipAbs, kSkipRel)
+SKIP_ABS = 1e-3
+SKIP_REL = 1e-4
+SCAN_MAX_K = 64 * 32 * 64  # NMS_SCAN: 64 removed words a lane of the warp
 # f32 operations of one pair's clip as the kernel computes it: per edge of
 # B, the signed distance of 8 slots (2 mul, 3 sub) and at most 2 crossings
 # (sub, div, then sub, mul, add in x and y); the shoelace (2 mul, 1 sub,
@@ -303,6 +315,9 @@ def nms_scan_bits(mask, valid, posts, labels=None):
     [B, K] bool."""
     B, K = valid.shape
     dev = valid.device
+    if K > SCAN_MAX_K:
+        raise ValueError(f'NMS_SCAN takes at most {SCAN_MAX_K} candidates a '
+                         f'sample, got {K}')
     keep = torch.empty(B, K, dtype=torch.bool, device=dev)
     if B and K:
         vd = as_kernel_arg(valid, torch.bool)

@@ -92,6 +92,31 @@ def build_all(sources=SOURCES) -> dict[str, dict]:
     return built
 
 
+def build_file(src: Path, flags_of: str, tag: str, extra=()) -> Path:
+    """Compile a ``.cu`` file from anywhere (another checkout's version of
+    a source) with the flags of ``flags_of`` and ``extra`` into ``_build``,
+    named by ``tag`` and a hash of the file, its directory's headers and
+    the flags; reused when present. Raises with nvcc's output on
+    failure."""
+    src = Path(src)
+    flags = [*_flags(flags_of), *extra]
+    h = hashlib.sha256()
+    for part in sorted(src.parent.glob('*.cuh')) + [src]:
+        h.update(part.read_bytes())
+    h.update(' '.join(flags).encode())
+    out = BUILD_DIR / f'{src.stem}-{tag}-{h.hexdigest()[:16]}.so'
+    if not out.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f'{out.stem}.{os.getpid()}.tmp.so')
+        proc = subprocess.run([_nvcc(), *flags, '-o', str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed for {src}:\n{proc.stdout}'
+                               f'{proc.stderr}')
+        os.replace(tmp, out)
+    return out
+
+
 def library(source: str) -> ctypes.CDLL:
     with _lock:
         if source not in _libs:
@@ -101,18 +126,21 @@ def library(source: str) -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One exported launcher of a ``csrc`` library, with its launch count."""
+    """One exported launcher of a ``csrc`` library, with its launch count
+    (``path``: a library built elsewhere, in place of ``source``'s)."""
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    def __init__(self, source: str, symbol: str, argtypes, path=None):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.path = path
         self.launches = 0
         self._fn = None
         self._err = None
 
     def _bind(self):
-        lib = library(self.source)
+        lib = (ctypes.CDLL(str(self.path)) if self.path
+               else library(self.source))
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

@@ -213,27 +213,36 @@ def host_ms(torch, call, rounds=7, n=20):
     return statistics.median(per)
 
 
-def by_launch(torch, call, calls=1):
+def by_launch(torch, call, calls=1, stats=None):
     """Device ms of each launch of one call (torch.profiler over ``calls``
     calls after a warm one), by kernel name: the mean of the kernel's
     events times its launches a call (events / calls, rounded), so that an
-    event the profiler drops does not count as zero time."""
+    event the profiler drops does not count as zero time. A session that
+    records no device activity at all (after a session of ~10^5 device
+    records, later ones in the process lose records: PERF.md section 7) is
+    run again, up to 3 sessions; ``stats['empty']`` counts those."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
     short = lambda k: k.replace('void ', '').replace(
         '(anonymous namespace)::', '').split('<')[0].split('(')[0]
-    return [(short(e.key), e.self_device_time_total / 1e3 / e.count
-             * max(1, round(e.count / calls)))
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        out = [(short(e.key), e.self_device_time_total / 1e3 / e.count
+                * max(1, round(e.count / calls)))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        if out:
+            return out
+        if stats is not None:
+            stats['empty'] = stats.get('empty', 0) + 1
+    return []
 
 
 def main(argv=None):
