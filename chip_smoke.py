@@ -225,6 +225,29 @@ Phases (any failure exits non-zero and prints no result line):
      the card: one checkpoint and one log, written by rank 0; the merged
      result.pkl holds each frame once in dataset order and equals that of
      ``tools.test`` run as one process on the checkpoint, bit for bit.
+ 18. the encoder layer at the narrow widths (``csrc/encoder_layer_narrow.
+     cu``: C = 32 with 4 heads, C = 64 with 4 or 8, FFN 2C).
+     18a. NARROW_FWD and NARROW_BWD against their plain versions at each
+     of the three widths, self and cross, in every mode (K4 / K3 in place
+     on a bucket's rows, K12 on the carrier, K8 / K6 forward and K9 / K7
+     backward on each bucket, K10 on the grid and its backward) on the
+     stage-1 plans of phase 4's pair with that grid's features cut to C
+     by a seeded matrix, each with the exact checks and limits its tiled
+     mode is held to; the (64, 8) self full bucket's forward and backward
+     timed into the kernels line.
+     18b. t_mae.yaml with ASYMMETRIC {ENABLED, HALF_CHANNELS} at full
+     width and depth (the previous frame's stage 1 at C = 64 on
+     NARROW_FWD / NARROW_BWD): a served pair and a finetune step with their
+     launches counted, head maps and a step card vs CPU on 64x64 (the step
+     held to the bf16 control), and with SimSiam added the same modules
+     and, under deterministic algorithms, the same loss bits.
+     18c. t_mae.yaml with the single-bucket plan (OCC_SMALL_CAPS and
+     OCC_MID_CAPS removed): a served pair and a step counted, occ_overflow
+     printed, head maps card vs CPU on 64x64.
+     18d. t_mae_ssl_mini.yaml then t_mae_mini.yaml from its checkpoint
+     through ``tools.train`` and ``tools.test`` (their SyntheticONCEDataset):
+     every step on NARROW_FWD and NARROW_BWD alone, losses finite, the
+     transfer checked, result.pkl's frame ids, every AP finite.
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -258,7 +281,7 @@ EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
                      'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0, 'K12': 0,
                      'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0, 'PACK': 18,
                      'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0,
-                     'NMS_SCAN': 0}
+                     'NMS_SCAN': 0, 'NARROW_FWD': 0, 'NARROW_BWD': 0}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -271,7 +294,8 @@ EXPECTED_TRAIN_LAUNCHES = {
     'K1': 24 + 18 + 12, 'K2': 18 + 24 + 18 + 12, 'K3': 0, 'K4': 0,
     'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
     'K10': 0, 'K12': 0, 'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0,
-    'PACK': 0, 'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0, 'NMS_SCAN': 0}
+    'PACK': 0, 'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0, 'NMS_SCAN': 0,
+    'NARROW_FWD': 0, 'NARROW_BWD': 0}
 NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
 # The fused in-place serving path: each of the 18 layers is one pack of its
 # panels and one K12 call per bucket (small, mid, full), and nothing else
@@ -334,6 +358,7 @@ BWD_KERNELS = ('(anonymous namespace)::window_bwd_kernel',
 # the launches of K3 / K4 / K6 / K8 / K10 / K12 / K16
 # (csrc/encoder_layer_tiled.cu) in a profiler table
 TILED_SRC = 'tmae_tpu_torch/csrc/encoder_layer_tiled.cu'
+NARROW_SRC = 'tmae_tpu_torch/csrc/encoder_layer_narrow.cu'
 FWD_KERNELS = ('(anonymous namespace)::tiled_kernel',
                '(anonymous namespace)::sel_prepass_kernel',
                '(anonymous namespace)::grid_prepass_kernel',
@@ -1044,7 +1069,8 @@ def train_layer_calls(torch, model, batch):
     return calls
 
 
-def train_check(torch, el, call, gen, entry, profile=False):
+def train_check(torch, el, call, gen, entry, profile=False, tag='',
+                narrow_rows=False):
     """K6 / K8 and K7 / K9 on one bucket against their plain versions on
     the same card. Forward: bf16 output, max |diff| <= 0.15 and mean <=
     2e-3 (as K3/K4). Backward, for each of BWD_DRAWS random cotangents,
@@ -1062,11 +1088,13 @@ def train_check(torch, el, call, gen, entry, profile=False):
     times are taken on it too) must give the same bits. The C=128 self
     (stage-1) small (S=16) and
     full buckets go into the kernels line; with ``profile``, their
-    backward's device time by kernel name too."""
+    backward's device time by kernel name too. ``tag`` heads the log's
+    label; with ``narrow_rows`` the full bucket's forward and backward go
+    into the kernels line as NARROW_FWD and NARROW_BWD."""
     x, kvw, sq, sk, qm, km, pos, (nhead, tau_min, cross), p, *weights = call
     S = None if sq is None else sq.shape[-1]
     weights = [w.detach() for w in weights]
-    label = f'C={x.shape[-1]} {"cross" if cross else "self"}'
+    label = f'{tag}C={x.shape[-1]} {"cross" if cross else "self"}'
     kw = dict(nhead=nhead, tau_min=tau_min, cross=cross)
     args = (x, kvw, sq, sk, qm, km, pos)
     fk = lambda: el.encoder_layer_fwd(*args, p, **kw)
@@ -1189,6 +1217,16 @@ def train_check(torch, el, call, gen, entry, profile=False):
               None)
         if profile:
             pass_breakdown(torch, bk, f'profile_bwd_{kname[1]}.txt')
+    if narrow_rows and S is None:
+        site = 'tmae_tpu/ops/pallas_encoder.py:'
+        entry('encoder_narrow_fwd', 'NARROW_FWD', NARROW_SRC, site + '280',
+              ferr, ms_f, time_ms(torch, fp, iters=3, warmup=1), fwd_bytes,
+              fwd_flops, None, pallas_site=False, mode='K6 (T=64)',
+              label=label)
+        entry('encoder_narrow_bwd', 'NARROW_BWD', NARROW_SRC, site + '418',
+              berr, ms_b, time_ms(torch, bp, iters=2, warmup=1), bwd_bytes,
+              bwd_flops, None, pallas_site=False, mode='K7 (T=64)',
+              label=label)
 
 
 def full_bits_check(torch, el, args, p, kw, out, label):
@@ -1324,7 +1362,9 @@ def kernels():
             'K16': window_attention.K16, 'PACK': encoder_layer.PACK,
             'IOU_PAIRS': geometry.IOU_PAIRS,
             'IOU_ALIGNED': geometry.IOU_ALIGNED,
-            'NMS_MASK': geometry.NMS_MASK, 'NMS_SCAN': geometry.NMS_SCAN}
+            'NMS_MASK': geometry.NMS_MASK, 'NMS_SCAN': geometry.NMS_SCAN,
+            'NARROW_FWD': encoder_layer.NARROW_FWD,
+            'NARROW_BWD': encoder_layer.NARROW_BWD}
 
 
 def fill_launches(rows, launches, names):
@@ -1858,7 +1898,8 @@ def capture_spread(torch, model, batch, seed, first):
             raise AssertionError('two deterministic captures differ')
 
 
-def grid_check(torch, el, call, gen, entry, backward, profile=False):
+def grid_check(torch, el, call, gen, entry, backward, profile=False,
+               tag=''):
     """K10 on one captured call against its plain version on the same card
     (bf16 output over the occupied query cells, max |diff| <= 0.15 and mean
     <= 2e-3, as K3/K6; every other cell exactly 0), the exact checks of
@@ -1879,7 +1920,7 @@ def grid_check(torch, el, call, gen, entry, backward, profile=False):
     nhead, tau_min, cross, window, shift = cfg
     kw = dict(nhead=nhead, tau_min=tau_min, cross=cross, window=window,
               shift=shift)
-    label = (f'C={xg.shape[-1]} {"cross" if cross else "self"} '
+    label = (f'{tag}C={xg.shape[-1]} {"cross" if cross else "self"} '
              f'shift{int(shift)}')
     fk = lambda: el.encoder_layer_grid(xg, kvg, qocc, kocc, pos, p, **kw)
     fp = lambda: el.reference_encoder_layer_grid(
@@ -1935,7 +1976,8 @@ def grid_check(torch, el, call, gen, entry, backward, profile=False):
         bk = lambda: el.encoder_layer_grid_bwd(xg, kvg, qocc, kocc, pos, p,
                                                g, **kw)
         ms_b = time_ms(torch, bk, iters=3, warmup=1)
-        if profile and (xg.shape[-1], cross, shift) == (128, False, False):
+        if profile and not tag and (xg.shape[-1], cross, shift) == (
+                128, False, False):
             pass_breakdown(torch, bk, 'profile_bwd_grid.txt')
         msg += (f'; backward (views + K7 on {nw} windows) over {BWD_DRAWS} '
                 f'cotangents: worst relative {worst[0]:.3g} ({worst[1]}), '
@@ -1945,8 +1987,8 @@ def grid_check(torch, el, call, gen, entry, backward, profile=False):
                 + f'); {ms_b:.3f} ms, peak {peak:.3f} GiB above its inputs; '
                 f'{time.perf_counter() - t0:.1f} s')
     log(msg)
-    if entry is not None and (xg.shape[-1], cross, shift) == (128, False,
-                                                              False):
+    if entry is not None and not tag and (xg.shape[-1], cross,
+                                          shift) == (128, False, False):
         entry('encoder_grid', 'K10', TILED_SRC,
               'tmae_tpu/ops/pallas_encoder.py:1483', err, ms,
               time_ms(torch, fp, iters=3, warmup=1), nbytes, flops, None)
@@ -4781,6 +4823,371 @@ def dp_cli_phase(torch, root, cfg_file, extra=()):
             'dp_cli_one_test_s': one_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the encoder layer at the narrow widths
+# ---------------------------------------------------------------------------
+
+# (C, heads) of NARROW_FWD / NARROW_BWD: HALF_CHANNELS' previous-frame stage
+# 1, then the mini configs' stages
+NARROW_WIDTHS = ((64, 8), (64, 4), (32, 4))
+# One served t_mae.yaml pair with ASYMMETRIC {ENABLED, HALF_CHANNELS}: the
+# frames in separate passes, 12 SST layers each, the previous frame's stage
+# 1 (4 layers) at C = 64 on NARROW_FWD (three bucket calls a layer, no
+# pack), the other 20 SST layers and the 6 WCA layers on K3 / K4 as in
+# phase 4 (one gather, two in cross mode, and one scatter a layer).
+EXPECTED_HALF_SERVING = {**EXPECTED_LAUNCHES, 'K1': 24 + 12, 'K2': 24 + 6,
+                         'K3': 20 + 6, 'K4': 2 * (20 + 6), 'PACK': 20 + 6,
+                         'NARROW_FWD': 4 * 3}
+# One finetune step of it: EXPECTED_ASYM with the previous frame's stage-1
+# layers' K6 and K8 (forward and remat replay) on NARROW_FWD and their K7
+# and K9 on NARROW_BWD.
+EXPECTED_HALF_STEP = {**EXPECTED_ASYM, 'K6': 30 + 24 - 2 * 4,
+                      'K7': 30 - 4, 'K8': 60 + 48 - 2 * 8, 'K9': 60 - 8,
+                      'NARROW_FWD': 2 * 4 * 3, 'NARROW_BWD': 4 * 3}
+# t_mae.yaml without OCC_SMALL_CAPS / OCC_MID_CAPS: the single-bucket plan,
+# every layer's windows in the full bucket (K3 serving, K6 / K7 training)
+EXPECTED_SINGLE_SERVING = {**EXPECTED_LAUNCHES, 'K4': 0}
+EXPECTED_SINGLE_STEP = {**EXPECTED_TRAIN_LAUNCHES, 'K8': 0, 'K9': 0}
+# A step of the mini configs (no caps: the grid path, every layer narrow):
+# 12 layers (3 stages x 2 shifted layers, 3 WCA blocks x 2), each one grid
+# forward, the 6 SST layers again in the remat replay, and one backward
+# over the windows with a query each.
+EXPECTED_MINI_STEP = {**NO_LAUNCHES, 'NARROW_FWD': 12 + 6, 'NARROW_BWD': 12}
+
+
+def narrow_layer(torch, C, nhead, cross, seed, dev='cuda'):
+    """A seeded encoder layer at width C (FFN 2C) on ``dev``, in eval mode
+    (``init_random_``'s weights)."""
+    from tmae_tpu_torch.models.detectors import init_random_
+    from tmae_tpu_torch.models.sst import DenseEncoderLayer
+
+    layer = DenseEncoderLayer(C, nhead, 2 * C, 8, 0.01, cross)
+    return init_random_(layer, seed=seed).to(dev).eval()
+
+
+def training_call(torch, el, oc, layer, si, xp, kvp):
+    """The arguments the training layer's Function takes for bucket ``si``
+    of a plan (as ``DenseEncoderLayer.forward_train`` hands them over, and
+    as :func:`train_layer_calls` captures them): the bucket's windows of
+    the padded carrier ``xp`` (and of ``kvp`` in cross mode) flattened."""
+    cross = kvp is not None
+    flat = lambda a: None if a is None else a.reshape(-1, *a.shape[2:])
+    sel = getattr(si, 'sel', None)
+    weights = [w.detach() for w in layer.layer_weights()]
+    return (flat(oc.gather_windows_padded(xp, si.idx, 8)),
+            flat(oc.gather_windows_padded(kvp, si.idx, 8)) if cross
+            else None, flat(sel), flat(si.ksel) if cross and sel is not None
+            else None, flat(si.qmask), flat(si.kmask) if cross else None,
+            layer.pos, (layer.nhead, layer.tau_min, cross),
+            el.kernel_params(weights), *weights)
+
+
+def narrow_kernel_phase(torch, batch, caps, rows):
+    """18a: NARROW_FWD and NARROW_BWD against their plain versions at every
+    narrow (C, heads), self and cross, in every mode, on the stage-1 plans
+    of phase 4's frame pair (468x468) with that grid's features cut to C by
+    a seeded matrix: K4 / K3 in place on a bucket's rows
+    (:func:`rows_check`), K12 on the carrier (:func:`fused_check`), K8 / K6
+    forward and K9 / K7 backward on each bucket (:func:`train_check`, 16
+    cotangents, half the windows zeroed in every other one, the same bits
+    twice), K10 on the grid and its backward (:func:`grid_check`), each
+    with the exact checks and limits the tiled kernel's mode is held to.
+    The (64, 8) self full bucket's training forward and backward go into
+    the kernels line."""
+    from tmae_tpu_torch.models.sst import build_plans
+    from tmae_tpu_torch.ops import encoder_layer as el
+    from tmae_tpu_torch.ops import occ_compact as oc
+    from tmae_tpu_torch.ops.voxelize import occupancy_grid
+
+    dev = 'cuda'
+    g = torch.Generator(device=dev).manual_seed(18)
+    H, W = 468, 468
+    occ = torch.cat([occupancy_grid(batch[f'vcoords_{w}'], batch[f'vmask_{w}'],
+                                    (H, W)) for w in ('cur', 'prv')])
+    plan = build_plans(occ, 8, caps)[0]
+    wplan = build_plans(occ[:1], 8, caps, kv_occ=occ[1:])[0]
+    log(f'  stage-1 plans: {int(occ[0].sum())} / {int(occ[1].sum())} '
+        f'occupied cells; self buckets (small, mid, full) '
+        f'{[int(b.valid.sum()) for b in (plan.small, plan.mid, plan.full)]} '
+        f'windows, cross '
+        f'{[int(b.valid.sum()) for b in (wplan.small, wplan.mid, wplan.full)]}')
+    x128 = torch.randn(2, H, W, 128, generator=g, device=dev)
+    entry = functools.partial(add_row, rows)
+    for C, nh in NARROW_WIDTHS:
+        t0 = time.perf_counter()
+        proj = torch.randn(128, C, generator=g, device=dev) / 128 ** 0.5
+        x = torch.where(occ[..., None], x128 @ proj, 0.0).to(torch.bfloat16)
+        xp = oc.pad_grid(x, 8, False).contiguous()
+        tag = f'NARROW_FWD C={C} H={nh} '
+        layers = [narrow_layer(torch, C, nh, c, 1000 * C + 10 * nh + c)
+                  for c in (False, True)]
+        base = oc.gather_windows_padded(xp, plan.cat_idx, 8).contiguous()
+        for case in layer_cases(el, layers[0], plan, None):
+            rows_check(torch, el, tag + 'self', case, base, False, entry)
+        xc = oc.gather_windows_padded(xp[:1].contiguous(), wplan.cat_idx, 8)
+        kc = oc.gather_windows_padded(xp[1:].contiguous(), wplan.cat_idx, 8)
+        for case in layer_cases(el, layers[1], wplan, kc):
+            rows_check(torch, el, tag + 'cross', case, xc, True, entry)
+        for label, layer, lplan, carrier, kvp in (
+                (tag + 'self', layers[0], plan, xp, None),
+                (tag + 'cross', layers[1], wplan, xp[:1].clone(),
+                 xp[1:].clone())):
+            carrier = carrier.clone()
+            carrier[:, -8:] = torch.randn(carrier[:, -8:].shape, generator=g,
+                                          device=dev).to(torch.bfloat16)
+            for name, ci in (('small', lplan.small), ('mid', lplan.mid),
+                             ('full', lplan.full)):
+                fused_check(torch, el, oc, f'{label} {name}', layer, ci,
+                            carrier, kvp, name != 'full', entry)
+        ttag = f'NARROW H={nh} '
+        for layer, lplan, xs, kvs in (
+                (layers[0], plan, xp, None),
+                (layers[1], wplan, xp[:1].contiguous(),
+                 xp[1:].contiguous())):
+            for si in (lplan.small, lplan.mid, lplan.full):
+                train_check(torch, el,
+                            training_call(torch, el, oc, layer, si, xs, kvs),
+                            g, entry, tag=ttag,
+                            narrow_rows=(C, nh) == (64, 8) and kvs is None)
+        for layer, cross, shift in ((layers[0], False, False),
+                                    (layers[1], True, True)):
+            weights = [w.detach() for w in layer.layer_weights()]
+            call = ((x[:1].contiguous(), x[1:].contiguous(), occ[:1],
+                     occ[1:]) if cross else (x, None, occ, None)) + (
+                layer.pos, (nh, layer.tau_min, cross, 8, shift),
+                el.kernel_params(weights), *weights)
+            grid_check(torch, el, call, g, None, True, tag=ttag)
+        log(f'  NARROW C={C} H={nh}: {time.perf_counter() - t0:.1f} s')
+
+
+def half_cfg(cfg, simsiam=False):
+    """t_mae.yaml with ASYMMETRIC {ENABLED, HALF_CHANNELS} (and SimSiam)."""
+    import copy
+
+    var = copy.deepcopy(cfg)
+    var.MODEL.BACKBONE_3D['ASYMMETRIC'] = {'ENABLED': True,
+                                           'HALF_CHANNELS': True,
+                                           **({'SimSiam': True} if simsiam
+                                              else {})}
+    return var
+
+
+def single_bucket_cfg(cfg):
+    """A config with OCC_SMALL_CAPS and OCC_MID_CAPS removed: JAX's
+    single-bucket plan under OCC_WINDOW_CAPS."""
+    import copy
+
+    var = copy.deepcopy(cfg)
+    for key in ('OCC_SMALL_CAPS', 'OCC_MID_CAPS'):
+        var.RUNTIME.pop(key, None)
+    return var
+
+
+def served_counted(torch, cfg, np_batch, expected, what):
+    """A seeded full-width detector of ``cfg`` serves phase 4's pair once
+    with the launch counters set to 0 just before it and read just after
+    (they must equal ``expected``); every head map finite. Returns (the
+    forward's outputs, the launches)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    model = init_random_(build_detector(cfg), seed=0).eval()
+    (out, _), launches = counted(torch, lambda: serve_once(
+        torch, cfg, model, batch_to_device(np_batch, 'cuda')))
+    log(f'  {what}: launches {launches} (expected {expected}); occ_overflow '
+        f'{out["occ_overflow"].tolist()}')
+    if launches != expected:
+        raise AssertionError(f'{what}: launch counts differ from the '
+                             'expected')
+    for name, m in out['pred_dicts'][0].items():
+        if not torch.isfinite(m).all():
+            raise AssertionError(f'{what}: head map {name} not finite')
+    return out, launches
+
+
+def half_channels_phase(torch, cfg, np_batch):
+    """18b: t_mae.yaml with ASYMMETRIC {ENABLED, HALF_CHANNELS} at full
+    width and depth, seeded weights: one served pair (launches counted,
+    NARROW_FWD among them) and its head maps card vs CPU at full width on a
+    64x64 grid; one finetune step at phase 6's batch (launches counted,
+    every loss part finite) and one step card vs CPU on 64x64 held to the
+    bf16 control (phase 7); {ENABLED, HALF_CHANNELS, SimSiam} builds the
+    same modules (SimSiam is ignored, as JAX ignores it) and, under
+    deterministic algorithms, gives the same loss parts bit for bit."""
+    from tmae_tpu_torch.models.detectors import build_detector
+
+    var = half_cfg(cfg)
+    _, served = served_counted(torch, var, np_batch, EXPECTED_HALF_SERVING,
+                               'HALF_CHANNELS pair')
+    log('  HALF_CHANNELS head maps: card vs CPU, full width on a 64x64 grid')
+    card_vs_cpu(torch, *small_grid(var), seed=7)
+    torch.cuda.empty_cache()
+    batch = train_batch(var)
+    _, metrics, step = one_counted_step(torch, var, batch,
+                                        EXPECTED_HALF_STEP,
+                                        'HALF_CHANNELS step')
+    torch.cuda.empty_cache()
+    both = []
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for simsiam in (False, True):
+            v = half_cfg(cfg, simsiam)
+            names = [n for n, _ in build_detector(v, 'cpu').named_modules()]
+            _, m, _ = one_counted_step(
+                torch, v, batch, EXPECTED_HALF_STEP,
+                f'HALF_CHANNELS{" + SimSiam" if simsiam else ""} step '
+                '(deterministic)')
+            both.append((names, m))
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    if both[0][0] != both[1][0] or both[0][1] != both[1][1]:
+        raise AssertionError('HALF_CHANNELS with SimSiam builds other modules '
+                             'or gives another loss')
+    log(f'  SimSiam under HALF_CHANNELS: the same {len(both[0][0])} modules '
+        'and loss parts bit for bit')
+    log('  HALF_CHANNELS step: card vs CPU vs control, full width on a '
+        '64x64 grid')
+    train_card_vs_cpu(torch, *small_grid(var), seed=7)
+    return served, step, {'half_channels_loss': metrics['loss']}
+
+
+def single_bucket_phase(torch, cfg, np_batch):
+    """18c: t_mae.yaml with the single-bucket plan (OCC_SMALL_CAPS and
+    OCC_MID_CAPS removed): one served pair and one finetune step with their
+    launches counted, occ_overflow printed; head maps card vs CPU at full
+    width on a 64x64 grid."""
+    var = single_bucket_cfg(cfg)
+    out, _ = served_counted(torch, var, np_batch, EXPECTED_SINGLE_SERVING,
+                            'single-bucket pair')
+    _, metrics, _ = one_counted_step(torch, var, train_batch(var),
+                                     EXPECTED_SINGLE_STEP,
+                                     'single-bucket step')
+    torch.cuda.empty_cache()
+    small, nb = small_grid(var)
+    log('  single-bucket head maps: card vs CPU, full width on a 64x64 grid')
+    card_vs_cpu(torch, single_bucket_cfg(small), nb, seed=7)
+    return {'single_bucket_occ_overflow': out['occ_overflow'].tolist(),
+            'single_bucket_loss': metrics['loss']}
+
+
+def mini_cli_phase(torch):
+    """18d: the mini configs through the port's CLIs on the card (their
+    SyntheticONCEDataset, everything in a temporary directory):
+    t_mae_ssl_mini.yaml pretraining 1 epoch, t_mae_mini.yaml finetuning 1
+    epoch from its checkpoint (the transfer checked as in 14a), then
+    ``tools.test`` on the finetuned checkpoint. Each run with the launch
+    counters set to 0 just before it and read just after; every step
+    launches NARROW_FWD and NARROW_BWD (the grid path at C = 32 / 64 with
+    4 heads) and no encoder kernel of another family; losses finite;
+    result.pkl holds the evaluation dataset's frame ids in order, every AP
+    finite."""
+    import pickle
+
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+    from tmae_tpu_torch.datasets.dataset import build_dataloader
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.tools import train as train_cli
+
+    cfgs = ROOT / 'tools/cfgs/once_models'
+    ssl_file, ft_file = cfgs / 't_mae_ssl_mini.yaml', cfgs / 't_mae_mini.yaml'
+    tmp = tempfile.TemporaryDirectory()
+    saved = train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT
+    try:
+        train_cli.OUTPUT_ROOT = test_cli.OUTPUT_ROOT = Path(tmp.name) / 'out'
+        tag = ['--extra_tag', 'chip_smoke']
+        common = ['--fix_random_seed'] + tag
+        runs = []
+        pre, _, pre_rec, _ = cli_run(
+            torch, ['--cfg_file', str(ssl_file), '--epochs', '1'] + common,
+            EXPECTED_MINI_STEP, 'mini pretraining', ref='the mini grid path\'s')
+        ft, _, ft_rec, _ = cli_run(
+            torch, ['--cfg_file', str(ft_file), '--pretrained_model',
+                    str(pre['checkpoints'][-1]), '--epochs', '1'] + common,
+            EXPECTED_MINI_STEP, 'mini training', ref='the mini grid path\'s')
+        if len(ft_rec['transfers']) != 1:
+            raise AssertionError('the mini finetune run made no transfer')
+        for rec in (pre_rec, ft_rec):
+            for d in rec['steps']:
+                runs.append(d)
+                other = [k for k in ('K3', 'K4', 'K6', 'K7', 'K8', 'K9',
+                                     'K10', 'K12') if d[k]]
+                if not (d['NARROW_FWD'] and d['NARROW_BWD']) or other:
+                    raise AssertionError(f'a mini step launched {d}')
+        t0 = time.perf_counter()
+        (rdir, ap), launches = counted(torch, lambda: next(iter(
+            test_cli.main(['--cfg_file', str(ft_file), '--ckpt',
+                           str(ft['checkpoints'][-1])] + tag)
+            .items())))
+        secs = time.perf_counter() - t0
+        annos = pickle.loads((rdir / 'result.pkl').read_bytes())
+        ft_cfg = cfg_from_yaml_file(ft_file)
+        dataset, _ = build_dataloader(ft_cfg.DATA_CONFIG, ft_cfg.CLASS_NAMES,
+                                      1, False, runtime_cfg=ft_cfg.RUNTIME)
+        want_ids = [dataset[i]['frame_id'] for i in range(len(dataset))]
+        log(f'  tools.test: {secs:.1f} s, {len(annos)} frames, '
+            f'{sum(len(a["score"]) for a in annos)} boxes kept, launches '
+            f'{launches}; APs ' + ', '.join(
+                f'{k} {v:.4g}' for k, v in ap.items() if k.startswith('AP_')))
+        if [a['frame_id'] for a in annos] != want_ids:
+            raise AssertionError(f'result.pkl frame ids '
+                                 f'{[a["frame_id"] for a in annos]}, not '
+                                 f'{want_ids}')
+        if not launches['NARROW_FWD']:
+            raise AssertionError('the mini evaluation launched no NARROW_FWD')
+        aps = {k: v for k, v in ap.items() if k.startswith('AP_')}
+        if not aps or not all(math.isfinite(v) for v in aps.values()):
+            raise AssertionError('a mini AP is not finite')
+    finally:
+        train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT = saved
+        tmp.cleanup()
+    return runs[-1], {'mini_pretrain_loss': pre['steps'][-1]['loss'],
+                      'mini_train_loss': ft['steps'][-1]['loss'],
+                      'mini_eval_s': secs}
+
+
+def narrow_phase(torch, cfg, np_batch, batch, rows):
+    """Phase 18 (a-d); the NARROW rows of the kernels line take the
+    HALF_CHANNELS step's launches, with the served pair's and a mini
+    step's beside them."""
+    from tmae_tpu_torch.models.siamwca import stage_caps
+
+    t18 = time.perf_counter()
+    log('phase 18a: NARROW_FWD and NARROW_BWD against their plain versions '
+        '(csrc/encoder_layer_narrow.cu), every mode, on the stage-1 plans of '
+        'phase 4\'s pair')
+    narrow_kernel_phase(torch, batch, stage_caps(cfg.RUNTIME, 3)[0], rows)
+    log(f'  phase 18a {time.perf_counter() - t18:.1f} s')
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log('phase 18b: ASYMMETRIC {ENABLED, HALF_CHANNELS} (t_mae.yaml, full '
+        'width and depth)')
+    served, step, out = half_channels_phase(torch, cfg, np_batch)
+    log(f'  phase 18b {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log('phase 18c: the single-bucket plan (t_mae.yaml without '
+        'OCC_SMALL_CAPS / OCC_MID_CAPS)')
+    out.update(single_bucket_phase(torch, cfg, np_batch))
+    log(f'  phase 18c {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log('phase 18d: t_mae_ssl_mini.yaml -> t_mae_mini.yaml -> tools.test '
+        'through the CLIs')
+    mini, mini_out = mini_cli_phase(torch)
+    out.update(mini_out)
+    log(f'  phase 18d {time.perf_counter() - t0:.1f} s')
+    fill_launches(rows, step, ('NARROW_FWD', 'NARROW_BWD'))
+    for row in rows:
+        if row['kernel'] in ('NARROW_FWD', 'NARROW_BWD'):
+            row['launches_half_channels_pair'] = served[row['kernel']]
+            row['launches_mini_step'] = mini[row['kernel']]
+    log(f'  phase 18 {time.perf_counter() - t18:.1f} s')
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--profile', action='store_true',
@@ -5016,6 +5423,10 @@ def main(argv=None):
     once_tree.cleanup()
     log(f'  phase 17 {time.perf_counter() - t17:.1f} s')
 
+    torch.cuda.empty_cache()
+    narrow = narrow_phase(torch, cfg, np_batch,
+                          batch_to_device(np_batch, 'cuda'), rows)
+
     log(f'total {time.perf_counter() - t_start:.1f} s')
     for row in rows:
         del row['kernel']
@@ -5033,7 +5444,7 @@ def main(argv=None):
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
         **overfit, **waymo_cli, **dev_nms, **iou_head, **asym,
-        **eval_cli, **dp}), flush=True)
+        **eval_cli, **dp, **narrow}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -2,8 +2,8 @@
 premise of the training backward's window skip, on the CPU.
 
 * ``MODEL.BACKBONE_3D.ASYMMETRIC``: ``ENABLED`` (alone or with
-  ``SimSiam``) builds the two-pass encoder; ``HALF_CHANNELS`` is refused
-  (the encoder kernels are compiled for C = 128/256 with 8 heads only).
+  ``SimSiam``) builds the two-pass encoder; ``HALF_CHANNELS`` builds it
+  with the previous frame's own half-width stages (``sst_block_prev_*``).
 * A ``PREPROCESS.DROP_INFO.train`` maximum other than window² is refused,
   as JAX's ``SSTBlock`` refuses it on the same config; every shipped
   ``t_mae*.yaml`` still builds.
@@ -44,22 +44,34 @@ ROOT = Path(__file__).resolve().parent.parent
                          ids=['enabled', 'simsiam', 'half_channels'])
 def test_asymmetric_encoder_refused(asym):
     """``ENABLED`` and ``SimSiam`` build the two-pass encoder (held against
-    JAX in ``tests/test_torch_port_asym.py``); only ``HALF_CHANNELS`` is
-    refused, naming the widths the kernels lack; with ``ENABLED`` false
-    every mode builds the one-pass encoder."""
+    JAX in ``tests/test_torch_port_asym.py``); ``HALF_CHANNELS`` builds it
+    with the previous frame's stages ``sst_block_prev_*`` at half of each
+    stage's width and FFN (held against JAX in
+    ``tests/test_torch_port_narrow.py``); with ``ENABLED`` false every mode
+    builds the one-pass encoder, and no refusal is left."""
     cfg = copy.deepcopy(tiny_cfg())
     cfg.MODEL.BACKBONE_3D['ASYMMETRIC'] = asym
-    if asym.get('HALF_CHANNELS'):
-        with pytest.raises(NotImplementedError,
-                           match='HALF_CHANNELS.*C = 128/256 with 8 heads'):
-            tdet.build_detector(cfg, 'cpu')
+    enc = tdet.build_detector(cfg, 'cpu').backbone_3d.encoder
+    assert enc.asymmetric
+    assert enc.simsiam == bool(asym.get('SimSiam', False))
+    assert enc.half == bool(asym.get('HALF_CHANNELS', False))
+    prev = [n for n, _ in enc.named_children()
+            if n.startswith('sst_block_prev')]
+    if enc.half:
+        assert prev == [f'sst_block_prev_{i}' for i in range(3)]
+        for blk, full in zip(enc.prev_blocks, enc.sst_blocks):
+            lp = blk.blocks[0].EncoderLayer_0
+            lf = full.blocks[0].EncoderLayer_0
+            assert 2 * lp.q.weight.shape[0] == lf.q.weight.shape[0]
+            assert 2 * lp.ffn1.weight.shape[0] == lf.ffn1.weight.shape[0]
+            assert (blk.conv_out.conv.weight.shape
+                    == full.conv_out.conv.weight.shape[:1]
+                    + blk.conv_out.conv.weight.shape[1:])
     else:
-        enc = tdet.build_detector(cfg, 'cpu').backbone_3d.encoder
-        assert enc.asymmetric
-        assert enc.simsiam == bool(asym.get('SimSiam', False))
+        assert not prev and not enc.prev_blocks
     cfg.MODEL.BACKBONE_3D['ASYMMETRIC'] = {**asym, 'ENABLED': False}
     enc = tdet.build_detector(cfg, 'cpu').backbone_3d.encoder
-    assert not enc.asymmetric and not enc.simsiam
+    assert not enc.asymmetric and not enc.simsiam and not enc.half
 
 
 def test_max_tokens_below_window_area_refused_as_jax():

@@ -35,9 +35,9 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tmae_tpu.ops import pallas_encoder as jpe
 from tmae_tpu.ops.dense_windows import slot_pos_embed as j_slot_pos_embed
 from tmae_tpu_torch.ops.encoder_layer import (LayerParams,
-                                              _check_tiled_widths,
                                               encoder_layer_fwd,
                                               encoder_layer_rows_sel,
+                                              layer_family,
                                               live_windows_plain,
                                               reference_encoder_layer,
                                               tile_plan_plain,
@@ -346,18 +346,21 @@ def test_window_rows_plain_addresses_each_window_row(b, total, cap, row_lo):
                        torch.arange(n))
 
 
-@pytest.mark.parametrize('width,nhead,ffn,ok', [
-    (128, 8, 256, True), (256, 8, 512, True), (64, 8, 128, False),
-    (32, 4, 64, False), (128, 4, 256, False), (256, 16, 512, False),
-    (128, 8, 512, False)])
-def test_tiled_width_check(width, nhead, ffn, ok):
-    """The tiled kernel (K4, K6, K8, K10) is compiled for C = 128 or 256
-    with 8 heads and an FFN width of 2C, the widths of every full-width
-    T-MAE config; its wrappers refuse every other width on the card."""
-    p = LayerParams(*[torch.zeros(1)] * len(FIELDS))._replace(
-        f1w=torch.zeros(ffn, width))
-    if ok:
-        _check_tiled_widths(width, nhead, p)
+@pytest.mark.parametrize('width,nhead,ffn,family', [
+    (128, 8, 256, 'tiled'), (256, 8, 512, 'tiled'), (64, 8, 128, 'narrow'),
+    (64, 4, 128, 'narrow'), (32, 4, 64, 'narrow'), (128, 4, 256, None),
+    (256, 16, 512, None), (128, 8, 512, None), (32, 8, 64, None),
+    (64, 8, 256, None), (16, 4, 32, None)])
+def test_tiled_width_check(width, nhead, ffn, family):
+    """The encoder kernels' width dispatch: the tiled kernel (K3, K4, K6,
+    K8, K10, K12; K7 / K9) takes C = 128 or 256 with 8 heads, NARROW_FWD /
+    NARROW_BWD take C = 32 with 4 heads and C = 64 with 4 or 8 (the mini
+    configs and HALF_CHANNELS), each with an FFN width of 2C; every
+    wrapper refuses any other width on the card, naming both sets."""
+    if family:
+        assert layer_family(width, nhead, ffn) == family
     else:
-        with pytest.raises(ValueError, match='compiled for C = 128 or 256'):
-            _check_tiled_widths(width, nhead, p)
+        with pytest.raises(ValueError, match=r'compiled for \(C, heads\) in '
+                           r'\(\(128, 8\), \(256, 8\)\).*\(\(32, 4\), '
+                           r'\(64, 4\), \(64, 8\)\)'):
+            layer_family(width, nhead, ffn)

@@ -1,7 +1,9 @@
 """SiamWCA backbones (counterpart of ``tmae_tpu/models/siamwca.py``): three
 SST stages encode both frames in one batch with shared weights (with
 ``ASYMMETRIC.ENABLED``, in two passes, the previous frame's first, and with
-``SimSiam`` the previous frame's pyramid detached), a WCA block fuses each
+``SimSiam`` the previous frame's pyramid detached; with ``HALF_CHANNELS``
+the previous frame runs stages of its own, ``sst_block_prev_*``, at half
+width, and ``SimSiam`` is ignored as JAX ignores it), a WCA block fuses each
 scale, and ``PyramidFuse`` merges the pyramid into the stride-1
 BEV map. ``SiamWCA`` is the finetune backbone; ``SiamWCA_MAE`` the temporal
 masked-autoencoder pretraining backbone, which masks 75% of the current
@@ -52,17 +54,15 @@ def remat_stages(runtime, n_stages: int) -> list:
 
 
 def stage_caps(runtime, n_stages: int) -> list:
-    """Per-stage bucket caps from RUNTIME.OCC_* (the full and small caps; the
-    mid bucket is optional), or ``None`` per stage when the config sets no
-    caps: the stages then run the grid-native layers."""
+    """Per-stage bucket caps from RUNTIME.OCC_*, as the JAX package reads
+    them: ``None`` per stage without OCC_WINDOW_CAPS (the grid-native
+    layers, whatever the other caps say); with it, the full cap, the small
+    cap (0 without OCC_SMALL_CAPS: the single-bucket plan) and the optional
+    mid cap."""
     full = runtime.get('OCC_WINDOW_CAPS')
-    small = runtime.get('OCC_SMALL_CAPS')
-    if not full and not small:
+    if not full:
         return [None] * n_stages
-    if not full or not small:
-        raise NotImplementedError(
-            'the port runs the bucketed path with RUNTIME.OCC_WINDOW_CAPS and '
-            'OCC_SMALL_CAPS both set, or the grid path with neither')
+    small = runtime.get('OCC_SMALL_CAPS') or [0] * len(full)
     mid = runtime.get('OCC_MID_CAPS') or [0] * len(full)
     return [OccCaps(int(f), int(s), int(runtime.get('OCC_SMALL_TOKENS', 16)),
                     int(m), int(runtime.get('OCC_MID_TOKENS', 48)))
@@ -83,25 +83,28 @@ class SiamWCAEncoder(nn.Module):
         super().__init__()
         asym = model_cfg.get('ASYMMETRIC') or {}
         self.asymmetric = bool(asym.get('ENABLED', False))
-        if self.asymmetric and asym.get('HALF_CHANNELS', False):
-            raise NotImplementedError(
-                'ASYMMETRIC.HALF_CHANNELS runs the previous frame at half '
-                'width (C = 64 at stage 1, head dimension 8), and the '
-                'encoder kernels are compiled for C = 128/256 with 8 heads '
-                'only (ROADMAP.md)')
-        self.simsiam = self.asymmetric and bool(asym.get('SimSiam', False))
-        self.sst_blocks, self.wca_blocks = [], []
+        self.half = self.asymmetric and bool(asym.get('HALF_CHANNELS', False))
+        self.simsiam = (self.asymmetric and not self.half
+                        and bool(asym.get('SimSiam', False)))
+        self.sst_blocks, self.wca_blocks, self.prev_blocks = [], [], []
         blocks = model_cfg['SST_BLOCK_LIST']
         remat = remat or [True] * len(blocks)
         for i, b in enumerate(blocks):
             ecfg = dict(b['ENCODER'])
-            sst = SSTBlock(cin, ecfg, caps[i], window, remat=remat[i],
-                           max_tokens=_max_tokens(b))
+            stage = lambda half: SSTBlock(cin, ecfg, caps[i], window,
+                                          remat=remat[i],
+                                          max_tokens=_max_tokens(b),
+                                          half_channels=half)
+            sst = stage(False)
             wca = WCABlock(ecfg, caps[i], window)
             self.add_module(f'sst_block_{i}', sst)
             self.add_module(f'wca_block_{i}', wca)
             self.sst_blocks.append(sst)
             self.wca_blocks.append(wca)
+            if self.half:
+                prev = stage(True)
+                self.add_module(f'sst_block_prev_{i}', prev)
+                self.prev_blocks.append(prev)
             cin = int(ecfg['D_MODEL'])
 
     def forward(self, grid_cur: DenseGrid, grid_prv: DenseGrid | None,
@@ -144,23 +147,25 @@ class SiamWCAEncoder(nn.Module):
             overflow.append(ov)
         return fused, overflow, hid_cur
 
-    def _pyramid(self, x):
+    def _pyramid(self, x, blocks):
         hidden, overflow = [], []
-        for blk in self.sst_blocks:
+        for blk in blocks:
             x, ov = blk(x)
             hidden.append(x)
             overflow.append(ov)
         return hidden, overflow
 
     def _forward_asymmetric(self, grid_cur, grid_prv):
-        """The two frames in separate passes through the shared SST
-        stages, the previous frame's first (its batch-norm statistics
-        update first); ``SimSiam`` stops the gradient at the previous
+        """The two frames in separate passes, the previous frame's first
+        (its batch-norm statistics update first): through the shared SST
+        stages, or with ``HALF_CHANNELS`` the previous frame through its own
+        half-width stages; ``SimSiam`` stops the gradient at the previous
         frame's pyramid."""
-        hid_prv, ov_prv = self._pyramid(grid_prv)
+        hid_prv, ov_prv = self._pyramid(
+            grid_prv, self.prev_blocks if self.half else self.sst_blocks)
         if self.simsiam:
             hid_prv = [DenseGrid(h.x.detach(), h.occ) for h in hid_prv]
-        hid_cur, ov_cur = self._pyramid(grid_cur)
+        hid_cur, ov_cur = self._pyramid(grid_cur, self.sst_blocks)
         overflow = [a + b for a, b in zip(ov_cur, ov_prv)]
         return self._fuse(hid_cur, hid_prv, overflow)
 

@@ -25,7 +25,15 @@ as identity there, and the stage reports how many windows that was.
 A stage without caps (``caps`` None: the config sets no RUNTIME.OCC_*) runs
 every layer on the dense grid instead (``sst.py:461-471``): kernel K10 on
 all windows of the shift's partition, in train and eval mode, and the
-backward through K7 on the windows; no plan and no overflow.
+backward through K7 on the windows; no plan and no overflow. A config with
+``OCC_WINDOW_CAPS`` and no (or zero) ``OCC_SMALL_CAPS`` runs JAX's
+single-bucket plan (``sst.py:636-641``): every occupied window up to
+``round_cap(cap)`` in one full bucket, through the full-window kernels and
+K1 / K2.
+
+At the narrow widths (the mini configs, and the previous frame's stage 1
+under ``ASYMMETRIC.HALF_CHANNELS``) every encoder kernel call above is
+NARROW_FWD, and its backward NARROW_BWD (``ops/encoder_layer.py``).
 """
 
 from __future__ import annotations
@@ -43,14 +51,14 @@ from ..ops.encoder_layer import (TiledWeights, encoder_layer_fused_pipelined,
                                  encoder_layer_rows_sel, fused_encoder_layer,
                                  fused_encoder_layer_grid, kernel_params)
 from ..ops.occ_compact import (BucketedCompact, build_bucketed_compact_info,
-                               gather_windows_padded, gather_windows_train,
-                               pad_grid, repad_grid,
-                               scatter_windows_into_padded,
+                               build_compact_info, gather_windows_padded,
+                               gather_windows_train, pad_grid, repad_grid,
+                               round_cap, scatter_windows_into_padded,
                                scatter_windows_train, unpad_grid)
 from ..ops.voxelize import occupancy_grid, scatter_to_grid
 from ..ops.window_attention import fused_window_attention
-from .layers import (CARRIER_DTYPE, StridedSparseConvBlock, SubMConvBlock,
-                     remat)
+from .layers import (CARRIER_DTYPE, MaskedBatchNorm, StridedSparseConvBlock,
+                     SubMConvBlock, conv2d_nhwc, remat)
 
 COMPUTE_DTYPE = torch.bfloat16
 # The serving path's choice, read once at import so that one process never
@@ -102,7 +110,8 @@ def occ_downsample(occ: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class OccCaps:
-    """Bucket caps of one pyramid stage (RUNTIME.OCC_*)."""
+    """Bucket caps of one pyramid stage (RUNTIME.OCC_*); ``small`` 0 is the
+    single-bucket plan."""
 
     full: int
     small: int
@@ -112,8 +121,15 @@ class OccCaps:
 
 
 def build_plans(occ, window, caps: OccCaps, kv_occ=None):
-    """One bucket plan per shift, shared by every layer of a stage."""
+    """One bucket plan per shift, shared by every layer of a stage: the
+    token buckets, or without a small cap the single-bucket plan, every
+    occupied window (up to ``round_cap(caps.full)``) in the full bucket."""
     hw = (occ.shape[1], occ.shape[2])
+    if not caps.small:
+        plans = (build_compact_info(occ, window, shift, round_cap(caps.full),
+                                    hw, kv_occ=kv_occ)
+                 for shift in (False, True))
+        return tuple(BucketedCompact(None, ci, None, ci.idx) for ci in plans)
     return tuple(
         build_bucketed_compact_info(
             occ, window, shift, caps.small, caps.full, hw, kv_occ=kv_occ,
@@ -321,19 +337,32 @@ class DenseShiftBlock(nn.Module):
 
 class SSTBlock(nn.Module):
     """One pyramid stage: optional strided conv_down, NUM_BLOCKS shifted
-    window blocks on one padded carrier, residual add, SubM conv_out."""
+    window blocks on one padded carrier, residual add, SubM conv_out.
+
+    ``half_channels`` (the previous frame's branch of
+    ``ASYMMETRIC.HALF_CHANNELS``, ``sst.py:579-606``): the blocks run at
+    half of D_MODEL and DIM_FEEDFORWARD, entered through the strided
+    ``conv_down`` to that width, or at stride 1 through ``conv_down_1x1`` (a
+    1x1 conv without bias, in f32 as flax's ``nn.Conv`` of a bf16 input and
+    f32 kernel computes it), zeros on unoccupied cells, ``conv_down_bn`` and
+    ReLU; the residual adds at that width and ``conv_out`` returns to
+    D_MODEL."""
 
     def __init__(self, cin, encoder_cfg, caps: OccCaps | None, window=8,
-                 remat: bool = True, max_tokens: int = 64):
+                 remat: bool = True, max_tokens: int = 64,
+                 half_channels: bool = False):
         super().__init__()
         ecfg = encoder_cfg
-        d_model = int(ecfg['D_MODEL'])
+        d_out = int(ecfg['D_MODEL'])
+        div = 2 if half_channels else 1
+        d_model = d_out // div
         if max_tokens != window * window:
             raise NotImplementedError(
                 'dense SST path requires max_tokens == window**2 (all T-MAE '
                 f'configs), not {max_tokens}; the list-based path for smaller '
                 'caps is not ported')
         self.window, self.caps, self.remat = window, caps, remat
+        self.half_channels = half_channels
         self.stride = int(ecfg.get('STRIDE', 1))
         layer_cfg = ecfg.get('LAYER_CFG', {})
         if ecfg.get('ACTIVATION', 'gelu') != 'gelu' or not layer_cfg.get(
@@ -341,16 +370,19 @@ class SSTBlock(nn.Module):
             raise NotImplementedError('the port implements cosine + gelu')
         if self.stride > 1:
             self.conv_down = StridedSparseConvBlock(cin, d_model)
+        elif half_channels:
+            self.conv_down_1x1 = nn.Conv2d(cin, d_model, 1, bias=False)
+            self.conv_down_bn = MaskedBatchNorm(d_model)
         elif cin != d_model:
             raise NotImplementedError('stride-1 stage needs cin == D_MODEL')
         self.blocks = []
         for i in range(int(ecfg['NUM_BLOCKS'])):
             blk = DenseShiftBlock(d_model, int(ecfg['NHEAD']),
-                                  int(ecfg['DIM_FEEDFORWARD']), window,
+                                  int(ecfg['DIM_FEEDFORWARD']) // div, window,
                                   float(layer_cfg.get('tau_min', 0.01)))
             self.add_module(f'encoder_{i}', blk)
             self.blocks.append(blk)
-        self.conv_out = SubMConvBlock(d_model, d_model)
+        self.conv_out = SubMConvBlock(d_model, d_out)
 
     def forward(self, grid: DenseGrid):
         """Returns (DenseGrid, overflow [B]: occupied windows over a cap)."""
@@ -359,6 +391,10 @@ class SSTBlock(nn.Module):
         if self.stride > 1:
             occ = occ_downsample(occ)
             x = remat(self.conv_down, x, occ, enabled=rm)
+        elif self.half_channels:
+            x = conv2d_nhwc(x, self.conv_down_1x1.weight, dtype=torch.float32)
+            x = torch.where(occ[..., None], x, 0.0)
+            x = F.relu(self.conv_down_bn(x, occ))
         w = self.window
         if self.caps is None:
             g = x.to(COMPUTE_DTYPE)

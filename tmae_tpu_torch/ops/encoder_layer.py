@@ -21,7 +21,12 @@ and their plain versions (counterpart of
   scatter in one call.
 
 K3, K4, K6, K8, K10 and K12 are one persistent kernel over tiles of the
-windows with an occupied query cell (``csrc/encoder_layer_tiled.cu``);
+windows with an occupied query cell (``csrc/encoder_layer_tiled.cu``,
+compiled for C = 128 / 256 with 8 heads); at the narrow widths (C = 32 / 64
+with 4 or 8 heads: the mini configs and ``ASYMMETRIC.HALF_CHANNELS``) every
+one of those calls is NARROW_FWD and the backward NARROW_BWD
+(``csrc/encoder_layer_narrow.cu``). :func:`layer_family` names the family
+of a width and refuses any other;
 :func:`live_windows_plain`, :func:`tile_plan_plain`,
 :func:`window_rows_plain`, :func:`plan_cells_plain` and
 :func:`pack_panels_plain` are the plain versions of its window plan, of
@@ -53,6 +58,7 @@ from .occ_compact import (gather_windows_padded_plain,
                           scatter_windows_into_padded_plain)
 
 _W = ctypes.POINTER(ctypes.c_void_p)
+_INTS = ctypes.POINTER(ctypes.c_int)
 PACK = CudaKernel('encoder_layer_tiled.cu', 'launch_pack_panels',
                   [_W, I, P, I, P])
 K3 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_rows_full',
@@ -73,7 +79,18 @@ K10 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_grid',
 K12 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_inplace',
                  [P, P, P, P, P, P, P, P, _W, P, I, I, I, I, I, I, I, I, I,
                   CF, P])
+NARROW_FWD = CudaKernel('encoder_layer_narrow.cu', 'launch_narrow_fwd',
+                        [I, _W, _W, I, P, _INTS, CF, P])
+NARROW_BWD = CudaKernel('encoder_layer_narrow.cu', 'launch_narrow_bwd',
+                        [_W, _W, _W, _W, _INTS, CF, P])
 MATRICES = ('wq', 'wk', 'wv', 'wo', 'f1w', 'f2w')
+# (C, heads) of each kernel family; the FFN width is 2C in both
+TILED_WIDTHS = ((128, 8), (256, 8))
+NARROW_WIDTHS = ((32, 4), (64, 4), (64, 8))
+# NARROW_FWD's modes (Mode in csrc/encoder_fwd_plan.cuh): the calls of K8,
+# K4, K6, K3, K10 and K12
+_SEL_OUT, _SEL_IN_PLACE, _FULL_OUT, _FULL_IN_PLACE, _GRID_OUT, _PLAN = range(6)
+_NARROW_CHUNK = 4096  # rows of a weight-gradient chunk (kChunk)
 
 
 class LayerParams(NamedTuple):
@@ -245,13 +262,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_tiled_widths(C, nhead, p):
-    """The widths the tiled kernel (K3, K4, K6, K8, K10, K12) and the
-    training backward (K7, K9) are compiled for."""
-    if C not in (128, 256) or nhead != 8 or p.f1w.shape[0] != 2 * C:
-        raise ValueError('K3, K4 and K6-K12 are compiled for C = 128 or 256 '
-                         f'with 8 heads and an FFN width of 2C, not C={C}, '
-                         f'nhead={nhead}, FFN {p.f1w.shape[0]}')
+def layer_family(C: int, nhead: int, ffn: int) -> str:
+    """The kernel family of a layer width on the card: ``'tiled'`` (K3, K4,
+    K6-K10, K12: C = 128 or 256 with 8 heads) or ``'narrow'`` (NARROW_FWD,
+    NARROW_BWD: C = 32 with 4 heads, C = 64 with 4 or 8), each with an FFN
+    width of 2C. Any other width raises."""
+    if ffn == 2 * C and (C, nhead) in TILED_WIDTHS:
+        return 'tiled'
+    if ffn == 2 * C and (C, nhead) in NARROW_WIDTHS:
+        return 'narrow'
+    raise ValueError(
+        'the encoder kernels are compiled for (C, heads) in '
+        f'{TILED_WIDTHS} (K3, K4, K6-K12) and {NARROW_WIDTHS} (NARROW_FWD, '
+        f'NARROW_BWD), each with an FFN width of 2C, not C={C}, '
+        f'nhead={nhead}, FFN {ffn}')
+
+
+def _ints(*vals):
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _narrow_fwd(mode, io, ptrs, f32, nwin, dims, tau_min):
+    """One NARROW_FWD launch: ``io`` the 11 tensors or None (x kv out pos
+    selq selk qmask kmask qocc kocc widx), ``ptrs`` the 17 layer tensors'
+    pointers, ``dims`` (C F H T cross B total cap row_lo gh gw shift)."""
+    work = _work(nwin, io[0].device)
+    NARROW_FWD(mode, _ptrs(io), ptrs, int(f32), work.data_ptr(),
+               _ints(*dims), float(tau_min), stream_handle())
 
 
 def _tiled_ptrs(p: LayerParams, nwin: int):
@@ -269,13 +306,17 @@ def _tiled_ptrs(p: LayerParams, nwin: int):
 
 class TiledWeights:
     """A served layer's weights, prepared once for all its bucket calls of
-    one forward (K3, K4, K12): on the card, validated once, the six Linear
-    weights packed into the tiled kernel's panels by one launch (``PACK``,
-    from f32 master weights rounded to bf16 to nearest even, as
-    :func:`kernel_params` rounds them; bf16 weights are copied) and the 11
-    vectors in f32, behind one pointer array; on the CPU, ``params``: the
-    :class:`LayerParams` the plain versions take. ``weights``: the 17 layer
-    tensors in :class:`LayerParams` order, Linear weights ``[out, in]``."""
+    one forward (K3, K4, K12, or NARROW_FWD at the narrow widths): on the
+    card, validated once and behind one pointer array, at the tiled widths
+    the six Linear weights packed into the tiled kernel's panels by one
+    launch (``PACK``, from f32 master weights rounded to bf16 to nearest
+    even, as :func:`kernel_params` rounds them; bf16 weights are copied) and
+    the 11 vectors in f32; at the narrow widths the 17 tensors as they are
+    (NARROW_FWD loads the matrices into shared memory once a block,
+    rounding f32 ones the same way; ``panels`` None). On the CPU,
+    ``params``: the :class:`LayerParams` the plain versions take.
+    ``weights``: the 17 layer tensors in :class:`LayerParams` order, Linear
+    weights ``[out, in]``."""
 
     def __init__(self, weights, nhead: int):
         p = LayerParams(*[w.detach() for w in weights])
@@ -284,7 +325,7 @@ class TiledWeights:
             self.params, self.panels, self.ptrs = kernel_params(p), None, None
             return
         C, Fd = self.width, self.ffn
-        _check_tiled_widths(C, nhead, p)
+        self.family = layer_family(C, nhead, Fd)
         mats = [getattr(p, name) for name in MATRICES]
         f32 = mats[0].dtype == torch.float32
         mat_dtype = torch.float32 if f32 else torch.bfloat16
@@ -298,6 +339,11 @@ class TiledWeights:
                 raise ValueError(f'layer parameter {name} must be a '
                                  f'contiguous {want} tensor of shape {shape}')
         self.params = None
+        if self.family == 'narrow':
+            self.f32, self.panels = f32, None
+            self.tensors = list(p)  # ptrs points into them
+            self.ptrs = (ctypes.c_void_p * 17)(*[t.data_ptr() for t in p])
+            return
         # ptrs points into these: they live as long as the prepared weights
         self.vectors = [t for name, t in zip(p._fields, p)
                         if name not in MATRICES]
@@ -418,8 +464,8 @@ def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos, p, *,
     """Full-window layer over rows [row_lo, row_lo + cap) of ``xw_all``, in
     place; ``qmask``/``kmask`` [B, cap, 64]; a window without an occupied
     query cell gets zeros. ``p``: :class:`TiledWeights`, or
-    :class:`LayerParams` (prepared for this call). Kernel K3 on the card
-    (compiled for C = 128 or 256, 8 heads, FFN 2C); in cross mode
+    :class:`LayerParams` (prepared for this call). Kernel K3 on the card,
+    NARROW_FWD at the narrow widths (:func:`layer_family`); in cross mode
     ``kv_all`` must not share memory with ``xw_all``."""
     if not on_card(xw_all, qmask):
         return reference_encoder_layer_rows(
@@ -431,6 +477,14 @@ def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos, p, *,
     cap = qmask.shape[1]
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     pos = as_kernel_arg(pos, torch.bfloat16)
+    if tw.family == 'narrow':
+        _narrow_fwd(_FULL_IN_PLACE, [xw_all, kv_all if cross else None, None,
+                                     pos, None, None, qmask, kmask, None,
+                                     None, None],
+                    tw.ptrs, tw.f32, B * cap,
+                    (C, tw.ffn, nhead, 64, int(cross), B, total, cap, row_lo,
+                     0, 0, 0), tau_min)
+        return xw_all
     work = _work(B * cap, xw_all.device)
     K3(xw_all.data_ptr(), _ptr(kv_all) if cross else None, qmask.data_ptr(),
        _ptr(kmask), pos.data_ptr(), tw.ptrs, work.data_ptr(), B, total, cap,
@@ -443,9 +497,9 @@ def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
                            row_lo: int):
     """Packed layer on the S selected cells of rows [row_lo, row_lo + cap),
     in place; ``sel_q``/``qmask`` [B, cap, S]. ``p`` as for
-    :func:`encoder_layer_rows_full`. Kernel K4 on the card (compiled for C =
-    128 or 256, 8 heads, FFN 2C); in cross mode ``kv_all`` must not share
-    memory with ``xw_all``."""
+    :func:`encoder_layer_rows_full`. Kernel K4 on the card, NARROW_FWD at
+    the narrow widths; in cross mode ``kv_all`` must not share memory with
+    ``xw_all``."""
     if not on_card(xw_all, qmask):
         return reference_encoder_layer_rows(
             xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
@@ -458,6 +512,14 @@ def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
     sel_k = _i32(sel_k if cross else None)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     pos = as_kernel_arg(pos, torch.bfloat16)
+    if tw.family == 'narrow':
+        _narrow_fwd(_SEL_IN_PLACE, [xw_all, kv_all if cross else None, None,
+                                    pos, sel_q, sel_k, qmask, kmask, None,
+                                    None, None],
+                    tw.ptrs, tw.f32, B * cap,
+                    (C, tw.ffn, nhead, S, int(cross), B, total, cap, row_lo,
+                     0, 0, 0), tau_min)
+        return xw_all
     work = _work(B * cap, xw_all.device)
     K4(xw_all.data_ptr(), _ptr(kv_all) if cross else None, sel_q.data_ptr(),
        _ptr(sel_k), qmask.data_ptr(), _ptr(kmask), pos.data_ptr(), tw.ptrs,
@@ -481,17 +543,20 @@ def kernel_params(weights) -> LayerParams:
         for name, w in zip(LayerParams._fields, weights)])
 
 
-def _check_flat(xw, kv, sel_q, qmask, cross, p, nhead):
+def _check_flat(xw, kv, sel_q, qmask, cross, p, nhead) -> str:
+    """The checks of the flat training calls; returns the width's
+    family."""
     if xw.dtype != torch.bfloat16 or xw.dim() != 3 or xw.shape[1] != 64:
         raise ValueError('the training kernels take bf16 windows [N, 64, C]')
     N, _, C = xw.shape
-    _check_tiled_widths(C, nhead, p)
+    family = layer_family(C, nhead, p.f1w.shape[0])
     T = 64 if sel_q is None else sel_q.shape[-1]
     if qmask.shape != (N, T) or (sel_q is not None and T not in (16, 48)):
         raise ValueError(f'mask / selection shape {tuple(qmask.shape)} does '
                          'not fit')
     if cross and (kv is None or kv.shape != xw.shape):
         raise ValueError('cross mode needs kv windows shaped like xw')
+    return family
 
 
 def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
@@ -499,17 +564,27 @@ def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
                       cross: bool):
     """The training forward on flat windows ``xw`` [N, 64, C], out of place:
     K6 (``sel_q is None``, masks [N, 64]) or K8 (``sel_q`` [N, S]) on the
-    card, both compiled for C = 128 or 256, 8 heads, FFN 2C."""
+    card, NARROW_FWD at the narrow widths."""
     if not on_card(xw, qmask):
         return reference_encoder_layer(xw, kvw, sel_q, sel_k, qmask, kmask,
                                        pos, p, nhead, tau_min, cross)
     xw = xw.contiguous()
     kvw = kvw.contiguous() if cross else None
-    _check_flat(xw, kvw, sel_q, qmask, cross, p, nhead)
+    family = _check_flat(xw, kvw, sel_q, qmask, cross, p, nhead)
     N, _, C = xw.shape
     out = torch.empty_like(xw)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     pos = pos.to(torch.bfloat16).contiguous()
+    if family == 'narrow':
+        T = 64 if sel_q is None else sel_q.shape[-1]
+        _narrow_fwd(_FULL_OUT if sel_q is None else _SEL_OUT,
+                    [xw, kvw, out, pos, _i32(sel_q),
+                     _i32(sel_k if cross else None), qmask, kmask, None,
+                     None, None],
+                    _weight_ptrs(p), False, N,
+                    (C, p.f1w.shape[0], nhead, T, int(cross), N, N, N, 0, 0,
+                     0, 0), tau_min)
+        return out
     ws, _work = _tiled_ptrs(p, N)
     if sel_q is None:
         K6(xw.data_ptr(), _ptr(kvw), out.data_ptr(), qmask.data_ptr(),
@@ -592,6 +667,25 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[_ptr(t) for t in ts])
 
 
+def _narrow_bwd_workspace(N, T, C, F, cross, dpos, dev):
+    """Workspace of NARROW_BWD (see csrc/encoder_layer_narrow.cu): the bf16
+    operand rows of the six weight-gradient products (64 a tile of 4
+    windows at S = 16, of one window otherwise; KP only in cross mode), the
+    int32 flags, list, count and counter, the per-tile sums, the per-tile
+    dpos when wanted and the chunk partials. Returns (tensors, chunks)."""
+    tiles = -(-N // (4 if T == 16 else 1))
+    rows = 64 * tiles
+    bf = lambda w: torch.empty(rows, w, dtype=torch.bfloat16, device=dev)
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    nchunks = -(-rows // _NARROW_CHUNK)
+    ops = [bf(C), bf(C) if cross else None, bf(C), bf(C), bf(C), bf(F),
+           bf(C), bf(C), bf(C), bf(C), bf(F), bf(C)]
+    return ops + [
+        torch.empty(2 * N + 2, dtype=torch.int32, device=dev),
+        f32(tiles, 9 * C + F + 1), f32(tiles, 64 * C) if dpos else None,
+        f32(nchunks, 8 * C * C)], nchunks
+
+
 def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
                       *, nhead: int, tau_min: float, cross: bool,
                       want_dpos: bool = False):
@@ -599,7 +693,8 @@ def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
     (dx [N, 64, C], dkv or None, [17 weight gradients f32 in the layout of
     ``weights``], dpos [64, C] or None). ``weights``: the 17 layer tensors,
     f32 or as :func:`kernel_params` gives them. dx and dkv are bf16 on the card, as
-    the TPU kernel returns them in the window dtype. K7 / K9 on the card."""
+    the TPU kernel returns them in the window dtype. K7 / K9 on the card,
+    NARROW_BWD at the narrow widths."""
     if not on_card(xw, qmask, g):
         return reference_encoder_layer_bwd(
             xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
@@ -607,7 +702,7 @@ def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
     p = kernel_params(weights)
     xw, g = xw.contiguous(), g.to(torch.bfloat16).contiguous()
     kvw = kvw.contiguous() if cross else None
-    _check_flat(xw, kvw, sel_q, qmask, cross, p, nhead)
+    family = _check_flat(xw, kvw, sel_q, qmask, cross, p, nhead)
     if g.shape != xw.shape:
         raise ValueError('g must be shaped like xw')
     sel = sel_q is not None
@@ -616,7 +711,6 @@ def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
     N, _, C = xw.shape
     Fd, T = p.f1w.shape[0], (sel_q.shape[-1] if sel else 64)
     dev = xw.device
-    ws, splits = _bwd_workspace(N, T, C, Fd, nhead, cross, want_dpos, dev)
     qmask, kmask = _f32(qmask), _f32(kmask if cross else None)
     sel_q, sel_k = _i32(sel_q), _i32(sel_k if cross else None)
     pos = pos.to(torch.bfloat16).contiguous()
@@ -628,6 +722,14 @@ def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
              for w in p]
     ins = _ptrs([xw, kvw, g, pos, sel_q, sel_k, qmask, kmask])
     outs = _ptrs([dx, dkv, dpos] + grads)
+    if family == 'narrow':
+        ws, nchunks = _narrow_bwd_workspace(N, T, C, Fd, cross, want_dpos,
+                                            dev)
+        NARROW_BWD(ins, _weight_ptrs(p), _ptrs(ws), outs,
+                   _ints(N, T, C, Fd, nhead, int(cross), int(want_dpos),
+                         nchunks), float(tau_min), stream_handle())
+        return dx, dkv, grads, dpos
+    ws, splits = _bwd_workspace(N, T, C, Fd, nhead, cross, want_dpos, dev)
     args = (ins, _weight_ptrs(p), _ptrs(ws), outs)
     if sel:
         K9(*args, N, T, C, Fd, nhead, int(cross), float(tau_min), splits,
@@ -719,8 +821,8 @@ def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
     """The layer on every ``window`` x ``window`` window of the shift's
     partition of ``xg`` [B, H, W, C] (``kvg`` likewise in cross mode), with
     query / key masks from ``qocc`` / ``kocc`` [B, H, W] bool; returns a new
-    [B, H, W, C] grid. Kernel K10 on the card (compiled for C = 128 or 256,
-    8 heads, FFN 2C)."""
+    [B, H, W, C] grid. Kernel K10 on the card, NARROW_FWD at the narrow
+    widths."""
     if not on_card(xg, qocc):
         return reference_encoder_layer_grid(xg, kvg, qocc, kocc, pos, p,
                                             nhead, tau_min, cross, window,
@@ -730,7 +832,7 @@ def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
     B, H, W, C = xg.shape
     if xg.dtype != torch.bfloat16 or window != 8:
         raise ValueError('the grid kernel takes bf16 grids and 8x8 windows')
-    _check_tiled_widths(C, nhead, p)
+    family = layer_family(C, nhead, p.f1w.shape[0])
     if qocc.shape != (B, H, W) or (cross and (
             kvg.shape != xg.shape or kocc is None
             or kocc.shape != (B, H, W))):
@@ -740,6 +842,13 @@ def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
     pos = pos.to(torch.bfloat16).contiguous()
     out = torch.empty_like(xg)
     nwy, nwx, _, _ = window_geometry((H, W), window)
+    if family == 'narrow':
+        _narrow_fwd(_GRID_OUT, [xg, kvg, out, pos, None, None, None, None,
+                                qocc, kocc, None],
+                    _weight_ptrs(p), False, B * nwy * nwx,
+                    (C, p.f1w.shape[0], nhead, 64, int(cross), B, 0, 0, 0, H,
+                     W, int(shift)), tau_min)
+        return out
     ws, _work = _tiled_ptrs(p, B * nwy * nwx)
     K10(xg.data_ptr(), _ptr(kvg), out.data_ptr(), qocc.data_ptr(),
         _ptr(kocc), pos.data_ptr(), ws, B, H, W, C, p.f1w.shape[0], nhead,
@@ -855,8 +964,7 @@ def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p, *, nhead: int,
     memory with ``xp``. Windows outside the plan and dummy slots are not
     touched. ``p``: :class:`TiledWeights`, or :class:`LayerParams`
     (prepared for this call). Forward only: it refuses inputs that require a
-    gradient. Kernel K12 on the card (compiled for C = 128 or 256, 8 heads,
-    FFN 2C)."""
+    gradient. Kernel K12 on the card, NARROW_FWD at the narrow widths."""
     if cross and kvp is not None and _shares_memory(kvp, xp):
         raise ValueError('kvp shares memory with the carrier it updates')
     if torch.is_grad_enabled() and (
@@ -887,6 +995,13 @@ def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p, *, nhead: int,
     qmask = _f32(ci.qmask)
     kmask = _f32(ci.kmask) if cross else None
     pos = as_kernel_arg(pos, torch.bfloat16)
+    if tw.family == 'narrow':
+        _narrow_fwd(_PLAN, [xp, kvp if cross else None, None, pos, sel_q,
+                            sel_k, qmask, kmask, None, None, idx],
+                    tw.ptrs, tw.f32, B * cap,
+                    (C, tw.ffn, nhead, T, int(cross), B, 0, cap, 0, Hp2, Wp,
+                     0), tau_min)
+        return xp
     work = _work(B * cap, xp.device)
     K12(xp.data_ptr(), _ptr(kvp) if cross else None, idx.data_ptr(),
         _ptr(sel_q), _ptr(sel_k), qmask.data_ptr(), _ptr(kmask),

@@ -26,7 +26,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
 SOURCES = ('windows.cu', 'encoder_layer_tiled.cu', 'encoder_layer_bwd.cu',
-           'segment_max.cu', 'subm_conv.cu', 'iou_nms.cu')
+           'encoder_layer_narrow.cu', 'segment_max.cu', 'subm_conv.cu',
+           'iou_nms.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 # iou_nms.cu repeats its plain version's roundings: no contraction of a

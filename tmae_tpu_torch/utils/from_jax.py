@@ -38,6 +38,9 @@ _MODULE_RENAME = {
 }
 _BN_LEAF = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
             'var': 'running_var'}
+# batch norms by owner: flax's auto-named ones, and the named masked BN of
+# a half-width stage (SSTBlock.conv_down_bn)
+_BN_OWNERS = ('MaskedBatchNorm_0', 'BatchNorm_0', 'conv_down_bn')
 _LAYER_LINEAR = ('q', 'k', 'v', 'out', 'ffn1', 'ffn2')
 
 
@@ -89,7 +92,7 @@ def _convert(parts, a):
         if a.ndim == 4:
             return [(path + ['weight'], a.transpose(3, 2, 0, 1))]
         return [(path + ['weight'], a.T)]
-    if owner in ('MaskedBatchNorm_0', 'BatchNorm_0') and leaf in _BN_LEAF:
+    if owner in _BN_OWNERS and leaf in _BN_LEAF:
         return [(path + [_BN_LEAF[leaf]], a)]
     if leaf == 'bias':
         return [(path + ['bias'], a)]
