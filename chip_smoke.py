@@ -248,6 +248,32 @@ Phases (any failure exits non-zero and prints no result line):
      through ``tools.train`` and ``tools.test`` (their SyntheticONCEDataset):
      every step on NARROW_FWD and NARROW_BWD alone, losses finite, the
      transfer checked, result.pkl's frame ids, every AP finite.
+ 19. the single-frame path and the anchor-head detectors (no kernel of
+     their own: the single-frame SST runs K1-K4 / K6-K9 on one frame, the
+     anchor families none).
+     19a. t_mae.yaml's MODEL with DynVFE and SPTBackbone on
+     once_dataset.yaml (a 470x470 grid), seeded, on phase 4's current
+     frame: one pass counted (K1-K4 and the pack of the 12 SST layers, no
+     WCA, no K5), timed passes, occ_overflow printed; head maps card vs
+     CPU on 64x64 as in phase 5.
+     19b. one counted finetune step of it and one GDMAE step
+     (SPTBackboneMAE at t_mae_ssl.yaml's widths) on TRAIN_PAIRS' current
+     frames (K1, K2, K6-K9), every loss part finite; each step card vs
+     CPU vs the bf16 control on 64x64 (phases 7 and 11).
+     19c. on 14a's tree, those two configs (written to a temporary
+     directory) through the CLIs: GDMAE pretraining 1 epoch, finetuning 1
+     epoch from its checkpoint (the transfer checked), ``tools.test``
+     (launches a served frame's per batch, every AP finite, result.pkl's
+     frame ids in order).
+     19d. SECONDNet at graph_rcnn_once.yaml's first stage (41 x 1504 x
+     1504 sparse grid, 60000 host voxels of 5 points, BaseBEVBackbone,
+     AnchorHeadSingle with the direction classifier): one served frame
+     (top-K decode, host NMS) and one step on two frames, counted (no
+     kernel of the port), rpn_loss_cls / _loc / _dir finite; ms a frame
+     and a step, host voxelization ms, peak memory; head maps and a step
+     card vs CPU (the step held to the control with the BEV backbone's
+     weights rounded to bf16) on the range cut to 25.6 m square.
+     19e. PointPillar at tests/test_pointpillar.py's config: the same.
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -1528,16 +1554,16 @@ def card_vs_cpu(torch, cfg, np_batch, seed, stream=False):
 
 def make_trainer(cfg, model, mask_seed=None):
     """adam_onecycle over a one-cycle run of NUM_EPOCHS steps (one step per
-    epoch), and the training step with the config's loss: CenterPoint's, or
-    the Chamfer loss of a TMAE config (whose mask each step draws from a
+    epoch), and the training step with the config's loss
+    (``detector_loss``: CenterPoint's, the anchor families', or the Chamfer
+    loss of a TMAE / GDMAE config, whose mask each step draws from a
     generator seeded from ``mask_seed`` and the step)."""
-    from tmae_tpu_torch.models.detectors import centerpoint_loss, tmae_loss
+    from tmae_tpu_torch.models.detectors import detector_loss
     from tmae_tpu_torch.train.optimization import build_optimizer
     from tmae_tpu_torch.train.trainer import make_train_step
 
-    loss = tmae_loss if cfg.MODEL.NAME == 'TMAE' else centerpoint_loss
     opt, sched = build_optimizer(model.parameters(), cfg.OPTIMIZATION, 1)
-    return make_train_step(model, lambda o, b: loss(cfg, o, b), opt, sched,
+    return make_train_step(model, detector_loss(cfg, model), opt, sched,
                            mask_seed=mask_seed)
 
 
@@ -1723,11 +1749,11 @@ def _rel(a, b):
 
 
 def train_step_once(torch, cfg, np_batch, seed, dev, round_encoder=False,
-                    mae_mask=None):
+                    mae_mask=None, round_prefix='backbone_3d.encoder.'):
     """One training step from the seeded weights on ``dev``, with the
-    encoder's weights rounded once to bf16 if asked (and, for a TMAE
-    config, the given mask). Returns (metrics, gradients, state before,
-    state after), on the CPU."""
+    weights under ``round_prefix`` (the encoder's) rounded once to bf16 if
+    asked (and, for a TMAE config, the given mask). Returns (metrics,
+    gradients, state before, state after), on the CPU."""
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
 
@@ -1735,7 +1761,7 @@ def train_step_once(torch, cfg, np_batch, seed, dev, round_encoder=False,
     if round_encoder:
         with torch.no_grad():
             for n, prm in model.named_parameters():
-                if n.startswith('backbone_3d.encoder.'):
+                if n.startswith(round_prefix):
                     prm.copy_(prm.to(torch.bfloat16).float())
     before = {k: t.detach().cpu().clone()
               for k, t in model.state_dict().items()}
@@ -1762,10 +1788,12 @@ def grad_agreement(torch, got, want, names):
     return _rel(a, b), _cos(a, b), per, (ratio[0], ratio[-1]), len(live)
 
 
-def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None):
+def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None,
+                      round_prefix='backbone_3d.encoder.'):
     """One training step with the same seeded weights on the card (kernels)
     and on the CPU (plain versions), and the control: the CPU step from the
-    same weights with the encoder's rounded once to bf16, which shows how
+    same weights with the encoder's (those under ``round_prefix``) rounded
+    once to bf16, which shows how
     far one bf16 rounding moves this network's gradient at random weights
     (both sides round activations to bf16 at the same places, but not to
     the same values). Loss within 1% and grad_norm within 5%. Gradients,
@@ -1782,7 +1810,8 @@ def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None):
     mk, gk, bk, ak = train_step_once(torch, cfg, np_batch, seed, 'cuda', **kw)
     mp, gp, bp, ap = train_step_once(torch, cfg, np_batch, seed, 'cpu', **kw)
     mc, gc, _, _ = train_step_once(torch, cfg, np_batch, seed, 'cpu',
-                                   round_encoder=True, **kw)
+                                   round_encoder=True,
+                                   round_prefix=round_prefix, **kw)
     log('  card:    ' + ', '.join(f'{k} {v:.5g}' for k, v in mk.items()))
     log('  cpu:     ' + ', '.join(f'{k} {v:.5g}' for k, v in mp.items()))
     log('  control: ' + ', '.join(f'{k} {v:.5g}' for k, v in mc.items()))
@@ -5188,6 +5217,496 @@ def narrow_phase(torch, cfg, np_batch, batch, rows):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the single-frame path and the anchor-head detectors
+# ---------------------------------------------------------------------------
+
+# One served single-frame frame (t_mae.yaml's MODEL with DynVFE and
+# SPTBackbone): the 12 SST layers of one frame, each one gather, K4 on the
+# small and mid buckets, K3 on the full bucket, one scatter and one pack;
+# no WCA layer, and the VFE voxelizes on the device (no K5).
+EXPECTED_SPT_SERVING = {**NO_LAUNCHES, 'K1': 12, 'K2': 12, 'K3': 12,
+                        'K4': 24, 'PACK': 12}
+# One single-frame training step (SPTBackbone, or SPTBackboneMAE at
+# t_mae_ssl.yaml's widths): phase 6's step without the WCA layers and K5,
+# on one frame: forward, remat replay and backward of the 12 SST layers.
+EXPECTED_SPT_STEP = {**NO_LAUNCHES, 'K1': 12 + 12 + 12,
+                     'K2': 12 + 12 + 12 + 12, 'K6': 12 + 12, 'K7': 12,
+                     'K8': 24 + 24, 'K9': 24}
+# tests/test_pointpillar.py's config (the repository ships no PointPillar
+# config), copied as data: chip_smoke.py loads none of the JAX package's
+# tests (tests/test_torch_port_anchor.py holds the copy equal).
+POINTPILLAR_CFG = {
+    'CLASS_NAMES': ['Car', 'Bus', 'Truck', 'Pedestrian', 'Cyclist'],
+    'DATA_CONFIG': {
+        'DATASET': 'SyntheticONCEDataset',
+        'POINT_CLOUD_RANGE': [-5.12, -5.12, -5.0, 5.12, 5.12, 3.0],
+        'DATA_SPLIT': {'train': 'train', 'test': 'val'},
+        'NUM_SYNTHETIC_SAMPLES': 2, 'SYNTHETIC_POINTS': 512,
+        'SYNTHETIC_BOXES': 3,
+        'DATA_PROCESSOR': [
+            {'NAME': 'mask_points_and_boxes_outside_range',
+             'REMOVE_OUTSIDE_BOXES': True},
+            {'NAME': 'transform_points_to_voxels',
+             'VOXEL_SIZE': [0.32, 0.32, 8.0], 'MAX_POINTS_PER_VOXEL': 8,
+             'MAX_NUMBER_OF_VOXELS': {'train': 128, 'test': 128}}]},
+    'MODEL': {
+        'NAME': 'PointPillar',
+        'VFE': {'NAME': 'PillarVFE', 'NUM_FILTERS': [16]},
+        'BACKBONE_2D': {
+            'NAME': 'BaseBEVBackbone', 'LAYER_NUMS': [2, 2],
+            'LAYER_STRIDES': [2, 2], 'NUM_FILTERS': [16, 32],
+            'UPSAMPLE_STRIDES': [1, 2], 'NUM_UPSAMPLE_FILTERS': [16, 16]},
+        'DENSE_HEAD': {
+            'NAME': 'AnchorHeadSingle',
+            'ANCHOR_GENERATOR_CONFIG': [
+                {'class_name': c, 'anchor_sizes': [[4.0, 2.0, 1.6]],
+                 'anchor_rotations': [0, 1.57],
+                 'anchor_bottom_heights': [-1.78], 'align_center': False,
+                 'feature_map_stride': 2, 'matched_threshold': 0.5,
+                 'unmatched_threshold': 0.35}
+                for c in ['Car', 'Bus', 'Truck', 'Pedestrian', 'Cyclist']],
+            'TARGET_ASSIGNER_CONFIG': {'BOX_CODER_CONFIG': {}},
+            'USE_DIRECTION_CLASSIFIER': False,
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 2.0,
+                'code_weights': [1.0] * 7}}}},
+    'RUNTIME': {'MAX_POINTS': 768, 'MAX_VOXELS': [128], 'MAX_GT': 8},
+    'OPTIMIZATION': {'BATCH_SIZE_PER_GPU': 2, 'NUM_EPOCHS': 1,
+                     'OPTIMIZER': 'adam_onecycle', 'LR': 1e-3,
+                     'WEIGHT_DECAY': 0.01, 'MOMS': [0.95, 0.85],
+                     'PCT_START': 0.4, 'DIV_FACTOR': 10,
+                     'GRAD_NORM_CLIP': 10}}
+SECOND_FRAMES = (0, 1)         # 19d's training batch: two synthetic frames
+
+
+def single_frame_dict(ref_file, mae):
+    """The YAML dict of a single-frame config: the MODEL, RUNTIME and
+    OPTIMIZATION of ``ref_file`` (t_mae.yaml, or t_mae_ssl.yaml with
+    ``mae``) with DynVFE and SPTBackbone (GDMAE with SPTBackboneMAE) on
+    once_dataset.yaml's DATA_CONFIG (``_BASE_CONFIG_``). RUNTIME.HOST_
+    VOXELIZE goes: DynVFE voxelizes on the device whatever it says, and the
+    host's sort would be wasted."""
+    import yaml
+
+    d = yaml.safe_load(Path(ref_file).read_text())
+    model = d['MODEL']
+    model['VFE']['NAME'] = 'DynVFE'
+    model['BACKBONE_3D']['NAME'] = 'SPTBackboneMAE' if mae else 'SPTBackbone'
+    if mae:
+        model['NAME'] = 'GDMAE'
+    for key in ('HOST_VOXELIZE', 'HOST_VOXELIZE_SORT'):
+        d['RUNTIME'].pop(key, None)
+    return {'CLASS_NAMES': d['CLASS_NAMES'],
+            'DATA_CONFIG': {
+                '_BASE_CONFIG_': 'cfgs/dataset_configs/once_dataset.yaml'},
+            'MODEL': model, 'RUNTIME': d['RUNTIME'],
+            'OPTIMIZATION': d['OPTIMIZATION']}
+
+
+def write_cfg(d, path):
+    """``d`` as YAML at ``path``; returns the path."""
+    import yaml
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(json.loads(json.dumps(d))))
+    return path
+
+
+def single_frame_cfgs(cfg_dir):
+    """(finetune file, GDMAE file, finetune cfg, GDMAE cfg) written under
+    ``cfg_dir/once_models``."""
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+
+    cfgs = ROOT / 'tools/cfgs/once_models'
+    files = [write_cfg(single_frame_dict(cfgs / src, mae),
+                       cfg_dir / 'once_models' / name)
+             for src, mae, name in (('t_mae.yaml', False, 'spt.yaml'),
+                                    ('t_mae_ssl.yaml', True, 'gd_mae.yaml'))]
+    return (*files, *(cfg_from_yaml_file(f) for f in files))
+
+
+def frame_batch(torch, np_batch, dev='cuda'):
+    """The current frame of a frame-pair batch (points, their mask and the
+    boxes) on ``dev``: what a single-frame model reads."""
+    from tmae_tpu_torch.models.detectors import batch_to_device
+
+    keep = ('points', 'point_mask', 'gt_boxes', 'gt_mask')
+    return batch_to_device({k: v for k, v in np_batch.items() if k in keep},
+                           dev)
+
+
+def spt_serving_phase(torch, cfg, np_batch):
+    """19a: the seeded full-width single-frame CenterPoint (SPTBackbone) on
+    phase 4's current frame: one pass counted, then timed passes, the
+    overflow printed; head maps card vs CPU on 64x64 as phase 5 holds
+    them."""
+    from tmae_tpu_torch.models.detectors import build_detector, init_random_
+
+    model = init_random_(build_detector(cfg), seed=0).eval()
+    batch = frame_batch(torch, np_batch)
+    serve_once(torch, cfg, model, batch)
+    (out, dec), launches = counted(
+        torch, lambda: serve_once(torch, cfg, model, batch))
+    log(f'  launches per single frame: {launches} (expected '
+        f'{EXPECTED_SPT_SERVING}); occ_overflow '
+        f'{out["occ_overflow"].tolist()}; {int(dec[4].sum())} boxes kept')
+    if launches != EXPECTED_SPT_SERVING:
+        raise AssertionError('single-frame serving: launch counts differ')
+    for name, m in out['pred_dicts'][0].items():
+        if not torch.isfinite(m).all():
+            raise AssertionError(f'single-frame head map {name} not finite')
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_once(torch, cfg, model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    log(f'  ms per single frame (forward, decode, host NMS): median '
+        f'{med:.2f} (min {min(times):.2f}, max {max(times):.2f}, {REPS} '
+        f'passes); {card_line()}')
+    del model
+    torch.cuda.empty_cache()
+    log('  single-frame head maps: card vs CPU, full width on a 64x64 grid')
+    card_vs_cpu(torch, *small_grid(cfg), seed=7)
+    return launches, {'spt_ms_per_frame': med,
+                      'spt_occ_overflow': out['occ_overflow'].tolist()}
+
+
+def spt_training_phase(torch, ft_cfg, mae_cfg):
+    """19b: one counted single-frame finetune step and one GDMAE step
+    (t_mae_ssl.yaml's widths) at full width on TRAIN_PAIRS' current
+    frames, every loss part finite; each step card vs CPU vs the bf16
+    control on 64x64 (phases 7 and 11)."""
+    out, launches = {}, {}
+    for cfg, what in ((ft_cfg, 'single-frame step'), (mae_cfg, 'GDMAE step')):
+        batch = train_batch(cfg)
+        batch = {k: v for k, v in batch.items() if not k.endswith('_prev')}
+        model, metrics, launches[what] = one_counted_step(
+            torch, cfg, batch, EXPECTED_SPT_STEP, what)
+        out[f'{"gdmae" if cfg is mae_cfg else "spt"}_loss'] = metrics['loss']
+        del model, batch
+        torch.cuda.empty_cache()
+    log('  single-frame step: card vs CPU vs control, full width on a 64x64 '
+        'grid')
+    train_card_vs_cpu(torch, *small_grid(ft_cfg), seed=7)
+    log('  GDMAE step: card vs CPU vs control, full width on a 64x64 grid')
+    pretrain_card_vs_cpu(torch, *small_grid(mae_cfg), seed=7)
+    return launches, out
+
+
+def spt_cli_phase(torch, root, ft_file, mae_file):
+    """19c: on phase 14a's tree (infos and GT database there), GDMAE
+    pretraining 1 epoch, single-frame CenterPoint finetuning 1 epoch from
+    its checkpoint (the transfer checked), then ``tools.test``: each run's
+    launches counted (every step's against EXPECTED_SPT_STEP, the
+    evaluation's a served frame's per batch), losses finite, every AP
+    finite, result.pkl's frame ids those of the val split in order."""
+    import pickle
+
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.tools import train as train_cli
+
+    tmp = tempfile.TemporaryDirectory()
+    saved = train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT
+    try:
+        train_cli.OUTPUT_ROOT = test_cli.OUTPUT_ROOT = Path(tmp.name) / 'out'
+        data = ['--set', 'DATA_CONFIG.DATA_PATH', str(root)]
+        tag = ['--extra_tag', 'chip_smoke']
+        common = data + ['--batch_size', str(CLI_BATCH),
+                         '--fix_random_seed', '--epochs', '1'] + tag
+        pre, _, _, pre_peak = cli_run(
+            torch, ['--cfg_file', str(mae_file)] + common, EXPECTED_SPT_STEP,
+            'GDMAE pretraining', ref='19b\'s')
+        ft, _, ft_rec, ft_peak = cli_run(
+            torch, ['--cfg_file', str(ft_file), '--pretrained_model',
+                    str(pre['checkpoints'][-1])] + common,
+            EXPECTED_SPT_STEP, 'single-frame training', ref='19b\'s')
+        if len(ft_rec['transfers']) != 1:
+            raise AssertionError('the single-frame finetune made no transfer')
+        t0 = time.perf_counter()
+        (rdir, ap), launches = counted(torch, lambda: next(iter(
+            test_cli.main(['--cfg_file', str(ft_file), '--ckpt',
+                           str(ft['checkpoints'][-1]), '--batch_size',
+                           str(CLI_BATCH)] + data + tag).items())))
+        secs = time.perf_counter() - t0
+        annos = pickle.loads((rdir / 'result.pkl').read_bytes())
+        want_ids = [i['frame_id'] for i in pickle.loads(
+            (root / 'once_infos_val.pkl').read_bytes())]
+        n_batches = math.ceil(len(want_ids) / CLI_BATCH)
+        want = {k: n_batches * v for k, v in EXPECTED_SPT_SERVING.items()}
+        log(f'  tools.test: {secs:.1f} s, {len(annos)} frames, '
+            f'{sum(len(a["score"]) for a in annos)} boxes kept, launches '
+            f'{launches} (expected {want}), occ_overflow '
+            f'{ap["occ_overflow"]}, {ap["sec_per_sample"]:.4f} sec/sample; '
+            'APs ' + ', '.join(f'{k} {v:.4g}' for k, v in ap.items()
+                               if k.startswith('AP_')))
+        if [a['frame_id'] for a in annos] != want_ids:
+            raise AssertionError(f'result.pkl frame ids '
+                                 f'{[a["frame_id"] for a in annos]}')
+        if launches != want:
+            raise AssertionError('single-frame evaluation: launch counts '
+                                 'differ')
+        aps = {k: v for k, v in ap.items() if k.startswith('AP_')}
+        if not aps or not all(math.isfinite(v) for v in aps.values()):
+            raise AssertionError('a single-frame AP is not finite')
+    finally:
+        train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT = saved
+        tmp.cleanup()
+    return {'gdmae_cli_loss': [s['loss'] for s in pre['steps']],
+            'spt_cli_loss': [s['loss'] for s in ft['steps']],
+            'spt_cli_ms_per_step': statistics.median(
+                s['step_s'] * 1e3 for s in ft['steps']),
+            'gdmae_cli_ms_per_step': statistics.median(
+                s['step_s'] * 1e3 for s in pre['steps']),
+            'spt_cli_peak_gib': max(pre_peak, ft_peak),
+            'spt_eval_sec_per_sample': ap['sec_per_sample']}
+
+
+def second_cfg():
+    """graph_rcnn_once.yaml's first stage as a SECONDNet: its DATA_CONFIG,
+    BACKBONE_2D, DENSE_HEAD, POST_PROCESSING, RUNTIME and OPTIMIZATION,
+    MODEL.NAME SECONDNet, no ROI_HEAD."""
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(ROOT / 'tools/cfgs/once_models/'
+                             'graph_rcnn_once.yaml')
+    cfg.MODEL.NAME = 'SECONDNet'
+    cfg.MODEL.pop('ROI_HEAD')
+    return cfg
+
+
+def voxel_frames(cfg, scenes, training=False, density=1.5,
+                 max_points=100000):
+    """Synthetic LiDAR frames over the config's range (the port's renderer
+    at ``density``, scenes ``scenes``) through its processors,
+    ``transform_points_to_voxels`` among them, collated: (numpy batch, host
+    processing ms a frame, points and voxels a frame)."""
+    import numpy as np
+
+    from tmae_tpu_torch.datasets.processor import (DataProcessor,
+                                                   collate_static)
+    from tmae_tpu_torch.datasets.synthetic import make_scene, render_lidar
+
+    pc = list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    proc = DataProcessor(cfg.DATA_CONFIG.DATA_PROCESSOR, pc, training,
+                         rng=np.random.RandomState(0))
+    samples, ms = [], []
+    names = list(cfg.CLASS_NAMES)
+    for s in scenes:
+        scene = make_scene(s, pc, names)
+        pts = render_lidar(scene, np.random.RandomState(7000 + s), pc,
+                           density, max_points)
+        boxes = np.concatenate([scene['boxes'][:, :7], np.asarray(
+            [names.index(n) + 1 for n in scene['names']],
+            np.float32)[:, None]], 1).astype(np.float32)
+        t0 = time.perf_counter()
+        samples.append(proc({'points': pts.astype(np.float32),
+                             'gt_boxes': boxes, 'frame_id': f'{s:06d}'}))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    mv = cfg.RUNTIME.MAX_VOXELS
+    batch = collate_static(samples, int(cfg.RUNTIME.MAX_POINTS),
+                           int(cfg.RUNTIME.MAX_GT), max_voxels=int(mv[0]))
+    return batch, statistics.mean(ms), [(len(s['points']), len(s['voxels']))
+                                         for s in samples]
+
+
+def anchor_serve(torch, cfg, model, batch):
+    """One served anchor-family pass: forward, top-K decode, host NMS.
+    Returns (the forward's outputs, kept boxes)."""
+    from tmae_tpu_torch.models.detectors import anchor_predict, host_nms
+
+    with torch.no_grad():
+        out = model(batch)
+        cands = anchor_predict(cfg, model.dense_head, out)
+        keep = host_nms(cfg, *cands)
+    return out, int(keep.sum())
+
+
+def compare_anchor_maps(torch, what, got, want):
+    """:func:`compare_maps`' bounds on the anchor head's maps."""
+    wrap = lambda o: {'pred_dicts': [o['anchor_outputs']]}
+    compare_maps(torch, what, wrap(got), wrap(want))
+
+
+def anchor_card_vs_cpu(torch, cfg, np_batch, seed):
+    """The seeded detector on the card and on the CPU, the same frames:
+    head maps by :func:`compare_anchor_maps`, then one training step by
+    :func:`train_card_vs_cpu` with the BEV backbone's weights rounded for
+    the control (its convolutions are the bf16 part)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    outs = []
+    for dev in ('cuda', 'cpu'):
+        model = init_random_(build_detector(cfg, dev), seed=seed)
+        with torch.no_grad():
+            outs.append(model(batch_to_device(np_batch, dev)))
+    torch.cuda.synchronize()
+    compare_anchor_maps(torch, 'card and CPU', *outs)
+    train_card_vs_cpu(torch, cfg, np_batch, seed, round_prefix='backbone_2d.')
+
+
+def anchor_phase(torch, cfg, np_serve, np_train, small, np_small, what):
+    """19d / 19e: the seeded anchor detector serves ``np_serve`` (decode and
+    host NMS) and takes one training step on ``np_train``, each with the
+    launch counters set to 0 just before it and read just after (no kernel
+    of the port runs on these paths: NO_LAUNCHES); every loss part finite;
+    ms a frame and a step, peak memory; then card vs CPU on ``small``."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_random_(build_detector(cfg), seed=0).eval()
+    batch = batch_to_device(np_serve, 'cuda')
+    anchor_serve(torch, cfg, model, batch)
+    (out, kept), launches = counted(
+        torch, lambda: anchor_serve(torch, cfg, model, batch))
+    maps = out['anchor_outputs']
+    log(f'  {what} frame: launches {launches}; {kept} boxes kept; maps '
+        + ', '.join(f'{k} {list(v.shape)}' for k, v in maps.items()))
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f'{what}: a kernel of the port ran')
+    if not all(torch.isfinite(v).all() for v in maps.values()):
+        raise AssertionError(f'{what}: a head map is not finite')
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        anchor_serve(torch, cfg, model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, batch, out, maps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = batch_to_device(np_train, 'cuda')
+    model, metrics, step_launches = one_counted_step(
+        torch, cfg, train, NO_LAUNCHES, f'{what} step')
+    if not {'rpn_loss_cls', 'rpn_loss_loc'} <= set(metrics):
+        raise AssertionError(f'{what}: a loss part is missing')
+    step = make_trainer(cfg, model)
+    step_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(train)
+        torch.cuda.synchronize()
+        step_times.append((time.perf_counter() - t0) * 1e3)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    res = {'ms_per_frame': statistics.median(times),
+           'ms_per_step': statistics.median(step_times),
+           'serve_peak_gib': serve_peak, 'step_peak_gib': step_peak,
+           **{k: v for k, v in metrics.items() if k.startswith('rpn_')}}
+    log(f'  {what}: ' + ', '.join(f'{k} {v:.4g}' for k, v in res.items())
+        + f'; {card_line()}')
+    del model, step, train
+    torch.cuda.empty_cache()
+    log(f'  {what}: card vs CPU, full width on a cut grid')
+    anchor_card_vs_cpu(torch, small, np_small, seed=7)
+    return res
+
+
+def second_phase(torch):
+    """19d: SECONDNet at graph_rcnn_once.yaml's full width (0.1 x 0.1 x
+    0.2 m voxels over ONCE's range: a 41 x 1504 x 1504 sparse grid, up to
+    60000 voxels of up to 5 points), serving one synthetic frame and a step
+    on two; card vs CPU on the range cut to 25.6 m square (8000 voxels)."""
+    import copy
+
+    cfg = second_cfg()
+    # density 2: ~130k points a frame, enough to fill the 60000-voxel cap
+    np_train, host_ms, sizes = voxel_frames(cfg, SECOND_FRAMES, True, 2.0,
+                                            131072)
+    log(f'  host processing (range mask, shuffle, transform_points_to_voxels;'
+        f' numpy): {host_ms:.1f} ms a frame; (points, voxels) {sizes}')
+    np_serve = {k: v[:1] for k, v in np_train.items()}
+    small = copy.deepcopy(cfg)
+    small.DATA_CONFIG.POINT_CLOUD_RANGE = [-12.8, -12.8, -5.0, 12.8, 12.8,
+                                           3.0]
+    small.RUNTIME.MAX_VOXELS = [8000, 4000, 2000, 1000, 1000]
+    for p in small.DATA_CONFIG.DATA_PROCESSOR:
+        if p.NAME == 'transform_points_to_voxels':
+            p.MAX_NUMBER_OF_VOXELS = {'train': 8000, 'test': 8000}
+    np_small, _, _ = voxel_frames(small, (3,), True)
+    res = anchor_phase(torch, cfg, np_serve, np_train, small, np_small,
+                       'SECONDNet')
+    return {f'second_{k}': v for k, v in res.items()} | {
+        'second_host_voxelize_ms': host_ms}
+
+
+def pointpillar_phase(torch):
+    """19e: PointPillar at tests/test_pointpillar.py's config (the repository
+    ships none), with graph_rcnn_once.yaml's POST_PROCESSING for the host
+    NMS (the test's config has none): a served frame and a step on its
+    synthetic loader batch, card vs CPU on the same batch."""
+    from tmae_tpu_torch.config import Cfg
+    from tmae_tpu_torch.datasets.dataset import build_dataloader
+
+    cfg = Cfg.from_dict(json.loads(json.dumps(POINTPILLAR_CFG)))
+    cfg.MODEL.POST_PROCESSING = second_cfg().MODEL.POST_PROCESSING
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, True,
+                                 runtime_cfg=cfg.RUNTIME, seed=0)
+    np_batch = next(iter(loader))
+    np_batch = {k: v for k, v in np_batch.items() if k != 'frame_id'}
+    res = anchor_phase(torch, cfg, np_batch, np_batch, cfg, np_batch,
+                       'PointPillar')
+    return {f'pointpillar_{k}': v for k, v in res.items()}
+
+
+def single_frame_phase(torch, np_batch, once_root, rows):
+    """Phase 19 (a-e); K1-K4's rows of the kernels line take the served
+    single frame's launches, K1/K2/K6-K9's the single-frame and GDMAE
+    steps', beside the main path's."""
+    t19 = time.perf_counter()
+    cfg_dir = tempfile.TemporaryDirectory()
+    ft_file, mae_file, ft_cfg, mae_cfg = single_frame_cfgs(
+        Path(cfg_dir.name))
+    try:
+        log('phase 19a: single-frame serving (t_mae.yaml\'s MODEL with '
+            'DynVFE and SPTBackbone on once_dataset.yaml, full width, phase '
+            '4\'s current frame)')
+        served, out = spt_serving_phase(torch, ft_cfg, np_batch)
+        log(f'  phase 19a {time.perf_counter() - t19:.1f} s')
+        t0 = time.perf_counter()
+        log('phase 19b: a single-frame finetune step and a GDMAE step '
+            '(t_mae_ssl.yaml\'s widths), full width')
+        steps, more = spt_training_phase(torch, ft_cfg, mae_cfg)
+        out.update(more)
+        log(f'  phase 19b {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        log('phase 19c: GDMAE -> single-frame CenterPoint -> tools.test '
+            'through the CLIs (phase 14a\'s tree)')
+        out.update(spt_cli_phase(torch, once_root, ft_file, mae_file))
+        log(f'  phase 19c {time.perf_counter() - t0:.1f} s')
+    finally:
+        cfg_dir.cleanup()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log('phase 19d: SECONDNet (graph_rcnn_once.yaml\'s first stage, full '
+        'width)')
+    out.update(second_phase(torch))
+    log(f'  phase 19d {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log('phase 19e: PointPillar (tests/test_pointpillar.py\'s config)')
+    out.update(pointpillar_phase(torch))
+    log(f'  phase 19e {time.perf_counter() - t0:.1f} s')
+    for row in rows:
+        k = row['kernel']
+        if k in served and served[k]:
+            row['launches_single_frame'] = served[k]
+        for what, key in (('single-frame step', 'launches_single_frame_step'),
+                          ('GDMAE step', 'launches_gdmae_step')):
+            if steps[what][k]:
+                row[key] = steps[what][k]
+    log(f'  phase 19 {time.perf_counter() - t19:.1f} s')
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--profile', action='store_true',
@@ -5420,12 +5939,15 @@ def main(argv=None):
     log(f'phase 17c: tools.train then tools.test, {DP_WORLD} ranks through '
         'torch.distributed.run (t_mae.yaml, phase 14a\'s tree)')
     dp.update(dp_cli_phase(torch, Path(once_tree.name) / 'once', ft_file))
-    once_tree.cleanup()
     log(f'  phase 17 {time.perf_counter() - t17:.1f} s')
 
     torch.cuda.empty_cache()
     narrow = narrow_phase(torch, cfg, np_batch,
                           batch_to_device(np_batch, 'cuda'), rows)
+    torch.cuda.empty_cache()
+    single = single_frame_phase(torch, np_batch,
+                                Path(once_tree.name) / 'once', rows)
+    once_tree.cleanup()
 
     log(f'total {time.perf_counter() - t_start:.1f} s')
     for row in rows:
@@ -5444,7 +5966,7 @@ def main(argv=None):
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
         **overfit, **waymo_cli, **dev_nms, **iou_head, **asym,
-        **eval_cli, **dp, **narrow}), flush=True)
+        **eval_cli, **dp, **narrow, **single}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

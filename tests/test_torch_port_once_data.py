@@ -223,20 +223,26 @@ def _named(name):
     (_image_processor, False, 'imnormalize'),
     (_photo_metric, True, 'photo_metric_distortion'),
     (_named('WaymoTemporalDataset'), False, None),
-    (_named('ONCEDataset'), False, 'ONCEDataset'),
-    (_named('WaymoDataset'), False, 'WaymoDataset')],
+    (_named('ONCEDataset'), False, None),
+    (_named('WaymoDataset'), False, None)],
     ids=['camera', 'image-processor', 'photo-metric', 'waymo-temporal',
          'once-single-frame', 'waymo-single-frame'])
 def test_not_ported_parts_refuse(raw_once, change, training, match):
     """Each part that is not ported raises, naming it; ``match`` None: a
-    part ported since (WaymoTemporalDataset) builds instead, here with no
-    Waymo infos under the ONCE tree."""
+    part ported since builds and runs instead: the Waymo datasets with no
+    Waymo infos under the ONCE tree (no sample), ONCEDataset with one
+    sample a frame of the tree, its first batch a single frame."""
     cfg = change(raw_cfg())
     if match is None:
-        ds, _ = t_build(cfg, CLASSES, 1, training,
-                        runtime_cfg=runtime(False, 1024),
-                        root_path=str(raw_once), seed=0)
-        assert type(ds).__name__ == cfg.DATASET and len(ds) == 0
+        ds, loader = t_build(cfg, CLASSES, 1, training,
+                             runtime_cfg=runtime(False, 1024),
+                             root_path=str(raw_once), seed=0)
+        assert type(ds).__name__ == cfg.DATASET
+        waymo = cfg.DATASET.startswith('Waymo')
+        assert len(ds) == (0 if waymo else 6)
+        if len(ds):
+            batch = next(iter(loader))
+            assert batch['point_mask'].any() and 'points_prev' not in batch
         return
     with pytest.raises(NotImplementedError, match=match):
         _, loader = t_build(cfg, CLASSES, 1, training,
@@ -247,12 +253,30 @@ def test_not_ported_parts_refuse(raw_once, change, training, match):
 
 @pytest.mark.parametrize('name', ['BaseBEVBackbone', 'NoSuchBackbone'])
 def test_not_ported_backbone_2d_refuses(name):
-    """A ``BACKBONE_2D`` other than ``SSTBEVBackbone`` raises at build
-    time, naming the backbone, where the port once built SSTBEVBackbone
-    whatever the name said."""
-    from tmae_tpu_torch.models.detectors import build_detector
+    """A ``BACKBONE_2D`` other than ``SSTBEVBackbone`` or
+    ``BaseBEVBackbone`` raises at build time, naming the backbone, where
+    the port once built SSTBEVBackbone whatever the name said;
+    ``BaseBEVBackbone`` (ported since) builds, and its CenterPoint runs
+    with head maps at the grid's size."""
+    import torch
+
+    from tests.tiny_cfg import synth_batch
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector)
 
     cfg = copy.deepcopy(tiny_cfg())
     cfg.MODEL.BACKBONE_2D.NAME = name
-    with pytest.raises(NotImplementedError, match=name):
-        build_detector(cfg, 'cpu')
+    if name == 'NoSuchBackbone':
+        with pytest.raises(NotImplementedError, match=name):
+            build_detector(cfg, 'cpu')
+        return
+    cfg.MODEL.BACKBONE_2D.update(
+        LAYER_NUMS=[1, 1], LAYER_STRIDES=[1, 2], NUM_FILTERS=[16, 16],
+        UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[8, 8])
+    model = build_detector(cfg, 'cpu')
+    assert type(model.backbone_2d).__name__ == name
+    with torch.no_grad():
+        out = model(batch_to_device(synth_batch(np.random.RandomState(0)),
+                                    'cpu'))
+    assert out['spatial_features_2d'].shape == (2, 32, 32, 16)
+    assert torch.isfinite(out['pred_dicts'][0]['hm']).all()

@@ -213,10 +213,6 @@ class DataLoader:
 
 
 _DATASETS = {}
-NOT_PORTED = {
-    'ONCEDataset': 'ROADMAP.md, module 9: single-frame data',
-    'WaymoDataset': 'ROADMAP.md, module 9: single-frame data',
-}
 
 
 def register_dataset(name):
@@ -250,10 +246,8 @@ def build_dataloader(dataset_cfg, class_names, batch_size, training,
         process_count = dist.world()
     name = dataset_cfg.get('DATASET', 'SyntheticONCEDataset')
     from . import once_temporal  # noqa: F401  (registers datasets)
+    from . import single_frame  # noqa: F401
     from . import waymo_temporal  # noqa: F401
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f'{name} is not ported yet ({NOT_PORTED[name]})')
     cls = _DATASETS[name]
     ds = cls(dataset_cfg, class_names, training=training,
              root_path=root_path or dataset_cfg.get('DATA_PATH'),

@@ -18,7 +18,7 @@ from torch import nn
 
 from ..ops.chamfer import chamfer_distance
 from ..ops.voxelize import gather_from_grid
-from .layers import CARRIER_DTYPE, ConvBNReLU, DeconvBNReLU
+from .layers import ConvBNReLU, DeconvBNReLU
 from .sst import DenseGrid, OccCaps, SSTBlock, VoxelSet
 from .wca import WCABlock
 
@@ -186,12 +186,8 @@ class SiamWCA(nn.Module):
         passes the previous step's pyramid as ``cached_prev``: on
         consecutive frames it is this step's previous-frame pyramid, so the
         previous frame is not encoded again (``vs_prv`` may be None)."""
-        g_cur = DenseGrid(vs_cur.to_dense().to(CARRIER_DTYPE),
-                          vs_cur.occupancy())
-        g_prv = None
-        if cached_prev is None:
-            g_prv = DenseGrid(vs_prv.to_dense().to(CARRIER_DTYPE),
-                              vs_prv.occupancy())
+        g_prv = None if cached_prev is not None else vs_prv.carrier()
+        g_cur = vs_cur.carrier()
         fused, overflow, hidden = self.encoder(g_cur, g_prv,
                                                hid_prv=cached_prev)
         spatial = self.fuse([f.x for f in fused])
@@ -272,35 +268,47 @@ class SiamWCA_MAE(nn.Module):
         not given. Returns ``pred_points`` [B, V, P, 3], ``gt_points``
         [B, V, G, 3], ``loss_weights`` [B, V], ``mae_mask``,
         ``spatial_features`` and ``occ_overflow`` ([stages*2, B])."""
-        if mae_mask is None:
-            mae_mask = random_voxel_mask(vs_cur.mask, vs_cur.mask.sum(1),
-                                         self.ratio, generator)
-        visible = vs_cur.mask & (mae_mask == 0.0)
-        vis = VoxelSet(torch.where(visible[..., None], vs_cur.feat, 0.0),
-                       vs_cur.coords, visible, vs_cur.grid_hw)
-        g_vis = DenseGrid(vis.to_dense().to(CARRIER_DTYPE), vis.occupancy())
-        g_prv = DenseGrid(vs_prv.to_dense().to(CARRIER_DTYPE),
-                          vs_prv.occupancy())
-        fused, overflow, _ = self.encoder(g_vis, g_prv)
-        spatial = self.decoder_fuse([f.x for f in fused])
-        B, V = vs_cur.mask.shape
-        pyr = gather_from_grid(spatial, vs_cur.coords, vs_cur.mask)
-        pred = self.decoder_pred(pyr.float()).reshape(B, V, self.n_pred, 3)
-        gt = gather_gt_points(points_xyz, point_voxel, point_valid, V,
-                              self.n_gt)
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
-                                     device=gt.device)
-        vs, rng = f32(self.spec.voxel_size), f32(self.spec.pc_range)
-        cx = (vs_cur.coords[..., 1].float() + 0.5) * vs[0] + rng[0]
-        cy = (vs_cur.coords[..., 0].float() + 0.5) * vs[1] + rng[1]
-        cz = (0.5 * vs[2] + rng[2]).expand_as(cx)
-        centers = torch.stack([cx, cy, cz], -1)
-        return {'pred_points': pred,
-                'gt_points': gt - centers[:, :, None, :],
-                'loss_weights': mae_mask * vs_cur.mask.float(),
-                'mae_mask': mae_mask,
-                'spatial_features': spatial,
-                'occ_overflow': torch.stack(overflow)}
+        mae_mask, vis = masked_set(vs_cur, mae_mask, self.ratio, generator)
+        fused, overflow, _ = self.encoder(vis.carrier(), vs_prv.carrier())
+        return mae_outputs(self, self.decoder_fuse([f.x for f in fused]),
+                           vs_cur, points_xyz, point_voxel, point_valid,
+                           mae_mask, overflow)
+
+
+def masked_set(vs: VoxelSet, mae_mask, ratio: float, generator=None):
+    """(``mae_mask``, drawn with ``generator`` when None; the visible
+    voxels of ``vs``, the masked ones zeroed and out of its mask)."""
+    if mae_mask is None:
+        mae_mask = random_voxel_mask(vs.mask, vs.mask.sum(1), ratio,
+                                     generator)
+    visible = vs.mask & (mae_mask == 0.0)
+    return mae_mask, VoxelSet(torch.where(visible[..., None], vs.feat, 0.0),
+                              vs.coords, visible, vs.grid_hw)
+
+
+def mae_outputs(mod, spatial, vs: VoxelSet, points_xyz, point_voxel,
+                point_valid, mae_mask, overflow) -> dict:
+    """The MAE backbones' outputs from the decoded map ``spatial``:
+    ``mod.decoder_pred``'s NUM_PRD_POINTS points at every voxel slot of
+    ``vs``, each voxel's first NUM_GT_POINTS points relative to its centre
+    (``mod.spec``'s grid), the loss weights (the masked valid voxels), the
+    mask, the map and the overflow per stage."""
+    B, V = vs.mask.shape
+    pyr = gather_from_grid(spatial, vs.coords, vs.mask)
+    pred = mod.decoder_pred(pyr.float()).reshape(B, V, mod.n_pred, 3)
+    gt = gather_gt_points(points_xyz, point_voxel, point_valid, V, mod.n_gt)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=gt.device)
+    vsz, rng = f32(mod.spec.voxel_size), f32(mod.spec.pc_range)
+    cx = (vs.coords[..., 1].float() + 0.5) * vsz[0] + rng[0]
+    cy = (vs.coords[..., 0].float() + 0.5) * vsz[1] + rng[1]
+    cz = (0.5 * vsz[2] + rng[2]).expand_as(cx)
+    centers = torch.stack([cx, cy, cz], -1)
+    return {'pred_points': pred,
+            'gt_points': gt - centers[:, :, None, :],
+            'loss_weights': mae_mask * vs.mask.float(),
+            'mae_mask': mae_mask,
+            'spatial_features': spatial,
+            'occ_overflow': torch.stack(overflow)}
 
 
 def mae_loss(out) -> torch.Tensor:

@@ -34,6 +34,13 @@ K1 / K2.
 At the narrow widths (the mini configs, and the previous frame's stage 1
 under ``ASYMMETRIC.HALF_CHANNELS``) every encoder kernel call above is
 NARROW_FWD, and its backward NARROW_BWD (``ops/encoder_layer.py``).
+
+The list path (``sst.py:689-807``: ``CosineWindowAttention``,
+``EncoderLayer``, ``BasicShiftBlock``, ``make_partitions``) runs the same
+layer in f32 over compact ``[B, V, C]`` voxel lists through the window
+partition of ``ops/windows.py``. No T-MAE config runs it; it serves
+``max_tokens`` below ``window**2`` and holds the dense path's semantics
+in tests.
 """
 
 from __future__ import annotations
@@ -50,11 +57,13 @@ from ..ops.encoder_layer import (TiledWeights, encoder_layer_fused_pipelined,
                                  encoder_layer_rows_full,
                                  encoder_layer_rows_sel, fused_encoder_layer,
                                  fused_encoder_layer_grid, kernel_params)
+from ..ops import windows as W
 from ..ops.occ_compact import (BucketedCompact, build_bucketed_compact_info,
                                build_compact_info, gather_windows_padded,
                                gather_windows_train, pad_grid, repad_grid,
                                round_cap, scatter_windows_into_padded,
                                scatter_windows_train, unpad_grid)
+from ..ops.posembed import window_pos_embed
 from ..ops.voxelize import occupancy_grid, scatter_to_grid
 from ..ops.window_attention import fused_window_attention
 from .layers import (CARRIER_DTYPE, MaskedBatchNorm, StridedSparseConvBlock,
@@ -83,6 +92,11 @@ class VoxelSet:
 
     def occupancy(self):
         return occupancy_grid(self.coords, self.mask, self.grid_hw)
+
+    def carrier(self) -> 'DenseGrid':
+        """The dense carrier of the set: its grid in CARRIER_DTYPE and its
+        occupancy."""
+        return DenseGrid(self.to_dense().to(CARRIER_DTYPE), self.occupancy())
 
 
 @dataclasses.dataclass
@@ -412,3 +426,113 @@ class SSTBlock(nn.Module):
         y = x + unpad_grid(xp, (x.shape[1], x.shape[2]), w, True)
         y = remat(self.conv_out, y.to(CARRIER_DTYPE), occ, enabled=rm)
         return DenseGrid(y, occ), plans[0].overflow() + plans[1].overflow()
+
+
+# ---------------------------------------------------------------------------
+# The list path
+# ---------------------------------------------------------------------------
+
+class CosineWindowAttention(nn.Module):
+    """Cosine (or scaled dot-product) multi-head attention within the windows
+    of a partition, over ``[B, V, C]`` token lists; keys and values may come
+    from another list with its own partition. A window without a key gives
+    0."""
+
+    def __init__(self, d_model, nhead, cosine=True, tau_min=0.01):
+        super().__init__()
+        C = d_model
+        self.nhead, self.cosine, self.tau_min = nhead, cosine, tau_min
+        self.q_proj = nn.Linear(C, C)
+        self.k_proj = nn.Linear(C, C)
+        self.v_proj = nn.Linear(C, C)
+        self.out_proj = nn.Linear(C, C)
+        if cosine:
+            self.tau = nn.Parameter(torch.ones(1))
+
+    def forward(self, q_feat, q_pos, wp_q, kv_feat, kv_pos, wp_kv):
+        C, H = q_feat.shape[-1], self.nhead
+        D = C // H
+        qw = W.scatter_to_windows(self.q_proj(q_feat + q_pos), wp_q)
+        kw = W.scatter_to_windows(self.k_proj(kv_feat + kv_pos), wp_kv)
+        vw = W.scatter_to_windows(self.v_proj(kv_feat), wp_kv)
+        kmask = W.window_key_mask(wp_kv)
+        B, NW, T, _ = qw.shape
+        Tk = kw.shape[2]
+        qh = qw.reshape(B, NW, T, H, D)
+        kh = kw.reshape(B, NW, Tk, H, D)
+        vh = vw.reshape(B, NW, Tk, H, D)
+        if self.cosine:
+            qh = qh / torch.linalg.norm(qh, dim=-1, keepdim=True).clamp(
+                min=1e-12)
+            kh = kh / torch.linalg.norm(kh, dim=-1, keepdim=True).clamp(
+                min=1e-12)
+            logits = torch.einsum('bwqhd,bwkhd->bwhqk', qh, kh)
+            logits = logits / self.tau.clamp(min=self.tau_min)
+        else:
+            logits = torch.einsum('bwqhd,bwkhd->bwhqk', qh, kh) / D ** 0.5
+        logits = torch.where(kmask[:, :, None, None, :], logits, -1e9)
+        attn = torch.softmax(logits, -1)
+        attn = torch.where(kmask.any(-1)[:, :, None, None, None], attn, 0.0)
+        out = torch.einsum('bwhqk,bwkhd->bwqhd', attn, vh).reshape(
+            B, NW, T, C)
+        return self.out_proj(W.gather_from_windows(out, wp_q))
+
+
+class EncoderLayer(nn.Module):
+    """Window self-attention + FFN with post-LN residuals over a token list
+    (flax names: ``CosineWindowAttention_0``, ``LayerNorm_0``, the FFN's
+    ``Dense_1`` then ``linear`` (flax's ``Dense_0``: the outer layer is
+    made first), ``LayerNorm_1``)."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, activation='gelu',
+                 cosine=True, tau_min=0.01):
+        super().__init__()
+        if activation != 'gelu':
+            raise NotImplementedError('the port implements gelu')
+        self.CosineWindowAttention_0 = CosineWindowAttention(
+            d_model, nhead, cosine, tau_min)
+        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=1e-6)
+        self.Dense_1 = nn.Linear(d_model, dim_feedforward)
+        self.linear = nn.Linear(dim_feedforward, d_model)
+        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=1e-6)
+
+    def forward(self, feat, pos, wp):
+        attn = self.CosineWindowAttention_0(feat, pos, wp, feat, pos, wp)
+        x = self.LayerNorm_0(feat + attn)
+        ff = self.linear(F.gelu(self.Dense_1(x)))
+        return self.LayerNorm_1(x + ff)
+
+
+class BasicShiftBlock(nn.Module):
+    """Two encoder layers, on the first and then the second partition."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, activation='gelu',
+                 cosine=True, tau_min=0.01):
+        super().__init__()
+        args = (d_model, nhead, dim_feedforward, activation, cosine, tau_min)
+        self.EncoderLayer_0 = EncoderLayer(*args)
+        self.EncoderLayer_1 = EncoderLayer(*args)
+
+    def forward(self, feat, pos_list, wp_list):
+        for i, layer in enumerate((self.EncoderLayer_0, self.EncoderLayer_1)):
+            j = i % len(wp_list)
+            feat = layer(feat, pos_list[j], wp_list[j])
+        return feat
+
+
+def make_partitions(vs: VoxelSet, window: int, max_tokens: int):
+    """Both shifts' partitions of ``vs`` and their positional embeddings.
+    Below ``window**2`` tokens a voxel dropped in either shift is removed
+    before the ranks are taken again, as the reference drops it."""
+
+    def partition(valid):
+        return [W.window_partition(vs.coords, valid, vs.grid_hw, window,
+                                   shift, max_tokens)
+                for shift in (False, True)]
+
+    wp_list = partition(vs.mask)
+    if max_tokens < window * window:
+        wp_list = partition(vs.mask & wp_list[0].keep & wp_list[1].keep)
+    pos_list = [window_pos_embed(wp.pos_yx, window, vs.feat.shape[-1])
+                for wp in wp_list]
+    return wp_list, pos_list

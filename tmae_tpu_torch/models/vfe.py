@@ -1,11 +1,18 @@
-"""Two-frame dynamic pillar VFE (counterpart of ``tmae_tpu/models/vfe.py``
-``DynPillarEncoder`` and ``TemporalDynVFE``): a per-point MLP, then a
+"""Voxel feature encoders (counterpart of ``tmae_tpu/models/vfe.py``).
+
+``DynPillarEncoder`` / ``TemporalDynVFE``, the two-frame dynamic pillar
+VFE of the T-MAE configs: a per-point MLP, then a
 per-pillar max. With host-sorted inputs (``seg_ends`` shipped) the max is
 kernel K5, differentiated in train mode by the JAX package's tie rule;
 otherwise the scatter path sorts on the device. A batch without the host
 voxelization (configs without RUNTIME.HOST_VOXELIZE) is voxelized on the
 device. In train mode the encoder runs under remat and its batch norms
-update their running statistics once per frame, current then previous."""
+update their running statistics once per frame, current then previous.
+
+``DynVFE`` runs the pillar encoder on one frame and always voxelizes it on
+the device, as the JAX package's does. ``MeanVFE`` and ``PillarVFE`` read
+the host voxelizer's ``[B, V, T, C]`` voxels (``transform_points_to_voxels``:
+SECOND, PointPillars)."""
 
 from __future__ import annotations
 
@@ -134,3 +141,74 @@ class TemporalDynVFE(nn.Module):
         prv = remat(self.encoder, points_prev, point_mask_prev, vox_prv,
                     enabled=rm)
         return cur, prv
+
+
+class DynVFE(nn.Module):
+    """Single-frame dynamic VFE: the pillar encoder (flax name
+    ``DynPillarEncoder_0``) on the current frame, voxelized on the
+    device whatever the batch ships."""
+
+    def __init__(self, spec: VoxelSpec, mlps, **kwargs):
+        super().__init__()
+        self.DynPillarEncoder_0 = DynPillarEncoder(spec, mlps, **kwargs)
+
+    def forward(self, points, point_mask):
+        return self.DynPillarEncoder_0(points, point_mask, {})
+
+
+class MeanVFE(nn.Module):
+    """The mean of each voxel's points: voxels [B, V, T, C] (zero padded)
+    and counts [B, V] → [B, V, C]."""
+
+    def forward(self, voxels, voxel_num_points):
+        cnt = voxel_num_points[..., None].to(voxels.dtype).clamp(min=1.0)
+        return voxels.sum(2) / cnt
+
+
+class PillarVFE(nn.Module):
+    """PointPillars encoder over host voxels: each point with its offsets
+    from the pillar's point mean and centre (and its distance), masked
+    Linear-BN-ReLU layers over the [B, V*T] point rows (flax names
+    ``LinearBNReLU_{i}``), the max over the pillar's points; empty pillars
+    give 0."""
+
+    def __init__(self, spec: VoxelSpec, num_filters, num_point_features=4,
+                 use_absolute_xyz=True, with_distance=False):
+        super().__init__()
+        self.spec = spec
+        self.use_absolute_xyz, self.with_distance = (use_absolute_xyz,
+                                                     with_distance)
+        cin = (num_point_features if use_absolute_xyz
+               else num_point_features - 3) + 6 + int(with_distance)
+        self.layers = []
+        for i, w in enumerate(num_filters):
+            layer = LinearBNReLU(cin, int(w))
+            self.add_module(f'LinearBNReLU_{i}', layer)
+            self.layers.append(layer)
+            cin = int(w)
+
+    def forward(self, voxels, voxel_num_points, voxel_coords):
+        """voxels [B, V, T, C], voxel_num_points [B, V], voxel_coords
+        [B, V, 2] (y, x) → [B, V, num_filters[-1]]."""
+        B, V, T, _ = voxels.shape
+        vs, rng = self.spec.voxel_size, self.spec.pc_range
+        n = voxel_num_points[..., None]
+        pmask = torch.arange(T, device=voxels.device) < n   # [B, V, T]
+        cnt = n[..., None].to(voxels.dtype).clamp(min=1.0)
+        xyz = voxels[..., :3]
+        mean = torch.where(pmask[..., None], xyz, 0.0).sum(2, keepdim=True)
+        f_cluster = xyz - mean / cnt
+        cx = (voxel_coords[..., 1:2].to(voxels.dtype) + 0.5) * vs[0] + rng[0]
+        cy = (voxel_coords[..., 0:1].to(voxels.dtype) + 0.5) * vs[1] + rng[1]
+        f_center = torch.stack([voxels[..., 0] - cx, voxels[..., 1] - cy,
+                                voxels[..., 2] - (0.5 * vs[2] + rng[2])], -1)
+        feats = [voxels if self.use_absolute_xyz else voxels[..., 3:],
+                 f_cluster, f_center]
+        if self.with_distance:
+            feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
+        x = torch.where(pmask[..., None], torch.cat(feats, -1), 0.0)
+        flat = pmask.reshape(B, V * T)
+        for layer in self.layers:
+            x = layer(x.reshape(B, V * T, -1), flat).reshape(B, V, T, -1)
+        out = torch.where(pmask[..., None], x, -torch.inf).amax(2)
+        return torch.where(voxel_num_points[..., None] > 0, out, 0.0)

@@ -127,14 +127,36 @@ def voxelize_host(points: np.ndarray, point_mask: np.ndarray,
     return out
 
 
+def grid_compact(ids: torch.Tensor, num_cells: int, num_out: int):
+    """Sort-free 'unique' of cell ids [B, N] (``num_cells`` for invalid
+    entries; counterpart of ``_grid_compact``): an occupancy of the cells,
+    its prefix sum as each occupied cell's slot, slots ascending with the
+    cell id and stopping at ``num_out``. Returns (each slot's cell id
+    [B, num_out], ``num_cells`` past the count; each entry's slot [B, N],
+    ``num_out`` where invalid or over the cap; the count [B])."""
+    B = ids.shape[0]
+    dev = ids.device
+    occ = torch.zeros(B, num_cells + 1, dtype=torch.int32, device=dev)
+    occ = occ.scatter_(1, ids, 1)[:, :num_cells]
+    slot_of_cell = occ.cumsum(1, dtype=torch.int64) - 1
+    dest = torch.where((occ == 1) & (slot_of_cell < num_out), slot_of_cell,
+                       num_out)
+    cell_ids = torch.arange(num_cells, device=dev).expand(B, num_cells)
+    slot_cell = torch.full((B, num_out + 1), num_cells, dtype=torch.int64,
+                           device=dev)
+    slot_cell = slot_cell.scatter_(1, dest, cell_ids)[:, :num_out]
+    slot = torch.gather(slot_of_cell, 1, ids.clamp(max=num_cells - 1))
+    ok = (ids < num_cells) & (slot < num_out) & (slot >= 0)
+    count = slot_of_cell[:, -1].add(1).clamp(max=num_out)
+    return slot_cell, torch.where(ok, slot, num_out), count
+
+
 def voxelize(points: torch.Tensor, point_mask: torch.Tensor,
              spec: VoxelSpec) -> dict:
     """Assign points to pillars on the device (counterpart of ``voxelize``:
-    ``point_coords`` and the sort-free ``_grid_compact``): an occupancy of
-    the cells, its prefix sum as each occupied cell's slot, slots ascending
-    with the cell id and stopping at ``max_voxels``. Returns the dict of
-    :func:`voxelize_host` (``sort_points=False``) as tensors."""
-    B, P, _ = points.shape
+    ``point_coords`` and :func:`grid_compact`), without a host sync.
+    Returns the dict of :func:`voxelize_host` (``sort_points=False``) as
+    tensors."""
     V = spec.max_voxels
     nx, ny, nz = spec.grid_size
     dev = points.device
@@ -146,15 +168,7 @@ def voxelize(points: torch.Tensor, point_mask: torch.Tensor,
     cells = nx * ny
     ids = torch.where(valid, coords[..., 1].long() * nx + coords[..., 0],
                       cells)
-    occ = torch.zeros(B, cells + 1, dtype=torch.int64, device=dev)
-    occ = occ.scatter_(1, ids, 1)[:, :cells]
-    slot_of_cell = occ.cumsum(1) - 1
-    dest = torch.where((occ == 1) & (slot_of_cell < V), slot_of_cell, V)
-    cell_ids = torch.arange(cells, device=dev).expand(B, cells)
-    slot_cell = torch.full((B, V + 1), cells, dtype=torch.int64, device=dev)
-    slot_cell = slot_cell.scatter_(1, dest, cell_ids)[:, :V]
-    point_slot = torch.gather(slot_of_cell, 1, ids.clamp(max=cells - 1))
-    point_valid = valid & (point_slot < V) & (point_slot >= 0)
+    slot_cell, point_slot, count = grid_compact(ids, cells, V)
     voxel_mask = slot_cell < cells
     zero = torch.zeros_like(slot_cell)
     return {
@@ -163,11 +177,35 @@ def voxelize(points: torch.Tensor, point_mask: torch.Tensor,
              torch.where(voxel_mask, slot_cell % nx, zero)],
             -1).to(torch.int32),
         'voxel_mask': voxel_mask,
-        'point_voxel': torch.where(point_valid, point_slot, V).to(
-            torch.int32),
-        'point_valid': point_valid,
-        'num_voxels': occ.sum(1).clamp(max=V).to(torch.int32),
+        'point_voxel': point_slot.to(torch.int32),
+        'point_valid': point_slot < V,
+        'num_voxels': count.to(torch.int32),
     }
+
+
+def downsample_coords(coords_yx: torch.Tensor, mask: torch.Tensor,
+                      grid_hw: tuple, max_out: int):
+    """Active output set of a stride-2, k=3, p=1 sparse conv: every output
+    cell whose 3x3 field touches an active input (input row y reaches
+    output rows y // 2 and (y + 1) // 2, and so for x), deduplicated by
+    :func:`grid_compact`, slots ascending with the cell id. Returns
+    (coords [B, max_out, 2] int32, mask [B, max_out])."""
+    H, W = grid_hw
+    Ho, Wo = (H + 1) // 2, (W + 1) // 2
+    y, x = coords_yx[..., 0].long(), coords_yx[..., 1].long()
+    cy = torch.stack([y // 2, (y + 1) // 2], -1)
+    cx = torch.stack([x // 2, (x + 1) // 2], -1)
+    yy = cy.repeat_interleave(2, -1).clamp(0, Ho - 1)  # y0 y0 y1 y1
+    xx = cx.repeat(1, 1, 2).clamp(0, Wo - 1)           # x0 x1 x0 x1
+    cells = Ho * Wo
+    ids = torch.where(mask[..., None], yy * Wo + xx, cells)
+    slot_cell, _, _ = grid_compact(ids.reshape(ids.shape[0], -1), cells,
+                                   max_out)
+    new_mask = slot_cell < cells
+    zero = torch.zeros_like(slot_cell)
+    return torch.stack([torch.where(new_mask, slot_cell // Wo, zero),
+                        torch.where(new_mask, slot_cell % Wo, zero)],
+                       -1).to(torch.int32), new_mask
 
 
 def segment_sum(feat: torch.Tensor, seg: torch.Tensor, num_segments: int):

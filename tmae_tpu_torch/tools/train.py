@@ -1,7 +1,7 @@
 """Training CLI of the port (counterpart of ``tools/train.py``): pretraining
-(a ``TMAE`` config) or finetuning (``CenterPoint``) on the card, with
-pretrained transfer, auto-resume, checkpoint retention and the evaluation
-of the trained model.
+(a ``TMAE`` or ``GDMAE`` config) or training (``CenterPoint``,
+``PointPillar``, ``SECONDNet``) on the card, with pretrained transfer,
+auto-resume, checkpoint retention and the evaluation of the trained model.
 
     python -m tmae_tpu_torch.tools.train \\
         --cfg_file tools/cfgs/once_models/t_mae_ssl.yaml --fix_random_seed
@@ -54,8 +54,9 @@ import torch
 
 from ..config import cfg_from_list, cfg_from_yaml_file, log_config_to_file
 from ..datasets.dataset import build_dataloader
-from ..models.detectors import (batch_to_device, build_detector,
-                                centerpoint_loss, init_training_, tmae_loss)
+from ..models.detectors import (DETECTORS, MAE_DETECTORS, NOT_PORTED,
+                                batch_to_device, build_detector,
+                                detector_loss, init_training_)
 from ..parallel import dist
 from ..train.checkpoint import (checkpoints, latest_checkpoint,
                                 load_pretrained_params, restore_checkpoint,
@@ -67,8 +68,6 @@ from ..utils.metrics import AverageMeter, MetricsLogger, Timer
 
 REPO = Path(__file__).resolve().parents[2]
 OUTPUT_ROOT = REPO / 'output'
-LOSSES = {'TMAE': tmae_loss, 'CenterPoint': centerpoint_loss}
-NOT_PORTED = {'GDMAE': 'ROADMAP.md, module 9: single-frame and list path'}
 # flags the JAX CLI accepts and ignores
 NO_OPS = ('sync_bn', 'amp', 'merge_all_iters_to_one_epoch', 'save_to_file',
           'local_rank', 'start_epoch')
@@ -177,11 +176,11 @@ def main(argv=None):
     the device until a logged iteration or the epoch's end reads them."""
     args, cfg = parse_config(argv)
     name = cfg.MODEL.NAME
-    if name not in LOSSES:
-        raise NotImplementedError(
-            f'training {name} is not ported yet ('
-            + NOT_PORTED.get(name, 'ROADMAP.md, module 10: other detector '
-                             'families') + ')')
+    if name not in DETECTORS:
+        where = ('ROADMAP.md, module 10' if name in NOT_PORTED
+                 else 'an unknown detector')
+        raise NotImplementedError(f'training {name} is not ported yet '
+                                  f'({where})')
     world = (1 if args.launcher == 'none'
              else dist.launch_env(args.launcher, args.tcp_port)['world'])
     batch_size = args.batch_size or (
@@ -202,7 +201,7 @@ def _train(args, cfg, device, batch_size):
     # rank 0's: every rank shuffles, and initialises, from the same seed
     seed = dist.all_gather_objects(
         666 if args.fix_random_seed else int(time.time()) % 2 ** 31)[0]
-    is_mae = name == 'TMAE'
+    is_mae = name in MAE_DETECTORS
 
     out_dir = OUTPUT_ROOT / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
     ckpt_dir = out_dir / 'ckpt'
@@ -241,9 +240,8 @@ def _train(args, cfg, device, batch_size):
         opt, sched = build_optimizer(
             model.parameters(), dict(cfg.OPTIMIZATION, NUM_EPOCHS=epochs),
             steps_per_epoch)
-        loss = LOSSES[name]
         train_step = make_train_step(
-            model, lambda out, batch: loss(cfg, out, batch), opt, sched,
+            model, detector_loss(cfg, model), opt, sched,
             mask_seed=seed + 7 if is_mae else None)
 
         resume = args.ckpt or latest_checkpoint(ckpt_dir)

@@ -1,8 +1,9 @@
 """Evaluation loop (counterpart of ``tmae_tpu/train/evaluator.py``): per
-batch the forward and decode on the model's device, one copy of the
-candidates to the host, native host NMS, prediction dicts and the recall
-bookkeeping; then ``result.pkl`` and the dataset's AP: ONCE AP, or Waymo AP
-and APH at LEVEL_1 / LEVEL_2.
+batch the forward and decode on the model's device (CenterPoint's decode,
+or the anchor families' top K of each anchor's best class score), one copy
+of the candidates to the host, native host NMS, prediction dicts and the
+recall bookkeeping; then ``result.pkl`` and the dataset's AP: ONCE AP, or
+Waymo AP and APH at LEVEL_1 / LEVEL_2.
 
 Under data parallelism each rank evaluates its shard of the dataset
 (padded to equal length); the ranks' prediction dicts and recall counts
@@ -22,7 +23,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.detectors import batch_to_device, centerpoint_predict, host_nms
+from ..models.detectors import (ANCHOR_DETECTORS, anchor_predict,
+                                batch_to_device, centerpoint_predict,
+                                host_nms)
 from ..ops.geometry_np import boxes_iou3d
 from ..parallel import dist
 from ..utils import native
@@ -33,8 +36,8 @@ log = logging.getLogger(__name__)
 # the batch keys the model reads (the rest, frame ids and boxes, stay on
 # the host)
 MODEL_INPUTS = ('points', 'point_mask', 'points_prev', 'point_mask_prev',
-                'voxels', 'voxel_num_points', 'voxel_coords_zyx',
-                'voxel_mask',
+                'voxels', 'voxel_num_points', 'voxel_coords',
+                'voxel_coords_zyx', 'voxel_mask',
                 # the host voxelization (RUNTIME.HOST_VOXELIZE)
                 'pv_cur', 'pvalid_cur', 'vcoords_cur', 'vmask_cur',
                 'pv_prv', 'pvalid_prv', 'vcoords_prv', 'vmask_prv',
@@ -43,23 +46,26 @@ MODEL_INPUTS = ('points', 'point_mask', 'points_prev', 'point_mask_prev',
 
 def make_eval_step(model, cfg):
     """``eval_step(batch) -> (boxes [B, K, 7], scores, labels, valid,
-    occ_overflow)`` as numpy, NMS not applied: the forward,
-    ``centerpoint_predict`` and the overflow count under ``no_grad`` on the
-    model's device, then one copy of all of it to the host (the only
-    synchronisation of the step). ``batch``: tensors on the model's
-    device."""
+    occ_overflow)`` as numpy, NMS not applied: the forward, the family's
+    candidates (``centerpoint_predict`` or ``anchor_predict``) and the
+    overflow count under ``no_grad`` on the model's device, then one copy
+    of all of it to the host (the only synchronisation of the step).
+    ``batch``: tensors on the model's device."""
     name = cfg['MODEL']['NAME']
-    if name != 'CenterPoint':
-        raise NotImplementedError(
-            f'evaluation of {name} is not ported yet (ROADMAP.md, module 10: '
-            'other detector families)')
+    if name not in ('CenterPoint',) + ANCHOR_DETECTORS:
+        raise NotImplementedError(f'{name} has no evaluation: it is not a '
+                                  'detector')
     model.eval()
+
+    def candidates(out):
+        if name in ANCHOR_DETECTORS:
+            return anchor_predict(cfg, model.dense_head, out)
+        return centerpoint_predict(cfg, out, nms_on_device=False)
 
     @torch.no_grad()
     def eval_step(batch):
         out = model(batch)
-        boxes, scores, labels, valid = centerpoint_predict(
-            cfg, out, nms_on_device=False)
+        boxes, scores, labels, valid = candidates(out)
         # one f32 buffer: labels, validity and the count are small integers,
         # exact in f32
         B, K = scores.shape

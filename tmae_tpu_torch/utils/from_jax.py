@@ -7,13 +7,15 @@ BatchNorm_0`` → ``bn``, ``Dense_0`` → ``linear``, ``ConvTranspose_0`` →
 ``deconv``). Tensor rules:
 
 * Dense kernel ``[in, out]`` → Linear weight ``[out, in]`` (transpose).
-* Conv kernel HWIO → OIHW.
+* Conv kernel HWIO → OIHW; a 3D sparse conv's kernel ``[k^3, Cin, Cout]``
+  stays as it is.
 * Transposed-conv kernel ``K [s, s, cin, cout]`` (the JAX deconv flips it
   spatially, as ``nn.ConvTranspose`` does) → ``W [cin, cout, s, s]`` with
   ``W[c, o, i, j] = K[s-1-i, s-1-j, c, o]``: flip both spatial axes, then
   move them last.
 * BN ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
-  ``running_mean``/``running_var``.
+  ``running_mean``/``running_var``; a flax ``LayerNorm_i``'s ``scale`` →
+  ``weight``.
 * Encoder layers: the fused self-attention ``qk_kernel [C, 2C]`` splits into
   ``q`` (first C columns) and ``k`` (last C), as ``models/sst.py`` of the JAX
   package splits it; ``*_kernel``/``*_bias`` → ``*.weight``/``*.bias``,
@@ -91,7 +93,11 @@ def _convert(parts, a):
                      a[::-1, ::-1].transpose(2, 3, 0, 1))]
         if a.ndim == 4:
             return [(path + ['weight'], a.transpose(3, 2, 0, 1))]
+        if a.ndim == 3:  # a 3D sparse conv's [k^3, Cin, Cout], kept
+            return [(path + ['weight'], a)]
         return [(path + ['weight'], a.T)]
+    if owner.startswith('LayerNorm_') and leaf == 'scale':
+        return [(path + ['weight'], a)]
     if owner in _BN_OWNERS and leaf in _BN_LEAF:
         return [(path + [_BN_LEAF[leaf]], a)]
     if leaf == 'bias':
