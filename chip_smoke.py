@@ -274,6 +274,29 @@ Phases (any failure exits non-zero and prints no result line):
      card vs CPU (the step held to the control with the BEV backbone's
      weights rounded to bf16) on the range cut to 25.6 m square.
      19e. PointPillar at tests/test_pointpillar.py's config: the same.
+ 20. SSD3D (``ssd3d_once.yaml``: the fusion-sampling PointNet++ backbone,
+     the vote head) and its kernels (``csrc/pointnet2.cu``).
+     20a. DFPS, FFPS and BALL_QUERY against their plain versions at the
+     config's full-width shapes, batch 1, on a synthetic frame's 16384
+     points: D-FPS 16384 -> 4096, 4096 -> 512, 512 -> 256; F-FPS 4096 ->
+     512 at C = 64, 512 -> 256 at C = 128; every radius of the three
+     levels (dilated) and of the vote SA; indices and counts bit for bit,
+     also on planted cases (300 valid points of 4096 for 512 samples, an
+     integer grid of exact ties, no valid point, no features, a fifth of
+     the points and a tenth of the centres invalid); kernel, plain and
+     bound ms and the peak memory of each.
+     20b. the seeded full-width detector serves a synthetic frame: one pass
+     counted (EXPECTED_SSD3D), timed passes, peak memory; the card's votes,
+     class and box predictions against the CPU's on the card's centres
+     (SSD3D_VOTE_TOL, SSD3D_PRED_TOL, SSD3D_FLIPS).
+     20c. on a loader batch of 14a's tree, SSD3D_STEPS training steps (step
+     0 counted, loss parts, the loss falling, ms, peak memory); one step
+     card vs CPU vs the control (the vote head's weights rounded to bf16)
+     on the card's centres; ``tools.train`` 1 epoch on the tree (each
+     step's launches and loss parts).
+     20d. ``tools.test`` on 20c's checkpoint over the tree's val frames:
+     frames evaluated, candidates over the score cut and kept by NMS, ONCE
+     AP, launches a batch.
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -307,7 +330,8 @@ EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
                      'K6': 0, 'K7': 0, 'K8': 0, 'K9': 0, 'K10': 0, 'K12': 0,
                      'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0, 'PACK': 18,
                      'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0,
-                     'NMS_SCAN': 0, 'NARROW_FWD': 0, 'NARROW_BWD': 0}
+                     'NMS_SCAN': 0, 'NARROW_FWD': 0, 'NARROW_BWD': 0,
+                     'DFPS': 0, 'FFPS': 0, 'BALL_QUERY': 0}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -321,7 +345,7 @@ EXPECTED_TRAIN_LAUNCHES = {
     'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
     'K10': 0, 'K12': 0, 'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0,
     'PACK': 0, 'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0, 'NMS_SCAN': 0,
-    'NARROW_FWD': 0, 'NARROW_BWD': 0}
+    'NARROW_FWD': 0, 'NARROW_BWD': 0, 'DFPS': 0, 'FFPS': 0, 'BALL_QUERY': 0}
 NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
 # The fused in-place serving path: each of the 18 layers is one pack of its
 # panels and one K12 call per bucket (small, mid, full), and nothing else
@@ -1375,7 +1399,7 @@ def grid_bits_check(torch, el, call, out, label):
 
 def kernels():
     from tmae_tpu_torch.ops import (encoder_layer, geometry, occ_compact,
-                                    sorted_segments, sparse_conv,
+                                    pointnet2, sorted_segments, sparse_conv,
                                     window_attention)
 
     return {'K1': occ_compact.K1, 'K2': occ_compact.K2,
@@ -1390,7 +1414,9 @@ def kernels():
             'IOU_ALIGNED': geometry.IOU_ALIGNED,
             'NMS_MASK': geometry.NMS_MASK, 'NMS_SCAN': geometry.NMS_SCAN,
             'NARROW_FWD': encoder_layer.NARROW_FWD,
-            'NARROW_BWD': encoder_layer.NARROW_BWD}
+            'NARROW_BWD': encoder_layer.NARROW_BWD,
+            'DFPS': pointnet2.DFPS, 'FFPS': pointnet2.FFPS,
+            'BALL_QUERY': pointnet2.BALL_QUERY}
 
 
 def fill_launches(rows, launches, names):
@@ -1749,11 +1775,13 @@ def _rel(a, b):
 
 
 def train_step_once(torch, cfg, np_batch, seed, dev, round_encoder=False,
-                    mae_mask=None, round_prefix='backbone_3d.encoder.'):
+                    mae_mask=None, round_prefix='backbone_3d.encoder.',
+                    sample_idx=None):
     """One training step from the seeded weights on ``dev``, with the
     weights under ``round_prefix`` (the encoder's) rounded once to bf16 if
-    asked (and, for a TMAE config, the given mask). Returns (metrics,
-    gradients, state before, state after), on the CPU."""
+    asked (and, for a TMAE config, the given mask; for SSD3D, the given
+    centres of the backbone's levels). Returns (metrics, gradients, state
+    before, state after), on the CPU."""
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
 
@@ -1767,6 +1795,8 @@ def train_step_once(torch, cfg, np_batch, seed, dev, round_encoder=False,
               for k, t in model.state_dict().items()}
     step = make_trainer(cfg, model)
     kw = {} if mae_mask is None else {'mae_mask': mae_mask.to(dev)}
+    if sample_idx is not None:
+        kw['sample_idx'] = [i.to(dev) for i in sample_idx]
     m = {k: float(v) for k, v in step(batch_to_device(np_batch, dev),
                                       **kw).items()}
     grads = {n: prm.grad.detach().float().cpu()
@@ -1789,7 +1819,7 @@ def grad_agreement(torch, got, want, names):
 
 
 def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None,
-                      round_prefix='backbone_3d.encoder.'):
+                      round_prefix='backbone_3d.encoder.', sample_idx=None):
     """One training step with the same seeded weights on the card (kernels)
     and on the CPU (plain versions), and the control: the CPU step from the
     same weights with the encoder's (those under ``round_prefix``) rounded
@@ -1806,7 +1836,7 @@ def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None,
     its ratio outside). Batch-norm running statistics: the VFE's (f32, two
     updates per step) change by the same amounts to 1e-3 of the change,
     every other statistic's change agrees in cosine >= 0.9."""
-    kw = dict(mae_mask=mae_mask)
+    kw = dict(mae_mask=mae_mask, sample_idx=sample_idx)
     mk, gk, bk, ak = train_step_once(torch, cfg, np_batch, seed, 'cuda', **kw)
     mp, gp, bp, ap = train_step_once(torch, cfg, np_batch, seed, 'cpu', **kw)
     mc, gc, _, _ = train_step_once(torch, cfg, np_batch, seed, 'cpu',
@@ -3227,7 +3257,8 @@ def write_once_tree(root, cfg, n_frames):
 @contextlib.contextmanager
 def cli_hooks(torch, record):
     """While open: each training step's launches (counter deltas, the
-    counters are not reset) appended to ``record['steps']``, each
+    counters are not reset) appended to ``record['steps']`` and its
+    metrics to ``record['metrics']``, each
     post-train evaluation's to ``record['eval']``, and each pretrained
     transfer of the training CLI checked: every entry it copied equals the
     pretraining checkpoint's, every entry it kept (the BEV backbone and the
@@ -3248,6 +3279,7 @@ def cli_hooks(torch, record):
     def counted_step(self, batch, **kw):
         out, d = deltas(lambda: step_call(self, batch, **kw))
         record['steps'].append(d)
+        record['metrics'].append(out)
         return out
 
     def counted_eval(*a, **kw):
@@ -3297,7 +3329,7 @@ def cli_run(torch, argv, expected, what, ref="phase 6/10's"):
     from tmae_tpu_torch.tools import train as train_cli
 
     log(f'  python -m tmae_tpu_torch.tools.train {" ".join(argv)}')
-    record = {'steps': [], 'eval': [], 'transfers': []}
+    record = {'steps': [], 'eval': [], 'transfers': [], 'metrics': []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5509,8 +5541,8 @@ def voxel_frames(cfg, scenes, training=False, density=1.5,
     mv = cfg.RUNTIME.MAX_VOXELS
     batch = collate_static(samples, int(cfg.RUNTIME.MAX_POINTS),
                            int(cfg.RUNTIME.MAX_GT), max_voxels=int(mv[0]))
-    return batch, statistics.mean(ms), [(len(s['points']), len(s['voxels']))
-                                         for s in samples]
+    return batch, statistics.mean(ms), [
+        (len(s['points']), len(s.get('voxels', ()))) for s in samples]
 
 
 def anchor_serve(torch, cfg, model, batch):
@@ -5705,6 +5737,487 @@ def single_frame_phase(torch, np_batch, once_root, rows):
                 row[key] = steps[what][k]
     log(f'  phase 19 {time.perf_counter() - t19:.1f} s')
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: SSD3D, its point samplers and ball query
+# ---------------------------------------------------------------------------
+
+PN2_SRC = 'tmae_tpu_torch/csrc/pointnet2.cu'
+SSD3D_CFG = 'tools/cfgs/once_models/ssd3d_once.yaml'
+# One served ssd3d_once.yaml frame, and one training step over its batch:
+# D-FPS at each of the 3 levels (level 1's second count is D-FPS: fusion
+# sampling), F-FPS at levels 1 and 2, and a ball query for each radius (3
+# at each level, 2 in the vote head's SA); no kernel runs in the backward.
+EXPECTED_SSD3D = {**NO_LAUNCHES, 'DFPS': 3, 'FFPS': 2, 'BALL_QUERY': 11}
+SSD3D_SCENES = (0, 1)          # synthetic scenes of 20b (served: the first)
+SSD3D_STEPS = 4                # 20c: step 0 counted, then timed steps
+# 20b: card vs CPU on the card's centres. The votes within 1e-4 m; the
+# class and box predictions within 1e-3 at every vote whose vote-SA groups
+# are the same on both sides (a vote that moved by rounding can take or
+# lose a point on a ball's boundary), and at most 2% of the votes with
+# other groups.
+SSD3D_VOTE_TOL, SSD3D_PRED_TOL, SSD3D_FLIPS = 1e-4, 1e-3, 0.02
+
+
+def ssd3d_cfg():
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+
+    return cfg_from_yaml_file(ROOT / SSD3D_CFG)
+
+
+def pn2_inputs(torch, g, n, dev='cuda'):
+    """Coordinates [1, n, 3] spread as a frame's (x, y within 70 m, z in
+    [-3, 3])."""
+    xy = (torch.rand(1, n, 2, generator=g, device=dev) - 0.5) * 140.0
+    z = (torch.rand(1, n, 1, generator=g, device=dev) - 0.5) * 6.0
+    return torch.cat([xy, z], -1)
+
+
+def pn2_cases(torch, xyz0, mask0):
+    """The samplers' and ball queries' cases at the full-width shapes of
+    ssd3d_once.yaml's levels (batch 1), from a served frame's points
+    ``xyz0`` [1, 16384, 3]: (fps cases, ffps cases, ball-query cases), each
+    a list of (label, args), planted ones among them."""
+    from tmae_tpu_torch.ops import pointnet2 as pn2
+
+    g = torch.Generator(device='cuda').manual_seed(20)
+    i0 = pn2.farthest_point_sample(xyz0, mask0, 4096)
+    xyz1 = pn2.gather_points(xyz0, i0)
+    m1 = torch.ones(1, 4096, dtype=torch.bool, device='cuda')
+    f1 = torch.relu(torch.randn(1, 4096, 64, generator=g, device='cuda'))
+    i1 = torch.cat([pn2.farthest_point_sample_ffps(xyz1, f1, m1, 512),
+                    pn2.farthest_point_sample(xyz1, m1, 512)], 1)
+    xyz2 = pn2.gather_points(xyz1, i1)
+    m2 = torch.ones(1, 1024, dtype=torch.bool, device='cuda')
+    f2 = torch.relu(torch.randn(1, 1024, 128, generator=g, device='cuda'))
+    i2 = torch.cat([pn2.farthest_point_sample_ffps(xyz2[:, :512], f2[:, :512],
+                                                   m2[:, :512], 256),
+                    pn2.farthest_point_sample(xyz2[:, 512:], m2[:, 512:],
+                                              256) + 512], 1)
+    xyz3 = pn2.gather_points(xyz2, i2)
+    m3 = torch.ones(1, 512, dtype=torch.bool, device='cuda')
+    votes = xyz3[:, :256] + (torch.rand(1, 256, 3, generator=g,
+                                        device='cuda') - 0.5) * torch.tensor(
+        [6.0, 6.0, 4.0], device='cuda')
+    few = torch.rand(1, 4096, generator=g, device='cuda') < 300 / 4096
+    grid = torch.randint(0, 16, (1, 4096, 3), generator=g,
+                         device='cuda').float()
+    ints = torch.randint(0, 3, (1, 4096, 64), generator=g,
+                         device='cuda').float()
+    none = torch.zeros_like(m1)
+    fps = [('16384->4096 (level 0)', (xyz0, mask0, 4096)),
+           ('4096->512 (level 1)', (xyz1, m1, 512)),
+           ('512->256 (level 2)', (xyz2[:, 512:], m2[:, 512:], 256)),
+           ('300 valid of 4096 -> 512', (xyz1, few, 512)),
+           ('integer grid, exact ties', (grid, m1, 512)),
+           ('no valid point', (xyz1, none, 64))]
+    ffps = [('4096->512 C=64 (level 1)', (xyz1, f1, m1, 512)),
+            ('512->256 C=128 (level 2)', (xyz2[:, :512], f2[:, :512],
+                                          m2[:, :512], 256)),
+            ('300 valid of 4096 -> 512', (xyz1, f1, few, 512)),
+            ('integer grid and features, exact ties', (grid, ints, m1, 512)),
+            ('no features', (xyz1, None, m1, 512))]
+    cm1 = torch.ones(1, 1024, dtype=torch.bool, device='cuda')
+    part = torch.rand(1, 4096, generator=g, device='cuda') > 0.2
+    cpart = torch.rand(1, 1024, generator=g, device='cuda') > 0.1
+    mv = torch.ones(1, 256, dtype=torch.bool, device='cuda')
+    bq = []
+    levels = ((xyz0, mask0, xyz1, m1, (0.2, 0.4, 0.8), (32, 32, 64), True),
+              (xyz1, m1, xyz2, cm1, (0.8, 1.6, 3.2), (32, 32, 64), True),
+              (xyz2, m2, xyz3, m3, (1.6, 3.2, 4.8), (32, 32, 32), True),
+              (xyz3, m3, votes, mv, (4.8, 6.4), (48, 64), False))
+    for li, (pts, pm, ctr, cm, radii, ks, dilated) in enumerate(levels):
+        former = 0.0
+        for r, k in zip(radii, ks):
+            rmin = former if dilated else 0.0
+            bq.append((f'{ctr.shape[1]}x{pts.shape[1]} r {r} K {k}'
+                       + (f' min {rmin}' if rmin else '')
+                       + (' (vote SA)' if li == 3 else f' (level {li})'),
+                       (r, k, pts, pm, ctr, cm, rmin)))
+            former = r
+    bq.append(('1024x4096 r 1.6 K 32, a fifth of the points and a tenth of '
+               'the centres invalid', (1.6, 32, xyz1, part, xyz2, cpart,
+                                       0.8)))
+    return fps, ffps, bq
+
+
+def pn2_bits(torch, what, got, want):
+    """Kernel and plain outputs equal bit for bit; returns max |diff|."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f'{what}: kernel and plain version differ '
+                                 f'({bad} entries, {a.dtype} / {b.dtype})')
+    return 0.0
+
+
+def pn2_peak(torch, fn):
+    """Peak device memory (GiB) one call of ``fn`` allocates beyond what is
+    held before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def pn2_kernel_phase(torch, xyz0, mask0, rows):
+    """20a: DFPS, FFPS and BALL_QUERY against their plain versions on the
+    card at ssd3d_once.yaml's full-width shapes (batch 1), indices and
+    counts bit for bit, planted cases among them (fewer valid points than
+    samples, exact ties, invalid points and centres, no valid point, the
+    dilated balls); kernel, plain and bound ms (CUDA events) and the peak
+    memory of each at the main rows' shapes."""
+    from tmae_tpu_torch.ops import pointnet2 as pn2
+
+    fps, ffps, bq = pn2_cases(torch, xyz0, mask0)
+    card = card_line()
+    out = {}
+    groups = (
+        ('DFPS', fps, pn2.farthest_point_sample,
+         pn2.farthest_point_sample_plain),
+        ('FFPS', ffps, pn2.farthest_point_sample_ffps,
+         pn2.farthest_point_sample_ffps_plain),
+        ('BALL_QUERY', bq, pn2.ball_query, pn2.ball_query_plain))
+    for name, cases, kernel, plain in groups:
+        times = {}
+        for label, args in cases:
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            pn2_bits(torch, f'{name} {label}', got, want)
+            few = name != 'BALL_QUERY'  # the plain FPS: a launch a step
+            k_ms = time_ms(torch, lambda: kernel(*args), iters=10, warmup=1)
+            p_ms = time_ms(torch, lambda: plain(*args), iters=2 if few else 5,
+                           warmup=1)
+            times[label] = (k_ms, p_ms)
+            log(f'  {name} {label}: bit-equal; kernel {k_ms:.4f} ms, plain '
+                f'{p_ms:.4f} ms; {card}')
+        label, args = cases[0] if name != 'BALL_QUERY' else cases[2]
+        k_ms, p_ms = times[label]
+        k_gib = pn2_peak(torch, lambda: kernel(*args))
+        p_gib = pn2_peak(torch, lambda: plain(*args))
+        log(f'  {name} {label}: peak memory kernel {k_gib:.3f} GiB, plain '
+            f'{p_gib:.3f} GiB')
+        nbytes, flops = pn2_work(name, args)
+        add_row(rows, name, name, PN2_SRC, PN2_REPLACES[name], 0.0, k_ms,
+                p_ms, nbytes, flops, None, peak=F32_FLOPS, shape=label,
+                peak_gib=k_gib, plain_peak_gib=p_gib,
+                ms_by_shape={k: v[0] for k, v in times.items()})
+        out[f'{name.lower()}_ms'] = k_ms
+    return out
+
+
+PN2_REPLACES = {
+    'DFPS': 'tmae_tpu/ops/pointnet2.py:31 farthest_point_sample (XLA, no '
+            'Pallas kernel)',
+    'FFPS': 'tmae_tpu/ops/pointnet2.py:61 farthest_point_sample_matrix and '
+            ':86 calc_dist_matrix_for_sampling (XLA, no Pallas kernel)',
+    'BALL_QUERY': 'tmae_tpu/ops/pointnet2.py:96 ball_query (XLA, no Pallas '
+                  'kernel)'}
+
+
+def pn2_work(name, args):
+    """(bytes, f32 operations) a kernel's call must move and make on these
+    inputs: each input read once and each output written once; per pair of
+    a valid point and a step or centre, the squared distance (3 sub, 3
+    mul, 2 add), for F-FPS the C channels' (3C - 1) and gamma's (2), the
+    running minimum (1), the ball's test (2); per step the argmax (1 a
+    point)."""
+    if name == 'BALL_QUERY':
+        r, k, pts, pm, ctr, cm, _ = args
+        N, M, nv = pts.shape[1], ctr.shape[1], int(pm.sum())
+        return (N * 13 + M * 13 + M * k * 4 + M * 4, M * nv * 10)
+    if name == 'DFPS':
+        xyz, m, S = args
+        C = 0
+    else:
+        xyz, f, m, S = args
+        C = 0 if f is None else f.shape[-1]
+    N, nv = xyz.shape[1], int(m.sum())
+    per_pair = 8 + 1 + (3 * C + 1 if C else 0)
+    return (N * (3 + C) * 4 + N + S * 4, (S - 1) * (nv * per_pair + N))
+
+
+def ssd3d_frames(cfg, scenes):
+    """Synthetic LiDAR frames (density 1.5, ~100k points) over
+    ssd3d_once.yaml's range through its processors (shuffled, so the
+    16384 kept by MAX_POINTS spread over the frame), collated."""
+    batch, host_ms, sizes = voxel_frames(cfg, scenes, training=True)
+    log(f'  frames: (points, -) {sizes}, {host_ms:.1f} ms a frame on the '
+        'host; 16384 kept a frame')
+    return {k: v for k, v in batch.items() if k != 'frame_id'}
+
+
+def ssd3d_serve(torch, cfg, model, batch):
+    """One served SSD3D pass: forward, candidates, host NMS. Returns (the
+    forward's outputs, the candidates, the kept mask)."""
+    from tmae_tpu_torch.models.detectors import host_nms
+    from tmae_tpu_torch.models.ssd3d import ssd3d_candidates
+
+    with torch.no_grad():
+        out = model(batch)
+        cands = ssd3d_candidates(cfg, out)
+        keep = host_nms(cfg, *cands)
+    return out, cands, keep
+
+
+def ssd3d_vote_groups(torch, cfg, out, votes):
+    """The vote SA's ball-query indices of ``votes`` over the backbone's
+    last level, on the CPU (plain): one tensor a radius."""
+    from tmae_tpu_torch.ops.pointnet2 import ball_query_plain
+
+    sa = cfg.MODEL.POINT_HEAD.VOTE_SA_CONFIG
+    bb, head = out['backbone_out'], out['head_out']
+    cpu = lambda t: t.detach().cpu()
+    return [ball_query_plain(float(r), int(k), cpu(bb['point_coords']),
+                             cpu(bb['point_mask']), votes,
+                             cpu(head['vote_mask']))[0]
+            for r, k in zip(sa.RADIUS, sa.NSAMPLE)]
+
+
+def ssd3d_card_vs_cpu(torch, cfg, np_batch, card_out):
+    """20b's reference: the same seeded weights on the CPU (plain
+    versions) on the card's centres; votes, class and box predictions held
+    as SSD3D_VOTE_TOL, SSD3D_PRED_TOL and SSD3D_FLIPS say."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    model = init_random_(build_detector(cfg, 'cpu'), seed=0).eval()
+    idx = [i.cpu() for i in card_out['backbone_out']['sample_idx']]
+    with torch.no_grad():
+        cpu_out = model(batch_to_device(np_batch, 'cpu'), sample_idx=idx)
+    ch, ph = card_out['head_out'], cpu_out['head_out']
+    vote_err = (ch['votes'].cpu() - ph['votes']).abs().max().item()
+    same = torch.ones(ph['votes'].shape[:2], dtype=torch.bool)
+    for a, b in zip(ssd3d_vote_groups(torch, cfg, card_out,
+                                      ch['votes'].cpu()),
+                    ssd3d_vote_groups(torch, cfg, cpu_out, ph['votes'])):
+        same &= (a == b).all(-1)
+    errs = {}
+    for k in ('vote_cls_preds', 'vote_box_preds'):
+        d = (ch[k].cpu() - ph[k]).abs().amax(-1)
+        errs[k] = (d[same].max().item() if same.any() else 0.0,
+                   d.max().item())
+    flips = int((~same).sum())
+    log(f'  card vs CPU on the card\'s centres: votes max |diff| '
+        f'{vote_err:.3g} m (limit {SSD3D_VOTE_TOL}); '
+        + ', '.join(f'{k} max |diff| {v[0]:.3g} where the vote SA groups '
+                    f'agree (limit {SSD3D_PRED_TOL}), {v[1]:.3g} overall'
+                    for k, v in errs.items())
+        + f'; {flips} of {same.numel()} votes with other groups (limit '
+        f'{SSD3D_FLIPS:.0%})')
+    if vote_err > SSD3D_VOTE_TOL:
+        raise AssertionError('SSD3D votes: card and CPU disagree')
+    if any(v[0] > SSD3D_PRED_TOL for v in errs.values()):
+        raise AssertionError('SSD3D predictions: card and CPU disagree')
+    if flips > SSD3D_FLIPS * same.numel():
+        raise AssertionError('SSD3D: too many votes group other points on '
+                             'the card')
+    return {'ssd3d_vote_err': vote_err,
+            'ssd3d_pred_err': max(v[0] for v in errs.values()),
+            'ssd3d_group_flips': flips}
+
+
+def ssd3d_serving_phase(torch, cfg, np_batch):
+    """20b: the seeded full-width SSD3D serves a synthetic frame: one pass
+    counted (EXPECTED_SSD3D), outputs finite, timed passes, peak memory;
+    then card vs CPU."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_random_(build_detector(cfg), seed=0).eval()
+    batch = batch_to_device(np_batch, 'cuda')
+    ssd3d_serve(torch, cfg, model, batch)
+    (out, cands, keep), launches = counted(
+        torch, lambda: ssd3d_serve(torch, cfg, model, batch))
+    head = out['head_out']
+    log(f'  launches per frame: {launches} (expected {EXPECTED_SSD3D}); '
+        f'{int(cands[3].sum())} candidates over the score cut, {int(keep.sum())}'
+        ' kept by NMS; level sizes '
+        f'{[int(m.sum()) for m in out["backbone_out"]["sa_mask"]]}')
+    if launches != EXPECTED_SSD3D:
+        raise AssertionError('SSD3D serving: launch counts differ')
+    for k, v in head.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f'SSD3D {k} is not finite')
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ssd3d_serve(torch, cfg, model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times)
+    log(f'  ms a frame (forward, candidates, host NMS): median {med:.2f} (min '
+        f'{min(times):.2f}, max {max(times):.2f}, 10 passes); peak device '
+        f'memory {peak:.2f} GiB; {card_line()}')
+    res = {'ssd3d_ms_per_frame': med, 'ssd3d_serve_peak_gib': peak}
+    res.update(ssd3d_card_vs_cpu(torch, cfg, np_batch, out))
+    return launches, out, res
+
+
+def ssd3d_training_phase(torch, cfg, tree):
+    """20c: on a loader batch of 14a's tree (batch CLI_BATCH, with its
+    augmentation), SSD3D_STEPS steps of the seeded full-width model (step
+    0 counted, the loss parts each step, the loss falling, ms a step, peak
+    memory); one step card vs CPU vs the control (the CPU step with the
+    vote head's weights rounded once to bf16) on the card's centres; then
+    ``tools.train`` 1 epoch on the tree, each step's launches counted and
+    its loss parts printed. Returns (results, the CLI's checkpoint)."""
+    from tmae_tpu_torch.datasets.dataset import build_dataloader
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+    from tmae_tpu_torch.tools import train as train_cli
+
+    tcfg = ssd3d_cfg()
+    tcfg.DATA_CONFIG.DATA_PATH = str(tree)
+    _, loader = build_dataloader(tcfg.DATA_CONFIG, tcfg.CLASS_NAMES,
+                                 CLI_BATCH, True, runtime_cfg=tcfg.RUNTIME,
+                                 seed=0)
+    np_batch = {k: v for k, v in next(iter(loader)).items()
+                if k != 'frame_id'}
+    batch = batch_to_device(np_batch, 'cuda')
+    model = init_random_(build_detector(cfg), seed=0).train()
+    step = make_trainer(cfg, model)
+    launches, rs, med, peak = run_steps(torch, model, step, batch,
+                                        SSD3D_STEPS, EXPECTED_SSD3D, 'SSD3D')
+    res = {'ssd3d_ms_per_step': med, 'ssd3d_step_peak_gib': peak,
+           'ssd3d_losses': [r['loss'] for r in rs]}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    log('  one step: card vs CPU vs control (the vote head\'s weights rounded '
+        'to bf16), on the card\'s centres')
+    probe = init_random_(build_detector(cfg), seed=7).train()
+    with torch.no_grad():
+        idx = probe(batch_to_device(np_batch, 'cuda'))['backbone_out'][
+            'sample_idx']
+    del probe
+    train_card_vs_cpu(torch, cfg, np_batch, seed=7, round_prefix='point_head.',
+                      sample_idx=[i.cpu() for i in idx])
+    torch.cuda.empty_cache()
+    data = ['--set', 'DATA_CONFIG.DATA_PATH', str(tree)]
+    argv = ['--cfg_file', str(ROOT / SSD3D_CFG), '--batch_size',
+            str(CLI_BATCH), '--fix_random_seed', '--epochs', '1',
+            '--extra_tag', 'chip_smoke'] + data
+    run, _, record, cli_peak = cli_run(torch, argv, EXPECTED_SSD3D, 'SSD3D',
+                                       ref='20c\'s')
+    for i, m in enumerate(record['metrics']):
+        log(f'    step {i} parts: ' + ', '.join(
+            f'{k} {float(v):.5g}' for k, v in m.items()))
+    res.update({'ssd3d_cli_loss': [s['loss'] for s in run['steps']],
+                'ssd3d_cli_ms_per_step': statistics.median(
+                    s['step_s'] * 1e3 for s in run['steps']),
+                'ssd3d_cli_peak_gib': cli_peak})
+    return res, run['checkpoints'][-1], data
+
+
+def ssd3d_eval_phase(torch, ckpt, data, tree):
+    """20d: ``tools.test`` on 20c's checkpoint over the tree's val frames:
+    launches EXPECTED_SSD3D a batch, the frames in order, the candidates
+    over the score cut and those NMS kept, every AP finite."""
+    import pickle
+
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.train import evaluator
+
+    seen = {'over_cut': 0, 'kept': 0}
+    nms = evaluator.host_nms
+
+    def counted_nms(cfg, boxes, scores, labels, valid, **kw):
+        keep = nms(cfg, boxes, scores, labels, valid, **kw)
+        seen['over_cut'] += int(valid.sum())
+        seen['kept'] += int(keep.sum())
+        return keep
+
+    evaluator.host_nms = counted_nms
+    try:
+        t0 = time.perf_counter()
+        (rdir, ap), launches = counted(torch, lambda: next(iter(test_cli.main(
+            ['--cfg_file', str(ROOT / SSD3D_CFG), '--ckpt', str(ckpt),
+             '--batch_size', str(CLI_BATCH), '--extra_tag', 'chip_smoke']
+            + data).items())))
+    finally:
+        evaluator.host_nms = nms
+    secs = time.perf_counter() - t0
+    annos = pickle.loads((rdir / 'result.pkl').read_bytes())
+    want_ids = [i['frame_id'] for i in pickle.loads(
+        (tree / 'once_infos_val.pkl').read_bytes())]
+    n_batches = math.ceil(len(want_ids) / CLI_BATCH)
+    want = {k: n_batches * v for k, v in EXPECTED_SSD3D.items()}
+    aps = {k: v for k, v in ap.items() if k.startswith('AP_')}
+    log(f'  tools.test: {secs:.1f} s, {len(annos)} frames evaluated, '
+        f'{seen["over_cut"]} candidates over the score cut, {seen["kept"]} '
+        f'kept by NMS, {sum(len(a["score"]) for a in annos)} boxes in '
+        f'result.pkl; launches {launches} (expected {want}); '
+        f'{ap["sec_per_sample"]:.4f} sec/sample; ONCE APs '
+        + ', '.join(f'{k} {v:.4g}' for k, v in aps.items()))
+    if [a['frame_id'] for a in annos] != want_ids:
+        raise AssertionError('SSD3D result.pkl frame ids differ')
+    if launches != want:
+        raise AssertionError('SSD3D evaluation: launch counts differ')
+    if not aps or not all(math.isfinite(v) for v in aps.values()):
+        raise AssertionError('an SSD3D AP is not finite')
+    if not 0 < seen['kept'] <= seen['over_cut']:
+        raise AssertionError('SSD3D evaluation kept no box')
+    return {'ssd3d_eval_frames': len(annos),
+            'ssd3d_eval_over_cut': seen['over_cut'],
+            'ssd3d_eval_kept': seen['kept'],
+            'ssd3d_eval_sec_per_sample': ap['sec_per_sample'],
+            **{f'ssd3d_{k}': v for k, v in aps.items()}}
+
+
+def ssd3d_phase(torch, tree, rows):
+    """Phase 20 (a-d); DFPS, FFPS and BALL_QUERY's rows of the kernels line
+    take the served frame's launches."""
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.tools import train as train_cli
+
+    t20 = time.perf_counter()
+    cfg = ssd3d_cfg()
+    np_frames = ssd3d_frames(cfg, SSD3D_SCENES)
+    np_batch = {k: v[:1] for k, v in np_frames.items()}
+    log('phase 20a: DFPS, FFPS and BALL_QUERY (csrc/pointnet2.cu) against '
+        'their plain versions at the full-width shapes, batch 1')
+    res = pn2_kernel_phase(
+        torch, torch.from_numpy(np_batch['points'][..., :3]).cuda(),
+        torch.from_numpy(np_batch['point_mask']).cuda(), rows)
+    torch.cuda.empty_cache()
+    log(f'  phase 20a {time.perf_counter() - t20:.1f} s')
+    t0 = time.perf_counter()
+    log('phase 20b: SSD3D serving (ssd3d_once.yaml, full width, seeded, a '
+        'synthetic frame of 16384 points)')
+    launches, _, more = ssd3d_serving_phase(torch, cfg, np_batch)
+    res.update(more)
+    fill_launches(rows, launches, ('DFPS', 'FFPS', 'BALL_QUERY'))
+    torch.cuda.empty_cache()
+    log(f'  phase 20b {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    log('phase 20c: SSD3D training, full width (a loader batch of 14a\'s '
+        'tree, then tools.train)')
+    tmp = tempfile.TemporaryDirectory()
+    saved = train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT
+    try:
+        train_cli.OUTPUT_ROOT = test_cli.OUTPUT_ROOT = Path(tmp.name) / 'out'
+        more, ckpt, data = ssd3d_training_phase(torch, cfg, tree)
+        res.update(more)
+        log(f'  phase 20c {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        log('phase 20d: tools.test on 20c\'s checkpoint (14a\'s tree)')
+        res.update(ssd3d_eval_phase(torch, ckpt, data, tree))
+        log(f'  phase 20d {time.perf_counter() - t0:.1f} s')
+    finally:
+        train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT = saved
+        tmp.cleanup()
+    log(f'  phase 20 {time.perf_counter() - t20:.1f} s; {card_line()}')
+    return res
+
 
 
 def main(argv=None):
@@ -5947,6 +6460,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     single = single_frame_phase(torch, np_batch,
                                 Path(once_tree.name) / 'once', rows)
+    torch.cuda.empty_cache()
+    ssd3d = ssd3d_phase(torch, Path(once_tree.name) / 'once', rows)
     once_tree.cleanup()
 
     log(f'total {time.perf_counter() - t_start:.1f} s')
@@ -5966,7 +6481,7 @@ def main(argv=None):
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
         **overfit, **waymo_cli, **dev_nms, **iou_head, **asym,
-        **eval_cli, **dp, **narrow, **single}), flush=True)
+        **eval_cli, **dp, **narrow, **single, **ssd3d}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

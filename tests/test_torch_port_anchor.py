@@ -732,11 +732,11 @@ def test_chip_smoke_pointpillar_config_equals_the_test_config():
 
 def test_build_and_refusals():
     """``build_detector`` builds PointPillar and SECONDNet (with
-    graph_rcnn_once.yaml's first stage); SSD3D and GraphRCNN still raise,
-    naming ROADMAP.md module 10."""
+    graph_rcnn_once.yaml's first stage); GraphRCNN still raises, naming
+    ROADMAP.md module 10 (SSD3D: tests/test_torch_port_ssd3d.py)."""
     assert type(tdet.build_detector(pointpillar_cfg(), 'cpu')).__name__ == (
         'PointPillar')
-    for name in ('SSD3D', 'GraphRCNN'):
+    for name in ('GraphRCNN',):
         cfg = second_cfg()
         cfg.MODEL.NAME = name
         with pytest.raises(NotImplementedError, match='module 10'):

@@ -344,7 +344,7 @@ def test_cli_main_evaluates_a_port_checkpoint(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('flags,match', [
-    (['--set', 'MODEL.NAME', 'SSD3D'], 'SSD3D')],
+    (['--set', 'MODEL.NAME', 'GraphRCNN'], 'GraphRCNN')],
     ids=['detector'])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, match):
     monkeypatch.setattr(cli, 'OUTPUT_ROOT', tmp_path / 'output')

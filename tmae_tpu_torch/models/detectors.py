@@ -15,8 +15,12 @@
   loss :func:`tmae_loss`;
 * ``PointPillar`` and ``SECONDNet``, the anchor-head families over the host
   voxelizer's voxels, with :func:`anchor_loss` and, when serving, the top
-  K of the class scores (:func:`anchor_predict`) handed to the host NMS.
-  ``SSD3D`` and ``GraphRCNN`` are not ported yet (ROADMAP.md, module 10).
+  K of the class scores (:func:`anchor_predict`) handed to the host NMS;
+* ``SSD3D``, the point detector (``models/ssd3d.py``): the fusion-sampling
+  PointNet++ backbone on the raw points and the vote head, with
+  :func:`ssd3d_loss` and, when serving, the votes cut by score and sorted
+  (:func:`ssd3d_candidates`) for the host NMS.
+  ``GraphRCNN`` is not ported yet (ROADMAP.md, module 10).
 
 Batch layout (dict of tensors, as the JAX package's host pipeline ships it):
 ``points``/``points_prev`` [B, P, C] (C = :func:`num_point_features`: x, y,
@@ -52,6 +56,7 @@ from .pointpillar import PointPillar
 from .second_net import SECONDNet
 from .siamwca import SiamWCA, SiamWCA_MAE, mae_loss, remat_stages, stage_caps
 from .spt_backbone import SPTBackbone, SPTBackboneMAE, fuse_width
+from .ssd3d import SSD3D, ssd3d_loss
 from .sst import VoxelSet
 from .vfe import DynVFE, TemporalDynVFE
 
@@ -268,10 +273,11 @@ def _anchor_family(cls):
 
 DETECTORS = {'CenterPoint': CenterPoint, 'TMAE': TMAE, 'GDMAE': GDMAE,
              'PointPillar': _anchor_family(PointPillar),
-             'SECONDNet': _anchor_family(SECONDNet)}
+             'SECONDNet': _anchor_family(SECONDNet),
+             'SSD3D': lambda cfg: SSD3D(cfg, num_point_features(cfg) - 3)}
 ANCHOR_DETECTORS = ('PointPillar', 'SECONDNet')
 MAE_DETECTORS = ('TMAE', 'GDMAE')
-NOT_PORTED = ('SSD3D', 'GraphRCNN')
+NOT_PORTED = ('GraphRCNN',)
 
 
 def build_detector(cfg, device=None) -> nn.Module:
@@ -303,13 +309,14 @@ def anchor_loss(cfg, head, outputs, batch):
 
 def detector_loss(cfg, model):
     """``loss_fn(outputs, batch) -> (loss, parts)`` of the model's family:
-    :func:`tmae_loss`, :func:`anchor_loss` (with the model's head) or
-    :func:`centerpoint_loss`."""
+    :func:`tmae_loss`, :func:`anchor_loss` (with the model's head),
+    :func:`ssd3d_loss` or :func:`centerpoint_loss`."""
     name = cfg['MODEL']['NAME']
     if name in ANCHOR_DETECTORS:
         return lambda out, batch: anchor_loss(cfg, model.dense_head, out,
                                               batch)
-    loss = tmae_loss if name in MAE_DETECTORS else centerpoint_loss
+    loss = (tmae_loss if name in MAE_DETECTORS
+            else ssd3d_loss if name == 'SSD3D' else centerpoint_loss)
     return lambda out, batch: loss(cfg, out, batch)
 
 
@@ -473,9 +480,9 @@ def anchor_predict(cfg, head, outputs):
 def nms_config(cfg) -> dict:
     """``NMS_CONFIG`` of the dense head's ``POST_PROCESSING``, or of the
     model's (the anchor families' configs keep it there, as the reference
-    reads it)."""
-    post = cfg['MODEL']['DENSE_HEAD'].get('POST_PROCESSING') or cfg[
-        'MODEL']['POST_PROCESSING']
+    reads it; SSD3D's config has no dense head)."""
+    head = cfg['MODEL'].get('DENSE_HEAD') or {}
+    post = head.get('POST_PROCESSING') or cfg['MODEL']['POST_PROCESSING']
     return post['NMS_CONFIG']
 
 

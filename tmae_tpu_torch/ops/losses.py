@@ -1,5 +1,6 @@
-"""The IoU-head loss (counterpart of ``tmae_tpu/ops/losses.py``'s
-``centernet_iou_loss``)."""
+"""Losses of the heads (counterpart of ``tmae_tpu/ops/losses.py``): the
+weighted smooth-L1, the 3D box corners of the corner loss, and the IoU-head
+loss."""
 
 from __future__ import annotations
 
@@ -7,6 +8,38 @@ import torch
 
 from ..parallel.dist import global_sum
 from .geometry import boxes_iou3d_aligned
+
+
+def weighted_smooth_l1(pred, target, weights=None, beta: float = 1.0 / 9.0,
+                       code_weights=None):
+    """Elementwise smooth-L1 of ``pred - target`` [..., D] (quadratic below
+    ``beta``), times per-code weights [D] and per-row ``weights`` [...].
+    Returns [..., D]."""
+    diff = pred - target
+    if code_weights is not None:
+        diff = diff * torch.as_tensor(code_weights, dtype=diff.dtype,
+                                      device=diff.device)
+    ad = diff.abs()
+    loss = torch.where(ad < beta, 0.5 * ad * ad / beta, ad - 0.5 * beta)
+    if weights is not None:
+        loss = loss * weights[..., None]
+    return loss
+
+
+_CORNERS = ((1, 1, -1), (1, -1, -1), (-1, -1, -1), (-1, 1, -1),
+            (1, 1, 1), (1, -1, 1), (-1, -1, 1), (-1, 1, 1))
+
+
+def boxes_to_corners_3d(boxes):
+    """[..., 7] → the 8 corners [..., 8, 3]: bottom face then top, in the
+    box's heading."""
+    tmpl = torch.tensor(_CORNERS, dtype=boxes.dtype, device=boxes.device) / 2.0
+    local = tmpl * boxes[..., None, 3:6]
+    c = torch.cos(boxes[..., 6])[..., None]
+    s = torch.sin(boxes[..., 6])[..., None]
+    rx = local[..., 0] * c - local[..., 1] * s
+    ry = local[..., 0] * s + local[..., 1] * c
+    return torch.stack([rx, ry, local[..., 2]], -1) + boxes[..., None, 0:3]
 
 
 def centernet_iou_loss(iou_pred, mask, pred_boxes, gt_boxes):

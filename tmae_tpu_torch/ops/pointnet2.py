@@ -1,0 +1,294 @@
+"""PointNet++ primitives on batched fixed-size tensors (counterpart of
+``tmae_tpu/ops/pointnet2.py``): farthest point sampling on coordinates
+(D-FPS) and on a coordinate + feature distance (F-FPS), ball query with its
+dilated form, the gathers, three-NN interpolation and query-and-group.
+
+Shapes: points ``[B, N, 3]``, features ``[B, N, C]``, masks ``[B, N]``.
+Sample and neighbour indices are int32, as the JAX package returns them.
+
+The three samplers are wrappers over hand-written kernels
+(``csrc/pointnet2.cu``) on CUDA tensors and take their plain versions on
+CPU tensors:
+
+* ``DFPS``: :func:`farthest_point_sample`;
+* ``FFPS``: :func:`farthest_point_sample_ffps`, the F-FPS of
+  ``calc_dist_matrix_for_sampling`` then ``farthest_point_sample_matrix``
+  in one call;
+* ``BALL_QUERY``: :func:`ball_query`.
+
+They make discrete choices from f32 sums, so the plain versions and the
+kernels sum in one written-out order (the coordinates x, y, z, then the
+feature channels in order, then ``xyz + gamma * feat``), with no product
+and sum contracted into a fused multiply-add, and give the same indices bit
+for bit. An argmax tie takes the smallest index, as ``jnp.argmax`` does.
+The gathers are PyTorch indexing (autograd's scatter-add is their
+backward); none of the samplers carries a gradient.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import as_kernel_arg, on_card
+from ..utils.build import CudaKernel, F, I, P, stream_handle
+
+DFPS = CudaKernel('pointnet2.cu', 'launch_dfps', [P, P, I, I, I, P, P])
+FFPS = CudaKernel('pointnet2.cu', 'launch_ffps',
+                  [P, P, P, I, I, I, I, F, P, P, P])
+BALL_QUERY = CudaKernel('pointnet2.cu', 'launch_ball_query',
+                        [P, P, P, P, I, I, I, I, F, F, I, P, P, P])
+
+BIG = 1e10
+FPS_MAX_POINTS = 16384   # DFPS / FFPS: 16 running distances a thread of 1024
+# the plain ball query takes its centres in chunks of at most this many
+# (centre, point) pairs, so that no [B, M, N] tensor of a large level is
+# made at once
+QUERY_CHUNK_PAIRS = 1 << 24
+
+
+def square_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, N, D] x [B, M, D] → [B, N, M] squared L2 of ``a_i - b_j``,
+    summed channel by channel in order (no [B, N, M, D] tensor)."""
+    d = a[:, :, None, 0] - b[:, None, :, 0]
+    acc = d * d
+    for c in range(1, a.shape[-1]):
+        d = a[:, :, None, c] - b[:, None, :, c]
+        acc = acc + d * d
+    return acc
+
+
+def calc_dist_matrix_for_sampling(xyz, features=None, gamma: float = 1.0):
+    """F-FPS's distance [B, N, N]: the coordinates' squared distance plus
+    ``gamma`` times the features'."""
+    dist = square_distance(xyz, xyz)
+    if features is not None:
+        dist = dist + square_distance(features, features) * gamma
+    return dist
+
+
+def _fps_walk(row_of, mask: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """The FPS loop: start at the first valid point; each step keeps the
+    running minimum of the distances to the chosen points (``row_of(last)``
+    [B, N]; invalid points at -BIG) and takes its argmax."""
+    B, N = mask.shape
+    dist = torch.where(mask, BIG, -BIG).to(torch.float32)
+    neg = torch.tensor(-BIG, dtype=torch.float32, device=mask.device)
+    last = mask.to(torch.uint8).argmax(1)
+    out = torch.zeros(B, num_samples, dtype=torch.int32, device=mask.device)
+    if num_samples:
+        out[:, 0] = last
+    for i in range(1, num_samples):
+        dist = torch.minimum(dist, torch.where(mask, row_of(last), neg))
+        last = dist.argmax(1)
+        out[:, i] = last
+    return out
+
+
+def farthest_point_sample_plain(points, mask, num_samples: int):
+    """D-FPS: [B, N, 3] → indices [B, S] int32."""
+    rows = torch.arange(points.shape[0], device=points.device)
+
+    def row_of(last):
+        p = points[rows, last]
+        d = points[..., 0] - p[:, None, 0]
+        acc = d * d
+        for c in (1, 2):
+            d = points[..., c] - p[:, None, c]
+            acc = acc + d * d
+        return acc
+
+    return _fps_walk(row_of, mask, num_samples)
+
+
+def farthest_point_sample_matrix(dist_matrix, mask, num_samples: int):
+    """FPS over a given distance matrix [B, N, N] → indices [B, S]
+    int32."""
+    rows = torch.arange(dist_matrix.shape[0], device=dist_matrix.device)
+    return _fps_walk(lambda last: dist_matrix[rows, last], mask,
+                     num_samples)
+
+
+def farthest_point_sample_ffps_plain(xyz, features, mask, num_samples: int,
+                                     gamma: float = 1.0):
+    """F-FPS: ``calc_dist_matrix_for_sampling`` then the FPS walk over its
+    rows."""
+    return farthest_point_sample_matrix(
+        calc_dist_matrix_for_sampling(xyz, features, gamma), mask,
+        num_samples)
+
+
+def _fps_args(points, mask, num_samples):
+    B, N = mask.shape
+    if N > FPS_MAX_POINTS:
+        raise ValueError(f'FPS on the card takes at most {FPS_MAX_POINTS} '
+                         f'points a sample, got {N}')
+    if points.shape[:2] != (B, N) or points.shape[-1] != 3:
+        raise ValueError(f'points {tuple(points.shape)} and mask '
+                         f'{tuple(mask.shape)} do not match')
+    return (as_kernel_arg(points, torch.float32),
+            as_kernel_arg(mask, torch.bool),
+            torch.empty(B, num_samples, dtype=torch.int32,
+                        device=points.device))
+
+
+def farthest_point_sample(points, mask, num_samples: int) -> torch.Tensor:
+    """D-FPS: [B, N, 3] + mask [B, N] → indices [B, S] int32 (kernel
+    ``DFPS`` on the card). Invalid points are chosen only once every valid
+    one has been, or when there is none (then index 0)."""
+    if not on_card(points, mask):
+        return farthest_point_sample_plain(points, mask, num_samples)
+    pts, m, out = _fps_args(points.detach(), mask, num_samples)
+    B, N = m.shape
+    if B and N and num_samples:
+        DFPS(pts.data_ptr(), m.data_ptr(), B, N, num_samples,
+             out.data_ptr(), stream_handle())
+    else:
+        out.zero_()
+    return out
+
+
+def farthest_point_sample_ffps(xyz, features, mask, num_samples: int,
+                               gamma: float = 1.0) -> torch.Tensor:
+    """F-FPS: coordinates [B, N, 3] and features [B, N, C] (or None) + mask
+    → indices [B, S] int32 (kernel ``FFPS`` on the card: the distance
+    matrix, then the walk over its rows, in one call)."""
+    if not on_card(xyz, features, mask):
+        return farthest_point_sample_ffps_plain(xyz, features, mask,
+                                                num_samples, gamma)
+    pts, m, out = _fps_args(xyz.detach(), mask, num_samples)
+    B, N = m.shape
+    feat = (None if features is None
+            else as_kernel_arg(features.detach(), torch.float32))
+    C = 0 if feat is None else feat.shape[-1]
+    if feat is not None and feat.shape[:2] != (B, N):
+        raise ValueError(f'features {tuple(feat.shape)} do not match the '
+                         f'points {tuple(pts.shape)}')
+    if B and N and num_samples:
+        scratch = torch.empty(B, N, N, dtype=torch.float32, device=m.device)
+        FFPS(pts.data_ptr(), 0 if feat is None else feat.data_ptr(),
+             m.data_ptr(), B, N, C, num_samples, float(gamma),
+             scratch.data_ptr(), out.data_ptr(), stream_handle())
+    else:
+        out.zero_()
+    return out
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to f32, as JAX takes a Python scalar beside an
+    f32 array."""
+    return float(np.float32(x))
+
+
+def ball_query_plain(radius: float, nsample: int, xyz, xyz_mask, centers,
+                     center_mask, min_radius: float = 0.0):
+    """The first ``nsample`` point indices in ascending order within
+    ``radius`` of each centre (``min_radius < d <= radius`` when
+    ``min_radius > 0``), wrap-repeated to fill; 0 for an empty ball and for
+    an invalid centre. ``cnt`` counts every point in the ball. Returns
+    (idx [B, M, nsample], cnt [B, M]), int32."""
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    dev = xyz.device
+    r2 = torch.tensor(_f32(radius * radius), dtype=torch.float32, device=dev)
+    rmin2 = torch.tensor(_f32(min_radius * min_radius), dtype=torch.float32,
+                         device=dev)
+    idx = torch.zeros(B, M, nsample, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    if not (B and M and N and nsample):
+        return idx, cnt
+    order = torch.arange(N, device=dev)
+    slots = torch.arange(nsample, device=dev)
+    k = min(nsample, N)
+    chunk = max(1, QUERY_CHUNK_PAIRS // (B * N))
+    for m0 in range(0, M, chunk):
+        c = centers[:, m0:m0 + chunk]
+        d2 = square_distance(c, xyz)
+        inb = (d2 <= r2) & xyz_mask[:, None, :]
+        if min_radius > 0.0:
+            inb &= d2 > rmin2
+        n_in = inb.sum(-1)
+        first = torch.where(inb, order, N).topk(k, -1, largest=False).values
+        n = n_in.clamp(1, k)
+        got = first.gather(-1, (slots % n[..., None]))
+        live = (n_in > 0) & center_mask[:, m0:m0 + chunk]
+        idx[:, m0:m0 + chunk] = torch.where(live[..., None], got, 0).int()
+        cnt[:, m0:m0 + chunk] = n_in.int()
+    return idx, cnt
+
+
+def ball_query(radius: float, nsample: int, xyz, xyz_mask, centers,
+               center_mask, min_radius: float = 0.0):
+    """:func:`ball_query_plain`'s function (kernel ``BALL_QUERY`` on the
+    card). Returns (idx [B, M, nsample], cnt [B, M]), int32."""
+    if not on_card(xyz, xyz_mask, centers, center_mask):
+        return ball_query_plain(radius, nsample, xyz, xyz_mask, centers,
+                                center_mask, min_radius)
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    if (xyz.shape[-1] != 3 or centers.shape != (B, M, 3)
+            or xyz_mask.shape != (B, N) or center_mask.shape != (B, M)):
+        raise ValueError(f'ball query of centres {tuple(centers.shape)} '
+                         f'over points {tuple(xyz.shape)}: shapes differ')
+    pts = as_kernel_arg(xyz.detach(), torch.float32)
+    ctr = as_kernel_arg(centers.detach(), torch.float32)
+    pm = as_kernel_arg(xyz_mask, torch.bool)
+    cm = as_kernel_arg(center_mask, torch.bool)
+    idx = torch.empty(B, M, nsample, dtype=torch.int32, device=pts.device)
+    cnt = torch.empty(B, M, dtype=torch.int32, device=pts.device)
+    if B and M and nsample:
+        BALL_QUERY(pts.data_ptr(), pm.data_ptr(), ctr.data_ptr(),
+                   cm.data_ptr(), B, N, M, nsample, _f32(radius * radius),
+                   _f32(min_radius * min_radius), int(min_radius > 0.0),
+                   idx.data_ptr(), cnt.data_ptr(), stream_handle())
+    else:
+        idx.zero_()
+        cnt.zero_()
+    return idx, cnt
+
+
+def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """features [B, N, C], idx [B, S] → [B, S, C]."""
+    i = idx.long()[..., None].expand(-1, -1, features.shape[-1])
+    return torch.gather(features, 1, i)
+
+
+def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """features [B, N, C], idx [B, M, K] → [B, M, K, C]."""
+    B, M, K = idx.shape
+    return gather_points(features, idx.reshape(B, M * K)).reshape(
+        B, M, K, features.shape[-1])
+
+
+def three_nn(unknown, known, known_mask):
+    """The 3 nearest valid known points of each unknown point (ties: the
+    lower index first). Returns (dist [B, N, 3], idx [B, N, 3] int32)."""
+    d2 = square_distance(unknown, known)
+    d2 = torch.where(known_mask[:, None, :], d2,
+                     torch.tensor(BIG, dtype=d2.dtype, device=d2.device))
+    val, idx = d2.sort(dim=-1, stable=True)
+    return val[..., :3].clamp(min=0.0).sqrt(), idx[..., :3].int()
+
+
+def three_interpolate(features, idx, dist):
+    """Inverse-squared-distance weighted sum of 3 neighbours' features:
+    features [B, M, C], idx / dist [B, N, 3] → [B, N, C]."""
+    w = 1.0 / (dist * dist).clamp(min=1e-8)
+    w = w / w.sum(-1, keepdim=True)
+    return (group_points(features, idx) * w[..., None]).sum(2)
+
+
+def query_and_group(radius: float, nsample: int, xyz, xyz_mask, centers,
+                    center_mask, features=None, use_xyz: bool = True,
+                    min_radius: float = 0.0):
+    """Ball query, grouping and centre-relative coordinates: (grouped
+    [B, M, K, 3 (+C)], zeros for an empty ball or invalid centre; idx;
+    cnt)."""
+    idx, cnt = ball_query(radius, nsample, xyz, xyz_mask, centers,
+                          center_mask, min_radius)
+    grouped = group_points(xyz, idx) - centers[:, :, None, :]
+    if features is not None:
+        feats = group_points(features, idx)
+        grouped = torch.cat([grouped, feats], -1) if use_xyz else feats
+    empty = (cnt == 0) | ~center_mask
+    return torch.where(empty[..., None, None], 0.0, grouped), idx, cnt

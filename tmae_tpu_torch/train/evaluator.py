@@ -1,8 +1,8 @@
 """Evaluation loop (counterpart of ``tmae_tpu/train/evaluator.py``): per
 batch the forward and decode on the model's device (CenterPoint's decode,
-or the anchor families' top K of each anchor's best class score), one copy
-of the candidates to the host, native host NMS, prediction dicts and the
-recall bookkeeping; then ``result.pkl`` and the dataset's AP: ONCE AP, or
+the anchor families' top K of each anchor's best class score, or SSD3D's
+votes cut by score and sorted), one copy of the candidates to the host,
+native host NMS, prediction dicts and the recall bookkeeping; then ``result.pkl`` and the dataset's AP: ONCE AP, or
 Waymo AP and APH at LEVEL_1 / LEVEL_2.
 
 Under data parallelism each rank evaluates its shard of the dataset
@@ -26,6 +26,7 @@ import torch
 from ..models.detectors import (ANCHOR_DETECTORS, anchor_predict,
                                 batch_to_device, centerpoint_predict,
                                 host_nms)
+from ..models.ssd3d import ssd3d_candidates
 from ..ops.geometry_np import boxes_iou3d
 from ..parallel import dist
 from ..utils import native
@@ -50,9 +51,11 @@ def make_eval_step(model, cfg):
     candidates (``centerpoint_predict`` or ``anchor_predict``) and the
     overflow count under ``no_grad`` on the model's device, then one copy
     of all of it to the host (the only synchronisation of the step).
-    ``batch``: tensors on the model's device."""
+    SSD3D's candidates are its votes of score >= ``SCORE_THRESH``, sorted by
+    score with the valid ones first, the top ``NMS_PRE_MAXSIZE``
+    (``ssd3d_candidates``). ``batch``: tensors on the model's device."""
     name = cfg['MODEL']['NAME']
-    if name not in ('CenterPoint',) + ANCHOR_DETECTORS:
+    if name not in ('CenterPoint', 'SSD3D') + ANCHOR_DETECTORS:
         raise NotImplementedError(f'{name} has no evaluation: it is not a '
                                   'detector')
     model.eval()
@@ -60,6 +63,8 @@ def make_eval_step(model, cfg):
     def candidates(out):
         if name in ANCHOR_DETECTORS:
             return anchor_predict(cfg, model.dense_head, out)
+        if name == 'SSD3D':
+            return ssd3d_candidates(cfg, out)
         return centerpoint_predict(cfg, out, nms_on_device=False)
 
     @torch.no_grad()

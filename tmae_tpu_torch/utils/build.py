@@ -27,12 +27,13 @@ CSRC = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
 SOURCES = ('windows.cu', 'encoder_layer_tiled.cu', 'encoder_layer_bwd.cu',
            'encoder_layer_narrow.cu', 'segment_max.cu', 'subm_conv.cu',
-           'iou_nms.cu')
+           'iou_nms.cu', 'pointnet2.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-# iou_nms.cu repeats its plain version's roundings: no contraction of a
-# product and a sum into one fused multiply-add
-SOURCE_FLAGS = {'iou_nms.cu': ('-fmad=false',)}
+# iou_nms.cu and pointnet2.cu repeat their plain versions' roundings: no
+# contraction of a product and a sum into one fused multiply-add
+SOURCE_FLAGS = {'iou_nms.cu': ('-fmad=false',),
+                'pointnet2.cu': ('-fmad=false',)}
 
 
 def _flags(source: str) -> tuple:
