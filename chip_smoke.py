@@ -6,6 +6,10 @@ paths on one NVIDIA H100 and check them.
     python3 chip_smoke.py --profile  # also writes per-kernel time tables
     python3 chip_smoke.py --nms-parent PATH  # phase 16 also runs PATH's
                                              # iou_nms.cu (a parent's)
+    python3 chip_smoke.py --narrow-parent PATH  # phase 18b also times its
+                                    # step with PATH's encoder_layer_narrow.cu
+    python3 chip_smoke.py --pn2-parent PATH  # phases 20b and 20c also time a
+                                    # frame and a step with PATH's DFPS
 
 Phases (any failure exits non-zero and prints no result line):
   1. card: fail without CUDA; print ``nvidia-smi`` name and power limit.
@@ -234,13 +238,19 @@ Phases (any failure exits non-zero and prints no result line):
      stage-1 plans of phase 4's pair with that grid's features cut to C
      by a seeded matrix, each with the exact checks and limits its tiled
      mode is held to; the (64, 8) self full bucket's forward and backward
-     timed into the kernels line.
+     timed into the kernels line (the backward's device ms by launch and
+     host enqueue ms beside); K6 / K7 also on 76 of the full bucket's
+     windows with a query, all live (regime (b): fewer windows, every one
+     live, as the stage-1 grid of a t_mae_mini.yaml step hands NARROW_BWD),
+     at each width.
      18b. t_mae.yaml with ASYMMETRIC {ENABLED, HALF_CHANNELS} at full
      width and depth (the previous frame's stage 1 at C = 64 on
      NARROW_FWD / NARROW_BWD): a served pair and a finetune step with their
      launches counted, head maps and a step card vs CPU on 64x64 (the step
      held to the bf16 control), and with SimSiam added the same modules
-     and, under deterministic algorithms, the same loss bits.
+     and, under deterministic algorithms, the same loss bits; the ms of a
+     warm step (median of 3; with ``--narrow-parent``, also with that
+     source's NARROW_BWD: parent, this, this, parent).
      18c. t_mae.yaml with the single-bucket plan (OCC_SMALL_CAPS and
      OCC_MID_CAPS removed): a served pair and a step counted, occ_overflow
      printed, head maps card vs CPU on 64x64.
@@ -283,14 +293,20 @@ Phases (any failure exits non-zero and prints no result line):
      levels (dilated) and of the vote SA; indices and counts bit for bit,
      also on planted cases (300 valid points of 4096 for 512 samples, an
      integer grid of exact ties, no valid point, no features, a fifth of
-     the points and a tenth of the centres invalid); kernel, plain and
+     the points and a tenth of the centres invalid; for DFPS's cluster the
+     same points again in other CTAs of the cluster, a sample of one valid
+     point beside one of none, the frame beside a sample with other
+     invalid points at batch 2, 12345 and 100 points); kernel, plain and
      bound ms and the peak memory of each.
      20b. the seeded full-width detector serves a synthetic frame: one pass
      counted (EXPECTED_SSD3D), timed passes, peak memory; the card's votes,
      class and box predictions against the CPU's on the card's centres
      (SSD3D_VOTE_TOL, SSD3D_PRED_TOL, SSD3D_FLIPS).
      20c. on a loader batch of 14a's tree, SSD3D_STEPS training steps (step
-     0 counted, loss parts, the loss falling, ms, peak memory); one step
+     0 counted, loss parts, the loss falling, ms, peak memory; with
+     ``--pn2-parent``, a step's device ms by launch and host enqueue ms,
+     and 20b's frame and 20c's step also timed with that source's DFPS:
+     parent, this, this, parent); one step
      card vs CPU vs the control (the vote head's weights rounded to bf16)
      on the card's centres; ``tools.train`` 1 epoch on the tree (each
      step's launches and loss parts).
@@ -1276,7 +1292,7 @@ def train_check(torch, el, call, gen, entry, profile=False, tag='',
         entry('encoder_narrow_bwd', 'NARROW_BWD', NARROW_SRC, site + '418',
               berr, ms_b, time_ms(torch, bp, iters=2, warmup=1), bwd_bytes,
               bwd_flops, None, pallas_site=False, mode='K7 (T=64)',
-              label=label)
+              label=label, **launch_times(torch, f'NARROW_BWD {label}', bk))
 
 
 def full_bits_check(torch, el, args, p, kw, out, label):
@@ -4914,6 +4930,9 @@ EXPECTED_SINGLE_STEP = {**EXPECTED_TRAIN_LAUNCHES, 'K8': 0, 'K9': 0}
 # forward, the 6 SST layers again in the remat replay, and one backward
 # over the windows with a query each.
 EXPECTED_MINI_STEP = {**NO_LAUNCHES, 'NARROW_FWD': 12 + 6, 'NARROW_BWD': 12}
+# the windows with a query of a t_mae_mini.yaml step's stage-1 grid (its
+# self layers' backward, at batch 2): 18a's regime (b)
+MINI_GRID_WINDOWS = 76
 
 
 def narrow_layer(torch, C, nhead, cross, seed, dev='cuda'):
@@ -5006,10 +5025,16 @@ def narrow_kernel_phase(torch, batch, caps, rows):
                 (layers[1], wplan, xp[:1].contiguous(),
                  xp[1:].contiguous())):
             for si in (lplan.small, lplan.mid, lplan.full):
-                train_check(torch, el,
-                            training_call(torch, el, oc, layer, si, xs, kvs),
-                            g, entry, tag=ttag,
+                call = training_call(torch, el, oc, layer, si, xs, kvs)
+                train_check(torch, el, call, g, entry, tag=ttag,
                             narrow_rows=(C, nh) == (64, 8) and kvs is None)
+        # regime (b): every window with a query cell, fewer of them (the
+        # stage-1 grid of a t_mae_mini.yaml step hands NARROW_BWD 76)
+        call = training_call(torch, el, oc, layers[0], plan.full, xp, None)
+        live = call[4].any(-1).nonzero()[:MINI_GRID_WINDOWS, 0]
+        train_check(torch, el, (call[0][live], None, None, None,
+                                call[4][live], None, *call[6:]),
+                    g, entry, tag=ttag + '(b) ')
         for layer, cross, shift in ((layers[0], False, False),
                                     (layers[1], True, True)):
             weights = [w.detach() for w in layer.layer_weights()]
@@ -5066,7 +5091,36 @@ def served_counted(torch, cfg, np_batch, expected, what):
     return out, launches
 
 
-def half_channels_phase(torch, cfg, np_batch):
+def half_step_ms(torch, cfg, model, batch, parent=None, steps=3):
+    """The ms of a warm finetune step of ``model`` (median of ``steps``,
+    after one untimed), and with ``parent`` (another
+    encoder_layer_narrow.cu) also with its NARROW_BWD, in the order parent,
+    this, this, parent: {'change': ms, 'parent': ms}."""
+    from tmae_tpu_torch.utils import bwd_phases
+
+    step = make_trainer(cfg, model)
+    kernels = {'change': None}
+    if parent:
+        kernels['parent'] = bwd_phases.parent_narrow(parent)
+    times = {v: [] for v in kernels}
+    for v in (['parent', 'change', 'change', 'parent'] if parent
+              else ['change']):
+        with bwd_phases.narrow_using(kernels[v]):
+            step(batch)
+            torch.cuda.synchronize()
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                times[v].append((time.perf_counter() - t0) * 1e3)
+    med = {v: statistics.median(t) for v, t in times.items()}
+    log('  HALF_CHANNELS step: ' + '; '.join(
+        f'{v} {med[v]:.2f} ms (' + ', '.join(f'{t:.2f}' for t in times[v])
+        + ')' for v in med) + f' a warm step; {card_line()}')
+    return med
+
+
+def half_channels_phase(torch, cfg, np_batch, narrow_parent=None):
     """18b: t_mae.yaml with ASYMMETRIC {ENABLED, HALF_CHANNELS} at full
     width and depth, seeded weights: one served pair (launches counted,
     NARROW_FWD among them) and its head maps card vs CPU at full width on a
@@ -5084,9 +5138,11 @@ def half_channels_phase(torch, cfg, np_batch):
     card_vs_cpu(torch, *small_grid(var), seed=7)
     torch.cuda.empty_cache()
     batch = train_batch(var)
-    _, metrics, step = one_counted_step(torch, var, batch,
-                                        EXPECTED_HALF_STEP,
-                                        'HALF_CHANNELS step')
+    model, metrics, step = one_counted_step(torch, var, batch,
+                                            EXPECTED_HALF_STEP,
+                                            'HALF_CHANNELS step')
+    step_ms = half_step_ms(torch, var, model, batch, narrow_parent)
+    del model
     torch.cuda.empty_cache()
     both = []
     was = (torch.are_deterministic_algorithms_enabled(),
@@ -5112,7 +5168,9 @@ def half_channels_phase(torch, cfg, np_batch):
     log('  HALF_CHANNELS step: card vs CPU vs control, full width on a '
         '64x64 grid')
     train_card_vs_cpu(torch, *small_grid(var), seed=7)
-    return served, step, {'half_channels_loss': metrics['loss']}
+    return served, step, {'half_channels_loss': metrics['loss'],
+                          **{f'half_channels_step_ms_{v}': ms
+                             for v, ms in step_ms.items()}}
 
 
 def single_bucket_phase(torch, cfg, np_batch):
@@ -5209,7 +5267,7 @@ def mini_cli_phase(torch):
                       'mini_eval_s': secs}
 
 
-def narrow_phase(torch, cfg, np_batch, batch, rows):
+def narrow_phase(torch, cfg, np_batch, batch, rows, narrow_parent=None):
     """Phase 18 (a-d); the NARROW rows of the kernels line take the
     HALF_CHANNELS step's launches, with the served pair's and a mini
     step's beside them."""
@@ -5225,7 +5283,8 @@ def narrow_phase(torch, cfg, np_batch, batch, rows):
     t0 = time.perf_counter()
     log('phase 18b: ASYMMETRIC {ENABLED, HALF_CHANNELS} (t_mae.yaml, full '
         'width and depth)')
-    served, step, out = half_channels_phase(torch, cfg, np_batch)
+    served, step, out = half_channels_phase(torch, cfg, np_batch,
+                                            narrow_parent)
     log(f'  phase 18b {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5806,12 +5865,30 @@ def pn2_cases(torch, xyz0, mask0):
     ints = torch.randint(0, 3, (1, 4096, 64), generator=g,
                          device='cuda').float()
     none = torch.zeros_like(m1)
+    # DFPS's cluster: the same points again 5000 indices on (another CTA
+    # of the cluster), a sample of one valid point beside one of none, the
+    # frame beside a second sample with a fifth of its points invalid, N
+    # not a multiple of the cluster's threads and N below one CTA's
+    dup = xyz0.clone()
+    dup[:, 5000:9000] = xyz0[:, :4000]
+    one = torch.zeros(2, 4096, dtype=torch.bool, device='cuda')
+    one[0, 3001] = True
+    pair = torch.cat([xyz0, pn2_inputs(torch, g, 16384)])
+    pair_m = torch.cat([mask0, torch.rand(1, 16384, generator=g,
+                                          device='cuda') > 0.2])
     fps = [('16384->4096 (level 0)', (xyz0, mask0, 4096)),
            ('4096->512 (level 1)', (xyz1, m1, 512)),
            ('512->256 (level 2)', (xyz2[:, 512:], m2[:, 512:], 256)),
            ('300 valid of 4096 -> 512', (xyz1, few, 512)),
            ('integer grid, exact ties', (grid, m1, 512)),
-           ('no valid point', (xyz1, none, 64))]
+           ('no valid point', (xyz1, none, 64)),
+           ('duplicated points in other CTAs, 16384->4096',
+            (dup, mask0, 4096)),
+           ('one valid point, and none, B=2', (xyz1.repeat(2, 1, 1), one,
+                                               64)),
+           ('B=2, other masks, 16384->4096', (pair, pair_m, 4096)),
+           ('12345->1024', (xyz0[:, :12345], mask0[:, :12345], 1024)),
+           ('100->64', (xyz0[:, :100], mask0[:, :100], 64))]
     ffps = [('4096->512 C=64 (level 1)', (xyz1, f1, m1, 512)),
             ('512->256 C=128 (level 2)', (xyz2[:, :512], f2[:, :512],
                                           m2[:, :512], 256)),
@@ -5891,7 +5968,7 @@ def pn2_kernel_phase(torch, xyz0, mask0, rows):
             pn2_bits(torch, f'{name} {label}', got, want)
             few = name != 'BALL_QUERY'  # the plain FPS: a launch a step
             k_ms = time_ms(torch, lambda: kernel(*args), iters=10, warmup=1)
-            p_ms = time_ms(torch, lambda: plain(*args), iters=2 if few else 5,
+            p_ms = time_ms(torch, lambda: plain(*args), iters=1 if few else 5,
                            warmup=1)
             times[label] = (k_ms, p_ms)
             log(f'  {name} {label}: bit-equal; kernel {k_ms:.4f} ms, plain '
@@ -6022,10 +6099,58 @@ def ssd3d_card_vs_cpu(torch, cfg, np_batch, card_out):
             'ssd3d_group_flips': flips}
 
 
-def ssd3d_serving_phase(torch, cfg, np_batch):
+def dfps_parent(path):
+    """D-FPS through another pointnet2.cu's DFPS (a parent checkout's),
+    called as the backbone calls ``farthest_point_sample``."""
+    from tmae_tpu_torch.utils.pn2_phases import parent_dfps
+
+    run = parent_dfps(path)
+    return lambda points, mask, n: run(points.detach().float().contiguous(),
+                                       mask.contiguous(), n)
+
+
+@contextlib.contextmanager
+def backbone_dfps(fn):
+    """The SSD3D backbone samples with ``fn`` inside the block (None: the
+    repo's ``farthest_point_sample``)."""
+    from tmae_tpu_torch.models import pointnet2_backbone as pb
+
+    saved = pb.farthest_point_sample
+    if fn is not None:
+        pb.farthest_point_sample = fn
+    try:
+        yield
+    finally:
+        pb.farthest_point_sample = saved
+
+
+def ssd3d_parent_times(torch, call, parent, what, reps):
+    """The ms of ``call`` (a served frame or a step; median of ``reps``
+    after one untimed) with the repo's DFPS and with ``parent``'s, in the
+    order parent, this, this, parent: {'parent': ms, 'change': ms}."""
+    fns = {'change': None, 'parent': dfps_parent(parent)}
+    times = {v: [] for v in fns}
+    for v in ('parent', 'change', 'change', 'parent'):
+        with backbone_dfps(fns[v]):
+            call()
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times[v].append((time.perf_counter() - t0) * 1e3)
+    med = {v: statistics.median(t) for v, t in times.items()}
+    log(f'  {what}: ' + '; '.join(
+        f'{v} {med[v]:.2f} ms (' + ', '.join(f'{t:.2f}' for t in times[v])
+        + ')' for v in med) + f'; {card_line()}')
+    return med
+
+
+def ssd3d_serving_phase(torch, cfg, np_batch, pn2_parent=None):
     """20b: the seeded full-width SSD3D serves a synthetic frame: one pass
-    counted (EXPECTED_SSD3D), outputs finite, timed passes, peak memory;
-    then card vs CPU."""
+    counted (EXPECTED_SSD3D), outputs finite, timed passes, peak memory
+    (with ``pn2_parent``, also timed with that source's DFPS); then card
+    vs CPU."""
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
 
@@ -6059,18 +6184,26 @@ def ssd3d_serving_phase(torch, cfg, np_batch):
         f'{min(times):.2f}, max {max(times):.2f}, 10 passes); peak device '
         f'memory {peak:.2f} GiB; {card_line()}')
     res = {'ssd3d_ms_per_frame': med, 'ssd3d_serve_peak_gib': peak}
+    if pn2_parent:
+        res.update({f'ssd3d_ms_per_frame_{v}': ms for v, ms in
+                    ssd3d_parent_times(
+                        torch, lambda: ssd3d_serve(torch, cfg, model, batch),
+                        pn2_parent, 'ms a frame, parent and this DFPS',
+                        10).items()})
     res.update(ssd3d_card_vs_cpu(torch, cfg, np_batch, out))
     return launches, out, res
 
 
-def ssd3d_training_phase(torch, cfg, tree):
+def ssd3d_training_phase(torch, cfg, tree, pn2_parent=None):
     """20c: on a loader batch of 14a's tree (batch CLI_BATCH, with its
     augmentation), SSD3D_STEPS steps of the seeded full-width model (step
     0 counted, the loss parts each step, the loss falling, ms a step, peak
     memory); one step card vs CPU vs the control (the CPU step with the
     vote head's weights rounded once to bf16) on the card's centres; then
     ``tools.train`` 1 epoch on the tree, each step's launches counted and
-    its loss parts printed. Returns (results, the CLI's checkpoint)."""
+    its loss parts printed. With ``pn2_parent``, a step's device ms by
+    launch and host enqueue ms, and the step also timed with that source's
+    DFPS. Returns (results, the CLI's checkpoint)."""
     from tmae_tpu_torch.datasets.dataset import build_dataloader
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
@@ -6090,6 +6223,14 @@ def ssd3d_training_phase(torch, cfg, tree):
                                         SSD3D_STEPS, EXPECTED_SSD3D, 'SSD3D')
     res = {'ssd3d_ms_per_step': med, 'ssd3d_step_peak_gib': peak,
            'ssd3d_losses': [r['loss'] for r in rs]}
+    if pn2_parent:
+        res.update({f'ssd3d_step_{k}': v for k, v in launch_times(
+            torch, 'an SSD3D step', lambda: step(batch)).items()})
+        res.update({f'ssd3d_ms_per_step_{v}': ms for v, ms in
+                    ssd3d_parent_times(torch, lambda: step(batch),
+                                       pn2_parent,
+                                       'ms a step, parent and this DFPS',
+                                       5).items()})
     del model, step, batch
     torch.cuda.empty_cache()
     log('  one step: card vs CPU vs control (the vote head\'s weights rounded '
@@ -6173,7 +6314,7 @@ def ssd3d_eval_phase(torch, ckpt, data, tree):
             **{f'ssd3d_{k}': v for k, v in aps.items()}}
 
 
-def ssd3d_phase(torch, tree, rows):
+def ssd3d_phase(torch, tree, rows, pn2_parent=None):
     """Phase 20 (a-d); DFPS, FFPS and BALL_QUERY's rows of the kernels line
     take the served frame's launches."""
     from tmae_tpu_torch.tools import test as test_cli
@@ -6193,7 +6334,7 @@ def ssd3d_phase(torch, tree, rows):
     t0 = time.perf_counter()
     log('phase 20b: SSD3D serving (ssd3d_once.yaml, full width, seeded, a '
         'synthetic frame of 16384 points)')
-    launches, _, more = ssd3d_serving_phase(torch, cfg, np_batch)
+    launches, _, more = ssd3d_serving_phase(torch, cfg, np_batch, pn2_parent)
     res.update(more)
     fill_launches(rows, launches, ('DFPS', 'FFPS', 'BALL_QUERY'))
     torch.cuda.empty_cache()
@@ -6205,7 +6346,7 @@ def ssd3d_phase(torch, tree, rows):
     saved = train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT
     try:
         train_cli.OUTPUT_ROOT = test_cli.OUTPUT_ROOT = Path(tmp.name) / 'out'
-        more, ckpt, data = ssd3d_training_phase(torch, cfg, tree)
+        more, ckpt, data = ssd3d_training_phase(torch, cfg, tree, pn2_parent)
         res.update(more)
         log(f'  phase 20c {time.perf_counter() - t0:.1f} s')
         t0 = time.perf_counter()
@@ -6229,6 +6370,13 @@ def main(argv=None):
     ap.add_argument('--nms-parent', metavar='PATH',
                     help='phase 16 also builds and runs this iou_nms.cu (a '
                     'parent checkout\'s) beside the repo\'s')
+    ap.add_argument('--narrow-parent', metavar='PATH',
+                    help='phase 18b also times its step with this '
+                    'encoder_layer_narrow.cu\'s NARROW_BWD (a parent '
+                    'checkout\'s)')
+    ap.add_argument('--pn2-parent', metavar='PATH',
+                    help='phases 20b and 20c also time a frame and a step '
+                    'with this pointnet2.cu\'s DFPS (a parent checkout\'s)')
     ap.add_argument('--dp-rank', metavar='DIR', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_rank:  # one rank of phase 17a, under torchrun
@@ -6236,6 +6384,10 @@ def main(argv=None):
         return dp_rank_main(Path(args.dp_rank))
     if args.nms_parent:
         args.nms_parent = str(Path(args.nms_parent).resolve())
+    if args.narrow_parent:
+        args.narrow_parent = str(Path(args.narrow_parent).resolve())
+    if args.pn2_parent:
+        args.pn2_parent = str(Path(args.pn2_parent).resolve())
 
     import torch
 
@@ -6456,12 +6608,14 @@ def main(argv=None):
 
     torch.cuda.empty_cache()
     narrow = narrow_phase(torch, cfg, np_batch,
-                          batch_to_device(np_batch, 'cuda'), rows)
+                          batch_to_device(np_batch, 'cuda'), rows,
+                          args.narrow_parent)
     torch.cuda.empty_cache()
     single = single_frame_phase(torch, np_batch,
                                 Path(once_tree.name) / 'once', rows)
     torch.cuda.empty_cache()
-    ssd3d = ssd3d_phase(torch, Path(once_tree.name) / 'once', rows)
+    ssd3d = ssd3d_phase(torch, Path(once_tree.name) / 'once', rows,
+                        args.pn2_parent)
     once_tree.cleanup()
 
     log(f'total {time.perf_counter() - t_start:.1f} s')

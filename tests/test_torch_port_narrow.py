@@ -21,6 +21,8 @@ PyTorch port against the JAX package on the CPU.
 * The tiny ``HALF_CHANNELS`` CenterPoint and TMAE cut to one SST stage
   (``tests/test_torch_port_iou_head.one_stage``): forward and loss against
   JAX's from the same weights.
+* NARROW_BWD's workspace (``_narrow_bwd_layout``): its regions and their
+  alignment, and the weight-gradient chunks over the tiles' rows.
 
 The JAX references keep their intermediates in f32 while the port rounds
 to bf16 where the kernels do, so each tolerance covers bf16 rounding and is
@@ -28,6 +30,7 @@ the one the C = 128 cases hold (stated beside each comparison).
 """
 
 import copy
+import math
 from pathlib import Path
 
 import jax
@@ -49,6 +52,7 @@ from tmae_tpu.ops.dense_windows import slot_pos_embed as j_slot_pos_embed
 from tmae_tpu_torch.config import cfg_from_yaml_file
 from tmae_tpu_torch.models import detectors as tdet
 from tmae_tpu_torch.models.sst import DenseGrid, OccCaps, SSTBlock
+from tmae_tpu_torch.ops import encoder_layer as tel
 from tmae_tpu_torch.ops.encoder_layer import (LayerParams, layer_family,
                                               reference_encoder_layer,
                                               reference_encoder_layer_bwd,
@@ -420,3 +424,44 @@ def test_half_channels_tmae_matches_jax():
     err = np.abs(tout['pred_points'].numpy() - np.asarray(jout['pred_points']))
     assert err.max() <= 0.03 and err.mean() <= 2e-3, (err.max(), err.mean())
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-3)
+
+
+@pytest.mark.parametrize('N,T,C,cross,dpos', [
+    (256, 64, 64, False, True), (875, 64, 64, False, False),
+    (1280, 16, 64, True, False), (383, 48, 64, True, False),
+    (76, 64, 32, False, True), (1, 16, 32, False, False),
+    (4 * 64 * 260 + 3, 16, 32, False, False)])
+def test_narrow_bwd_workspace_layout(N, T, C, cross, dpos):
+    """NARROW_BWD's workspace in one buffer (``_narrow_bwd_layout``): the
+    16 regions in the launcher's order, shaped as csrc/encoder_layer_
+    narrow.cu reads them (KP only in cross mode, dpos only when wanted),
+    each 256 bytes aligned, none overlapping and all inside the buffer; the
+    weight-gradient chunks (a multiple of 64 rows, at least 256 rows, at
+    most 64 chunks) cover every tile's rows."""
+    F = 2 * C
+    layout, nbytes, nchunks, chunk = tel._narrow_bwd_layout(N, T, C, F,
+                                                            cross, dpos)
+    tiles = -(-N // (4 if T == 16 else 1))
+    rows = 64 * tiles
+    widths = [C, C, C, C, C, F, C, C, C, C, F, C]
+    want = [((rows, w), torch.bfloat16) for w in widths]
+    want[1] = want[1] if cross else None
+    want += [((2 * N + 2,), torch.int32), ((tiles, 9 * C + F + 1),
+                                           torch.float32),
+             ((tiles, 64 * C), torch.float32) if dpos else None,
+             ((nchunks, 8 * C * C), torch.float32)]
+    assert len(layout) == 16
+    spans = []
+    for got, w in zip(layout, want):
+        assert (got is None) == (w is None)
+        if got is None:
+            continue
+        off, shape, dtype = got
+        assert (shape, dtype) == w
+        assert off % 256 == 0
+        spans.append((off, off + math.prod(shape) * dtype.itemsize))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[0][0] == 0 and spans[-1][1] <= nbytes
+    assert chunk % 64 == 0 and chunk >= 256 and nchunks <= 64
+    assert nchunks * chunk >= rows and (nchunks - 1) * chunk < rows

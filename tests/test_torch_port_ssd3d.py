@@ -134,6 +134,103 @@ def test_dfps_equals_jax(name):
     exact(got, want, name)
 
 
+def test_dfps_plan_covers_every_size(monkeypatch):
+    """``dfps_plan``, DFPS's launch on the card: for every N from 1 to
+    DFPS_MAX_POINTS a cluster of 1-16 CTAs (a power of 2), threads a
+    multiple of 32 up to 256 and 1-16 points a thread (a power of 2) that
+    cover N, with no smaller count of points a thread that would; the
+    ssd3d_once.yaml levels get the plans timed fastest on the card; above
+    the limit the plan and the card wrapper refuse (checked before any
+    launch)."""
+    for N in range(1, tpn.DFPS_MAX_POINTS + 1):
+        R, threads, per = tpn.dfps_plan(N)
+        assert R in (1, 2, 4, 8, 16) and R <= tpn.DFPS_MAX_CLUSTER, N
+        assert threads % 32 == 0 and 32 <= threads <= 256, N
+        assert per in (1, 2, 4, 8, 16) and per <= tpn.DFPS_MAX_PER, N
+        assert R * threads * per >= N, N
+        assert per == 1 or R * threads * (per // 2) < N, N
+    assert tpn.dfps_plan(16384) == (8, 256, 8)
+    assert tpn.dfps_plan(4096) == (4, 256, 4)
+    assert tpn.dfps_plan(512) == (2, 128, 2)
+    too_many = tpn.DFPS_MAX_POINTS + 1
+    for bad in (0, too_many):
+        with pytest.raises(ValueError, match='D-FPS on the card takes 1 to'):
+            tpn.dfps_plan(bad)
+    monkeypatch.setattr(tpn, 'on_card', lambda *a: True)
+    with pytest.raises(ValueError, match='FPS on the card takes at most '
+                       f'{tpn.DFPS_MAX_POINTS} points a sample'):
+        tpn.farthest_point_sample(torch.zeros(1, too_many, 3),
+                                  torch.ones(1, too_many, dtype=torch.bool),
+                                  4)
+
+
+def dfps_cluster_model(xyz, mask, S, plan):
+    """A numpy model of DFPS's cluster walk under ``plan`` (R, threads,
+    per), one sample: point j in thread j % G's register j // G (G = R
+    threads), each thread's argmax, each warp's record (value, index,
+    coordinates) in slot rank * W + warp (W warps a CTA), the records'
+    argmax, and the coordinates read from the slot that the winner's index
+    names (asserted to be the winner's)."""
+    R, threads, per = plan
+    N, G, W = len(mask), R * threads, threads // 32
+    beats = lambda r: (r[0], -r[1])  # greater value, then smaller index
+    j = np.arange(G * per).reshape(per, G)
+    ok = j < N
+    valid = ok & mask[np.minimum(j, N - 1)]
+
+    def argmax(vals):
+        recs = []
+        for w in range(G // 32):
+            lanes = [(-np.inf, N)]  # a thread's start: below every point
+            for tt in range(32 * w, 32 * w + 32):
+                lanes += [(vals[k, tt], j[k, tt]) for k in range(per)
+                          if ok[k, tt]]
+            v, i = max(lanes, key=beats)
+            recs.append((v, i, xyz[i] if i < N else None))
+        v, i, _ = max(recs, key=beats)
+        g = i % G
+        slot = recs[(g // threads) * W + (g % threads) // 32]
+        assert slot[1] == i
+        return i, slot[2]
+
+    last, lxyz = argmax(np.where(ok, np.where(valid, 1.0, 0.0), -np.inf))
+    dist = np.where(valid, np.float32(1e10), np.float32(-1e10))
+    pts = xyz[np.minimum(j, N - 1)]
+    out = [last]
+    for _ in range(1, S):
+        d = pts - lxyz
+        sq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[
+            ..., 2]
+        dist = np.where(dist >= 0, np.minimum(dist, sq), dist).astype(
+            np.float32)
+        last, lxyz = argmax(dist)
+        out.append(last)
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize('plan', [(2, 32, 4), (4, 64, 1), (1, 64, 8)],
+                         ids=lambda p: 'R{}-t{}-per{}'.format(*p))
+def test_dfps_cluster_model_equals_plain(plan):
+    """The cluster walk's decomposition (point j in thread j % G, register
+    j // G; a record a warp; the winner's record found from its index)
+    gives the plain D-FPS's indices on planted exact ties across CTAs
+    (duplicated points), N not a multiple of the cluster's threads,
+    invalid points and a sample with one valid point."""
+    R, threads, per = plan
+    rng = np.random.RandomState(R * threads + per)
+    N = R * threads * per - 37
+    xyz = rng.randint(0, 4, (N, 3)).astype(np.float32)
+    xyz[N // 2:N // 2 + 40] = xyz[:40]  # the same points in other CTAs
+    mask = rng.rand(N) > 0.2
+    one = np.zeros(N, bool)
+    one[N - 5] = True
+    for m in (mask, one):
+        want = tpn.farthest_point_sample_plain(
+            t(xyz[None]), t(m[None]), 24)[0].numpy()
+        np.testing.assert_array_equal(dfps_cluster_model(xyz, m, 24, plan),
+                                      want)
+
+
 @pytest.mark.parametrize('features', [True, False], ids=['feat', 'xyz'])
 @pytest.mark.parametrize('name', FPS_CASES)
 def test_ffps_equals_jax(name, features):

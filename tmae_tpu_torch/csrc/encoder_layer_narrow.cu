@@ -59,12 +59,35 @@
 // dx, dkv and dpos, with the weight-gradient operands of each row written
 // to device memory (bf16, a row of the workspace per tile row) and the
 // bias, LayerNorm and tau sums of each tile as one row of partials; a
-// second kernel multiplies the six dY^T X products over fixed chunks of
-// rows into chunk partials, and a third sums every partial in chunk and
-// tile order. A window whose cotangent is 0 on all its query cells adds
-// nothing to any output (the layer's VJP is linear in g and masks g with
-// the query mask): its pre-pass writes dx = 0 (g at S = 16, 48) and dkv =
-// 0, and it takes no tile.
+// second kernel multiplies the six dY^T X products over chunks of rows into
+// chunk partials, and a third sums every partial in a fixed order. A window
+// whose cotangent is 0 on all its query cells adds nothing to any output
+// (the layer's VJP is linear in g and masks g with the query mask): its
+// pre-pass writes dx = 0 (g at S = 16, 48) and dkv = 0, and it takes no
+// tile.
+//
+// The backward's time (utils/bwd_phases.py --narrow, H100 SXM at 700 W, 109
+// live tiles at C = 64 with 8 heads, the first design): the window pass
+// 0.054-0.076 ms, the weight gradients 0.070-0.109 (64 blocks, each
+// summing up to 4096 rows one 64-row step after another), the sums
+// 0.006-0.009, the pre-pass and compaction 0.005; and a call with fewer
+// tiles than SMs is a tile's latency. So the backward fills the SM and
+// the card differently from the forward:
+// - the window pass runs 8 warps a tile, two a row group of 16 rows, and
+//   the two split the output columns of every product (each half of q and
+//   k holds whole heads, so their normalisation stays in the warp);
+//   LayerNorm's row statistics and its backward's row sums add the two
+//   halves' partials through shared memory (half 0's then half 1's: both
+//   warps hold the same bits) at a named barrier of the pair; the
+//   attention backward takes one head of each half a round, each half with
+//   its own P and dS tiles, so H / 2 rounds of two block barriers;
+// - the weight gradients take chunks of at least 256 rows (4 tiles; at
+//   most 64 chunks), each block loading the next 64 rows into registers
+//   while it multiplies the current ones;
+// - the sums take each output in 8 runs of consecutive partials, each run
+//   by a warp in order, then the 8 run sums in order.
+// Every sum keeps a fixed order, so a call gives the same bits twice.
+// Measured times of this design: PERF.md and utils/bwd_phases.py.
 
 #include <algorithm>
 
@@ -72,9 +95,11 @@
 
 namespace {
 
-constexpr int kNWarps = 4;
+constexpr int kNWarps = 4;               // NARROW_FWD: a warp a row group
 constexpr int kNThreads = 32 * kNWarps;
-constexpr int kChunk = 4096;  // rows of a weight-gradient chunk
+constexpr int kBWarps = 8;               // NARROW_BWD: two a row group
+constexpr int kBThreads = 32 * kBWarps;
+constexpr int kRuns = 8;  // runs of a gradient's fixed-order sum
 
 // Sizes at width C (FFN 2C) and the byte sizes of the row buffers.
 template <int C>
@@ -397,11 +422,6 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float gelu_grad(float v) {
-  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-         v * 0.39894228040143268f * expf(-0.5f * v * v);
-}
-
 // v += bias, per column
 template <int NT>
 __device__ __forceinline__ void add_bias(float (&v)[NT][4], const float* b,
@@ -519,13 +539,15 @@ struct WPtr {
 };
 
 // The forward of one tile's attention for the warp's 16 query rows (from
-// r0): all heads, bf16(p v) into `out` (its rows r0..r0 + 15). The query
-// block sees NK keys from key0 (its own window's 16 at T = 16).
+// r0): heads h0 .. h0 + nh (all by default), bf16(p v) into `out` (its rows
+// r0..r0 + 15). The query block sees NK keys from key0 (its own window's 16
+// at T = 16).
 template <int T, int C, int H>
 __device__ __forceinline__ void attention_fwd(const bf16* qn, const bf16* kn,
                                               const bf16* vb, bf16* out,
                                               const float* km, float mult,
-                                              int r0, int lane) {
+                                              int r0, int lane, int h0 = 0,
+                                              int nh = H) {
   constexpr int D = C / H, LC = C + 8, NK = T == 16 ? 16 : T;
   const int key0 = T == 16 ? r0 : 0;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
@@ -533,7 +555,7 @@ __device__ __forceinline__ void attention_fwd(const bf16* qn, const bf16* kn,
   for (int k = lane; k < NK; k += 32) hk |= km[key0 + k] > 0.f;
   hk = __any_sync(0xffffffffu, hk);
 #pragma unroll 1
-  for (int h = 0; h < H; ++h) {
+  for (int h = h0; h < h0 + nh; ++h) {
     float s[NK / 8][4];
     row_dots<NK, D>(s, qn + r0 * LC + h * D, kn + key0 * LC + h * D, LC,
                     lane);
@@ -773,17 +795,6 @@ struct BwdParams {
   float* part_p;  // [tiles, 64 C] per-tile dpos (null unless wanted)
 };
 
-// The warp's 16 rows of a row buffer to the workspace rows row0 ..
-template <int W>
-__device__ __forceinline__ void put_rows(bf16* dst, long long row0,
-                                         const bf16* src, int ld, int lane) {
-  for (int e = lane; e < 16 * (W / 8); e += 32) {
-    const int r = e / (W / 8), ch = e % (W / 8);
-    *reinterpret_cast<uint4*>(dst + (row0 + r) * W + ch * 8) =
-        *reinterpret_cast<const uint4*>(src + r * ld + ch * 8);
-  }
-}
-
 // sums[8 j + t2 (+1)] += the sum of v over the warp's 16 rows (lanes 0-3
 // write: a fixed order)
 template <int NT>
@@ -817,25 +828,246 @@ __device__ __forceinline__ void load_g(float (&v)[NT][4], const bf16* g,
   }
 }
 
+// The six bf16 matrices into shared memory (the plan of Narrow<C>) by
+// cp.async, 16 bytes a copy, in one group: they land while the block does
+// other work, and cp_async_wait makes them visible.
+template <int C, int NTH>
+__device__ __forceinline__ void load_weights_async(const Mats& mats,
+                                                   bf16* dst, int tid) {
+  constexpr int F = 2 * C;
+  for (int m = 0; m < 6; ++m) {
+    const int rows = m == 4 ? F : C, cols = m == 5 ? F : C;
+    const int off = m < 5 ? m * C * (C + 8) : 4 * C * (C + 8) + F * (C + 8);
+    const bf16* src = static_cast<const bf16*>(mats.m[m]);
+    for (int e = tid; e < rows * cols / 8; e += NTH) {
+      const int r = e / (cols / 8), c8 = e % (cols / 8);
+      asm volatile(
+          "cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+              saddr(dst + off + r * (cols + 8) + c8 * 8)),
+          "l"(src + (long long)r * cols + c8 * 8)
+          : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// v += bias, per column, the bias in shared memory
+template <int NT>
+__device__ __forceinline__ void add_bias_s(float (&v)[NT][4], const float* b,
+                                           int t2) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 bi = *reinterpret_cast<const float2*>(b + 8 * j + t2);
+    v[j][0] += bi.x;
+    v[j][1] += bi.y;
+    v[j][2] += bi.x;
+    v[j][3] += bi.y;
+  }
+}
+
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// gelu(v) into v and gelu'(v) into d, one erf for both (gelu's bits)
+__device__ __forceinline__ void gelu_and_grad(float& v, float& d) {
+  const float e = erff(v * 0.70710678118654752f);
+  d = 0.5f * (1.f + e) + v * 0.39894228040143268f * expf(-0.5f * v * v);
+  v = 0.5f * v * (1.f + e);
+}
+
+// The two warps of a row group meet (named barrier 1 + rg: 64 threads).
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;" ::"r"(rg + 1) : "memory");
+}
+
+// A warp pair's 16 rows of a row buffer to the workspace rows row0 ..
+// (`pl`: the thread's place in the pair, 0-63)
+template <int W>
+__device__ __forceinline__ void put_rows_pair(bf16* dst, long long row0,
+                                              const bf16* src, int ld,
+                                              int pl) {
+  for (int e = pl; e < 16 * (W / 8); e += 64) {
+    const int r = e / (W / 8), ch = e % (W / 8);
+    *reinterpret_cast<uint4*>(dst + (row0 + r) * W + ch * 8) =
+        *reinterpret_cast<const uint4*>(src + r * ld + ch * 8);
+  }
+}
+
+// load_rows16 by a warp pair
+template <int C>
+__device__ __forceinline__ void load_rows_pair(bf16* raw, bf16* with_pos,
+                                               const bf16* base,
+                                               const long long* offs,
+                                               const int* cells,
+                                               const bf16* pos, int r0,
+                                               int pl) {
+  constexpr int NC = C / 8, LC = C + 8;
+  for (int e = pl; e < 16 * NC; e += 64) {
+    const int r = r0 + e / NC, ch = e % NC;
+    const long long o = offs[r];
+    const uint4 x = o >= 0
+                        ? *reinterpret_cast<const uint4*>(base + o + ch * 8)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    if (raw) *reinterpret_cast<uint4*>(raw + r * LC + ch * 8) = x;
+    if (with_pos)
+      *reinterpret_cast<uint4*>(with_pos + r * LC + ch * 8) = add_pos(
+          x, __ldg(reinterpret_cast<const uint4*>(pos + cells[r] * C +
+                                                  ch * 8)));
+  }
+}
+
+constexpr int kXSlots = 6;  // row-sum exchanges of a warp pair a tile
+
+// The sums over a pair's two column halves of NV per-row partials, rows g
+// (a) and g + 8 (b), through exchange slot `slot`: half 0's plus half 1's,
+// so both warps hold the same bits. The pair meets once.
+template <int NV>
+__device__ __forceinline__ void pair_rowsum(float (&a)[NV], float (&b)[NV],
+                                            float* xch, int rg, int half,
+                                            int slot, int g, int lane) {
+  static_assert(NV <= 2, "two partials a row at most");
+  float* const base = xch + (rg * kXSlots + slot) * 2 * 2 * 16;
+  if ((lane & 3) == 0) {
+    float* const mine = base + half * 2 * 16;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      mine[v * 16 + g] = a[v];
+      mine[v * 16 + g + 8] = b[v];
+    }
+  }
+  pair_sync(rg);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    a[v] = base[v * 16 + g] + base[2 * 16 + v * 16 + g];
+    b[v] = base[v * 16 + g + 8] + base[2 * 16 + v * 16 + g + 8];
+  }
+}
+
+// ln_stats over a row whose C columns are split between a warp pair: the
+// thread's NT column tiles here, the other half's through the exchange
+// (slots `slot` and `slot` + 1).
+template <int NT, int C>
+__device__ __forceinline__ void ln_stats_pair(const float (&v)[NT][4],
+                                              float& ma, float& mb, float& ra,
+                                              float& rb, float* xch, int rg,
+                                              int half, int slot, int g,
+                                              int lane) {
+  constexpr float inv = 1.f / C;
+  float sa[1] = {0.f}, sb[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    sa[0] += v[j][0] + v[j][1];
+    sb[0] += v[j][2] + v[j][3];
+  }
+  sa[0] = quad_sum(sa[0]);
+  sb[0] = quad_sum(sb[0]);
+  pair_rowsum<1>(sa, sb, xch, rg, half, slot, g, lane);
+  ma = sa[0] * inv;
+  mb = sb[0] * inv;
+  float qa[1] = {0.f}, qb[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float da = v[j][e] - ma, db = v[j][2 + e] - mb;
+      qa[0] += da * da;
+      qb[0] += db * db;
+    }
+  }
+  qa[0] = quad_sum(qa[0]);
+  qb[0] = quad_sum(qb[0]);
+  pair_rowsum<1>(qa, qb, xch, rg, half, slot + 1, g, lane);
+  ra = rsqrtf(qa[0] * inv + 1e-5f);
+  rb = rsqrtf(qb[0] * inv + 1e-5f);
+}
+
+// heads_out for the H / 2 heads of one column half (v: its C / 16 column
+// tiles; bias and dst at the half's first column; its first head h0):
+// unscaled, with each row's 1 / |v| of each head into rinv.
+template <int C, int H>
+__device__ __forceinline__ void heads_half(float (&v)[C / 16][4],
+                                           const float* bias, bf16* dst,
+                                           float* rinv, int r0, int h0, int g,
+                                           int t2) {
+  constexpr int D = C / H, CPH = D / 8;
+  add_bias_s(v, bias, t2);
+#pragma unroll
+  for (int h = 0; h < H / 2; ++h) {
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int u = 0; u < CPH; ++u) {
+      const float* a = v[h * CPH + u];
+      sa += a[0] * a[0] + a[1] * a[1];
+      sb += a[2] * a[2] + a[3] * a[3];
+    }
+    const float ra = rsqrtf(quad_sum(sa) + 1e-24f);
+    const float rb = rsqrtf(quad_sum(sb) + 1e-24f);
+    if (t2 == 0) {
+      rinv[(r0 + g) * H + h0 + h] = ra;
+      rinv[(r0 + g + 8) * H + h0 + h] = rb;
+    }
+#pragma unroll
+    for (int u = 0; u < CPH; ++u) {
+      float* a = v[h * CPH + u];
+      a[0] *= ra;
+      a[1] *= ra;
+      a[2] *= rb;
+      a[3] *= rb;
+    }
+  }
+  store_frag(dst, C + 8, v, g, t2);
+}
+
 // Shared memory of the backward: the weights, nine row buffers R0..R8 (their
-// use phase by phase in the kernel), P and DS [64 x LP], RQ and RK (1 /
-// |q|, 1 / |k| per row and head, f32), the four warps' column sums, the
-// RowMeta.
+// use phase by phase in the kernel), P and DS [64 x LP] for each column
+// half, RQ and RK (1 / |q|, 1 / |k| per row and head, f32), each row
+// group's column sums (and the second half's tau), the pairs' row-sum
+// exchanges, the layer's bias and LayerNorm vectors (as Vec<C> lays out the
+// sums), the RowMeta.
 template <int C, int H>
 constexpr int bwd_smem() {
   using N = Narrow<C>;
-  return N::kWBytes + 9 * N::kBufC + 2 * N::kBufP + 2 * kRows * H * 4 +
-         kNWarps * N::kVec * 4 + (int)sizeof(RowMeta);
+  return N::kWBytes + 9 * N::kBufC + 4 * N::kBufP + 2 * kRows * H * 4 +
+         5 * (N::kVec + 1) * 4 + 4 * kXSlots * 2 * 2 * 16 * 4 +
+         (int)sizeof(RowMeta);
 }
 
+// Built with -DTMAE_NARROW_PROFILE, thread 0 of each block (warp 0: row
+// group 0, column half 0) adds the clock cycles of every phase of its
+// tiles into tmae_narrow_cycles (read by tmae_narrow_profile); otherwise
+// NARROW_PHASE does nothing.
+#ifdef TMAE_NARROW_PROFILE
+__device__ unsigned long long tmae_narrow_cycles[256][16];
+#define NARROW_PHASE(k)                                         \
+  do {                                                          \
+    if (threadIdx.x == 0) {                                     \
+      const long long now = clock64();                          \
+      tmae_narrow_cycles[blockIdx.x % 256][k] += now - phase_t0; \
+      phase_t0 = now;                                           \
+    }                                                           \
+  } while (0)
+#else
+#define NARROW_PHASE(k) \
+  do {                  \
+  } while (0)
+#endif
+
 template <int T, int C, int H>
-__global__ void __launch_bounds__(kNThreads, 1)
+__global__ void __launch_bounds__(kBThreads, 1)
     narrow_bwd_kernel(const BwdParams p, const Mats mats) {
   using N = Narrow<C>;
   using V = Vec<C>;
   constexpr int WPT = T == 16 ? 4 : 1;
-  constexpr int LC = N::LC, LF = N::LF, LP = N::LP, NC = N::NC;
-  constexpr int D = C / H, NK = T == 16 ? 16 : T;
+  constexpr int LC = N::LC, LF = N::LF, LP = N::LP;
+  constexpr int HC = N::NC / 2, HF = N::NF / 2;  // column tiles of a half
+  constexpr int D = C / H, NK = T == 16 ? 16 : T, HH = H / 2;
+  constexpr int NS = N::kVec + 1;  // a row group's sums, then half 1's tau
+  static_assert(NS % 2 == 0, "the RowMeta after the vectors is 8-aligned");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* const W = reinterpret_cast<bf16*>(smem);
   bf16* const R0 = reinterpret_cast<bf16*>(smem + N::kWBytes);
@@ -847,14 +1079,16 @@ __global__ void __launch_bounds__(kNThreads, 1)
   bf16* const VB = KH + kRows * LC;
   bf16* const R7 = VB + kRows * LC;
   bf16* const DV = R7 + kRows * LC;
-  bf16* const PB = DV + kRows * LC;
-  bf16* const DS = PB + kRows * LP;
-  float* const RQ = reinterpret_cast<float*>(DS + kRows * LP);
+  bf16* const PB = DV + kRows * LC;  // [2 halves][64 x LP]
+  bf16* const DS = PB + 2 * kRows * LP;
+  float* const RQ = reinterpret_cast<float*>(DS + 2 * kRows * LP);
   float* const RK = RQ + kRows * H;
   float* const sums_all = RK + kRows * H;
-  RowMeta& rm = *reinterpret_cast<RowMeta*>(sums_all + kNWarps * N::kVec);
-  // phase by phase: R0 x, then dz2, then dr1 (f32, with R1: a warp's rows
-  // g in its rows of R0, rows g + 8 in its rows of R1); R1 x + pos,
+  float* const xch = sums_all + 4 * NS;
+  float* const VS = xch + 4 * kXSlots * 2 * 2 * 16;
+  RowMeta& rm = *reinterpret_cast<RowMeta*>(VS + NS);  // NS: even
+  // phase by phase: R0 x, then dz2, then dr1 (f32, with R1: a row group's
+  // rows g in its rows of R0, rows g + 8 in its rows of R1); R1 x + pos,
   // then bf16(h1); R2 kv + pos, then (with R3) the GELU output, then dz1,
   // then R2 datt; R3 kv, then dk; R7 the attention output, then do, then dq
   bf16* const XS = R0;
@@ -873,14 +1107,40 @@ __global__ void __launch_bounds__(kNThreads, 1)
 
   const FwdParams& f = p.f;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = 16 * warp, g = lane >> 2, t2 = 2 * (lane & 3);
-  float* const sums = sums_all + warp * N::kVec;
-  load_weights<C>(mats, W, tid);
+  // a row group's two warps split every product's output columns: this
+  // warp's half `half` of them, from column c0 (FFN width: f0), and the
+  // heads h0 .. h0 + H / 2
+  const int rg = warp & 3, half = warp >> 2;
+  const int r0 = 16 * rg, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int pl = lane + 32 * half;
+  const int c0 = half * (C / 2), f0 = half * N::F / 2, h0 = half * HH;
+  float* const sums = sums_all + rg * NS;
+#ifdef TMAE_NARROW_PROFILE
+  long long phase_t0 = clock64();
+#endif
+  // the weights and vectors land while the first tile's rows load (bf16
+  // matrices: the wrapper hands kernel_params' tensors)
+  {
+    const float* const src[10] = {f.bq, f.bk, f.bv, f.bo, f.ln1s,
+                                  f.ln1b, f.b1, f.b2, f.ln2s, f.ln2b};
+    for (int i = tid; i < (N::kVec - 1) / 4; i += kBThreads) {
+      const int e = 4 * i;  // 16 bytes of one vector a copy
+      const int k = e < 6 * C ? e / C : (e < 8 * C ? 6 : 7 + (e - 8 * C) / C);
+      const int at = k < 7 ? k * C : 8 * C + (k - 7) * C;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       saddr(VS + e)),
+                   "l"(src[k] + (e - at))
+                   : "memory");
+    }
+  }
+  load_weights_async<C, kBThreads>(mats, W, tid);
+  bool weights_in = false;
   const WPtr<C> w(W);
   const int count = *f.count;
   const int ntiles = (count + WPT - 1) / WPT;
   const float tau = f.tau[0];
   const float scale = 1.f / fmaxf(tau, f.tau_min);
+  NARROW_PHASE(0);
   for (;;) {
     __syncthreads();
     if (tid == 0) rm.tile = atomicAdd(f.counter, 1);
@@ -890,50 +1150,67 @@ __global__ void __launch_bounds__(kNThreads, 1)
     if (tid < kRows)
       tile_rows<kWindowRows, T, C>(f, tile, count, tid, rm.qoff, rm.koff,
                                    rm.qcell, rm.kcell, rm.qm, rm.km);
-    for (int i = lane; i < N::kVec; i += 32) sums[i] = 0.f;
+    for (int i = tid; i < 4 * NS; i += kBThreads) sums_all[i] = 0.f;
     __syncthreads();
     const long long wrow = (long long)tile * kRows + r0;  // workspace row
     const bool oa = rm.qm[r0 + g] > 0.f, ob = rm.qm[r0 + g + 8] > 0.f;
+    // the cotangent of this half's columns, long before LN2's backward
+    float gy[HC][4];
+    load_g(gy, p.g, rm.qoff, r0, g, c0 + t2);
+    NARROW_PHASE(1);
 
     // 1. the rows; the products' inputs to the workspace
-    load_rows16<C>(XS, XP, f.x, rm.qoff, rm.qcell, f.pos, r0, lane);
+    load_rows_pair<C>(XS, XP, f.x, rm.qoff, rm.qcell, f.pos, r0, pl);
     if (f.cross)
-      load_rows16<C>(KR, KP, f.kv, rm.koff, rm.kcell, f.pos, r0, lane);
-    __syncwarp();
-    put_rows<C>(p.oXP, wrow, XP + r0 * LC, LC, lane);
-    if (f.cross) put_rows<C>(p.oKP, wrow, KP + r0 * LC, LC, lane);
-    put_rows<C>(p.oKR, wrow, (f.cross ? KR : XS) + r0 * LC, LC, lane);
+      load_rows_pair<C>(KR, KP, f.kv, rm.koff, rm.kcell, f.pos, r0, pl);
+    if (!weights_in) {
+      cp_async_wait();
+      __syncthreads();
+      weights_in = true;
+    }
+    pair_sync(rg);
+    put_rows_pair<C>(p.oXP, wrow, XP + r0 * LC, LC, pl);
+    if (f.cross) put_rows_pair<C>(p.oKP, wrow, KP + r0 * LC, LC, pl);
+    put_rows_pair<C>(p.oKR, wrow, (f.cross ? KR : XS) + r0 * LC, LC, pl);
+    NARROW_PHASE(2);
 
-    // 2. q and k normalised per head (unscaled), v
+    // 2. this half's heads of q and k normalised (unscaled), its columns
+    // of v
     {
-      float a[NC][4];
+      float a[HC][4];
       zero(a);
-      mm_wt<NC, C>(a, XP + r0 * LC, LC, w.q, LC, lane);
-      heads_out<C, H>(a, f.bq, 1.f, QH + r0 * LC, RQ, r0, g, t2);
+      mm_wt<HC, C>(a, XP + r0 * LC, LC, w.q + c0 * LC, LC, lane);
+      heads_half<C, H>(a, VS + V::bq + c0, QH + r0 * LC + c0, RQ, r0, h0, g,
+                       t2);
       zero(a);
-      mm_wt<NC, C>(a, (f.cross ? KP : XP) + r0 * LC, LC, w.k, LC, lane);
-      heads_out<C, H>(a, f.bk, 1.f, KH + r0 * LC, RK, r0, g, t2);
+      mm_wt<HC, C>(a, (f.cross ? KP : XP) + r0 * LC, LC, w.k + c0 * LC, LC,
+                   lane);
+      heads_half<C, H>(a, VS + V::bk + c0, KH + r0 * LC + c0, RK, r0, h0, g,
+                       t2);
       zero(a);
-      mm_wt<NC, C>(a, (f.cross ? KR : XS) + r0 * LC, LC, w.v, LC, lane);
-      add_bias(a, f.bv, t2);
-      store_frag(VB + r0 * LC, LC, a, g, t2);
+      mm_wt<HC, C>(a, (f.cross ? KR : XS) + r0 * LC, LC, w.v + c0 * LC, LC,
+                   lane);
+      add_bias_s(a, VS + V::bv + c0, t2);
+      store_frag(VB + r0 * LC + c0, LC, a, g, t2);
     }
     __syncthreads();
+    NARROW_PHASE(3);
 
-    // 3. attention (s = scale q.k)
-    attention_fwd<T, C, H>(QH, KH, VB, AT, rm.km, scale, r0, lane);
-    __syncwarp();
-    put_rows<C>(p.oA, wrow, AT + r0 * LC, LC, lane);
+    // 3. attention (s = scale q.k) of this half's heads
+    attention_fwd<T, C, H>(QH, KH, VB, AT, rm.km, scale, r0, lane, h0, HH);
+    pair_sync(rg);
+    put_rows_pair<C>(p.oA, wrow, AT + r0 * LC, LC, pl);
+    NARROW_PHASE(4);
 
     // 4. output projection, residual, LN1: xhat1 and 1/std kept
-    float xh1[NC][4], hh[NC][4];
+    float xh1[HC][4], hh[HC][4];
     float rs1a, rs1b;
     zero(xh1);
-    mm_wt<NC, C>(xh1, AT + r0 * LC, LC, w.o, LC, lane);
+    mm_wt<HC, C>(xh1, AT + r0 * LC, LC, w.o + c0 * LC, LC, lane);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = 8 * j + t2;
-      const float2 b = ldg2(f.bo + c);
+    for (int j = 0; j < HC; ++j) {
+      const int c = c0 + 8 * j + t2;
+      const float2 b = lds2(VS + V::bo + c);
       const float2 xa = ld2(XS + (r0 + g) * LC + c);
       const float2 xb = ld2(XS + (r0 + g + 8) * LC + c);
       xh1[j][0] = xa.x + (oa ? xh1[j][0] + b.x : 0.f);
@@ -943,11 +1220,12 @@ __global__ void __launch_bounds__(kNThreads, 1)
     }
     {
       float ma, mb;
-      ln_stats(xh1, ma, mb, rs1a, rs1b);
+      ln_stats_pair<HC, C>(xh1, ma, mb, rs1a, rs1b, xch, rg, half, 0, g,
+                           lane);
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int c = 8 * j + t2;
-        const float2 sc = ldg2(f.ln1s + c), bi = ldg2(f.ln1b + c);
+      for (int j = 0; j < HC; ++j) {
+        const int c = c0 + 8 * j + t2;
+        const float2 sc = lds2(VS + V::ln1s + c), bi = lds2(VS + V::ln1b + c);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           xh1[j][e] = (xh1[j][e] - ma) * rs1a;
@@ -959,45 +1237,48 @@ __global__ void __launch_bounds__(kNThreads, 1)
         hh[j][3] = ob ? xh1[j][3] * sc.y + bi.y : 0.f;
       }
     }
-    store_frag(HB + r0 * LC, LC, hh, g, t2);
-    __syncwarp();
-    put_rows<C>(p.oHB, wrow, HB + r0 * LC, LC, lane);
+    store_frag(HB + r0 * LC + c0, LC, hh, g, t2);
+    pair_sync(rg);
+    put_rows_pair<C>(p.oHB, wrow, HB + r0 * LC, LC, pl);
+    NARROW_PHASE(5);
 
-    // 5. FFN first product and GELU
+    // 5. FFN first product and GELU, this half's F / 2 columns; GELU's
+    // derivative kept for the FFN's backward
+    float gz[HF][4];
     {
-      float z[N::NF][4];
+      float z[HF][4];
       zero(z);
-      mm_wt<N::NF, C>(z, HB + r0 * LC, LC, w.w1, LC, lane);
-      add_bias(z, f.b1, t2);
+      mm_wt<HF, C>(z, HB + r0 * LC, LC, w.w1 + f0 * LC, LC, lane);
+      add_bias_s(z, VS + V::b1 + f0, t2);
 #pragma unroll
-      for (int j = 0; j < N::NF; ++j)
+      for (int j = 0; j < HF; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) z[j][e] = gelu(z[j][e]);
-      store_frag(UB + r0 * LF, LF, z, g, t2);
+        for (int e = 0; e < 4; ++e) gelu_and_grad(z[j][e], gz[j][e]);
+      store_frag(UB + r0 * LF + f0, LF, z, g, t2);
     }
-    __syncwarp();
-    put_rows<N::F>(p.oUB, wrow, UB + r0 * LF, LF, lane);
+    pair_sync(rg);
+    put_rows_pair<N::F>(p.oUB, wrow, UB + r0 * LF, LF, pl);
+    NARROW_PHASE(6);
 
     // 6. FFN second product, LN2, and LN2's backward: dr2 = dz2 = dh
     {
-      float r2[NC][4], gy[NC][4];
+      float r2[HC][4];
       zero(r2);
-      mm_wt<NC, N::F>(r2, UB + r0 * LF, LF, w.w2, LF, lane);
+      mm_wt<HC, N::F>(r2, UB + r0 * LF, LF, w.w2 + c0 * LF, LF, lane);
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float2 b = ldg2(f.b2 + 8 * j + t2);
+      for (int j = 0; j < HC; ++j) {
+        const float2 b = lds2(VS + V::b2 + c0 + 8 * j + t2);
         r2[j][0] += hh[j][0] + b.x;
         r2[j][1] += hh[j][1] + b.y;
         r2[j][2] += hh[j][2] + b.x;
         r2[j][3] += hh[j][3] + b.y;
       }
       float ma, mb, ra, rb;
-      ln_stats(r2, ma, mb, ra, rb);
-      load_g(gy, p.g, rm.qoff, r0, g, t2);
-      float da = 0.f, db = 0.f, dxa = 0.f, dxb = 0.f;
+      ln_stats_pair<HC, C>(r2, ma, mb, ra, rb, xch, rg, half, 2, g, lane);
+      float da[2] = {0.f, 0.f}, db[2] = {0.f, 0.f};  // sum dxhat, dxhat xhat
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float2 sc = ldg2(f.ln2s + 8 * j + t2);
+      for (int j = 0; j < HC; ++j) {
+        const float2 sc = lds2(VS + V::ln2s + c0 + 8 * j + t2);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (!oa) gy[j][e] = 0.f;
@@ -1009,119 +1290,135 @@ __global__ void __launch_bounds__(kNThreads, 1)
         float prod[1][4] = {{gy[j][0] * r2[j][0], gy[j][1] * r2[j][1],
                              gy[j][2] * r2[j][2], gy[j][3] * r2[j][3]}};
         float gj[1][4] = {{gy[j][0], gy[j][1], gy[j][2], gy[j][3]}};
-        col_sums<1>(sums + V::ln2s + 8 * j, prod, lane);
-        col_sums<1>(sums + V::ln2b + 8 * j, gj, lane);
+        col_sums<1>(sums + V::ln2s + c0 + 8 * j, prod, lane);
+        col_sums<1>(sums + V::ln2b + c0 + 8 * j, gj, lane);
         // dxhat = gy * scale, kept in gy
         gy[j][0] *= sc.x;
         gy[j][1] *= sc.y;
         gy[j][2] *= sc.x;
         gy[j][3] *= sc.y;
-        da += gy[j][0] + gy[j][1];
-        db += gy[j][2] + gy[j][3];
-        dxa += gy[j][0] * r2[j][0] + gy[j][1] * r2[j][1];
-        dxb += gy[j][2] * r2[j][2] + gy[j][3] * r2[j][3];
+        da[0] += gy[j][0] + gy[j][1];
+        db[0] += gy[j][2] + gy[j][3];
+        da[1] += gy[j][0] * r2[j][0] + gy[j][1] * r2[j][1];
+        db[1] += gy[j][2] * r2[j][2] + gy[j][3] * r2[j][3];
       }
       constexpr float inv = 1.f / C;
-      da = quad_sum(da) * inv;
-      db = quad_sum(db) * inv;
-      dxa = quad_sum(dxa) * inv;
-      dxb = quad_sum(dxb) * inv;
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
+      for (int v = 0; v < 2; ++v) {
+        da[v] = quad_sum(da[v]);
+        db[v] = quad_sum(db[v]);
+      }
+      pair_rowsum<2>(da, db, xch, rg, half, 4, g, lane);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        da[v] *= inv;
+        db[v] *= inv;
+      }
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          hh[j][e] = ra * (gy[j][e] - da - r2[j][e] * dxa);
-          hh[j][2 + e] = rb * (gy[j][2 + e] - db - r2[j][2 + e] * dxb);
+          hh[j][e] = ra * (gy[j][e] - da[0] - r2[j][e] * da[1]);
+          hh[j][2 + e] = rb * (gy[j][2 + e] - db[0] - r2[j][2 + e] * db[1]);
         }
       }
       // hh is now dr2: dz2, and the gradient of h1 through the residual
-      col_sums<NC>(sums + V::b2, hh, lane);
-      store_frag(DZ2 + r0 * LC, LC, hh, g, t2);
+      col_sums<HC>(sums + V::b2 + c0, hh, lane);
+      store_frag(DZ2 + r0 * LC + c0, LC, hh, g, t2);
     }
-    __syncwarp();
-    put_rows<C>(p.oDZ2, wrow, DZ2 + r0 * LC, LC, lane);
+    pair_sync(rg);
+    put_rows_pair<C>(p.oDZ2, wrow, DZ2 + r0 * LC, LC, pl);
+    NARROW_PHASE(7);
 
-    // 7. dz1 = (dz2 W2) gelu'(z1), z1 recomputed, in chunks of 64 columns
-#pragma unroll 1
-    for (int c0 = 0; c0 < N::F; c0 += 64) {
-      float du[8][4], z[8][4];
+    // 7. dz1 = (dz2 W2) gelu'(z1) on this half's F / 2 columns
+    {
+      float du[HF][4];
       zero(du);
-      mm_m<8, C>(du, DZ2 + r0 * LC, LC, w.w2 + c0, LF, lane);
-      zero(z);
-      mm_wt<8, C>(z, HB + r0 * LC, LC, w.w1 + c0 * LC, LC, lane);
-      add_bias(z, f.b1 + c0, t2);
+      mm_m<HF, C>(du, DZ2 + r0 * LC, LC, w.w2 + f0, LF, lane);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < HF; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) du[j][e] *= gelu_grad(z[j][e]);
-      col_sums<8>(sums + V::b1 + c0, du, lane);
-      store_frag(DZ1 + r0 * LF + c0, LF, du, g, t2);
+        for (int e = 0; e < 4; ++e) du[j][e] *= gz[j][e];
+      col_sums<HF>(sums + V::b1 + f0, du, lane);
+      store_frag(DZ1 + r0 * LF + f0, LF, du, g, t2);
     }
-    __syncwarp();
-    put_rows<N::F>(p.oDZ1, wrow, DZ1 + r0 * LF, LF, lane);
+    // both halves are also past their reads of dz2 (R0) and h1 (R1): dr1
+    // may take their place
+    pair_sync(rg);
+    put_rows_pair<N::F>(p.oDZ1, wrow, DZ1 + r0 * LF, LF, pl);
+    NARROW_PHASE(8);
 
     // 8. dh1 += dz1 W1; 9. LN1's backward, masked by the query cells
-    mm_m<NC, N::F>(hh, DZ1 + r0 * LF, LF, w.w1, LC, lane);
+    mm_m<HC, N::F>(hh, DZ1 + r0 * LF, LF, w.w1 + c0, LC, lane);
     {
-      float da = 0.f, db = 0.f, dxa = 0.f, dxb = 0.f;
+      float da[2] = {0.f, 0.f}, db[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float2 sc = ldg2(f.ln1s + 8 * j + t2);
+      for (int j = 0; j < HC; ++j) {
+        const float2 sc = lds2(VS + V::ln1s + c0 + 8 * j + t2);
         if (!oa) hh[j][0] = hh[j][1] = 0.f;
         if (!ob) hh[j][2] = hh[j][3] = 0.f;
         float prod[1][4] = {{hh[j][0] * xh1[j][0], hh[j][1] * xh1[j][1],
                              hh[j][2] * xh1[j][2], hh[j][3] * xh1[j][3]}};
         float hj[1][4] = {{hh[j][0], hh[j][1], hh[j][2], hh[j][3]}};
-        col_sums<1>(sums + V::ln1s + 8 * j, prod, lane);
-        col_sums<1>(sums + V::ln1b + 8 * j, hj, lane);
+        col_sums<1>(sums + V::ln1s + c0 + 8 * j, prod, lane);
+        col_sums<1>(sums + V::ln1b + c0 + 8 * j, hj, lane);
         hh[j][0] *= sc.x;
         hh[j][1] *= sc.y;
         hh[j][2] *= sc.x;
         hh[j][3] *= sc.y;
-        da += hh[j][0] + hh[j][1];
-        db += hh[j][2] + hh[j][3];
-        dxa += hh[j][0] * xh1[j][0] + hh[j][1] * xh1[j][1];
-        dxb += hh[j][2] * xh1[j][2] + hh[j][3] * xh1[j][3];
+        da[0] += hh[j][0] + hh[j][1];
+        db[0] += hh[j][2] + hh[j][3];
+        da[1] += hh[j][0] * xh1[j][0] + hh[j][1] * xh1[j][1];
+        db[1] += hh[j][2] * xh1[j][2] + hh[j][3] * xh1[j][3];
       }
       constexpr float inv = 1.f / C;
-      da = quad_sum(da) * inv;
-      db = quad_sum(db) * inv;
-      dxa = quad_sum(dxa) * inv;
-      dxb = quad_sum(dxb) * inv;
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
+      for (int v = 0; v < 2; ++v) {
+        da[v] = quad_sum(da[v]);
+        db[v] = quad_sum(db[v]);
+      }
+      pair_rowsum<2>(da, db, xch, rg, half, 5, g, lane);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        da[v] *= inv;
+        db[v] *= inv;
+      }
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          hh[j][e] = rs1a * (hh[j][e] - da - xh1[j][e] * dxa);
-          hh[j][2 + e] = rs1b * (hh[j][2 + e] - db - xh1[j][2 + e] * dxb);
+          hh[j][e] = rs1a * (hh[j][e] - da[0] - xh1[j][e] * da[1]);
+          hh[j][2 + e] = rs1b * (hh[j][2 + e] - db[0] - xh1[j][2 + e] * db[1]);
         }
       }
     }
     // hh is dr1: dx through the residual; do = dr1 on occupied cells
-    __syncwarp();  // every lane is done with dz2 (R0) and h1 (R1)
     float* const dr1a = reinterpret_cast<float*>(R0 + r0 * LC) + g * C;
     float* const dr1b = reinterpret_cast<float*>(R1 + r0 * LC) + g * C;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = 8 * j + t2;
+    for (int j = 0; j < HC; ++j) {
+      const int c = c0 + 8 * j + t2;
       *reinterpret_cast<float2*>(dr1a + c) = make_float2(hh[j][0], hh[j][1]);
       *reinterpret_cast<float2*>(dr1b + c) = make_float2(hh[j][2], hh[j][3]);
       if (!oa) hh[j][0] = hh[j][1] = 0.f;
       if (!ob) hh[j][2] = hh[j][3] = 0.f;
     }
-    col_sums<NC>(sums + V::bo, hh, lane);
-    store_frag(DO + r0 * LC, LC, hh, g, t2);
-    __syncwarp();
-    put_rows<C>(p.oDO, wrow, DO + r0 * LC, LC, lane);
+    col_sums<HC>(sums + V::bo + c0, hh, lane);
+    store_frag(DO + r0 * LC + c0, LC, hh, g, t2);
+    pair_sync(rg);
+    put_rows_pair<C>(p.oDO, wrow, DO + r0 * LC, LC, pl);
+    NARROW_PHASE(9);
 
     // 10. datt = do Wo (into R2: every warp is past its dz1 reads)
     zero(hh);
-    mm_m<NC, C>(hh, DO + r0 * LC, LC, w.o, LC, lane);
+    mm_m<HC, C>(hh, DO + r0 * LC, LC, w.o + c0, LC, lane);
     __syncthreads();
-    store_frag(DA + r0 * LC, LC, hh, g, t2);
+    store_frag(DA + r0 * LC + c0, LC, hh, g, t2);
     __syncthreads();
+    NARROW_PHASE(10);
 
-    // 11. attention backward, head by head
+    // 11. attention backward: the two halves' heads side by side, one
+    // head of each a round, each half with its own P and DS
     {
       const int key0 = T == 16 ? r0 : 0;
       bool hk = false;
@@ -1132,10 +1429,12 @@ __global__ void __launch_bounds__(kNThreads, 1)
       const bool keys = r0 < (T == 16 ? kRows : T);
       const int q0 = T == 16 ? r0 : 0;
       constexpr int NQ = T == 16 ? 16 : T;
+      bf16* const PBh = PB + half * kRows * LP;
+      bf16* const DSh = DS + half * kRows * LP;
       float tau_part = 0.f;
 #pragma unroll 1
-      for (int h = 0; h < H; ++h) {
-        const int hc = h * D;
+      for (int hs = 0; hs < HH; ++hs) {
+        const int h = h0 + hs, hc = h * D;
         {
           float pr[NK / 8][4], dp[NK / 8][4];
           row_dots<NK, D>(pr, QH + r0 * LC + hc, KH + key0 * LC + hc, LC,
@@ -1162,10 +1461,10 @@ __global__ void __launch_bounds__(kNThreads, 1)
             dp[n][2] = pr[n][2] * (dp[n][2] - sb);
             dp[n][3] = pr[n][3] * (dp[n][3] - sb);
             const int c = key0 + 8 * n + t2;
-            st2(PB + (r0 + g) * LP + c, pr[n][0], pr[n][1]);
-            st2(PB + (r0 + g + 8) * LP + c, pr[n][2], pr[n][3]);
-            st2(DS + (r0 + g) * LP + c, dp[n][0], dp[n][1]);
-            st2(DS + (r0 + g + 8) * LP + c, dp[n][2], dp[n][3]);
+            st2(PBh + (r0 + g) * LP + c, pr[n][0], pr[n][1]);
+            st2(PBh + (r0 + g + 8) * LP + c, pr[n][2], pr[n][3]);
+            st2(DSh + (r0 + g) * LP + c, dp[n][0], dp[n][1]);
+            st2(DSh + (r0 + g + 8) * LP + c, dp[n][2], dp[n][3]);
           }
           // dq: dqhat = scale ds khat, then through the normalisation
           float dq[D / 8][4];
@@ -1200,15 +1499,15 @@ __global__ void __launch_bounds__(kNThreads, 1)
           col_sums<D / 8>(sums + V::bq + hc, dq, lane);
           store_frag(DQ + r0 * LC + hc, LC, dq, g, t2);
         }
-        __syncthreads();  // every query row's p and ds
+        __syncthreads();  // every query row's p and ds of the round's heads
         {
           float dv[D / 8][4], dk[D / 8][4];
           zero(dv);
           zero(dk);
           if (keys) {
-            mm_tm<D / 8, NQ>(dv, PB + q0 * LP + r0, LP, DA + q0 * LC + hc, LC,
-                             lane);
-            mm_tm<D / 8, NQ>(dk, DS + q0 * LP + r0, LP, QH + q0 * LC + hc,
+            mm_tm<D / 8, NQ>(dv, PBh + q0 * LP + r0, LP, DA + q0 * LC + hc,
+                             LC, lane);
+            mm_tm<D / 8, NQ>(dk, DSh + q0 * LP + r0, LP, QH + q0 * LC + hc,
                              LC, lane);
             float pa = 0.f, pb = 0.f;
 #pragma unroll
@@ -1241,24 +1540,25 @@ __global__ void __launch_bounds__(kNThreads, 1)
           store_frag(DV + r0 * LC + hc, LC, dv, g, t2);
           store_frag(DK + r0 * LC + hc, LC, dk, g, t2);
         }
-        __syncthreads();  // p and ds are rewritten by the next head
+        __syncthreads();  // p and ds are rewritten by the next round
       }
       tau_part = warp_sum(tau_part);
-      if (lane == 0) sums[V::tau] += tau_part;
+      if (lane == 0) sums[V::tau + half] += tau_part;
     }
-    put_rows<C>(p.oDQ, wrow, DQ + r0 * LC, LC, lane);
-    put_rows<C>(p.oDK, wrow, DK + r0 * LC, LC, lane);
-    put_rows<C>(p.oDV, wrow, DV + r0 * LC, LC, lane);
+    put_rows_pair<C>(p.oDQ, wrow, DQ + r0 * LC, LC, pl);
+    put_rows_pair<C>(p.oDK, wrow, DK + r0 * LC, LC, pl);
+    put_rows_pair<C>(p.oDV, wrow, DV + r0 * LC, LC, pl);
+    NARROW_PHASE(11);
 
-    // 12. dx, dkv and dpos through the projections
+    // 12. dx, dkv and dpos through the projections, this half's columns
     {
-      float dxp[NC][4], dkp[NC][4], dvp[NC][4];
+      float dxp[HC][4], dkp[HC][4], dvp[HC][4];
       zero(dxp);
-      mm_m<NC, C>(dxp, DQ + r0 * LC, LC, w.q, LC, lane);
+      mm_m<HC, C>(dxp, DQ + r0 * LC, LC, w.q + c0, LC, lane);
       zero(dkp);
-      mm_m<NC, C>(dkp, DK + r0 * LC, LC, w.k, LC, lane);
+      mm_m<HC, C>(dkp, DK + r0 * LC, LC, w.k + c0, LC, lane);
       zero(dvp);
-      mm_m<NC, C>(dvp, DV + r0 * LC, LC, w.v, LC, lane);
+      mm_m<HC, C>(dvp, DV + r0 * LC, LC, w.v + c0, LC, lane);
       const float* const dr1a =
           reinterpret_cast<const float*>(R0 + r0 * LC) + g * C;
       const float* const dr1b =
@@ -1269,8 +1569,8 @@ __global__ void __launch_bounds__(kNThreads, 1)
                             ? nullptr
                             : p.part_p + ((long long)tile * kRows + r0 + g) * C;
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int c = 8 * j + t2;
+      for (int j = 0; j < HC; ++j) {
+        const int c = c0 + 8 * j + t2;
         const float2 ra = *reinterpret_cast<const float2*>(dr1a + c);
         const float2 rb = *reinterpret_cast<const float2*>(dr1b + c);
         const float res[4] = {ra.x, ra.y, rb.x, rb.y};
@@ -1310,12 +1610,13 @@ __global__ void __launch_bounds__(kNThreads, 1)
         }
       }
     }
+    NARROW_PHASE(12);
     __syncthreads();
     // the cells of a packed window that no row writes: dx = g, dkv = 0
     if constexpr (T != kCells) {
       const int j = WPT == 4 ? warp : 0;
       const int slot = tile * WPT + j;
-      if ((WPT == 4 || warp == kNWarps - 1) && slot < count) {
+      if ((WPT == 4 ? warp < 4 : warp == kBWarps - 1) && slot < count) {
         const long long win = f.list[slot];
         uint32_t qlo = 0u, qhi = 0u, klo = 0u, khi = 0u;
         for (int i = lane; i < T; i += 32) {
@@ -1330,9 +1631,9 @@ __global__ void __launch_bounds__(kNThreads, 1)
           klo |= __shfl_xor_sync(0xffffffffu, klo, o);
           khi |= __shfl_xor_sync(0xffffffffu, khi, o);
         }
-        for (int e = lane; e < kCells * NC; e += 32) {
-          const int cell = e / NC;
-          const long long off = (win * kCells + cell) * C + (e % NC) * 8;
+        for (int e = lane; e < kCells * N::NC; e += 32) {
+          const int cell = e / N::NC;
+          const long long off = (win * kCells + cell) * C + (e % N::NC) * 8;
           const uint32_t qbit = cell < 32 ? qlo >> cell : qhi >> (cell - 32);
           const uint32_t kbit = cell < 32 ? klo >> cell : khi >> (cell - 32);
           if (!(qbit & 1u))
@@ -1343,12 +1644,19 @@ __global__ void __launch_bounds__(kNThreads, 1)
         }
       }
     }
-    // the tile's sums, the warps in order
+    // the tile's sums, the row groups in order (tau: then half 1's)
     float* const pv = p.part_v + (long long)tile * N::kVec;
-    for (int i = tid; i < N::kVec; i += kNThreads)
-      pv[i] = sums_all[i] + sums_all[N::kVec + i] +
-              sums_all[2 * N::kVec + i] + sums_all[3 * N::kVec + i];
+    for (int i = tid; i < N::kVec; i += kBThreads) {
+      float v = sums_all[i] + sums_all[NS + i] + sums_all[2 * NS + i] +
+                sums_all[3 * NS + i];
+      if (i == V::tau)
+        v += sums_all[i + 1] + sums_all[NS + i + 1] +
+             sums_all[2 * NS + i + 1] + sums_all[3 * NS + i + 1];
+      pv[i] = v;
+    }
+    NARROW_PHASE(13);
   }
+  if (!weights_in) cp_async_wait();  // a block that drew no tile
 }
 
 // K7/K9's pre-pass for the narrow widths, one warp per window: live when
@@ -1384,10 +1692,12 @@ __global__ void __launch_bounds__(256) bwd_prepass_kernel(const BwdParams p) {
   }
 }
 
-// The six dY^T X products over one chunk of kChunk workspace rows
-// (blockIdx.y), one 32 x 32 output tile a block (blockIdx.x over the
-// matrices in order: wq wk wv wo [C][C], w1 [F][C], w2 [C][F]); each warp a
-// 16 x 16 quarter. Chunk partials [chunk][8 C^2].
+// The six dY^T X products over one chunk of `chunk` workspace rows
+// (blockIdx.y; a multiple of 64 rows, from the wrapper), one 32 x 32
+// output tile a block (blockIdx.x over the matrices in order: wq wk wv wo
+// [C][C], w1 [F][C], w2 [C][F]); each warp a 16 x 16 quarter. The next
+// 64 rows are loaded into registers while the current ones are multiplied.
+// Chunk partials [chunk][8 C^2].
 struct Wgrad {
   const bf16* dy[6];
   const bf16* x[6];
@@ -1396,13 +1706,13 @@ struct Wgrad {
 
 template <int C>
 __global__ void __launch_bounds__(128)
-    wgrad_kernel(const Wgrad wg, const int* count, int wpt) {
+    wgrad_kernel(const Wgrad wg, const int* count, int wpt, int chunk) {
   constexpr int F = 2 * C, L = 40;
   __shared__ __align__(16) bf16 sdy[kRows * L], sx[kRows * L];
   const int rows = (*count + wpt - 1) / wpt * kRows;
-  const long long lo = (long long)blockIdx.y * kChunk;
+  const long long lo = (long long)blockIdx.y * chunk;
   if (lo >= rows) return;
-  const long long hi = min(lo + kChunk, (long long)rows);
+  const long long hi = min(lo + chunk, (long long)rows);
   int t = blockIdx.x, m = 0;
   for (;; ++m) {
     const int nt = (m == 4 ? F : C) / 32 * ((m == 5 ? F : C) / 32);
@@ -1418,18 +1728,31 @@ __global__ void __launch_bounds__(128)
   const bf16* x = wg.x[m];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mo = 16 * (warp >> 1), ni = 16 * (warp & 1);
+  // a thread's two 8-column pieces of each 64-row step
+  uint4 ndy[2], nx[2];
+  const auto fetch = [&](long long r) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = tid + 128 * u, rr = e >> 2, ch = e & 3;
+      ndy[u] = *reinterpret_cast<const uint4*>(dy + (r + rr) * nout + o0 +
+                                               ch * 8);
+      nx[u] = *reinterpret_cast<const uint4*>(x + (r + rr) * nin + i0 +
+                                              ch * 8);
+    }
+  };
   float acc[2][4];
   zero(acc);
+  fetch(lo);
   for (long long r = lo; r < hi; r += kRows) {
     __syncthreads();
-    for (int e = tid; e < kRows * 4; e += 128) {
-      const int rr = e >> 2, ch = e & 3;
-      *reinterpret_cast<uint4*>(sdy + rr * L + ch * 8) =
-          *reinterpret_cast<const uint4*>(dy + (r + rr) * nout + o0 + ch * 8);
-      *reinterpret_cast<uint4*>(sx + rr * L + ch * 8) =
-          *reinterpret_cast<const uint4*>(x + (r + rr) * nin + i0 + ch * 8);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = tid + 128 * u, rr = e >> 2, ch = e & 3;
+      *reinterpret_cast<uint4*>(sdy + rr * L + ch * 8) = ndy[u];
+      *reinterpret_cast<uint4*>(sx + rr * L + ch * 8) = nx[u];
     }
     __syncthreads();
+    if (r + kRows < hi) fetch(r + kRows);
     mm_tm<2, kRows>(acc, sdy + mo, L, sx + ni, L, lane);
   }
   const int g = lane >> 2, t2 = 2 * (lane & 3);
@@ -1449,62 +1772,80 @@ struct Outs {
   float* p[18];
 };
 
-// Every gradient from its partials, each summed in chunk / tile order:
-// out[0..16] the 17 layer gradients (LayerParams order), out[17] dpos.
+// Every gradient from its partials: out[0..16] the 17 layer gradients
+// (LayerParams order), out[17] dpos. Element e of the partials' three
+// regions (the weights' chunk partials, the per-tile sums, the per-tile
+// dpos) sums its n partials in a fixed order: kRuns runs of consecutive
+// partials, each summed in order by one thread, then the run sums in
+// order. A block takes 32 elements, one warp a run.
 template <int C>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(32 * kRuns)
     reduce_kernel(const float* part_w, const float* part_v,
-                  const float* part_p, const int* count, int wpt,
+                  const float* part_p, const int* count, int wpt, int chunk,
                   const float* tau, float tau_min, const Outs out) {
   using N = Narrow<C>;
   using V = Vec<C>;
   constexpr int F = 2 * C, NW = 8 * C * C;
+  __shared__ float red[kRuns][32];
   const int ntiles = (*count + wpt - 1) / wpt;
-  const int nchunks = (ntiles * kRows + kChunk - 1) / kChunk;
-  int e = blockIdx.x * 256 + threadIdx.x;
-  if (e < NW) {
-    float s = 0.f;
-    for (int c = 0; c < nchunks; ++c) s += part_w[(long long)c * NW + e];
+  const int nchunks = (ntiles * kRows + chunk - 1) / chunk;
+  const int col = threadIdx.x % 32, run = threadIdx.x / 32;
+  int e = blockIdx.x * 32 + col;
+  // the element's region: its partials, their count and stride
+  const float* part = nullptr;
+  int n = 0, stride = 0, k = e;
+  if (k < NW) {
+    part = part_w, n = nchunks, stride = NW;
+  } else if ((k -= NW) < N::kVec) {
+    part = part_v, n = ntiles, stride = N::kVec;
+  } else if ((k -= N::kVec) < kCells * C && part_p != nullptr) {
+    part = part_p, n = ntiles, stride = kCells * C;
+  }
+  float s = 0.f;
+  if (part != nullptr) {
+    const int len = (n + kRuns - 1) / kRuns;
+    const int hi = min(n, (run + 1) * len);
+#pragma unroll 4
+    for (int t = run * len; t < hi; ++t) s += part[(long long)t * stride + k];
+  }
+  red[run][col] = s;
+  __syncthreads();
+  if (run != 0 || part == nullptr) return;
+  s = red[0][col];
+#pragma unroll
+  for (int r = 1; r < kRuns; ++r) s += red[r][col];
+  if (part == part_w) {
     if (e < 4 * C * C)
       out.p[2 * (e / (C * C))][e % (C * C)] = s;
     else if (e < 4 * C * C + F * C)
       out.p[11][e - 4 * C * C] = s;
     else
       out.p[13][e - 4 * C * C - F * C] = s;
-    return;
-  }
-  e -= NW;
-  if (e < N::kVec) {
-    float s = 0.f;
-    for (int t = 0; t < ntiles; ++t) s += part_v[(long long)t * N::kVec + e];
+  } else if (part == part_v) {
     // (offset, output) of each run of the sums
     const int starts[11] = {V::bq, V::bk, V::bv, V::bo, V::ln1s, V::ln1b,
                             V::b1, V::b2, V::ln2s, V::ln2b, V::tau};
     const int outs[11] = {1, 3, 5, 7, 9, 10, 12, 14, 15, 16, 8};
-    int k = 10;
-    while (e < starts[k]) --k;
-    if (k == 10) {
+    int j = 10;
+    while (k < starts[j]) --j;
+    if (j == 10) {
       // s = sum q.dq = scale dL/dscale; scale = 1 / max(tau, tau_min)
       const float t = tau[0];
       out.p[8][0] = t > tau_min ? -s * t / (t * t) : 0.f;
     } else {
-      out.p[outs[k]][e - starts[k]] = s;
+      out.p[outs[j]][k - starts[j]] = s;
     }
-    return;
-  }
-  e -= N::kVec;
-  if (part_p != nullptr && e < kCells * C) {
-    float s = 0.f;
-    for (int t = 0; t < ntiles; ++t) s += part_p[(long long)t * kCells * C + e];
-    out.p[17][e] = s;
+  } else {
+    out.p[17][k] = s;
   }
 }
 
 template <int T, int C, int H>
 int launch_bwd(const BwdParams& p, const Mats& mats, float* part_w,
-               int nchunks, const Outs& outs, cudaStream_t s) {
+               int nchunks, int chunk, const Outs& outs, cudaStream_t s) {
   constexpr int WPT = T == 16 ? 4 : 1;
   using N = Narrow<C>;
+  static_assert(bwd_smem<C, H>() <= 232448, "over the shared memory");
   const int n = p.f.nwin;
   int e;
   if (n > 0) {
@@ -1521,7 +1862,7 @@ int launch_bwd(const BwdParams& p, const Mats& mats, float* part_w,
       return e;
     const int blocks = std::min(sm_count(), (n + WPT - 1) / WPT);
     narrow_bwd_kernel<T, C, H>
-        <<<blocks, kNThreads, bwd_smem<C, H>(), s>>>(p, mats);
+        <<<blocks, kBThreads, bwd_smem<C, H>(), s>>>(p, mats);
     if ((e = tmae_last_error())) return e;
   }
   if (nchunks > 0) {
@@ -1534,21 +1875,25 @@ int launch_bwd(const BwdParams& p, const Mats& mats, float* part_w,
     }
     wg.part = part_w;
     constexpr int tiles = 4 * (C / 32) * (C / 32) + 2 * (N::F / 32) * (C / 32);
-    wgrad_kernel<C><<<dim3(tiles, nchunks), 128, 0, s>>>(wg, p.f.count, WPT);
+    wgrad_kernel<C><<<dim3(tiles, nchunks), 128, 0, s>>>(wg, p.f.count, WPT,
+                                                        chunk);
     if ((e = tmae_last_error())) return e;
   }
-  const int total = 8 * C * C + N::kVec + kCells * C;
-  reduce_kernel<C><<<(total + 255) / 256, 256, 0, s>>>(
-      part_w, p.part_v, p.part_p, p.f.count, WPT, p.f.tau, p.f.tau_min, outs);
+  const int total = 8 * C * C + N::kVec + (p.part_p ? kCells * C : 0);
+  reduce_kernel<C><<<(total + 31) / 32, 32 * kRuns, 0, s>>>(
+      part_w, p.part_v, p.part_p, p.f.count, WPT, chunk, p.f.tau,
+      p.f.tau_min, outs);
   return tmae_last_error();
 }
 
 template <int C, int H>
 int bwd_width(int T, const BwdParams& p, const Mats& m, float* part_w,
-              int nchunks, const Outs& o, cudaStream_t s) {
-  if (T == 16) return launch_bwd<16, C, H>(p, m, part_w, nchunks, o, s);
-  if (T == 48) return launch_bwd<48, C, H>(p, m, part_w, nchunks, o, s);
-  return launch_bwd<kCells, C, H>(p, m, part_w, nchunks, o, s);
+              int nchunks, int chunk, const Outs& o, cudaStream_t s) {
+  if (T == 16)
+    return launch_bwd<16, C, H>(p, m, part_w, nchunks, chunk, o, s);
+  if (T == 48)
+    return launch_bwd<48, C, H>(p, m, part_w, nchunks, chunk, o, s);
+  return launch_bwd<kCells, C, H>(p, m, part_w, nchunks, chunk, o, s);
 }
 
 }  // namespace
@@ -1642,14 +1987,22 @@ extern "C" int launch_narrow_bwd(const void* const* in, const void* const* w,
                                  void* stream) {
   const int N = dims[0], T = dims[1], C = dims[2], F = dims[3], H = dims[4];
   const int cross = dims[5], want_dpos = dims[6], nchunks = dims[7];
+  const int chunk = dims[8];
   if (!narrow_ok(C, F, H) || (T != 16 && T != 48 && T != kCells) ||
+      chunk < kRows || chunk % kRows ||
+      (long long)nchunks * chunk < (T == 16 ? (N + 3) / 4 : N) * 64LL ||
       (want_dpos && (T != kCells || out[2] == nullptr)) ||
       in[0] == nullptr || in[2] == nullptr || in[6] == nullptr ||
       (T != kCells && in[4] == nullptr) ||
       (cross && (in[1] == nullptr || in[7] == nullptr || out[1] == nullptr)))
     return (int)cudaErrorInvalidValue;
   const void* w18[18];
-  for (int i = 0; i < 17; ++i) w18[i] = w[i];
+  for (int i = 0; i < 17; ++i) {
+    // the window pass copies every layer tensor but tau 16 bytes at a time
+    if (i != 8 && reinterpret_cast<uintptr_t>(w[i]) % 16)
+      return (int)cudaErrorMisalignedAddress;
+    w18[i] = w[i];
+  }
   w18[17] = nullptr;
   BwdParams p{};
   p.f = make_params(in[0], in[1], nullptr, in[3], w18, ws[12], N, cross,
@@ -1683,7 +2036,24 @@ extern "C" int launch_narrow_bwd(const void* const* in, const void* const* w,
   const Mats m{{w[0], w[2], w[4], w[6], w[11], w[13]}, 0};
   float* part_w = static_cast<float*>(ws[15]);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 32) return bwd_width<32, 4>(T, p, m, part_w, nchunks, outs, s);
-  return H == 4 ? bwd_width<64, 4>(T, p, m, part_w, nchunks, outs, s)
-                : bwd_width<64, 8>(T, p, m, part_w, nchunks, outs, s);
+  if (C == 32)
+    return bwd_width<32, 4>(T, p, m, part_w, nchunks, chunk, outs, s);
+  return H == 4 ? bwd_width<64, 4>(T, p, m, part_w, nchunks, chunk, outs, s)
+                : bwd_width<64, 8>(T, p, m, part_w, nchunks, chunk, outs, s);
 }
+
+#ifdef TMAE_NARROW_PROFILE
+// NARROW_BWD's window-pass cycles by phase (16), summed over blocks, then
+// zeroed.
+extern "C" int tmae_narrow_profile(unsigned long long* out16) {
+  static unsigned long long h[256][16];
+  int e = (int)cudaMemcpyFromSymbol(h, tmae_narrow_cycles, sizeof(h));
+  if (e) return e;
+  for (int k = 0; k < 16; ++k) {
+    out16[k] = 0;
+    for (int b = 0; b < 256; ++b) out16[k] += h[b][k];
+  }
+  static unsigned long long z[256][16];
+  return (int)cudaMemcpyToSymbol(tmae_narrow_cycles, z, sizeof(z));
+}
+#endif

@@ -19,16 +19,35 @@
 // (__fmul_rn / __fadd_rn; the file is also built with -fmad=false). An
 // argmax tie takes the smallest index.
 //
-// DFPS (farthest_point_sample): one block of 1024 threads a sample. The
-// sample's coordinates sit in shared memory as x, y and z rows (16384
-// points: 196,608 bytes), the running minimum distances in registers (at
-// most 16 a thread). Each of the S - 1 steps reads the last chosen point,
-// updates the distances of the thread's points, and takes the block's
-// argmax: a warp shuffle reduction, one __syncthreads, then every warp
-// reduces the 32 warps' winners itself (double-buffered, so one barrier a
-// step). Bound: the S sequential steps, each a block-wide reduction on one
-// SM, and not bytes or operations; the batch's samples run side by side.
-//
+// DFPS (farthest_point_sample): one thread-block cluster a sample. The
+// sample's N points are split over a cluster of R CTAs (R <= 16; R, the
+// threads a CTA and the points a thread come from dfps_plan in
+// ops/pointnet2.py: 8 x 256 x 8 at N = 16384), and each thread keeps its
+// points' x, y, z and running minimum distances in registers, so a step
+// reads nothing from memory but the last step's winner. Each of the S - 1
+// steps: every thread updates its points and takes its own argmax; the
+// warp's winner comes from two redux.sync (the value's order key, then the
+// index where lanes tie), its owning lane hands over the coordinates;
+// lanes 0 .. R - 1 write the warp's record (value, index, x, y, z) into
+// slot rank * W + warp of every CTA of the cluster with st.async, whose
+// bytes land on the receiving CTA's mbarrier (24 a record, expected by one
+// arrive.expect_tx of that CTA); every warp waits on its own CTA's
+// mbarrier, reduces the R x W records to the same winner and reads its
+// coordinates from the record. Records and mbarriers are double-buffered:
+// a CTA writes buffer s % 2 again only after every warp of the cluster has
+// sent its record of step s + 1, which each sends after reading step s.
+// The first valid point (the mask's argmax) is reduced the same way. An
+// argmax over any tree gives the plain version's index: `beats` is a
+// total order. Bound: the S sequential steps, each one DSMEM round trip
+// and three warp reductions, not bytes or operations. Measured
+// (utils/pn2_phases.py, H100 SXM at 700 W): 0.84 us a step at 16384 ->
+// 4096 (3.43 ms; the one-block walk this replaced: 2.83 us, 11.58 ms),
+// 0.58 at 4096 -> 512, 0.48 at 512 -> 256; of a step's ~1800 cycles at 8
+// x 256 x 8 (--cycles) ~600 go to the points and the thread's argmax, ~320
+// to the warp's, ~330 to the exchange, ~560 to the records' argmax. A
+// cluster barrier a step in place of the mbarrier (its release waits on
+// the DSMEM stores) took ~1200 cycles for the exchange alone.
+
 // FFPS (farthest_point_sample_ffps): two kernels in one call. The distance
 // matrix [B, N, N] (67 MB a sample at N = 4096) is computed in 32 x 32
 // tiles with both tiles' features staged in shared memory 32 channels at a
@@ -53,6 +72,9 @@ namespace {
 
 constexpr int kFpsThreads = 1024;        // 32 warps: one winner a lane
 constexpr int kFpsMaxPer = 16;           // points a thread: N <= 16384
+constexpr int kClusterMax = 16;          // DFPS: CTAs of a sample
+constexpr int kWarpsMax = 8;             // DFPS: warps of a CTA
+constexpr int kRecords = kClusterMax * kWarpsMax;
 constexpr float kBig = 1e10f;
 constexpr int kTile = 32;                // distance-matrix tile
 constexpr int kTileThreads = 256;
@@ -149,27 +171,270 @@ __device__ void fps_walk(const bool* __restrict__ mask, int N, int S,
   }
 }
 
+// A warp's record of its winner, as the other CTAs of the cluster see it.
+struct __align__(8) Best {
+  float v;
+  int i;
+};
+
+__device__ __forceinline__ uint32_t cta_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the same slot in the shared memory of CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(a), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// An mbarrier of this CTA expecting `count` arrivals a phase, its
+// initialisation made visible to the cluster.
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :
+               : "r"(bar), "r"(count)
+               : "memory");
+}
+
+// This thread's arrival on this CTA's mbarrier, which then expects `bytes`
+// more to be written to this CTA by st.async before its phase completes.
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}"
+      :
+      : "r"(bar), "r"(bytes)
+      : "memory");
+}
+
+// Stores into another CTA's shared memory (shared::cluster addresses) that
+// count their bytes on that CTA's mbarrier `bar` when they land.
+__device__ __forceinline__ void st_async2(uint32_t a, uint32_t x, uint32_t y,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];"
+      :
+      : "r"(a), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async4(uint32_t a, float x, float y,
+                                          float z, float w, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];"
+      :
+      : "r"(a), "f"(x), "f"(y), "f"(z), "f"(w), "r"(bar)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` of this CTA's mbarrier to
+// complete: the bytes it expected have landed. A wait that outlasts any
+// step by far (2^28 polls) traps: the call fails instead of hanging.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  unsigned polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A float as an unsigned key in the same order (-0 taken as +0; no NaN
+// reaches it), and back.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v + 0.f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The lane that holds the warp's argmax of (v, i) (greater value, then
+// smaller index; indices >= 0): redux.sync of the value's key, and of the
+// index only when several lanes hold the largest value. `lane_of` maps the
+// winning index to its lane; v becomes the largest value.
+template <typename LaneOf>
+__device__ __forceinline__ int warp_winner(float& v, int i, LaneOf lane_of) {
+  const unsigned key = order_key(v);
+  const unsigned top = __reduce_max_sync(0xffffffffu, key);
+  const unsigned at = __ballot_sync(0xffffffffu, key == top);
+  v = key_value(top);
+  if ((at & (at - 1u)) == 0u) return __ffs(at) - 1;
+  return lane_of(static_cast<int>(__reduce_min_sync(
+      0xffffffffu, key == top ? static_cast<unsigned>(i) : 0xffffffffu)));
+}
+
+#ifdef TMAE_DFPS_PROFILE
+// cycles of thread 0 of CTA 0, summed over the steps of a call, by part:
+// the points' update and the thread's argmax, the warp's, the records'
+// stores and the cluster barrier, the records' argmax and the winner's
+// coordinates
+__device__ unsigned long long dfps_cycles[4];
+#define DFPS_TICK(part)                                             \
+  do {                                                              \
+    if (prof) {                                                     \
+      const long long now = clock64();                              \
+      atomicAdd(&dfps_cycles[part], (unsigned long long)(now - t0)); \
+      t0 = now;                                                     \
+    }                                                               \
+  } while (0)
+#else
+#define DFPS_TICK(part) \
+  do {                  \
+  } while (0)
+#endif
+
+// DFPS, one cluster of R CTAs a sample (blockIdx.x / R), PER points a
+// thread: point j lives in thread j % G of the cluster (G = R threads, the
+// cluster's threads in rank order), in its register k = j / G, so that
+// its lane is j % 32. Running distances: 1e10 for a valid point, -1e10
+// for an invalid one (never updated), -inf for a slot past N. Each step:
+// the thread's argmax over its points (k ascending: a strict > keeps the
+// smaller index), the warp's (warp_winner), the warp's record (value,
+// index, x, y, z) into slot rank * W + warp of every CTA's buffer `par`,
+// one cluster barrier, then every warp's argmax over the R W records, the
+// winner's coordinates from its record.
 template <int PER>
-__global__ void __launch_bounds__(kFpsThreads)
-    dfps_kernel(const float* __restrict__ xyz, const bool* __restrict__ mask,
-                int N, int S, int* __restrict__ out) {
-  extern __shared__ float coords[];  // x row, y row, z row of the sample
-  const int b = blockIdx.x;
+__global__ void __launch_bounds__(32 * kWarpsMax)
+    dfps_cluster_kernel(const float* __restrict__ xyz,
+                        const bool* __restrict__ mask, int N, int S, int R,
+                        int* __restrict__ out) {
+  __shared__ Best rec[2][kRecords];
+  __shared__ float4 pos[2][kRecords];
+  __shared__ __align__(8) unsigned long long full[2];  // records arrived
+  const int threads = blockDim.x, W = threads / 32, nrec = R * W;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int rank = blockIdx.x % R, b = blockIdx.x / R;
+  const int G = R * threads, gt = rank * threads + threadIdx.x;
   const float* p = xyz + (long long)b * N * 3;
-  float* sx = coords;
-  float* sy = coords + N;
-  float* sz = coords + 2 * N;
-  for (int j = threadIdx.x; j < N; j += kFpsThreads) {
-    sx[j] = p[3 * j];
-    sy[j] = p[3 * j + 1];
-    sz[j] = p[3 * j + 2];
+  const bool* m = mask + (long long)b * N;
+#ifdef TMAE_DFPS_PROFILE
+  const bool prof = blockIdx.x == 0 && threadIdx.x == 0;
+  long long t0 = clock64();
+#endif
+  float px[PER], py[PER], pz[PER], dist[PER];
+  float first[PER];  // the mask as values: the first valid point wins
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = gt + k * G;
+    const bool ok = j < N;
+    const bool valid = ok && m[j];
+    px[k] = ok ? p[3 * j] : 0.f;
+    py[k] = ok ? p[3 * j + 1] : 0.f;
+    pz[k] = ok ? p[3 * j + 2] : 0.f;
+    dist[k] = valid ? kBig : (ok ? -kBig : -CUDART_INF_F);
+    first[k] = ok ? (valid ? 1.f : 0.f) : -CUDART_INF_F;
   }
-  __syncthreads();
-  fps_walk<PER>(mask + (long long)b * N, N, S, out + (long long)b * S,
-                [&](int last, int j) {
-                  return sq_dist3(sx[j], sy[j], sz[j], sx[last], sy[last],
-                                  sz[last]);
-                });
+  // this lane's slot in every CTA: lane r < R writes CTA r's
+  const int slot = rank * W + warp, to = lane < R ? lane : 0;
+  const uint32_t rec_at = cluster_addr(cta_addr(&rec[0][slot]), to);
+  const uint32_t pos_at = cluster_addr(cta_addr(&pos[0][slot]), to);
+  const uint32_t full_at = cluster_addr(cta_addr(&full[0]), to);
+  constexpr uint32_t rec_buf = sizeof(rec[0]), pos_buf = sizeof(pos[0]);
+  int* o = out + (long long)b * S;
+  const bool writer = rank == 0 && threadIdx.x == 0;
+  float lx = 0.f, ly = 0.f, lz = 0.f;
+  // step s: the argmax of vals over the cluster into o[s], its
+  // coordinates into lx, ly, lz
+  const auto pick = [&](const float (&vals)[PER], int s) {
+    const int par = s & 1;
+    // this step's records: nrec of them, 24 bytes each
+    if (threadIdx.x == 0) bar_expect(cta_addr(&full[par]), nrec * 24);
+    // the thread's argmax (k ascending: a strict > keeps the smaller
+    // index), then its coordinates (selects off that chain)
+    float bv = vals[0];
+    int bk = 0;
+#pragma unroll
+    for (int k = 1; k < PER; ++k)
+      if (vals[k] > bv) {
+        bv = vals[k];
+        bk = k;
+      }
+    float bx = px[0], by = py[0], bz = pz[0];
+#pragma unroll
+    for (int k = 1; k < PER; ++k)
+      if (bk == k) {
+        bx = px[k];
+        by = py[k];
+        bz = pz[k];
+      }
+    const int bi = gt + bk * G;
+    DFPS_TICK(0);
+    // the warp's winner: its lane is its index % 32
+    const int src = warp_winner(bv, bi, [](int i) { return i & 31; });
+    const int wi = __shfl_sync(0xffffffffu, bi, src);
+    bx = __shfl_sync(0xffffffffu, bx, src);
+    by = __shfl_sync(0xffffffffu, by, src);
+    bz = __shfl_sync(0xffffffffu, bz, src);
+    DFPS_TICK(1);
+    if (lane < R) {
+      st_async2(rec_at + par * rec_buf, __float_as_uint(bv), wi,
+                full_at + par * 8);
+      st_async4(pos_at + par * pos_buf, bx, by, bz, 0.f, full_at + par * 8);
+    }
+    // every warp's record of this step is in buffer `par`: phase (s / 2) %
+    // 2 of `full[par]` is complete
+    bar_wait(cta_addr(&full[par]), (s >> 1) & 1);
+    DFPS_TICK(2);
+    // the records' argmax; each lane reads its best record's coordinates
+    // while the warp finds the winner
+    float rv = -CUDART_INF_F;
+    int ri = 0x7fffffff, rk = 0;
+    for (int k = lane; k < nrec; k += 32) {
+      const Best r = rec[par][k];
+      if (beats(r.v, r.i, rv, ri)) {
+        rv = r.v;
+        ri = r.i;
+        rk = k;
+      }
+    }
+    const float4 q = pos[par][rk];
+    // a record's index is unique: the lane that read it holds it
+    const int win = warp_winner(rv, ri, [&](int i) {
+      return __ffs(__ballot_sync(0xffffffffu, ri == i)) - 1;
+    });
+    const int last = __shfl_sync(0xffffffffu, ri, win);
+    lx = __shfl_sync(0xffffffffu, q.x, win);
+    ly = __shfl_sync(0xffffffffu, q.y, win);
+    lz = __shfl_sync(0xffffffffu, q.z, win);
+    if (writer) o[s] = last;
+    DFPS_TICK(3);
+  };
+  if (threadIdx.x == 0) {
+    bar_init(cta_addr(&full[0]), 1);
+    bar_init(cta_addr(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every CTA of the cluster has started, and set up its mbarriers, before
+  // its shared memory is written from another
+  cluster_barrier();
+  pick(first, 0);
+  for (int s = 1; s < S; ++s) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (dist[k] >= 0.f)
+        dist[k] = fminf(dist[k], sq_dist3(px[k], py[k], pz[k], lx, ly, lz));
+    pick(dist, s);
+  }
+  // no CTA leaves while another may still write to it
+  cluster_barrier();
 }
 
 template <int PER>
@@ -302,14 +567,43 @@ __global__ void __launch_bounds__(kBqWarps * 32)
   if (lane == 0) cnt[row] = count;
 }
 
+// One launch of dfps_cluster_kernel<PER>: B clusters of R CTAs of
+// `threads`, through cudaLaunchKernelEx. A cluster of more than 8 CTAs is
+// allowed explicitly, and the first launch of each (R, threads) asks the
+// card how many such clusters it can hold: none is an error.
 template <int PER>
 int dfps_launch(const float* xyz, const bool* mask, int B, int N, int S,
-                int* out, cudaStream_t stream) {
-  const int smem = 3 * N * static_cast<int>(sizeof(float));
-  const cudaError_t e = cudaFuncSetAttribute(
-      dfps_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                int R, int threads, int* out, cudaStream_t stream) {
+  static unsigned char checked[kClusterMax + 1][kWarpsMax + 1] = {};
+  auto kern = dfps_cluster_kernel<PER>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * R);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  unsigned char& done = checked[R][threads / 32];
+  if (!done) {
+    cudaError_t e = cudaSuccess;
+    if (R > 8)
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    done = 1;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xyz, mask, N, S, R,
+                                           out);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dfps_kernel<PER><<<B, kFpsThreads, smem, stream>>>(xyz, mask, N, S, out);
   return tmae_last_error();
 }
 
@@ -329,18 +623,37 @@ int points_per_thread(int N) {
 
 }  // namespace
 
-extern "C" int launch_dfps(const float* xyz, const bool* mask, int B, int N,
-                           int S, int* out, cudaStream_t stream) {
-  if (B < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (points_per_thread(N)) {
-    case 1: return dfps_launch<1>(xyz, mask, B, N, S, out, stream);
-    case 2: return dfps_launch<2>(xyz, mask, B, N, S, out, stream);
-    case 4: return dfps_launch<4>(xyz, mask, B, N, S, out, stream);
-    case 8: return dfps_launch<8>(xyz, mask, B, N, S, out, stream);
-    case 16: return dfps_launch<16>(xyz, mask, B, N, S, out, stream);
+// DFPS under the plan (R, threads, per) of ops/pointnet2.dfps_plan: R in
+// 1..16, threads a multiple of 32 up to 256, per 1, 2, 4, 8 or 16,
+// covering N.
+extern "C" int launch_dfps_cluster(const float* xyz, const bool* mask, int B,
+                                   int N, int S, int R, int threads, int per,
+                                   int* out, cudaStream_t stream) {
+  if (B < 1 || S < 1 || N < 1 || R < 1 || R > kClusterMax || threads < 32 ||
+      threads > 32 * kWarpsMax || threads % 32 ||
+      (long long)R * threads * per < N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (per) {
+    case 1: return dfps_launch<1>(xyz, mask, B, N, S, R, threads, out, stream);
+    case 2: return dfps_launch<2>(xyz, mask, B, N, S, R, threads, out, stream);
+    case 4: return dfps_launch<4>(xyz, mask, B, N, S, R, threads, out, stream);
+    case 8: return dfps_launch<8>(xyz, mask, B, N, S, R, threads, out, stream);
+    case 16:
+      return dfps_launch<16>(xyz, mask, B, N, S, R, threads, out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+#ifdef TMAE_DFPS_PROFILE
+// DFPS's cycles by part since the last read (dfps_cycles), then reset
+extern "C" int tmae_dfps_profile(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, dfps_cycles, sizeof(dfps_cycles));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long zero[4] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(dfps_cycles, zero, sizeof(dfps_cycles)));
+}
+#endif
 
 extern "C" int launch_ffps(const float* xyz, const float* feat,
                            const bool* mask, int B, int N, int C, int S,

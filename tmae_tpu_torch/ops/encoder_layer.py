@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -90,7 +91,10 @@ NARROW_WIDTHS = ((32, 4), (64, 4), (64, 8))
 # NARROW_FWD's modes (Mode in csrc/encoder_fwd_plan.cuh): the calls of K8,
 # K4, K6, K3, K10 and K12
 _SEL_OUT, _SEL_IN_PLACE, _FULL_OUT, _FULL_IN_PLACE, _GRID_OUT, _PLAN = range(6)
-_NARROW_CHUNK = 4096  # rows of a weight-gradient chunk (kChunk)
+# NARROW_BWD's weight-gradient chunks: at least this many rows (4 tiles)
+# a chunk, and at most this many chunks
+_NARROW_CHUNK_ROWS = 256
+_NARROW_MAX_CHUNKS = 64
 
 
 class LayerParams(NamedTuple):
@@ -667,23 +671,43 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[_ptr(t) for t in ts])
 
 
-def _narrow_bwd_workspace(N, T, C, F, cross, dpos, dev):
-    """Workspace of NARROW_BWD (see csrc/encoder_layer_narrow.cu): the bf16
-    operand rows of the six weight-gradient products (64 a tile of 4
-    windows at S = 16, of one window otherwise; KP only in cross mode), the
-    int32 flags, list, count and counter, the per-tile sums, the per-tile
-    dpos when wanted and the chunk partials. Returns (tensors, chunks)."""
+def _narrow_chunks(rows):
+    """NARROW_BWD's weight-gradient chunks over ``rows`` workspace rows:
+    (rows a chunk, a multiple of 64; chunks), at least _NARROW_CHUNK_ROWS
+    rows a chunk and at most _NARROW_MAX_CHUNKS chunks."""
+    tiles = -(-rows // 64)
+    chunk = 64 * max(_NARROW_CHUNK_ROWS // 64,
+                     -(-tiles // _NARROW_MAX_CHUNKS))
+    return chunk, max(1, -(-rows // chunk))
+
+
+def _narrow_bwd_layout(N, T, C, F, cross, dpos):
+    """Workspace of NARROW_BWD (see csrc/encoder_layer_narrow.cu) in one
+    buffer, each region 256 bytes aligned: the bf16 operand rows of the six
+    weight-gradient products (64 a tile of 4 windows at S = 16, of one
+    window otherwise; KP only in cross mode), the int32 flags, list, count
+    and counter, and the f32 per-tile sums, per-tile dpos (when wanted) and
+    chunk partials. Returns (the 16 regions' (byte offset, shape, dtype),
+    None for a missing one; total bytes; chunks; rows a chunk)."""
     tiles = -(-N // (4 if T == 16 else 1))
     rows = 64 * tiles
-    bf = lambda w: torch.empty(rows, w, dtype=torch.bfloat16, device=dev)
-    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    nchunks = -(-rows // _NARROW_CHUNK)
-    ops = [bf(C), bf(C) if cross else None, bf(C), bf(C), bf(C), bf(F),
-           bf(C), bf(C), bf(C), bf(C), bf(F), bf(C)]
-    return ops + [
-        torch.empty(2 * N + 2, dtype=torch.int32, device=dev),
-        f32(tiles, 9 * C + F + 1), f32(tiles, 64 * C) if dpos else None,
-        f32(nchunks, 8 * C * C)], nchunks
+    chunk, nchunks = _narrow_chunks(rows)
+    bf, i32, f32 = torch.bfloat16, torch.int32, torch.float32
+    regions = [None if w is None else ((rows, w), bf)
+               for w in (C, C if cross else None, C, C, C, F, C, C, C, C, F,
+                         C)]
+    regions += [((2 * N + 2,), i32), ((tiles, 9 * C + F + 1), f32),
+                ((tiles, 64 * C), f32) if dpos else None,
+                ((nchunks, 8 * C * C), f32)]
+    out, at = [], 0
+    for r in regions:
+        if r is None:
+            out.append(None)
+            continue
+        (shape, dtype) = r
+        out.append((at, shape, dtype))
+        at += -(-math.prod(shape) * dtype.itemsize // 256) * 256
+    return out, at, nchunks, chunk
 
 
 def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
@@ -716,19 +740,31 @@ def encoder_layer_bwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos, weights, g,
     pos = pos.to(torch.bfloat16).contiguous()
     dx = torch.empty_like(xw)
     dkv = torch.empty_like(xw) if cross else None
+    ins = _ptrs([xw, kvw, g, pos, sel_q, sel_k, qmask, kmask])
+    if family == 'narrow':
+        # the 17 gradients and dpos as views of one buffer, the workspace as
+        # one more
+        sizes = [w.numel() for w in p] + [64 * C if want_dpos else 0]
+        *grads, dpos = torch.empty(sum(sizes), dtype=torch.float32,
+                                   device=dev).split(sizes)
+        grads = [t.view(w.shape) for t, w in zip(grads, p)]
+        dpos = dpos.view(64, C) if want_dpos else None
+        layout, nbytes, nchunks, chunk = _narrow_bwd_layout(
+            N, T, C, Fd, cross, want_dpos)
+        base = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        work = base.data_ptr()
+        ws = (ctypes.c_void_p * len(layout))(
+            *[None if r is None else work + r[0] for r in layout])
+        NARROW_BWD(ins, _weight_ptrs(p), ws,
+                   _ptrs([dx, dkv, dpos] + grads),
+                   _ints(N, T, C, Fd, nhead, int(cross), int(want_dpos),
+                         nchunks, chunk), float(tau_min), stream_handle())
+        return dx, dkv, grads, dpos
     dpos = (torch.empty(64, C, dtype=torch.float32, device=dev) if want_dpos
             else None)
     grads = [torch.empty(w.shape, dtype=torch.float32, device=dev)
              for w in p]
-    ins = _ptrs([xw, kvw, g, pos, sel_q, sel_k, qmask, kmask])
     outs = _ptrs([dx, dkv, dpos] + grads)
-    if family == 'narrow':
-        ws, nchunks = _narrow_bwd_workspace(N, T, C, Fd, cross, want_dpos,
-                                            dev)
-        NARROW_BWD(ins, _weight_ptrs(p), _ptrs(ws), outs,
-                   _ints(N, T, C, Fd, nhead, int(cross), int(want_dpos),
-                         nchunks), float(tau_min), stream_handle())
-        return dx, dkv, grads, dpos
     ws, splits = _bwd_workspace(N, T, C, Fd, nhead, cross, want_dpos, dev)
     args = (ins, _weight_ptrs(p), _ptrs(ws), outs)
     if sel:

@@ -10,7 +10,8 @@ The three samplers are wrappers over hand-written kernels
 (``csrc/pointnet2.cu``) on CUDA tensors and take their plain versions on
 CPU tensors:
 
-* ``DFPS``: :func:`farthest_point_sample`;
+* ``DFPS``: :func:`farthest_point_sample`, one thread-block cluster a
+  sample under :func:`dfps_plan`;
 * ``FFPS``: :func:`farthest_point_sample_ffps`, the F-FPS of
   ``calc_dist_matrix_for_sampling`` then ``farthest_point_sample_matrix``
   in one call;
@@ -33,14 +34,21 @@ import torch
 from ..device import as_kernel_arg, on_card
 from ..utils.build import CudaKernel, F, I, P, stream_handle
 
-DFPS = CudaKernel('pointnet2.cu', 'launch_dfps', [P, P, I, I, I, P, P])
+DFPS = CudaKernel('pointnet2.cu', 'launch_dfps_cluster',
+                  [P, P, I, I, I, I, I, I, P, P])
 FFPS = CudaKernel('pointnet2.cu', 'launch_ffps',
                   [P, P, P, I, I, I, I, F, P, P, P])
 BALL_QUERY = CudaKernel('pointnet2.cu', 'launch_ball_query',
                         [P, P, P, P, I, I, I, I, F, F, I, P, P, P])
 
 BIG = 1e10
-FPS_MAX_POINTS = 16384   # DFPS / FFPS: 16 running distances a thread of 1024
+FPS_MAX_POINTS = 16384   # FFPS: 16 running distances a thread of 1024
+# DFPS: a cluster of up to 16 CTAs a sample, up to 256 threads a CTA and
+# 16 points a thread (dfps_plan)
+DFPS_MAX_CLUSTER = 16
+DFPS_MAX_THREADS = 256
+DFPS_MAX_PER = 16
+DFPS_MAX_POINTS = DFPS_MAX_CLUSTER * DFPS_MAX_THREADS * DFPS_MAX_PER
 # the plain ball query takes its centres in chunks of at most this many
 # (centre, point) pairs, so that no [B, M, N] tensor of a large level is
 # made at once
@@ -118,11 +126,35 @@ def farthest_point_sample_ffps_plain(xyz, features, mask, num_samples: int,
         num_samples)
 
 
-def _fps_args(points, mask, num_samples):
-    B, N = mask.shape
-    if N > FPS_MAX_POINTS:
-        raise ValueError(f'FPS on the card takes at most {FPS_MAX_POINTS} '
+def dfps_plan(N: int) -> tuple[int, int, int]:
+    """DFPS's launch for N points a sample: (R, threads, per), a cluster of
+    R CTAs of ``threads`` threads, ``per`` points a thread, covering N
+    (R threads per >= N). From the plans timed on the H100
+    (``utils/pn2_phases.py --sweep``): 128 threads a CTA up to 1024 points,
+    256 above; the cluster grows (up to 16 CTAs) until a thread holds 2
+    points (up to 1024), 4 (up to 8192) or 8, then a thread takes more.
+    Raises above DFPS_MAX_POINTS."""
+    if not 1 <= N <= DFPS_MAX_POINTS:
+        raise ValueError(f'D-FPS on the card takes 1 to {DFPS_MAX_POINTS} '
                          f'points a sample, got {N}')
+    threads = 128 if N <= 1024 else DFPS_MAX_THREADS
+    target = 2 if N <= 1024 else 4 if N <= 8192 else 8
+    R = 1
+    while R < DFPS_MAX_CLUSTER and R * threads * target < N:
+        R *= 2
+    per = 1
+    while R * threads * per < N:
+        per *= 2
+    if R == 1 and per == 1:
+        threads = 32 * -(-N // 32)
+    return R, threads, per
+
+
+def _fps_args(points, mask, num_samples, limit=FPS_MAX_POINTS):
+    B, N = mask.shape
+    if N > limit:
+        raise ValueError(f'FPS on the card takes at most {limit} points a '
+                         f'sample, got {N}')
     if points.shape[:2] != (B, N) or points.shape[-1] != 3:
         raise ValueError(f'points {tuple(points.shape)} and mask '
                          f'{tuple(mask.shape)} do not match')
@@ -138,10 +170,11 @@ def farthest_point_sample(points, mask, num_samples: int) -> torch.Tensor:
     one has been, or when there is none (then index 0)."""
     if not on_card(points, mask):
         return farthest_point_sample_plain(points, mask, num_samples)
-    pts, m, out = _fps_args(points.detach(), mask, num_samples)
+    pts, m, out = _fps_args(points.detach(), mask, num_samples,
+                            DFPS_MAX_POINTS)
     B, N = m.shape
     if B and N and num_samples:
-        DFPS(pts.data_ptr(), m.data_ptr(), B, N, num_samples,
+        DFPS(pts.data_ptr(), m.data_ptr(), B, N, num_samples, *dfps_plan(N),
              out.data_ptr(), stream_handle())
     else:
         out.zero_()
