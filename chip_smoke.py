@@ -7,9 +7,9 @@ paths on one NVIDIA H100 and check them.
     python3 chip_smoke.py --nms-parent PATH  # phase 16 also runs PATH's
                                              # iou_nms.cu (a parent's)
     python3 chip_smoke.py --narrow-parent PATH  # phase 18b also times its
-                                    # step with PATH's encoder_layer_narrow.cu
+                    # served pair and step with PATH's encoder_layer_narrow.cu
     python3 chip_smoke.py --pn2-parent PATH  # phases 20b and 20c also time a
-                                    # frame and a step with PATH's DFPS
+                                # frame and a step with PATH's DFPS and FFPS
 
 Phases (any failure exits non-zero and prints no result line):
   1. card: fail without CUDA; print ``nvidia-smi`` name and power limit.
@@ -250,7 +250,10 @@ Phases (any failure exits non-zero and prints no result line):
      held to the bf16 control), and with SimSiam added the same modules
      and, under deterministic algorithms, the same loss bits; the ms of a
      warm step (median of 3; with ``--narrow-parent``, also with that
-     source's NARROW_BWD: parent, this, this, parent).
+     source's NARROW_FWD and NARROW_BWD, each with its own host path, and
+     a warm served pair with both sources: parent, this, this, parent, 10
+     passes a turn, and each version's device ms of a pass in all and in
+     the narrow forward's tile kernel).
      18c. t_mae.yaml with the single-bucket plan (OCC_SMALL_CAPS and
      OCC_MID_CAPS removed): a served pair and a step counted, occ_overflow
      printed, head maps card vs CPU on 64x64.
@@ -293,11 +296,14 @@ Phases (any failure exits non-zero and prints no result line):
      levels (dilated) and of the vote SA; indices and counts bit for bit,
      also on planted cases (300 valid points of 4096 for 512 samples, an
      integer grid of exact ties, no valid point, no features, a fifth of
-     the points and a tenth of the centres invalid; for DFPS's cluster the
-     same points again in other CTAs of the cluster, a sample of one valid
-     point beside one of none, the frame beside a sample with other
-     invalid points at batch 2, 12345 and 100 points); kernel, plain and
-     bound ms and the peak memory of each.
+     the points and a tenth of the centres invalid; for DFPS's and FFPS's
+     clusters the same points (and features) again in other CTAs of the
+     cluster, a sample of one valid point beside one of none, the level
+     beside a sample with other invalid points at batch 2; for DFPS 12345
+     and 100 points; for FFPS no features at 16384 -> 1024 (the wrapper
+     takes DFPS without features) and 16384 -> 64 at C = 64, which takes
+     ffps_plan's matrix route); kernel, plain
+     and bound ms and the peak memory of each (of every FFPS case).
      20b. the seeded full-width detector serves a synthetic frame: one pass
      counted (EXPECTED_SSD3D), timed passes, peak memory; the card's votes,
      class and box predictions against the CPU's on the card's centres
@@ -5091,32 +5097,61 @@ def served_counted(torch, cfg, np_batch, expected, what):
     return out, launches
 
 
-def half_step_ms(torch, cfg, model, batch, parent=None, steps=3):
-    """The ms of a warm finetune step of ``model`` (median of ``steps``,
-    after one untimed), and with ``parent`` (another
-    encoder_layer_narrow.cu) also with its NARROW_BWD, in the order parent,
-    this, this, parent: {'change': ms, 'parent': ms}."""
-    from tmae_tpu_torch.utils import bwd_phases
+@contextlib.contextmanager
+def narrow_kernels(parent):
+    """NARROW_FWD and NARROW_BWD inside the block: ``parent``'s (a pair
+    from :func:`parent_narrow_kernels`), or the repo's (None)."""
+    from tmae_tpu_torch.utils import bwd_phases, fwd_phases
 
-    step = make_trainer(cfg, model)
+    with bwd_phases.narrow_using(parent and parent[1]), \
+            fwd_phases.narrow_fwd_using(parent and parent[0]):
+        yield
+
+
+def parent_narrow_kernels(path):
+    """Another encoder_layer_narrow.cu's (NARROW_FWD, NARROW_BWD), built
+    with this one's flags."""
+    from tmae_tpu_torch.utils import bwd_phases, fwd_phases
+
+    return fwd_phases.ParentFwd(Path(path)), bwd_phases.parent_narrow(path)
+
+
+def parent_times(torch, call, parent, what, reps, device=False):
+    """The ms of ``call`` (median of ``reps`` after one untimed) with the
+    repo's NARROW_FWD and NARROW_BWD and, with ``parent`` (another
+    encoder_layer_narrow.cu, run with its own host path), with its, in the
+    order parent, this, this, parent: {'change': ms, 'parent': ms}. With
+    ``device``, also each version's device ms of one call in all and in
+    ``narrow_fwd_kernel`` (torch.profiler), logged."""
+    from tmae_tpu_torch.utils.fwd_phases import by_launch
+
     kernels = {'change': None}
     if parent:
-        kernels['parent'] = bwd_phases.parent_narrow(parent)
+        kernels['parent'] = parent_narrow_kernels(parent)
     times = {v: [] for v in kernels}
+    split = {}
     for v in (['parent', 'change', 'change', 'parent'] if parent
               else ['change']):
-        with bwd_phases.narrow_using(kernels[v]):
-            step(batch)
+        with narrow_kernels(kernels[v]):
+            call()
             torch.cuda.synchronize()
-            for _ in range(steps):
+            for _ in range(reps):
                 t0 = time.perf_counter()
-                step(batch)
+                call()
                 torch.cuda.synchronize()
                 times[v].append((time.perf_counter() - t0) * 1e3)
+            if device and v not in split:
+                launches = by_launch(torch, call)
+                split[v] = (sum(ms for _, ms in launches),
+                            sum(ms for n, ms in launches
+                                if n == 'narrow_fwd_kernel'))
     med = {v: statistics.median(t) for v, t in times.items()}
-    log('  HALF_CHANNELS step: ' + '; '.join(
+    log(f'  {what}: ' + '; '.join(
         f'{v} {med[v]:.2f} ms (' + ', '.join(f'{t:.2f}' for t in times[v])
-        + ')' for v in med) + f' a warm step; {card_line()}')
+        + ')' for v in med) + f'; {card_line()}')
+    for v, (total, tile) in split.items():
+        log(f'  {what}, {v}: device {total:.3f} ms in all, '
+            f'narrow_fwd_kernel {tile:.4f} ms')
     return med
 
 
@@ -5129,20 +5164,31 @@ def half_channels_phase(torch, cfg, np_batch, narrow_parent=None):
     bf16 control (phase 7); {ENABLED, HALF_CHANNELS, SimSiam} builds the
     same modules (SimSiam is ignored, as JAX ignores it) and, under
     deterministic algorithms, gives the same loss parts bit for bit."""
-    from tmae_tpu_torch.models.detectors import build_detector
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
 
     var = half_cfg(cfg)
     _, served = served_counted(torch, var, np_batch, EXPECTED_HALF_SERVING,
                                'HALF_CHANNELS pair')
+    serve_ms = {}
+    if narrow_parent:
+        model = init_random_(build_detector(var), seed=0).eval()
+        pair = batch_to_device(np_batch, 'cuda')
+        serve_ms = parent_times(
+            torch, lambda: serve_once(torch, var, model, pair), narrow_parent,
+            'HALF_CHANNELS served pair, a warm pass', 10, device=True)
+        del model, pair
     log('  HALF_CHANNELS head maps: card vs CPU, full width on a 64x64 grid')
     card_vs_cpu(torch, *small_grid(var), seed=7)
     torch.cuda.empty_cache()
     batch = train_batch(var)
-    model, metrics, step = one_counted_step(torch, var, batch,
-                                            EXPECTED_HALF_STEP,
-                                            'HALF_CHANNELS step')
-    step_ms = half_step_ms(torch, var, model, batch, narrow_parent)
-    del model
+    model, metrics, counts = one_counted_step(torch, var, batch,
+                                              EXPECTED_HALF_STEP,
+                                              'HALF_CHANNELS step')
+    step = make_trainer(var, model)
+    step_ms = parent_times(torch, lambda: step(batch), narrow_parent,
+                           'HALF_CHANNELS step, a warm step', 3)
+    del model, step
     torch.cuda.empty_cache()
     both = []
     was = (torch.are_deterministic_algorithms_enabled(),
@@ -5168,9 +5214,11 @@ def half_channels_phase(torch, cfg, np_batch, narrow_parent=None):
     log('  HALF_CHANNELS step: card vs CPU vs control, full width on a '
         '64x64 grid')
     train_card_vs_cpu(torch, *small_grid(var), seed=7)
-    return served, step, {'half_channels_loss': metrics['loss'],
-                          **{f'half_channels_step_ms_{v}': ms
-                             for v, ms in step_ms.items()}}
+    return served, counts, {'half_channels_loss': metrics['loss'],
+                            **{f'half_channels_step_ms_{v}': ms
+                               for v, ms in step_ms.items()},
+                            **{f'half_channels_serve_ms_{v}': ms
+                               for v, ms in serve_ms.items()}}
 
 
 def single_bucket_phase(torch, cfg, np_batch):
@@ -5889,12 +5937,32 @@ def pn2_cases(torch, xyz0, mask0):
            ('B=2, other masks, 16384->4096', (pair, pair_m, 4096)),
            ('12345->1024', (xyz0[:, :12345], mask0[:, :12345], 1024)),
            ('100->64', (xyz0[:, :100], mask0[:, :100], 64))]
+    # FFPS's cluster: the same points and features again 2000 indices on
+    # (other CTAs), one valid point beside none, the level beside a sample
+    # with a fifth of its points invalid; a sample whose features do not
+    # fit a cluster (ffps_plan's matrix route); no features at level 0
+    dup1, dupf = xyz1.clone(), f1.clone()
+    dup1[:, 2000:3000], dupf[:, 2000:3000] = xyz1[:, :1000], f1[:, :1000]
+    pair1 = torch.cat([xyz1, pn2_inputs(torch, g, 4096)])
+    pairf = torch.cat([f1, torch.relu(torch.randn(1, 4096, 64, generator=g,
+                                                  device='cuda'))])
+    pair1_m = torch.cat([m1, torch.rand(1, 4096, generator=g,
+                                        device='cuda') > 0.2])
+    f0 = torch.relu(torch.randn(1, 16384, 64, generator=g, device='cuda'))
     ffps = [('4096->512 C=64 (level 1)', (xyz1, f1, m1, 512)),
             ('512->256 C=128 (level 2)', (xyz2[:, :512], f2[:, :512],
                                           m2[:, :512], 256)),
             ('300 valid of 4096 -> 512', (xyz1, f1, few, 512)),
             ('integer grid and features, exact ties', (grid, ints, m1, 512)),
-            ('no features', (xyz1, None, m1, 512))]
+            ('no features', (xyz1, None, m1, 512)),
+            ('duplicated points and features in other CTAs, 4096->512',
+             (dup1, dupf, m1, 512)),
+            ('one valid point, and none, B=2', (xyz1.repeat(2, 1, 1),
+                                                f1.repeat(2, 1, 1), one, 64)),
+            ('B=2, other masks, 4096->512 C=64', (pair1, pairf, pair1_m,
+                                                  512)),
+            ('no features, 16384->1024', (xyz0, None, mask0, 1024)),
+            ('16384->64 C=64 (the matrix route)', (xyz0, f0, mask0, 64))]
     cm1 = torch.ones(1, 1024, dtype=torch.bool, device='cuda')
     part = torch.rand(1, 4096, generator=g, device='cuda') > 0.2
     cpart = torch.rand(1, 1024, generator=g, device='cuda') > 0.1
@@ -5971,8 +6039,16 @@ def pn2_kernel_phase(torch, xyz0, mask0, rows):
             p_ms = time_ms(torch, lambda: plain(*args), iters=1 if few else 5,
                            warmup=1)
             times[label] = (k_ms, p_ms)
+            mem = ''
+            if name == 'FFPS':  # the matrix route's [B, N, N] scratch
+                plan = ('DFPS, no features' if args[1] is None else tuple(
+                    pn2.ffps_plan(*args[1].shape[1:])))
+                mem = (f'; peak memory kernel '
+                       f'{pn2_peak(torch, lambda: kernel(*args)):.3f} GiB, '
+                       f'plain {pn2_peak(torch, lambda: plain(*args)):.3f} '
+                       f'GiB; plan {plan}')
             log(f'  {name} {label}: bit-equal; kernel {k_ms:.4f} ms, plain '
-                f'{p_ms:.4f} ms; {card}')
+                f'{p_ms:.4f} ms{mem}; {card}')
         label, args = cases[0] if name != 'BALL_QUERY' else cases[2]
         k_ms, p_ms = times[label]
         k_gib = pn2_peak(torch, lambda: kernel(*args))
@@ -6109,29 +6185,44 @@ def dfps_parent(path):
                                        mask.contiguous(), n)
 
 
+def ffps_parent(path):
+    """F-FPS through another pointnet2.cu's FFPS (a parent checkout's),
+    called as the backbone calls ``farthest_point_sample_ffps``."""
+    from tmae_tpu_torch.utils.pn2_phases import parent_ffps
+
+    run = parent_ffps(path)
+    return lambda xyz, f, mask, n, gamma=1.0: run(
+        xyz.detach().float().contiguous(),
+        None if f is None else f.detach().float().contiguous(),
+        mask.contiguous(), n, gamma)
+
+
 @contextlib.contextmanager
-def backbone_dfps(fn):
-    """The SSD3D backbone samples with ``fn`` inside the block (None: the
-    repo's ``farthest_point_sample``)."""
+def backbone_samplers(fns):
+    """The SSD3D backbone samples with ``fns`` = (D-FPS, F-FPS) inside the
+    block (None: the repo's ``farthest_point_sample`` and
+    ``farthest_point_sample_ffps``)."""
     from tmae_tpu_torch.models import pointnet2_backbone as pb
 
-    saved = pb.farthest_point_sample
-    if fn is not None:
-        pb.farthest_point_sample = fn
+    saved = pb.farthest_point_sample, pb.farthest_point_sample_ffps
+    if fns is not None:
+        pb.farthest_point_sample, pb.farthest_point_sample_ffps = fns
     try:
         yield
     finally:
-        pb.farthest_point_sample = saved
+        pb.farthest_point_sample, pb.farthest_point_sample_ffps = saved
 
 
 def ssd3d_parent_times(torch, call, parent, what, reps):
     """The ms of ``call`` (a served frame or a step; median of ``reps``
-    after one untimed) with the repo's DFPS and with ``parent``'s, in the
-    order parent, this, this, parent: {'parent': ms, 'change': ms}."""
-    fns = {'change': None, 'parent': dfps_parent(parent)}
+    after one untimed) with the repo's DFPS and FFPS and with ``parent``'s,
+    in the order parent, this, this, parent: {'parent': ms, 'change':
+    ms}."""
+    fns = {'change': None,
+           'parent': (dfps_parent(parent), ffps_parent(parent))}
     times = {v: [] for v in fns}
     for v in ('parent', 'change', 'change', 'parent'):
-        with backbone_dfps(fns[v]):
+        with backbone_samplers(fns[v]):
             call()
             torch.cuda.synchronize()
             for _ in range(reps):
@@ -6149,7 +6240,8 @@ def ssd3d_parent_times(torch, call, parent, what, reps):
 def ssd3d_serving_phase(torch, cfg, np_batch, pn2_parent=None):
     """20b: the seeded full-width SSD3D serves a synthetic frame: one pass
     counted (EXPECTED_SSD3D), outputs finite, timed passes, peak memory
-    (with ``pn2_parent``, also timed with that source's DFPS); then card
+    (with ``pn2_parent``, also timed with that source's DFPS and FFPS);
+    then card
     vs CPU."""
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
@@ -6188,7 +6280,7 @@ def ssd3d_serving_phase(torch, cfg, np_batch, pn2_parent=None):
         res.update({f'ssd3d_ms_per_frame_{v}': ms for v, ms in
                     ssd3d_parent_times(
                         torch, lambda: ssd3d_serve(torch, cfg, model, batch),
-                        pn2_parent, 'ms a frame, parent and this DFPS',
+                        pn2_parent, 'ms a frame, parent and this DFPS and FFPS',
                         10).items()})
     res.update(ssd3d_card_vs_cpu(torch, cfg, np_batch, out))
     return launches, out, res
@@ -6203,7 +6295,7 @@ def ssd3d_training_phase(torch, cfg, tree, pn2_parent=None):
     ``tools.train`` 1 epoch on the tree, each step's launches counted and
     its loss parts printed. With ``pn2_parent``, a step's device ms by
     launch and host enqueue ms, and the step also timed with that source's
-    DFPS. Returns (results, the CLI's checkpoint)."""
+    DFPS and FFPS. Returns (results, the CLI's checkpoint)."""
     from tmae_tpu_torch.datasets.dataset import build_dataloader
     from tmae_tpu_torch.models.detectors import (batch_to_device,
                                                  build_detector, init_random_)
@@ -6229,7 +6321,7 @@ def ssd3d_training_phase(torch, cfg, tree, pn2_parent=None):
         res.update({f'ssd3d_ms_per_step_{v}': ms for v, ms in
                     ssd3d_parent_times(torch, lambda: step(batch),
                                        pn2_parent,
-                                       'ms a step, parent and this DFPS',
+                                       'ms a step, parent and this DFPS and FFPS',
                                        5).items()})
     del model, step, batch
     torch.cuda.empty_cache()
@@ -6371,12 +6463,13 @@ def main(argv=None):
                     help='phase 16 also builds and runs this iou_nms.cu (a '
                     'parent checkout\'s) beside the repo\'s')
     ap.add_argument('--narrow-parent', metavar='PATH',
-                    help='phase 18b also times its step with this '
-                    'encoder_layer_narrow.cu\'s NARROW_BWD (a parent '
-                    'checkout\'s)')
+                    help='phase 18b also times its served pair and step with '
+                    'this encoder_layer_narrow.cu\'s NARROW_FWD and '
+                    'NARROW_BWD (a parent checkout\'s)')
     ap.add_argument('--pn2-parent', metavar='PATH',
                     help='phases 20b and 20c also time a frame and a step '
-                    'with this pointnet2.cu\'s DFPS (a parent checkout\'s)')
+                    'with this pointnet2.cu\'s DFPS and FFPS (a parent '
+                    'checkout\'s)')
     ap.add_argument('--dp-rank', metavar='DIR', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_rank:  # one rank of phase 17a, under torchrun

@@ -465,3 +465,66 @@ def test_narrow_bwd_workspace_layout(N, T, C, cross, dpos):
     assert spans[0][0] == 0 and spans[-1][1] <= nbytes
     assert chunk % 64 == 0 and chunk >= 256 and nchunks <= 64
     assert nchunks * chunk >= rows and (nchunks - 1) * chunk < rows
+
+
+@pytest.mark.parametrize('C,nhead', WIDTHS, ids=lambda v: str(v))
+def test_narrow_serving_weights_round_as_kernel_params(C, nhead):
+    """A served narrow layer's bf16 copy of its six f32 matrices
+    (``narrow_mats``, what ``TiledWeights`` hands NARROW_FWD on the card)
+    equals ``kernel_params``' rounding bit for bit, halfway values among
+    them (nearest even), each matrix a contiguous view of its shape at a
+    16-byte aligned address (the kernel copies 16 bytes at a time)."""
+    rng = np.random.RandomState(C + nhead)
+    F = 2 * C
+    shapes = dict(wq=(C, C), wk=(C, C), wv=(C, C), wo=(C, C), f1w=(F, C),
+                  f2w=(C, F), f1b=(F,), tau=(1,))
+    weights = [torch.tensor(rng.normal(size=shapes.get(n, (C,))).astype(
+        np.float32)) for n in FIELDS]
+    # values halfway between two bf16 values: the low 16 bits 0x8000
+    w0 = weights[0].view(torch.int32)
+    w0[:4] = (w0[:4] & ~0xffff) | 0x8000
+    mats = [weights[FIELDS.index(n)] for n in MATRICES]
+    got = tel.narrow_mats(mats)
+    want = tel.kernel_params(weights)
+    for name, g in zip(MATRICES, got):
+        w = getattr(want, name)
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert g.is_contiguous() and g.data_ptr() % 16 == 0, name
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16)), name
+    assert (got[0][:4].float() != weights[0][:4]).all()  # they did round
+
+
+def test_parent_fwd_runs_its_own_host_path():
+    """``fwd_phases.ParentFwd``, the parent's NARROW_FWD in a comparison:
+    for a parent whose kernel takes ``w_f32``, inside its host path a
+    served layer's f32 matrices are kept as they are (no ``narrow_mats``
+    copy) and their launches pass w_f32 = 1, other matrices' 0; outside
+    it ``narrow_mats`` rounds again; a parent without ``w_f32`` gets this
+    version's arguments unchanged."""
+    import ctypes
+
+    from tmae_tpu_torch.utils import fwd_phases
+
+    seen = []
+    parent = object.__new__(fwd_phases.ParentFwd)
+    parent.f32, parent.kept = True, {}
+    parent.kernel = lambda *a: seen.append(a)
+    mats = [torch.ones(8, 8) for _ in MATRICES]
+    bf16 = [m.to(torch.bfloat16) for m in mats]
+    ptrs = lambda ms: (ctypes.c_void_p * 17)(
+        *[m.data_ptr() for m in ms], *range(1, 12))
+    with fwd_phases.narrow_fwd_using(parent):
+        assert tel.NARROW_FWD is parent
+        kept = tel.narrow_mats(mats)
+        assert all(k is m for k, m in zip(kept, mats))
+        tel.NARROW_FWD(1, 'io', ptrs(kept), 'work', 'dims', 0.5, 'stream')
+        tel.NARROW_FWD(2, 'io', ptrs(bf16), 'work', 'dims', 0.5, 'stream')
+    assert tel.NARROW_FWD is not parent
+    assert tel.narrow_mats(mats)[0].dtype == torch.bfloat16
+    assert [a[3] for a in seen] == [1, 0]
+    assert seen[0][4:] == ('work', 'dims', 0.5, 'stream')
+    parent.f32 = False
+    with fwd_phases.narrow_fwd_using(parent):
+        assert tel.narrow_mats(mats)[0].dtype == torch.bfloat16
+        tel.NARROW_FWD(1, 'io', ptrs(kept), 'work', 'dims', 0.5, 'stream')
+    assert seen[-1] == (1, 'io', seen[-1][2], 'work', 'dims', 0.5, 'stream')

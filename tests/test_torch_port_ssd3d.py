@@ -231,6 +231,188 @@ def test_dfps_cluster_model_equals_plain(plan):
                                       want)
 
 
+FFPS_PLAN_CHANNELS = (1, 3, 16, 32, 48, 64, 100, 128, 256)
+
+
+def test_ffps_plan_covers_every_size(monkeypatch):
+    """``ffps_plan``, FFPS's launch on the card: for every N from 1 to
+    FPS_MAX_POINTS and channel counts from 1 to 256, either a cluster
+    of 1-16 CTAs (a power of 2) of threads a multiple of 32 up to 512 (256
+    when a thread holds 128 channels in registers), 1-16 points a thread
+    (a power of 2) that cover N, a register share of 0, 32, 64 or 128
+    channels within the features, 128 values and C % 4 == 0, and shared
+    memory within FFPS_SMEM_MAX; or the matrix route, taken up to
+    FFPS_MATRIX_MAX_POINTS points and above them only where no cluster
+    fits (none of 16 CTAs of 512 threads at any points a thread). SSD3D's levels: 4096 x 64 on the cluster,
+    512 x 128 on the matrix, as 16384 x 64; above the limit the plan and
+    the card wrapper refuse (checked before any launch), and the plan
+    refuses no features (the wrapper takes DFPS then)."""
+    for C in FFPS_PLAN_CHANNELS:
+        for N in range(1, tpn.FPS_MAX_POINTS + 1):
+            plan = tpn.ffps_plan(N, C)
+            if plan.route == 'matrix':
+                assert (N <= tpn.FFPS_MATRIX_MAX_POINTS or all(
+                    tpn.ffps_smem(C, 32 * -(-N // (512 * per)), per)
+                    > tpn.FFPS_SMEM_MAX for per in (1, 2, 4, 8, 16)
+                    if 16 * 512 * per >= N)), (N, C)
+                continue
+            assert plan.route == 'cluster', (N, C)
+            assert N > tpn.FFPS_MATRIX_MAX_POINTS, (N, C)
+            R, threads, per, creg = plan[1:]
+            assert R in (1, 2, 4, 8, 16), (N, C)
+            most = 256 if per * creg >= 128 else tpn.FFPS_MAX_THREADS
+            assert threads % 32 == 0 and 32 <= threads <= most, (N, C)
+            assert per in (1, 2, 4, 8, 16), (N, C)
+            assert R * threads * per >= N, (N, C)
+            assert creg in (0, 32, 64, 128) and creg <= C, (N, C)
+            assert creg == 0 or C % 4 == 0, (N, C)
+            assert per * creg <= 128, (N, C)
+            assert tpn.ffps_smem(C, threads, per) <= tpn.FFPS_SMEM_MAX
+    assert tpn.ffps_plan(4096, 64) == ('cluster', 16, 256, 1, 64)
+    assert tpn.ffps_plan(512, 128).route == 'matrix'
+    assert tpn.ffps_plan(16384, 64).route == 'matrix'
+    too_many = tpn.FPS_MAX_POINTS + 1
+    for bad in (0, too_many):
+        with pytest.raises(ValueError, match='F-FPS on the card takes 1 to'):
+            tpn.ffps_plan(bad, 64)
+    with pytest.raises(ValueError, match='FFPS takes 1 or more feature'):
+        tpn.ffps_plan(4096, 0)
+    monkeypatch.setattr(tpn, 'on_card', lambda *a: True)
+    with pytest.raises(ValueError, match='FPS on the card takes at most '
+                       f'{tpn.FPS_MAX_POINTS} points a sample'):
+        tpn.farthest_point_sample_ffps(
+            torch.zeros(1, too_many, 3), torch.zeros(1, too_many, 4),
+            torch.ones(1, too_many, dtype=torch.bool), 4)
+
+
+@pytest.mark.parametrize('name', FPS_CASES)
+def test_ffps_without_features_takes_dfps(name, monkeypatch):
+    """Without features F-FPS's distance is D-FPS's, summed in the same
+    order, so the plain F-FPS and the plain D-FPS give the same indices bit
+    for bit; on the card the F-FPS wrapper hands such a call to
+    ``farthest_point_sample`` (kernel DFPS) and launches no FFPS."""
+    xyz, _, mask, S = fps_case(name)
+    want = tpn.farthest_point_sample_plain(t(xyz), t(mask), S)
+    got = tpn.farthest_point_sample_ffps_plain(t(xyz), None, t(mask), S)
+    assert torch.equal(got, want)
+    calls = []
+    monkeypatch.setattr(tpn, 'on_card', lambda *a: True)
+    monkeypatch.setattr(tpn, 'farthest_point_sample',
+                        lambda *a: calls.append(a) or want)
+    monkeypatch.setattr(tpn, 'FFPS', None)  # a launch would raise
+    assert tpn.farthest_point_sample_ffps(t(xyz), None, t(mask), S) is want
+    assert len(calls) == 1 and calls[0][2] == S
+
+
+def ffps_cluster_model(xyz, feat, mask, S, gamma, plan, dm=None):
+    """A numpy model of FFPS's cluster walk under ``plan`` (R, threads,
+    per), one sample: point j in thread j % G's register j // G (G = R
+    threads) as DFPS's, each thread's argmax, each warp's winner, each
+    CTA's winner over its W warps (its record: value, index, coordinates
+    and the features read from the CTA's copy of its points' features),
+    the argmax of the R records, and the next step's distances computed
+    afresh from the winner's record in the kernel's order (x, y, z; the
+    channels from a 0 start; then xyz + gamma feat), asserting that the
+    record holds the winner's coordinates and features. With ``dm`` (the
+    plain [N, N] distance matrix) it asserts that every fresh distance is
+    the matrix entry of the winner's row bit for bit, which the plain walk
+    reads."""
+    R, threads, per = plan
+    N, G, W = len(mask), R * threads, threads // 32
+    C = 0 if feat is None else feat.shape[1]
+    beats = lambda r: (r[0], -r[1])  # greater value, then smaller index
+    j = np.arange(G * per).reshape(per, G)
+    ok = j < N
+    valid = ok & mask[np.minimum(j, N - 1)]
+    # each CTA's copy of its points' features: [C][local point]
+    local = [np.concatenate([j[k, r * threads:(r + 1) * threads]
+                             for k in range(per)]) for r in range(R)]
+    copies = [np.where((lj < N)[None], (feat[np.minimum(lj, N - 1)].T
+                                        if C else np.zeros((0, len(lj)))),
+                       0).astype(np.float32) for lj in local]
+
+    def argmax(vals):
+        recs = []
+        for r in range(R):
+            warps = []
+            for w in range(W):
+                lanes = [(-np.inf, N)]
+                for tt in range(r * threads + 32 * w,
+                                r * threads + 32 * w + 32):
+                    lanes += [(vals[k, tt], j[k, tt]) for k in range(per)
+                              if ok[k, tt]]
+                warps.append(max(lanes, key=beats))
+            v, i = max(warps, key=beats)
+            f = None
+            if i < N:
+                li = int(np.nonzero(local[r] == i)[0][0])
+                f = copies[r][:, li]
+            recs.append((v, i, xyz[i] if i < N else None, f))
+        v, i, c, f = max(recs, key=beats)
+        assert (c == xyz[i]).all() and (C == 0 or (f == feat[i]).all())
+        return i, c, f
+
+    last, lxyz, lf = argmax(np.where(ok, np.where(valid, 1.0, 0.0),
+                                     -np.inf))
+    dist = np.where(valid, np.float32(1e10), np.float32(-1e10))
+    pts = xyz[np.minimum(j, N - 1)]
+    pf = feat[np.minimum(j, N - 1)] if C else None
+    g = np.float32(gamma)
+    out = [last]
+    for _ in range(1, S):
+        d = pts - lxyz
+        sq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[
+            ..., 2]
+        if C:
+            acc = np.zeros(sq.shape, np.float32)
+            for c in range(C):
+                e = lf[c] - pf[..., c]
+                acc = acc + e * e
+            sq = sq + acc * g
+        if dm is not None:
+            assert np.array_equal(sq[ok], dm[last][j[ok]])
+        dist = np.where(dist >= 0, np.minimum(dist, sq), dist).astype(
+            np.float32)
+        last, lxyz, lf = argmax(dist)
+        out.append(last)
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize('plan', [(2, 32, 4), (4, 64, 1), (1, 64, 8)],
+                         ids=lambda p: 'R{}-t{}-per{}'.format(*p))
+def test_ffps_cluster_model_equals_plain(plan):
+    """The F-FPS cluster walk's decomposition (point j in thread j % G,
+    register j // G; a winner a warp, then a record a CTA carrying the
+    winner's features from the CTA's copy; the distances afresh each step)
+    gives the plain F-FPS's indices bit for bit, each fresh distance equal
+    to the plain matrix's entry: exact ties across CTAs (duplicated points
+    and features), invalid points, one valid point, no features (C = 0:
+    D-FPS's walk, which the card takes then),
+    gamma 1 and 0.37, N not a multiple of the cluster's threads."""
+    R, threads, per = plan
+    rng = np.random.RandomState(R * threads + per)
+    N = R * threads * per - 37
+    xyz = rng.randint(0, 4, (N, 3)).astype(np.float32)
+    feat = rng.randint(0, 3, (N, 5)).astype(np.float32)
+    xyz[N // 2:N // 2 + 40] = xyz[:40]  # the same points in other CTAs
+    feat[N // 2:N // 2 + 40] = feat[:40]
+    soft = (feat + rng.rand(N, 5).astype(np.float32) * 0.1).astype(
+        np.float32)
+    mask = rng.rand(N) > 0.2
+    one = np.zeros(N, bool)
+    one[N - 5] = True
+    for f, gamma in ((feat, 1.0), (soft, 0.37), (None, 1.0)):
+        for m in (mask, one):
+            want = tpn.farthest_point_sample_ffps_plain(
+                t(xyz[None]), None if f is None else t(f[None]), t(m[None]),
+                24, gamma)[0].numpy()
+            dm = tpn.calc_dist_matrix_for_sampling(
+                t(xyz[None]), None if f is None else t(f[None]),
+                gamma)[0].numpy()
+            np.testing.assert_array_equal(
+                ffps_cluster_model(xyz, f, m, 24, gamma, plan, dm), want)
+
+
 @pytest.mark.parametrize('features', [True, False], ids=['feat', 'xyz'])
 @pytest.mark.parametrize('name', FPS_CASES)
 def test_ffps_equals_jax(name, features):

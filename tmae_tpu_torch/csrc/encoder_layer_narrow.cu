@@ -35,25 +35,41 @@
 // = 9.4 MFLOP at C = 64 (2.6 at C = 32) on 8 KiB (4 KiB) of rows in and
 // out: 300-600 operations a byte, about the H100's balance point, so the
 // work on the live windows of a call is microseconds either way. What holds
-// this first design back is latency: one block walks a tile through some 20
-// small products one after another.
+// it back is latency: a call with fewer tiles than SMs takes one block's
+// walk of a tile through some 20 small products one after another.
 //
 // Design. At these widths the six matrices take 8 C^2 bf16 = 64 KiB (C =
 // 64) or 16 KiB (C = 32), so a persistent block loads the whole layer into
-// shared memory once (converting f32 master weights to bf16, nearest even)
-// and keeps it for every tile it takes; nothing streams. Forward: the
-// pre-pass and compaction of the tiled kernel (encoder_fwd_plan.cuh: live
-// flags, the live windows in order, an atomic tile counter), then one block
-// of 4 warps an SM takes tiles of 64 rows (4 windows at S = 16, one window
-// at S = 48 padded to 64 rows, one at T = 64) and finds their rows with
-// tile_rows. Each warp owns 16 rows from their load to their store: the q,
-// k, v and output projections and both FFN products are mma.sync m16n8k16
-// products of its rows against the resident weights (ldmatrix fragments
-// from padded row buffers, no bank conflicts), LayerNorm and the head
-// normalisation are quad shuffles, and the only exchange between warps is
-// the tile's keys and values before attention. Attention: one warp per
-// (16 query rows, head), q k^T and p v on mma.sync; a head of width 8 has
-// its products' upper 8 of 16 reduction columns set to 0 in the fragments.
+// shared memory once (bf16: the wrappers hand kernel_params' tensors, or a
+// served layer's bf16 copy made once a forward) and keeps it for every
+// tile it takes; nothing streams. Forward: the pre-pass and compaction of
+// the tiled kernel (encoder_fwd_plan.cuh: live flags, the live windows in
+// order, an atomic tile counter), then one block of 8 warps an SM takes
+// tiles of 64 rows (4 windows at S = 16, one window at S = 48 padded to 64
+// rows, one at T = 64) and finds their rows with tile_rows; a block's
+// first tile is its own index (no atomic), the counter hands out the
+// rest. Two warps own a row group of 16 rows from their load to their
+// store, and split the output columns of every product: the q, k, v and
+// output projections and both FFN products are mma.sync m16n8k16 products
+// of the group's rows against the resident weights (ldmatrix fragments
+// from padded row buffers, no bank conflicts); each half of q and k holds
+// whole heads, so the head normalisation stays in the warp; LayerNorm's
+// row sums add the two halves' partials (half 0's then half 1's) at a
+// named barrier of the pair; the only exchange between row groups is the
+// tile's keys and values before attention. Attention: each warp its
+// half's heads for its 16 query rows, q k^T and p v on mma.sync; a head of
+// width 8 has its products' upper 8 of 16 reduction columns set to 0 in
+// the fragments. A tile is a chain of latencies on one SM, bound by its
+// issue and exponential rates more than by any one warp: four warps a
+// row group (the columns in quarters) took as long (utils/fwd_phases.py
+// --narrow --cycles: attention about 30% of a tile's cycles, the tile's
+// start 25%). The first tile's rows are found (warps 0 and 1) while the
+// other warps request the vectors and wq, wk, wv (cp.async, 16 bytes a
+// copy), then wo, w1, w2, which land during q, k, v and attention; the
+// rows (cp.async, zeros for no row) land with the first group; once a
+// tile's keys and values are in, warps 0 and 1 find the next tile's rows
+// and start their copies into the other row buffers, which land while
+// this tile runs.
 // Backward (three launches after its own pre-pass and the compaction): the
 // same tiles recompute the forward and run the layer's backward down to
 // dx, dkv and dpos, with the weight-gradient operands of each row written
@@ -72,7 +88,7 @@
 // summing up to 4096 rows one 64-row step after another), the sums
 // 0.006-0.009, the pre-pass and compaction 0.005; and a call with fewer
 // tiles than SMs is a tile's latency. So the backward fills the SM and
-// the card differently from the forward:
+// the card as the forward does, and more:
 // - the window pass runs 8 warps a tile, two a row group of 16 rows, and
 //   the two split the output columns of every product (each half of q and
 //   k holds whole heads, so their normalisation stays in the warp);
@@ -87,7 +103,13 @@
 // - the sums take each output in 8 runs of consecutive partials, each run
 //   by a warp in order, then the 8 run sums in order.
 // Every sum keeps a fixed order, so a call gives the same bits twice.
-// Measured times of this design: PERF.md and utils/bwd_phases.py.
+// The forward's time (utils/fwd_phases.py --narrow, H100 SXM at 700 W, the
+// tile kernel's device time against the first design's, one warp a row
+// group with its weights converted before the first row): 0.0145 against
+// 0.0199 ms at (64, 8) on a served full bucket with 109 of 256 slots live,
+// 0.0122 against 0.0163 at (64, 4), 0.0092 against 0.0118 at (32, 4); a
+// call's event time is its host enqueue time (~0.03 ms). More in PERF.md
+// and utils/bwd_phases.py --narrow.
 
 #include <algorithm>
 
@@ -95,8 +117,8 @@
 
 namespace {
 
-constexpr int kNWarps = 4;               // NARROW_FWD: a warp a row group
-constexpr int kNThreads = 32 * kNWarps;
+constexpr int kFWarps = 8;               // NARROW_FWD: two a row group
+constexpr int kFThreads = 32 * kFWarps;
 constexpr int kBWarps = 8;               // NARROW_BWD: two a row group
 constexpr int kBThreads = 32 * kBWarps;
 constexpr int kRuns = 8;  // runs of a gradient's fixed-order sum
@@ -139,11 +161,9 @@ struct RowMeta {
   int tile;
 };
 
-// The six Linear weights [out, in] of a layer (wq wk wv wo w1 w2), f32 or
-// bf16.
+// The six Linear weights [out, in] of a layer (wq wk wv wo w1 w2), bf16.
 struct Mats {
   const void* m[6];
-  int f32;
 };
 
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
@@ -375,152 +395,8 @@ __device__ __forceinline__ void p_times(float (&o)[D / 8][4],
   }
 }
 
-// Row statistics of LayerNorm over a warp's fragments of width C: mean and
-// 1 / std of rows g (a) and g + 8 (b).
-template <int NT>
-__device__ __forceinline__ void ln_stats(const float (&v)[NT][4], float& ma,
-                                         float& mb, float& ra, float& rb) {
-  constexpr float inv = 1.f / (8 * NT);
-  float sa = 0.f, sb = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    sa += v[j][0] + v[j][1];
-    sb += v[j][2] + v[j][3];
-  }
-  ma = quad_sum(sa) * inv;
-  mb = quad_sum(sb) * inv;
-  float qa = 0.f, qb = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float da = v[j][e] - ma, db = v[j][2 + e] - mb;
-      qa += da * da;
-      qb += db * db;
-    }
-  }
-  ra = rsqrtf(quad_sum(qa) * inv + 1e-5f);
-  rb = rsqrtf(quad_sum(qb) * inv + 1e-5f);
-}
-
-template <int NT>
-__device__ __forceinline__ void layer_norm(float (&v)[NT][4], const float* s,
-                                           const float* b, int t2) {
-  float ma, mb, ra, rb;
-  ln_stats(v, ma, mb, ra, rb);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float2 sc = ldg2(s + 8 * j + t2), bi = ldg2(b + 8 * j + t2);
-    v[j][0] = (v[j][0] - ma) * ra * sc.x + bi.x;
-    v[j][1] = (v[j][1] - ma) * ra * sc.y + bi.y;
-    v[j][2] = (v[j][2] - mb) * rb * sc.x + bi.x;
-    v[j][3] = (v[j][3] - mb) * rb * sc.y + bi.y;
-  }
-}
-
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// v += bias, per column
-template <int NT>
-__device__ __forceinline__ void add_bias(float (&v)[NT][4], const float* b,
-                                         int t2) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float2 bi = ldg2(b + 8 * j + t2);
-    v[j][0] += bi.x;
-    v[j][1] += bi.y;
-    v[j][2] += bi.x;
-    v[j][3] += bi.y;
-  }
-}
-
-// The bias added, then each head of width D normalised per row: out =
-// bf16(v / |v| * mult) into `dst` (at row r0), and with `rinv` the row's
-// 1 / |v| of each head into rinv[row * H + head].
-template <int C, int H>
-__device__ __forceinline__ void heads_out(float (&v)[C / 8][4],
-                                          const float* bias, float mult,
-                                          bf16* dst, float* rinv, int r0,
-                                          int g, int t2) {
-  constexpr int D = C / H, CPH = D / 8;
-  add_bias(v, bias, t2);
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    float sa = 0.f, sb = 0.f;
-#pragma unroll
-    for (int u = 0; u < CPH; ++u) {
-      const float* a = v[h * CPH + u];
-      sa += a[0] * a[0] + a[1] * a[1];
-      sb += a[2] * a[2] + a[3] * a[3];
-    }
-    const float ra = rsqrtf(quad_sum(sa) + 1e-24f);
-    const float rb = rsqrtf(quad_sum(sb) + 1e-24f);
-    if (rinv && t2 == 0) {
-      rinv[(r0 + g) * H + h] = ra;
-      rinv[(r0 + g + 8) * H + h] = rb;
-    }
-#pragma unroll
-    for (int u = 0; u < CPH; ++u) {
-      float* a = v[h * CPH + u];
-      a[0] *= ra * mult;
-      a[1] *= ra * mult;
-      a[2] *= rb * mult;
-      a[3] *= rb * mult;
-    }
-  }
-  store_frag(dst, C + 8, v, g, t2);
-}
-
-// The warp's 16 rows of a tile into row buffers: `raw` the bf16 row at base
-// + offs[r] (zeros where offs[r] < 0), `with_pos` bf16(row + pos[cells[r]]);
-// either may be null. Plain loads: the in-place calls write these rows.
-template <int C>
-__device__ __forceinline__ void load_rows16(bf16* raw, bf16* with_pos,
-                                            const bf16* base,
-                                            const long long* offs,
-                                            const int* cells, const bf16* pos,
-                                            int r0, int lane) {
-  constexpr int NC = C / 8, LC = C + 8;
-  for (int e = lane; e < 16 * NC; e += 32) {
-    const int r = r0 + e / NC, ch = e % NC;
-    const long long o = offs[r];
-    const uint4 x = o >= 0
-                        ? *reinterpret_cast<const uint4*>(base + o + ch * 8)
-                        : make_uint4(0u, 0u, 0u, 0u);
-    if (raw) *reinterpret_cast<uint4*>(raw + r * LC + ch * 8) = x;
-    if (with_pos)
-      *reinterpret_cast<uint4*>(with_pos + r * LC + ch * 8) = add_pos(
-          x, __ldg(reinterpret_cast<const uint4*>(pos + cells[r] * C +
-                                                  ch * 8)));
-  }
-}
-
-// The six matrices into shared memory (the plan of Narrow<C>), bf16.
-template <int C, typename W>
-__device__ __forceinline__ void load_weights_as(const Mats& mats, bf16* dst,
-                                                int tid) {
-  constexpr int F = 2 * C;
-  for (int m = 0; m < 6; ++m) {
-    const int rows = m == 4 ? F : C, cols = m == 5 ? F : C;
-    const int off = m < 5 ? m * C * (C + 8) : 4 * C * (C + 8) + F * (C + 8);
-    const W* src = static_cast<const W*>(mats.m[m]);
-    for (int e = tid; e < rows * cols / 8; e += kNThreads) {
-      const int r = e / (cols / 8), c8 = e % (cols / 8);
-      *reinterpret_cast<uint4*>(dst + off + r * (cols + 8) + c8 * 8) =
-          load8(src + (long long)r * cols + c8 * 8);
-    }
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void load_weights(const Mats& mats, bf16* dst,
-                                             int tid) {
-  if (mats.f32)
-    load_weights_as<C, float>(mats, dst, tid);
-  else
-    load_weights_as<C, bf16>(mats, dst, tid);
 }
 
 // Pointers into the resident weights.
@@ -578,201 +454,6 @@ __device__ __forceinline__ void attention_fwd(const bf16* qn, const bf16* kn,
   }
 }
 
-// ---------------------------------------------------------------------------
-// NARROW_FWD
-// ---------------------------------------------------------------------------
-
-// Shared memory of the forward: the weights, then XS (the raw rows), A0 (x +
-// pos; the attention output; the output tile), KP / KR (cross mode: the key
-// rows with and without pos), QN (normalised, scaled q; then bf16(h1)), KN,
-// VB, UB (the FFN hidden [64 x F]), the tile's RowMeta.
-template <int C>
-constexpr int fwd_smem() {
-  using N = Narrow<C>;
-  return N::kWBytes + 7 * N::kBufC + N::kBufF + (int)sizeof(RowMeta);
-}
-
-template <Addr A, int T, int C, int H>
-__global__ void __launch_bounds__(kNThreads, 1)
-    narrow_fwd_kernel(const FwdParams p, const Mats mats) {
-  using N = Narrow<C>;
-  constexpr int WPT = T == 16 ? 4 : 1;
-  constexpr int LC = N::LC, NC = N::NC, NF = N::NF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* const W = reinterpret_cast<bf16*>(smem);
-  bf16* const XS = reinterpret_cast<bf16*>(smem + N::kWBytes);
-  bf16* const A0 = XS + kRows * LC;
-  bf16* const KP = A0 + kRows * LC;
-  bf16* const KR = KP + kRows * LC;
-  bf16* const QN = KR + kRows * LC;
-  bf16* const KN = QN + kRows * LC;
-  bf16* const VB = KN + kRows * LC;
-  bf16* const UB = VB + kRows * LC;
-  RowMeta& rm = *reinterpret_cast<RowMeta*>(UB + kRows * N::LF);
-  const int tid = threadIdx.x, lane = tid & 31, r0 = 16 * (tid >> 5);
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
-  load_weights<C>(mats, W, tid);
-  const WPtr<C> w(W);
-  const int count = *p.count;
-  const int ntiles = (count + WPT - 1) / WPT;
-  const float scale = 1.f / fmaxf(p.tau[0], p.tau_min);
-  for (;;) {
-    __syncthreads();  // the last tile's rows and metadata are read
-    if (tid == 0) rm.tile = atomicAdd(p.counter, 1);
-    __syncthreads();
-    const int tile = rm.tile;
-    if (tile >= ntiles) break;
-    if (tid < kRows)
-      tile_rows<A, T, C>(p, tile, count, tid, rm.qoff, rm.koff, rm.qcell,
-                         rm.kcell, rm.qm, rm.km);
-    __syncthreads();
-    load_rows16<C>(XS, A0, p.x, rm.qoff, rm.qcell, p.pos, r0, lane);
-    if (p.cross)
-      load_rows16<C>(KR, KP, p.kv, rm.koff, rm.kcell, p.pos, r0, lane);
-    __syncwarp();
-    {
-      float a[NC][4];
-      zero(a);
-      mm_wt<NC, C>(a, A0 + r0 * LC, LC, w.q, LC, lane);
-      heads_out<C, H>(a, p.bq, scale, QN + r0 * LC, nullptr, r0, g, t2);
-      zero(a);
-      mm_wt<NC, C>(a, (p.cross ? KP : A0) + r0 * LC, LC, w.k, LC, lane);
-      heads_out<C, H>(a, p.bk, 1.f, KN + r0 * LC, nullptr, r0, g, t2);
-      zero(a);
-      mm_wt<NC, C>(a, (p.cross ? KR : XS) + r0 * LC, LC, w.v, LC, lane);
-      add_bias(a, p.bv, t2);
-      store_frag(VB + r0 * LC, LC, a, g, t2);
-    }
-    __syncthreads();  // every warp's keys and values
-    attention_fwd<T, C, H>(QN, KN, VB, A0, rm.km, 1.f, r0, lane);
-    __syncwarp();
-    // output projection, the residual on occupied query cells, LN1; h1
-    // stays in registers (f32) to the end
-    const bool oa = rm.qm[r0 + g] > 0.f, ob = rm.qm[r0 + g + 8] > 0.f;
-    float h[NC][4];
-    zero(h);
-    mm_wt<NC, C>(h, A0 + r0 * LC, LC, w.o, LC, lane);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = 8 * j + t2;
-      const float2 b = ldg2(p.bo + c);
-      const float2 xa = ld2(XS + (r0 + g) * LC + c);
-      const float2 xb = ld2(XS + (r0 + g + 8) * LC + c);
-      h[j][0] = xa.x + (oa ? h[j][0] + b.x : 0.f);
-      h[j][1] = xa.y + (oa ? h[j][1] + b.y : 0.f);
-      h[j][2] = xb.x + (ob ? h[j][2] + b.x : 0.f);
-      h[j][3] = xb.y + (ob ? h[j][3] + b.y : 0.f);
-    }
-    layer_norm(h, p.ln1s, p.ln1b, t2);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      if (!oa) h[j][0] = h[j][1] = 0.f;
-      if (!ob) h[j][2] = h[j][3] = 0.f;
-    }
-    store_frag(QN + r0 * LC, LC, h, g, t2);
-    __syncwarp();
-    {
-      float z[NF][4];
-      zero(z);
-      mm_wt<NF, C>(z, QN + r0 * LC, LC, w.w1, LC, lane);
-      add_bias(z, p.b1, t2);
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) z[j][e] = gelu(z[j][e]);
-      store_frag(UB + r0 * N::LF, N::LF, z, g, t2);
-    }
-    __syncwarp();
-    add_bias(h, p.b2, t2);
-    mm_wt<NC, N::F>(h, UB + r0 * N::LF, N::LF, w.w2, N::LF, lane);
-    layer_norm(h, p.ln2s, p.ln2b, t2);
-    // the output rows into A0: y on occupied cells and 0 elsewhere (T =
-    // 64), or x + bf16(y - x) (S = 16, 48)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = 8 * j + t2;
-      float v[4] = {h[j][0], h[j][1], h[j][2], h[j][3]};
-      if constexpr (T == kCells) {
-        if (!oa) v[0] = v[1] = 0.f;
-        if (!ob) v[2] = v[3] = 0.f;
-      } else {
-        const float2 xa = ld2(XS + (r0 + g) * LC + c);
-        const float2 xb = ld2(XS + (r0 + g + 8) * LC + c);
-        const float xs[4] = {xa.x, xa.y, xb.x, xb.y};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = xs[e] + __bfloat162float(__float2bfloat16(v[e] - xs[e]));
-      }
-      st2(A0 + (r0 + g) * LC + c, v[0], v[1]);
-      st2(A0 + (r0 + g + 8) * LC + c, v[2], v[3]);
-    }
-    __syncwarp();
-    for (int e = lane; e < 16 * NC; e += 32) {
-      const int r = r0 + e / NC, ch = e % NC;
-      if (rm.qoff[r] >= 0 && (T == kCells || rm.qm[r] > 0.f))
-        *reinterpret_cast<uint4*>(p.out + rm.qoff[r] + ch * 8) =
-            *reinterpret_cast<const uint4*>(A0 + r * LC + ch * 8);
-    }
-  }
-}
-
-// [pre-pass, compact, layer] of one mode; a cudaError_t.
-template <Mode M, int T, int C, int H>
-int launch_fwd(const FwdParams& p, const Mats& mats, cudaStream_t s) {
-  constexpr Addr A = M == kGridOut       ? kGridCells
-                     : M == kPlanInPlace ? kPlanCells
-                                         : kWindowRows;
-  constexpr int WPT = T == 16 ? 4 : 1;
-  if (p.nwin == 0) return 0;
-  const int warps = (p.nwin + 7) / 8;  // one warp per window
-  if constexpr (M == kGridOut)
-    grid_prepass_kernel<C><<<warps, 256, 0, s>>>(p);
-  else if constexpr (M == kSelOut)
-    sel_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
-  else if constexpr (M == kPlanInPlace)
-    plan_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
-  else
-    mask_prepass_kernel<T, C, M == kFullOut || M == kFullInPlace>
-        <<<warps, 256, 0, s>>>(p);
-  int e = tmae_last_error();
-  if (e) return e;
-  compact_kernel<<<1, 1024, 0, s>>>(p.flags, p.list, p.count, p.counter,
-                                   p.nwin);
-  if ((e = tmae_last_error())) return e;
-  static unsigned long long set_on = 0;  // for each instance
-  if ((e = smem_limit_once((const void*)narrow_fwd_kernel<A, T, C, H>,
-                           fwd_smem<C>(), set_on)))
-    return e;
-  const int blocks = std::min(sm_count(), (p.nwin + WPT - 1) / WPT);
-  narrow_fwd_kernel<A, T, C, H>
-      <<<blocks, kNThreads, fwd_smem<C>(), s>>>(p, mats);
-  return tmae_last_error();
-}
-
-template <int C, int H>
-int fwd_mode(int mode, int T, const FwdParams& p, const Mats& m,
-             cudaStream_t s) {
-  switch (mode) {
-    case kSelOut:
-      return T == 16 ? launch_fwd<kSelOut, 16, C, H>(p, m, s)
-                     : launch_fwd<kSelOut, 48, C, H>(p, m, s);
-    case kSelInPlace:
-      return T == 16 ? launch_fwd<kSelInPlace, 16, C, H>(p, m, s)
-                     : launch_fwd<kSelInPlace, 48, C, H>(p, m, s);
-    case kFullOut:
-      return launch_fwd<kFullOut, kCells, C, H>(p, m, s);
-    case kFullInPlace:
-      return launch_fwd<kFullInPlace, kCells, C, H>(p, m, s);
-    case kGridOut:
-      return launch_fwd<kGridOut, kCells, C, H>(p, m, s);
-    case kPlanInPlace:
-      if (T == 16) return launch_fwd<kPlanInPlace, 16, C, H>(p, m, s);
-      if (T == 48) return launch_fwd<kPlanInPlace, 48, C, H>(p, m, s);
-      return launch_fwd<kPlanInPlace, kCells, C, H>(p, m, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 bool narrow_ok(int C, int F, int H) {
   return F == 2 * C && ((C == 32 && H == 4) || (C == 64 && (H == 4 || H == 8)));
 }
@@ -828,18 +509,19 @@ __device__ __forceinline__ void load_g(float (&v)[NT][4], const bf16* g,
   }
 }
 
-// The six bf16 matrices into shared memory (the plan of Narrow<C>) by
-// cp.async, 16 bytes a copy, in one group: they land while the block does
-// other work, and cp_async_wait makes them visible.
-template <int C, int NTH>
-__device__ __forceinline__ void load_weights_async(const Mats& mats,
-                                                   bf16* dst, int tid) {
+// Matrices m0 .. m1 - 1 of the six (wq wk wv wo w1 w2, bf16) into shared
+// memory (the plan of Narrow<C>) by cp.async, 16 bytes a copy, by threads
+// t of nth; no commit.
+template <int C>
+__device__ __forceinline__ void copy_weights_async(const Mats& mats,
+                                                   bf16* dst, int t, int nth,
+                                                   int m0, int m1) {
   constexpr int F = 2 * C;
-  for (int m = 0; m < 6; ++m) {
+  for (int m = m0; m < m1; ++m) {
     const int rows = m == 4 ? F : C, cols = m == 5 ? F : C;
     const int off = m < 5 ? m * C * (C + 8) : 4 * C * (C + 8) + F * (C + 8);
     const bf16* src = static_cast<const bf16*>(mats.m[m]);
-    for (int e = tid; e < rows * cols / 8; e += NTH) {
+    for (int e = t; e < rows * cols / 8; e += nth) {
       const int r = e / (cols / 8), c8 = e % (cols / 8);
       asm volatile(
           "cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
@@ -848,11 +530,57 @@ __device__ __forceinline__ void load_weights_async(const Mats& mats,
           : "memory");
     }
   }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The six matrices in one group: they land while the block does other
+// work, and cp_async_wait makes them visible.
+template <int C, int NTH>
+__device__ __forceinline__ void load_weights_async(const Mats& mats,
+                                                   bf16* dst, int tid) {
+  copy_weights_async<C>(mats, dst, tid, NTH, 0, 6);
+  cp_async_commit();
 }
 
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// every group of this thread but the most recent one has landed
+__device__ __forceinline__ void cp_async_wait_but_last() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// The layer's ten bias and LayerNorm vectors into shared memory as Vec<C>
+// lays them out (bq .. ln2b; not tau), by cp.async 16 bytes a copy; the
+// next commit takes them into its group.
+template <int C, int NTH>
+__device__ __forceinline__ void load_vectors_async(const FwdParams& f,
+                                                   float* vs, int tid) {
+  const float* const src[10] = {f.bq, f.bk, f.bv, f.bo, f.ln1s,
+                                f.ln1b, f.b1, f.b2, f.ln2s, f.ln2b};
+  for (int i = tid; i < (Narrow<C>::kVec - 1) / 4; i += NTH) {
+    const int e = 4 * i;  // 16 bytes of one vector a copy
+    const int k = e < 6 * C ? e / C : (e < 8 * C ? 6 : 7 + (e - 8 * C) / C);
+    const int at = k < 7 ? k * C : 8 * C + (k - 7) * C;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     saddr(vs + e)),
+                 "l"(src[k] + (e - at))
+                 : "memory");
+  }
+}
+
+// 16 bytes from global memory into shared memory by cp.async; zeros when
+// `full` is false (nothing is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   saddr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
 }
 
 // v += bias, per column, the bias in shared memory
@@ -898,7 +626,10 @@ __device__ __forceinline__ void put_rows_pair(bf16* dst, long long row0,
   }
 }
 
-// load_rows16 by a warp pair
+// A warp pair's 16 rows of a tile into row buffers (`pl`: the thread's
+// place in the pair, 0-63): `raw` the bf16 row at base + offs[r] (zeros
+// where offs[r] < 0), `with_pos` bf16(row + pos[cells[r]]); either may be
+// null.
 template <int C>
 __device__ __forceinline__ void load_rows_pair(bf16* raw, bf16* with_pos,
                                                const bf16* base,
@@ -948,9 +679,10 @@ __device__ __forceinline__ void pair_rowsum(float (&a)[NV], float (&b)[NV],
   }
 }
 
-// ln_stats over a row whose C columns are split between a warp pair: the
-// thread's NT column tiles here, the other half's through the exchange
-// (slots `slot` and `slot` + 1).
+// LayerNorm's row statistics (eps 1e-5) over a row whose C columns are
+// split between a warp pair, mean and 1 / std of rows g (a) and g + 8 (b):
+// the thread's NT column tiles here, the other half's through the
+// exchange (slots `slot` and `slot` + 1).
 template <int NT, int C>
 __device__ __forceinline__ void ln_stats_pair(const float (&v)[NT][4],
                                               float& ma, float& mb, float& ra,
@@ -986,14 +718,15 @@ __device__ __forceinline__ void ln_stats_pair(const float (&v)[NT][4],
   rb = rsqrtf(qb[0] * inv + 1e-5f);
 }
 
-// heads_out for the H / 2 heads of one column half (v: its C / 16 column
-// tiles; bias and dst at the half's first column; its first head h0):
-// unscaled, with each row's 1 / |v| of each head into rinv.
+// The H / 2 heads of one column half (v: its C / 16 column tiles; bias
+// and dst at the half's first column; its first head h0): the bias added,
+// each head of width D normalised per row, out = bf16(v / |v| * mult) into
+// `dst`, with each row's 1 / |v| of each head into rinv when it is given.
 template <int C, int H>
 __device__ __forceinline__ void heads_half(float (&v)[C / 16][4],
                                            const float* bias, bf16* dst,
                                            float* rinv, int r0, int h0, int g,
-                                           int t2) {
+                                           int t2, float mult = 1.f) {
   constexpr int D = C / H, CPH = D / 8;
   add_bias_s(v, bias, t2);
 #pragma unroll
@@ -1007,17 +740,17 @@ __device__ __forceinline__ void heads_half(float (&v)[C / 16][4],
     }
     const float ra = rsqrtf(quad_sum(sa) + 1e-24f);
     const float rb = rsqrtf(quad_sum(sb) + 1e-24f);
-    if (t2 == 0) {
+    if (rinv && t2 == 0) {
       rinv[(r0 + g) * H + h0 + h] = ra;
       rinv[(r0 + g + 8) * H + h0 + h] = rb;
     }
 #pragma unroll
     for (int u = 0; u < CPH; ++u) {
       float* a = v[h * CPH + u];
-      a[0] *= ra;
-      a[1] *= ra;
-      a[2] *= rb;
-      a[3] *= rb;
+      a[0] *= ra * mult;
+      a[1] *= ra * mult;
+      a[2] *= rb * mult;
+      a[3] *= rb * mult;
     }
   }
   store_frag(dst, C + 8, v, g, t2);
@@ -1056,6 +789,346 @@ __device__ unsigned long long tmae_narrow_cycles[256][16];
   do {                  \
   } while (0)
 #endif
+
+// ---------------------------------------------------------------------------
+// NARROW_FWD
+// ---------------------------------------------------------------------------
+
+// The 64 rows of a tile into a row buffer by cp.async (`t` of `nth`
+// threads): x at rm.qoff (and kv at rm.koff in cross mode), zeros for a
+// row of no window. One commit.
+template <int C>
+__device__ __forceinline__ void fetch_rows(bf16* xs, bf16* kr,
+                                           const FwdParams& p,
+                                           const RowMeta& rm, int t,
+                                           int nth) {
+  constexpr int NC = C / 8, LC = C + 8;
+  for (int e = t; e < kRows * NC; e += nth) {
+    const int r = e / NC, ch = e % NC;
+    const long long qo = rm.qoff[r];
+    cp_async16(xs + r * LC + ch * 8, p.x + (qo >= 0 ? qo + ch * 8 : 0),
+               qo >= 0);
+    if (p.cross) {
+      const long long ko = rm.koff[r];
+      cp_async16(kr + r * LC + ch * 8, p.kv + (ko >= 0 ? ko + ch * 8 : 0),
+                 ko >= 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// A warp pair's 16 rows of `src` plus pos[cells[r]], in bf16, into `dst`
+template <int C>
+__device__ __forceinline__ void pos_rows_pair(bf16* dst, const bf16* src,
+                                              const int* cells,
+                                              const bf16* pos, int r0,
+                                              int pl) {
+  constexpr int NC = C / 8, LC = C + 8;
+  for (int e = pl; e < 16 * NC; e += 64) {
+    const int r = r0 + e / NC, ch = e % NC;
+    *reinterpret_cast<uint4*>(dst + r * LC + ch * 8) = add_pos(
+        *reinterpret_cast<const uint4*>(src + r * LC + ch * 8),
+        __ldg(reinterpret_cast<const uint4*>(pos + cells[r] * C + ch * 8)));
+  }
+}
+
+// Shared memory of the forward: the weights, XS [2] (the raw rows of this
+// tile and of the next), KR [2] (cross mode: the raw key rows), A0 (x +
+// pos; the attention output; the output tile), KP (cross: kv + pos), QN
+// (normalised, scaled q; then bf16(h1)), KN, VB, UB (the FFN hidden [64 x
+// F]), the vectors (as Vec<C> lays them out), the pairs' row-sum
+// exchanges, the RowMeta of this tile and of the next.
+template <int C>
+constexpr int fwd_smem() {
+  using N = Narrow<C>;
+  return N::kWBytes + 9 * N::kBufC + N::kBufF + (N::kVec + 1) * 4 +
+         4 * kXSlots * 2 * 2 * 16 * 4 + 2 * (int)sizeof(RowMeta);
+}
+
+template <Addr A, int T, int C, int H>
+__global__ void __launch_bounds__(kFThreads, 1)
+    narrow_fwd_kernel(const FwdParams p, const Mats mats) {
+  using N = Narrow<C>;
+  using V = Vec<C>;
+  constexpr int WPT = T == 16 ? 4 : 1;
+  constexpr int LC = N::LC, LF = N::LF, NC = N::NC;
+  constexpr int HC = N::NC / 2, HF = N::NF / 2, HH = H / 2;
+  static_assert((N::kVec + 1) % 2 == 0, "the exchanges stay 8-aligned");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* const W = reinterpret_cast<bf16*>(smem);
+  bf16* const XS0 = reinterpret_cast<bf16*>(smem + N::kWBytes);
+  bf16* const KR0 = XS0 + 2 * kRows * LC;
+  bf16* const A0 = KR0 + 2 * kRows * LC;
+  bf16* const KP = A0 + kRows * LC;
+  bf16* const QN = KP + kRows * LC;
+  bf16* const KN = QN + kRows * LC;
+  bf16* const VB = KN + kRows * LC;
+  bf16* const UB = VB + kRows * LC;
+  float* const VS = reinterpret_cast<float*>(UB + kRows * LF);
+  float* const xch = VS + N::kVec + 1;
+  RowMeta* const meta =
+      reinterpret_cast<RowMeta*>(xch + 4 * kXSlots * 2 * 2 * 16);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // a row group's two warps split every product's output columns: this
+  // warp's half `half` of them, from column c0 (FFN width: f0), and the
+  // heads h0 .. h0 + H / 2
+  const int rg = warp & 3, half = warp >> 2;
+  const int r0 = 16 * rg, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int pl = lane + 32 * half;  // the thread's place in the pair
+  const int c0 = half * (C / 2), f0 = half * N::F / 2, h0 = half * HH;
+#ifdef TMAE_NARROW_PROFILE
+  long long phase_t0 = clock64();
+#endif
+  // The first tile is the block's own (the counter hands out the tiles
+  // after the first gridDim.x). Warps 0 and 1 find its rows while the
+  // other warps ask for the vectors and wq, wk, wv (group 1); then every
+  // thread asks for its rows (group 2), and the other warps for wo, w1, w2
+  // (group 3), which land while the tile's q, k, v and attention run.
+  constexpr int kWeightThreads = kFThreads - 64;
+  const WPtr<C> w(W);
+  const int first = blockIdx.x;
+  const int count = *p.count;
+  const int ntiles = (count + WPT - 1) / WPT;
+  const float scale = 1.f / fmaxf(p.tau[0], p.tau_min);
+  const bool copier = warp >= 2;
+  if (!copier) {
+    if (tid == 0) meta[0].tile = first;
+    if (first < ntiles)
+      tile_rows<A, T, C>(p, first, count, tid, meta[0].qoff, meta[0].koff,
+                         meta[0].qcell, meta[0].kcell, meta[0].qm,
+                         meta[0].km);
+  } else {
+    load_vectors_async<C, kWeightThreads>(p, VS, tid - 64);
+    copy_weights_async<C>(mats, W, tid - 64, kWeightThreads, 0, 3);
+    cp_async_commit();
+  }
+  __syncthreads();
+  if (first < ntiles) fetch_rows<C>(XS0, KR0, p, meta[0], tid, kFThreads);
+  if (copier) {
+    copy_weights_async<C>(mats, W, tid - 64, kWeightThreads, 3, 6);
+    cp_async_commit();
+  }
+  bool weights_in = false;  // group 3 has landed
+  NARROW_PHASE(1);
+  for (int b = 0;; b ^= 1) {
+    const RowMeta& rm = meta[b];
+    const int tile = rm.tile;
+    if (tile >= ntiles) break;
+    bf16* const XS = XS0 + b * kRows * LC;
+    bf16* const KR = KR0 + b * kRows * LC;
+    // the next tile's index, claimed early, used once this one's keys and
+    // values are in
+    int next = 0;
+    if (tid == 0) next = gridDim.x + atomicAdd(p.counter, 1);
+    // this tile's rows (the first tile: with the vectors, wq, wk, wv)
+    if (copier && !weights_in)
+      cp_async_wait_but_last();
+    else
+      cp_async_wait();
+    __syncthreads();  // ... for every thread; the last tile is done
+    NARROW_PHASE(2);
+
+    // 1. x + pos (kv + pos); this half's heads of q (scaled) and k,
+    // normalised, and its columns of v
+    pos_rows_pair<C>(A0, XS, rm.qcell, p.pos, r0, pl);
+    if (p.cross) pos_rows_pair<C>(KP, KR, rm.kcell, p.pos, r0, pl);
+    pair_sync(rg);
+    {
+      float a[HC][4];
+      zero(a);
+      mm_wt<HC, C>(a, A0 + r0 * LC, LC, w.q + c0 * LC, LC, lane);
+      heads_half<C, H>(a, VS + V::bq + c0, QN + r0 * LC + c0, nullptr, r0,
+                       h0, g, t2, scale);
+      zero(a);
+      mm_wt<HC, C>(a, (p.cross ? KP : A0) + r0 * LC, LC, w.k + c0 * LC, LC,
+                   lane);
+      heads_half<C, H>(a, VS + V::bk + c0, KN + r0 * LC + c0, nullptr, r0,
+                       h0, g, t2);
+      zero(a);
+      mm_wt<HC, C>(a, (p.cross ? KR : XS) + r0 * LC, LC, w.v + c0 * LC, LC,
+                   lane);
+      add_bias_s(a, VS + V::bv + c0, t2);
+      store_frag(VB + r0 * LC + c0, LC, a, g, t2);
+    }
+    NARROW_PHASE(3);
+    // 2. the next tile: warps 0 and 1 find its rows and start their
+    // copies into the other buffers, which land while this tile runs
+    if (warp < 2) {
+      RowMeta& nm = meta[b ^ 1];
+      if (tid == 0) nm.tile = next;
+      asm volatile("bar.sync 9, 64;" ::: "memory");
+      if (nm.tile < ntiles) {
+        tile_rows<A, T, C>(p, nm.tile, count, tid, nm.qoff, nm.koff,
+                           nm.qcell, nm.kcell, nm.qm, nm.km);
+        asm volatile("bar.sync 9, 64;" ::: "memory");
+        fetch_rows<C>(XS0 + (b ^ 1) * kRows * LC, KR0 + (b ^ 1) * kRows * LC,
+                      p, nm, tid, 64);
+      }
+    }
+    NARROW_PHASE(9);
+    if (copier && !weights_in) cp_async_wait();  // wo, w1, w2
+    weights_in = true;
+    __syncthreads();  // every warp's keys and values (first: the weights)
+
+    // 3. attention of this half's heads
+    attention_fwd<T, C, H>(QN, KN, VB, A0, rm.km, 1.f, r0, lane, h0, HH);
+    pair_sync(rg);
+    NARROW_PHASE(4);
+
+    // 4. output projection, the residual on occupied query cells, LN1; h1
+    // stays in registers (f32) to the end
+    const bool oa = rm.qm[r0 + g] > 0.f, ob = rm.qm[r0 + g + 8] > 0.f;
+    float h[HC][4];
+    zero(h);
+    mm_wt<HC, C>(h, A0 + r0 * LC, LC, w.o + c0 * LC, LC, lane);
+#pragma unroll
+    for (int j = 0; j < HC; ++j) {
+      const int c = c0 + 8 * j + t2;
+      const float2 bo = lds2(VS + V::bo + c);
+      const float2 xa = ld2(XS + (r0 + g) * LC + c);
+      const float2 xb = ld2(XS + (r0 + g + 8) * LC + c);
+      h[j][0] = xa.x + (oa ? h[j][0] + bo.x : 0.f);
+      h[j][1] = xa.y + (oa ? h[j][1] + bo.y : 0.f);
+      h[j][2] = xb.x + (ob ? h[j][2] + bo.x : 0.f);
+      h[j][3] = xb.y + (ob ? h[j][3] + bo.y : 0.f);
+    }
+    {
+      float ma, mb, ra, rb;
+      ln_stats_pair<HC, C>(h, ma, mb, ra, rb, xch, rg, half, 0, g, lane);
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
+        const int c = c0 + 8 * j + t2;
+        const float2 sc = lds2(VS + V::ln1s + c), bi = lds2(VS + V::ln1b + c);
+        h[j][0] = oa ? (h[j][0] - ma) * ra * sc.x + bi.x : 0.f;
+        h[j][1] = oa ? (h[j][1] - ma) * ra * sc.y + bi.y : 0.f;
+        h[j][2] = ob ? (h[j][2] - mb) * rb * sc.x + bi.x : 0.f;
+        h[j][3] = ob ? (h[j][3] - mb) * rb * sc.y + bi.y : 0.f;
+      }
+    }
+    store_frag(QN + r0 * LC + c0, LC, h, g, t2);
+    pair_sync(rg);
+    NARROW_PHASE(5);
+
+    // 5. FFN first product and GELU, this half's F / 2 columns
+    {
+      float z[HF][4];
+      zero(z);
+      mm_wt<HF, C>(z, QN + r0 * LC, LC, w.w1 + f0 * LC, LC, lane);
+      add_bias_s(z, VS + V::b1 + f0, t2);
+#pragma unroll
+      for (int j = 0; j < HF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[j][e] = gelu(z[j][e]);
+      store_frag(UB + r0 * LF + f0, LF, z, g, t2);
+    }
+    pair_sync(rg);
+    NARROW_PHASE(6);
+
+    // 6. FFN second product onto h1 + b2, LN2
+    add_bias_s(h, VS + V::b2 + c0, t2);
+    mm_wt<HC, N::F>(h, UB + r0 * LF, LF, w.w2 + c0 * LF, LF, lane);
+    {
+      float ma, mb, ra, rb;
+      ln_stats_pair<HC, C>(h, ma, mb, ra, rb, xch, rg, half, 2, g, lane);
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
+        const int c = c0 + 8 * j + t2;
+        const float2 sc = lds2(VS + V::ln2s + c), bi = lds2(VS + V::ln2b + c);
+        h[j][0] = (h[j][0] - ma) * ra * sc.x + bi.x;
+        h[j][1] = (h[j][1] - ma) * ra * sc.y + bi.y;
+        h[j][2] = (h[j][2] - mb) * rb * sc.x + bi.x;
+        h[j][3] = (h[j][3] - mb) * rb * sc.y + bi.y;
+      }
+    }
+    NARROW_PHASE(7);
+    // 7. the output rows into A0: y on occupied cells and 0 elsewhere (T =
+    // 64), or x + bf16(y - x) (S = 16, 48); then the pair's rows out
+#pragma unroll
+    for (int j = 0; j < HC; ++j) {
+      const int c = c0 + 8 * j + t2;
+      float v[4] = {h[j][0], h[j][1], h[j][2], h[j][3]};
+      if constexpr (T == kCells) {
+        if (!oa) v[0] = v[1] = 0.f;
+        if (!ob) v[2] = v[3] = 0.f;
+      } else {
+        const float2 xa = ld2(XS + (r0 + g) * LC + c);
+        const float2 xb = ld2(XS + (r0 + g + 8) * LC + c);
+        const float xs[4] = {xa.x, xa.y, xb.x, xb.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = xs[e] + __bfloat162float(__float2bfloat16(v[e] - xs[e]));
+      }
+      st2(A0 + (r0 + g) * LC + c, v[0], v[1]);
+      st2(A0 + (r0 + g + 8) * LC + c, v[2], v[3]);
+    }
+    pair_sync(rg);
+    for (int e = pl; e < 16 * NC; e += 64) {
+      const int r = r0 + e / NC, ch = e % NC;
+      if (rm.qoff[r] >= 0 && (T == kCells || rm.qm[r] > 0.f))
+        *reinterpret_cast<uint4*>(p.out + rm.qoff[r] + ch * 8) =
+            *reinterpret_cast<const uint4*>(A0 + r * LC + ch * 8);
+    }
+    NARROW_PHASE(8);
+  }
+  cp_async_wait();  // a block without a tile leaves no copy in flight
+}
+
+// [pre-pass, compact, layer] of one mode; a cudaError_t.
+template <Mode M, int T, int C, int H>
+int launch_fwd(const FwdParams& p, const Mats& mats, cudaStream_t s) {
+  constexpr Addr A = M == kGridOut       ? kGridCells
+                     : M == kPlanInPlace ? kPlanCells
+                                         : kWindowRows;
+  constexpr int WPT = T == 16 ? 4 : 1;
+  if (p.nwin == 0) return 0;
+  const int warps = (p.nwin + 7) / 8;  // one warp per window
+  if constexpr (M == kGridOut)
+    grid_prepass_kernel<C><<<warps, 256, 0, s>>>(p);
+  else if constexpr (M == kSelOut)
+    sel_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
+  else if constexpr (M == kPlanInPlace)
+    plan_prepass_kernel<T, C><<<warps, 256, 0, s>>>(p);
+  else
+    mask_prepass_kernel<T, C, M == kFullOut || M == kFullInPlace>
+        <<<warps, 256, 0, s>>>(p);
+  int e = tmae_last_error();
+  if (e) return e;
+  compact_kernel<<<1, 1024, 0, s>>>(p.flags, p.list, p.count, p.counter,
+                                   p.nwin);
+  if ((e = tmae_last_error())) return e;
+  static unsigned long long set_on = 0;  // for each instance
+  if ((e = smem_limit_once((const void*)narrow_fwd_kernel<A, T, C, H>,
+                           fwd_smem<C>(), set_on)))
+    return e;
+  const int blocks = std::min(sm_count(), (p.nwin + WPT - 1) / WPT);
+  narrow_fwd_kernel<A, T, C, H>
+      <<<blocks, kFThreads, fwd_smem<C>(), s>>>(p, mats);
+  return tmae_last_error();
+}
+
+template <int C, int H>
+int fwd_mode(int mode, int T, const FwdParams& p, const Mats& m,
+             cudaStream_t s) {
+  switch (mode) {
+    case kSelOut:
+      return T == 16 ? launch_fwd<kSelOut, 16, C, H>(p, m, s)
+                     : launch_fwd<kSelOut, 48, C, H>(p, m, s);
+    case kSelInPlace:
+      return T == 16 ? launch_fwd<kSelInPlace, 16, C, H>(p, m, s)
+                     : launch_fwd<kSelInPlace, 48, C, H>(p, m, s);
+    case kFullOut:
+      return launch_fwd<kFullOut, kCells, C, H>(p, m, s);
+    case kFullInPlace:
+      return launch_fwd<kFullInPlace, kCells, C, H>(p, m, s);
+    case kGridOut:
+      return launch_fwd<kGridOut, kCells, C, H>(p, m, s);
+    case kPlanInPlace:
+      if (T == 16) return launch_fwd<kPlanInPlace, 16, C, H>(p, m, s);
+      if (T == 48) return launch_fwd<kPlanInPlace, 48, C, H>(p, m, s);
+      return launch_fwd<kPlanInPlace, kCells, C, H>(p, m, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 template <int T, int C, int H>
 __global__ void __launch_bounds__(kBThreads, 1)
@@ -1120,19 +1193,7 @@ __global__ void __launch_bounds__(kBThreads, 1)
 #endif
   // the weights and vectors land while the first tile's rows load (bf16
   // matrices: the wrapper hands kernel_params' tensors)
-  {
-    const float* const src[10] = {f.bq, f.bk, f.bv, f.bo, f.ln1s,
-                                  f.ln1b, f.b1, f.b2, f.ln2s, f.ln2b};
-    for (int i = tid; i < (N::kVec - 1) / 4; i += kBThreads) {
-      const int e = 4 * i;  // 16 bytes of one vector a copy
-      const int k = e < 6 * C ? e / C : (e < 8 * C ? 6 : 7 + (e - 8 * C) / C);
-      const int at = k < 7 ? k * C : 8 * C + (k - 7) * C;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                       saddr(VS + e)),
-                   "l"(src[k] + (e - at))
-                   : "memory");
-    }
-  }
+  load_vectors_async<C, kBThreads>(f, VS, tid);
   load_weights_async<C, kBThreads>(mats, W, tid);
   bool weights_in = false;
   const WPtr<C> w(W);
@@ -1901,13 +1962,14 @@ int bwd_width(int T, const BwdParams& p, const Mats& m, float* part_w,
 // NARROW_FWD: the layer at a narrow width in one of the tiled kernel's
 // modes (`mode`: Mode of encoder_fwd_plan.cuh, kSelOut .. kPlanInPlace:
 // K8, K4, K6, K3, K10, K12). io: x kv out pos selq selk qmask kmask qocc
-// kocc widx (out unused in place); w: the 17 layer tensors (matrices f32
-// when w_f32, else bf16); ints the int32 workspace [2 nwin + 2]; dims: C F
+// kocc widx (out unused in place); w: the 17 layer tensors (bf16
+// matrices, every tensor but tau 16-byte aligned); ints the int32
+// workspace [2 nwin + 2]; dims: C F
 // H T cross B total cap row_lo gh gw shift, where B is N for the flat
 // modes, the batch otherwise; (gh, gw) the carrier (Hp + 8, Wp) or the grid
 // (H, W). Three launches: pre-pass, compact, layer.
 extern "C" int launch_narrow_fwd(int mode, const void* const* io,
-                                 const void* const* w, int w_f32, void* ints,
+                                 const void* const* w, void* ints,
                                  const int* dims, float tau_min,
                                  void* stream) {
   const int C = dims[0], F = dims[1], H = dims[2], T = dims[3];
@@ -1931,7 +1993,12 @@ extern "C" int launch_narrow_fwd(int mode, const void* const* io,
        (row_lo < 0 || cap < 0 || row_lo + cap > total)))
     return (int)cudaErrorInvalidValue;
   const void* w18[18];
-  for (int i = 0; i < 17; ++i) w18[i] = w[i];
+  for (int i = 0; i < 17; ++i) {
+    // the layer copies every layer tensor but tau 16 bytes at a time
+    if (i != 8 && reinterpret_cast<uintptr_t>(w[i]) % 16)
+      return (int)cudaErrorMisalignedAddress;
+    w18[i] = w[i];
+  }
   w18[17] = nullptr;
   const int nwy = grid ? (gh + 7) / 8 + 1 : gh / 8 - 1;
   const int nwx = (gw + 7) / 8 + 1;
@@ -1964,7 +2031,7 @@ extern "C" int launch_narrow_fwd(int mode, const void* const* io,
     p.nwx = nwx;
     p.off = shift ? 4 : 8;
   }
-  const Mats m{{w[0], w[2], w[4], w[6], w[11], w[13]}, w_f32};
+  const Mats m{{w[0], w[2], w[4], w[6], w[11], w[13]}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 32) return fwd_mode<32, 4>(mode, T, p, m, s);
   return H == 4 ? fwd_mode<64, 4>(mode, T, p, m, s)
@@ -2033,7 +2100,7 @@ extern "C" int launch_narrow_bwd(const void* const* in, const void* const* w,
   Outs outs;
   for (int i = 0; i < 17; ++i) outs.p[i] = static_cast<float*>(out[3 + i]);
   outs.p[17] = static_cast<float*>(out[2]);
-  const Mats m{{w[0], w[2], w[4], w[6], w[11], w[13]}, 0};
+  const Mats m{{w[0], w[2], w[4], w[6], w[11], w[13]}};
   float* part_w = static_cast<float*>(ws[15]);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 32)

@@ -48,14 +48,51 @@
 // cluster barrier a step in place of the mbarrier (its release waits on
 // the DSMEM stores) took ~1200 cycles for the exchange alone.
 
-// FFPS (farthest_point_sample_ffps): two kernels in one call. The distance
-// matrix [B, N, N] (67 MB a sample at N = 4096) is computed in 32 x 32
-// tiles with both tiles' features staged in shared memory 32 channels at a
-// time; then the walk of DFPS reads one row of it a step (a sample's
-// features, 1 MB at N = 4096 and C = 64, do not fit in shared memory, and
-// reading them all from L2 at every step would cost a megabyte a step on one
-// SM). The matrix is exactly symmetric ((a - b)^2 = (b - a)^2), so the walk
-// reads the row of the last chosen point.
+// FFPS (farthest_point_sample_ffps): the walk of DFPS on the distance
+// |xyz_i - xyz_j|^2 + gamma |feat_i - feat_j|^2, under the plan of
+// ffps_plan in ops/pointnet2.py, one of two routes:
+// - cluster (above 2048 points, a sample whose features fit 16 CTAs'
+//   shared memory: 4096 x 64, SSD3D's level 1): one
+//   thread-block cluster of R CTAs a sample, no distance matrix. Point j
+//   lives as in DFPS (thread j % G, register k = j / G); each CTA keeps its
+//   points' features in shared memory ([C][P + 1] floats, P its points: a
+//   warp reads a channel of 32 points from 32 banks), and each thread also
+//   the first CREG channels of its points in registers. Each step computes
+//   every point's distance from the last winner afresh, in the plain
+//   version's order (x, y, z; the channels from a 0 start; then xyz +
+//   gamma * feat), so it equals the matrix entry bit for bit ((a - b)^2 =
+//   (b - a)^2). The step's winner: each thread's argmax, each warp's
+//   (redux.sync), then the CTA's (one __syncthreads, warp 0 over the W
+//   warps' winners); warp 0 stores the CTA winner's record (value, index,
+//   x, y, z; 32 bytes) into slot `rank` of every CTA with st.async, the
+//   bytes counted on that CTA's mbarrier (double-buffered, as DFPS's
+//   records); every warp waits on its own mbarrier and takes the argmax
+//   of the R records, and the next step's distances read the winner's C
+//   features from device memory (L2; broadcast loads). Four ways to hand
+//   the features over were timed (utils/pn2_phases.py --cycles on builds
+//   that held each, on an H100 SXM at 700 W, 4096 x 64 at 16 x 256, cycles
+//   a step of thread 0): in every record by st.async (3844: the CTA's 288
+//   16-byte stores ~1650), in every record by cp.async.bulk (3399), pulled
+//   once a CTA from the winner's CTA by ld.shared::cluster and a
+//   __syncthreads (4176: the pull ~1790), read by every warp from L2
+//   (3028: ~650 more in the distances): the last is this design (asking
+//   the R candidates' rows into L1 while the records are reduced made a
+//   call 0.18 ms slower). Bound: the S steps, each C
+//   sequential adds of a point's channels (about 256 cycles at C = 64),
+//   the L2 read, the exchange and the reductions; not bytes.
+// - matrix (up to 2048 points, where the matrix, 16 MiB a sample at most,
+//   is cheaper to build than the cluster's longer steps: 512 x 128,
+//   SSD3D's level 2, takes 0.200 ms here against 0.370 on the cluster,
+//   and 4096 x 64 0.922 here against 0.718; and a sample whose features
+//   do not fit: e.g. 16384 x 64, 4 MiB of features against 16 CTAs' 3.6
+//   MiB of shared memory): the distance matrix [B, N, N] into a scratch
+//   buffer (32 x 32 tiles, both tiles' features staged 32 channels at a
+//   time), then one block of 1024 threads a sample walks its rows, one row
+//   a step.
+// Measured (utils/pn2_phases.py, H100 SXM at 700 W): 4096 -> 512 at C =
+// 64 on the cluster 0.714 ms (1.39 us a step, no scratch; the matrix
+// route 0.920: its matrix 0.331, its walk 0.584), bit-equal indices;
+// 512 -> 256 at C = 128 on the matrix route 0.200. More in PERF.md.
 //
 // BALL_QUERY (ball_query, dilated when min_radius > 0): one warp a centre,
 // 8 centres a block, scanning the points in index order through tiles of
@@ -437,6 +474,222 @@ __global__ void __launch_bounds__(32 * kWarpsMax)
   cluster_barrier();
 }
 
+// F-FPS's cluster route: a CTA's features in shared memory, [C][P + 1]
+// floats (its P = threads * PER points, padded to 4), then its points'
+// coordinates [P][4].
+constexpr int kFfpsWarpsMax = 16;  // threads a CTA up to 512
+// dynamic shared memory a CTA may take: 227 KiB less the static arrays
+constexpr int kFfpsSmemMax = 227 * 1024 - 2048;
+
+__host__ __device__ constexpr int ffps_feat_floats(int C, int P) {
+  return 4 * ((C * (P + 1) + 3) / 4);
+}
+
+__host__ __device__ constexpr int ffps_smem_bytes(int C, int P) {
+  return 4 * (ffps_feat_floats(C, P) + 4 * P);
+}
+
+// a + (w - f)^2, each step rounded
+__device__ __forceinline__ float sq_add(float a, float w, float f) {
+  const float d = __fsub_rn(w, f);
+  return __fadd_rn(a, __fmul_rn(d, d));
+}
+
+#ifdef TMAE_FFPS_PROFILE
+// cycles of thread 0 of CTA 0 (warp 0: it also does the CTA's reduction
+// and the record's stores), summed over the steps of a call, by part: the
+// points' distances and the thread's argmax, the warp's argmax, the CTA's
+// argmax and the record's stores, the wait for the R records, the
+// records' argmax
+__device__ unsigned long long ffps_cycles[5];
+#define FFPS_TICK(part)                                             \
+  do {                                                              \
+    if (prof) {                                                     \
+      const long long now = clock64();                              \
+      atomicAdd(&ffps_cycles[part], (unsigned long long)(now - t0)); \
+      t0 = now;                                                     \
+    }                                                               \
+  } while (0)
+#else
+#define FFPS_TICK(part) \
+  do {                  \
+  } while (0)
+#endif
+
+// F-FPS, one cluster of R CTAs a sample (blockIdx.x / R), PER points a
+// thread laid out as DFPS's, their first CREG channels also in registers.
+// A thread's point k is local point tid + k threads of its CTA.
+template <int PER, int CREG>
+__global__ void __launch_bounds__(32 * (PER * CREG >= 128 ? 8 : kFfpsWarpsMax))
+    ffps_cluster_kernel(const float* __restrict__ xyz,
+                        const float* __restrict__ feat,
+                        const bool* __restrict__ mask, int N, int C, int S,
+                        int R, float gamma, int* __restrict__ out) {
+  extern __shared__ __align__(16) float dsm[];
+  __shared__ float2 wrec[2][kFfpsWarpsMax];  // the warps' winners
+  // the CTAs' winners: (value, index bits, x, y), (z, -, -, -)
+  __shared__ float4 rec[2][kClusterMax][2];
+  __shared__ __align__(8) unsigned long long full[2];  // records arrived
+  const int threads = blockDim.x, W = threads / 32, P = threads * PER;
+  const int LD = P + 1;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int rank = blockIdx.x % R, b = blockIdx.x / R;
+  const int G = R * threads, gt = rank * threads + threadIdx.x;
+  float* const fs = dsm;
+  float4* const pxyz =
+      reinterpret_cast<float4*>(dsm + ffps_feat_floats(C, P));
+  const float* p = xyz + (long long)b * N * 3;
+  const bool* m = mask + (long long)b * N;
+  const float* f = feat + (long long)b * N * C;
+#ifdef TMAE_FFPS_PROFILE
+  const bool prof = blockIdx.x == 0 && threadIdx.x == 0;
+  long long t0 = clock64();
+#endif
+  // the CTA's features, row by row of each register k's `threads` points
+  for (int k = 0; k < PER; ++k) {
+    const long long j0 = rank * threads + (long long)k * G;
+    for (int e = threadIdx.x; e < threads * C; e += threads) {
+      const int r = e / C, c = e % C;
+      fs[c * LD + k * threads + r] = j0 + r < N ? f[(j0 + r) * C + c] : 0.f;
+    }
+  }
+  float px[PER], py[PER], pz[PER], dist[PER];
+  float first[PER];  // the mask as values: the first valid point wins
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = gt + k * G;
+    const bool ok = j < N;
+    const bool valid = ok && m[j];
+    px[k] = ok ? p[3 * j] : 0.f;
+    py[k] = ok ? p[3 * j + 1] : 0.f;
+    pz[k] = ok ? p[3 * j + 2] : 0.f;
+    dist[k] = valid ? kBig : (ok ? -kBig : -CUDART_INF_F);
+    first[k] = ok ? (valid ? 1.f : 0.f) : -CUDART_INF_F;
+    pxyz[threadIdx.x + k * threads] = make_float4(px[k], py[k], pz[k], 0.f);
+  }
+  if (threadIdx.x == 0) {
+    bar_init(cta_addr(&full[0]), 1);
+    bar_init(cta_addr(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every CTA of the cluster has started, set up its mbarriers and loaded
+  // its features and coordinates before another reads or writes them
+  cluster_barrier();
+  float fr[PER][CREG > 0 ? CREG : 1];
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+#pragma unroll
+    for (int c = 0; c < CREG; ++c)
+      fr[k][c] = fs[c * LD + threadIdx.x + k * threads];
+  const uint32_t rec_at = cta_addr(&rec[0][rank][0]);
+  const uint32_t full_at = cta_addr(&full[0]);
+  int* o = out + (long long)b * S;
+  const bool writer = rank == 0 && threadIdx.x == 0;
+  float lx = 0.f, ly = 0.f, lz = 0.f;
+  const float* wsrc = f;  // the last winner's features, in device memory
+  // step s: the argmax of vals over the cluster into o[s], its
+  // coordinates into lx, ly, lz and its features' address into wsrc
+  const auto pick = [&](const float (&vals)[PER], int s) {
+    const int par = s & 1;
+    if (threadIdx.x == 0) bar_expect(full_at + par * 8, R * 32);
+    float bv = vals[0];
+    int bk = 0;
+#pragma unroll
+    for (int k = 1; k < PER; ++k)
+      if (vals[k] > bv) {
+        bv = vals[k];
+        bk = k;
+      }
+    const int bi = gt + bk * G;
+    FFPS_TICK(0);
+    const int src = warp_winner(bv, bi, [](int i) { return i & 31; });
+    if (lane == src) wrec[par][warp] = make_float2(bv, __int_as_float(bi));
+    FFPS_TICK(1);
+    __syncthreads();
+    if (warp == 0) {
+      // the CTA's winner into slot `rank` of every CTA's buffer `par`
+      float v = -CUDART_INF_F;
+      int i = 0x7fffffff;
+      if (lane < W) {
+        const float2 h = wrec[par][lane];
+        v = h.x;
+        i = __float_as_int(h.y);
+      }
+      const int win = warp_winner(v, i, [&](int ii) {
+        return __ffs(__ballot_sync(0xffffffffu, i == ii)) - 1;
+      });
+      const int ci = __shfl_sync(0xffffffffu, i, win);
+      // ci's local index in this CTA (a CTA without a point below N sends
+      // -inf, which never wins)
+      const int k = ci / G, l = ci % G - rank * threads + k * threads;
+      const float4 q = ci < N ? pxyz[l] : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (lane < R) {
+        const uint32_t to = cluster_addr(rec_at + par * kClusterMax * 32, lane);
+        const uint32_t bar = cluster_addr(full_at + par * 8, lane);
+        st_async4(to, v, __int_as_float(ci), q.x, q.y, bar);
+        st_async4(to + 16, q.z, 0.f, 0.f, 0.f, bar);
+      }
+    }
+    FFPS_TICK(2);
+    // every CTA's record of this step is in buffer `par`: phase (s / 2) %
+    // 2 of `full[par]` is complete
+    bar_wait(full_at + par * 8, (s >> 1) & 1);
+    FFPS_TICK(3);
+    float rv = -CUDART_INF_F;
+    int ri = 0x7fffffff;
+    if (lane < R) {
+      const float4 h = rec[par][lane][0];
+      rv = h.x;
+      ri = __float_as_int(h.y);
+    }
+    const int win = warp_winner(rv, ri, [&](int ii) {
+      return __ffs(__ballot_sync(0xffffffffu, ri == ii)) - 1;
+    });
+    const float4 h0 = rec[par][win][0];
+    const int last = __float_as_int(h0.y);
+    lx = h0.z;
+    ly = h0.w;
+    lz = rec[par][win][1].x;
+    if (writer) o[s] = last;
+    // every warp reads the winner's features from device memory (L2)
+    wsrc = f + (long long)last * C;
+    FFPS_TICK(4);
+  };
+  pick(first, 0);
+  for (int s = 1; s < S; ++s) {
+    float acc[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) acc[k] = 0.f;
+    // from a 0 start: the first square is the sum's start exactly
+#pragma unroll
+    for (int c = 0; c < CREG; c += 4) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(wsrc + c));
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        acc[k] = sq_add(acc[k], w.x, fr[k][c]);
+        acc[k] = sq_add(acc[k], w.y, fr[k][c + 1]);
+        acc[k] = sq_add(acc[k], w.z, fr[k][c + 2]);
+        acc[k] = sq_add(acc[k], w.w, fr[k][c + 3]);
+      }
+    }
+    for (int c = CREG; c < C; ++c) {
+      const float w = __ldg(wsrc + c);
+      const float* const fc = fs + c * LD + threadIdx.x;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) acc[k] = sq_add(acc[k], w, fc[k * threads]);
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (dist[k] >= 0.f) {
+        float d = sq_dist3(px[k], py[k], pz[k], lx, ly, lz);
+        dist[k] = fminf(dist[k], __fadd_rn(d, __fmul_rn(acc[k], gamma)));
+      }
+    pick(dist, s);
+  }
+  // no CTA leaves while another may still read or write it
+  cluster_barrier();
+}
+
 template <int PER>
 __global__ void __launch_bounds__(kFpsThreads)
     matrix_walk_kernel(const float* __restrict__ dm,
@@ -450,8 +703,8 @@ __global__ void __launch_bounds__(kFpsThreads)
                 });
 }
 
-// dm[b, i, j] = |xyz_i - xyz_j|^2 + gamma * |feat_i - feat_j|^2 (the
-// feature term only when C > 0), for a 32 x 32 tile of (i, j) a block.
+// dm[b, i, j] = |xyz_i - xyz_j|^2 + gamma * |feat_i - feat_j|^2, for a
+// 32 x 32 tile of (i, j) a block.
 __global__ void __launch_bounds__(kTileThreads)
     dist_matrix_kernel(const float* __restrict__ xyz,
                        const float* __restrict__ feat, int N, int C,
@@ -499,8 +752,8 @@ __global__ void __launch_bounds__(kTileThreads)
     const int i = i0 + ty + r * (kTileThreads / 32);
     if (i >= N) continue;
     float d = sq_dist3(p[3 * i], p[3 * i + 1], p[3 * i + 2], jx, jy, jz);
-    if (C > 0) d = __fadd_rn(d, __fmul_rn(acc[r], gamma));
-    dm[((long long)b * N + i) * N + j] = d;
+    dm[((long long)b * N + i) * N + j] =
+        __fadd_rn(d, __fmul_rn(acc[r], gamma));
   }
 }
 
@@ -567,19 +820,24 @@ __global__ void __launch_bounds__(kBqWarps * 32)
   if (lane == 0) cnt[row] = count;
 }
 
-// One launch of dfps_cluster_kernel<PER>: B clusters of R CTAs of
-// `threads`, through cudaLaunchKernelEx. A cluster of more than 8 CTAs is
-// allowed explicitly, and the first launch of each (R, threads) asks the
-// card how many such clusters it can hold: none is an error.
-template <int PER>
-int dfps_launch(const float* xyz, const bool* mask, int B, int N, int S,
-                int R, int threads, int* out, cudaStream_t stream) {
-  static unsigned char checked[kClusterMax + 1][kWarpsMax + 1] = {};
-  auto kern = dfps_cluster_kernel<PER>;
+// One launch of `kern` as B clusters of R CTAs of `threads` with `smem`
+// bytes of dynamic shared memory, through cudaLaunchKernelEx. A cluster of
+// more than 8 CTAs is allowed explicitly, and the first launch of each
+// (kernel, R, threads, smem) asks the card how many such clusters it can
+// hold: none is an error.
+template <typename... KArgs, typename... Args>
+int cluster_launch(void (*kern)(KArgs...), int B, int R, int threads,
+                   int smem, cudaStream_t stream, Args... args) {
+  struct Seen {
+    const void* kern;
+    long long key;
+  };
+  static Seen seen[256];
+  static int nseen = 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * R);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -588,9 +846,17 @@ int dfps_launch(const float* xyz, const bool* mask, int B, int N, int S,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  unsigned char& done = checked[R][threads / 32];
+  const long long key = R + 32LL * threads + (1LL << 20) * smem;
+  bool done = false;
+  for (int k = 0; k < nseen && !done; ++k)
+    done = seen[k].kern == (const void*)kern && seen[k].key == key;
+  // the limit is the kernel's: another size may have set it lower
+  cudaError_t e = cudaSuccess;
+  if (smem > 0)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (!done) {
-    cudaError_t e = cudaSuccess;
     if (R > 8)
       e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -599,10 +865,9 @@ int dfps_launch(const float* xyz, const bool* mask, int B, int N, int S,
     e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    done = 1;
+    if (nseen < 256) seen[nseen++] = {(const void*)kern, key};
   }
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xyz, mask, N, S, R,
-                                           out);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return tmae_last_error();
 }
@@ -633,15 +898,15 @@ extern "C" int launch_dfps_cluster(const float* xyz, const bool* mask, int B,
       threads > 32 * kWarpsMax || threads % 32 ||
       (long long)R * threads * per < N)
     return static_cast<int>(cudaErrorInvalidValue);
+#define DFPS_CASE(P_)                                                       \
+  case P_:                                                                  \
+    return cluster_launch(dfps_cluster_kernel<P_>, B, R, threads, 0, stream, \
+                          xyz, mask, N, S, R, out);
   switch (per) {
-    case 1: return dfps_launch<1>(xyz, mask, B, N, S, R, threads, out, stream);
-    case 2: return dfps_launch<2>(xyz, mask, B, N, S, R, threads, out, stream);
-    case 4: return dfps_launch<4>(xyz, mask, B, N, S, R, threads, out, stream);
-    case 8: return dfps_launch<8>(xyz, mask, B, N, S, R, threads, out, stream);
-    case 16:
-      return dfps_launch<16>(xyz, mask, B, N, S, R, threads, out, stream);
+    DFPS_CASE(1) DFPS_CASE(2) DFPS_CASE(4) DFPS_CASE(8) DFPS_CASE(16)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DFPS_CASE
 }
 
 #ifdef TMAE_DFPS_PROFILE
@@ -655,26 +920,67 @@ extern "C" int tmae_dfps_profile(unsigned long long* out) {
 }
 #endif
 
+// FFPS, C >= 1 channels (ops/pointnet2 sends a call without features to
+// DFPS), under the plan of ops/pointnet2.ffps_plan: route 1, the cluster
+// walk (R in 1..16, threads a multiple of 32 up to 512, or 256 when a
+// thread holds 128 channels in registers; per 1, 2, 4, 8 or 16 covering
+// N; creg 0, 32, 64 or 128 with per * creg <= 128, creg <= C, and C % 4
+// == 0 when creg > 0); route 0, the distance matrix into `dm` [B, N, N]
+// and the one-block walk over its rows (N <= 16384).
 extern "C" int launch_ffps(const float* xyz, const float* feat,
                            const bool* mask, int B, int N, int C, int S,
-                           float gamma, float* dm, int* out,
+                           float gamma, int route, int R, int threads,
+                           int per, int creg, float* dm, int* out,
                            cudaStream_t stream) {
-  const int per = points_per_thread(N);
-  if (B < 1 || S < 1 || per == 0 || C < 0 || (C > 0 && !feat))
+  if (B < 1 || S < 1 || N < 1 || C < 1 || !feat || route < 0 || route > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (N + kTile - 1) / kTile;
-  dist_matrix_kernel<<<dim3(tiles, tiles, B), kTileThreads, 0, stream>>>(
-      xyz, feat, N, C, gamma, dm);
-  const int e = tmae_last_error();
-  if (e) return e;
-  switch (per) {
-    case 1: return walk_launch<1>(dm, mask, B, N, S, out, stream);
-    case 2: return walk_launch<2>(dm, mask, B, N, S, out, stream);
-    case 4: return walk_launch<4>(dm, mask, B, N, S, out, stream);
-    case 8: return walk_launch<8>(dm, mask, B, N, S, out, stream);
-    default: return walk_launch<16>(dm, mask, B, N, S, out, stream);
+  if (route == 0) {
+    const int mper = points_per_thread(N);
+    if (mper == 0 || !dm) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles = (N + kTile - 1) / kTile;
+    dist_matrix_kernel<<<dim3(tiles, tiles, B), kTileThreads, 0, stream>>>(
+        xyz, feat, N, C, gamma, dm);
+    const int e = tmae_last_error();
+    if (e) return e;
+    switch (mper) {
+      case 1: return walk_launch<1>(dm, mask, B, N, S, out, stream);
+      case 2: return walk_launch<2>(dm, mask, B, N, S, out, stream);
+      case 4: return walk_launch<4>(dm, mask, B, N, S, out, stream);
+      case 8: return walk_launch<8>(dm, mask, B, N, S, out, stream);
+      default: return walk_launch<16>(dm, mask, B, N, S, out, stream);
+    }
   }
+  const int smem = ffps_smem_bytes(C, threads * per);
+  if (R < 1 || R > kClusterMax || threads < 32 || threads % 32 ||
+      threads > 32 * (per * creg >= 128 ? 8 : kFfpsWarpsMax) ||
+      (long long)R * threads * per < N || creg > C || per * creg > 128 ||
+      smem > kFfpsSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the registers' channels are read 16 bytes at a time
+  if (creg && (C % 4 || reinterpret_cast<uintptr_t>(feat) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define FFPS_CASE(P_, C_)                                                  \
+  if (per == P_ && creg == C_)                                             \
+    return cluster_launch(ffps_cluster_kernel<P_, C_>, B, R, threads, smem, \
+                          stream, xyz, feat, mask, N, C, S, R, gamma, out);
+  FFPS_CASE(1, 0) FFPS_CASE(1, 32) FFPS_CASE(1, 64) FFPS_CASE(1, 128)
+  FFPS_CASE(2, 0) FFPS_CASE(2, 32) FFPS_CASE(2, 64)
+  FFPS_CASE(4, 0) FFPS_CASE(4, 32)
+  FFPS_CASE(8, 0) FFPS_CASE(16, 0)
+#undef FFPS_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef TMAE_FFPS_PROFILE
+// FFPS's cycles by part since the last read (ffps_cycles), then reset
+extern "C" int tmae_ffps_profile(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, ffps_cycles, sizeof(ffps_cycles));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long zero[5] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(ffps_cycles, zero, sizeof(ffps_cycles)));
+}
+#endif
 
 extern "C" int launch_ball_query(const float* xyz, const bool* xyz_mask,
                                  const float* centers,

@@ -81,7 +81,7 @@ K12 = CudaKernel('encoder_layer_tiled.cu', 'launch_encoder_inplace',
                  [P, P, P, P, P, P, P, P, _W, P, I, I, I, I, I, I, I, I, I,
                   CF, P])
 NARROW_FWD = CudaKernel('encoder_layer_narrow.cu', 'launch_narrow_fwd',
-                        [I, _W, _W, I, P, _INTS, CF, P])
+                        [I, _W, _W, P, _INTS, CF, P])
 NARROW_BWD = CudaKernel('encoder_layer_narrow.cu', 'launch_narrow_bwd',
                         [_W, _W, _W, _W, _INTS, CF, P])
 MATRICES = ('wq', 'wk', 'wv', 'wo', 'f1w', 'f2w')
@@ -286,13 +286,14 @@ def _ints(*vals):
     return (ctypes.c_int * len(vals))(*vals)
 
 
-def _narrow_fwd(mode, io, ptrs, f32, nwin, dims, tau_min):
+def _narrow_fwd(mode, io, ptrs, nwin, dims, tau_min):
     """One NARROW_FWD launch: ``io`` the 11 tensors or None (x kv out pos
     selq selk qmask kmask qocc kocc widx), ``ptrs`` the 17 layer tensors'
-    pointers, ``dims`` (C F H T cross B total cap row_lo gh gw shift)."""
+    pointers (bf16 matrices), ``dims`` (C F H T cross B total cap row_lo gh
+    gw shift)."""
     work = _work(nwin, io[0].device)
-    NARROW_FWD(mode, _ptrs(io), ptrs, int(f32), work.data_ptr(),
-               _ints(*dims), float(tau_min), stream_handle())
+    NARROW_FWD(mode, _ptrs(io), ptrs, work.data_ptr(), _ints(*dims),
+               float(tau_min), stream_handle())
 
 
 def _tiled_ptrs(p: LayerParams, nwin: int):
@@ -315,9 +316,11 @@ class TiledWeights:
     the six Linear weights packed into the tiled kernel's panels by one
     launch (``PACK``, from f32 master weights rounded to bf16 to nearest
     even, as :func:`kernel_params` rounds them; bf16 weights are copied) and
-    the 11 vectors in f32; at the narrow widths the 17 tensors as they are
-    (NARROW_FWD loads the matrices into shared memory once a block,
-    rounding f32 ones the same way; ``panels`` None). On the CPU,
+    the 11 vectors in f32; at the narrow widths the six matrices in bf16
+    (f32 master weights rounded once, as :func:`kernel_params` rounds them,
+    into one buffer by torch's cat and cast: no launch of the port's; bf16
+    ones as they are) and the 11 vectors as they are, which NARROW_FWD
+    copies into shared memory once a block (``panels`` None). On the CPU,
     ``params``: the :class:`LayerParams` the plain versions take.
     ``weights``: the 17 layer tensors in :class:`LayerParams` order, Linear
     weights ``[out, in]``."""
@@ -344,9 +347,14 @@ class TiledWeights:
                                  f'contiguous {want} tensor of shape {shape}')
         self.params = None
         if self.family == 'narrow':
-            self.f32, self.panels = f32, None
-            self.tensors = list(p)  # ptrs points into them
-            self.ptrs = (ctypes.c_void_p * 17)(*[t.data_ptr() for t in p])
+            self.panels = None
+            if f32:
+                mats = narrow_mats(mats)
+            bf = dict(zip(MATRICES, mats))
+            # ptrs points into these
+            self.tensors = [bf.get(name, t) for name, t in zip(p._fields, p)]
+            self.ptrs = (ctypes.c_void_p * 17)(
+                *[t.data_ptr() for t in self.tensors])
             return
         # ptrs points into these: they live as long as the prepared weights
         self.vectors = [t for name, t in zip(p._fields, p)
@@ -358,6 +366,15 @@ class TiledWeights:
         ptrs = [None if name in MATRICES else t.data_ptr()
                 for name, t in zip(p._fields, p)]
         self.ptrs = (ctypes.c_void_p * 18)(*ptrs, self.panels.data_ptr())
+
+
+def narrow_mats(mats) -> list:
+    """A served narrow layer's six f32 matrices in bf16, rounded to nearest
+    even as :func:`kernel_params` rounds them, as views of one buffer (two
+    launches: torch's cat and cast)."""
+    flat = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
+    return [v.view(m.shape) for v, m in
+            zip(flat.split([m.numel() for m in mats]), mats)]
 
 
 def _prepared(p, C: int, nhead: int) -> TiledWeights:
@@ -485,7 +502,7 @@ def encoder_layer_rows_full(xw_all, kv_all, qmask, kmask, pos, p, *,
         _narrow_fwd(_FULL_IN_PLACE, [xw_all, kv_all if cross else None, None,
                                      pos, None, None, qmask, kmask, None,
                                      None, None],
-                    tw.ptrs, tw.f32, B * cap,
+                    tw.ptrs, B * cap,
                     (C, tw.ffn, nhead, 64, int(cross), B, total, cap, row_lo,
                      0, 0, 0), tau_min)
         return xw_all
@@ -520,7 +537,7 @@ def encoder_layer_rows_sel(xw_all, kv_all, sel_q, sel_k, qmask, kmask, pos,
         _narrow_fwd(_SEL_IN_PLACE, [xw_all, kv_all if cross else None, None,
                                     pos, sel_q, sel_k, qmask, kmask, None,
                                     None, None],
-                    tw.ptrs, tw.f32, B * cap,
+                    tw.ptrs, B * cap,
                     (C, tw.ffn, nhead, S, int(cross), B, total, cap, row_lo,
                      0, 0, 0), tau_min)
         return xw_all
@@ -585,7 +602,7 @@ def encoder_layer_fwd(xw, kvw, sel_q, sel_k, qmask, kmask, pos,
                     [xw, kvw, out, pos, _i32(sel_q),
                      _i32(sel_k if cross else None), qmask, kmask, None,
                      None, None],
-                    _weight_ptrs(p), False, N,
+                    _weight_ptrs(p), N,
                     (C, p.f1w.shape[0], nhead, T, int(cross), N, N, N, 0, 0,
                      0, 0), tau_min)
         return out
@@ -881,7 +898,7 @@ def encoder_layer_grid(xg, kvg, qocc, kocc, pos, p: LayerParams, *,
     if family == 'narrow':
         _narrow_fwd(_GRID_OUT, [xg, kvg, out, pos, None, None, None, None,
                                 qocc, kocc, None],
-                    _weight_ptrs(p), False, B * nwy * nwx,
+                    _weight_ptrs(p), B * nwy * nwx,
                     (C, p.f1w.shape[0], nhead, 64, int(cross), B, 0, 0, 0, H,
                      W, int(shift)), tau_min)
         return out
@@ -1034,7 +1051,7 @@ def encoder_layer_fused_pipelined(xp, kvp, ci, pos, p, *, nhead: int,
     if tw.family == 'narrow':
         _narrow_fwd(_PLAN, [xp, kvp if cross else None, None, pos, sel_q,
                             sel_k, qmask, kmask, None, None, idx],
-                    tw.ptrs, tw.f32, B * cap,
+                    tw.ptrs, B * cap,
                     (C, tw.ffn, nhead, T, int(cross), B, 0, cap, 0, Hp2, Wp,
                      0), tau_min)
         return xp

@@ -14,7 +14,11 @@ CPU tensors:
   sample under :func:`dfps_plan`;
 * ``FFPS``: :func:`farthest_point_sample_ffps`, the F-FPS of
   ``calc_dist_matrix_for_sampling`` then ``farthest_point_sample_matrix``
-  in one call;
+  in one call, under :func:`ffps_plan`: a thread-block cluster a sample
+  that computes the distances afresh each step, or for small samples and
+  samples whose features do not fit the cluster, the distance matrix and
+  a walk over its rows (without features F-FPS is D-FPS, and takes
+  ``DFPS``);
 * ``BALL_QUERY``: :func:`ball_query`.
 
 They make discrete choices from f32 sums, so the plain versions and the
@@ -28,6 +32,8 @@ backward); none of the samplers carries a gradient.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -37,12 +43,23 @@ from ..utils.build import CudaKernel, F, I, P, stream_handle
 DFPS = CudaKernel('pointnet2.cu', 'launch_dfps_cluster',
                   [P, P, I, I, I, I, I, I, P, P])
 FFPS = CudaKernel('pointnet2.cu', 'launch_ffps',
-                  [P, P, P, I, I, I, I, F, P, P, P])
+                  [P, P, P, I, I, I, I, F, I, I, I, I, I, P, P, P])
 BALL_QUERY = CudaKernel('pointnet2.cu', 'launch_ball_query',
                         [P, P, P, P, I, I, I, I, F, F, I, P, P, P])
 
 BIG = 1e10
 FPS_MAX_POINTS = 16384   # FFPS: 16 running distances a thread of 1024
+# FFPS's cluster route (csrc/pointnet2.cu): up to 512 threads a CTA (256
+# when a thread holds 128 channels in registers), the first 0, 32, 64 or
+# 128 channels of a thread's points in registers (at most 128 values), and
+# at most this many bytes of dynamic shared memory a CTA
+FFPS_MAX_THREADS = 512
+FFPS_REG_CHANNELS = (128, 64, 32, 0)
+FFPS_SMEM_MAX = 227 * 1024 - 2048
+# FFPS with features takes the matrix route up to this many points
+# (utils/pn2_phases.py on the H100: 512 x 128 0.200 ms on the matrix, 0.370
+# on the cluster; 4096 x 64 0.922 and 0.718)
+FFPS_MATRIX_MAX_POINTS = 2048
 # DFPS: a cluster of up to 16 CTAs a sample, up to 256 threads a CTA and
 # 16 points a thread (dfps_plan)
 DFPS_MAX_CLUSTER = 16
@@ -150,6 +167,87 @@ def dfps_plan(N: int) -> tuple[int, int, int]:
     return R, threads, per
 
 
+FFPS_ROUTES = {'matrix': 0, 'cluster': 1}
+
+
+class FfpsPlan(NamedTuple):
+    """FFPS's launch: ``route`` 'cluster' (R CTAs of ``threads`` threads a
+    sample, ``per`` points a thread, the first ``creg`` channels in
+    registers) or 'matrix' (the other fields 0)."""
+
+    route: str
+    R: int
+    threads: int
+    per: int
+    creg: int
+
+
+def ffps_smem(C: int, threads: int, per: int) -> int:
+    """Dynamic shared memory of an FFPS 'cluster' CTA: its points' features
+    [C][P + 1] floats (P = threads per, padded to 4) and its points'
+    coordinates [P][4]."""
+    P = threads * per
+    return 4 * (4 * -(-(C * (P + 1)) // 4) + 4 * P)
+
+
+def ffps_cluster_plan(N: int, C: int) -> FfpsPlan | None:
+    """FFPS's 'cluster' launch for N points of C > 0 channels, or None when
+    no cluster's features fit: the fewest points a thread (1, 2, 4, ...),
+    then the most channels in registers (128, 64, 32, 0; at most 128
+    values a thread; none unless C % 4 == 0), for which a cluster of at
+    most 16 CTAs covers N; R
+    the smallest power of 2 that does with 128 threads a CTA up to 1024
+    points and 256 above (512 where 256 does not reach and a thread holds
+    fewer than 128 register values), the threads then cut to what R needs,
+    and R doubled (up to 16) until its shared memory fits (FFPS_SMEM_MAX
+    bytes a CTA)."""
+    per = 1
+    while per <= DFPS_MAX_PER:
+        for creg in FFPS_REG_CHANNELS:
+            # registers' channels are read 16 bytes at a time: C % 4 == 0
+            if creg > C or per * creg > 128 or (creg and C % 4):
+                continue
+            most = 256 if per * creg >= 128 else FFPS_MAX_THREADS
+            for cap in dict.fromkeys((min(most, 128 if N <= 1024 else 256),
+                                      most)):
+                R = 1
+                while R < DFPS_MAX_CLUSTER and R * cap * per < N:
+                    R *= 2
+                if R * cap * per >= N:
+                    break
+            else:
+                continue
+            while R <= DFPS_MAX_CLUSTER:  # more CTAs for shared memory
+                threads = 32 * -(-N // (32 * R * per))
+                if ffps_smem(C, threads, per) <= FFPS_SMEM_MAX:
+                    return FfpsPlan('cluster', R, threads, per, creg)
+                R *= 2
+        per *= 2
+    return None
+
+
+def ffps_plan(N: int, C: int) -> FfpsPlan:
+    """FFPS's launch for N points of C >= 1 feature channels a sample
+    (:func:`farthest_point_sample_ffps` sends a call without features to
+    DFPS). Above FFPS_MATRIX_MAX_POINTS points, :func:`ffps_cluster_plan`
+    (4096 x 64) where its features fit; up to that many points (512 x 128:
+    the matrix, at most 16 MiB a sample, costs less to build than the
+    cluster's longer steps) and where no cluster fits (e.g. 16384 points
+    of 64 channels), 'matrix': the distance matrix [B, N, N] in device
+    memory, then a one-block walk over its rows. Raises outside
+    1..FPS_MAX_POINTS points or for C < 1."""
+    if not 1 <= N <= FPS_MAX_POINTS:
+        raise ValueError(f'F-FPS on the card takes 1 to {FPS_MAX_POINTS} '
+                         f'points a sample, got {N}')
+    if C < 1:
+        raise ValueError(f'FFPS takes 1 or more feature channels, got {C}')
+    if N > FFPS_MATRIX_MAX_POINTS:
+        plan = ffps_cluster_plan(N, C)
+        if plan is not None:
+            return plan
+    return FfpsPlan('matrix', 0, 0, 0, 0)
+
+
 def _fps_args(points, mask, num_samples, limit=FPS_MAX_POINTS):
     B, N = mask.shape
     if N > limit:
@@ -184,24 +282,33 @@ def farthest_point_sample(points, mask, num_samples: int) -> torch.Tensor:
 def farthest_point_sample_ffps(xyz, features, mask, num_samples: int,
                                gamma: float = 1.0) -> torch.Tensor:
     """F-FPS: coordinates [B, N, 3] and features [B, N, C] (or None) + mask
-    → indices [B, S] int32 (kernel ``FFPS`` on the card: the distance
-    matrix, then the walk over its rows, in one call)."""
+    → indices [B, S] int32 (kernel ``FFPS`` on the card, under
+    :func:`ffps_plan`: a cluster walk that needs no [B, N, N] buffer, or
+    the distance matrix and the walk over its rows). Without features the
+    distance is D-FPS's, summed in the same order, so the card takes
+    ``DFPS`` (:func:`farthest_point_sample`) for the same indices."""
     if not on_card(xyz, features, mask):
         return farthest_point_sample_ffps_plain(xyz, features, mask,
                                                 num_samples, gamma)
+    if features is None:
+        return farthest_point_sample(xyz, mask, num_samples)
     pts, m, out = _fps_args(xyz.detach(), mask, num_samples)
     B, N = m.shape
-    feat = (None if features is None
-            else as_kernel_arg(features.detach(), torch.float32))
-    C = 0 if feat is None else feat.shape[-1]
-    if feat is not None and feat.shape[:2] != (B, N):
+    feat = as_kernel_arg(features.detach(), torch.float32)
+    C = feat.shape[-1]
+    if feat.shape[:2] != (B, N):
         raise ValueError(f'features {tuple(feat.shape)} do not match the '
                          f'points {tuple(pts.shape)}')
     if B and N and num_samples:
-        scratch = torch.empty(B, N, N, dtype=torch.float32, device=m.device)
-        FFPS(pts.data_ptr(), 0 if feat is None else feat.data_ptr(),
-             m.data_ptr(), B, N, C, num_samples, float(gamma),
-             scratch.data_ptr(), out.data_ptr(), stream_handle())
+        plan = ffps_plan(N, C)
+        if plan.creg and feat.data_ptr() % 16:  # read 16 bytes at a time
+            feat = feat.clone()
+        scratch = (torch.empty(B, N, N, dtype=torch.float32, device=m.device)
+                   if plan.route == 'matrix' else None)
+        FFPS(pts.data_ptr(), feat.data_ptr(), m.data_ptr(), B, N, C,
+             num_samples, float(gamma), FFPS_ROUTES[plan.route], plan.R, plan.threads, plan.per,
+             plan.creg, 0 if scratch is None else scratch.data_ptr(),
+             out.data_ptr(), stream_handle())
     else:
         out.zero_()
     return out

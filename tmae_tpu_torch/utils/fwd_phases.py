@@ -4,8 +4,35 @@ launch by launch, on the card; and K5 (``csrc/segment_max.cu``) launch
 by launch.
 
     python3 -m tmae_tpu_torch.utils.fwd_phases
+    python3 -m tmae_tpu_torch.utils.fwd_phases --narrow [--parent PATH]
+        [--cycles] [--json FILE]
 
-Builds the library a second time with ``-DTMAE_FWD_PROFILE`` (consumer
+``--narrow`` runs NARROW_FWD (``csrc/encoder_layer_narrow.cu``) instead,
+at (C, heads) = (64, 8), (64, 4) and (32, 4) on seeded random windows:
+(a) a served pair's stage-1 full bucket in place, rows [0, 128) of [2,
+128, 64, C], 109 of the 256 slots with an occupied query cell (fewer
+tiles than SMs); (b) 76 flat windows out of place, every one with a
+query (as a t_mae_mini.yaml step's stage-1 grid hands them); and at (64,
+8) also an S = 16 bucket in place (rows [0, 640) of [2, 960, 64, C], 48%
+live) and a 2 x 32 x 32 grid at shift 0 (a t_mae_mini.yaml step's
+stage-1 grid). For each it prints the device ms of each launch
+(``torch.profiler``), the host ms to enqueue a call (prepared weights
+where the call takes them) and the CUDA-event ms of a call (an in-place
+call runs again on its own output: the same windows, the same work), for
+a served call also the host ms to prepare its weights (``TiledWeights``
+from f32 masters), and checks that a call on the case's inputs gives the
+same bits twice. ``--parent PATH`` builds another
+``encoder_layer_narrow.cu`` (a parent checkout's) beside this one, runs
+both in the order parent, this, this, parent, each with its own host
+path (a parent whose kernel takes f32 matrices gets a served layer's f32
+masters, as its wrapper handed them), and prints the largest difference
+of their outputs. ``--cycles`` builds the source again with
+``-DTMAE_NARROW_PROFILE`` and prints, for each case, the tile kernel's
+cycles a tile and their shares by phase (thread 0 of each block, summed
+over the blocks). The readings go to the last line as JSON (and to
+``--json``).
+
+Without ``--narrow``, it builds the library a second time with ``-DTMAE_FWD_PROFILE`` (consumer
 thread 0 of each block then adds the clock cycles of every phase of its
 tiles, and its tile count, into a device array), and runs on seeded
 random inputs: K8 (S = 16, C = 128 self, 2560 slots as the t_mae.yaml
@@ -41,9 +68,14 @@ host enqueue time and device time by launch on a served frame's sizes
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import ctypes
+import json
 import statistics
 import subprocess
+import sys
+import threading
 import time
 
 import numpy as np
@@ -245,7 +277,289 @@ def by_launch(torch, call, calls=1, stats=None):
     return []
 
 
+NARROW_WIDTHS = ((64, 8), (64, 4), (32, 4))
+NARROW_PHASES = ('weights wait', 'tile and rows meta', 'rows in', 'q, k, v',
+                 'attention', 'o, LN1', 'FFN 1', 'FFN 2, LN2', 'output',
+                 'prefetch', '-', '-', '-', '-', '-', '-')
+
+
+def narrow_cases(torch, C):
+    """NARROW_FWD's cases at width C: {label: (kind, args, weights)}, kind
+    'rows_full', 'flat', 'rows' or 'grid' (see the module's doc)."""
+    rng = np.random.RandomState(C)
+    out = {}
+    (xw, _, _, _, qm, _, pos), w = rows_case(torch, 2, 128, 128, 64, C, 1.0,
+                                             seed=C)
+    dead = torch.tensor(rng.permutation(256)[:256 - 109], device='cuda')
+    qm = qm.reshape(256, 64)
+    qm[:, 0] = 1.0  # a query in every window, then 147 windows without
+    qm[dead] = 0
+    xw.reshape(256, 64, C)[dead] = 0
+    out['(a) full bucket in place, 109 of 256 slots live'] = (
+        'rows_full', (xw, None, None, None, qm.reshape(2, 128, 64), None,
+                      pos), w)
+    (xw, _, _, _, qm, _, pos), w = sel_case(torch, 76, 64, C, 1.0, seed=C)
+    qm[:, 0] = 1.0  # every window with a query
+    out['(b) 76 windows out of place, all live'] = (
+        'flat', (xw, None, None, None, qm, None, pos), w)
+    if C == 64:
+        out['S=16 in place, rows [0, 640) of 2x960, 48% live'] = (
+            'rows', *rows_case(torch, 2, 960, 640, 16, C, 0.48, seed=C))
+        out['grid 2x32x32 shift 0'] = ('grid',
+                                       *grid_case(torch, 2, 32, 32, C, 1.0,
+                                                  seed=C))
+    return out
+
+
+def narrow_call(el, kind, args, weights, nhead):
+    """One NARROW_FWD call of ``kind`` as its path makes it (serving calls
+    with the weights prepared once, training calls with kernel_params)."""
+    kw = dict(nhead=nhead, tau_min=0.05, cross=False)
+    if kind in ('rows_full', 'rows'):
+        tw = el.TiledWeights(weights, nhead)
+        if kind == 'rows_full':
+            return lambda: el.encoder_layer_rows_full(
+                args[0], None, args[4], None, args[6], tw, row_lo=0, **kw)
+        return lambda: el.encoder_layer_rows_sel(*args, tw, row_lo=0, **kw)
+    p = el.kernel_params(weights)
+    if kind == 'grid':
+        return lambda: el.encoder_layer_grid(*args, p, window=8,
+                                             shift=False, **kw)
+    return lambda: el.encoder_layer_fwd(*args, p, **kw)
+
+
+def narrow_live(el, kind, args):
+    if kind == 'grid':
+        return int(el._flat_windows(args[2].float(), 8, False).any(-1).sum())
+    return int((args[4] > 0).any(-1).sum())
+
+
+class ParentFwd:
+    """Another build's NARROW_FWD called with this version's arguments. A
+    parent that takes ``w_f32`` (its kernel rounds f32 matrices to bf16
+    as it loads them) also runs its own host path inside
+    :meth:`host_path`: a served layer's ``TiledWeights`` keeps its f32
+    matrices (no ``narrow_mats`` copy) and their launches pass w_f32 = 1;
+    the bf16 matrices of training pass 0."""
+
+    def __init__(self, path):
+        from ..ops import encoder_layer as el
+
+        lib = build.build_file(path, 'encoder_layer_narrow.cu', 'parent')
+        k = el.NARROW_FWD
+        self.f32 = 'int w_f32' in path.read_text().split(
+            'launch_narrow_fwd(')[1].split(')')[0]
+        types = list(k.argtypes)
+        if self.f32:
+            types.insert(3, build.I)
+        self.kernel = build.CudaKernel(k.source, k.symbol, types, path=lib)
+        # wq's address -> the f32 matrices kept (held, so that no other
+        # tensor takes the address)
+        self.kept = {}
+
+    def __call__(self, mode, io, ptrs, *rest):
+        if self.f32:
+            self.kernel(mode, io, ptrs, int(ptrs[0] in self.kept), *rest)
+        else:
+            self.kernel(mode, io, ptrs, *rest)
+
+    @contextlib.contextmanager
+    def host_path(self):
+        from ..ops import encoder_layer as el
+
+        def keep(mats):
+            self.kept[mats[0].data_ptr()] = mats
+            return mats
+
+        saved = el.narrow_mats
+        if self.f32:
+            el.narrow_mats = keep
+        try:
+            yield
+        finally:
+            el.narrow_mats = saved
+
+
+@contextlib.contextmanager
+def narrow_fwd_using(kernel):
+    """The wrappers launch ``kernel`` as NARROW_FWD inside the block (None:
+    the repo's own; a :class:`ParentFwd` with its host path)."""
+    from ..ops import encoder_layer as el
+
+    saved = el.NARROW_FWD
+    if kernel is not None:
+        el.NARROW_FWD = kernel
+    try:
+        if isinstance(kernel, ParentFwd):
+            with kernel.host_path():
+                yield
+        else:
+            yield
+    finally:
+        el.NARROW_FWD = saved
+
+
+def narrow_fresh(kind, args, call):
+    """A function that runs ``call`` on the case's inputs as they were made
+    (an in-place call first gets its window tensor back) and returns what
+    it wrote."""
+    if kind not in ('rows_full', 'rows'):
+        return call
+    orig = args[0].clone()
+
+    def run():
+        args[0].copy_(orig)
+        call()
+        return args[0]
+
+    return run
+
+
+def narrow_cycles(torch, el, cases, log=print):
+    """The tile kernel built with -DTMAE_NARROW_PROFILE, each case one call
+    after a warm one: {case: {'cycles_a_tile': n, phase: share}}."""
+    lib = build.build_file(build.CSRC / 'encoder_layer_narrow.cu',
+                           'encoder_layer_narrow.cu', 'profile',
+                           extra=('-DTMAE_NARROW_PROFILE',))
+    read = ctypes.CDLL(str(lib)).tmae_narrow_profile
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    read.restype = ctypes.c_int
+    k = el.NARROW_FWD
+    kernel = build.CudaKernel(k.source, k.symbol, k.argtypes, path=lib)
+    cyc = (ctypes.c_ulonglong * 16)()
+    out = {}
+    for key, (kind, args, weights, H) in cases.items():
+        call = narrow_call(el, kind, args, weights, H)
+        with narrow_fwd_using(kernel):
+            for _ in range(2):
+                if read(cyc):
+                    raise RuntimeError('tmae_narrow_profile failed')
+                call()
+                torch.cuda.synchronize()
+        if read(cyc):
+            raise RuntimeError('tmae_narrow_profile failed')
+        total = max(sum(cyc), 1)
+        live = narrow_live(el, kind, args)
+        tiles = -(-live // 4) if kind == 'rows' else live
+        out[key] = {'cycles_a_tile': total / tiles, **{
+            NARROW_PHASES[i]: cyc[i] / total for i in range(16) if cyc[i]}}
+        log(f'{key}: tile kernel {total / tiles:.0f} cycles a tile (thread '
+            '0 of each block, summed over blocks): ' + ', '.join(
+                f'{NARROW_PHASES[i]} {100 * cyc[i] / total:.1f}%'
+                for i in range(16) if cyc[i]))
+    return out
+
+
+def narrow_main(args):
+    import torch
+
+    from ..ops import encoder_layer as el
+    from .nms_phases import events_ms
+
+    if not torch.cuda.is_available():
+        print('fwd_phases: no CUDA device', file=sys.stderr)
+        return 1
+    parent = {}
+    if args.parent:  # the two builds side by side
+        from pathlib import Path
+
+        t = threading.Thread(target=lambda: parent.setdefault(
+            'k', ParentFwd(Path(args.parent))))
+        t.start()
+    build.build_all(('encoder_layer_narrow.cu',))
+    if args.parent:
+        t.join()
+        if 'k' not in parent:
+            raise RuntimeError('the parent\'s build failed')
+    versions = ['parent', 'change', 'change', 'parent'] if parent else \
+        ['change']
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    res = {'card': card}
+    cases = {}
+    for C, H in NARROW_WIDTHS:
+        for label, (kind, a, w) in narrow_cases(torch, C).items():
+            if C == 64 and H == 4 and kind in ('rows', 'grid'):
+                continue
+            cases[f'C={C} H={H} {label}'] = (kind, a, w, H)
+    using = lambda v: narrow_fwd_using(parent.get('k') if v == 'parent'
+                                       else None)
+    for key, (kind, a, w, H) in cases.items():
+        calls, fresh = {}, {}
+        for v in dict.fromkeys(versions):  # each with its own host path
+            with using(v):
+                calls[v] = narrow_call(el, kind, a, w, H)
+            fresh[v] = narrow_fresh(kind, a, calls[v])
+        served = kind in ('rows_full', 'rows')
+        runs = {v: [] for v in versions}
+        outs = {}
+        for v in versions:
+            with using(v):
+                first = fresh[v]().clone()
+                again = fresh[v]()
+                torch.cuda.synchronize()
+                if not torch.equal(first, again):
+                    raise AssertionError(f'{v} {key}: two calls differ')
+                outs.setdefault(v, first)
+                launches = by_launch(torch, calls[v], calls=5)
+                runs[v].append({
+                    'by_launch': dict(launches),
+                    'device_ms': sum(ms for _, ms in launches),
+                    'host_ms': host_ms(torch, calls[v]),
+                    'ms': events_ms(torch, calls[v]),
+                    'prepare_ms': host_ms(
+                        torch, lambda: el.TiledWeights(w, H), n=5)
+                    if served else 0.0})
+        res[key] = {'live': narrow_live(el, kind, a)}
+        for v in dict.fromkeys(versions):
+            rs = runs[v]
+            names = sorted({n for r in rs for n in r['by_launch']})
+            rd = {k: statistics.fmean(r[k] for r in rs)
+                  for k in ('device_ms', 'host_ms', 'ms', 'prepare_ms')}
+            rd['by_launch'] = {n: statistics.fmean(
+                r['by_launch'].get(n, 0.0) for r in rs) for n in names}
+            rd['runs_ms'] = [r['ms'] for r in rs]
+            res[key][v] = rd
+            print(f'{key} {v}: events {rd["ms"]:.4f} ms a call, device '
+                  f'{rd["device_ms"]:.4f} (' + ', '.join(
+                      f'{n} {ms:.4f}' for n, ms in rd['by_launch'].items())
+                  + f'), host enqueue {rd["host_ms"]:.4f}' + (
+                      f', weights prepared {rd["prepare_ms"]:.4f} (host)'
+                      if served else ''), flush=True)
+        if parent:
+            diff = (outs['parent'].float() - outs['change'].float()).abs()
+            res[key]['max_diff_vs_parent'] = diff.max().item()
+            print(f'{key}: largest |diff| of the outputs, parent against '
+                  f'this version: {diff.max().item():.4g}', flush=True)
+    if args.cycles:
+        res['cycles'] = narrow_cycles(torch, el, cases,
+                                      log=lambda x: print(x, flush=True))
+    if args.json:
+        with open(args.json, 'w') as f:
+            json.dump(res, f)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--narrow', action='store_true',
+                    help='NARROW_FWD by launch, host enqueue and events')
+    ap.add_argument('--parent', help='(--narrow) another '
+                    'encoder_layer_narrow.cu to build and run beside this one')
+    ap.add_argument('--cycles', action='store_true',
+                    help='(--narrow) the tile kernel\'s cycles by phase (a '
+                    'profile build)')
+    ap.add_argument('--json', help='(--narrow) write the readings here too')
+    args = ap.parse_args(argv)
+    if args.narrow:
+        return narrow_main(args)
+    return tiled_main()
+
+
+def tiled_main():
     import torch
 
     from ..ops import encoder_layer as el
@@ -405,4 +719,4 @@ def segmax_phases(torch):
 
 
 if __name__ == '__main__':
-    main()
+    sys.exit(main())
