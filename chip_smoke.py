@@ -177,7 +177,10 @@ Phases (any failure exits non-zero and prints no result line):
      16a. IOU_PAIRS (BEV and 3D), IOU_ALIGNED, NMS_MASK and NMS_SCAN
      against their plain versions on the 500 candidates of phase 4's pair
      (served again in 16b) and on 500 crowded synthetic boxes: IoU to
-     1e-5; the mask bit for bit, a flipped bit printed with its IoU's
+     1e-5 (IOU_ALIGNED also on nms_phases' degenerate pairs: equal,
+     nested, touching and edge-sharing boxes, crossings under the 1e-12
+     guard, a zero-height overlap; whether it is bit-equal logged); the
+     mask bit for bit, a flipped bit printed with its IoU's
      distance from the threshold (under 1e-5 or the run fails); the scan
      exactly on the kernel's mask; the keep mask against the plain greedy
      NMS, for nms_gpu at 0.5 and multi_class_nms at [0.7, 0.6, 0.55,
@@ -272,7 +275,14 @@ Phases (any failure exits non-zero and prints no result line):
      19b. one counted finetune step of it and one GDMAE step
      (SPTBackboneMAE at t_mae_ssl.yaml's widths) on TRAIN_PAIRS' current
      frames (K1, K2, K6-K9), every loss part finite; each step card vs
-     CPU vs the bf16 control on 64x64 (phases 7 and 11).
+     CPU vs the bf16 control on 64x64 (phases 7 and 11), the finetune
+     step run twice on the card, the caching allocator filled with NaN in
+     between: the same loss parts and gradients bit for bit; what that
+     costs: the full-width finetune step's wall and device ms with cuDNN
+     held deterministic and free, DynVFE's ordered segment sum against
+     the scatter_add_ it replaced on that step's inputs; and, logged
+     only, the 64x64 step twice without the fix (scatter_add_ sums and
+     cuDNN free, then cuDNN free alone).
      19c. on 14a's tree, those two configs (written to a temporary
      directory) through the CLIs: GDMAE pretraining 1 epoch, finetuning 1
      epoch from its checkpoint (the transfer checked), ``tools.test``
@@ -293,7 +303,9 @@ Phases (any failure exits non-zero and prints no result line):
      config's full-width shapes, batch 1, on a synthetic frame's 16384
      points: D-FPS 16384 -> 4096, 4096 -> 512, 512 -> 256; F-FPS 4096 ->
      512 at C = 64, 512 -> 256 at C = 128; every radius of the three
-     levels (dilated) and of the vote SA; indices and counts bit for bit,
+     levels (dilated) and of the vote SA, one call a radius and one
+     multi-radius call a grouping (each radius against its own plain
+     call); indices and counts bit for bit,
      also on planted cases (300 valid points of 4096 for 512 samples, an
      integer grid of exact ties, no valid point, no features, a fifth of
      the points and a tenth of the centres invalid; for DFPS's and FFPS's
@@ -302,8 +314,12 @@ Phases (any failure exits non-zero and prints no result line):
      beside a sample with other invalid points at batch 2; for DFPS 12345
      and 100 points; for FFPS no features at 16384 -> 1024 (the wrapper
      takes DFPS without features) and 16384 -> 64 at C = 64, which takes
-     ffps_plan's matrix route); kernel, plain
-     and bound ms and the peak memory of each (of every FFPS case).
+     ffps_plan's matrix route; for the multi-radius BALL_QUERY the level
+     at batch 2 beside a dense sample, the points again in other slices,
+     4000 points (padded to 4016), one valid point); kernel, plain and
+     bound ms and the peak memory of each (of every FFPS case), the
+     single-radius row at 4096 x 16384 r 0.8 K 64 and the multi-radius
+     row (BALL_QUERY_MULTI) at level 0's three radii.
      20b. the seeded full-width detector serves a synthetic frame: one pass
      counted (EXPECTED_SSD3D), timed passes, peak memory; the card's votes,
      class and box predictions against the CPU's on the card's centres
@@ -1840,8 +1856,29 @@ def grad_agreement(torch, got, want, names):
     return _rel(a, b), _cos(a, b), per, (ratio[0], ratio[-1]), len(live)
 
 
+def clutter_allocator(torch):
+    """Another allocation history: blocks of many sizes allocated, filled
+    with NaN and freed, so that the caching allocator hands them out
+    again holding NaN."""
+    g = torch.Generator().manual_seed(1)
+    sizes = [mb << 18 for mb in (1, 3, 17, 64, 256, 1024) for _ in range(3)]
+    sizes += torch.randint(100, 400000, (300,), generator=g).tolist()
+    blocks = [torch.full((n,), float('nan'), device='cuda') for n in sizes]
+    torch.cuda.synchronize()
+    del blocks
+
+
+def same_step(torch, first, second):
+    """The names of the metrics and gradients that two runs of one step
+    give in other bits."""
+    (m0, g0), (m1, g1) = first, second
+    return ([k for k in m0 if m0[k] != m1[k]]
+            + [n for n in g0 if not torch.equal(g0[n], g1[n])])
+
+
 def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None,
-                      round_prefix='backbone_3d.encoder.', sample_idx=None):
+                      round_prefix='backbone_3d.encoder.', sample_idx=None,
+                      repeat=False):
     """One training step with the same seeded weights on the card (kernels)
     and on the CPU (plain versions), and the control: the CPU step from the
     same weights with the encoder's (those under ``round_prefix``) rounded
@@ -1857,9 +1894,22 @@ def train_card_vs_cpu(torch, cfg, np_batch, seed, mae_mask=None,
     foreign or a doubled gradient reads 1 or more, a halved one 0.5 with
     its ratio outside). Batch-norm running statistics: the VFE's (f32, two
     updates per step) change by the same amounts to 1e-3 of the change,
-    every other statistic's change agrees in cosine >= 0.9."""
+    every other statistic's change agrees in cosine >= 0.9. ``repeat``:
+    the card step runs again after :func:`clutter_allocator` and must give
+    the same loss parts and gradients bit for bit."""
     kw = dict(mae_mask=mae_mask, sample_idx=sample_idx)
     mk, gk, bk, ak = train_step_once(torch, cfg, np_batch, seed, 'cuda', **kw)
+    if repeat:
+        clutter_allocator(torch)
+        m2, g2, _, _ = train_step_once(torch, cfg, np_batch, seed, 'cuda',
+                                       **kw)
+        moved = same_step(torch, (mk, gk), (m2, g2))
+        log(f'  card step again after another allocation history: loss '
+            f'{mk["loss"]!r} then {m2["loss"]!r}; {len(moved)} of '
+            f'{len(mk) + len(gk)} metrics and gradients in other bits')
+        if moved:
+            raise AssertionError('the card step does not repeat: '
+                                 + ', '.join(moved[:5]))
     mp, gp, bp, ap = train_step_once(torch, cfg, np_batch, seed, 'cpu', **kw)
     mc, gc, _, _ = train_step_once(torch, cfg, np_batch, seed, 'cpu',
                                    round_encoder=True,
@@ -4106,15 +4156,27 @@ def geometry_phase(torch, served, host_ms, rows, fresh):
                                      'version')
         shifted = b + torch.tensor([0.4, -0.3, 0.2, 0.3, -0.2, 0.1, 0.5],
                                    device=b.device)
-        err = float((geo.boxes_iou3d_aligned(b, shifted)
-                     - geo.boxes_iou3d_aligned_plain(b, shifted)).abs().max())
-        log(f'  {what}: boxes_iou3d_aligned max |kernel - plain| {err:.3g}')
+        got = geo.boxes_iou3d_aligned(b, shifted)
+        want = geo.boxes_iou3d_aligned_plain(b, shifted)
+        err = float((got - want).abs().max())
+        log(f'  {what}: boxes_iou3d_aligned max |kernel - plain| {err:.3g} '
+            f'(bit-equal {torch.equal(got, want)})')
         if not err <= IOU_TOL:
             raise AssertionError(f'{what}: boxes_iou3d_aligned differs')
         nms_case(torch, geo, boxes, valid, None, [0.5], [500],
                  f'{what}, nms_gpu 0.5')
         nms_case(torch, geo, boxes, valid, labels, th_multi, posts_multi,
                  f'{what}, multi_class_nms')
+    a, b = (t.cuda() for t in nms_phases.degenerate_pairs(torch))
+    got = geo.boxes_iou3d_aligned(a, b)
+    want = geo.boxes_iou3d_aligned_plain(a, b)
+    err = float((got - want).abs().max())
+    log(f'  {a.shape[0]} planted pairs (equal, nested, touching and '
+        'edge-sharing boxes, crossings under the 1e-12 guard, zero-height '
+        f'overlap): boxes_iou3d_aligned max |kernel - plain| {err:.3g} '
+        f'(bit-equal {torch.equal(got, want)})')
+    if not err <= IOU_TOL:
+        raise AssertionError('planted pairs: boxes_iou3d_aligned differs')
     for what, (boxes, labels, valid, threshs, posts) in nms_phases.cases(
             torch).items():
         if what.startswith('K='):
@@ -5514,11 +5576,116 @@ def spt_serving_phase(torch, cfg, np_batch):
                       'spt_occ_overflow': out['occ_overflow'].tolist()}
 
 
+def scatter_segment_sum(feat, seg, num_segments):
+    """The pillar means' segment sum as a ``scatter_add_`` (float atomics
+    on the card): the op ``ops/voxelize.segment_sum`` replaced, timed and
+    run beside it."""
+    B, P, C = feat.shape
+    idx = seg.long().clamp(max=num_segments)[..., None].expand(B, P, C)
+    acc = feat.new_zeros(B, num_segments + 1, C).scatter_add_(1, idx, feat)
+    return acc[:, :num_segments]
+
+
+@contextlib.contextmanager
+def step_ops(scatter=False, free=False):
+    """Inside the block a training step sums DynVFE's pillars by
+    :func:`scatter_segment_sum` (``scatter``) and runs cuDNN free to pick
+    its non-deterministic algorithms (``free``), as the port did before
+    its single-frame step repeated."""
+    from tmae_tpu_torch.ops import voxelize as vx
+    from tmae_tpu_torch.train import trainer
+
+    saved = vx.segment_sum, trainer.deterministic_convolutions
+    if scatter:
+        vx.segment_sum = scatter_segment_sum
+    if free:
+        trainer.deterministic_convolutions = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        vx.segment_sum, trainer.deterministic_convolutions = saved
+
+
+def repeat_without_fix(torch, cfg, np_batch, seed):
+    """19b: what kept the card's single-frame step from repeating. The
+    64x64 step run twice around :func:`clutter_allocator` with the pillar
+    sums by ``scatter_add_`` and cuDNN free, then with the ordered sums and
+    cuDNN free: the loss both times and the metrics and gradients in other
+    bits, logged (the port's own step must repeat: train_card_vs_cpu)."""
+    for what, kw in (('scatter_add_ sums, cuDNN free', dict(scatter=True,
+                                                           free=True)),
+                     ('ordered sums, cuDNN free', dict(free=True))):
+        with step_ops(**kw):
+            runs = []
+            for _ in range(2):
+                runs.append(train_step_once(torch, cfg, np_batch, seed,
+                                            'cuda')[:2])
+                clutter_allocator(torch)
+        moved = same_step(torch, *runs)
+        log(f'  card step twice with {what}: loss {runs[0][0]["loss"]!r} '
+            f'then {runs[1][0]["loss"]!r}; {len(moved)} of '
+            f'{len(runs[0][0]) + len(runs[0][1])} metrics and gradients in '
+            'other bits')
+
+
+def determinism_cost(torch, cfg, batch):
+    """19b: what the repeatable single-frame step costs. The seeded
+    full-width finetune step's wall ms (3 a turn in the order free, held,
+    held, free; medians) and device ms (one step, torch.profiler) with
+    cuDNN held to its deterministic algorithms, as ``TrainStep`` runs it,
+    and free; then DynVFE's ``segment_sum`` on that step's own inputs
+    against the ``scatter_add_`` it replaced: CUDA-event ms, and whether
+    each gives the CPU's bits and the same bits twice."""
+    from tmae_tpu_torch.models.detectors import build_detector, init_random_
+    from tmae_tpu_torch.ops import voxelize as vx
+
+    model = init_random_(build_detector(cfg), seed=0).train()
+    step = make_trainer(cfg, model)
+    seen, ordered = [], vx.segment_sum
+    vx.segment_sum = lambda *a: seen.append(a) or ordered(*a)
+    try:
+        step(batch)
+    finally:
+        vx.segment_sum = ordered
+    wall, dev = {'free': [], 'held': []}, {}
+    for v in ('free', 'held', 'held', 'free'):
+        with step_ops(free=v == 'free'):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                wall[v].append((time.perf_counter() - t0) * 1e3)
+            if v not in dev:
+                dev[v] = device_ms(torch, lambda: step(batch))
+    log('  single-frame step, cuDNN deterministic (held, as TrainStep runs '
+        'it) and free: ' + '; '.join(
+            f'{v} wall median {statistics.median(t):.2f} ms ('
+            + ', '.join(f'{x:.2f}' for x in t) + f'), device {dev[v]} ms'
+            for v, t in wall.items()) + f'; {card_line()}')
+    del model, step
+    torch.cuda.empty_cache()
+    feat, seg, V = seen[0]
+    feat, seg = feat.detach(), seg.detach()
+    cpu = ordered(feat.cpu(), seg.cpu(), V)
+    for name, fn in (('ordered segment_sum', ordered),
+                     ('scatter_add_', scatter_segment_sum)):
+        a, b = fn(feat, seg, V).cpu(), fn(feat, seg, V).cpu()
+        log(f'  DynVFE pillar sums {tuple(feat.shape)} into {V} segments, '
+            f'{name}: {time_ms(torch, lambda: fn(feat, seg, V)):.4f} ms; '
+            f'the CPU\'s bits {torch.equal(a, cpu)}, the same bits twice '
+            f'{torch.equal(a, b)}; {card_line()}')
+    return {f'spt_step_ms_{v}': statistics.median(t)
+            for v, t in wall.items()}
+
+
 def spt_training_phase(torch, ft_cfg, mae_cfg):
     """19b: one counted single-frame finetune step and one GDMAE step
     (t_mae_ssl.yaml's widths) at full width on TRAIN_PAIRS' current
-    frames, every loss part finite; each step card vs CPU vs the bf16
-    control on 64x64 (phases 7 and 11)."""
+    frames, every loss part finite; what the repeatable finetune step
+    costs (:func:`determinism_cost`); each step card vs CPU vs the bf16
+    control on 64x64 (phases 7 and 11), the finetune step twice (and
+    without its fix, :func:`repeat_without_fix`)."""
     out, launches = {}, {}
     for cfg, what in ((ft_cfg, 'single-frame step'), (mae_cfg, 'GDMAE step')):
         batch = train_batch(cfg)
@@ -5526,11 +5693,16 @@ def spt_training_phase(torch, ft_cfg, mae_cfg):
         model, metrics, launches[what] = one_counted_step(
             torch, cfg, batch, EXPECTED_SPT_STEP, what)
         out[f'{"gdmae" if cfg is mae_cfg else "spt"}_loss'] = metrics['loss']
-        del model, batch
+        del model
         torch.cuda.empty_cache()
+        if cfg is ft_cfg:
+            out.update(determinism_cost(torch, cfg, batch))
+        del batch
     log('  single-frame step: card vs CPU vs control, full width on a 64x64 '
-        'grid')
-    train_card_vs_cpu(torch, *small_grid(ft_cfg), seed=7)
+        'grid; the card step twice, the caching allocator filled with NaN '
+        'in between')
+    train_card_vs_cpu(torch, *small_grid(ft_cfg), seed=7, repeat=True)
+    repeat_without_fix(torch, *small_grid(ft_cfg), seed=7)
     log('  GDMAE step: card vs CPU vs control, full width on a 64x64 grid')
     pretrain_card_vs_cpu(torch, *small_grid(mae_cfg), seed=7)
     return launches, out
@@ -5854,9 +6026,10 @@ PN2_SRC = 'tmae_tpu_torch/csrc/pointnet2.cu'
 SSD3D_CFG = 'tools/cfgs/once_models/ssd3d_once.yaml'
 # One served ssd3d_once.yaml frame, and one training step over its batch:
 # D-FPS at each of the 3 levels (level 1's second count is D-FPS: fusion
-# sampling), F-FPS at levels 1 and 2, and a ball query for each radius (3
-# at each level, 2 in the vote head's SA); no kernel runs in the backward.
-EXPECTED_SSD3D = {**NO_LAUNCHES, 'DFPS': 3, 'FFPS': 2, 'BALL_QUERY': 11}
+# sampling), F-FPS at levels 1 and 2, and one ball query for every radius
+# of a grouping (the 3 of each level, the 2 of the vote head's SA); no
+# kernel runs in the backward.
+EXPECTED_SSD3D = {**NO_LAUNCHES, 'DFPS': 3, 'FFPS': 2, 'BALL_QUERY': 4}
 SSD3D_SCENES = (0, 1)          # synthetic scenes of 20b (served: the first)
 SSD3D_STEPS = 4                # 20c: step 0 counted, then timed steps
 # 20b: card vs CPU on the card's centres. The votes within 1e-4 m; the
@@ -5967,24 +6140,47 @@ def pn2_cases(torch, xyz0, mask0):
     part = torch.rand(1, 4096, generator=g, device='cuda') > 0.2
     cpart = torch.rand(1, 1024, generator=g, device='cuda') > 0.1
     mv = torch.ones(1, 256, dtype=torch.bool, device='cuda')
-    bq = []
+    bq, multi = [], []
     levels = ((xyz0, mask0, xyz1, m1, (0.2, 0.4, 0.8), (32, 32, 64), True),
               (xyz1, m1, xyz2, cm1, (0.8, 1.6, 3.2), (32, 32, 64), True),
               (xyz2, m2, xyz3, m3, (1.6, 3.2, 4.8), (32, 32, 32), True),
               (xyz3, m3, votes, mv, (4.8, 6.4), (48, 64), False))
     for li, (pts, pm, ctr, cm, radii, ks, dilated) in enumerate(levels):
+        where = ' (vote SA)' if li == 3 else f' (level {li})'
         former = 0.0
         for r, k in zip(radii, ks):
             rmin = former if dilated else 0.0
             bq.append((f'{ctr.shape[1]}x{pts.shape[1]} r {r} K {k}'
-                       + (f' min {rmin}' if rmin else '')
-                       + (' (vote SA)' if li == 3 else f' (level {li})'),
+                       + (f' min {rmin}' if rmin else '') + where,
                        (r, k, pts, pm, ctr, cm, rmin)))
             former = r
+        multi.append((f'{ctr.shape[1]}x{pts.shape[1]} radii {radii} K {ks}'
+                       + (' dilated' if dilated else '') + where,
+                       (radii, ks, pts, pm, ctr, cm, dilated)))
     bq.append(('1024x4096 r 1.6 K 32, a fifth of the points and a tenth of '
                'the centres invalid', (1.6, 32, xyz1, part, xyz2, cpart,
                                        0.8)))
-    return fps, ffps, bq
+    # the slices of a cluster: the level's points again, in other slices,
+    # at batch 2 beside other points with other masks; N not a multiple
+    # of 16 (the wrapper pads); one valid point
+    pair1 = torch.cat([xyz1, pn2_inputs(torch, g, 4096) * 0.05])
+    multi += [
+        ('1024x4096 radii (0.8, 1.6, 3.2), a fifth of the points and a '
+         'tenth of the centres invalid', ((0.8, 1.6, 3.2), (32, 32, 64),
+                                          xyz1, part, xyz2, cpart, True)),
+        ('B=2, the second sample dense and a fifth invalid, 1024x4096 '
+         'radii (0.8, 1.6, 3.2)',
+         ((0.8, 1.6, 3.2), (32, 32, 64), pair1,
+          torch.cat([m1, part]), xyz2.repeat(2, 1, 1),
+          torch.cat([cm1, cpart]), True)),
+        ('the same points again 2000 on, 1024x4096 radii (0.8, 1.6, 3.2)',
+         ((0.8, 1.6, 3.2), (32, 32, 64), dup1, m1, xyz2, cm1, True)),
+        ('4000 points, 1024 centres, radii (1.6, 3.2)',
+         ((1.6, 3.2), (16, 48), xyz1[:, :4000], m1[:, :4000], xyz2, cm1,
+          False)),
+        ('one valid point of 4096, radii (0.8, 100.0)',
+         ((0.8, 100.0), (8, 8), xyz1, one[:1], xyz2, cm1, True))]
+    return fps, ffps, bq, multi
 
 
 def pn2_bits(torch, what, got, want):
@@ -6019,7 +6215,7 @@ def pn2_kernel_phase(torch, xyz0, mask0, rows):
     memory of each at the main rows' shapes."""
     from tmae_tpu_torch.ops import pointnet2 as pn2
 
-    fps, ffps, bq = pn2_cases(torch, xyz0, mask0)
+    fps, ffps, bq, multi = pn2_cases(torch, xyz0, mask0)
     card = card_line()
     out = {}
     groups = (
@@ -6027,14 +6223,18 @@ def pn2_kernel_phase(torch, xyz0, mask0, rows):
          pn2.farthest_point_sample_plain),
         ('FFPS', ffps, pn2.farthest_point_sample_ffps,
          pn2.farthest_point_sample_ffps_plain),
-        ('BALL_QUERY', bq, pn2.ball_query, pn2.ball_query_plain))
+        ('BALL_QUERY', bq, pn2.ball_query, pn2.ball_query_plain),
+        ('BALL_QUERY_MULTI', multi,
+         lambda *a: tuple(x for r in pn2.ball_query_multi(*a) for x in r),
+         lambda *a: tuple(x for r in pn2.ball_query_multi_plain(*a)
+                          for x in r)))
     for name, cases, kernel, plain in groups:
         times = {}
         for label, args in cases:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             pn2_bits(torch, f'{name} {label}', got, want)
-            few = name != 'BALL_QUERY'  # the plain FPS: a launch a step
+            few = name in ('DFPS', 'FFPS')  # the plain FPS: a launch a step
             k_ms = time_ms(torch, lambda: kernel(*args), iters=10, warmup=1)
             p_ms = time_ms(torch, lambda: plain(*args), iters=1 if few else 5,
                            warmup=1)
@@ -6049,15 +6249,19 @@ def pn2_kernel_phase(torch, xyz0, mask0, rows):
                        f'GiB; plan {plan}')
             log(f'  {name} {label}: bit-equal; kernel {k_ms:.4f} ms, plain '
                 f'{p_ms:.4f} ms{mem}; {card}')
-        label, args = cases[0] if name != 'BALL_QUERY' else cases[2]
+        label, args = cases[2] if name == 'BALL_QUERY' else cases[0]
         k_ms, p_ms = times[label]
         k_gib = pn2_peak(torch, lambda: kernel(*args))
         p_gib = pn2_peak(torch, lambda: plain(*args))
         log(f'  {name} {label}: peak memory kernel {k_gib:.3f} GiB, plain '
             f'{p_gib:.3f} GiB')
         nbytes, flops = pn2_work(name, args)
-        add_row(rows, name, name, PN2_SRC, PN2_REPLACES[name], 0.0, k_ms,
-                p_ms, nbytes, flops, None, peak=F32_FLOPS, shape=label,
+        kernel_name = name.replace('_MULTI', '')
+        by = (launch_times(torch, name, lambda: kernel(*args))
+              if kernel_name == 'BALL_QUERY' else {})
+        add_row(rows, name, kernel_name, PN2_SRC, PN2_REPLACES[kernel_name],
+                0.0, k_ms, p_ms, nbytes, flops, None, peak=F32_FLOPS,
+                shape=label, **by,
                 peak_gib=k_gib, plain_peak_gib=p_gib,
                 ms_by_shape={k: v[0] for k, v in times.items()})
         out[f'{name.lower()}_ms'] = k_ms
@@ -6078,12 +6282,17 @@ def pn2_work(name, args):
     inputs: each input read once and each output written once; per pair of
     a valid point and a step or centre, the squared distance (3 sub, 3
     mul, 2 add), for F-FPS the C channels' (3C - 1) and gamma's (2), the
-    running minimum (1), the ball's test (2); per step the argmax (1 a
-    point)."""
-    if name == 'BALL_QUERY':
-        r, k, pts, pm, ctr, cm, _ = args
-        N, M, nv = pts.shape[1], ctr.shape[1], int(pm.sum())
-        return (N * 13 + M * 13 + M * k * 4 + M * 4, M * nv * 10)
+    running minimum (1), the ball's test (2, each radius of a grouping's
+    one call); per step the argmax (1 a point)."""
+    if name.startswith('BALL_QUERY'):
+        from tmae_tpu_torch.utils.pn2_phases import ball_work
+
+        if name == 'BALL_QUERY':
+            r, k, pts, pm, ctr, cm, _ = args
+            radii, ks = [r], [k]
+        else:
+            radii, ks, pts, pm, ctr, cm, _ = args
+        return ball_work(pm, ctr.shape[1], radii, ks)
     if name == 'DFPS':
         xyz, m, S = args
         C = 0

@@ -292,3 +292,101 @@ def test_decode_refuses_other_nms_types():
     with pytest.raises(NotImplementedError, match='class_specific_nms'):
         tch.decode([pd], dict(post), (0.5, 0.5, 8.0), (-8, -8, -5, 8, 8, 3),
                    1, [np.arange(5)])
+
+
+def _popc(x):
+    return sum((x >> k) & 1 for k in range(tgeo.SLOTS))
+
+
+def aligned_lanes_model(a, b):
+    """IOU_ALIGNED's 8-lane clip (``csrc/iou_nms.cu``), slot s standing for
+    lane s of a pair's group: A's and B's corners (lanes 0-3 and 4-7);
+    each half-plane pass pads the slots past the count with slot 0, takes
+    every slot's signed distance and crossing with the next slot at once,
+    marks the slots that emit their vertex and their crossing (the two
+    ballots, as bits), and fills output slot k from the slot whose prefix
+    of emitted points reaches k (a vertex before its crossing); the
+    shoelace's terms summed slot after slot. Returns (the BEV
+    intersection areas [K], the crossings whose denominator fell under
+    the 1e-12 guard)."""
+    S = tgeo.SLOTS
+    K = a.shape[0]
+    ca, cb = tgeo.boxes_to_corners_bev(a), tgeo.boxes_to_corners_bev(b)
+    slot = torch.arange(S).expand(K, S)
+    px, py = torch.zeros(K, S), torch.zeros(K, S)
+    px[:, :4], py[:, :4] = ca[..., 0], ca[..., 1]
+    nv = torch.full((K, 1), 4)
+    guarded = 0
+    for e in range(4):
+        pad = slot >= nv
+        px = torch.where(pad, px[:, :1], px)
+        py = torch.where(pad, py[:, :1], py)
+        e0x, e0y = cb[:, e, 0:1], cb[:, e, 1:2]
+        exx = cb[:, (e + 1) % 4, 0:1] - e0x
+        exy = cb[:, (e + 1) % 4, 1:2] - e0y
+        d = exx * (py - e0y) - exy * (px - e0x)
+        dn, pxn, pyn = (torch.roll(v, -1, 1) for v in (d, px, py))
+        live = slot < nv
+        vin = live & (d >= 0)
+        vcr = live & ((d >= 0) != (dn >= 0))
+        denom = d - dn
+        guarded += int((vcr & (denom.abs() <= 1e-12)).sum())
+        tt = d / torch.where(denom.abs() > 1e-12, denom, torch.ones(()))
+        qx, qy = px + tt * (pxn - px), py + tt * (pyn - py)
+        bits_in = (vin.long() << slot).sum(1, keepdim=True)
+        bits_cr = (vcr.long() << slot).sum(1, keepdim=True)
+        src = torch.zeros(K, S, dtype=torch.long)
+        cross = torch.zeros(K, S, dtype=torch.bool)
+        for j in range(S):
+            lt = (1 << j) - 1
+            pos = _popc(bits_in & lt) + _popc(bits_cr & lt)
+            vj, cj = (bits_in >> j) & 1, (bits_cr >> j) & 1
+            at_v = (vj == 1) & (pos == slot)
+            at_c = (cj == 1) & (pos + vj == slot)
+            src = torch.where(at_v | at_c, j, src)
+            cross = torch.where(at_v, False, torch.where(at_c, True, cross))
+        cnt = _popc(bits_in) + _popc(bits_cr)
+        take = lambda v: v.gather(1, src)
+        keep = slot < cnt
+        px = torch.where(keep, torch.where(cross, take(qx), take(px)), 0.0)
+        py = torch.where(keep, torch.where(cross, take(qy), take(py)), 0.0)
+        nv = cnt.clamp(max=S)
+    last = (slot + 1) % S >= nv
+    qx = torch.where(last, px[:, :1], torch.roll(px, -1, 1))
+    qy = torch.where(last, py[:, :1], torch.roll(py, -1, 1))
+    term = torch.where(slot < nv, px * qy - py * qx, 0.0)
+    total = term[:, 0]
+    for s in range(1, S):
+        total = total + term[:, s]
+    area = torch.where(nv[:, 0] >= 3, 0.5 * total.abs(), 0.0)
+    return area, guarded
+
+
+@pytest.mark.parametrize('which', ['random', 'degenerate'])
+def test_aligned_lanes_model_equals_plain(which):
+    """The 8-lane clip of IOU_ALIGNED gives the plain version's
+    intersection areas and aligned IoUs bit for bit, and JAX's aligned IoU
+    within IOU_TOL: on random pairs (a third of them apart) and on
+    nms_phases' degenerate pairs (equal, nested, touching and
+    edge-sharing boxes, crossings under the 1e-12 guard, which the set
+    must reach, and a zero-height overlap)."""
+    from tmae_tpu_torch.utils.nms_phases import degenerate_pairs
+
+    if which == 'random':
+        a = _t(rand_boxes(600, 11, spread=3.0))
+        b = _t(rand_boxes(600, 12, spread=3.0))
+    else:
+        a, b = degenerate_pairs(torch)
+    area, guarded = aligned_lanes_model(a, b)
+    assert torch.equal(area, tgeo.sh_intersection_area_flat(a, b))
+    iou = tgeo._iou3d_from_bev(area, a, b)
+    plain = tgeo.boxes_iou3d_aligned_plain(a, b)
+    assert torch.equal(iou, plain)
+    want = np.asarray(jgeo.boxes_iou3d_aligned(jnp.asarray(a.numpy()),
+                                               jnp.asarray(b.numpy())))
+    assert np.abs(iou.numpy() - want).max() <= IOU_TOL
+    if which == 'degenerate':
+        assert guarded > 0
+        assert (plain == 0).any() and (plain > 0.999).any()
+    else:
+        assert (plain == 0).any() and (plain > 0).float().mean() > 0.2

@@ -19,7 +19,8 @@
 // Kernels:
 //   iou_pairs_kernel    one thread per pair of [N] x [M]: BEV (mode 0) or 3D
 //                       (mode 1) IoU.
-//   iou_aligned_kernel  one thread per aligned pair: 3D IoU.
+//   iou_aligned_kernel  one aligned pair on 8 lanes, lane s holding vertex
+//                       slot s of the clip: 3D IoU.
 //   nms_mask_kernel     the suppression mask uint64 [B, K, ceil(K / 64)]:
 //                       bit c of word ct of row i is set when column j =
 //                       64 ct + c > i, both boxes take part, they share a
@@ -242,13 +243,117 @@ __global__ void iou_pairs_kernel(const float* __restrict__ a,
   out[idx] = pair_iou(load_box(a + 7LL * i), load_box(b + 7LL * j), mode);
 }
 
-__global__ void iou_aligned_kernel(const float* __restrict__ a,
-                                   const float* __restrict__ b, int n,
-                                   float* __restrict__ out) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  out[i] = pair_iou(load_box(a + 7 * i), load_box(b + 7 * i), 1);
+constexpr int kAlignedThreads = 128;  // IOU_ALIGNED: 16 pairs a block
+
+// IOU_ALIGNED: one pair on 8 lanes of a warp, lane s of the group holding
+// vertex slot s of clip_area's polygon. Lanes 0-3 compute A's corners, 4-7
+// B's (one cos and one sin a lane), so lane s < 4 starts with A's corner
+// s. Each half-plane pass: the pad slots take slot 0 (one shuffle), every
+// slot's signed distance and its crossing with the next slot (shuffles
+// from lane s + 1) at once, with clip_area's roundings; two ballots mark
+// the slots that emit their vertex and their crossing, and output slot k
+// takes, from the slot whose prefix of emitted points reaches k, its
+// vertex or its crossing: the sequential loop's order. The shoelace's
+// terms are summed in clip_area's order by shuffles, and the group's lane
+// 0 takes the 3D IoU. A pair's chain is then four passes of a few
+// shuffles and one division; 500 pairs run on 125 warps. Measured
+// (utils/nms_phases.py, NVIDIA H100 80GB HBM3, 700.00 W, device time):
+// 500 pairs 0.0023 ms against 0.0052 for one thread a pair, the same bits.
+__global__ void __launch_bounds__(kAlignedThreads)
+    iou_aligned_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, int n,
+                       float* __restrict__ out) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x % 32, s = lane % kSlots;
+  const int base = lane - s;  // the group's lane 0
+  const long long pair =
+      (static_cast<long long>(blockIdx.x) * kAlignedThreads + threadIdx.x) /
+      kSlots;
+  // a group past n repeats the last pair: every lane takes the shuffles
+  const long long i = pair < n ? pair : n - 1;
+  const Box own = load_box((s < 4 ? a : b) + 7 * i);
+  float cx, cy;  // corner s % 4 of A (s < 4) or of B
+  {
+    const int k = s % 4;  // corners()' template: (+-0.5, +-0.5)
+    const float tx = k == 0 || k == 3 ? 0.5f : -0.5f;
+    const float ty = k < 2 ? 0.5f : -0.5f;
+    const float c = cosf(own.ang), sn = sinf(own.ang);
+    const float lx = tx * own.dx, ly = ty * own.dy;
+    cx = (lx * c - ly * sn) + own.x;
+    cy = (lx * sn + ly * c) + own.y;
+  }
+  float px = s < 4 ? cx : 0.f, py = s < 4 ? cy : 0.f;
+  const int next = base + (s + 1) % kSlots;
+  int nv = 4;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float fx = __shfl_sync(full, px, base);
+    const float fy = __shfl_sync(full, py, base);
+    if (s >= nv) {
+      px = fx;
+      py = fy;
+    }
+    const float e0x = __shfl_sync(full, cx, base + 4 + e);
+    const float e0y = __shfl_sync(full, cy, base + 4 + e);
+    const float exx = __shfl_sync(full, cx, base + 4 + (e + 1) % 4) - e0x;
+    const float exy = __shfl_sync(full, cy, base + 4 + (e + 1) % 4) - e0y;
+    const float d = exx * (py - e0y) - exy * (px - e0x);
+    const float dn = __shfl_sync(full, d, next);
+    const float pxn = __shfl_sync(full, px, next);
+    const float pyn = __shfl_sync(full, py, next);
+    const bool live = s < nv;
+    const bool in = d >= 0.f;
+    const unsigned vin = (__ballot_sync(full, live && in) >> base) & 0xffu;
+    const unsigned vcr =
+        (__ballot_sync(full, live && in != (dn >= 0.f)) >> base) & 0xffu;
+    const float denom = d - dn;
+    const float tt = d / (fabsf(denom) > 1e-12f ? denom : 1.f);
+    const float qx = px + tt * (pxn - px), qy = py + tt * (pyn - py);
+    // output slot s: from slot j, whose emitted points start at pos
+    int src = 0;
+    bool cross = false;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const unsigned lt = (1u << j) - 1u;
+      const int pos = __popc(vin & lt) + __popc(vcr & lt);
+      const int vj = (vin >> j) & 1u;
+      if (vj && pos == s) {
+        src = j;
+        cross = false;
+      }
+      if (((vcr >> j) & 1u) && pos + vj == s) {
+        src = j;
+        cross = true;
+      }
+    }
+    const int cnt = __popc(vin) + __popc(vcr);
+    const float vx = __shfl_sync(full, px, base + src);
+    const float vy = __shfl_sync(full, py, base + src);
+    const float wx = __shfl_sync(full, qx, base + src);
+    const float wy = __shfl_sync(full, qy, base + src);
+    px = s < cnt ? (cross ? wx : vx) : 0.f;
+    py = s < cnt ? (cross ? wy : vy) : 0.f;
+    nv = cnt < kSlots ? cnt : kSlots;
+  }
+  // shoelace; pads duplicate the first vertex and close the cycle
+  const float fx = __shfl_sync(full, px, base);
+  const float fy = __shfl_sync(full, py, base);
+  float qx = __shfl_sync(full, px, next), qy = __shfl_sync(full, py, next);
+  if ((s + 1) % kSlots >= nv) {
+    qx = fx;
+    qy = fy;
+  }
+  const float term = s < nv ? px * qy - py * qx : 0.f;
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const float tj = __shfl_sync(full, term, base + j);
+    if (j < nv) sum += tj;
+  }
+  if (s == 0 && pair < n) {
+    const float inter = nv >= 3 ? 0.5f * fabsf(sum) : 0.f;
+    out[i] = iou_3d(inter, load_box(a + 7 * i), load_box(b + 7 * i));
+  }
 }
 
 // 0-based class of candidate i, -1 when it takes no part.
@@ -655,9 +760,10 @@ extern "C" int launch_iou_pairs(const float* a, const float* b, int N, int M,
 
 extern "C" int launch_iou_aligned(const float* a, const float* b, int n,
                                   float* out, cudaStream_t stream) {
-  const int threads = 256;
-  iou_aligned_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-      a, b, n, out);
+  if (n < 1) return 0;
+  const long long threads = static_cast<long long>(n) * kSlots;
+  iou_aligned_kernel<<<(threads + kAlignedThreads - 1) / kAlignedThreads,
+                       kAlignedThreads, 0, stream>>>(a, b, n, out);
   return tmae_last_error();
 }
 

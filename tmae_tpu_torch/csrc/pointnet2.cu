@@ -94,14 +94,36 @@
 // route 0.920: its matrix 0.331, its walk 0.584), bit-equal indices;
 // 512 -> 256 at C = 128 on the matrix route 0.200. More in PERF.md.
 //
-// BALL_QUERY (ball_query, dilated when min_radius > 0): one warp a centre,
-// 8 centres a block, scanning the points in index order through tiles of
-// 512 points staged in shared memory; a ballot gives each chunk of 32 its
-// in-ball lanes, their ranks place the first K indices in the warp's
-// buffer, and the scan goes on to the end because cnt counts every in-ball
-// point. The buffer is then written out wrap-repeated (slot s takes entry
-// s % min(cnt, K)); an empty ball or an invalid centre gives zeros. Bound:
-// the M x N distances (operations).
+// BALL_QUERY (ball_query_multi: every radius of a multi-scale grouping in
+// one launch, each radius's shell min_r < d <= r when dilated; ball_query
+// is its one-radius call): a cluster of S CTAs takes 8 warps of CW
+// centres, CTA `rank` the rank-th index-ordered slice of the points.
+// A ninth warp streams the slice's tiles (x, y, z as stored and the mask,
+// by cp.async.bulk on an mbarrier a tile, in a ring that the centre warps
+// release tile by tile), so no warp waits at a __syncthreads; each centre
+// warp keeps its CW centres in registers, so a point read from shared
+// memory serves CW centres; each pair's distance is computed once and a
+// chunk of 32 points goes further only when some lane's point lies in
+// some centre's largest ball (one redux.sync), then one ballot a shell
+// ranks the in-ball lanes: the first K of the slice go to the centre's
+// buffer, and the count covers every point in the ball. The slices meet by
+// DSMEM: each CTA reads the other slices' counts, places its entries after
+// the earlier slices' and writes the output slots that the wrap-repeat
+// (slot s takes entry s % min(cnt, K)) maps onto them; rank 0 writes the
+// count, and zeros for an empty ball or an invalid centre. The indices and
+// counts are the plain version's bit for bit. The plan (CW, S) comes from
+// ops/pointnet2.ball_query_plan, after a sweep on the card: CW 1 for a few
+// million pairs, up to 8 for 10^8; 2 slices from 4096 points, 1 below
+// (4 and 8 slices were slower: the cluster's merge and a shorter scan a
+// CTA). Bound: 8 operations a (centre, valid point) pair and 2 a shell's
+// test, the 67 TFLOP/s of f32 (0.014 ms at level 0's three radii); what
+// holds it at ~4x that is the issue rate of the pairs' ~12 instructions a
+// centre and chunk of the unfused squared distance (-fmad=false) and its
+// test. Measured (utils/pn2_phases.py --ball, NVIDIA H100 80GB HBM3,
+// 700.00 W, device time, frame-like points): level 0's three radii
+// 0.0596 ms (the one-radius kernel this replaced: 0.3650 in three
+// launches), 4096 x 16384 at r 0.8, K 64 alone 0.0544 (0.1219); a served
+// frame's four groupings 0.0864 ms (0.4511 in eleven launches).
 
 #include "common.cuh"
 
@@ -115,8 +137,11 @@ constexpr int kRecords = kClusterMax * kWarpsMax;
 constexpr float kBig = 1e10f;
 constexpr int kTile = 32;                // distance-matrix tile
 constexpr int kTileThreads = 256;
-constexpr int kBqWarps = 8;              // centres a ball-query block
-constexpr int kBqTile = 512;             // points a shared-memory tile
+constexpr int kBqWarps = 8;              // BALL_QUERY: centre warps a CTA
+constexpr int kBqTileN = 1024;           // points a staged tile
+constexpr int kBqStages = 3;             // tiles in the ring
+constexpr int kBqMaxRadii = 4;           // radii of one call
+constexpr int kBqMaxSlices = 8;          // CTAs of a cluster
 
 __device__ __forceinline__ float sq_dist3(float ax, float ay, float az,
                                           float bx, float by, float bz) {
@@ -757,67 +782,217 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
-__global__ void __launch_bounds__(kBqWarps * 32)
-    ball_query_kernel(const float* __restrict__ xyz,
-                      const bool* __restrict__ xyz_mask,
-                      const float* __restrict__ centers,
-                      const bool* __restrict__ center_mask, int N, int M,
-                      int K, float r2, float min_r2, int dilated,
-                      int* __restrict__ idx, int* __restrict__ cnt) {
-  extern __shared__ int first[];  // K indices a warp
-  __shared__ float tx[kBqTile], ty[kBqTile], tz[kBqTile];
-  __shared__ bool tm[kBqTile];
-  const int b = blockIdx.y;
+// BALL_QUERY's parameters: R radii (R <= kBqMaxRadii) tested on one pass
+// over the points. Radius r: r2[r] = radius^2, min2[r] the dilated shell's
+// lower bound (-1: none), K[r] its slots; kpre[r] = K[0] + ... + K[r - 1]
+// places its idx block [B, M, K[r]] in `idx` (at B M kpre[r]) and its K[r]
+// slots in a centre's shared-memory buffer; its counts at cnt + r B M.
+struct BqArgs {
+  const float* xyz;
+  const bool* mask;
+  const float* centers;
+  const bool* center_mask;
+  int* idx;
+  int* cnt;
+  int B, N, M, S, mblocks, ksum;
+  int tile, stages;  // points a staged tile, tiles in the ring
+  float rmax2;
+  float r2[kBqMaxRadii], min2[kBqMaxRadii];
+  int K[kBqMaxRadii], kpre[kBqMaxRadii];
+};
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::
+          "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ int ld_cluster(uint32_t a) {
+  int v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// BALL_QUERY: a cluster of S CTAs takes kBqWarps * CW centres of a sample,
+// CTA `rank` the rank-th slice of its points, in index order. Warp
+// kBqWarps stages the slice's tiles (x, y, z as stored, and the mask) by
+// cp.async.bulk into a ring of kBqStages, each counted on its mbarrier
+// `full`; the other warps each hold CW centres in registers and read each
+// point once from shared memory for all of them, then hand the tile back
+// on `empty`. A chunk of 32 points: each lane its point's CW squared
+// distances (sq_dist3, the plain order) and a bit a centre whose largest
+// ball holds it; one redux.sync names the centres with any such point, and
+// only for those each shell's ballot ranks the in-ball lanes after the
+// count so far: the first K[r] indices go to the centre's buffer, and the
+// count goes on to the slice's end. The slices' counts then meet by DSMEM:
+// each CTA places its entries after the earlier slices' counts and writes
+// the output slots that the wrap-repeat maps onto them; rank 0 writes the
+// count, and zeros for an empty ball or an invalid centre.
+template <int CW, int R>
+__global__ void __launch_bounds__((kBqWarps + 1) * 32, CW <= 4 ? 4 : 2)
+    ball_query_kernel(const BqArgs a) {
+  extern __shared__ __align__(16) unsigned char bq_smem[];
+  __shared__ __align__(8) unsigned long long bars[2 * kBqStages];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m = blockIdx.x * kBqWarps + warp;
-  const bool live = m < M;
-  int* buf = first + warp * K;
-  const float* p = xyz + (long long)b * N * 3;
-  const bool* pm = xyz_mask + (long long)b * N;
-  float cx = 0.f, cy = 0.f, cz = 0.f;
-  if (live) {
-    const float* c = centers + ((long long)b * M + m) * 3;
-    cx = c[0];
-    cy = c[1];
-    cz = c[2];
-  }
-  const unsigned below = (1u << lane) - 1u;
-  int count = 0;
-  for (int t0 = 0; t0 < N; t0 += kBqTile) {
-    const int tn = min(kBqTile, N - t0);
-    __syncthreads();
-    for (int t = threadIdx.x; t < tn; t += kBqWarps * 32) {
-      const long long q = t0 + t;
-      tx[t] = p[3 * q];
-      ty[t] = p[3 * q + 1];
-      tz[t] = p[3 * q + 2];
-      tm[t] = pm[q];
+  const int S = a.S;
+  const int cid = blockIdx.x / S;  // the cluster: a sample's block of centres
+  const int b = cid / a.mblocks;
+  const int rank = S > 1 ? cluster_rank() : 0;
+  const int N = a.N;
+  // the slice: a multiple of 16 points (a bulk copy moves 16-byte blocks)
+  const int per = ((N + S - 1) / S + 15) / 16 * 16;
+  const int lo = min(N, rank * per), hi = min(N, lo + per);
+  const int tile = a.tile, stages = a.stages;
+  const int ntiles = (hi - lo + tile - 1) / tile;
+  float* stage_xyz = reinterpret_cast<float*>(bq_smem);
+  bool* stage_mask = reinterpret_cast<bool*>(bq_smem + stages * tile * 12);
+  int* buf = reinterpret_cast<int*>(bq_smem + stages * tile * 13);
+  int* xcnt = buf + kBqWarps * CW * a.ksum;
+  const uint32_t full0 = cta_addr(&bars[0]);
+  const uint32_t empty0 = cta_addr(&bars[kBqStages]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(full0 + 8 * s, 1);
+      bar_init(empty0 + 8 * s, kBqWarps);
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int s = 0; s < tn; s += 32) {
-      const int t = s + lane;
-      bool in = false;
-      if (t < tn && tm[t]) {
-        const float d2 = sq_dist3(cx, cy, cz, tx[t], ty[t], tz[t]);
-        in = d2 <= r2 && (!dilated || d2 > min_r2);
-      }
-      const unsigned hits = __ballot_sync(0xffffffffu, in);
-      if (in) {
-        const int rank = count + __popc(hits & below);
-        if (rank < K) buf[rank] = t0 + t;
-      }
-      count += __popc(hits);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (!live) return;
+  __syncthreads();
+
+  const int m0 = (cid % a.mblocks) * kBqWarps * CW + warp * CW;
+  float cx[CW], cy[CW], cz[CW];
+  int count[CW][R] = {};
+  if (warp == kBqWarps) {  // the producer
+    if (lane == 0)
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % stages;
+        if (t >= stages) bar_wait(empty0 + 8 * s, (t / stages - 1) & 1);
+        const int n0 = lo + t * tile, nn = min(tile, hi - n0);
+        bar_expect(full0 + 8 * s, 13 * nn);
+        const long long q = (long long)b * N + n0;
+        bulk_load(cta_addr(stage_xyz + s * tile * 3), a.xyz + 3 * q, 12 * nn,
+                  full0 + 8 * s);
+        bulk_load(cta_addr(stage_mask + s * tile), a.mask + q, nn,
+                  full0 + 8 * s);
+      }
+  } else {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int m = m0 + c;
+      cx[c] = cy[c] = cz[c] = CUDART_NAN_F;  // past M: no point in its ball
+      if (m < a.M) {
+        const float* p = a.centers + ((long long)b * a.M + m) * 3;
+        cx[c] = p[0];
+        cy[c] = p[1];
+        cz[c] = p[2];
+      }
+    }
+    int* wbuf = buf + warp * CW * a.ksum;
+    const unsigned below = (1u << lane) - 1u;
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % stages;
+      bar_wait(full0 + 8 * s, (t / stages) & 1);
+      const int n0 = lo + t * tile, nn = min(tile, hi - n0);
+      const float* tx = stage_xyz + s * tile * 3;
+      const bool* tm = stage_mask + s * tile;
+      for (int c0 = 0; c0 < nn; c0 += 32) {
+        const int j = c0 + lane;
+        const int jc = min(j, nn - 1);  // a lane past the tile reads a point
+        const bool valid = j < nn && tm[jc];
+        const float px = tx[3 * jc], py = tx[3 * jc + 1], pz = tx[3 * jc + 2];
+        float d2[CW];
+        unsigned bits = 0;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          d2[c] = sq_dist3(cx[c], cy[c], cz[c], px, py, pz);
+          bits |= (valid && d2[c] <= a.rmax2) ? 1u << c : 0u;
+        }
+        const unsigned any = __reduce_or_sync(0xffffffffu, bits);
+        if (!any) continue;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          if (!((any >> c) & 1u)) continue;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const bool in = ((bits >> c) & 1u) && d2[c] <= a.r2[r] &&
+                            d2[c] > a.min2[r];
+            const unsigned hits = __ballot_sync(0xffffffffu, in);
+            if (in) {
+              const int k = count[c][r] + __popc(hits & below);
+              if (k < a.K[r]) wbuf[c * a.ksum + a.kpre[r] + k] = n0 + j;
+            }
+            count[c][r] += __popc(hits);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty0 + 8 * s);
+    }
+    if (S > 1 && lane == 0)
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+#pragma unroll
+        for (int r = 0; r < R; ++r) xcnt[(warp * CW + c) * R + r] = count[c][r];
+  }
   __syncwarp();
-  const long long row = (long long)b * M + m;
-  const bool keep = count > 0 && center_mask[row];
-  const int n = max(1, min(count, K));
-  for (int s = lane; s < K; s += 32)
-    idx[row * K + s] = keep ? buf[s % n] : 0;
-  if (lane == 0) cnt[row] = count;
+  if (S > 1) cluster_barrier();  // every slice's counts are in place
+  if (warp < kBqWarps) {
+    const int* wbuf = buf + warp * CW * a.ksum;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int m = m0 + c;
+      if (m >= a.M) continue;
+      const long long row = (long long)b * a.M + m;
+      const bool valid_centre = a.center_mask[row];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // the earlier slices' count, and all of them
+        int pre = 0, total = count[c][r];
+        if (S > 1) {
+          const int v = lane < S ? ld_cluster(cluster_addr(
+                                       cta_addr(&xcnt[(warp * CW + c) * R + r]),
+                                       lane))
+                                 : 0;
+          total = __reduce_add_sync(0xffffffffu, v);
+          pre = __reduce_add_sync(0xffffffffu, lane < rank ? v : 0);
+        }
+        const int K = a.K[r];
+        int* out = a.idx + (long long)a.B * a.M * a.kpre[r] + row * K;
+        if (total > 0 && valid_centre) {
+          const int n = min(total, K);
+          const int own = pre < K ? min(count[c][r], K - pre) : 0;
+          for (int s = lane; s < K; s += 32) {
+            const int e = s % n - pre;
+            if (e >= 0 && e < own) out[s] = wbuf[c * a.ksum + a.kpre[r] + e];
+          }
+        } else if (rank == 0) {
+          for (int s = lane; s < K; s += 32) out[s] = 0;
+        }
+        if (rank == 0 && lane == 0)
+          a.cnt[(long long)r * a.B * a.M + row] = total;
+      }
+    }
+  }
+  if (S > 1) cluster_barrier();  // no CTA leaves while its counts are read
 }
 
 // One launch of `kern` as B clusters of R CTAs of `threads` with `smem`
@@ -982,19 +1157,60 @@ extern "C" int tmae_ffps_profile(unsigned long long* out) {
 }
 #endif
 
+// BALL_QUERY for R radii in one pass (ops/pointnet2.ball_query_multi):
+// r2, min2 (-1: no lower bound) and K are host arrays of R; CW centres a
+// warp (1, 2, 4 or 8), S point slices a cluster (1..8), from
+// ops/pointnet2.ball_query_plan. N a multiple of 16 and 16-byte aligned
+// xyz and mask rows (the wrapper pads), so each tile is one bulk copy.
 extern "C" int launch_ball_query(const float* xyz, const bool* xyz_mask,
                                  const float* centers,
                                  const bool* center_mask, int B, int N, int M,
-                                 int K, float r2, float min_r2, int dilated,
-                                 int* idx, int* cnt, cudaStream_t stream) {
-  if (B < 1 || M < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kBqWarps * K * static_cast<int>(sizeof(int));
-  const cudaError_t e = cudaFuncSetAttribute(
-      ball_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ball_query_kernel<<<dim3((M + kBqWarps - 1) / kBqWarps, B),
-                      kBqWarps * 32, smem, stream>>>(
-      xyz, xyz_mask, centers, center_mask, N, M, K, r2, min_r2, dilated, idx,
-      cnt);
-  return tmae_last_error();
+                                 int R, const float* r2, const float* min2,
+                                 const int* K, int cw, int S, int* idx,
+                                 int* cnt, cudaStream_t stream) {
+  if (B < 1 || M < 1 || N < 16 || N % 16 || R < 1 || R > kBqMaxRadii ||
+      S < 1 || S > kBqMaxSlices ||
+      reinterpret_cast<uintptr_t>(xyz) % 16 ||
+      reinterpret_cast<uintptr_t>(xyz_mask) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BqArgs a = {};
+  a.xyz = xyz;
+  a.mask = xyz_mask;
+  a.centers = centers;
+  a.center_mask = center_mask;
+  a.idx = idx;
+  a.cnt = cnt;
+  a.B = B;
+  a.N = N;
+  a.M = M;
+  a.S = S;
+  a.rmax2 = -1.f;
+  for (int r = 0; r < R; ++r) {
+    if (K[r] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    a.r2[r] = r2[r];
+    a.min2[r] = min2[r];
+    a.K[r] = K[r];
+    a.kpre[r] = a.ksum;
+    a.ksum += K[r];
+    a.rmax2 = fmaxf(a.rmax2, r2[r]);
+  }
+  // the ring: tiles of up to kBqTileN points, as many as a slice needs up
+  // to kBqStages (the kernel's slice: a multiple of 16 points)
+  const int per = ((N + S - 1) / S + 15) / 16 * 16;
+  a.tile = min(kBqTileN, per);
+  a.stages = min(kBqStages, (per + a.tile - 1) / a.tile);
+  const int smem = a.stages * a.tile * 13 +
+                   kBqWarps * cw * (a.ksum + R) * static_cast<int>(sizeof(int));
+  if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  a.mblocks = (M + kBqWarps * cw - 1) / (kBqWarps * cw);
+  const int threads = (kBqWarps + 1) * 32;
+#define BQ_CASE(CW_, R_)                                                     \
+  if (cw == CW_ && R == R_)                                                  \
+    return cluster_launch(ball_query_kernel<CW_, R_>, B * a.mblocks, S,      \
+                          threads, smem, stream, a);
+#define BQ_RADII(CW_) BQ_CASE(CW_, 1) BQ_CASE(CW_, 2) BQ_CASE(CW_, 3) BQ_CASE(CW_, 4)
+  BQ_RADII(1) BQ_RADII(2) BQ_RADII(4) BQ_RADII(8)
+#undef BQ_RADII
+#undef BQ_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

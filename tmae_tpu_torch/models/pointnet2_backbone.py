@@ -17,20 +17,21 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.pointnet2 import (farthest_point_sample,
+from ..ops.pointnet2 import (ball_query_multi, farthest_point_sample,
                              farthest_point_sample_ffps, gather_points,
-                             query_and_group)
+                             group_balls)
 from .layers import LinearBNReLU
 
 SAMPLERS = ('d-fps', 'f-fps')
 
 
 class GroupedMSG(nn.Module):
-    """Multi-scale grouping around given centres: per radius, a ball query
-    (dilated, ``min_radius`` the previous radius, with ``dilated``), the
-    group's centre-relative coordinates and features through the scale's
-    MLP, then the max over the group; the scales concatenated. ``cin``: the
-    point feature channels (0 without features)."""
+    """Multi-scale grouping around given centres: the ball queries of every
+    radius in one call (dilated, ``min_radius`` the previous radius, with
+    ``dilated``), then per radius the group's centre-relative coordinates
+    and features through the scale's MLP and the max over the group; the
+    scales concatenated. ``cin``: the point feature channels (0 without
+    features)."""
 
     def __init__(self, cin, radii, nsamples, mlps, dilated: bool = False):
         super().__init__()
@@ -46,13 +47,12 @@ class GroupedMSG(nn.Module):
         self.out_channels = sum(w[-1] for w in self.widths)
 
     def forward(self, xyz, mask, features, centers, center_mask):
-        outs, former = [], 0.0
-        for si, (radius, nsample, widths) in enumerate(
-                zip(self.radii, self.nsamples, self.widths)):
-            grouped, _, cnt = query_and_group(
-                radius, nsample, xyz, mask, centers, center_mask, features,
-                min_radius=former if self.dilated else 0.0)
-            former = radius
+        outs = []
+        balls = ball_query_multi(self.radii, self.nsamples, xyz, mask,
+                                 centers, center_mask, self.dilated)
+        for si, ((idx, cnt), widths) in enumerate(zip(balls, self.widths)):
+            grouped = group_balls(idx, cnt, xyz, centers, center_mask,
+                                  features)
             B, S, K, C = grouped.shape
             live = (cnt > 0) & center_mask
             gmask = live[..., None].expand(B, S, K).reshape(B, S * K)

@@ -5,13 +5,15 @@ The intersection of two rotated rectangles is rectangle A clipped by the
 four half-planes of rectangle B (Sutherland–Hodgman) in 8 vertex slots, its
 area by the shoelace formula. The plain versions repeat the JAX package's
 arithmetic step for step in f32 (pad slots duplicate the first vertex, the
-division guarded by ``|denom| > 1e-12``, fewer than 3 vertices give area 0).
+division guarded by ``|denom| > 1e-12``, fewer than 3 vertices give area 0),
+and sum the shoelace's terms slot after slot, the order the kernels take.
 
 The CUDA kernels (``csrc/iou_nms.cu``) share one device function that clips
 one pair in registers with the same arithmetic:
 
 * ``IOU_PAIRS``: BEV or 3D IoU of every pair, [N, M];
-* ``IOU_ALIGNED``: 3D IoU of aligned pairs (the IoU-head loss);
+* ``IOU_ALIGNED``: 3D IoU of aligned pairs (the IoU-head loss), a pair on
+  8 lanes of a warp, lane s holding vertex slot s;
 * ``NMS_MASK``: the suppression bitmask of each sample's score-sorted
   candidates, uint64 [B, K, ceil(K / 64)]: bit j of row i is set when
   j > i, both are valid (in multi-class mode: of the same class) and
@@ -123,8 +125,12 @@ def sh_intersection_area_flat(boxes_a: torch.Tensor,
     poly = torch.where(active[..., None], poly, poly[:, :1])
     p_next = torch.roll(poly, -1, 1)
     crossz = poly[..., 0] * p_next[..., 1] - poly[..., 1] * p_next[..., 0]
-    area = 0.5 * torch.where(active, crossz, 0.0).sum(1).abs()
-    return torch.where(nvert >= 3, area, 0.0)
+    crossz = torch.where(active, crossz, 0.0)
+    # summed slot after slot, in one written-out order, as the kernels sum
+    total = crossz[:, 0]
+    for s in range(1, S):
+        total = total + crossz[:, s]
+    return torch.where(nvert >= 3, 0.5 * total.abs(), 0.0)
 
 
 def intersection_area_bev(boxes_a, boxes_b):

@@ -19,7 +19,9 @@ CPU tensors:
   samples whose features do not fit the cluster, the distance matrix and
   a walk over its rows (without features F-FPS is D-FPS, and takes
   ``DFPS``);
-* ``BALL_QUERY``: :func:`ball_query`.
+* ``BALL_QUERY``: :func:`ball_query`, and :func:`ball_query_multi`, every
+  radius of a multi-scale grouping in one launch under
+  :func:`ball_query_plan`.
 
 They make discrete choices from f32 sums, so the plain versions and the
 kernels sum in one written-out order (the coordinates x, y, z, then the
@@ -32,6 +34,8 @@ backward); none of the samplers carries a gradient.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -45,7 +49,7 @@ DFPS = CudaKernel('pointnet2.cu', 'launch_dfps_cluster',
 FFPS = CudaKernel('pointnet2.cu', 'launch_ffps',
                   [P, P, P, I, I, I, I, F, I, I, I, I, I, P, P, P])
 BALL_QUERY = CudaKernel('pointnet2.cu', 'launch_ball_query',
-                        [P, P, P, P, I, I, I, I, F, F, I, P, P, P])
+                        [P, P, P, P, I, I, I, I, P, P, P, I, I, P, P, P])
 
 BIG = 1e10
 FPS_MAX_POINTS = 16384   # FFPS: 16 running distances a thread of 1024
@@ -70,6 +74,10 @@ DFPS_MAX_POINTS = DFPS_MAX_CLUSTER * DFPS_MAX_THREADS * DFPS_MAX_PER
 # (centre, point) pairs, so that no [B, M, N] tensor of a large level is
 # made at once
 QUERY_CHUNK_PAIRS = 1 << 24
+# BALL_QUERY (csrc/pointnet2.cu): up to 4 radii a call; its tiles are
+# 16-byte bulk copies, so a sample's points come in multiples of 16
+BQ_MAX_RADII = 4
+BQ_POINT_ALIGN = 16
 
 
 def square_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -357,6 +365,86 @@ def ball_query_plain(radius: float, nsample: int, xyz, xyz_mask, centers,
     return idx, cnt
 
 
+def ball_query_plan(B: int, M: int, N: int) -> tuple[int, int]:
+    """BALL_QUERY's launch for B samples of M centres over N points: (CW,
+    S), CW centres a warp (8 warps a CTA) and the points split into S
+    index-ordered slices, one CTA of a cluster each. From the plans timed
+    on the H100 (``utils/pn2_phases.py --ball --sweep``, device time at
+    SSD3D's four groupings, batch 1 and 2): CW 1 up to 2^22 (centre,
+    point) pairs, 2 up to 2^24, 4 up to 2^26, 8 above; 2 slices from
+    4096 points, else 1 (more slices, or 1 at 16384 points, lost)."""
+    pairs = B * M * N
+    cw = next((c for c, top in ((1, 1 << 22), (2, 1 << 24), (4, 1 << 26))
+               if pairs <= top), 8)
+    return cw, 2 if N >= 4096 else 1
+
+
+def _bq_points(xyz, xyz_mask):
+    """The points and mask as the kernel reads them: f32 and bool, N padded
+    with invalid points to a multiple of 16 (at least 16), each sample's
+    rows 16-byte aligned."""
+    pts = as_kernel_arg(xyz.detach(), torch.float32)
+    pm = as_kernel_arg(xyz_mask, torch.bool)
+    B, N, _ = pts.shape
+    pad = max(BQ_POINT_ALIGN, -(-N // BQ_POINT_ALIGN) * BQ_POINT_ALIGN) - N
+    if pad:
+        pts = torch.cat([pts, pts.new_zeros(B, pad, 3)], 1)
+        pm = torch.cat([pm, pm.new_zeros(B, pad)], 1)
+    if pts.data_ptr() % 16:
+        pts = pts.clone()
+    if pm.data_ptr() % 16:
+        pm = pm.clone()
+    return pts, pm
+
+
+@functools.lru_cache(maxsize=64)
+def _bq_params(radii, mins, nsamples):
+    """BALL_QUERY's host arrays of a radius list (r^2, the lower bound's
+    square or -1 for none, the slots), kept for the next call."""
+    R = len(radii)
+    r2 = (ctypes.c_float * R)(*[_f32(r * r) for r in radii])
+    # no lower bound: -1, below any squared distance
+    min2 = (ctypes.c_float * R)(*[_f32(m * m) if m > 0.0 else -1.0
+                                  for m in mins])
+    ks = (ctypes.c_int * R)(*nsamples)
+    return (r2, min2, ks), (ctypes.addressof(r2), ctypes.addressof(min2),
+                            ctypes.addressof(ks))
+
+
+def _ball_query_card(radii, mins, nsamples, xyz, xyz_mask, centers,
+                     center_mask, plan=None, kernel=None):
+    """One BALL_QUERY launch (``kernel``: another build of it) for every
+    radius, under ``plan`` (CW, S; :func:`ball_query_plan`'s when None):
+    [(idx, cnt)]."""
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    R = len(radii)
+    if (xyz.shape[-1] != 3 or centers.shape != (B, M, 3)
+            or xyz_mask.shape != (B, N) or center_mask.shape != (B, M)):
+        raise ValueError(f'ball query of centres {tuple(centers.shape)} '
+                         f'over points {tuple(xyz.shape)}: shapes differ')
+    if not 1 <= R <= BQ_MAX_RADII or min(nsamples) < 1:
+        raise ValueError(f'BALL_QUERY takes 1 to {BQ_MAX_RADII} radii of 1 '
+                         f'or more samples, got {list(nsamples)}')
+    pts, pm = _bq_points(xyz, xyz_mask)
+    ctr = as_kernel_arg(centers.detach(), torch.float32)
+    cm = as_kernel_arg(center_mask, torch.bool)
+    idx = torch.empty(B * M * sum(nsamples), dtype=torch.int32,
+                      device=pts.device)
+    cnt = torch.empty(R, B, M, dtype=torch.int32, device=pts.device)
+    if B and M:
+        _, ptrs = _bq_params(tuple(radii), tuple(mins), tuple(nsamples))
+        (kernel or BALL_QUERY)(
+            pts.data_ptr(), pm.data_ptr(), ctr.data_ptr(), cm.data_ptr(), B,
+            pts.shape[1], M, R, *ptrs, *(plan or ball_query_plan(B, M, N)),
+            idx.data_ptr(), cnt.data_ptr(), stream_handle())
+    out, off = [], 0
+    for k, c in zip(nsamples, cnt.unbind(0)):
+        out.append((idx.as_strided((B, M, k), (M * k, k, 1), off), c))
+        off += B * M * k
+    return out
+
+
 def ball_query(radius: float, nsample: int, xyz, xyz_mask, centers,
                center_mask, min_radius: float = 0.0):
     """:func:`ball_query_plain`'s function (kernel ``BALL_QUERY`` on the
@@ -364,27 +452,44 @@ def ball_query(radius: float, nsample: int, xyz, xyz_mask, centers,
     if not on_card(xyz, xyz_mask, centers, center_mask):
         return ball_query_plain(radius, nsample, xyz, xyz_mask, centers,
                                 center_mask, min_radius)
-    B, N, _ = xyz.shape
-    M = centers.shape[1]
-    if (xyz.shape[-1] != 3 or centers.shape != (B, M, 3)
-            or xyz_mask.shape != (B, N) or center_mask.shape != (B, M)):
-        raise ValueError(f'ball query of centres {tuple(centers.shape)} '
-                         f'over points {tuple(xyz.shape)}: shapes differ')
-    pts = as_kernel_arg(xyz.detach(), torch.float32)
-    ctr = as_kernel_arg(centers.detach(), torch.float32)
-    pm = as_kernel_arg(xyz_mask, torch.bool)
-    cm = as_kernel_arg(center_mask, torch.bool)
-    idx = torch.empty(B, M, nsample, dtype=torch.int32, device=pts.device)
-    cnt = torch.empty(B, M, dtype=torch.int32, device=pts.device)
-    if B and M and nsample:
-        BALL_QUERY(pts.data_ptr(), pm.data_ptr(), ctr.data_ptr(),
-                   cm.data_ptr(), B, N, M, nsample, _f32(radius * radius),
-                   _f32(min_radius * min_radius), int(min_radius > 0.0),
-                   idx.data_ptr(), cnt.data_ptr(), stream_handle())
-    else:
-        idx.zero_()
-        cnt.zero_()
-    return idx, cnt
+    if nsample < 1:
+        B, M = center_mask.shape
+        return (torch.zeros(B, M, 0, dtype=torch.int32, device=xyz.device),
+                torch.zeros(B, M, dtype=torch.int32, device=xyz.device))
+    return _ball_query_card([radius], [min_radius], [nsample], xyz,
+                            xyz_mask, centers, center_mask)[0]
+
+
+def _min_radii(radii, dilated):
+    """Each radius's lower bound: the previous radius when ``dilated`` (the
+    first 0), else 0."""
+    return [radii[i - 1] if dilated and i else 0.0
+            for i in range(len(radii))]
+
+
+def ball_query_multi_plain(radii, nsamples, xyz, xyz_mask, centers,
+                           center_mask, dilated: bool = False):
+    """:func:`ball_query_multi`'s function: :func:`ball_query_plain` for
+    each radius."""
+    return [ball_query_plain(float(r), int(k), xyz, xyz_mask, centers,
+                             center_mask, m)
+            for r, k, m in zip(radii, nsamples, _min_radii(radii, dilated))]
+
+
+def ball_query_multi(radii, nsamples, xyz, xyz_mask, centers, center_mask,
+                     dilated: bool = False):
+    """The ball queries of a multi-scale grouping, one (idx, cnt) a radius,
+    each :func:`ball_query`'s with ``min_radius`` the previous radius when
+    ``dilated`` (the first 0), else 0. On the card one ``BALL_QUERY``
+    launch computes each (centre, point) distance once and tests it against
+    every radius (up to 4)."""
+    if not on_card(xyz, xyz_mask, centers, center_mask):
+        return ball_query_multi_plain(radii, nsamples, xyz, xyz_mask,
+                                      centers, center_mask, dilated)
+    radii = [float(r) for r in radii]
+    return _ball_query_card(radii, _min_radii(radii, dilated),
+                            [int(k) for k in nsamples], xyz, xyz_mask,
+                            centers, center_mask)
 
 
 def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -418,6 +523,19 @@ def three_interpolate(features, idx, dist):
     return (group_points(features, idx) * w[..., None]).sum(2)
 
 
+def group_balls(idx, cnt, xyz, centers, center_mask, features=None,
+                use_xyz: bool = True):
+    """A ball query's groups: [B, M, K, 3 (+C)], the points' coordinates
+    relative to their centre (then their features), zeros for an empty ball
+    or an invalid centre."""
+    grouped = group_points(xyz, idx) - centers[:, :, None, :]
+    if features is not None:
+        feats = group_points(features, idx)
+        grouped = torch.cat([grouped, feats], -1) if use_xyz else feats
+    empty = (cnt == 0) | ~center_mask
+    return torch.where(empty[..., None, None], 0.0, grouped)
+
+
 def query_and_group(radius: float, nsample: int, xyz, xyz_mask, centers,
                     center_mask, features=None, use_xyz: bool = True,
                     min_radius: float = 0.0):
@@ -426,9 +544,5 @@ def query_and_group(radius: float, nsample: int, xyz, xyz_mask, centers,
     cnt)."""
     idx, cnt = ball_query(radius, nsample, xyz, xyz_mask, centers,
                           center_mask, min_radius)
-    grouped = group_points(xyz, idx) - centers[:, :, None, :]
-    if features is not None:
-        feats = group_points(features, idx)
-        grouped = torch.cat([grouped, feats], -1) if use_xyz else feats
-    empty = (cnt == 0) | ~center_mask
-    return torch.where(empty[..., None, None], 0.0, grouped), idx, cnt
+    return (group_balls(idx, cnt, xyz, centers, center_mask, features,
+                        use_xyz), idx, cnt)

@@ -210,10 +210,23 @@ def downsample_coords(coords_yx: torch.Tensor, mask: torch.Tensor,
 
 def segment_sum(feat: torch.Tensor, seg: torch.Tensor, num_segments: int):
     """feat [B, P, C], seg [B, P] (segment, or >= num_segments to drop) →
-    [B, num_segments, C]."""
+    [B, num_segments, C], each segment's rows summed one after another in
+    row order: a stable sort by segment, then ``torch.segment_reduce`` (a
+    loop a segment on the card), each dropped row a segment of its own so
+    that no thread walks them all. The same bits on every run and on both
+    devices; a ``scatter_add_`` sums with float atomics on the card, in an
+    order that changes from run to run."""
     B, P, C = feat.shape
-    idx = seg.long().clamp(max=num_segments)[..., None].expand(B, P, C)
-    acc = feat.new_zeros(B, num_segments + 1, C).scatter_add_(1, idx, feat)
+    seg = seg.long().clamp(max=num_segments)
+    order = torch.argsort(seg.int(), dim=1, stable=True)
+    rows = torch.gather(feat, 1, order[..., None].expand(B, P, C))
+    counts = torch.zeros(B, num_segments + 1, dtype=torch.int64,
+                         device=feat.device).scatter_add_(
+                             1, seg, torch.ones_like(seg))
+    dropped = torch.arange(P, device=feat.device) < counts[:, -1:]
+    lengths = torch.cat([counts[:, :-1], dropped.long()], 1)
+    acc = torch.segment_reduce(rows, 'sum', lengths=lengths, axis=1,
+                               unsafe=True)
     return acc[:, :num_segments]
 
 

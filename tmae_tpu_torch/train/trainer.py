@@ -15,6 +15,8 @@ ranks. Each rank draws its MAE mask from (seed, step, rank)."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -44,6 +46,20 @@ def sum_over_ranks(metrics: dict) -> dict:
     vals = list(metrics.values())
     total = dist.global_sum(torch.stack([v.double() for v in vals]))
     return {k: t.to(v.dtype) for (k, v), t in zip(metrics.items(), total)}
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN restricted to its deterministic algorithms while the step's
+    forward and backward run: some of the weight-gradient algorithms it
+    would pick otherwise sum with float atomics, and a step's gradients
+    then change from run to run on the card."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
 
 
 class TrainStep:
@@ -77,9 +93,10 @@ class TrainStep:
         gen = self.step_generator()
         if gen is not None:
             model_kwargs.setdefault('generator', gen)
-        out = self.model(batch, **model_kwargs)
-        loss, parts = self.loss_fn(out, batch)
-        loss.backward()
+        with deterministic_convolutions():
+            out = self.model(batch, **model_kwargs)
+            loss, parts = self.loss_fn(out, batch)
+            loss.backward()
         for p in self.params:  # optax updates every leaf: zero, not absent
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -1,4 +1,5 @@
-"""Device time of the NMS kernels by launch, in a process of their own.
+"""Device time of the NMS kernels and IOU_ALIGNED by launch, in a process
+of their own.
 
 ``NMS_MASK`` and ``NMS_SCAN`` (``csrc/iou_nms.cu``) on a few candidate sets:
 the served pair's candidates when a file of them is given (``--candidates``,
@@ -9,10 +10,16 @@ set and kernel: the device ms of one call by launch (``torch.profiler``,
 CUDA activity only), the host ms to enqueue it and the ms of one call by
 CUDA events over 20 back to back.
 
+``IOU_ALIGNED`` (:func:`measure_aligned`) on the crowded set of 500 boxes
+against the same boxes moved, and on degenerate pairs
+(:func:`degenerate_pairs`): the same readings, and its largest |diff|
+against the plain version.
+
 ``--parent PATH`` builds another version of ``iou_nms.cu`` (a parent
 checkout's) beside this one with the same flags, runs both on every set in
 the order parent, this, this, parent, and fails unless both give the same
-mask words and keep masks bit for bit. ``--cycles`` also builds the source
+mask words and keep masks (and IOU_PAIRS the same IoUs) bit for bit;
+IOU_ALIGNED's largest |diff| against the parent's is logged. ``--cycles`` also builds the source
 with ``-DTMAE_NMS_PROFILE`` and prints NMS_SCAN's cycles a 64-row block by
 part on each set.
 
@@ -79,30 +86,78 @@ def cases(torch, served=None):
     return sets
 
 
+def degenerate_pairs(torch):
+    """Aligned box pairs [n, 7] x [n, 7] (CPU) where the clip meets its
+    edge cases: equal boxes at five headings, one box inside the other,
+    touching and edge-sharing boxes, micrometre boxes whose nearly
+    parallel edges give crossings with a denominator under the 1e-12
+    guard, and a zero-height and a disjoint z overlap."""
+    a, b = [], []
+    for ang in (0.0, 0.3, -1.2, math.pi / 2, math.pi):
+        box = [3.0, -2.0, 0.5, 4.0, 2.0, 1.5, ang]
+        a.append(box)
+        b.append(box)
+    for ang in (0.0, 0.7):
+        a += [[1.0, 1.0, 0.0, 4.0, 3.0, 2.0, ang],
+              [1.0, 1.0, 0.0, 1.0, 1.0, 1.0, ang]]
+        b += [[1.0, 1.0, 0.0, 2.0, 1.0, 1.0, ang + 0.2],
+              [1.0, 1.0, 0.0, 5.0, 4.0, 2.0, -ang]]
+    unit = [0.0, 0.0, 0.0, 2.0, 2.0, 1.0, 0.0]
+    for other in ([2.0, 0.0, 0.0, 2.0, 2.0, 1.0, 0.0],
+                  [1.0, 0.0, 0.0, 2.0, 2.0, 1.0, 0.0],
+                  [1.0, 1.0, 0.0, 2.0, 2.0, 1.0, 0.0],
+                  [0.0, 2.0, 0.0, 2.0, 2.0, 1.0, math.pi]):
+        a.append(unit)
+        b.append(other)
+    for k, ang in enumerate((1e-7, -1e-7, 3e-8, 2e-7, -4e-8, 1e-6)):
+        for off in (0.0, 1e-13, -1e-13):
+            a.append([0.5e-6 + 1e-7 * k, off, 0.0, 2e-6, 2e-6, 1.0, ang])
+            b.append([0.0, 0.0, 0.0, 2e-6, 2e-6, 1.0, 0.0])
+    a += [[0.0, 0.0, 0.0, 2.0, 2.0, 2.0, 0.1]] * 2
+    b += [[0.5, 0.0, 2.0, 2.0, 2.0, 2.0, 0.1], [0.5, 0.0, 3.0, 2.0, 2.0, 1.0,
+                                                0.1]]
+    return torch.tensor(a), torch.tensor(b)
+
+
+def aligned_cases(torch):
+    """IOU_ALIGNED's sets on the card: {name: (a [n, 7], b [n, 7])}: the
+    crowded K = 500 set against itself moved as phase 16a moves it, and
+    the degenerate pairs."""
+    boxes = crowded_boxes(torch)[0][0]
+    shift = torch.tensor([0.4, -0.3, 0.2, 0.3, -0.2, 0.1, 0.5],
+                         device='cuda')
+    a, b = degenerate_pairs(torch)
+    return {'crowded 500 pairs': (boxes, boxes + shift),
+            'degenerate pairs': (a.cuda(), b.cuda())}
+
+
+KERNELS = ('IOU_PAIRS', 'IOU_ALIGNED', 'NMS_MASK', 'NMS_SCAN')
+
+
 def parent_kernels(path):
-    """NMS_MASK and NMS_SCAN of another ``iou_nms.cu``, built beside this
+    """The geometry kernels of another ``iou_nms.cu``, built beside this
     one's library with the same flags."""
     from ..ops import geometry as geo
 
     lib = build.build_file(path, 'iou_nms.cu', 'parent')
     return {name: build.CudaKernel(k.source, k.symbol, k.argtypes, path=lib)
-            for name, k in (('NMS_MASK', geo.NMS_MASK),
-                            ('NMS_SCAN', geo.NMS_SCAN))}
+            for name, k in ((n, getattr(geo, n)) for n in KERNELS)}
 
 
 @contextlib.contextmanager
 def using(kernels):
-    """The geometry wrappers launch ``kernels`` ({'NMS_MASK': ...,
-    'NMS_SCAN': ...}) inside the block (none: the repo's own)."""
+    """The geometry wrappers launch ``kernels`` ({name: kernel} of KERNELS)
+    inside the block (none: the repo's own)."""
     from ..ops import geometry as geo
 
-    saved = geo.NMS_MASK, geo.NMS_SCAN
-    if kernels:
-        geo.NMS_MASK, geo.NMS_SCAN = kernels['NMS_MASK'], kernels['NMS_SCAN']
+    saved = {n: getattr(geo, n) for n in KERNELS}
+    for n, k in (kernels or {}).items():
+        setattr(geo, n, k)
     try:
         yield
     finally:
-        geo.NMS_MASK, geo.NMS_SCAN = saved
+        for n, k in saved.items():
+            setattr(geo, n, k)
 
 
 def events_ms(torch, call, iters=20, warmup=3):
@@ -207,6 +262,60 @@ def measure(torch, served=None, parent=None, log=print):
     return out
 
 
+def measure_aligned(torch, parent=None, log=print):
+    """IOU_ALIGNED on aligned_cases (and the parent's, in the order parent,
+    this, this, parent): its largest |diff| against the plain version and
+    against the parent's, whether each is bit-equal, and the readings; and
+    IOU_PAIRS (BEV and 3D) on the crowded set, which must give the
+    parent's bits. {set: {...}}."""
+    from ..ops import geometry as geo
+
+    versions = ['parent', 'change', 'change', 'parent'] if parent else \
+        ['change']
+    kernels = {'change': None, 'parent': parent}
+    out = {}
+    for name, (a, b) in aligned_cases(torch).items():
+        runs = {v: [] for v in versions}
+        got = {}
+        for v in versions:
+            with using(kernels[v]):
+                got.setdefault(v, geo.boxes_iou3d_aligned(a, b))
+                if name.startswith('crowded'):
+                    got.setdefault(f'{v} pairs', (geo.boxes_iou_bev(a, a),
+                                                  geo.boxes_iou3d(a, a)))
+                runs[v].append({'IOU_ALIGNED': readings(
+                    torch, lambda: geo.boxes_iou3d_aligned(a, b))})
+        plain = geo.boxes_iou3d_aligned_plain(a, b)
+        rec = {'pairs': a.shape[0],
+               'max_abs_plain': float((got['change'] - plain).abs().max()),
+               'bits_plain': bool(torch.equal(got['change'], plain))}
+        if parent:
+            rec['max_abs_parent'] = float(
+                (got['change'] - got['parent']).abs().max())
+            rec['bits_parent'] = bool(torch.equal(got['change'],
+                                                  got['parent']))
+            if 'change pairs' in got and not all(
+                    torch.equal(x, y) for x, y in zip(got['change pairs'],
+                                                      got['parent pairs'])):
+                raise AssertionError(f'{name}: IOU_PAIRS differs from the '
+                                     "parent's")
+        for v in dict.fromkeys(versions):
+            rec[v] = mean_readings(runs[v])['IOU_ALIGNED']
+            rd = rec[v]
+            log(f'  {name} {v} IOU_ALIGNED: device {rd["device_ms"]} ms a '
+                f'call (' + ', '.join(f'{k} {x:.5f}' for k, x in
+                                       rd['by_launch'].items())
+                + f'), host enqueue {rd["host_ms"]:.4f} ms, events '
+                f'{rd["ms"]:.4f} ms')
+        log(f'  {name}: IOU_ALIGNED max |kernel - plain| '
+            f'{rec["max_abs_plain"]:.3g} (bit-equal {rec["bits_plain"]})'
+            + (f', max |this - parent| {rec["max_abs_parent"]:.3g} '
+               f'(bit-equal {rec["bits_parent"]}); IOU_PAIRS the parent\'s '
+               'bits' if parent else ''))
+        out[name] = rec
+    return out
+
+
 SCAN_PARTS = ('classes', 'slab copy and wait', 'removed word, ballots, rooms',
               'walk and caps', 'keep bytes', 'ORs')
 
@@ -272,6 +381,7 @@ def main(argv=None):
               if args.candidates else None)
     parent = parent_kernels(args.parent) if args.parent else None
     out = measure(torch, served, parent)
+    out['IOU_ALIGNED'] = measure_aligned(torch, parent)
     if args.cycles:
         out['scan_cycles'] = scan_cycles(torch, served)
     if args.json:

@@ -1,8 +1,9 @@
-"""D-FPS's and F-FPS's time a step on the card (kernels ``DFPS`` and
-``FFPS``, ``csrc/pointnet2.cu``).
+"""D-FPS's and F-FPS's time a step, and ball query's time a grouping, on
+the card (kernels ``DFPS``, ``FFPS`` and ``BALL_QUERY``,
+``csrc/pointnet2.cu``).
 
     python3 -m tmae_tpu_torch.utils.pn2_phases [--parent PATH] [--sweep]
-        [--cycles] [--json FILE]
+        [--cycles] [--ball] [--json FILE]
 
 Runs D-FPS at ssd3d_once.yaml's three levels (16384 -> 4096, 4096 -> 512
 and 512 -> 256) and F-FPS at its two (4096 -> 512 with 64 feature
@@ -29,6 +30,14 @@ prints for each F-FPS level under its 'cluster' plan the cycles a step by
 part (distances and the thread's argmax, the warp's argmax, the CTA's
 argmax and the record's stores, the wait for the records, the records'
 argmax).
+
+``--ball`` runs BALL_QUERY alone (:func:`ball_phase`): each grouping of
+ssd3d_once.yaml's frame (levels 0-2 and the vote head's SA) in one call
+over frame-like points, batch 1 and 2, and level 0's last radius alone;
+device ms by launch, host enqueue and events ms, the bound; with
+``--parent`` the parent's calls beside it (one a radius where its
+launcher takes one radius), with ``--sweep`` every plan (CW, S) by device
+time.
 
 Prints one line a reading and the readings as JSON on the last line (and
 into ``--json``). Needs a CUDA device.
@@ -315,6 +324,219 @@ def ffps_cycles(torch, log=print):
     return out
 
 
+# BALL_QUERY at ssd3d_once.yaml's groupings: (label, points, centres,
+# radii, slots, dilated)
+BALL_LEVELS = (('level 0', 16384, 4096, (0.2, 0.4, 0.8), (32, 32, 64), True),
+               ('level 1', 4096, 1024, (0.8, 1.6, 3.2), (32, 32, 64), True),
+               ('level 2', 1024, 512, (1.6, 3.2, 4.8), (32, 32, 32), True),
+               ('vote SA', 512, 256, (4.8, 6.4), (48, 64), False))
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def frame_points(torch, B, N, seed):
+    """[B, N, 3] points spread as a LiDAR frame's (range 1-70 m uniform, so
+    denser near the sensor; 60% on the ground near z = -1.6, the rest up to
+    2 m) and a [B, N] mask (a tenth of sample 1's invalid), on the card."""
+    import math
+
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    u = lambda *shape: torch.rand(*shape, generator=g, device='cuda')
+    r = 1.0 + 69.0 * u(B, N)
+    th = 2 * math.pi * u(B, N)
+    ground = u(B, N) < 0.6
+    z = torch.where(ground, -1.6 + 0.1 * torch.randn(
+        B, N, generator=g, device='cuda'), -1.5 + 3.5 * u(B, N))
+    mask = torch.ones(B, N, dtype=torch.bool, device='cuda')
+    if B > 1:
+        mask[1:] = u(B - 1, N) > 0.1
+    return torch.stack([r * torch.cos(th), r * torch.sin(th), z], -1), mask
+
+
+def ball_inputs(torch, B, seed=0):
+    """Each BALL_LEVELS grouping's (points, mask, centres, centre mask): the
+    frame's points, then each level's D-FPS centres as the next level's
+    points; the vote SA's centres are level 2's first 256 moved by up to
+    (3, 3, 2) m."""
+    from ..ops import pointnet2 as pn2
+
+    pts, m = frame_points(torch, B, BALL_LEVELS[0][1], seed)
+    out = []
+    for label, N, M, *_ in BALL_LEVELS:
+        if label == 'vote SA':
+            g = torch.Generator(device='cuda').manual_seed(seed + 1)
+            jitter = (torch.rand(B, M, 3, generator=g, device='cuda') - 0.5)
+            ctr = pts[:, :M] + jitter * torch.tensor([6.0, 6.0, 4.0],
+                                                     device='cuda')
+            out.append((pts, m, ctr, m[:, :M].clone()))
+            break
+        idx = pn2.farthest_point_sample(pts, m, M)
+        ctr, cm = pn2.gather_points(pts, idx), m.gather(1, idx.long())
+        out.append((pts, m, ctr, cm))
+        pts, m = ctr, cm
+    return out
+
+
+def parent_ball(path):
+    """A function (radii, mins, ks, pts, mask, ctr, cmask) -> [(idx, cnt)]
+    that runs another ``pointnet2.cu``'s BALL_QUERY: one multi-radius
+    launch where its launcher takes the radii (``int R``), else one
+    single-radius ``launch_ball_query(xyz, mask, centers, center_mask, B,
+    N, M, K, r2, min_r2, dilated, idx, cnt, stream)`` a radius."""
+    from pathlib import Path
+
+    import torch
+
+    from ..ops import pointnet2 as pn2
+
+    src = Path(path)
+    launcher = src.read_text().split('int launch_ball_query(')[1]
+    multi = 'int R,' in launcher.split(')')[0]
+    lib = build.build_file(src, 'pointnet2.cu', 'parent')
+    P, I, F = build.P, build.I, build.F
+    kernel = build.CudaKernel(
+        'pointnet2.cu', 'launch_ball_query',
+        pn2.BALL_QUERY.argtypes if multi else
+        [P, P, P, P, I, I, I, I, F, F, I, P, P, P], path=lib)
+
+    def run(radii, mins, ks, pts, mask, ctr, cmask):
+        if multi:
+            return pn2._ball_query_card(radii, mins, ks, pts, mask, ctr,
+                                        cmask, kernel=kernel)
+        B, N, _ = pts.shape
+        M = ctr.shape[1]
+        out = []
+        for r, lo, k in zip(radii, mins, ks):
+            idx = torch.empty(B, M, k, dtype=torch.int32, device='cuda')
+            cnt = torch.empty(B, M, dtype=torch.int32, device='cuda')
+            kernel(pts.data_ptr(), mask.data_ptr(), ctr.data_ptr(),
+                   cmask.data_ptr(), B, N, M, k, pn2._f32(r * r),
+                   pn2._f32(lo * lo), int(lo > 0.0), idx.data_ptr(),
+                   cnt.data_ptr(), build.stream_handle())
+            out.append((idx, cnt))
+        return out
+
+    return run
+
+
+def ball_work(pts_mask, M, radii, ks):
+    """(bytes, f32 operations) of one BALL_QUERY call over every radius:
+    the points (13 bytes) and centres (13 a row) read once, each idx and
+    count written once; 8 operations a (centre, valid point) pair for its
+    squared distance and 2 a radius for its shell's test."""
+    B, N = pts_mask.shape
+    nv = int(pts_mask.sum())
+    return (B * (N * 13 + M * 13 + M * 4 * (sum(ks) + len(radii))),
+            M * nv * (8 + 2 * len(radii)))
+
+
+def ball_bound_ms(pts_mask, M, radii, ks):
+    """BALL_QUERY's least time for one call: :func:`ball_work`'s bytes
+    over the memory rate or its operations over the f32 rate."""
+    nbytes, ops = ball_work(pts_mask, M, radii, ks)
+    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+
+
+def ball_phase(torch, parent=None, sweep=False, log=print):
+    """BALL_QUERY at BALL_LEVELS, batch 1 and 2, each grouping's radii in
+    one call (and the parent's, in the order parent, this, this, parent;
+    a parent without the multi-radius launcher takes one call a radius),
+    then the one-radius call of level 0's last radius (4096 x 16384, r
+    0.8, K 64); each version's idx and cnt bit-equal to the plain
+    version's. Readings: device ms by launch, host enqueue ms, events ms;
+    the frame's sum over the groupings. ``sweep``: every plan (CW in 1, 2,
+    4, 8; S in 1, 2, 4, 8) at batch 1 and 2, device ms by launch."""
+    from ..ops import pointnet2 as pn2
+    from .fwd_phases import by_launch
+    from .nms_phases import readings
+
+    runs = {'change': lambda radii, mins, ks, *a: pn2._ball_query_card(
+        list(radii), list(mins), list(ks), *a)}
+    versions = ['change']
+    if parent:
+        runs['parent'] = parent_ball(parent)
+        versions = ['parent', 'change', 'change', 'parent']
+    res = {}
+    for B in (1, 2):
+        inputs = ball_inputs(torch, B, seed=B)
+        cases = []
+        for (label, N, M, radii, ks, dil), args in zip(BALL_LEVELS, inputs):
+            mins = pn2._min_radii(radii, dil)
+            cases.append((label, radii, mins, ks, args))
+        label, radii, mins, ks, args = cases[0]
+        cases.append(('level 0, r 0.8 K 64 alone', radii[2:], mins[2:],
+                      ks[2:], args))
+        frame = {v: 0.0 for v in versions}
+        for label, radii, mins, ks, args in cases:
+            want = [pn2.ball_query_plain(r, k, *args, lo)
+                    for r, lo, k in zip(radii, mins, ks)]
+            per = {v: [] for v in versions}
+            for v in versions:
+                got = runs[v](radii, mins, ks, *args)
+                torch.cuda.synchronize()
+                for (gi, gc), (wi, wc), r in zip(got, want, radii):
+                    if not (torch.equal(gi, wi) and torch.equal(gc, wc)):
+                        raise AssertionError(
+                            f'BALL_QUERY {v} {label} r {r} B={B}: idx or '
+                            'cnt differ from the plain version\'s')
+                per[v].append(readings(torch, lambda: runs[v](
+                    radii, mins, ks, *args)))
+            key = f'{label} B={B}'
+            pts, m, ctr, cm = args
+            mean_cnt = [float(c.float().mean()) for _, c in want]
+            res[key] = {'points': pts.shape[1], 'centres': ctr.shape[1],
+                        'radii': list(radii), 'mean_count': mean_cnt,
+                        'bound_ms': ball_bound_ms(m, ctr.shape[1], radii, ks),
+                        'plan': list(pn2.ball_query_plan(
+                            B, ctr.shape[1], pts.shape[1]))}
+            for v in dict.fromkeys(versions):
+                rs = per[v]
+                rd = {k: statistics.fmean(r[k] for r in rs)
+                      for k in ('host_ms', 'ms')}
+                rd['device_ms'] = (statistics.fmean(r['device_ms'] for r in rs)
+                                   if all(r['device_ms'] for r in rs)
+                                   else None)
+                rd['by_launch'] = [r['by_launch'] for r in rs]
+                rd['runs_device_ms'] = [r['device_ms'] for r in rs]
+                res[key][v] = rd
+                if 'alone' not in label and rd['device_ms']:
+                    frame[v] += rd['device_ms']
+                log(f'BALL_QUERY {key} {v}: device {rd["device_ms"]} ms a '
+                    f'call (runs {rd["runs_device_ms"]}), host enqueue '
+                    f'{rd["host_ms"]:.4f} ms, events {rd["ms"]:.4f} ms; '
+                    f'bound {res[key]["bound_ms"]:.5f} ms; plan '
+                    f'{res[key]["plan"]}; mean count '
+                    + ', '.join(f'{c:.1f}' for c in mean_cnt))
+        res[f'frame B={B}'] = frame
+        log(f'BALL_QUERY a frame\'s groupings B={B}: device ms '
+            + ', '.join(f'{v} {ms:.4f}' for v, ms in frame.items()))
+    if sweep:
+        res['sweep'] = {}
+        for B in (1, 2):
+            for (label, N, M, radii, ks, dil), args in zip(
+                    BALL_LEVELS, ball_inputs(torch, B, seed=B)):
+                mins = pn2._min_radii(radii, dil)
+                want = [pn2.ball_query_plain(r, k, *args, lo)
+                        for r, lo, k in zip(radii, mins, ks)]
+                for cw in (1, 2, 4, 8):
+                    for S in (1, 2, 4, 8):
+                        call = lambda: pn2._ball_query_card(
+                            list(radii), mins, list(ks), *args,
+                            plan=(cw, S))
+                        got = call()
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(g[0], w[0]) and torch.equal(
+                                g[1], w[1]) for g, w in zip(got, want)):
+                            raise AssertionError(f'BALL_QUERY {label} plan '
+                                                 f'{(cw, S)}: bits differ')
+                        ms = sum(t for _, t in by_launch(torch, call,
+                                                         calls=5))
+                        res['sweep'][f'{label} B={B} CW={cw} S={S}'] = ms
+                        log(f'BALL_QUERY {label} B={B} plan CW={cw} S={S}: '
+                            f'device {ms:.4f} ms')
+    return res
+
+
 def peak_gib(torch, fn):
     """Device memory (GiB) one call of ``fn`` allocates beyond what is
     held before it."""
@@ -334,6 +556,8 @@ def main(argv=None):
                     help='time every cluster plan of each level')
     ap.add_argument('--cycles', action='store_true',
                     help='cycles a step by part (a profile build)')
+    ap.add_argument('--ball', action='store_true',
+                    help='BALL_QUERY only: each grouping of a frame')
     ap.add_argument('--json', help='write the readings here too')
     args = ap.parse_args(argv)
 
@@ -351,6 +575,15 @@ def main(argv=None):
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
     print(card, flush=True)
+    if args.ball:
+        res = {'card': card, 'ball': ball_phase(
+            torch, args.parent, args.sweep,
+            log=lambda x: print(x, flush=True))}
+        if args.json:
+            with open(args.json, 'w') as f:
+                json.dump(res, f)
+        print(json.dumps(res), flush=True)
+        return 0
     runs = {'change': lambda pts, m, S: pn2.farthest_point_sample(pts, m, S)}
     versions = ['change']
     if args.parent:
