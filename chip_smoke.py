@@ -4,8 +4,8 @@ paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py            # what the chip check runs
     python3 chip_smoke.py --profile  # also writes per-kernel time tables
-    python3 chip_smoke.py --nms-parent PATH  # phase 16 also runs PATH's
-                                             # iou_nms.cu (a parent's)
+    python3 chip_smoke.py --nms-parent PATH  # phases 16 and 24 also run
+                                             # PATH's iou_nms.cu (a parent's)
     python3 chip_smoke.py --narrow-parent PATH  # phase 18b also times its
                     # served pair and step with PATH's encoder_layer_narrow.cu
     python3 chip_smoke.py --pn2-parent PATH  # phases 20b and 20c also time a
@@ -335,6 +335,36 @@ Phases (any failure exits non-zero and prints no result line):
      20d. ``tools.test`` on 20c's checkpoint over the tree's val frames:
      frames evaluated, candidates over the score cut and kept by NMS, ONCE
      AP, launches a batch.
+ 24. IOU_PAIRS redesigned (``csrc/iou_nms.cu``) and GraphRCNN without
+     cameras (``graph_rcnn_once.yaml``: SECONDNet's first stage, proposals,
+     the RoI sampler, the DFVS pool and AttnGNN).
+     24a. IOU_PAIRS bit for bit against its plain version (and with
+     ``--nms-parent`` the parent's) on ``utils/nms_phases.pair_cases``:
+     phase 16b's 500 served candidates, crowded boxes, degenerate pairs,
+     pairs planted at the cull's margin and one and two floats past it,
+     a made-up scene at the RoI sampler's [2, 512, 64] with masks; its
+     row of the kernels line: kernel, plain and bound ms at 500 x 500 and
+     on the made-up scene, device, host enqueue and events ms from phase
+     16's nms_phases process.
+     24b. the seeded full-width detector serves 19d's first frame: counted
+     (NMS_MASK 1, NMS_SCAN 1, DFPS 1, IOU_PAIRS 0), outputs finite, ms a
+     frame, peak memory; the proposals' NMS (1 x 1024) and the DFVS
+     pool's D-FPS (a RoI's 1024 -> 256 points) bit for bit against their
+     plain versions on the inputs the frame handed them; the pool's ms and
+     peak, its DFPS launch's device ms, the k-NN's ms; the second stage
+     card vs CPU on the card's proposals (GRAPH_TOL, GRAPH_POOL_TOL,
+     GRAPH_FLIPS).
+     24c. 19d's two frames (the config's batch 4 cut to 2) with ground
+     truth planted on some of the proposals; on a step's own inputs the
+     NMS (2 x 4096) and D-FPS bit for bit as in 24b, foreground RoIs, and
+     IOU_PAIRS bit for bit against the plain version (and the parent's)
+     and timed by launch (and the parent's) into its row; GRAPH_STEPS
+     training steps: step 0 counted (one IOU_PAIRS), the loss finite and
+     falling, the RCNN regression and corner terms finite and positive at
+     step 0, ms a step, peak memory; the pool and the k-NN on the sampled
+     RoIs.
+     24d. ``tools.train`` 1 epoch then ``tools.test`` on 14a's tree: each
+     step's launches, every AP finite, the frames in order.
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -4136,7 +4166,7 @@ def geometry_phase(torch, served, host_ms, rows, fresh):
     on nms_phases' sets of K = 1, 77 and 2100 (B = 2, with and without
     classes and caps); their times and bounds (``host_ms``: native host
     NMS of the served candidates; ``fresh``: nms_phases' readings).
-    Returns the launches of IOU_PAIRS's path (one BEV and one 3D call)."""
+    IOU_PAIRS' row comes from phase 24a, its launches from 24c's step."""
     from tmae_tpu_torch.ops import geometry as geo
     from tmae_tpu_torch.utils import nms_phases
 
@@ -4195,10 +4225,6 @@ def geometry_phase(torch, served, host_ms, rows, fresh):
     scan_err = float((geo.nms_scan_bits(bits, valid, [500])
                       != geo.nms_scan_plain(geo.unpack_mask(bits, K), valid,
                                             None, [500])).any())
-    _, launches = counted(torch, lambda: (geo.boxes_iou_bev(b, b),
-                                          geo.boxes_iou3d(b, b)))
-    log(f'  IOU_PAIRS path (one BEV, one 3D call): {launches["IOU_PAIRS"]} '
-        'launches')
     live = valid[0]
     n = int(live.sum())
     pairs = n * (n - 1) // 2
@@ -4208,17 +4234,8 @@ def geometry_phase(torch, served, host_ms, rows, fresh):
     box_bytes = K * 7 * 4
     mask_bytes = K * (-(-K // 64)) * 8
     shifted = b + 0.3
-    timed = {name: launch_times(torch, name, call) for name, call in (
-        ('IOU_PAIRS', lambda: geo.boxes_iou_bev(b, b)),
-        ('IOU_ALIGNED', lambda: geo.boxes_iou3d_aligned(b, shifted)))}
-    add_row(rows, 'iou_pairs', 'IOU_PAIRS', GEOMETRY_SRC,
-            'tmae_tpu/ops/geometry.py:159 boxes_iou_bev (plain JAX)',
-            float((geo.boxes_iou_bev(b, b)
-                   - geo.boxes_iou_bev_plain(b, b)).abs().max()),
-            time_ms(torch, lambda: geo.boxes_iou_bev(b, b)),
-            time_ms(torch, lambda: geo.boxes_iou_bev_plain(b, b), iters=5),
-            2 * box_bytes + K * K * 4, K * K * geo.PAIR_CLIP_FLOPS, None,
-            peak=F32_FLOPS, **timed['IOU_PAIRS'])
+    timed = launch_times(torch, 'IOU_ALIGNED',
+                         lambda: geo.boxes_iou3d_aligned(b, shifted))
     add_row(rows, 'iou_aligned', 'IOU_ALIGNED', GEOMETRY_SRC,
             'tmae_tpu/ops/geometry.py:179 boxes_iou3d_aligned (plain JAX)',
             float((geo.boxes_iou3d_aligned(b, shifted)
@@ -4227,7 +4244,7 @@ def geometry_phase(torch, served, host_ms, rows, fresh):
             time_ms(torch, lambda: geo.boxes_iou3d_aligned_plain(b, shifted),
                     iters=5),
             2 * box_bytes + K * 4, K * geo.PAIR_CLIP_FLOPS, None,
-            peak=F32_FLOPS, **timed['IOU_ALIGNED'])
+            peak=F32_FLOPS, **timed)
     # the bound counts the clips this data needs (pairs whose circles may
     # meet); bound_all_pairs_ms, every pair of valid boxes
     add_row(rows, 'nms_mask', 'NMS_MASK', GEOMETRY_SRC,
@@ -4247,7 +4264,6 @@ def geometry_phase(torch, served, host_ms, rows, fresh):
                 geo.unpack_mask(bits, K), valid, None, [500]), iters=3),
             mask_bytes + 2 * K, 0, None, peak=F32_FLOPS,
             host_native_ms=host_ms, **fresh_row_keys(fresh, 'NMS_SCAN'))
-    return launches
 
 
 def serve_device_nms(torch, cfg, model, batch):
@@ -5925,7 +5941,8 @@ def second_phase(torch):
     """19d: SECONDNet at graph_rcnn_once.yaml's full width (0.1 x 0.1 x
     0.2 m voxels over ONCE's range: a 41 x 1504 x 1504 sparse grid, up to
     60000 voxels of up to 5 points), serving one synthetic frame and a step
-    on two; card vs CPU on the range cut to 25.6 m square (8000 voxels)."""
+    on two; card vs CPU on the range cut to 25.6 m square (8000 voxels).
+    Returns (results, the two voxelized frames, which phase 24 reuses)."""
     import copy
 
     cfg = second_cfg()
@@ -5946,7 +5963,7 @@ def second_phase(torch):
     res = anchor_phase(torch, cfg, np_serve, np_train, small, np_small,
                        'SECONDNet')
     return {f'second_{k}': v for k, v in res.items()} | {
-        'second_host_voxelize_ms': host_ms}
+        'second_host_voxelize_ms': host_ms}, np_train
 
 
 def pointpillar_phase(torch):
@@ -5971,7 +5988,8 @@ def pointpillar_phase(torch):
 def single_frame_phase(torch, np_batch, once_root, rows):
     """Phase 19 (a-e); K1-K4's rows of the kernels line take the served
     single frame's launches, K1/K2/K6-K9's the single-frame and GDMAE
-    steps', beside the main path's."""
+    steps', beside the main path's. Returns (results, 19d's voxelized
+    frames)."""
     t19 = time.perf_counter()
     cfg_dir = tempfile.TemporaryDirectory()
     ft_file, mae_file, ft_cfg, mae_cfg = single_frame_cfgs(
@@ -5999,7 +6017,8 @@ def single_frame_phase(torch, np_batch, once_root, rows):
     t0 = time.perf_counter()
     log('phase 19d: SECONDNet (graph_rcnn_once.yaml\'s first stage, full '
         'width)')
-    out.update(second_phase(torch))
+    second, frames = second_phase(torch)
+    out.update(second)
     log(f'  phase 19d {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6015,7 +6034,7 @@ def single_frame_phase(torch, np_batch, once_root, rows):
             if steps[what][k]:
                 row[key] = steps[what][k]
     log(f'  phase 19 {time.perf_counter() - t19:.1f} s')
-    return out
+    return out, frames
 
 
 # ---------------------------------------------------------------------------
@@ -6560,10 +6579,12 @@ def ssd3d_training_phase(torch, cfg, tree, pn2_parent=None):
     return res, run['checkpoints'][-1], data
 
 
-def ssd3d_eval_phase(torch, ckpt, data, tree):
-    """20d: ``tools.test`` on 20c's checkpoint over the tree's val frames:
-    launches EXPECTED_SSD3D a batch, the frames in order, the candidates
-    over the score cut and those NMS kept, every AP finite."""
+def cli_eval_phase(torch, cfg_file, ckpt, data, tree, expected, what,
+                   prefix):
+    """20d, 24d: ``tools.test`` with ``cfg_file`` on ``ckpt`` over the
+    tree's val frames: launches ``expected`` a batch, the frames in order,
+    the candidates over the score cut and those NMS kept, every AP finite.
+    Returns its readings, keys prefixed ``prefix``."""
     import pickle
 
     from tmae_tpu_torch.tools import test as test_cli
@@ -6582,7 +6603,7 @@ def ssd3d_eval_phase(torch, ckpt, data, tree):
     try:
         t0 = time.perf_counter()
         (rdir, ap), launches = counted(torch, lambda: next(iter(test_cli.main(
-            ['--cfg_file', str(ROOT / SSD3D_CFG), '--ckpt', str(ckpt),
+            ['--cfg_file', str(ROOT / cfg_file), '--ckpt', str(ckpt),
              '--batch_size', str(CLI_BATCH), '--extra_tag', 'chip_smoke']
             + data).items())))
     finally:
@@ -6592,7 +6613,7 @@ def ssd3d_eval_phase(torch, ckpt, data, tree):
     want_ids = [i['frame_id'] for i in pickle.loads(
         (tree / 'once_infos_val.pkl').read_bytes())]
     n_batches = math.ceil(len(want_ids) / CLI_BATCH)
-    want = {k: n_batches * v for k, v in EXPECTED_SSD3D.items()}
+    want = {k: n_batches * v for k, v in expected.items()}
     aps = {k: v for k, v in ap.items() if k.startswith('AP_')}
     log(f'  tools.test: {secs:.1f} s, {len(annos)} frames evaluated, '
         f'{seen["over_cut"]} candidates over the score cut, {seen["kept"]} '
@@ -6601,18 +6622,18 @@ def ssd3d_eval_phase(torch, ckpt, data, tree):
         f'{ap["sec_per_sample"]:.4f} sec/sample; ONCE APs '
         + ', '.join(f'{k} {v:.4g}' for k, v in aps.items()))
     if [a['frame_id'] for a in annos] != want_ids:
-        raise AssertionError('SSD3D result.pkl frame ids differ')
+        raise AssertionError(f'{what} result.pkl frame ids differ')
     if launches != want:
-        raise AssertionError('SSD3D evaluation: launch counts differ')
+        raise AssertionError(f'{what} evaluation: launch counts differ')
     if not aps or not all(math.isfinite(v) for v in aps.values()):
-        raise AssertionError('an SSD3D AP is not finite')
+        raise AssertionError(f'a {what} AP is not finite')
     if not 0 < seen['kept'] <= seen['over_cut']:
-        raise AssertionError('SSD3D evaluation kept no box')
-    return {'ssd3d_eval_frames': len(annos),
-            'ssd3d_eval_over_cut': seen['over_cut'],
-            'ssd3d_eval_kept': seen['kept'],
-            'ssd3d_eval_sec_per_sample': ap['sec_per_sample'],
-            **{f'ssd3d_{k}': v for k, v in aps.items()}}
+        raise AssertionError(f'{what} evaluation kept no box')
+    return {f'{prefix}eval_frames': len(annos),
+            f'{prefix}eval_over_cut': seen['over_cut'],
+            f'{prefix}eval_kept': seen['kept'],
+            f'{prefix}eval_sec_per_sample': ap['sec_per_sample'],
+            **{f'{prefix}{k}': v for k, v in aps.items()}}
 
 
 def ssd3d_phase(torch, tree, rows, pn2_parent=None):
@@ -6652,7 +6673,8 @@ def ssd3d_phase(torch, tree, rows, pn2_parent=None):
         log(f'  phase 20c {time.perf_counter() - t0:.1f} s')
         t0 = time.perf_counter()
         log('phase 20d: tools.test on 20c\'s checkpoint (14a\'s tree)')
-        res.update(ssd3d_eval_phase(torch, ckpt, data, tree))
+        res.update(cli_eval_phase(torch, SSD3D_CFG, ckpt, data, tree,
+                                  EXPECTED_SSD3D, 'SSD3D', 'ssd3d_'))
         log(f'  phase 20d {time.perf_counter() - t0:.1f} s')
     finally:
         train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT = saved
@@ -6662,6 +6684,502 @@ def ssd3d_phase(torch, tree, rows, pn2_parent=None):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 24: IOU_PAIRS redesigned, and GraphRCNN without cameras
+# ---------------------------------------------------------------------------
+
+GRAPH_CFG = 'tools/cfgs/once_models/graph_rcnn_once.yaml'
+# One served graph_rcnn_once.yaml frame: the proposals' NMS (NMS_MASK, then
+# NMS_SCAN, every sample at once) and the DFVS pool's D-FPS over every RoI
+# in one call; a training step adds the RoI sampler's IoU of every RoI
+# against every ground-truth box (IOU_PAIRS, one launch a step). No kernel
+# runs in the backward.
+EXPECTED_GRAPH_SERVING = {**NO_LAUNCHES, 'NMS_MASK': 1, 'NMS_SCAN': 1,
+                          'DFPS': 1}
+EXPECTED_GRAPH_STEP = {**EXPECTED_GRAPH_SERVING, 'IOU_PAIRS': 1}
+GRAPH_STEPS = 4        # 24c: step 0 counted, then timed steps (batch 2,
+                       # the config's 4 cut to 2: 19d's frames)
+# 24b: card vs CPU, the second stage on the card's proposals: the RCNN
+# outputs within GRAPH_TOL of the largest at every RoI whose pooled points
+# are the same on both sides (within GRAPH_POOL_TOL m; a near tie of the
+# D-FPS walk may go the other way on rounded coordinates), and at most
+# GRAPH_FLIPS of the RoIs with other points
+GRAPH_TOL, GRAPH_POOL_TOL, GRAPH_FLIPS = 1e-3, 1e-4, 0.05
+GRAPH_PLANTED = 4      # 24c: ground-truth boxes planted on proposals a sample
+
+
+def pairs_phase(torch, served, fresh, parent, rows):
+    """24a: IOU_PAIRS against its plain version bit for bit on nms_phases'
+    pair cases (the served candidates 500 x 500, the crowded set in BEV
+    and 3D, the degenerate pairs, the pairs planted at the cull's margin
+    and its +- one float, a made-up scene at the RoI sampler's [2, 512,
+    64] with masks), and against ``parent``'s IOU_PAIRS (``--nms-parent``)
+    on the same; kernel, plain and bound ms of the served set and of the
+    made-up scene (``synthetic_sampler_*``) into IOU_PAIRS' row, with the
+    device, host enqueue and events ms of both (the parent's too) from
+    ``fresh``, nms_phases' own process. 24c adds the step's own sampler
+    inputs (``sampler_*``)."""
+    from tmae_tpu_torch.ops import geometry as geo
+    from tmae_tpu_torch.utils import nms_phases
+
+    boxes = served[0][..., :7].contiguous()
+    cases = nms_phases.pair_cases(torch, {'boxes': boxes})
+    parent_call = nms_phases.pairs_call(parent) if parent else None
+    shapes = {}
+    for name, (a, b, mode, rm, cm) in cases.items():
+        got = geo.boxes_iou_pairs(a, b, mode, rm, cm)
+        plain = geo.boxes_iou_pairs_plain(a, b, mode, rm, cm)
+        B, N, M = got.shape
+        live = geo._pair_mask(rm, cm, B, N, M, a.device)
+        clips = int((live & ~geo.iou_pairs_cull(a, b, mode)).sum())
+        same = torch.equal(got, plain)
+        same_parent = (None if parent_call is None else
+                       torch.equal(got, parent_call(a, b, mode, rm, cm)))
+        log(f'  {name}: IOU_PAIRS [{B}, {N}, {M}] {mode}: {clips} of '
+            f'{int(live.sum())} pairs clipped; bit-equal to the plain '
+            f'version {same}' + ('' if same_parent is None else
+                                 f', to the parent {same_parent}'))
+        if not same or same_parent is False:
+            raise AssertionError(f'{name}: IOU_PAIRS differs')
+        nbytes = (a.numel() + b.numel()) * 4 + B * N * M * 4 + (
+            0 if rm is None else B * (N + M))
+        shapes[name] = dict(
+            ms=time_ms(torch, lambda: geo.boxes_iou_pairs(a, b, mode, rm,
+                                                          cm)),
+            plain_ms=time_ms(torch, lambda: geo.boxes_iou_pairs_plain(
+                a, b, mode, rm, cm), iters=3),
+            bound_ms=bound_ms(nbytes, clips * geo.PAIR_CLIP_FLOPS,
+                              F32_FLOPS)[0], clips=clips)
+    first, sampler = next(iter(cases)), 'synthetic roi x gt [2, 512, 64] 3d'
+    dev = {}
+    for name, key in ((first, ''), (sampler, 'synthetic_sampler_')):
+        rec = fresh['IOU_PAIRS'][name]
+        for v, pre in (('change', ''), ('parent', 'parent_')):
+            if v in rec:
+                r = rec[v]
+                dev.update({f'{key}{pre}device_ms': r['kernel_device_ms'],
+                            f'{key}{pre}host_ms': r['host_ms'],
+                            f'{key}{pre}events_ms_fresh': r['ms']})
+    a, b, _, _, _ = cases[first]
+    K = a.shape[1]
+    add_row(rows, 'iou_pairs', 'IOU_PAIRS', GEOMETRY_SRC,
+            'tmae_tpu/ops/geometry.py:159 boxes_iou_bev and :166 '
+            'boxes_iou3d (plain JAX; vmapped in models/roi_head.py:82)',
+            0.0, shapes[first]['ms'], shapes[first]['plain_ms'],
+            2 * K * 7 * 4 + K * K * 4,
+            shapes[first]['clips'] * geo.PAIR_CLIP_FLOPS, None,
+            peak=F32_FLOPS, clips=shapes[first]['clips'],
+            **{f'synthetic_sampler_{k}': v
+               for k, v in shapes[sampler].items()}, **dev)
+    return {f'iou_pairs_{k}': v for k, v in dev.items()}
+
+
+def graph_cfg():
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+
+    return cfg_from_yaml_file(ROOT / GRAPH_CFG)
+
+
+def graph_serve(torch, cfg, model, batch):
+    """One served GraphRCNN frame: forward, the candidates cut by score and
+    sorted, host NMS. Returns (outputs, boxes kept)."""
+    from tmae_tpu_torch.models.detectors import host_nms
+    from tmae_tpu_torch.models.graph_rcnn import graph_rcnn_candidates
+
+    with torch.no_grad():
+        out = model(batch)
+        keep = host_nms(cfg, *graph_rcnn_candidates(cfg, out))
+    return out, int(keep.sum())
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """``module.name`` runs as before inside the block, and the arguments
+    of each call are recorded: yields the list of (args, kwargs)."""
+    seen, fn = [], getattr(module, name)
+
+    def record(*a, **kw):
+        seen.append((a, kw))
+        return fn(*a, **kw)
+
+    setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def graph_recorded():
+    """GraphRCNN's kernel calls recorded inside the block (:func:`recording`):
+    yields {'nms': the proposals' nms_keep, 'fps': the DFVS pool's
+    farthest_point_sample, 'pairs': the sampler's boxes_iou_pairs}."""
+    from tmae_tpu_torch.models import roi_head
+    from tmae_tpu_torch.ops import roi_pool
+
+    with recording(roi_head, 'nms_keep') as nms, \
+            recording(roi_pool, 'farthest_point_sample') as fps, \
+            recording(roi_head, 'boxes_iou_pairs') as pairs:
+        yield {'nms': nms, 'fps': fps, 'pairs': pairs}
+
+
+def graph_kernel_bits(torch, calls, what):
+    """24b, 24c: the proposals' NMS (NMS_MASK, NMS_SCAN) and the DFVS pool's
+    D-FPS on the inputs the path handed them (``calls``, from
+    :func:`graph_recorded`), bit for bit against their plain versions: the
+    mask words unpacked against nms_mask_plain, NMS_SCAN's keep mask on
+    them and nms_keep's against nms_scan_plain on the plain mask, the
+    D-FPS indices against farthest_point_sample_plain's. Returns the
+    D-FPS inputs."""
+    from tmae_tpu_torch.ops import geometry as geo
+    from tmae_tpu_torch.ops import pointnet2 as pn2
+
+    if len(calls['nms']) != 1 or len(calls['fps']) != 1:
+        raise AssertionError(f'{what}: {len(calls["nms"])} NMS and '
+                             f'{len(calls["fps"])} D-FPS calls, not one each')
+    (boxes, valid, thresh, post), _ = calls['nms'][0]
+    fps_args, _ = calls['fps'][0]
+    threshs, posts = geo.class_params(thresh, post, False)
+    B, K = valid.shape
+    with torch.no_grad():
+        words = geo.nms_mask_bits(boxes, valid, threshs)
+        sup = geo.nms_mask_plain(boxes, valid, None, threshs)
+        flips = int((geo.unpack_mask(words, K) != sup).sum())
+        keep = geo.nms_scan_plain(sup, valid, None, posts)
+        keep_same = (torch.equal(geo.nms_scan_bits(words, valid, posts), keep)
+                     and torch.equal(geo.nms_keep(boxes, valid, thresh, post),
+                                     keep))
+        idx = pn2.farthest_point_sample(*fps_args).long()
+        fps_same = torch.equal(idx, pn2.farthest_point_sample_plain(
+            *fps_args).long())
+        xyz = fps_args[0]
+        n, P = xyz.shape[:2]
+        # points equal to another of their RoI's: ties of the walk
+        repeats = n * P - sum(len(torch.unique(x, dim=0)) for x in xyz)
+    log(f'  {what}: the proposals\' NMS [{B}, {K}] at {thresh}, post '
+        f'{post}: {int(sup.sum())} mask bits, {flips} differ from '
+        f'nms_mask_plain; {int(keep.sum())} kept, NMS_SCAN and nms_keep '
+        f'equal to nms_scan_plain {keep_same}; the pool\'s D-FPS, {n} RoIs '
+        f'of {P} -> {fps_args[2]} points ({repeats} repeats of a point): '
+        f'equal to farthest_point_sample_plain {fps_same}')
+    if flips or not keep_same or not fps_same:
+        raise AssertionError(f'{what}: NMS_MASK, NMS_SCAN or DFPS differs '
+                             'from its plain version')
+    torch.cuda.empty_cache()
+    return fps_args
+
+
+def pool_and_knn(torch, cfg, batch, rois, roi_mask, fps_args, what):
+    """The second stage's torch-op parts on ``rois``: the DFVS pool
+    (dense point-in-box test, gather, D-FPS) ms and the peak memory it
+    allocates, its DFPS launch's device ms on ``fps_args`` (the inputs the
+    path handed it), the k-NN's ms."""
+    from tmae_tpu_torch.models.graph_rcnn import _knn_idx
+    from tmae_tpu_torch.models.point_head_vote import enlarge_box3d
+    from tmae_tpu_torch.ops.pointnet2 import farthest_point_sample
+    from tmae_tpu_torch.ops.roi_pool import roilocal_dfvs_pool3d
+
+    dfvs = cfg.MODEL.ROI_HEAD.DFVS_CONFIG
+    big = enlarge_box3d(rois[..., :7], [float(dfvs.POOL_EXTRA_WIDTH)] * 3)
+    args = (batch['points'], batch['point_mask'], big, roi_mask)
+    kw = dict(num_dvs_points=int(dfvs.NUM_DVS_POINTS),
+              num_fps_points=int(dfvs.NUM_FPS_POINTS))
+    fps = lambda: farthest_point_sample(*fps_args)  # noqa: E731
+    n, P = fps_args[0].shape[:2]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pooled, _ = roilocal_dfvs_pool3d(*args, **kw)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        res = {
+            'pool_ms': time_ms(torch, lambda: roilocal_dfvs_pool3d(
+                *args, **kw), iters=5),
+            'pool_peak_gib': peak,
+            'dfps_events_ms': time_ms(torch, fps),
+            'knn_ms': time_ms(torch, lambda: _knn_idx(
+                pooled.flatten(0, 1)[..., :3],
+                int(cfg.MODEL.ROI_HEAD.ATTN_GNN_CONFIG.K)), iters=5)}
+        res['dfps_device_ms'] = launch_times(
+            torch, f'{what} DFPS ({n} RoIs, {P} -> {fps_args[2]})',
+            fps)['device_ms']
+    log(f'  {what} pool ({rois.shape[0]} x {rois.shape[1]} RoIs over '
+        f'{batch["points"].shape[1]} points): ' + ', '.join(
+            f'{k} {v:.4g}' for k, v in res.items()))
+    return res
+
+
+def graph_card_vs_cpu(torch, model, batch, out):
+    """24b: the second stage of the card's model and of its copy on the
+    CPU on the card's proposals (the same weights, points and RoIs): the
+    pooled points RoI by RoI, then rcnn_cls and rcnn_reg within GRAPH_TOL
+    at the RoIs pooled alike, at most GRAPH_FLIPS of them otherwise."""
+    import copy
+
+    from tmae_tpu_torch.models.point_head_vote import enlarge_box3d
+    from tmae_tpu_torch.ops.roi_pool import roilocal_dfvs_pool3d
+
+    head = model.roi_head
+    cpu = copy.deepcopy(head).cpu()
+    args = (batch['points'], batch['point_mask'], out['rois'],
+            out['roi_mask'])
+    dfvs = head.cfg['DFVS_CONFIG']
+    kw = dict(num_dvs_points=int(dfvs['NUM_DVS_POINTS']),
+              num_fps_points=int(dfvs['NUM_FPS_POINTS']))
+    width = [float(dfvs['POOL_EXTRA_WIDTH'])] * 3
+    with torch.no_grad():
+        got = [t.cpu() for t in head(*args)]
+        want = cpu(*[t.cpu() for t in args])
+        pools = [roilocal_dfvs_pool3d(
+            a[0], a[1], enlarge_box3d(a[2][..., :7], width), a[3], **kw)[0]
+            .cpu() for a in (args, [t.cpu() for t in args])]
+    alike = ((pools[0] - pools[1]).abs().amax((-1, -2)) <= GRAPH_POOL_TOL)
+    live = out['roi_mask'].cpu()
+    flips = int((live & ~alike).sum())
+    errs = []
+    for g, w in zip(got, want):
+        d = (g - w).abs().amax(-1)[live & alike]
+        errs.append(float(d.max()) / max(float(w.abs().max()), 1e-6))
+    log(f'  card vs CPU, the second stage on the card\'s {int(live.sum())} '
+        f'proposals: {flips} RoIs pooled other points; rcnn_cls / rcnn_reg '
+        f'max |diff| / max {errs[0]:.3g} / {errs[1]:.3g} at the others')
+    if max(errs) > GRAPH_TOL or flips > GRAPH_FLIPS * int(live.sum()):
+        raise AssertionError('GraphRCNN: card and CPU differ')
+    return {'card_vs_cpu_rel': max(errs), 'card_vs_cpu_pool_flips': flips}
+
+
+def graph_serving_phase(torch, cfg, np_serve):
+    """24b: the seeded full-width detector serves one of 19d's frames:
+    counted (EXPECTED_GRAPH_SERVING), outputs finite, timed passes, peak
+    memory; NMS_MASK, NMS_SCAN and DFPS bit for bit on the frame's own
+    inputs (:func:`graph_kernel_bits`); the pool's and the k-NN's parts;
+    card vs CPU on the card's proposals. Returns (launches, results)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_random_(build_detector(cfg), seed=0).eval()
+    batch = batch_to_device(np_serve, 'cuda')
+    graph_serve(torch, cfg, model, batch)
+    (out, kept), launches = counted(
+        torch, lambda: graph_serve(torch, cfg, model, batch))
+    with graph_recorded() as calls:
+        graph_serve(torch, cfg, model, batch)
+    fps_args = graph_kernel_bits(torch, calls, 'served frame')
+    n = int(out['roi_mask'].sum())
+    log(f'  GraphRCNN frame: launches {launches} (expected '
+        f'{EXPECTED_GRAPH_SERVING}); {n} RoIs, {kept} boxes kept')
+    if launches != EXPECTED_GRAPH_SERVING:
+        raise AssertionError('GraphRCNN serving: launch counts differ')
+    if not (torch.isfinite(out['rcnn_cls']).all()
+            and torch.isfinite(out['rcnn_reg']).all()) or n == 0:
+        raise AssertionError('GraphRCNN serving: no RoI, or outputs not '
+                             'finite')
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph_serve(torch, cfg, model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = {'ms_per_frame': statistics.median(times),
+           'serve_peak_gib': torch.cuda.max_memory_allocated() / 2**30,
+           'rois': n, 'kept': kept}
+    log(f'  GraphRCNN: {res["ms_per_frame"]:.2f} ms a frame (median of 5, '
+        f'min {min(times):.2f}), peak {res["serve_peak_gib"]:.2f} GiB; '
+        f'{card_line()}')
+    res.update({f'serve_{k}': v for k, v in pool_and_knn(
+        torch, cfg, batch, out['rois'], out['roi_mask'], fps_args,
+        'served').items()})
+    res.update(graph_card_vs_cpu(torch, model, batch, out))
+    return launches, res
+
+
+def plant_ground_truth(torch, batch, rois, roi_mask):
+    """A copy of ``batch`` with GRAPH_PLANTED ground-truth boxes (class 1)
+    a sample in free slots of ``gt_boxes``: copies of the sample's first
+    proposals of 0.2-30 m sizes inside 70 m of the origin, each moved 5% of
+    its length along its heading (an IoU of about 0.9 with its RoI, so the
+    sampler takes it as foreground)."""
+    gt, gm = batch['gt_boxes'].clone(), batch['gt_mask'].clone()
+    r = rois[..., :7]
+    sane = (roi_mask & torch.isfinite(r).all(-1)
+            & ((r[..., 3:6] >= 0.2) & (r[..., 3:6] <= 30)).all(-1)
+            & (r[..., :2].abs() <= 70).all(-1) & (r[..., 2].abs() <= 5))
+    for b in range(gt.shape[0]):
+        idx = sane[b].nonzero()[:GRAPH_PLANTED, 0]
+        if len(idx) == 0:
+            raise AssertionError(f'sample {b}: no proposal to plant ground '
+                                 'truth on')
+        free = (~gm[b]).nonzero()[:, 0]
+        slots = (free if len(free) >= len(idx) else
+                 torch.arange(gm.shape[1], device=gm.device))[-len(idx):]
+        box = r[b, idx].clone()
+        step = 0.05 * box[:, 3]
+        box[:, 0] += step * torch.cos(box[:, 6])
+        box[:, 1] += step * torch.sin(box[:, 6])
+        gt[b, slots] = torch.cat([box, torch.ones_like(box[:, :1])], 1)
+        gm[b, slots] = True
+    return {**batch, 'gt_boxes': gt, 'gt_mask': gm}
+
+
+def graph_training_phase(torch, cfg, np_train, parent, rows):
+    """24c: the seeded full-width model's proposals on 19d's two frames
+    with ground truth planted on some of them (:func:`plant_ground_truth`);
+    a recorded forward: NMS_MASK, NMS_SCAN and DFPS bit for bit on its
+    inputs (:func:`graph_kernel_bits`), foreground RoIs; the sampler's own
+    RoI x ground-truth inputs through IOU_PAIRS bit for bit against the
+    plain version (and ``parent``'s), timed by launch beside the parent's
+    launches into IOU_PAIRS' row (``sampler_*``); GRAPH_STEPS training
+    steps (step 0 counted: EXPECTED_GRAPH_STEP, one IOU_PAIRS; the loss
+    finite and falling, the RCNN regression and corner terms finite and
+    step 0's positive; ms a step, peak memory); the pool's and the k-NN's
+    parts on the sampled RoIs. Returns (launches, results)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+    from tmae_tpu_torch.ops import geometry as geo
+    from tmae_tpu_torch.utils import nms_phases
+
+    batch = batch_to_device(np_train, 'cuda')
+    model = init_random_(build_detector(cfg), seed=0).train()
+    stats = [t.clone() for t in model.buffers()]
+
+    def recorded_forward(b):
+        """A train-mode forward without gradients; the running statistics
+        as they were after it."""
+        with torch.no_grad(), graph_recorded() as calls:
+            out = model(b, generators={
+                'proposal': torch.Generator(device='cuda').manual_seed(1),
+                'dropout': torch.Generator(device='cuda').manual_seed(2)})
+            for t, v in zip(model.buffers(), stats):
+                t.copy_(v)
+        return out, calls
+
+    _, calls = recorded_forward(batch)
+    (rois, _, _, roi_mask, _), _ = calls['pairs'][0]
+    batch = plant_ground_truth(torch, batch, rois, roi_mask)
+    out, calls = recorded_forward(batch)
+    fps_args = graph_kernel_bits(torch, calls, 'training step')
+    fg = int(out['roi_targets']['reg_valid_mask'].sum())
+    (a, b, mode, rm, cm), _ = calls['pairs'][0]
+    rec = nms_phases.time_pairs(torch, a, b, mode, rm, cm, parent=parent,
+                                log=log, name="24c's sampler")
+    B, N, M = rec['shape']
+    nbytes = (a.numel() + b.numel()) * 4 + B * N * M * 4 + B * (N + M)
+    sampler = {
+        'clips': rec['clips'], 'pairs': rec['pairs'],
+        'ms': rec['change']['ms'],
+        'device_ms': rec['change']['kernel_device_ms'],
+        'host_ms': rec['change']['host_ms'],
+        'plain_ms': time_ms(torch, lambda: geo.boxes_iou_pairs_plain(
+            a, b, mode, rm, cm), iters=3),
+        'bound_ms': bound_ms(nbytes, rec['clips'] * geo.PAIR_CLIP_FLOPS,
+                             F32_FLOPS)[0]}
+    if parent:
+        sampler.update(parent_device_ms=rec['parent']['kernel_device_ms'],
+                       parent_host_ms=rec['parent']['host_ms'],
+                       parent_ms=rec['parent']['ms'])
+    for row in rows:
+        if row['kernel'] == 'IOU_PAIRS':
+            row.update({f'sampler_{k}': v for k, v in sampler.items()})
+    log(f'  training step: {fg} foreground RoIs of '
+        f'{int(out["roi_mask"].sum())} sampled on the planted ground truth')
+    if fg == 0:
+        raise AssertionError('GraphRCNN training: no foreground RoI')
+    step = make_trainer(cfg, model, mask_seed=7)
+    launches, rs, med, peak = run_steps(torch, model, step, batch,
+                                        GRAPH_STEPS, EXPECTED_GRAPH_STEP,
+                                        'GraphRCNN')
+    for key in ('rcnn_loss_reg', 'rcnn_loss_corner'):
+        vals = [r[key] for r in rs]
+        if not (all(math.isfinite(v) for v in vals) and vals[0] > 0):
+            raise AssertionError(f'GraphRCNN training: {key} {vals}')
+    res = {'ms_per_step': med, 'step_peak_gib': peak,
+           'losses': [r['loss'] for r in rs], 'sampler_fg': fg,
+           **{f'sampler_{k}': v for k, v in sampler.items()},
+           **{k: rs[0][k] for k in rs[0] if k.startswith(('rcnn_', 'rpn_'))}}
+    res.update({f'train_{k}': v for k, v in pool_and_knn(
+        torch, cfg, batch, out['rois'], out['roi_mask'], fps_args,
+        'trained').items()})
+    return launches, res
+
+
+def graph_cli_phase(torch, tree):
+    """24d: ``tools.train`` 1 epoch of graph_rcnn_once.yaml on 14a's tree
+    (batch CLI_BATCH), each step's launches counted, then ``tools.test``
+    on its checkpoint (cli_eval_phase)."""
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.tools import train as train_cli
+
+    tmp = tempfile.TemporaryDirectory()
+    saved = train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT
+    data = ['--set', 'DATA_CONFIG.DATA_PATH', str(tree)]
+    try:
+        train_cli.OUTPUT_ROOT = test_cli.OUTPUT_ROOT = Path(tmp.name) / 'out'
+        argv = ['--cfg_file', str(ROOT / GRAPH_CFG), '--batch_size',
+                str(CLI_BATCH), '--fix_random_seed', '--epochs', '1',
+                '--extra_tag', 'chip_smoke'] + data
+        run, _, record, peak = cli_run(torch, argv, EXPECTED_GRAPH_STEP,
+                                       'GraphRCNN', ref="24c's")
+        for i, m in enumerate(record['metrics']):
+            log(f'    step {i} parts: ' + ', '.join(
+                f'{k} {float(v):.5g}' for k, v in m.items()))
+        res = {'cli_loss': [s['loss'] for s in run['steps']],
+               'cli_ms_per_step': statistics.median(
+                   s['step_s'] * 1e3 for s in run['steps']),
+               'cli_peak_gib': peak}
+        res.update(cli_eval_phase(torch, GRAPH_CFG, run['checkpoints'][-1],
+                                  data, tree, EXPECTED_GRAPH_SERVING,
+                                  'GraphRCNN', ''))
+    finally:
+        train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT = saved
+        tmp.cleanup()
+    return res
+
+
+def graph_phase(torch, frames, served, fresh, parent, tree, rows):
+    """Phase 24 (a-d); IOU_PAIRS' row of the kernels line takes 24c's
+    step's launches, NMS_MASK's, NMS_SCAN's and DFPS's rows 24b's frame's
+    and 24c's step's beside their own paths'."""
+    t24 = time.perf_counter()
+    log('phase 24a: IOU_PAIRS (csrc/iou_nms.cu, batched and culled) '
+        'against its plain version bit for bit')
+    res = pairs_phase(torch, served, fresh, parent, rows)
+    log(f'  phase 24a {time.perf_counter() - t24:.1f} s')
+    cfg = graph_cfg()
+    t0 = time.perf_counter()
+    log('phase 24b: GraphRCNN serving (graph_rcnn_once.yaml, full width, '
+        'seeded, 19d\'s first frame)')
+    served_launches, more = graph_serving_phase(
+        torch, cfg, {k: v[:1] for k, v in frames.items()})
+    res.update({f'graph_rcnn_{k}': v for k, v in more.items()})
+    torch.cuda.empty_cache()
+    log(f'  phase 24b {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    log('phase 24c: GraphRCNN training, full width, 19d\'s two frames (the '
+        'config\'s batch 4 cut to 2)')
+    step_launches, more = graph_training_phase(torch, cfg, frames, parent,
+                                               rows)
+    res.update({f'graph_rcnn_{k}': v for k, v in more.items()})
+    fill_launches(rows, step_launches, ('IOU_PAIRS',))
+    for row in rows:
+        k = row['kernel']
+        if k in ('NMS_MASK', 'NMS_SCAN', 'DFPS'):
+            row['launches_graph_rcnn_frame'] = served_launches[k]
+            row['launches_graph_rcnn_step'] = step_launches[k]
+    torch.cuda.empty_cache()
+    log(f'  phase 24c {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    log('phase 24d: GraphRCNN through tools.train and tools.test (14a\'s '
+        'tree)')
+    res.update({f'graph_rcnn_{k}': v for k, v in graph_cli_phase(
+        torch, tree).items()})
+    log(f'  phase 24d {time.perf_counter() - t0:.1f} s')
+    log(f'  phase 24 {time.perf_counter() - t24:.1f} s; {card_line()}')
+    return res
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--profile', action='store_true',
@@ -6669,8 +7187,8 @@ def main(argv=None):
                     'the pretraining steps and a Waymo serving pass by '
                     'kernel name')
     ap.add_argument('--nms-parent', metavar='PATH',
-                    help='phase 16 also builds and runs this iou_nms.cu (a '
-                    'parent checkout\'s) beside the repo\'s')
+                    help='phases 16 and 24 also build and run this '
+                    'iou_nms.cu (a parent checkout\'s) beside the repo\'s')
     ap.add_argument('--narrow-parent', metavar='PATH',
                     help='phase 18b also times its served pair and step with '
                     'this encoder_layer_narrow.cu\'s NARROW_FWD and '
@@ -6870,11 +7388,9 @@ def main(argv=None):
     log('phase 16a: the IoU and NMS kernels (csrc/iou_nms.cu) against '
         'their plain versions')
     t0 = time.perf_counter()
-    iou_pairs_launches = geometry_phase(torch, served, host_ms, rows, fresh)
+    geometry_phase(torch, served, host_ms, rows, fresh)
     log(f'  phase 16a {time.perf_counter() - t0:.1f} s')
     fill_launches(rows, nms_launches, ('NMS_MASK', 'NMS_SCAN'))
-    fill_launches(rows, iou_pairs_launches, ('IOU_PAIRS',))
-    del served
     torch.cuda.empty_cache()
     log('phase 16c: the IoU head and multi_class_nms (t_mae.yaml variant, '
         'full width)')
@@ -6913,11 +7429,14 @@ def main(argv=None):
                           batch_to_device(np_batch, 'cuda'), rows,
                           args.narrow_parent)
     torch.cuda.empty_cache()
-    single = single_frame_phase(torch, np_batch,
-                                Path(once_tree.name) / 'once', rows)
+    single, graph_frames = single_frame_phase(
+        torch, np_batch, Path(once_tree.name) / 'once', rows)
     torch.cuda.empty_cache()
     ssd3d = ssd3d_phase(torch, Path(once_tree.name) / 'once', rows,
                         args.pn2_parent)
+    torch.cuda.empty_cache()
+    graph = graph_phase(torch, graph_frames, served, fresh, parent,
+                        Path(once_tree.name) / 'once', rows)
     once_tree.cleanup()
 
     log(f'total {time.perf_counter() - t_start:.1f} s')
@@ -6937,7 +7456,8 @@ def main(argv=None):
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
         **overfit, **waymo_cli, **dev_nms, **iou_head, **asym,
-        **eval_cli, **dp, **narrow, **single, **ssd3d}), flush=True)
+        **eval_cli, **dp, **narrow, **single, **ssd3d, **graph}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -732,14 +732,17 @@ def test_chip_smoke_pointpillar_config_equals_the_test_config():
 
 def test_build_and_refusals():
     """``build_detector`` builds PointPillar and SECONDNet (with
-    graph_rcnn_once.yaml's first stage); GraphRCNN still raises, naming
-    ROADMAP.md module 10 (SSD3D: tests/test_torch_port_ssd3d.py)."""
+    graph_rcnn_once.yaml's first stage); GraphRCNN with a camera backbone
+    still raises, naming the camera queue item (GraphRCNN itself:
+    tests/test_torch_port_graph_rcnn.py; SSD3D:
+    tests/test_torch_port_ssd3d.py)."""
     assert type(tdet.build_detector(pointpillar_cfg(), 'cpu')).__name__ == (
         'PointPillar')
     for name in ('GraphRCNN',):
         cfg = second_cfg()
         cfg.MODEL.NAME = name
-        with pytest.raises(NotImplementedError, match='module 10'):
+        cfg.MODEL.IMG_BACKBONE = {'NAME': 'DLASeg'}
+        with pytest.raises(NotImplementedError, match='camera'):
             tdet.build_detector(cfg, 'cpu')
 
 

@@ -344,7 +344,8 @@ def test_cli_main_evaluates_a_port_checkpoint(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('flags,match', [
-    (['--set', 'MODEL.NAME', 'GraphRCNN'], 'GraphRCNN')],
+    (['--set', 'MODEL.NAME', 'GraphRCNN', 'MODEL.IMG_BACKBONE', 'DLASeg'],
+     'camera')],
     ids=['detector'])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, match):
     monkeypatch.setattr(cli, 'OUTPUT_ROOT', tmp_path / 'output')

@@ -390,3 +390,85 @@ def test_aligned_lanes_model_equals_plain(which):
         assert (plain == 0).any() and (plain > 0.999).any()
     else:
         assert (plain == 0).any() and (plain > 0).float().mean() > 0.2
+
+
+def batched_pair_inputs(seed=21, B=3, N=40, M=17):
+    """[B, N, 7] x [B, M, 7] boxes (a third of the pairs apart), masks
+    with rows and columns off."""
+    a = np.stack([rand_boxes(N, seed + b, spread=4.0) for b in range(B)])
+    b = np.stack([rand_boxes(M, seed + 10 + b, spread=4.0) for b in range(B)])
+    rng = np.random.RandomState(seed)
+    return a, b, rng.uniform(size=(B, N)) > 0.2, rng.uniform(size=(B, M)) > 0.3
+
+
+@pytest.mark.parametrize('mode', ['bev', '3d'])
+def test_batched_masked_iou_pairs_plain_matches_jax(mode):
+    """IOU_PAIRS' batched, masked plain version against JAX's vmapped
+    ``boxes_iou_bev`` / ``boxes_iou3d`` under ``jnp.where(rmask & gmask,
+    iou, 0)`` (the RoI sampler's, ``roi_head.py:82-83``) within IOU_TOL;
+    exactly +0 outside the masks; each sample equal to the 2D function
+    bit for bit."""
+    import jax
+
+    a, b, rm, cm = batched_pair_inputs()
+    fn = jgeo.boxes_iou_bev if mode == 'bev' else jgeo.boxes_iou3d
+    want = np.asarray(jax.vmap(fn)(jnp.asarray(a), jnp.asarray(b)))
+    want = np.where(rm[:, :, None] & cm[:, None, :], want, 0.0)
+    got = tgeo.boxes_iou_pairs(_t(a), _t(b), mode, torch.from_numpy(rm),
+                               torch.from_numpy(cm))
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= IOU_TOL
+    off = ~(rm[:, :, None] & cm[:, None, :])
+    assert (got.numpy()[off] == 0).all() and not torch.signbit(got).any()
+    two_d = tgeo.boxes_iou_bev if mode == 'bev' else tgeo.boxes_iou3d
+    for s in range(a.shape[0]):
+        full = two_d(_t(a[s]), _t(b[s]))
+        assert torch.equal(torch.where(torch.from_numpy(
+            ~off[s]), full, 0.0), got[s])
+    assert (want > 0).sum() > 50
+
+
+@pytest.mark.parametrize('mode', ['bev', '3d'])
+def test_iou_pairs_cull_gives_exact_zero(mode):
+    """IOU_PAIRS gives the pairs that ``iou_pairs_cull`` marks +0 without
+    a clip; the plain version gives exactly +0 there (no sign bit): on the
+    pairs planted at the cull's margin (``nms_phases.margin_pairs``: the
+    last centre kept, then one and two floats further, boxes turned corner
+    to corner, 0.5 to 900 m out; in z, an overlap of 0, then one and two
+    floats apart), where the first is kept and the others culled, and on
+    random, crowded and degenerate pairs. The 8-lane clip of the kept
+    pairs gives the plain matrix bit for bit."""
+    from tmae_tpu_torch.utils.nms_phases import degenerate_pairs, margin_pairs
+
+    ma, mb = margin_pairs(torch)
+    cull = tgeo.iou_pairs_cull(ma, mb, mode)
+    iou = tgeo.boxes_iou_pairs_plain(ma, mb, mode)
+    assert not cull[:, 0, 0].any()
+    z_rows = 2  # the last rows: planted in z
+    assert cull[:-z_rows, 0, 1:].all()
+    assert cull[-z_rows:, 0, 1:].all() == (mode == '3d')
+    cases = [(ma, mb), (_t(np.stack([rand_boxes(60, 31, 3.0)])),
+                        _t(np.stack([rand_boxes(50, 32, 3.0)])))]
+    cb, _ = crowded(120, 33)
+    cases.append((_t(cb[None]), _t(cb[None])))
+    da, db = degenerate_pairs(torch)
+    cases.append((da[None], db[None]))
+    culled = 0
+    for a, b in cases:
+        cull = tgeo.iou_pairs_cull(a, b, mode)
+        iou = tgeo.boxes_iou_pairs_plain(a, b, mode)
+        zero = iou[cull]
+        assert (zero == 0).all() and not torch.signbit(zero).any()
+        culled += int(cull.sum())
+        # the kept pairs through the 8-lane clip
+        B, N, M = iou.shape
+        ra = a[..., :7][:, :, None].expand(B, N, M, 7).reshape(-1, 7)
+        rb = b[..., :7][:, None].expand(B, N, M, 7).reshape(-1, 7)
+        area, _ = aligned_lanes_model(ra, rb)
+        if mode == 'bev':
+            want = area / (ra[:, 3] * ra[:, 4] + rb[:, 3] * rb[:, 4]
+                           - area).clamp(min=1e-6)
+        else:
+            want = tgeo._iou3d_from_bev(area, ra, rb)
+        assert torch.equal(want.reshape(B, N, M), iou)
+    assert culled > 1000

@@ -403,7 +403,8 @@ def test_port_imports_no_jax():
                    'tools/convert_torch_ckpt', 'utils/metrics',
                    'utils/torch_convert', 'datasets/waymo_pb',
                    'datasets/waymo_decode', 'datasets/waymo_temporal',
-                   'datasets/waymo_eval', 'tools/create_waymo_infos'):
+                   'datasets/waymo_eval', 'tools/create_waymo_infos',
+                   'models/graph_rcnn', 'models/roi_head', 'ops/roi_pool'):
         assert f'tmae_tpu_torch/{module}.py' in scanned, module
 
 

@@ -17,8 +17,22 @@
 // twice.
 //
 // Kernels:
-//   iou_pairs_kernel    one thread per pair of [N] x [M]: BEV (mode 0) or 3D
-//                       (mode 1) IoU.
+//   iou_pairs_kernel    BEV (mode 0) or 3D (mode 1) IoU of every pair of a
+//                       sample's [N] x [M] boxes, B samples in one launch,
+//                       0 outside the optional row and column masks. A
+//                       block of 8 warps takes a tile of 8 rows x 64
+//                       columns: it stages each box's corners (by
+//                       corners(), so the roundings do not move), area,
+//                       volume, z extent, centre and circumradius in shared
+//                       memory once; each warp tests its row's 64 pairs
+//                       and gives 0 without a clip to the pairs outside the
+//                       masks, the pairs whose circles lie apart
+//                       (circles_apart, NMS_MASK's margin) and, in mode 1,
+//                       the pairs whose z extents do not overlap; a ballot
+//                       a row and 32 columns lists the rest in shared
+//                       memory; the list is clipped eight lanes a pair
+//                       (IOU_ALIGNED's clip, clip_lanes), and the tile's
+//                       rows are written coalesced.
 //   iou_aligned_kernel  one aligned pair on 8 lanes, lane s holding vertex
 //                       slot s of the clip: 3D IoU.
 //   nms_mask_kernel     the suppression mask uint64 [B, K, ceil(K / 64)]:
@@ -55,6 +69,24 @@
 //                       is kept when it takes part, is not removed and its
 //                       class has kept fewer than its cap.
 //
+// IOU_PAIRS' bound: bytes. At 500 x 500 it moves 28 KB of boxes and 1 MB of
+// IoUs (0.30 us at 3.35 TB/s); the ~10k clips this data needs, 262 f32
+// operations each, take 0.04 us at 67 TFLOP/s. At GraphRCNN's RoI sampler,
+// [2, 512, 64], 0.26 MB. Design: one launch a step; each box's sincos and
+// corners once a tile (the one-thread-a-pair parent computed both boxes'
+// corners for every pair); the cull before any clip; the clips of a tile
+// spread over its 32 eight-lane groups. What bounds it (utils/nms_phases.py
+// on the H100, 700 W): a floor of ~4 us for a launch whose blocks stage,
+// test and clip one round (150 planted pairs), and the clip rounds
+// themselves, a chain of ~55 dependent shuffles and ballots and ~700
+// instructions a warp for 4 pairs, which the card's issue slots run at a
+// few us for 10k clips; 500 x 500 reads ~8.5 us of device time (the first
+// design's 32 x 64 tiles: 13.5 us). On a GraphRCNN training step's own
+// sampler inputs, where a quarter of the pairs need a clip, it reads ~20 us
+// against the one-thread-a-pair parent's ~10: when most of a tile's pairs
+// are clipped, a thread a pair (NMS_MASK's clip) does more work a cycle
+// than eight lanes a pair.
+
 // Bound: operations. At t_mae.yaml's K = 500 candidates a sample, the mask
 // clips at most K (K - 1) / 2 pairs, 262 f32 operations each
 // (PAIR_CLIP_FLOPS in ops/geometry.py), 33 MFLOP: 0.49 us at 67 TFLOP/s;
@@ -223,65 +255,24 @@ __device__ __forceinline__ float iou_3d(float inter_bev, const Box& a,
   return inter / fmaxf(vol_a + vol_b - inter, 1e-6f);
 }
 
-__device__ __forceinline__ float pair_iou(const Box& a, const Box& b,
-                                          int mode) {
-  float ax[4], ay[4], bx[4], by[4];
-  corners(a, ax, ay);
-  corners(b, bx, by);
-  const float inter = clip_area(ax, ay, bx, by);
-  return mode == 0 ? iou_bev(inter, a.dx * a.dy, b.dx * b.dy)
-                   : iou_3d(inter, a, b);
-}
-
-__global__ void iou_pairs_kernel(const float* __restrict__ a,
-                                 const float* __restrict__ b, int N, int M,
-                                 int mode, float* __restrict__ out) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(N) * M) return;
-  const int i = static_cast<int>(idx / M), j = static_cast<int>(idx % M);
-  out[idx] = pair_iou(load_box(a + 7LL * i), load_box(b + 7LL * j), mode);
-}
-
 constexpr int kAlignedThreads = 128;  // IOU_ALIGNED: 16 pairs a block
 
-// IOU_ALIGNED: one pair on 8 lanes of a warp, lane s of the group holding
-// vertex slot s of clip_area's polygon. Lanes 0-3 compute A's corners, 4-7
-// B's (one cos and one sin a lane), so lane s < 4 starts with A's corner
-// s. Each half-plane pass: the pad slots take slot 0 (one shuffle), every
-// slot's signed distance and its crossing with the next slot (shuffles
-// from lane s + 1) at once, with clip_area's roundings; two ballots mark
-// the slots that emit their vertex and their crossing, and output slot k
-// takes, from the slot whose prefix of emitted points reaches k, its
-// vertex or its crossing: the sequential loop's order. The shoelace's
-// terms are summed in clip_area's order by shuffles, and the group's lane
-// 0 takes the 3D IoU. A pair's chain is then four passes of a few
-// shuffles and one division; 500 pairs run on 125 warps. Measured
-// (utils/nms_phases.py, NVIDIA H100 80GB HBM3, 700.00 W, device time):
-// 500 pairs 0.0023 ms against 0.0052 for one thread a pair, the same bits.
-__global__ void __launch_bounds__(kAlignedThreads)
-    iou_aligned_kernel(const float* __restrict__ a,
-                       const float* __restrict__ b, int n,
-                       float* __restrict__ out) {
+// The 8-lane clip of one pair (IOU_ALIGNED's, and IOU_PAIRS' for the pairs
+// that need one): the group of 8 lanes starting at lane `base` holds in
+// lane s = lane - base vertex slot s of clip_area's polygon. (cx, cy) is
+// this lane's corner: corner s of A for s < 4, corner s - 4 of B for s >= 4,
+// as corners() computes it. Each half-plane pass: the pad slots take slot 0
+// (one shuffle), every slot's signed distance and its crossing with the
+// next slot (shuffles from lane s + 1) at once, with clip_area's roundings;
+// two ballots mark the slots that emit their vertex and their crossing,
+// and output slot k takes, from the slot whose prefix of emitted points
+// reaches k, its vertex or its crossing: the sequential loop's order. The
+// shoelace's terms are summed in clip_area's order by shuffles. Every lane
+// of the warp must call it (the shuffles take the full mask); each group
+// gets its own pair's BEV intersection area on all its lanes.
+__device__ __forceinline__ float clip_lanes(float cx, float cy, int s,
+                                            int base) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x % 32, s = lane % kSlots;
-  const int base = lane - s;  // the group's lane 0
-  const long long pair =
-      (static_cast<long long>(blockIdx.x) * kAlignedThreads + threadIdx.x) /
-      kSlots;
-  // a group past n repeats the last pair: every lane takes the shuffles
-  const long long i = pair < n ? pair : n - 1;
-  const Box own = load_box((s < 4 ? a : b) + 7 * i);
-  float cx, cy;  // corner s % 4 of A (s < 4) or of B
-  {
-    const int k = s % 4;  // corners()' template: (+-0.5, +-0.5)
-    const float tx = k == 0 || k == 3 ? 0.5f : -0.5f;
-    const float ty = k < 2 ? 0.5f : -0.5f;
-    const float c = cosf(own.ang), sn = sinf(own.ang);
-    const float lx = tx * own.dx, ly = ty * own.dy;
-    cx = (lx * c - ly * sn) + own.x;
-    cy = (lx * sn + ly * c) + own.y;
-  }
   float px = s < 4 ? cx : 0.f, py = s < 4 ? cy : 0.f;
   const int next = base + (s + 1) % kSlots;
   int nv = 4;
@@ -350,10 +341,39 @@ __global__ void __launch_bounds__(kAlignedThreads)
     const float tj = __shfl_sync(full, term, base + j);
     if (j < nv) sum += tj;
   }
-  if (s == 0 && pair < n) {
-    const float inter = nv >= 3 ? 0.5f * fabsf(sum) : 0.f;
-    out[i] = iou_3d(inter, load_box(a + 7 * i), load_box(b + 7 * i));
+  return nv >= 3 ? 0.5f * fabsf(sum) : 0.f;
+}
+
+// IOU_ALIGNED: one pair on 8 lanes of a warp (clip_lanes). Lanes 0-3
+// compute A's corners, 4-7 B's (one cos and one sin a lane), and the
+// group's lane 0 takes the 3D IoU. A pair's chain is four passes of a few
+// shuffles and one division; 500 pairs run on 125 warps. Measured
+// (utils/nms_phases.py, NVIDIA H100 80GB HBM3, 700.00 W, device time):
+// 500 pairs 0.0023 ms against 0.0052 for one thread a pair, the same bits.
+__global__ void __launch_bounds__(kAlignedThreads)
+    iou_aligned_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, int n,
+                       float* __restrict__ out) {
+  const int lane = threadIdx.x % 32, s = lane % kSlots;
+  const long long pair =
+      (static_cast<long long>(blockIdx.x) * kAlignedThreads + threadIdx.x) /
+      kSlots;
+  // a group past n repeats the last pair: every lane takes the shuffles
+  const long long i = pair < n ? pair : n - 1;
+  const Box own = load_box((s < 4 ? a : b) + 7 * i);
+  float cx, cy;  // corner s % 4 of A (s < 4) or of B
+  {
+    const int k = s % 4;  // corners()' template: (+-0.5, +-0.5)
+    const float tx = k == 0 || k == 3 ? 0.5f : -0.5f;
+    const float ty = k < 2 ? 0.5f : -0.5f;
+    const float c = cosf(own.ang), sn = sinf(own.ang);
+    const float lx = tx * own.dx, ly = ty * own.dy;
+    cx = (lx * c - ly * sn) + own.x;
+    cy = (lx * sn + ly * c) + own.y;
   }
+  const float inter = clip_lanes(cx, cy, s, lane - s);
+  if (s == 0 && pair < n)
+    out[i] = iou_3d(inter, load_box(a + 7 * i), load_box(b + 7 * i));
 }
 
 // 0-based class of candidate i, -1 when it takes no part.
@@ -405,11 +425,174 @@ __device__ __forceinline__ bool circles_apart(float xi, float yi, float ri,
   return dx * dx + dy * dy > reach * reach;
 }
 
-// The BEV corners, area, centre, radius and class of candidate `idx` (class
-// -1 past K) into slot s of the block's shared arrays.
-struct TileBoxes {
-  float cx[4][kTile], cy[4][kTile], area[kTile], x[kTile], y[kTile],
-      rad[kTile];
+// A box takes part in the cull only when its values are finite and at most
+// this large and its BEV sizes are positive: then the clip is finite and,
+// for a pair the cull skips, exactly 0 (ops/geometry.py iou_pairs_cull).
+constexpr float kCullMax = 1e18f;
+
+// What a tile stages of each of its S boxes for the circle test and the
+// clip: the BEV corners (by corners(), so the roundings do not move), area,
+// centre and circumradius. IOU_PAIRS and NMS_MASK add their own fields.
+template <int S>
+struct BevBoxes {
+  float cx[4][S], cy[4][S], area[S], x[S], y[S], rad[S];
+};
+
+template <int S>
+__device__ __forceinline__ void stage_bev(BevBoxes<S>& t, int s,
+                                          const Box& b) {
+  float cx[4], cy[4];
+  corners(b, cx, cy);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    t.cx[k][s] = cx[k];
+    t.cy[k][s] = cy[k];
+  }
+  t.area[s] = b.dx * b.dy;
+  t.x[s] = b.x;
+  t.y[s] = b.y;
+  t.rad[s] = 0.5f * sqrtf(b.dx * b.dx + b.dy * b.dy);
+}
+
+// IOU_PAIRS' tile: 8 rows x 64 columns on 8 warps, a row a warp. A tile's
+// clips run 4 a warp, a chain of shuffles each, so the warps that clip
+// beside one another set the pace; of the eight tiles timed on the H100
+// (PERF.md) this one was the fastest or within 15% of it on every set.
+constexpr int kPairRows = 8;
+constexpr int kPairCols = 64;
+constexpr int kPairWarps = 8;
+
+// IOU_PAIRS stages besides: volume, z extent, and whether the box takes
+// part (in the masks) and may be culled.
+template <int S>
+struct PairBoxes : BevBoxes<S> {
+  float vol[S], zlo[S], zhi[S];
+  bool live[S], cull[S];
+};
+
+template <int S>
+__device__ __forceinline__ void stage_pair_box(PairBoxes<S>& t, int s,
+                                               const float* p, bool live) {
+  t.live[s] = live;
+  t.cull[s] = false;
+  if (!live) return;
+  const Box b = load_box(p);
+  stage_bev(t, s, b);
+  t.vol[s] = b.dx * b.dy * b.dz;
+  t.zhi[s] = b.z + b.dz / 2.f;
+  t.zlo[s] = b.z - b.dz / 2.f;
+  const float v[7] = {b.x, b.y, b.z, b.dx, b.dy, b.dz, b.ang};
+  bool ok = b.dx > 0.f && b.dy > 0.f;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) ok = ok && fabsf(v[k]) <= kCullMax;
+  t.cull[s] = ok;
+}
+
+// IOU_PAIRS, block (column tile, row tile, sample b): rows kPairRows rt ..
+// against the columns kPairCols ct .. of sample b. Threads 0 .. kPairCols
+// - 1 stage the column boxes and the next kPairRows threads the row boxes;
+// warp w tests its row (lane l: columns l and 32 + l): a pair outside the
+// masks or the arrays stays 0, a pair of two cullable boxes whose circles
+// lie apart (or, in mode 1, whose z extents overlap by less than 0:
+// inter_h is then exactly +0) stays 0, and one ballot a row and 32 columns
+// lists the others. The list is clipped four pairs a warp at a time,
+// eight lanes a pair (clip_lanes), each group's lane 0 writing its IoU into
+// the shared tile; then the block writes the tile's rows, 32 consecutive
+// columns a warp at a time.
+__global__ void __launch_bounds__(32 * kPairWarps)
+    iou_pairs_kernel(const float* __restrict__ a,
+                     const float* __restrict__ bx,
+                     const bool* __restrict__ amask,
+                     const bool* __restrict__ bmask, int N, int M, int mode,
+                     float* __restrict__ out) {
+  constexpr int ROWS = kPairRows, COLS = kPairCols;
+  constexpr int kThreads = 32 * kPairWarps, kHalves = COLS / 32;
+  static_assert(COLS % 32 == 0 && ROWS % kPairWarps == 0 &&
+                    COLS + ROWS <= kThreads,
+                "a tile's boxes are staged one a thread");
+  __shared__ PairBoxes<COLS> col;
+  __shared__ PairBoxes<ROWS> row;
+  __shared__ float res[ROWS][COLS + 1];
+  __shared__ unsigned short items[ROWS * COLS];
+  __shared__ int nitems;
+  const int col0 = blockIdx.x * COLS, row0 = blockIdx.y * ROWS;
+  const long long b = blockIdx.z;
+  const int t = threadIdx.x;
+  if (t < COLS) {
+    const int j = col0 + t;
+    stage_pair_box(col, t, bx + 7 * (b * M + j),
+                   j < M && (bmask == nullptr || bmask[b * M + j]));
+  } else if (t < COLS + ROWS) {
+    const int r = t - COLS, i = row0 + r;
+    stage_pair_box(row, r, a + 7 * (b * N + i),
+                   i < N && (amask == nullptr || amask[b * N + i]));
+  }
+  for (int k = t; k < ROWS * COLS; k += kThreads)
+    res[k / COLS][k % COLS] = 0.f;
+  if (t == 0) nitems = 0;
+  __syncthreads();
+
+  const int lane = t & 31, warp = t >> 5;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int h = 0; h < ROWS / kPairWarps; ++h) {
+    const int r = warp * (ROWS / kPairWarps) + h;
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) {
+      const int c = lane + 32 * half;
+      bool n = row.live[r] && col.live[c];
+      if (n && row.cull[r] && col.cull[c]) {
+        n = !circles_apart(row.x[r], row.y[r], row.rad[r], col.x[c],
+                           col.y[c], col.rad[c]);
+        // a negative overlap gives inter_h exactly +0, so the IoU +0
+        if (n && mode == 1)
+          n = fminf(row.zhi[r], col.zhi[c]) - fmaxf(row.zlo[r], col.zlo[c]) >=
+              0.f;
+      }
+      const unsigned need = __ballot_sync(~0u, n);
+      int at = 0;
+      if (lane == 0 && need) at = atomicAdd(&nitems, __popc(need));
+      at = __shfl_sync(~0u, at, 0);
+      if (n) items[at + __popc(need & below)] = r * COLS + c;
+    }
+  }
+  __syncthreads();
+
+  const int n = nitems, s = lane % kSlots, group = lane / kSlots;
+  // a warp takes 4 pairs at a time; a group past the list repeats pair 0
+  // and writes nothing (every lane takes the shuffles)
+  for (int k0 = warp * 4; k0 < n; k0 += 4 * kPairWarps) {
+    const int k = k0 + group;
+    const int item = items[k < n ? k : 0];
+    const int r = item / COLS, c = item % COLS;
+    const float cx = s < 4 ? row.cx[s][r] : col.cx[s - 4][c];
+    const float cy = s < 4 ? row.cy[s][r] : col.cy[s - 4][c];
+    const float inter = clip_lanes(cx, cy, s, lane - s);
+    if (s == 0 && k < n) {
+      float iou;
+      if (mode == 0) {
+        iou = iou_bev(inter, row.area[r], col.area[c]);
+      } else {
+        const float inter_h = fmaxf(fminf(row.zhi[r], col.zhi[c]) -
+                                        fmaxf(row.zlo[r], col.zlo[c]),
+                                    0.f);
+        const float inter3 = inter * inter_h;
+        iou = inter3 / fmaxf(row.vol[r] + col.vol[c] - inter3, 1e-6f);
+      }
+      res[r][c] = iou;
+    }
+  }
+  __syncthreads();
+  for (int k = t; k < ROWS * COLS; k += kThreads) {
+    const int r = k / COLS, c = k % COLS;
+    if (row0 + r < N && col0 + c < M)
+      out[(b * N + row0 + r) * M + col0 + c] = res[r][c];
+  }
+}
+
+// The BEV staging and class of candidate `idx` (class -1 past K) into slot
+// s of NMS_MASK's shared arrays.
+struct TileBoxes : BevBoxes<kTile> {
   int cls[kTile];
 };
 
@@ -421,18 +604,7 @@ __device__ __forceinline__ void stage_box(TileBoxes& t, int s,
   int cls = -1;
   if (idx < K) {
     cls = class_of(valid, labels, base + idx, ncls);
-    const Box b = load_box(boxes + 7 * (base + idx));
-    float cx[4], cy[4];
-    corners(b, cx, cy);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      t.cx[k][s] = cx[k];
-      t.cy[k][s] = cy[k];
-    }
-    t.area[s] = b.dx * b.dy;
-    t.x[s] = b.x;
-    t.y[s] = b.y;
-    t.rad[s] = 0.5f * sqrtf(b.dx * b.dx + b.dy * b.dy);
+    stage_bev(t, s, load_box(boxes + 7 * (base + idx)));
   }
   t.cls[s] = cls;
 }
@@ -749,12 +921,17 @@ __global__ void __launch_bounds__(32)
 
 }  // namespace
 
-extern "C" int launch_iou_pairs(const float* a, const float* b, int N, int M,
-                                int mode, float* out, cudaStream_t stream) {
-  const long long n = static_cast<long long>(N) * M;
-  const int threads = 256;
-  iou_pairs_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                     threads, 0, stream>>>(a, b, N, M, mode, out);
+// a [B, N, 7], b [B, M, 7]; amask [B, N] and bmask [B, M] may be null.
+extern "C" int launch_iou_pairs(const float* a, const float* b,
+                                const bool* amask, const bool* bmask, int B,
+                                int N, int M, int mode, float* out,
+                                cudaStream_t stream) {
+  if (B < 1 || N < 1 || M < 1) return 0;
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + kPairCols - 1) / kPairCols,
+                  (N + kPairRows - 1) / kPairRows, B);
+  iou_pairs_kernel<<<grid, 32 * kPairWarps, 0, stream>>>(a, b, amask, bmask,
+                                                         N, M, mode, out);
   return tmae_last_error();
 }
 

@@ -371,7 +371,7 @@ class DataAugmentor:
             elif name == 'photo_metric_distortion':
                 raise NotImplementedError(
                     'photo_metric_distortion is not ported yet '
-                    '(ROADMAP.md, module 10: cameras)')
+                    '(ROADMAP.md, queue 1: the camera path)')
             else:
                 fn = getattr(WorldTransforms, name)
                 self.queue.append(

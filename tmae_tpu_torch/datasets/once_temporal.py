@@ -136,7 +136,8 @@ class ONCETemporalDataset(DatasetTemplate):
         if not cam_cfg or not cam_cfg.get('USE_CAMERA', True):
             return data
         raise NotImplementedError('CAMERA_CONFIG.USE_CAMERA is not ported '
-                                  'yet (ROADMAP.md, module 10: cameras)')
+                                  'yet (ROADMAP.md, queue 1: the camera '
+                                  'path)')
 
     def __len__(self):
         return len(self.once_intervals)

@@ -44,7 +44,7 @@ class DataProcessor:
             if cfg['NAME'] in IMAGE_PROCESSORS:
                 raise NotImplementedError(
                     f'the image processor {cfg["NAME"]} is not ported yet '
-                    '(ROADMAP.md, module 10: cameras)')
+                    '(ROADMAP.md, queue 1: the camera path)')
             if cfg['NAME'] in ('calculate_grid_size', 'transform_points_to_voxels'):
                 vs = np.asarray(cfg['VOXEL_SIZE'], np.float64)
                 self.voxel_size = vs

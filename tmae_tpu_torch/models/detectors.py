@@ -20,7 +20,12 @@
   PointNet++ backbone on the raw points and the vote head, with
   :func:`ssd3d_loss` and, when serving, the votes cut by score and sorted
   (:func:`ssd3d_candidates`) for the host NMS.
-  ``GraphRCNN`` is not ported yet (ROADMAP.md, module 10).
+* ``GraphRCNN`` without cameras (``models/graph_rcnn.py``): SECONDNet's
+  first stage, proposals, the RoI sampler when training, the DFVS pool and
+  the AttnGNN second stage, with :func:`graph_rcnn_loss` and, when
+  serving, the refined boxes cut by score and sorted for the host NMS
+  (``graph_rcnn_candidates``). Its camera path is not ported yet
+  (ROADMAP.md, queue 1: GraphRCNN's camera path).
 
 Batch layout (dict of tensors, as the JAX package's host pipeline ships it):
 ``points``/``points_prev`` [B, P, C] (C = :func:`num_point_features`: x, y,
@@ -52,6 +57,7 @@ from ..utils import native as host
 from .anchor_head import anchor_head_loss, anchor_head_predict
 from .bev import BaseBEVBackbone, SSTBEVBackbone
 from .center_head import CenterHead, center_head_loss, decode
+from .graph_rcnn import GraphRCNN, graph_rcnn_loss
 from .pointpillar import PointPillar
 from .second_net import SECONDNet
 from .siamwca import SiamWCA, SiamWCA_MAE, mae_loss, remat_stages, stage_caps
@@ -274,21 +280,20 @@ def _anchor_family(cls):
 DETECTORS = {'CenterPoint': CenterPoint, 'TMAE': TMAE, 'GDMAE': GDMAE,
              'PointPillar': _anchor_family(PointPillar),
              'SECONDNet': _anchor_family(SECONDNet),
-             'SSD3D': lambda cfg: SSD3D(cfg, num_point_features(cfg) - 3)}
+             'SSD3D': lambda cfg: SSD3D(cfg, num_point_features(cfg) - 3),
+             'GraphRCNN': _anchor_family(GraphRCNN)}
 ANCHOR_DETECTORS = ('PointPillar', 'SECONDNet')
 MAE_DETECTORS = ('TMAE', 'GDMAE')
-NOT_PORTED = ('GraphRCNN',)
 
 
 def build_detector(cfg, device=None) -> nn.Module:
     """The eval-mode detector that MODEL.NAME names, on ``device`` (the card
-    when None; raises when there is none)."""
+    when None; raises when there is none). GraphRCNN with a camera branch
+    raises (ROADMAP.md, queue 1: GraphRCNN's camera path)."""
     name = cfg['MODEL']['NAME']
     if name not in DETECTORS:
-        where = ('ROADMAP.md, module 10' if name in NOT_PORTED
-                 else 'an unknown detector')
-        raise NotImplementedError(f'detector {name} is not ported yet '
-                                  f'({where}); have {list(DETECTORS)}')
+        raise NotImplementedError(f'detector {name} is not ported: an '
+                                  f'unknown detector; have {list(DETECTORS)}')
     return DETECTORS[name](cfg).to(resolve_device(device)).eval()
 
 
@@ -309,12 +314,16 @@ def anchor_loss(cfg, head, outputs, batch):
 
 def detector_loss(cfg, model):
     """``loss_fn(outputs, batch) -> (loss, parts)`` of the model's family:
-    :func:`tmae_loss`, :func:`anchor_loss` (with the model's head),
-    :func:`ssd3d_loss` or :func:`centerpoint_loss`."""
+    :func:`tmae_loss`, :func:`anchor_loss` or :func:`graph_rcnn_loss`
+    (with the model's head), :func:`ssd3d_loss` or
+    :func:`centerpoint_loss`."""
     name = cfg['MODEL']['NAME']
     if name in ANCHOR_DETECTORS:
         return lambda out, batch: anchor_loss(cfg, model.dense_head, out,
                                               batch)
+    if name == 'GraphRCNN':
+        return lambda out, batch: graph_rcnn_loss(cfg, model.dense_head, out,
+                                                  batch)
     loss = (tmae_loss if name in MAE_DETECTORS
             else ssd3d_loss if name == 'SSD3D' else centerpoint_loss)
     return lambda out, batch: loss(cfg, out, batch)
@@ -403,7 +412,9 @@ def init_training_(model: nn.Module, seed: int) -> nn.Module:
     scales 1, running means 0 and variances 1, tau 1. Drawn on the CPU from
     one ``torch.Generator`` seeded with ``seed``. The anchor head's class
     bias starts at -log(99) and its box kernel at N(0, 0.001^2), as the
-    JAX package's ``AnchorHeadSingle`` sets them."""
+    JAX package's ``AnchorHeadSingle`` sets them, and GraphRCNN's box
+    output kernel ``reg_out`` at N(0, 0.001^2), as its ``GraphRCNNHead``
+    does."""
     g = torch.Generator().manual_seed(seed)
     std_of_trunc = 0.87962566103423978  # std of N(0, 1) cut at +-2
     for mname, mod in model.named_modules():
@@ -411,7 +422,7 @@ def init_training_(model: nn.Module, seed: int) -> nn.Module:
         for name, p in mod.named_parameters(recurse=False):
             if name == 'tau' or (name == 'weight' and p.dim() == 1):
                 p.fill_(1.0)
-            elif p.dim() >= 2 and leaf == 'conv_box':
+            elif p.dim() >= 2 and leaf in ('conv_box', 'reg_out'):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.001)
             elif p.dim() >= 2:
                 w = torch.empty(p.shape)

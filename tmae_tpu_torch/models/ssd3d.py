@@ -65,20 +65,27 @@ def ssd3d_predict(cfg, outputs):
             'pred_valid': outputs['head_out']['vote_mask']}
 
 
-def ssd3d_candidates(cfg, outputs):
-    """The host NMS's candidates (the reference's class-agnostic NMS
-    before its kernel): the votes of score >= ``SCORE_THRESH``, sorted by
-    score with the valid ones first (a stable sort: equal scores keep vote
-    order), the top ``NMS_PRE_MAXSIZE`` → (boxes [B, K', 7], scores,
-    labels, valid)."""
+def score_sorted_candidates(cfg, pred):
+    """The host NMS's candidates from predictions ``pred`` (dict of
+    ``pred_boxes``, ``pred_scores``, ``pred_labels``, ``pred_valid``), as
+    the reference's class-agnostic NMS takes them before its kernel: the
+    valid ones of score >= ``MODEL.POST_PROCESSING.SCORE_THRESH``, sorted
+    by score with the valid ones first (a stable sort: equal scores keep
+    their order), the top ``NMS_PRE_MAXSIZE`` → (boxes [B, K', 7],
+    scores, labels, valid)."""
     post = cfg['MODEL']['POST_PROCESSING']
-    p = ssd3d_predict(cfg, outputs)
-    scores = p['pred_scores']
-    valid = p['pred_valid'] & (scores >= float(post.get('SCORE_THRESH', 0.0)))
+    scores = pred['pred_scores']
+    valid = pred['pred_valid'] & (
+        scores >= float(post.get('SCORE_THRESH', 0.0)))
     key = torch.where(valid, scores, float('-inf'))
     order = key.sort(dim=-1, descending=True, stable=True).indices
     order = order[:, :int(post['NMS_CONFIG']['NMS_PRE_MAXSIZE'])]
     take = lambda t: t.gather(1, order if t.dim() == 2 else
                               order[..., None].expand(-1, -1, t.shape[-1]))
-    return (take(p['pred_boxes']), take(scores), take(p['pred_labels']),
-            take(valid))
+    return (take(pred['pred_boxes']), take(scores),
+            take(pred['pred_labels']), take(valid))
+
+
+def ssd3d_candidates(cfg, outputs):
+    """:func:`score_sorted_candidates` of the votes' predictions."""
+    return score_sorted_candidates(cfg, ssd3d_predict(cfg, outputs))

@@ -11,7 +11,13 @@ and sum the shoelace's terms slot after slot, the order the kernels take.
 The CUDA kernels (``csrc/iou_nms.cu``) share one device function that clips
 one pair in registers with the same arithmetic:
 
-* ``IOU_PAIRS``: BEV or 3D IoU of every pair, [N, M];
+* ``IOU_PAIRS``: BEV or 3D IoU of every pair of each sample's boxes,
+  [B, N, M] in one launch, 0 outside optional row and column masks; a
+  block of 8 warps stages each box of its 8 x 64 tile once, gives 0
+  without a clip to the pairs whose circumscribed circles lie apart
+  (NMS_MASK's margin) and, in 3D, whose z extents do not overlap
+  (:func:`iou_pairs_cull`: the plain version gives those pairs exactly
+  +0), and clips the rest eight lanes a pair, as ``IOU_ALIGNED``;
 * ``IOU_ALIGNED``: 3D IoU of aligned pairs (the IoU-head loss), a pair on
   8 lanes of a warp, lane s holding vertex slot s;
 * ``NMS_MASK``: the suppression bitmask of each sample's score-sorted
@@ -43,7 +49,7 @@ from ..device import as_kernel_arg, on_card
 from ..utils.build import CudaKernel, I, P, stream_handle
 
 IOU_PAIRS = CudaKernel('iou_nms.cu', 'launch_iou_pairs',
-                       [P, P, I, I, I, P, P])
+                       [P, P, P, P, I, I, I, I, P, P])
 IOU_ALIGNED = CudaKernel('iou_nms.cu', 'launch_iou_aligned', [P, P, I, P, P])
 NMS_MASK = CudaKernel('iou_nms.cu', 'launch_nms_mask',
                       [P, P, P, P, I, I, I, P, P])
@@ -64,6 +70,11 @@ SCAN_MAX_K = 64 * 32 * 64  # NMS_SCAN: 64 removed words a lane of the warp
 # (sub, div, then sub, mul, add in x and y); the shoelace (2 mul, 1 sub,
 # 1 add per slot), its half and abs; the IoU (2 add or sub, max, div).
 PAIR_CLIP_FLOPS = 4 * (SLOTS * 5 + 2 * 8) + SLOTS * 4 + 2 + 4
+# IOU_PAIRS culls a pair only when both boxes' values are finite and at most
+# this large in magnitude and their BEV sizes are positive (csrc/iou_nms.cu
+# kCullMax)
+CULL_MAX = 1e18
+IOU_MODES = {'bev': 0, '3d': 1}
 
 
 def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
@@ -178,30 +189,97 @@ def _boxes_arg(boxes):
                          torch.float32)
 
 
-def _iou_pairs(boxes_a, boxes_b, mode: int):
-    a, b = _boxes_arg(boxes_a), _boxes_arg(boxes_b)
-    N, M = a.shape[0], b.shape[0]
-    out = torch.empty(N, M, dtype=torch.float32, device=a.device)
-    if N and M:
-        IOU_PAIRS(a.data_ptr(), b.data_ptr(), N, M, mode, out.data_ptr(),
-                  stream_handle())
+def _pair_mask(row_mask, col_mask, B, N, M, device):
+    """[B, N, M] bools of the pairs inside both masks (None: all)."""
+    rm = (torch.ones(B, N, dtype=torch.bool, device=device)
+          if row_mask is None else row_mask.bool())
+    cm = (torch.ones(B, M, dtype=torch.bool, device=device)
+          if col_mask is None else col_mask.bool())
+    return rm[:, :, None] & cm[:, None, :]
+
+
+def boxes_iou_pairs_plain(boxes_a, boxes_b, mode: str = '3d', row_mask=None,
+                          col_mask=None):
+    """The plain version of :func:`boxes_iou_pairs`: each sample's
+    :func:`boxes_iou_bev_plain` or :func:`boxes_iou3d_plain`, +0 outside
+    the masks."""
+    fn = boxes_iou_bev_plain if IOU_MODES[mode] == 0 else boxes_iou3d_plain
+    B, N, M = boxes_a.shape[0], boxes_a.shape[1], boxes_b.shape[1]
+    iou = torch.stack([fn(a[:, :7], b[:, :7])
+                       for a, b in zip(boxes_a, boxes_b)]) if B else \
+        boxes_a.new_zeros(0, N, M)
+    if row_mask is None and col_mask is None:
+        return iou
+    return torch.where(_pair_mask(row_mask, col_mask, B, N, M, iou.device),
+                       iou, 0.0)
+
+
+def iou_pairs_cull(boxes_a, boxes_b, mode: str = '3d'):
+    """The pairs that ``IOU_PAIRS`` gives +0 without a clip, [B, N, M]
+    bools (the masks aside): both boxes finite, at most CULL_MAX in
+    magnitude, with positive BEV sizes, and their circumscribed circles
+    apart by more than NMS_MASK's margin (``SKIP_ABS``, ``SKIP_REL``) or,
+    in 3D, their z extents overlapping by less than 0. f32 torch ops in
+    the kernel's order."""
+    a, b = boxes_a[..., :7].float(), boxes_b[..., :7].float()
+
+    def cullable(x):
+        return (x[..., 3] > 0) & (x[..., 4] > 0) & (
+            x.abs() <= CULL_MAX).all(-1)
+
+    ra = 0.5 * torch.sqrt(a[..., 3] * a[..., 3] + a[..., 4] * a[..., 4])
+    rb = 0.5 * torch.sqrt(b[..., 3] * b[..., 3] + b[..., 4] * b[..., 4])
+    ra, rb = ra[:, :, None], rb[:, None, :]
+    xa, ya = a[..., 0][:, :, None], a[..., 1][:, :, None]
+    xb, yb = b[..., 0][:, None, :], b[..., 1][:, None, :]
+    dx, dy = xa - xb, ya - yb
+    scale = xa.abs() + ya.abs() + xb.abs() + yb.abs() + ra + rb
+    reach = ra + rb + SKIP_ABS + SKIP_REL * scale
+    apart = dx * dx + dy * dy > reach * reach
+    if IOU_MODES[mode] == 1:
+        ahi, alo = a[..., 2] + a[..., 5] / 2, a[..., 2] - a[..., 5] / 2
+        bhi, blo = b[..., 2] + b[..., 5] / 2, b[..., 2] - b[..., 5] / 2
+        over = (torch.minimum(ahi[:, :, None], bhi[:, None, :])
+                - torch.maximum(alo[:, :, None], blo[:, None, :]))
+        apart = apart | (over < 0)
+    return apart & cullable(a)[:, :, None] & cullable(b)[:, None, :]
+
+
+def boxes_iou_pairs(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
+                    mode: str = '3d', row_mask=None, col_mask=None):
+    """IoU of every pair of each sample's boxes: [B, N, >=7] x [B, M, >=7]
+    → [B, N, M] f32, ``mode`` 'bev' or '3d'; +0 where ``row_mask`` [B, N]
+    or ``col_mask`` [B, M] (optional) is False. One launch of kernel
+    ``IOU_PAIRS`` on the card (tiles of 8 rows x 64 columns). No
+    gradient."""
+    if not on_card(boxes_a, boxes_b, row_mask, col_mask):
+        return boxes_iou_pairs_plain(boxes_a, boxes_b, mode, row_mask,
+                                     col_mask)
+    a, b = _boxes_arg(boxes_a.detach()), _boxes_arg(boxes_b.detach())
+    B, N, M = a.shape[0], a.shape[1], b.shape[1]
+    if b.shape[0] != B:
+        raise ValueError(f'boxes of {B} and {b.shape[0]} samples')
+    rm = as_kernel_arg(row_mask, torch.bool)
+    cm = as_kernel_arg(col_mask, torch.bool)
+    out = torch.empty(B, N, M, dtype=torch.float32, device=a.device)
+    if B and N and M:
+        IOU_PAIRS(a.data_ptr(), b.data_ptr(),
+                  0 if rm is None else rm.data_ptr(),
+                  0 if cm is None else cm.data_ptr(), B, N, M,
+                  IOU_MODES[mode], out.data_ptr(), stream_handle())
     return out
 
 
 def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
-    """[N, 7] x [M, 7] → [N, M] BEV IoU (kernel ``IOU_PAIRS`` on the
-    card)."""
-    if not on_card(boxes_a, boxes_b):
-        return boxes_iou_bev_plain(boxes_a, boxes_b)
-    return _iou_pairs(boxes_a, boxes_b, 0)
+    """[N, 7] x [M, 7] → [N, M] BEV IoU (:func:`boxes_iou_pairs` of one
+    sample)."""
+    return boxes_iou_pairs(boxes_a[None], boxes_b[None], 'bev')[0]
 
 
 def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
-    """[N, 7] x [M, 7] → [N, M] 3D IoU (kernel ``IOU_PAIRS`` on the
-    card)."""
-    if not on_card(boxes_a, boxes_b):
-        return boxes_iou3d_plain(boxes_a, boxes_b)
-    return _iou_pairs(boxes_a, boxes_b, 1)
+    """[N, 7] x [M, 7] → [N, M] 3D IoU (:func:`boxes_iou_pairs` of one
+    sample)."""
+    return boxes_iou_pairs(boxes_a[None], boxes_b[None], '3d')[0]
 
 
 def boxes_iou3d_aligned(boxes_a: torch.Tensor, boxes_b: torch.Tensor):

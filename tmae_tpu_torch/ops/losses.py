@@ -1,8 +1,10 @@
 """Losses of the heads (counterpart of ``tmae_tpu/ops/losses.py``): the
-weighted smooth-L1, the 3D box corners of the corner loss, and the IoU-head
-loss."""
+weighted smooth-L1, the 3D box corners and the corner loss, and the
+IoU-head loss."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,6 +42,23 @@ def boxes_to_corners_3d(boxes):
     rx = local[..., 0] * c - local[..., 1] * s
     ry = local[..., 0] * s + local[..., 1] * c
     return torch.stack([rx, ry, local[..., 2]], -1) + boxes[..., None, 0:3]
+
+
+def corner_loss(pred_boxes, gt_boxes, beta: float = 1.0):
+    """The mean over the 8 corners of the smooth-L1 (Huber, ``beta``) of
+    each corner's distance, against the ground truth and against it turned
+    by pi, the smaller of the two: pred / gt [..., 7] → [...]."""
+    pc = boxes_to_corners_3d(pred_boxes)
+    flipped = torch.cat([gt_boxes[..., :6], gt_boxes[..., 6:7] + math.pi],
+                        -1)
+
+    def huber(d):
+        ad = torch.linalg.vector_norm(d, dim=-1)
+        return torch.where(ad < beta, 0.5 * ad * ad / beta, ad - 0.5 * beta)
+
+    return torch.minimum(
+        huber(pc - boxes_to_corners_3d(gt_boxes)).mean(-1),
+        huber(pc - boxes_to_corners_3d(flipped)).mean(-1))
 
 
 def centernet_iou_loss(iou_pred, mask, pred_boxes, gt_boxes):

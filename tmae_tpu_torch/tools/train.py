@@ -54,9 +54,9 @@ import torch
 
 from ..config import cfg_from_list, cfg_from_yaml_file, log_config_to_file
 from ..datasets.dataset import build_dataloader
-from ..models.detectors import (DETECTORS, MAE_DETECTORS, NOT_PORTED,
-                                batch_to_device, build_detector,
-                                detector_loss, init_training_)
+from ..models.detectors import (DETECTORS, MAE_DETECTORS, batch_to_device,
+                                build_detector, detector_loss,
+                                init_training_)
 from ..parallel import dist
 from ..train.checkpoint import (checkpoints, latest_checkpoint,
                                 load_pretrained_params, restore_checkpoint,
@@ -177,10 +177,8 @@ def main(argv=None):
     args, cfg = parse_config(argv)
     name = cfg.MODEL.NAME
     if name not in DETECTORS:
-        where = ('ROADMAP.md, module 10' if name in NOT_PORTED
-                 else 'an unknown detector')
-        raise NotImplementedError(f'training {name} is not ported yet '
-                                  f'({where})')
+        raise NotImplementedError(f'training {name} is not ported: an '
+                                  'unknown detector')
     world = (1 if args.launcher == 'none'
              else dist.launch_env(args.launcher, args.tcp_port)['world'])
     batch_size = args.batch_size or (
@@ -242,7 +240,8 @@ def _train(args, cfg, device, batch_size):
             steps_per_epoch)
         train_step = make_train_step(
             model, detector_loss(cfg, model), opt, sched,
-            mask_seed=seed + 7 if is_mae else None)
+            mask_seed=(seed + 7 if is_mae or hasattr(model, 'rng_streams')
+                       else None))
 
         resume = args.ckpt or latest_checkpoint(ckpt_dir)
         if resume:

@@ -1,7 +1,8 @@
 """Evaluation loop (counterpart of ``tmae_tpu/train/evaluator.py``): per
 batch the forward and decode on the model's device (CenterPoint's decode,
 the anchor families' top K of each anchor's best class score, or SSD3D's
-votes cut by score and sorted), one copy of the candidates to the host,
+votes or GraphRCNN's refined RoIs cut by score and sorted), one copy of the
+candidates to the host,
 native host NMS, prediction dicts and the recall bookkeeping; then ``result.pkl`` and the dataset's AP: ONCE AP, or
 Waymo AP and APH at LEVEL_1 / LEVEL_2.
 
@@ -26,6 +27,7 @@ import torch
 from ..models.detectors import (ANCHOR_DETECTORS, anchor_predict,
                                 batch_to_device, centerpoint_predict,
                                 host_nms)
+from ..models.graph_rcnn import graph_rcnn_candidates
 from ..models.ssd3d import ssd3d_candidates
 from ..ops.geometry_np import boxes_iou3d
 from ..parallel import dist
@@ -53,9 +55,11 @@ def make_eval_step(model, cfg):
     of all of it to the host (the only synchronisation of the step).
     SSD3D's candidates are its votes of score >= ``SCORE_THRESH``, sorted by
     score with the valid ones first, the top ``NMS_PRE_MAXSIZE``
-    (``ssd3d_candidates``). ``batch``: tensors on the model's device."""
+    (``ssd3d_candidates``); GraphRCNN's its refined RoIs, cut and sorted
+    the same way (``graph_rcnn_candidates``). ``batch``: tensors on the
+    model's device."""
     name = cfg['MODEL']['NAME']
-    if name not in ('CenterPoint', 'SSD3D') + ANCHOR_DETECTORS:
+    if name not in ('CenterPoint', 'SSD3D', 'GraphRCNN') + ANCHOR_DETECTORS:
         raise NotImplementedError(f'{name} has no evaluation: it is not a '
                                   'detector')
     model.eval()
@@ -65,6 +69,8 @@ def make_eval_step(model, cfg):
             return anchor_predict(cfg, model.dense_head, out)
         if name == 'SSD3D':
             return ssd3d_candidates(cfg, out)
+        if name == 'GraphRCNN':
+            return graph_rcnn_candidates(cfg, out)
         return centerpoint_predict(cfg, out, nms_on_device=False)
 
     @torch.no_grad()

@@ -4,7 +4,9 @@ kernels' backward passes, one optimizer update. Where the JAX step folds
 named random streams (``rng_names``, e.g. the MAE mask) out of its key, this
 one hands the model a ``torch.Generator`` seeded anew from ``mask_seed`` and
 the step count, as the JAX CLI folds the step into its key, so that a
-resumed run draws the masks of an uninterrupted one.
+resumed run draws the masks of an uninterrupted one. A model that names
+its streams (``rng_streams``, GraphRCNN's proposal and dropout draws) gets
+one generator a stream, seeded from (``mask_seed``, step, stream).
 
 Under data parallelism (``parallel/dist.py``) each rank runs the step on
 its slice of the global batch; its loss is its share of the global loss
@@ -30,10 +32,10 @@ def collect_occ_overflow(outputs) -> torch.Tensor:
     return outputs['occ_overflow'].sum()
 
 
-def step_seed(seed: int, step: int, rank=None) -> int:
-    """A 64-bit seed from (``seed``, ``step``), and ``rank`` when given:
-    the port's ``fold_in``."""
-    words = [seed, step] if rank is None else [seed, step, rank]
+def step_seed(seed: int, step: int, rank=None, stream=None) -> int:
+    """A 64-bit seed from (``seed``, ``step``), and ``rank`` and
+    ``stream`` when given: the port's ``fold_in``."""
+    words = [seed, step] + [w for w in (rank, stream) if w is not None]
     return int(np.random.SeedSequence(words).generate_state(
         1, np.uint64)[0])
 
@@ -75,24 +77,30 @@ class TrainStep:
         self.params = [p for g in optimizer.param_groups for p in g['params']]
         self.step = 0
 
-    def step_generator(self):
-        """The generator of this step's draws, on the parameters' device,
-        seeded from ``mask_seed``, ``step`` and, with more than one rank,
-        the rank (None without a seed)."""
+    def step_generator(self, stream=None):
+        """The generator of this step's draws (of stream number
+        ``stream``), on the parameters' device, seeded from ``mask_seed``,
+        ``step``, with more than one rank the rank, and the stream (None
+        without a seed)."""
         if self.mask_seed is None:
             return None
         g = torch.Generator(device=self.params[0].device)
         rank = dist.rank() if dist.world() > 1 else None
-        return g.manual_seed(step_seed(self.mask_seed, self.step, rank))
+        return g.manual_seed(step_seed(self.mask_seed, self.step, rank,
+                                       stream))
 
     def __call__(self, batch: dict, **model_kwargs) -> dict:
         """``model_kwargs`` go to the model's forward (a pretraining test
         passes the MAE mask this way)."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        gen = self.step_generator()
-        if gen is not None:
-            model_kwargs.setdefault('generator', gen)
+        streams = getattr(self.model, 'rng_streams', None)
+        if self.mask_seed is not None and streams:
+            model_kwargs.setdefault('generators', {
+                name: self.step_generator(i)
+                for i, name in enumerate(streams)})
+        elif self.mask_seed is not None:
+            model_kwargs.setdefault('generator', self.step_generator())
         with deterministic_convolutions():
             out = self.model(batch, **model_kwargs)
             loss, parts = self.loss_fn(out, batch)

@@ -40,9 +40,10 @@ _MODULE_RENAME = {
 }
 _BN_LEAF = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
             'var': 'running_var'}
-# batch norms by owner: flax's auto-named ones, and the named masked BN of
-# a half-width stage (SSTBlock.conv_down_bn)
-_BN_OWNERS = ('MaskedBatchNorm_0', 'BatchNorm_0', 'conv_down_bn')
+# batch norms by owner: flax's auto-named ones, the named masked BN of a
+# half-width stage (SSTBlock.conv_down_bn) and GraphRCNN's ShortcutLayer's
+_BN_OWNERS = ('MaskedBatchNorm_0', 'BatchNorm_0', 'conv_down_bn', 'norm1',
+              'norm2')
 _LAYER_LINEAR = ('q', 'k', 'v', 'out', 'ffn1', 'ffn2')
 
 

@@ -15,11 +15,22 @@ against the same boxes moved, and on degenerate pairs
 (:func:`degenerate_pairs`): the same readings, and its largest |diff|
 against the plain version.
 
+``IOU_PAIRS`` (:func:`measure_pairs`) on :func:`pair_cases`: the served
+candidates (or the crowded set) 500 x 500 in BEV, the crowded set in BEV
+and 3D, the degenerate pairs, the pairs planted at the cull's margin
+(:func:`margin_pairs`) and a made-up scene at GraphRCNN's RoI sampler's
+[2, 512, 64] with its masks (:func:`roi_gt_boxes`; far fewer of its pairs
+need a clip than of a training step's own, which ``chip_smoke.py`` 24c
+times with :func:`time_pairs`): the IoUs bit for bit against the plain
+version, the readings, the kernel's own device ms, the pairs clipped.
+
 ``--parent PATH`` builds another version of ``iou_nms.cu`` (a parent
 checkout's) beside this one with the same flags, runs both on every set in
 the order parent, this, this, parent, and fails unless both give the same
-mask words and keep masks (and IOU_PAIRS the same IoUs) bit for bit;
-IOU_ALIGNED's largest |diff| against the parent's is logged. ``--cycles`` also builds the source
+mask words and keep masks and IoUs bit for bit; IOU_ALIGNED's largest
+|diff| against the parent's is logged. A parent whose IOU_PAIRS takes one
+sample a launch (no masks) runs once a sample, the masks applied after it,
+as the sampler used it. ``--cycles`` also builds the source
 with ``-DTMAE_NMS_PROFILE`` and prints NMS_SCAN's cycles a 64-row block by
 part on each set.
 
@@ -131,17 +142,192 @@ def aligned_cases(torch):
             'degenerate pairs': (a.cuda(), b.cuda())}
 
 
+def margin_pairs(torch):
+    """Pairs planted at IOU_PAIRS' cull margin (:func:`geometry.
+    iou_pairs_cull`), CPU: a [n, 1, 7] against b [n, 3, 7], sample by
+    sample. Box B sits on A's +x side, at the last x of its centre that
+    the cull keeps (a clip), then one and two floats further (culled).
+    Sizes from 0.2 x 0.1 to 30 x 30 m, A's centre from 0.5 to 900 m out,
+    the headings that turn a corner of each box towards the other (the
+    closest the rectangles come for their circles' distance), 0 and one
+    drawn at random; and, in z, B over A in BEV, its bottom face at A's top
+    (an overlap of 0: clipped) and one and two floats above it (culled in
+    3D)."""
+    import numpy as np
+
+    from ..ops import geometry as geo
+
+    rng = np.random.RandomState(24)
+    rows, cols = [], []
+    for xa in (0.5, 30.0, 120.0, 900.0):
+        for (dxa, dya), (dxb, dyb) in (((0.2, 0.1), (0.3, 0.2)),
+                                       ((4.0, 2.0), (4.5, 1.9)),
+                                       ((12.0, 3.0), (0.8, 0.8)),
+                                       ((30.0, 30.0), (5.0, 2.0))):
+            for turn in ('corner', 'zero', 'random'):
+                if turn == 'corner':
+                    ha = -math.atan2(dya, dxa)
+                    hb = math.pi - math.atan2(dyb, dxb)
+                elif turn == 'zero':
+                    ha = hb = 0.0
+                else:
+                    ha, hb = rng.uniform(-math.pi, math.pi, 2)
+                a = np.array([xa, -3.0, 0.2, dxa, dya, 1.5, ha], np.float32)
+                b = np.array([xa, -3.0, 0.2, dxb, dyb, 1.5, hb], np.float32)
+                lo = np.float32(xa)
+                hi = np.float32(xa + 2 * (dxa + dya + dxb + dyb) + 1)
+
+                def culled(x):
+                    bb = b.copy()
+                    bb[0] = x
+                    return bool(geo.iou_pairs_cull(
+                        torch.from_numpy(a)[None, None],
+                        torch.from_numpy(bb)[None, None], 'bev')[0, 0, 0])
+
+                while np.nextafter(lo, hi) != hi:  # culled(hi), not lo
+                    mid = np.float32(lo + (hi - lo) / 2)
+                    if mid in (lo, hi):
+                        mid = np.nextafter(lo, hi)
+                    if culled(mid):
+                        hi = mid
+                    else:
+                        lo = mid
+                xs = (lo, hi, np.nextafter(hi, np.float32(np.inf)))
+                rows.append(a)
+                cols.append([np.r_[np.float32(x), b[1:]] for x in xs])
+    for top in (1.0, 7.5):
+        a = np.array([5.0, 5.0, top - 1.0, 3.0, 2.0, 2.0, 0.4], np.float32)
+        zs = [np.float32(top + 0.5)]
+        for _ in range(2):
+            zs.append(np.nextafter(zs[-1], np.float32(np.inf)))
+        rows.append(a)
+        cols.append([np.array([5.0, 5.0, z, 3.0, 2.0, 1.0, 0.4], np.float32)
+                     for z in zs])
+    return (torch.from_numpy(np.stack(rows))[:, None],
+            torch.from_numpy(np.array(cols, np.float32)))
+
+
+def roi_gt_boxes(torch, B=2, R=512, G=64, seed=24):
+    """A made-up scene at the shape of GraphRCNN's RoI sampler, on the
+    card (2% of its pairs need a clip; of a step's own, ~15%): RoIs [B, R,
+    7] (the proposal layer's NMS_POST_MAXSIZE 512, the last 40 invalid) against
+    ground truth [B, G, 7] (RUNTIME.MAX_GT 64, 30 and 45 valid) over a
+    150 m ONCE scene: half the RoIs jittered copies of a valid box, the
+    rest anywhere. Returns (rois, gts, roi_mask, gt_mask)."""
+    g = torch.Generator().manual_seed(seed)
+    rois, gts, rms, gms = [], [], [], []
+    for b in range(B):
+        n_gt = (30, 45)[b % 2]
+        gt = torch.cat([
+            (torch.rand(G, 2, generator=g) - 0.5) * 140,
+            torch.rand(G, 1, generator=g) * 2 - 2,
+            torch.rand(G, 1, generator=g) * 8 + 0.6,
+            torch.rand(G, 1, generator=g) * 2 + 0.6,
+            torch.rand(G, 1, generator=g) * 2 + 1.2,
+            (torch.rand(G, 1, generator=g) * 2 - 1) * math.pi], 1)
+        src = torch.randint(0, n_gt, (R,), generator=g)
+        jitter = torch.randn(R, 7, generator=g) * torch.tensor(
+            [0.6, 0.6, 0.3, 0.4, 0.2, 0.2, 0.3])
+        near = gt[src] + jitter
+        near[:, 3:6] = near[:, 3:6].abs() + 0.1
+        far = torch.cat([
+            (torch.rand(R, 2, generator=g) - 0.5) * 140,
+            torch.rand(R, 1, generator=g) * 2 - 2,
+            torch.rand(R, 3, generator=g) * 4 + 0.5,
+            (torch.rand(R, 1, generator=g) * 2 - 1) * math.pi], 1)
+        pick = torch.rand(R, 1, generator=g) < 0.5
+        rois.append(torch.where(pick, near, far))
+        gts.append(gt)
+        rms.append(torch.arange(R) < R - 40)
+        gms.append(torch.arange(G) < n_gt)
+    return [torch.stack(t).cuda() for t in (rois, gts, rms, gms)]
+
+
+def pair_cases(torch, served=None):
+    """IOU_PAIRS' sets on the card: {name: (a [B, N, 7], b [B, M, 7], mode,
+    row mask, column mask)}."""
+    crowded = crowded_boxes(torch)[0][:, :, :7].contiguous()
+    first = (served['boxes'][:, :, :7].cuda().contiguous()
+             if served is not None else crowded)
+    da, db = degenerate_pairs(torch)
+    ma, mb = margin_pairs(torch)
+    rois, gts, rm, gm = roi_gt_boxes(torch)
+    return {
+        f'{"served" if served is not None else "crowded"} 500x500 bev':
+            (first, first, 'bev', None, None),
+        'crowded 500x500 3d': (crowded, crowded, '3d', None, None),
+        'degenerate 3d': (da[None].cuda(), db[None].cuda(), '3d', None,
+                          None),
+        'margin bev': (ma.cuda(), mb.cuda(), 'bev', None, None),
+        'margin 3d': (ma.cuda(), mb.cuda(), '3d', None, None),
+        'synthetic roi x gt [2, 512, 64] 3d': (rois, gts, '3d', rm, gm)}
+
+
 KERNELS = ('IOU_PAIRS', 'IOU_ALIGNED', 'NMS_MASK', 'NMS_SCAN')
+
+
+# IOU_PAIRS before its batched launch: (a, b, N, M, mode, out, stream)
+IOU_PAIRS_PER_SAMPLE_ARGS = [build.P, build.P, build.I, build.I, build.I,
+                             build.P, build.P]
+
+
+def batched_pairs(path) -> bool:
+    """Whether the ``iou_nms.cu`` at ``path`` launches IOU_PAIRS batched
+    and masked (this version's signature)."""
+    from pathlib import Path
+
+    src = Path(path).read_text()
+    at = src.index('launch_iou_pairs(')
+    return 'mask' in src[at:src.index(')', at)]
 
 
 def parent_kernels(path):
     """The geometry kernels of another ``iou_nms.cu``, built beside this
-    one's library with the same flags."""
+    one's library with the same flags. A parent whose IOU_PAIRS takes one
+    sample a launch has it under ``IOU_PAIRS_PER_SAMPLE`` instead (never
+    swapped in by :func:`using`)."""
     from ..ops import geometry as geo
 
     lib = build.build_file(path, 'iou_nms.cu', 'parent')
-    return {name: build.CudaKernel(k.source, k.symbol, k.argtypes, path=lib)
-            for name, k in ((n, getattr(geo, n)) for n in KERNELS)}
+    out = {name: build.CudaKernel(k.source, k.symbol, k.argtypes, path=lib)
+           for name, k in ((n, getattr(geo, n)) for n in KERNELS)}
+    if not batched_pairs(path):
+        k = out.pop('IOU_PAIRS')
+        out['IOU_PAIRS_PER_SAMPLE'] = build.CudaKernel(
+            k.source, k.symbol, IOU_PAIRS_PER_SAMPLE_ARGS, path=lib)
+    return out
+
+
+def pairs_call(kernels):
+    """``iou(a, b, mode, row_mask, col_mask) -> [B, N, M]`` through
+    ``kernels`` ({name: kernel}, none: this version's): the batched
+    ``boxes_iou_pairs``, or a per-sample parent's IOU_PAIRS launched once a
+    sample with the masks applied after it."""
+    import torch
+
+    from ..ops import geometry as geo
+
+    per_sample = (kernels or {}).get('IOU_PAIRS_PER_SAMPLE')
+    if per_sample is None:
+        def call(a, b, mode, rm=None, cm=None):
+            with using(kernels):
+                return geo.boxes_iou_pairs(a, b, mode, rm, cm)
+        return call
+
+    def call(a, b, mode, rm=None, cm=None):
+        B, N, M = a.shape[0], a.shape[1], b.shape[1]
+        a7 = a[..., :7].float().contiguous()
+        b7 = b[..., :7].float().contiguous()
+        out = torch.empty(B, N, M, dtype=torch.float32, device=a.device)
+        for s in range(B):
+            per_sample(a7[s].data_ptr(), b7[s].data_ptr(), N, M,
+                       geo.IOU_MODES[mode], out[s].data_ptr(),
+                       geo.stream_handle())
+        if rm is None and cm is None:
+            return out
+        return torch.where(geo._pair_mask(rm, cm, B, N, M, a.device), out,
+                           0.0)
+    return call
 
 
 @contextlib.contextmanager
@@ -265,9 +451,8 @@ def measure(torch, served=None, parent=None, log=print):
 def measure_aligned(torch, parent=None, log=print):
     """IOU_ALIGNED on aligned_cases (and the parent's, in the order parent,
     this, this, parent): its largest |diff| against the plain version and
-    against the parent's, whether each is bit-equal, and the readings; and
-    IOU_PAIRS (BEV and 3D) on the crowded set, which must give the
-    parent's bits. {set: {...}}."""
+    against the parent's, whether each is bit-equal, and the readings.
+    {set: {...}}."""
     from ..ops import geometry as geo
 
     versions = ['parent', 'change', 'change', 'parent'] if parent else \
@@ -280,9 +465,6 @@ def measure_aligned(torch, parent=None, log=print):
         for v in versions:
             with using(kernels[v]):
                 got.setdefault(v, geo.boxes_iou3d_aligned(a, b))
-                if name.startswith('crowded'):
-                    got.setdefault(f'{v} pairs', (geo.boxes_iou_bev(a, a),
-                                                  geo.boxes_iou3d(a, a)))
                 runs[v].append({'IOU_ALIGNED': readings(
                     torch, lambda: geo.boxes_iou3d_aligned(a, b))})
         plain = geo.boxes_iou3d_aligned_plain(a, b)
@@ -294,11 +476,6 @@ def measure_aligned(torch, parent=None, log=print):
                 (got['change'] - got['parent']).abs().max())
             rec['bits_parent'] = bool(torch.equal(got['change'],
                                                   got['parent']))
-            if 'change pairs' in got and not all(
-                    torch.equal(x, y) for x, y in zip(got['change pairs'],
-                                                      got['parent pairs'])):
-                raise AssertionError(f'{name}: IOU_PAIRS differs from the '
-                                     "parent's")
         for v in dict.fromkeys(versions):
             rec[v] = mean_readings(runs[v])['IOU_ALIGNED']
             rd = rec[v]
@@ -310,10 +487,70 @@ def measure_aligned(torch, parent=None, log=print):
         log(f'  {name}: IOU_ALIGNED max |kernel - plain| '
             f'{rec["max_abs_plain"]:.3g} (bit-equal {rec["bits_plain"]})'
             + (f', max |this - parent| {rec["max_abs_parent"]:.3g} '
-               f'(bit-equal {rec["bits_parent"]}); IOU_PAIRS the parent\'s '
-               'bits' if parent else ''))
+               f'(bit-equal {rec["bits_parent"]})' if parent else ''))
         out[name] = rec
     return out
+
+
+def kernel_device_ms(by_launch, name='iou_pairs_kernel'):
+    """The device ms of the launches of kernel ``name`` in a by-launch
+    reading (a parent's per-sample call also launches the masks' where)."""
+    ms = [v for k, v in by_launch.items() if name in k]
+    return sum(ms) if ms else None
+
+
+def time_pairs(torch, a, b, mode, rm=None, cm=None, parent=None,
+               log=print, name=''):
+    """IOU_PAIRS on one set, and ``parent``'s in the order parent, this,
+    this, parent: the IoUs bit for bit against the plain version and the
+    parent's (raises otherwise), each version's mean readings with the
+    kernel's own device ms (``kernel_device_ms``), and the pairs that need
+    a clip (in the masks, not culled)."""
+    from ..ops import geometry as geo
+
+    versions = ['parent', 'change', 'change', 'parent'] if parent else \
+        ['change']
+    calls = {'change': pairs_call(None),
+             'parent': pairs_call(parent) if parent else None}
+    runs = {v: [] for v in versions}
+    got = {}
+    for v in versions:
+        call = lambda: calls[v](a, b, mode, rm, cm)  # noqa: E731
+        got.setdefault(v, call())
+        runs[v].append({'IOU_PAIRS': readings(torch, call)})
+    plain = geo.boxes_iou_pairs_plain(a, b, mode, rm, cm)
+    B, N, M = plain.shape
+    live = geo._pair_mask(rm, cm, B, N, M, a.device)
+    clips = int((live & ~geo.iou_pairs_cull(a, b, mode)).sum())
+    rec = {'shape': [B, N, M], 'mode': mode, 'clips': clips,
+           'pairs': int(live.sum()),
+           'bits_plain': bool(torch.equal(got['change'], plain)),
+           'max_abs_plain': float((got['change'] - plain).abs().max())}
+    if not rec['bits_plain']:
+        raise AssertionError(f'{name}: IOU_PAIRS differs from its plain '
+                             f'version (max {rec["max_abs_plain"]:.3g})')
+    if parent and not torch.equal(got['change'], got['parent']):
+        raise AssertionError(f"{name}: IOU_PAIRS differs from the parent's")
+    for v in dict.fromkeys(versions):
+        rd = rec[v] = mean_readings(runs[v])['IOU_PAIRS']
+        rd['kernel_device_ms'] = kernel_device_ms(rd['by_launch'])
+        log(f'  {name} {v} IOU_PAIRS: kernel device '
+            f'{rd["kernel_device_ms"]} ms (' + ', '.join(
+                f'{k} {x:.5f}' for k, x in rd['by_launch'].items())
+            + f'), host enqueue {rd["host_ms"]:.4f} ms, events '
+            f'{rd["ms"]:.4f} ms')
+    log(f'  {name}: IOU_PAIRS {B}x{N}x{M} {mode}, {clips} of '
+        f'{rec["pairs"]} pairs clipped; bit-equal to the plain version'
+        + (" and the parent's" if parent else ''))
+    return rec
+
+
+def measure_pairs(torch, served=None, parent=None, log=print):
+    """:func:`time_pairs` on every set of :func:`pair_cases`. {set:
+    {...}}."""
+    return {name: time_pairs(torch, *case, parent=parent, log=log,
+                             name=name)
+            for name, case in pair_cases(torch, served).items()}
 
 
 SCAN_PARTS = ('classes', 'slab copy and wait', 'removed word, ballots, rooms',
@@ -382,6 +619,7 @@ def main(argv=None):
     parent = parent_kernels(args.parent) if args.parent else None
     out = measure(torch, served, parent)
     out['IOU_ALIGNED'] = measure_aligned(torch, parent)
+    out['IOU_PAIRS'] = measure_pairs(torch, served, parent)
     if args.cycles:
         out['scan_cycles'] = scan_cycles(torch, served)
     if args.json:
