@@ -365,6 +365,35 @@ Phases (any failure exits non-zero and prints no result line):
      RoIs.
      24d. ``tools.train`` 1 epoch then ``tools.test`` on 14a's tree: each
      step's launches, every AP finite, the frames in order.
+ 25. GraphRCNN's camera path (``graph_rcnn_once_cam.yaml``: DLASeg on
+     DCNv2 blocks, PointSample in the RoI head) and its kernels
+     (``csrc/dcn.cu``).
+     25b. 19d's first scene rendered again with a seeded 1020 x 1920 uint8
+     BGR image and a forward camera (``cam_calib``) through the port's
+     imrescale, imnormalize and impad (544 x 960): the seeded full-width
+     detector serves it, counted (24b's kernels, DCN_COLS 16,
+     POINT_SAMPLE 1), outputs finite, pooled points in the image (> 0), ms
+     a frame and DLASeg's ms, peak memory; card vs CPU: DLASeg's map
+     (CAM_FEAT_TOL) and the second stage on the card's proposals
+     (GRAPH_TOL).
+     25c. 19d's two scenes with images through the port's augmentor
+     (photo_metric_distortion, random_world_flip) and processors (the
+     config's batch 4 cut to 2), ground truth planted as in 24c: a step's
+     forward and backward twice around ``clutter_allocator``, every loss
+     part and gradient (DLASeg's included, not all 0) bit for bit; then
+     GRAPH_STEPS steps (step 0 counted: EXPECTED_CAM_STEP, DCN_COORD_BWD
+     16, BILINEAR_GRAD 17; the loss finite and falling; ms a step, peak).
+     25a. On the calls 25b's frame and 25c's first step made: every
+     DCN_COLS (each DCN site's shape, batch 1 and 2) and POINT_SAMPLE bit
+     for bit against its plain version; every DCN_COORD_BWD and
+     BILINEAR_GRAD run twice, bit-equal to itself, and within
+     CAM_REDUCE_TOL of its plain version; each kernel's row at its
+     largest call: kernel, plain, bound and device ms (grid_sample's
+     forward for DCN_COLS and POINT_SAMPLE, its backward for
+     BILINEAR_GRAD as the library's).
+     25d. 14a's tree with cam03 JPGs of ONCE's raw size and the calibration
+     (infos made again): ``tools.train`` 1 epoch (each step's launches
+     25c's) and ``tools.test`` (launches, frames in order, APs finite).
 Prints the kernels line, the card line and, last, the result line; the
 log lines also go to chiprun_out/chip_smoke/log.txt.
 """
@@ -399,7 +428,9 @@ EXPECTED_LAUNCHES = {'K1': 24, 'K2': 18, 'K3': 18, 'K4': 36, 'K5': 2,
                      'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0, 'PACK': 18,
                      'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0,
                      'NMS_SCAN': 0, 'NARROW_FWD': 0, 'NARROW_BWD': 0,
-                     'DFPS': 0, 'FFPS': 0, 'BALL_QUERY': 0}
+                     'DFPS': 0, 'FFPS': 0, 'BALL_QUERY': 0, 'DCN_COLS': 0,
+                     'DCN_COORD_BWD': 0, 'BILINEAR_GRAD': 0,
+                     'POINT_SAMPLE': 0}
 # One training step of t_mae.yaml: 18 encoder layers (3 stages x 2 blocks x
 # 2 shifted layers of self attention, 3 WCA blocks x 2 cross layers), each
 # one gather (two in cross mode), the bucket kernels (K8 on S=16 and S=48,
@@ -413,7 +444,8 @@ EXPECTED_TRAIN_LAUNCHES = {
     'K5': 2 + 2, 'K6': 18 + 12, 'K7': 18, 'K8': 36 + 24, 'K9': 36,
     'K10': 0, 'K12': 0, 'K13b': 0, 'K13c': 0, 'K15': 0, 'K16': 0,
     'PACK': 0, 'IOU_PAIRS': 0, 'IOU_ALIGNED': 0, 'NMS_MASK': 0, 'NMS_SCAN': 0,
-    'NARROW_FWD': 0, 'NARROW_BWD': 0, 'DFPS': 0, 'FFPS': 0, 'BALL_QUERY': 0}
+    'NARROW_FWD': 0, 'NARROW_BWD': 0, 'DFPS': 0, 'FFPS': 0, 'BALL_QUERY': 0,
+    'DCN_COLS': 0, 'DCN_COORD_BWD': 0, 'BILINEAR_GRAD': 0, 'POINT_SAMPLE': 0}
 NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
 # The fused in-place serving path: each of the 18 layers is one pack of its
 # panels and one K12 call per bucket (small, mid, full), and nothing else
@@ -1466,7 +1498,7 @@ def grid_bits_check(torch, el, call, out, label):
 
 
 def kernels():
-    from tmae_tpu_torch.ops import (encoder_layer, geometry, occ_compact,
+    from tmae_tpu_torch.ops import (dcn, encoder_layer, geometry, occ_compact,
                                     pointnet2, sorted_segments, sparse_conv,
                                     window_attention)
 
@@ -1484,7 +1516,10 @@ def kernels():
             'NARROW_FWD': encoder_layer.NARROW_FWD,
             'NARROW_BWD': encoder_layer.NARROW_BWD,
             'DFPS': pointnet2.DFPS, 'FFPS': pointnet2.FFPS,
-            'BALL_QUERY': pointnet2.BALL_QUERY}
+            'BALL_QUERY': pointnet2.BALL_QUERY, 'DCN_COLS': dcn.DCN_COLS,
+            'DCN_COORD_BWD': dcn.DCN_COORD_BWD,
+            'BILINEAR_GRAD': dcn.BILINEAR_GRAD,
+            'POINT_SAMPLE': dcn.POINT_SAMPLE}
 
 
 def fill_launches(rows, launches, names):
@@ -6904,17 +6939,22 @@ def pool_and_knn(torch, cfg, batch, rois, roi_mask, fps_args, what):
         res['dfps_device_ms'] = launch_times(
             torch, f'{what} DFPS ({n} RoIs, {P} -> {fps_args[2]})',
             fps)['device_ms']
+    # late in the script the profiler may see no device record (PERF.md
+    # section 7): device_ms is then None, logged as not measured
     log(f'  {what} pool ({rois.shape[0]} x {rois.shape[1]} RoIs over '
         f'{batch["points"].shape[1]} points): ' + ', '.join(
-            f'{k} {v:.4g}' for k, v in res.items()))
+            f'{k} {"not measured" if v is None else format(v, ".4g")}'
+            for k, v in res.items()))
     return res
 
 
 def graph_card_vs_cpu(torch, model, batch, out):
-    """24b: the second stage of the card's model and of its copy on the
-    CPU on the card's proposals (the same weights, points and RoIs): the
-    pooled points RoI by RoI, then rcnn_cls and rcnn_reg within GRAPH_TOL
-    at the RoIs pooled alike, at most GRAPH_FLIPS of them otherwise."""
+    """24b, 25b: the second stage of the card's model and of its copy on
+    the CPU on the card's proposals (the same weights, points and RoIs;
+    with a camera branch each side's own DLASeg map,
+    :func:`cam_features_card_vs_cpu`): the pooled points RoI by RoI, then
+    rcnn_cls and rcnn_reg within GRAPH_TOL at the RoIs pooled alike, at
+    most GRAPH_FLIPS of them otherwise."""
     import copy
 
     from tmae_tpu_torch.models.point_head_vote import enlarge_box3d
@@ -6928,9 +6968,12 @@ def graph_card_vs_cpu(torch, model, batch, out):
     kw = dict(num_dvs_points=int(dfvs['NUM_DVS_POINTS']),
               num_fps_points=int(dfvs['NUM_FPS_POINTS']))
     width = [float(dfvs['POOL_EXTRA_WIDTH'])] * 3
+    img, img_cpu, res = None, None, {}
+    if model.img_backbone is not None:
+        img, img_cpu, res = cam_features_card_vs_cpu(torch, model, batch)
     with torch.no_grad():
-        got = [t.cpu() for t in head(*args)]
-        want = cpu(*[t.cpu() for t in args])
+        got = [t.cpu() for t in head(*args, image_inputs=img)]
+        want = cpu(*[t.cpu() for t in args], image_inputs=img_cpu)
         pools = [roilocal_dfvs_pool3d(
             a[0], a[1], enlarge_box3d(a[2][..., :7], width), a[3], **kw)[0]
             .cpu() for a in (args, [t.cpu() for t in args])]
@@ -6946,7 +6989,8 @@ def graph_card_vs_cpu(torch, model, batch, out):
         f'max |diff| / max {errs[0]:.3g} / {errs[1]:.3g} at the others')
     if max(errs) > GRAPH_TOL or flips > GRAPH_FLIPS * int(live.sum()):
         raise AssertionError('GraphRCNN: card and CPU differ')
-    return {'card_vs_cpu_rel': max(errs), 'card_vs_cpu_pool_flips': flips}
+    return {'card_vs_cpu_rel': max(errs), 'card_vs_cpu_pool_flips': flips,
+            **res}
 
 
 def graph_serving_phase(torch, cfg, np_serve):
@@ -7179,6 +7223,553 @@ def graph_phase(torch, frames, served, fresh, parent, tree, rows):
     log(f'  phase 24d {time.perf_counter() - t0:.1f} s')
     log(f'  phase 24 {time.perf_counter() - t24:.1f} s; {card_line()}')
     return res
+
+CAM_CFG = 'tools/cfgs/once_models/graph_rcnn_once_cam.yaml'
+DCN_SRC = 'tmae_tpu_torch/csrc/dcn.cu'
+CAM_RAW_HW = (1020, 1920)  # ONCE's raw camera image (h, w)
+CAM_FOCAL = 600.0          # the synthetic calibration's focal length, px
+# One served graph_rcnn_once_cam.yaml frame: 24b's kernels, DLASeg's 16 DCN
+# blocks (DLAUp 2 + 4 + 6, the final IDAUp 4: one DCN_COLS each) and the
+# head's one POINT_SAMPLE; a step adds the sampler's IOU_PAIRS and, in the
+# backward, one DCN_COORD_BWD and one BILINEAR_GRAD (d x) a DCN block and
+# PointSample's BILINEAR_GRAD (d image features).
+EXPECTED_CAM_SERVING = {**EXPECTED_GRAPH_SERVING, 'DCN_COLS': 16,
+                        'POINT_SAMPLE': 1}
+EXPECTED_CAM_STEP = {**EXPECTED_GRAPH_STEP, 'DCN_COLS': 16,
+                     'POINT_SAMPLE': 1, 'DCN_COORD_BWD': 16,
+                     'BILINEAR_GRAD': 16 + 1}
+# 25b card vs CPU: DLASeg's map, f32 on both sides with TF32 off (sums in
+# another order through ~40 layers), max |diff| over the largest value
+CAM_FEAT_TOL = 1e-3
+# 25a DCN_COORD_BWD and BILINEAR_GRAD against their plain versions: f32
+# sums in another order (warp lanes, sorted contributions; the plain
+# versions' torch sums and index_add_), max |diff| over the largest value
+CAM_REDUCE_TOL = 1e-4
+
+
+def cam_cfg():
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+
+    return cfg_from_yaml_file(ROOT / CAM_CFG)
+
+
+def cam_calib():
+    """A camera at the LiDAR's origin looking along +x (the axes of
+    tests/once_fixture.py), intrinsics of ONCE's raw image at CAM_FOCAL:
+    (cam_to_velo [4, 4], cam_intrinsic [3, 3])."""
+    import numpy as np
+
+    c2v = np.eye(4, dtype=np.float32)
+    c2v[:3, :3] = [[0, 0, 1], [-1, 0, 0], [0, -1, 0]]
+    h, w = CAM_RAW_HW
+    K = np.array([[CAM_FOCAL, 0, w / 2], [0, CAM_FOCAL, h / 2], [0, 0, 1]],
+                 np.float32)
+    return c2v, K
+
+
+def synthetic_image(seed):
+    """A seeded uint8 BGR image of ONCE's raw size."""
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(0, 256, (*CAM_RAW_HW, 3),
+                                               dtype=np.uint8)
+
+
+def camera_frames(cfg, scenes, training):
+    """19d's synthetic LiDAR frames (density 2.0, up to 131072 points) with
+    a seeded image and cam_calib each, through the port's augmentor in
+    training (graph_rcnn_once_cam.yaml's photo_metric_distortion and
+    random_world_flip) and its processors (imrescale, imnormalize, impad,
+    the host voxelizer), collated: (numpy batch, host ms a frame)."""
+    import numpy as np
+
+    from tmae_tpu_torch.datasets.augmentor import DataAugmentor
+    from tmae_tpu_torch.datasets.processor import (DataProcessor,
+                                                   collate_static)
+    from tmae_tpu_torch.datasets.synthetic import make_scene, render_lidar
+
+    dc = cfg.DATA_CONFIG
+    pc = list(dc.POINT_CLOUD_RANGE)
+    names = list(cfg.CLASS_NAMES)
+    rng = np.random.RandomState(0)
+    proc = DataProcessor(dc.DATA_PROCESSOR, pc, training, rng=rng)
+    aug = DataAugmentor(None, dc.DATA_AUGMENTOR, names, rng=rng)
+    c2v, K = cam_calib()
+    samples, ms = [], []
+    for s in scenes:
+        scene = make_scene(s, pc, names)
+        pts = render_lidar(scene, np.random.RandomState(7000 + s), pc, 2.0,
+                           131072)
+        boxes = np.concatenate([scene['boxes'][:, :7], np.asarray(
+            [names.index(n) + 1 for n in scene['names']],
+            np.float32)[:, None]], 1).astype(np.float32)
+        t0 = time.perf_counter()
+        data = {'points': pts.astype(np.float32), 'gt_boxes': boxes,
+                'frame_id': f'{s:06d}',
+                'image': synthetic_image(9000 + s).astype(np.float32),
+                'image_scale': np.ones(2, np.float32),
+                'image_shape': np.asarray(CAM_RAW_HW, np.int32),
+                'trans_lidar_to_cam': np.linalg.inv(c2v).astype(np.float32),
+                'trans_cam_to_img': np.concatenate(
+                    [K, np.zeros((3, 1), np.float32)], 1)}
+        if training:
+            data = aug(data)
+        samples.append(proc(data))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    batch = collate_static(samples, int(cfg.RUNTIME.MAX_POINTS),
+                           int(cfg.RUNTIME.MAX_GT),
+                           max_voxels=int(cfg.RUNTIME.MAX_VOXELS[0]))
+    return batch, statistics.mean(ms)
+
+
+def cam_features_card_vs_cpu(torch, model, batch):
+    """DLASeg of the card's model and of its copy on the CPU on the batch's
+    images: max |diff| over the largest value within CAM_FEAT_TOL.
+    Returns (the card's image inputs, the CPU's, readings)."""
+    import copy
+
+    cpu = copy.deepcopy(model.img_backbone).cpu()
+    with torch.no_grad():
+        img = model.image_inputs(batch)
+        t0 = time.perf_counter()
+        feats = cpu(batch['images'].cpu())
+        cpu_s = time.perf_counter() - t0
+    img_cpu = {k: v.cpu() for k, v in img.items()}
+    img_cpu['image_features'] = feats
+    rel = float((img['image_features'].cpu() - feats).abs().max()
+                / feats.abs().max())
+    log(f'  card vs CPU, DLASeg {tuple(feats.shape)}: max |diff| / max '
+        f'{rel:.3g} (the CPU\'s pass {cpu_s:.1f} s)')
+    if rel > CAM_FEAT_TOL:
+        raise AssertionError('DLASeg: card and CPU differ')
+    return img, img_cpu, {'dlaseg_card_vs_cpu_rel': rel}
+
+
+def largest_call(calls, key):
+    return max(calls, key=lambda c: c[0][key].numel())[0]
+
+
+def grid_of(torch, ys, xs, H, W):
+    """[B, n] pixel coordinates → grid_sample's [B, n, 1, 2] grid
+    (align_corners=True: pixel centres at -1 and 1)."""
+    return torch.stack([xs / (W - 1) * 2 - 1, ys / (H - 1) * 2 - 1],
+                       -1)[:, :, None]
+
+
+def dcn_cols_row(torch, rows, calls):
+    """25a: DCN_COLS bit for bit against its plain version at every DCN
+    site the path handed it (``calls``: recorded dcn_cols calls), and its
+    row at the largest: kernel, plain, grid_sample's (the sampling alone)
+    and bound ms, device ms by launch."""
+    import torch.nn.functional as F
+
+    from tmae_tpu_torch.ops import dcn
+
+    shapes = set()
+    for args, _ in calls:
+        x, off, mask, taps = args
+        got = dcn.dcn_cols(*args)
+        if not torch.equal(got, dcn.dcn_cols_plain(*args)):
+            raise AssertionError(f'DCN_COLS differs at {tuple(x.shape)}')
+        shapes.add((tuple(x.shape), tuple(got.shape)))
+    log(f'  DCN_COLS bit-equal to its plain version at all {len(calls)} '
+        f'sites: {sorted(shapes)}')
+    x, off, mask, taps = largest_call(calls, 0)
+    B, H, W, C = x.shape
+    Ho, Wo = taps.out_hw(H, W)
+    K = taps.kh * taps.kw
+    ys, xs = dcn.tap_coords(off, taps, Ho, Wo)
+    inp = x.permute(0, 3, 1, 2).contiguous()
+    grid = grid_of(torch, ys.reshape(B, -1), xs.reshape(B, -1), H, W)
+    call = lambda: dcn.dcn_cols(x, off, mask, taps)  # noqa: E731
+    n = B * Ho * Wo * K
+    add_row(rows, 'dcn_cols', 'DCN_COLS', DCN_SRC,
+            'none: the reference\'s pcdet/ops/dcn modulated im2col; the JAX '
+            'package\'s tmae_tpu/ops/dcn.py:17 _bilinear_sample and :55-61 '
+            'in deform_conv2d (XLA)', 0.0, time_ms(torch, call),
+            time_ms(torch, lambda: dcn.dcn_cols_plain(x, off, mask, taps),
+                    iters=3),
+            4 * (x.numel() + off.numel() + mask.numel() + n * C),
+            n * C * 9, time_ms(torch, lambda: F.grid_sample(
+                inp, grid, mode='bilinear', padding_mode='zeros',
+                align_corners=True)), peak=F32_FLOPS,
+            shape=[B, H, W, C, Ho, Wo, K],
+            **{k: v for k, v in launch_times(
+                torch, f'DCN_COLS {tuple(x.shape)}', call).items()
+               if k != 'by_launch'})
+
+
+def reduce_checks(torch, calls, kernel, plain, what):
+    """25a: each recorded call of a reducing kernel (DCN_COORD_BWD,
+    BILINEAR_GRAD) run twice, bit-equal to itself, and within
+    CAM_REDUCE_TOL of its plain version (max |diff| over the largest
+    value). Returns the largest such error and the largest |diff|."""
+    worst = worst_abs = 0.0
+    for args, _ in calls:
+        a, b = kernel(*args), kernel(*args)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f'{what}: two runs give other bits')
+        p = plain(*args)
+        p = p if isinstance(p, tuple) else (p,)
+        for u, v in zip(a, p):
+            d = float((u - v).abs().max())
+            worst = max(worst, d / max(float(v.abs().max()), 1e-30))
+            worst_abs = max(worst_abs, d)
+    log(f'  {what}: {len(calls)} calls of the step, each twice bit-equal to '
+        f'itself; max |diff| / max against the plain version {worst:.3g}')
+    if worst > CAM_REDUCE_TOL:
+        raise AssertionError(f'{what} differs from its plain version')
+    return worst, worst_abs
+
+
+def backward_rows(torch, rows, coord_calls, grad_calls):
+    """25a: DCN_COORD_BWD and BILINEAR_GRAD on a step's own inputs
+    (reduce_checks), their rows at the largest call: kernel, plain, bound,
+    grid_sample's backward (BILINEAR_GRAD) ms, device ms by launch."""
+    from tmae_tpu_torch.ops import dcn
+
+    coord_err = reduce_checks(torch, coord_calls, dcn.dcn_coord_bwd,
+                              dcn.dcn_coord_bwd_plain, 'DCN_COORD_BWD')
+    grad_err = reduce_checks(torch, grad_calls, dcn.bilinear_grad,
+                             dcn.bilinear_grad_plain, 'BILINEAR_GRAD')
+    x, off, mask, dcols, taps = largest_call(coord_calls, 3)
+    call = lambda: dcn.dcn_coord_bwd(x, off, mask, dcols, taps)  # noqa
+    B, H, W, C = x.shape
+    n = mask.numel()
+    add_row(rows, 'dcn_coord_bwd', 'DCN_COORD_BWD', DCN_SRC,
+            'none: the reference\'s pcdet/ops/dcn offset and mask backward; '
+            'the JAX package\'s autodiff of tmae_tpu/ops/dcn.py:37 '
+            'deform_conv2d', coord_err[1], time_ms(torch, call),
+            time_ms(torch, lambda: dcn.dcn_coord_bwd_plain(
+                x, off, mask, dcols, taps), iters=3),
+            4 * (x.numel() + 2 * off.numel() + 2 * mask.numel()
+                 + dcols.numel()), dcols.numel() * 24, None, peak=F32_FLOPS,
+            shape=[B, H, W, C, n], max_rel_err=coord_err[0],
+            **{k: v for k, v in launch_times(
+                torch, f'DCN_COORD_BWD {tuple(dcols.shape)}', call).items()
+               if k != 'by_launch'})
+    g, scale, ys, xs, valid, H, W = largest_call(grad_calls, 0)
+    call = lambda: dcn.bilinear_grad(g, scale, ys, xs, valid, H, W)  # noqa
+    B, n, C = g.shape
+    inp = torch.zeros(B, C, H, W, device=g.device)
+    grid = grid_of(torch, ys, xs, H, W)
+    gs = g if scale is None else g * scale[..., None]
+    gout = gs.permute(0, 2, 1)[..., None].contiguous()
+    add_row(rows, 'bilinear_grad', 'BILINEAR_GRAD', DCN_SRC,
+            'none: the reference\'s pcdet/ops/dcn input backward and '
+            'grid_sample\'s; the JAX package\'s autodiff of '
+            'tmae_tpu/ops/dcn.py:17 _bilinear_sample', grad_err[1],
+            time_ms(torch, call),
+            time_ms(torch, lambda: dcn.bilinear_grad_plain(
+                g, scale, ys, xs, valid, H, W), iters=3),
+            4 * (g.numel() + ys.numel() + xs.numel() + B * H * W * C
+                 + (0 if scale is None else scale.numel()))
+            + (0 if valid is None else valid.numel()),
+            8 * g.numel(), time_ms(
+                torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    gout, inp, grid, 0, 0, True, [True, False])),
+            peak=F32_FLOPS, shape=[B, n, C, H, W], max_rel_err=grad_err[0],
+            **{k: v for k, v in launch_times(
+                torch, f'BILINEAR_GRAD {tuple(g.shape)} -> {H} x {W}',
+                call).items() if k != 'by_launch'})
+
+
+def point_sample_row(torch, rows, calls):
+    """25a: POINT_SAMPLE on the head's projected points (``calls``)
+    bit for bit against its plain version, and its row: kernel, plain,
+    grid_sample's and bound ms, device ms by launch."""
+    import torch.nn.functional as F
+
+    from tmae_tpu_torch.ops import dcn
+
+    for args, _ in calls:
+        if not torch.equal(dcn.point_sample(*args),
+                           dcn.point_sample_plain(*args)):
+            raise AssertionError('POINT_SAMPLE differs')
+    feats, ys, xs, valid = largest_call(calls, 1)
+    B, H, W, C = feats.shape
+    n = ys.shape[1]
+    call = lambda: dcn.point_sample(feats, ys, xs, valid)  # noqa: E731
+    # the bound reads the pixels that this run's valid points touch, once
+    keys = dcn.corner_keys(ys, xs, valid, H, W).unique()
+    touched = int((keys < B * H * W).sum())
+    inp = feats.permute(0, 3, 1, 2).contiguous()
+    grid = grid_of(torch, ys, xs, H, W)
+    log(f'  POINT_SAMPLE bit-equal to its plain version on {len(calls)} '
+        f'calls; {int(valid.sum())} of {valid.numel()} points in the image')
+    add_row(rows, 'point_sample', 'POINT_SAMPLE', DCN_SRC,
+            'none: the reference\'s fusion_layers/point_sample grid_sample; '
+            'the JAX package\'s tmae_tpu/models/point_sample.py:29 '
+            'img_grid_sample on ops/dcn.py:17 (XLA)', 0.0,
+            time_ms(torch, call),
+            time_ms(torch, lambda: dcn.point_sample_plain(
+                feats, ys, xs, valid), iters=3),
+            4 * (touched * C + ys.numel() + xs.numel() + B * n * C)
+            + valid.numel(), 9 * int(valid.sum()) * C,
+            time_ms(torch, lambda: F.grid_sample(
+                inp, grid, mode='bilinear', padding_mode='zeros',
+                align_corners=True)), peak=F32_FLOPS,
+            shape=[B, H, W, C, n], in_image=int(valid.sum()),
+            pixels_touched=touched,
+            **{k: v for k, v in launch_times(
+                torch, f'POINT_SAMPLE {tuple(feats.shape)} at {n}',
+                call).items() if k != 'by_launch'})
+
+
+@contextlib.contextmanager
+def cam_recorded():
+    """The camera branch's kernel calls recorded inside the block: yields
+    {'cols': dcn_cols, 'coord': dcn_coord_bwd, 'grad': bilinear_grad,
+    'points': point_sample}."""
+    from tmae_tpu_torch.ops import dcn
+
+    with recording(dcn, 'dcn_cols') as cols, \
+            recording(dcn, 'dcn_coord_bwd') as coord, \
+            recording(dcn, 'bilinear_grad') as grad, \
+            recording(dcn, 'point_sample') as points:
+        yield {'cols': cols, 'coord': coord, 'grad': grad, 'points': points}
+
+
+def cam_serving_phase(torch, cfg, np_serve):
+    """25b: the seeded full-width graph_rcnn_once_cam.yaml detector serves
+    one frame: counted (EXPECTED_CAM_SERVING), outputs finite, the pooled
+    points that land in the image (> 0), timed passes, peak memory; card
+    vs CPU on the card's proposals with DLASeg's map (GRAPH_TOL,
+    CAM_FEAT_TOL). Returns (launches, readings, the frame's recorded
+    kernel calls)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_random_(build_detector(cfg), seed=0).eval()
+    batch = batch_to_device(np_serve, 'cuda')
+    graph_serve(torch, cfg, model, batch)
+    (out, kept), launches = counted(
+        torch, lambda: graph_serve(torch, cfg, model, batch))
+    with cam_recorded() as calls:
+        graph_serve(torch, cfg, model, batch)
+    n = int(out['roi_mask'].sum())
+    (_, _, _, valid), _ = calls['points'][0]
+    in_image = int(valid.sum())
+    log(f'  GraphRCNN camera frame: launches {launches} (expected '
+        f'{EXPECTED_CAM_SERVING}); {n} RoIs, {kept} boxes kept; '
+        f'{in_image} of {valid.numel()} pooled points in the image')
+    if launches != EXPECTED_CAM_SERVING:
+        raise AssertionError('GraphRCNN camera serving: launch counts differ')
+    if not (torch.isfinite(out['rcnn_cls']).all()
+            and torch.isfinite(out['rcnn_reg']).all()) or n == 0:
+        raise AssertionError('GraphRCNN camera serving: no RoI, or outputs '
+                             'not finite')
+    if in_image == 0:
+        raise AssertionError('no pooled point lands in the image')
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph_serve(torch, cfg, model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        dla_ms = time_ms(torch, lambda: model.img_backbone(batch['images']),
+                         iters=5)
+    res = {'ms_per_frame': statistics.median(times), 'dlaseg_ms': dla_ms,
+           'serve_peak_gib': torch.cuda.max_memory_allocated() / 2**30,
+           'rois': n, 'kept': kept, 'in_image': in_image}
+    log(f'  GraphRCNN camera: {res["ms_per_frame"]:.2f} ms a frame (median '
+        f'of 5, min {min(times):.2f}), DLASeg {dla_ms:.2f} ms of it, peak '
+        f'{res["serve_peak_gib"]:.2f} GiB; {card_line()}')
+    res.update(graph_card_vs_cpu(torch, model, batch, out))
+    return launches, res, calls
+
+
+def cam_step_bits(torch, cfg, model, batch):
+    """One train-mode forward, loss and backward (no update) under the
+    step's deterministic cuDNN, its draws from fixed generators: (loss
+    parts, every gradient)."""
+    from tmae_tpu_torch.models.detectors import detector_loss
+    from tmae_tpu_torch.train.trainer import deterministic_convolutions
+
+    model.zero_grad(set_to_none=True)
+    with deterministic_convolutions():
+        out = model(batch, generators={
+            'proposal': torch.Generator(device='cuda').manual_seed(1),
+            'dropout': torch.Generator(device='cuda').manual_seed(2)})
+        loss, parts = detector_loss(cfg, model)(out, batch)
+        loss.backward()
+    metrics = {'loss': float(loss), **{k: float(v) for k, v in parts.items()}}
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return metrics, grads
+
+
+def cam_training_phase(torch, cfg, np_train, rows, serve_calls):
+    """25c: the seeded full-width model on two camera frames (the config's
+    batch 4 cut to 2) with ground truth planted on proposals as in 24c: a
+    step's forward and backward twice, the caching allocator filled with
+    NaN in between (clutter_allocator), the same loss parts and gradients
+    bit for bit (DLASeg's included); 25a on the first one's recorded
+    inputs (and 25b's frame's DCN_COLS calls); GRAPH_STEPS training steps
+    (step 0 counted: EXPECTED_CAM_STEP; the loss finite and falling; ms a
+    step, peak memory). Returns (launches, readings)."""
+    from tmae_tpu_torch.models.detectors import (batch_to_device,
+                                                 build_detector, init_random_)
+
+    batch = batch_to_device(np_train, 'cuda')
+    model = init_random_(build_detector(cfg), seed=0).train()
+    stats = [t.clone() for t in model.buffers()]
+    with torch.no_grad(), graph_recorded() as calls:
+        model(batch, generators={
+            'proposal': torch.Generator(device='cuda').manual_seed(1),
+            'dropout': torch.Generator(device='cuda').manual_seed(2)})
+    for t, v in zip(model.buffers(), stats):
+        t.copy_(v)
+    (rois, _, _, roi_mask, _), _ = calls['pairs'][0]
+    batch = plant_ground_truth(torch, batch, rois, roi_mask)
+    with cam_recorded() as kcalls:
+        first = cam_step_bits(torch, cfg, model, batch)
+    for t, v in zip(model.buffers(), stats):
+        t.copy_(v)
+    clutter_allocator(torch)
+    second = cam_step_bits(torch, cfg, model, batch)
+    differ = same_step(torch, first, second)
+    log(f'  the step twice: {len(first[1])} gradients and '
+        f'{len(first[0])} loss parts, {len(differ)} differ in their bits'
+        + (f' ({differ[:8]})' if differ else ''))
+    if differ:
+        raise AssertionError('GraphRCNN camera: the step does not repeat')
+    dla = [n for n in first[1] if n.startswith('img_backbone')]
+    if not any(first[1][n].abs().max() > 0 for n in dla):
+        raise AssertionError('no gradient reached DLASeg')
+    for t, v in zip(model.buffers(), stats):
+        t.copy_(v)
+    t0 = time.perf_counter()
+    dcn_cols_row(torch, rows, serve_calls['cols'] + kcalls['cols'])
+    backward_rows(torch, rows, kcalls['coord'], kcalls['grad'])
+    point_sample_row(torch, rows, kcalls['points'])
+    log(f'  phase 25a {time.perf_counter() - t0:.1f} s')
+    del kcalls
+    torch.cuda.empty_cache()
+    step = make_trainer(cfg, model, mask_seed=7)
+    launches, rs, med, peak = run_steps(torch, model, step, batch,
+                                        GRAPH_STEPS, EXPECTED_CAM_STEP,
+                                        'GraphRCNN camera')
+    return launches, {'ms_per_step': med, 'step_peak_gib': peak,
+                      'losses': [r['loss'] for r in rs],
+                      'step_repeats': True, **first[0]}
+
+
+def add_camera(tree, n_frames):
+    """14a's tree with a cam03 JPG of ONCE's raw size for each frame and
+    cam_calib in its sequence file; its train and val infos made again by
+    the port's create_once_infos (now with the calibration)."""
+    from PIL import Image
+
+    from tmae_tpu_torch.tools import create_once_infos as coi
+
+    seq = '000000'
+    cam = tree / 'data' / seq / 'cam03'
+    cam.mkdir()
+    for fi in range(n_frames):
+        Image.fromarray(synthetic_image(9100 + fi)[..., ::-1]).save(
+            cam / f'{1000 + fi}.jpg')
+    meta_file = tree / 'data' / seq / f'{seq}.json'
+    meta = json.loads(meta_file.read_text())
+    c2v, K = cam_calib()
+    meta['calib'] = {'cam03': {'cam_to_velo': c2v.tolist(),
+                               'cam_intrinsic': K.tolist(),
+                               'distortion': [0.0] * 5}}
+    meta_file.write_text(json.dumps(meta))
+    coi.main(['--data_path', str(tree), '--splits', 'train', 'val'])
+
+
+def cam_cli_phase(torch, tree):
+    """25d: graph_rcnn_once_cam.yaml through ``tools.train`` (1 epoch,
+    batch CLI_BATCH) and ``tools.test`` on 14a's tree with cam03 JPGs
+    (add_camera): each step's launches, every AP finite, the frames in
+    order."""
+    from tmae_tpu_torch.tools import test as test_cli
+    from tmae_tpu_torch.tools import train as train_cli
+
+    t0 = time.perf_counter()
+    add_camera(tree, ONCE_TREE_FRAMES)
+    log(f'  cam03 JPGs ({CAM_RAW_HW[1]} x {CAM_RAW_HW[0]}) and the '
+        f'calibration written, infos made again: '
+        f'{time.perf_counter() - t0:.1f} s')
+    tmp = tempfile.TemporaryDirectory()
+    saved = train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT
+    data = ['--set', 'DATA_CONFIG.DATA_PATH', str(tree)]
+    try:
+        train_cli.OUTPUT_ROOT = test_cli.OUTPUT_ROOT = Path(tmp.name) / 'out'
+        argv = ['--cfg_file', str(ROOT / CAM_CFG), '--batch_size',
+                str(CLI_BATCH), '--fix_random_seed', '--epochs', '1',
+                '--extra_tag', 'chip_smoke'] + data
+        run, _, record, peak = cli_run(torch, argv, EXPECTED_CAM_STEP,
+                                       'GraphRCNN camera', ref="25c's")
+        res = {'cli_loss': [s['loss'] for s in run['steps']],
+               'cli_ms_per_step': statistics.median(
+                   s['step_s'] * 1e3 for s in run['steps']),
+               'cli_data_ms': statistics.median(
+                   s['data_s'] * 1e3 for s in run['steps']),
+               'cli_peak_gib': peak}
+        res.update(cli_eval_phase(torch, CAM_CFG, run['checkpoints'][-1],
+                                  data, tree, EXPECTED_CAM_SERVING,
+                                  'GraphRCNN camera', ''))
+    finally:
+        train_cli.OUTPUT_ROOT, test_cli.OUTPUT_ROOT = saved
+        tmp.cleanup()
+    return res
+
+
+def camera_phase(torch, tree, rows):
+    """Phase 25 (a-d); the rows of DCN_COLS, DCN_COORD_BWD, BILINEAR_GRAD
+    and POINT_SAMPLE take 25c's step's launches (and 25b's frame's)."""
+    t25 = time.perf_counter()
+    cfg = cam_cfg()
+    log('phase 25b: GraphRCNN camera serving (graph_rcnn_once_cam.yaml, full '
+        'width, seeded, a synthetic frame with a '
+        f'{CAM_RAW_HW[1]} x {CAM_RAW_HW[0]} image)')
+    t0 = time.perf_counter()
+    np_serve, host_ms = camera_frames(cfg, SECOND_FRAMES[:1], False)
+    log(f'  the frame through the port\'s processors: {host_ms:.0f} ms; '
+        f'images {np_serve["images"].shape}, image_scale '
+        f'{np_serve["image_scale"].tolist()}, image_shape '
+        f'{np_serve["image_shape"].tolist()}')
+    served, res, serve_calls = cam_serving_phase(torch, cfg, np_serve)
+    res = {f'cam_{k}': v for k, v in res.items()}
+    res['cam_host_ms_frame'] = host_ms
+    torch.cuda.empty_cache()
+    log(f'  phase 25b {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    log('phase 25c: GraphRCNN camera training, full width, two frames (the '
+        'config\'s batch 4 cut to 2), photo_metric_distortion and '
+        'random_world_flip on; 25a on its inputs')
+    np_train, host_ms = camera_frames(cfg, SECOND_FRAMES, True)
+    flips = (np_train['aug_inverse'][:, 1, 1].tolist()
+             if 'aug_inverse' in np_train else None)
+    log(f'  the frames through the port\'s augmentor and processors: '
+        f'{host_ms:.0f} ms a frame; aug_inverse[:, 1, 1] {flips}')
+    step_launches, more = cam_training_phase(torch, cfg, np_train, rows,
+                                             serve_calls)
+    del serve_calls
+    res.update({f'cam_{k}': v for k, v in more.items()})
+    fill_launches(rows, step_launches, ('DCN_COLS', 'DCN_COORD_BWD',
+                                        'BILINEAR_GRAD', 'POINT_SAMPLE'))
+    for row in rows:
+        if row['kernel'] in ('DCN_COLS', 'POINT_SAMPLE'):
+            row['launches_camera_frame'] = served[row['kernel']]
+    torch.cuda.empty_cache()
+    log(f'  phase 25c {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    log('phase 25d: GraphRCNN camera through tools.train and tools.test '
+        '(14a\'s tree with cam03 JPGs)')
+    res.update({f'cam_{k}': v for k, v in cam_cli_phase(torch, tree).items()})
+    log(f'  phase 25d {time.perf_counter() - t0:.1f} s')
+    log(f'  phase 25 {time.perf_counter() - t25:.1f} s; {card_line()}')
+    return res
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7437,6 +8028,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     graph = graph_phase(torch, graph_frames, served, fresh, parent,
                         Path(once_tree.name) / 'once', rows)
+    torch.cuda.empty_cache()
+    camera = camera_phase(torch, Path(once_tree.name) / 'once', rows)
     once_tree.cleanup()
 
     log(f'total {time.perf_counter() - t_start:.1f} s')
@@ -7456,7 +8049,8 @@ def main(argv=None):
         **{f'pretrain_once_{k}': v for k, v in pre_once.items()},
         'waymo_serving_ms_per_pair': waymo_ms, **once_eval, **cli,
         **overfit, **waymo_cli, **dev_nms, **iou_head, **asym,
-        **eval_cli, **dp, **narrow, **single, **ssd3d, **graph}),
+        **eval_cli, **dp, **narrow, **single, **ssd3d, **graph,
+        **camera}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -732,17 +732,26 @@ def test_chip_smoke_pointpillar_config_equals_the_test_config():
 
 def test_build_and_refusals():
     """``build_detector`` builds PointPillar and SECONDNet (with
-    graph_rcnn_once.yaml's first stage); GraphRCNN with a camera backbone
-    still raises, naming the camera queue item (GraphRCNN itself:
-    tests/test_torch_port_graph_rcnn.py; SSD3D:
+    graph_rcnn_once.yaml's first stage); GraphRCNN with a camera backbone,
+    once refused, now builds on that first stage with DLASeg
+    (``img_backbone``), and an image backbone other than DLASeg raises,
+    naming it (GraphRCNN itself: tests/test_torch_port_graph_rcnn.py and
+    tests/test_torch_port_camera.py; SSD3D:
     tests/test_torch_port_ssd3d.py)."""
+    from tmae_tpu_torch.config import cfg_from_yaml_file
+
     assert type(tdet.build_detector(pointpillar_cfg(), 'cpu')).__name__ == (
         'PointPillar')
     for name in ('GraphRCNN',):
         cfg = second_cfg()
         cfg.MODEL.NAME = name
+        cfg.MODEL.ROI_HEAD = cfg_from_yaml_file(
+            'tools/cfgs/once_models/graph_rcnn_once.yaml').MODEL.ROI_HEAD
         cfg.MODEL.IMG_BACKBONE = {'NAME': 'DLASeg'}
-        with pytest.raises(NotImplementedError, match='camera'):
+        model = tdet.build_detector(cfg, 'cpu')
+        assert type(model.img_backbone).__name__ == 'DLASeg'
+        cfg.MODEL.IMG_BACKBONE = {'NAME': 'ResNet'}
+        with pytest.raises(NotImplementedError, match='ResNet'):
             tdet.build_detector(cfg, 'cpu')
 
 

@@ -27,8 +27,9 @@
 * F15: JAX's ``build_detector`` cannot build GraphRCNN (``vfe_remat``), and
   JAX's evaluator cannot evaluate it (its host NMS reads the dense head's
   ``POST_PROCESSING``, which graph_rcnn_once.yaml does not have); the port
-  builds the shipped config, refuses its camera branch, and evaluates it
-  through ``tools.test`` on the candidates cut by score and sorted.
+  builds the shipped config, with a camera branch too
+  (``tests/test_torch_port_camera.py`` holds that branch), and evaluates
+  it through ``tools.test`` on the candidates cut by score and sorted.
 """
 
 import jax
@@ -843,9 +844,12 @@ def test_f15_jax_cannot_build_or_evaluate_graph_rcnn_the_port_can():
     declare, and JAX's host NMS reads ``MODEL.DENSE_HEAD.POST_PROCESSING``,
     which graph_rcnn_once.yaml does not have; the port builds the shipped
     config at its full widths and reads the NMS config from
-    ``MODEL.POST_PROCESSING``; a camera branch (``IMG_BACKBONE``,
-    ``ROI_HEAD.IMG_CONFIG`` or a batch's ``images``) raises, naming the
-    camera queue item."""
+    ``MODEL.POST_PROCESSING``; a camera branch builds as the JAX package
+    builds it: ``IMG_BACKBONE`` gives ``img_backbone`` (DLASeg) and, with
+    ``ROI_HEAD.IMG_CONFIG``, the head's image branch (AttnGNN's input
+    grows by DLASeg's 64 channels); ``IMG_CONFIG`` alone gives no image
+    branch; and a batch's ``images`` before a model without one are
+    left unread, the outputs the same."""
     from tmae_tpu.config import cfg_from_yaml_file as j_cfg_from_yaml
     from tmae_tpu.models import detectors as jdet
     from tmae_tpu_torch.config import cfg_from_yaml_file
@@ -867,20 +871,27 @@ def test_f15_jax_cannot_build_or_evaluate_graph_rcnn_the_port_can():
     assert gnn.edge0.linear.in_features == 2 * (4 + 6)
     assert gnn.exp0.linear.out_features == 512
     assert model.roi_head.reg_out.out_features == 7
-    for key, value in (('IMG_BACKBONE', {'NAME': 'DLASeg'}),
-                       ('ROI_HEAD.IMG_CONFIG', {'MLPS': [64]})):
-        bad = cfg_from_yaml_file(YAML)
-        d = bad.MODEL
-        for k in key.split('.')[:-1]:
-            d = d[k]
-        d[key.split('.')[-1]] = value
-        with pytest.raises(NotImplementedError, match='camera'):
-            tdet.build_detector(bad, 'cpu')
+    widths = {}
+    for keys in (('IMG_BACKBONE',), ('ROI_HEAD.IMG_CONFIG',),
+                 ('IMG_BACKBONE', 'ROI_HEAD.IMG_CONFIG')):
+        cam = cfg_from_yaml_file(YAML)
+        for key in keys:
+            d = cam.MODEL
+            for k in key.split('.')[:-1]:
+                d = d[k]
+            d[key.split('.')[-1]] = ({'NAME': 'DLASeg'} if key ==
+                                     'IMG_BACKBONE' else {'FEAT_STRIDE': 4})
+        m = tdet.build_detector(cam, 'cpu')
+        assert (m.img_backbone is not None) == ('IMG_BACKBONE' in keys)
+        widths[keys] = m.roi_head.attn_gnn.edge0.linear.in_features
+    assert list(widths.values()) == [2 * (4 + 6), 2 * (4 + 6),
+                                     2 * (4 + 64 + 6)]
     tiny = tdet.build_detector(tiny_cfg(), 'cpu')
     batch = tdet.batch_to_device(tiny_batch(), 'cpu')
-    batch['images'] = torch.zeros(2, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match='camera'):
-        tiny(batch)
+    with torch.no_grad():
+        want = tiny(batch)
+        got = tiny(dict(batch, images=torch.zeros(2, 8, 8, 3)))
+    assert torch.equal(got['rcnn_reg'], want['rcnn_reg'])
 
 
 def test_cli_graph_rcnn_train_and_test(tmp_path, monkeypatch):

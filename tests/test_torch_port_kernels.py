@@ -404,7 +404,9 @@ def test_port_imports_no_jax():
                    'utils/torch_convert', 'datasets/waymo_pb',
                    'datasets/waymo_decode', 'datasets/waymo_temporal',
                    'datasets/waymo_eval', 'tools/create_waymo_infos',
-                   'models/graph_rcnn', 'models/roi_head', 'ops/roi_pool'):
+                   'models/graph_rcnn', 'models/roi_head', 'ops/roi_pool',
+                   'ops/dcn', 'models/dla', 'models/point_sample',
+                   'datasets/image_ops'):
         assert f'tmae_tpu_torch/{module}.py' in scanned, module
 
 

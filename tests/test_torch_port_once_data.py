@@ -6,7 +6,7 @@ case; evaluation and training with flip, rotation, scaling and translation)
 and for ``ONCETemporalDataset`` over the raw-ONCE fixture with infos and the
 GT database made by ``tools/create_once_infos.py`` (gt_sampling included,
 also through the ``/dev/shm`` cache, each side with its own key); two-process
-sharding; and the parts that are not ported yet refuse with an error."""
+sharding; and the parts once refused, the camera's among them, run."""
 
 import copy
 import os
@@ -201,13 +201,19 @@ def _camera(cfg):
 
 
 def _image_processor(cfg):
+    cfg = _camera(cfg)
     cfg.DATA_PROCESSOR = PROCESSORS + [
         {'NAME': 'imnormalize', 'MEAN': [0, 0, 0], 'STD': [1, 1, 1]}]
     return cfg
 
 
 def _photo_metric(cfg):
-    cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST = [{'NAME': 'photo_metric_distortion'}]
+    cfg = _camera(cfg)
+    cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST = [{'NAME': 'photo_metric_distortion',
+                                           'BRIGHTNESS_DELTA': 32,
+                                           'CONTRAST_RANGE': [0.5, 1.5],
+                                           'SATURATION_RANGE': [0.5, 1.5],
+                                           'HUE_DELTA': 18}]
     return cfg
 
 
@@ -218,37 +224,66 @@ def _named(name):
     return set_name
 
 
-@pytest.mark.parametrize('change,training,match', [
-    (_camera, False, 'CAMERA_CONFIG'),
-    (_image_processor, False, 'imnormalize'),
-    (_photo_metric, True, 'photo_metric_distortion'),
-    (_named('WaymoTemporalDataset'), False, None),
-    (_named('ONCEDataset'), False, None),
-    (_named('WaymoDataset'), False, None)],
+@pytest.fixture(scope='module')
+def raw_once_cam(tmp_path_factory):
+    """The raw-ONCE fixture with cam03 JPGs and its infos."""
+    import create_once_infos as coi
+
+    root = make_raw_once(tmp_path_factory.mktemp('once_cam'), n_frames=6,
+                         with_camera=True)
+    for split in ('train', 'val'):
+        infos = coi.create_infos(root, split)
+    coi.create_gt_database(root, infos, 'train')
+    return root
+
+
+@pytest.mark.parametrize('change,training,camera', [
+    (_camera, False, True),
+    (_image_processor, False, True),
+    (_photo_metric, True, True),
+    (_named('WaymoTemporalDataset'), False, False),
+    (_named('ONCEDataset'), False, False),
+    (_named('WaymoDataset'), False, False)],
     ids=['camera', 'image-processor', 'photo-metric', 'waymo-temporal',
          'once-single-frame', 'waymo-single-frame'])
-def test_not_ported_parts_refuse(raw_once, change, training, match):
-    """Each part that is not ported raises, naming it; ``match`` None: a
-    part ported since builds and runs instead: the Waymo datasets with no
-    Waymo infos under the ONCE tree (no sample), ONCEDataset with one
-    sample a frame of the tree, its first batch a single frame."""
+def test_not_ported_parts_refuse(raw_once, raw_once_cam, change, training,
+                                 camera):
+    """Each part that once was not ported and raised now builds and runs:
+    the camera parts (the camera's images and calibration, an image
+    processor, photo_metric_distortion) over the fixture with JPGs, each
+    batch equal to the JAX package's key by key (the port's F16 keys,
+    image_scale and image_shape, aside); the Waymo datasets with no Waymo
+    infos under the ONCE tree (no sample), ONCEDataset with one sample a
+    frame of the tree, its first batch a single frame."""
     cfg = change(raw_cfg())
-    if match is None:
-        ds, loader = t_build(cfg, CLASSES, 1, training,
-                             runtime_cfg=runtime(False, 1024),
-                             root_path=str(raw_once), seed=0)
-        assert type(ds).__name__ == cfg.DATASET
-        waymo = cfg.DATASET.startswith('Waymo')
-        assert len(ds) == (0 if waymo else 6)
-        if len(ds):
-            batch = next(iter(loader))
-            assert batch['point_mask'].any() and 'points_prev' not in batch
+    if camera:
+        loaders = [build(copy.deepcopy(cfg), CLASSES, 1, training,
+                         runtime_cfg=runtime(False, 1024),
+                         root_path=str(raw_once_cam), seed=0)[1]
+                   for build in (j_build, t_build)]
+        seen = []
+
+        def without_f16(loader):
+            for b in loader:
+                seen.append([b.pop(k) for k in ('image_scale',
+                                                'image_shape')])
+                yield b
+
+        batch = assert_same_batches(loaders[0], without_f16(loaders[1]))[0]
+        assert batch['images'].shape == (1, 64, 96, 3)
+        assert batch['trans_cam_to_img'].shape == (1, 3, 4)
+        assert all(s[0].tolist() == [[1.0, 1.0]] and
+                   s[1].tolist() == [[64, 96]] for s in seen)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        _, loader = t_build(cfg, CLASSES, 1, training,
-                            runtime_cfg=runtime(False, 1024),
-                            root_path=str(raw_once), seed=0)
-        next(iter(loader))
+    ds, loader = t_build(cfg, CLASSES, 1, training,
+                         runtime_cfg=runtime(False, 1024),
+                         root_path=str(raw_once), seed=0)
+    assert type(ds).__name__ == cfg.DATASET
+    waymo = cfg.DATASET.startswith('Waymo')
+    assert len(ds) == (0 if waymo else 6)
+    if len(ds):
+        batch = next(iter(loader))
+        assert batch['point_mask'].any() and 'points_prev' not in batch
 
 
 @pytest.mark.parametrize('name', ['BaseBEVBackbone', 'NoSuchBackbone'])

@@ -803,8 +803,9 @@ def test_tiny_ssd3d_loss_fn_matches_ssd3d_loss(tiny):
 
 def test_f12_jax_build_detector_cannot_build_ssd3d_the_port_can():
     """JAX's build_detector passes vfe_remat, which SSD3D does not declare;
-    the port builds ssd3d_once.yaml at its full widths (GraphRCNN's camera
-    branch is still refused)."""
+    the port builds ssd3d_once.yaml at its full widths, and refuses a
+    detector it does not have, naming it (GraphRCNN's camera branch, once
+    refused here, builds since: tests/test_torch_port_camera.py)."""
     with pytest.raises(TypeError, match='vfe_remat'):
         jdet.build_detector(j_cfg_from_yaml(str(YAML)))
     cfg = cfg_from_yaml_file(YAML)
@@ -816,9 +817,8 @@ def test_f12_jax_build_detector_cannot_build_ssd3d_the_port_can():
                                                                         2]
     assert model.point_head.vote_sa.out_channels == 512 + 1024
     assert model.point_head.box_out.out_features == 6 + 2 * 12
-    cfg.MODEL.NAME = 'GraphRCNN'
-    cfg.MODEL.IMG_BACKBONE = {'NAME': 'DLASeg'}
-    with pytest.raises(NotImplementedError, match='camera'):
+    cfg.MODEL.NAME = 'PointRCNN'
+    with pytest.raises(NotImplementedError, match='PointRCNN'):
         tdet.build_detector(cfg, 'cpu')
 
 

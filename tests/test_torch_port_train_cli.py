@@ -408,14 +408,14 @@ def test_overfit_config_copy_equals_the_jax_oracle():
 
 @pytest.mark.parametrize('flags,match', [
     (['--set', 'MODEL.NAME', 'NoSuchNet'], 'an unknown detector'),
-    (['--set', 'MODEL.NAME', 'GraphRCNN', 'MODEL.IMG_BACKBONE', 'DLASeg'],
-     'camera')],
+    (['--set', 'MODEL.BACKBONE_2D.NAME', 'NoSuchBEV'],
+     'BACKBONE_2D NoSuchBEV is not a 2D backbone of the port')],
     ids=['detector', 'gdmae'])
 def test_cli_refuses_what_is_not_ported(raw_once, tmp_path, monkeypatch,
                                         flags, match):
     # the ids keep the names of the cases that refused SECONDNet and GDMAE,
-    # then SSD3D and GraphRCNN, before those were ported; GraphRCNN's
-    # camera branch is still refused
+    # then SSD3D and GraphRCNN, then GraphRCNN's camera branch, before
+    # those were ported; a 2D backbone the port does not have is refused
     monkeypatch.setattr(train_cli, 'OUTPUT_ROOT', tmp_path / 'output')
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(['--cfg_file', str(cli_cfg(raw_once, False, tmp_path)),

@@ -5,7 +5,8 @@ Each world transform draws its parameters once from the dataset's
 ``RandomState`` and applies them to both frames and the boxes; the draws
 happen in the JAX package's order, so one seed gives the same sample there
 and here. Sampled GT objects are pasted into both frames. The camera
-augmentation ``photo_metric_distortion`` is not ported yet and raises.
+augmentation ``photo_metric_distortion`` (``image_ops.py``) draws from the
+same ``RandomState`` in its place in the queue.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from pathlib import Path
 import numpy as np
 
 from ..ops.geometry_np import boxes_iou_bev
+from .image_ops import photo_metric_distortion
 
 
 def rotate_points_z(points, angle):
@@ -369,9 +371,13 @@ class DataAugmentor:
                     DataBaseSampler(root_path, cfg, class_names, rng=self.rng)
                 )
             elif name == 'photo_metric_distortion':
-                raise NotImplementedError(
-                    'photo_metric_distortion is not ported yet '
-                    '(ROADMAP.md, queue 1: the camera path)')
+                def _pmd(d, c=cfg):
+                    if d.get('image') is not None:
+                        d['image'] = photo_metric_distortion(
+                            d['image'], c, self.rng)
+                    return d
+
+                self.queue.append(_pmd)
             else:
                 fn = getattr(WorldTransforms, name)
                 self.queue.append(

@@ -8,8 +8,10 @@ removal and the quaternion-pose motion compensation of the previous frame
 into the current one, and the ONCE AP evaluation. ``SyntheticONCEDataset``
 makes ONCE-format scenes from a seed (boxes, two frames; ``lidar`` mode
 ray-casts a 40-beam LiDAR with ``datasets/synthetic.py``, ``uniform`` mode
-samples box surfaces, ground and clutter), for tests and the card. Camera
-inputs are not ported yet and raise.
+samples box surfaces, ground and clutter), for tests and the card. With
+``CAMERA_CONFIG.USE_CAMERA`` a sample also carries the configured camera's
+image (uint8 BGR as float32), its calibration and F16's ``image_scale`` /
+``image_shape``.
 """
 
 from __future__ import annotations
@@ -130,14 +132,40 @@ class ONCETemporalDataset(DatasetTemplate):
         path = self.root / 'data' / seq_id / 'lidar_roof' / f'{frame_id}.bin'
         return self.file_client.load_to_numpy(path).reshape(-1, 4)
 
+    def get_image(self, seq_id, frame_id, cam_name):
+        """ONCE camera frame (<root>/data/<seq>/<cam>/<frame>.jpg) as uint8
+        BGR (the cv2 channel convention the image processors assume)."""
+        import io
+
+        from PIL import Image
+
+        path = self.root / 'data' / seq_id / cam_name / f'{frame_id}.jpg'
+        with io.BytesIO(self.file_client.get(path)) as f:
+            img = np.asarray(Image.open(f).convert('RGB'))[..., ::-1]
+        return np.ascontiguousarray(img)
+
     def _attach_camera(self, data, info):
-        """Camera inputs (``CAMERA_CONFIG.USE_CAMERA``) are not ported yet."""
+        """Image and calibration of the configured camera (dataset
+        CAMERA_CONFIG: {USE_CAMERA, CAM_NAME}); ONCE info calib:
+        cam_to_velo 4x4, cam_intrinsic 3x3 (the ONCE devkit's schema). Also
+        ``image_scale`` (1, 1) and ``image_shape``, the raw image's (h, w),
+        which the image processors update (F16)."""
         cam_cfg = self.dataset_cfg.get('CAMERA_CONFIG')
         if not cam_cfg or not cam_cfg.get('USE_CAMERA', True):
             return data
-        raise NotImplementedError('CAMERA_CONFIG.USE_CAMERA is not ported '
-                                  'yet (ROADMAP.md, queue 1: the camera '
-                                  'path)')
+        cam = cam_cfg.get('CAM_NAME', 'cam03')
+        data['image'] = self.get_image(
+            info['sequence_id'], info['frame_id'], cam
+        ).astype(np.float32)
+        data['image_scale'] = np.ones(2, np.float32)
+        data['image_shape'] = np.asarray(data['image'].shape[:2], np.int32)
+        calib = info['calib'][cam]
+        c2v = np.asarray(calib['cam_to_velo'], np.float32)
+        data['trans_lidar_to_cam'] = np.linalg.inv(c2v).astype(np.float32)
+        K = np.asarray(calib['cam_intrinsic'], np.float32)
+        data['trans_cam_to_img'] = np.concatenate(
+            [K, np.zeros((3, 1), np.float32)], axis=1)
+        return data
 
     def __len__(self):
         return len(self.once_intervals)

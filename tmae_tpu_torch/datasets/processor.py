@@ -2,15 +2,26 @@
 ``tmae_tpu/datasets/processor.py``; numpy, on the host).
 
 Range mask, shuffle, grid size, point sampling and the host voxelizer of the
-precomputed-voxel families, channel selection, and the collation of samples
-into fixed [B, P, C] / [B, M, 8] arrays with masks. The image processors of
-the camera pipeline (``imrescale``, ``imflip``, ``imnormalize``, ``impad``)
-are not ported yet and raise.
+precomputed-voxel families, the image processors of the camera pipeline
+(``imrescale``, ``imflip``, ``imnormalize``, ``impad``: ``image_ops.py``),
+channel selection, and the collation of samples into fixed [B, P, C] /
+[B, M, 8] arrays with masks.
+
+Beyond the JAX package's batch, a camera sample carries what F16 needs
+(ROADMAP.md, found in the reference): ``image_scale`` (w, h), the scale
+``imrescale`` applied to the raw image, ``image_shape`` (h, w), the image's
+shape before ``impad``, and with ``imflip`` configured ``image_flip``; the
+collation stacks them beside ``images``. F17: a batch whose samples are
+not all world-transformed (``random_world_flip`` draws for each sample)
+gets ``aug_inverse`` for every sample, the identity where there was no
+transform; the JAX package's collation raises or leaves it out.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .image_ops import imflip, imnormalize, impad, imrescale
 
 
 def mask_points_outside_range(points, pc_range):
@@ -29,9 +40,6 @@ def mask_boxes_outside_range(gt_boxes, pc_range):
     return m
 
 
-IMAGE_PROCESSORS = ('imrescale', 'imflip', 'imnormalize', 'impad')
-
-
 class DataProcessor:
     def __init__(self, processor_cfgs, pc_range, training, rng=None):
         self.pc_range = np.asarray(pc_range, np.float32)
@@ -41,10 +49,6 @@ class DataProcessor:
         self.grid_size = None
         self.cfgs = list(processor_cfgs)
         for cfg in self.cfgs:
-            if cfg['NAME'] in IMAGE_PROCESSORS:
-                raise NotImplementedError(
-                    f'the image processor {cfg["NAME"]} is not ported yet '
-                    '(ROADMAP.md, queue 1: the camera path)')
             if cfg['NAME'] in ('calculate_grid_size', 'transform_points_to_voxels'):
                 vs = np.asarray(cfg['VOXEL_SIZE'], np.float64)
                 self.voxel_size = vs
@@ -85,6 +89,31 @@ class DataProcessor:
                     if len(pts) > n:
                         idx = self.rng.choice(len(pts), n, replace=False)
                         data[key] = pts[idx]
+            elif name == 'imrescale':
+                scales = cfg['IMAGE_SCALES']['train' if self.training
+                                             else 'test']
+                img, (ws, hs) = imrescale(
+                    data['image'], scales, cfg.get('KEEP_RATIO', True),
+                    self.rng,
+                )
+                data['image'] = img
+                data['image_scale'] = data['image_scale'] * np.asarray(
+                    [ws, hs], np.float32)
+                data['image_shape'] = np.asarray(img.shape[:2], np.int32)
+            elif name == 'imflip':
+                ratio = cfg['FLIP_RATIO']['train' if self.training else 'test']
+                flip = bool(self.rng.rand() < ratio)
+                if flip:
+                    data['image'] = imflip(data['image'])
+                data['image_flip'] = np.asarray(
+                    flip != bool(data.get('image_flip', False)))
+            elif name == 'imnormalize':
+                data['image'] = imnormalize(
+                    data['image'], cfg['MEAN'], cfg['STD'],
+                    cfg.get('TO_RGB', False),
+                )
+            elif name == 'impad':
+                data['image'] = impad(data['image'], cfg['SIZE_DIVISOR'])
             elif name in ('calculate_grid_size', 'transform_points_to_voxels'):
                 data['grid_size'] = self.grid_size
                 data['voxel_size'] = self.voxel_size
@@ -226,10 +255,17 @@ def collate_static(samples, max_points, max_gt, max_voxels=None):
         for k in ('trans_lidar_to_cam', 'trans_cam_to_img'):
             if samples[0].get(k) is not None:
                 out[k] = np.stack([s[k].astype(np.float32) for s in samples])
-    if 'aug_matrix' in keys and samples[0].get('aug_matrix') is not None:
+        for k in ('image_scale', 'image_shape', 'image_flip'):
+            if samples[0].get(k) is not None:
+                out[k] = np.stack([s[k] for s in samples])
+    # F17: a world transform that may not happen (random_world_flip)
+    # leaves some samples without aug_matrix; they get the identity
+    mats = [s.get('aug_matrix') for s in samples]
+    if any(m is not None for m in mats):
+        eye = np.eye(4, dtype=np.float32)
         out['aug_inverse'] = np.stack([
-            np.linalg.inv(s['aug_matrix']).astype(np.float32)
-            for s in samples
+            np.linalg.inv(eye if m is None else m).astype(np.float32)
+            for m in mats
         ])
     out['frame_id'] = frame_ids
     return out

@@ -21,6 +21,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def full_f32():
+    """No TF32 in cuDNN's convolutions or cuBLAS's products, for the whole
+    process. Set once where a run is configured (``build_detector`` of a
+    config with a camera branch), so that every step of the run, forward
+    and backward, computes alike."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def on_card(*tensors) -> bool:
     """True when every given tensor lies on a CUDA device, False when all lie
     on the CPU. Mixed placements are a caller error."""

@@ -20,12 +20,12 @@
   PointNet++ backbone on the raw points and the vote head, with
   :func:`ssd3d_loss` and, when serving, the votes cut by score and sorted
   (:func:`ssd3d_candidates`) for the host NMS.
-* ``GraphRCNN`` without cameras (``models/graph_rcnn.py``): SECONDNet's
-  first stage, proposals, the RoI sampler when training, the DFVS pool and
-  the AttnGNN second stage, with :func:`graph_rcnn_loss` and, when
-  serving, the refined boxes cut by score and sorted for the host NMS
-  (``graph_rcnn_candidates``). Its camera path is not ported yet
-  (ROADMAP.md, queue 1: GraphRCNN's camera path).
+* ``GraphRCNN`` (``models/graph_rcnn.py``): SECONDNet's first stage,
+  proposals, the RoI sampler when training, the DFVS pool and the AttnGNN
+  second stage, with the camera branch (DLASeg on the batch's images and
+  PointSample's image features of the pooled points) where the config has
+  one, with :func:`graph_rcnn_loss` and, when serving, the refined boxes
+  cut by score and sorted for the host NMS (``graph_rcnn_candidates``).
 
 Batch layout (dict of tensors, as the JAX package's host pipeline ships it):
 ``points``/``points_prev`` [B, P, C] (C = :func:`num_point_features`: x, y,
@@ -37,7 +37,10 @@ the anchor families read ``voxels``, ``voxel_num_points``,
 ``voxel_coords`` / ``voxel_coords_zyx`` and ``voxel_mask``.
 Detection training adds
 ``gt_boxes`` [B, M, 8] (class 1-indexed in the last column) and
-``gt_mask`` [B, M].
+``gt_mask`` [B, M]. A camera model reads ``images`` [B, H, W, 3],
+``trans_lidar_to_cam`` [B, 4, 4], ``trans_cam_to_img`` [B, 3, 4],
+``image_shape`` [B, 2], ``image_scale`` [B, 2] and, where the batch has
+them, ``aug_inverse`` [B, 4, 4] and ``image_flip`` [B].
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..ops.geometry import class_params
 from ..ops.geometry_np import nms_bev
 from ..ops.voxelize import VoxelSpec
@@ -58,6 +61,7 @@ from .anchor_head import anchor_head_loss, anchor_head_predict
 from .bev import BaseBEVBackbone, SSTBEVBackbone
 from .center_head import CenterHead, center_head_loss, decode
 from .graph_rcnn import GraphRCNN, graph_rcnn_loss
+from .layers import DeformConvBNReLU
 from .pointpillar import PointPillar
 from .second_net import SECONDNet
 from .siamwca import SiamWCA, SiamWCA_MAE, mae_loss, remat_stages, stage_caps
@@ -288,12 +292,15 @@ MAE_DETECTORS = ('TMAE', 'GDMAE')
 
 def build_detector(cfg, device=None) -> nn.Module:
     """The eval-mode detector that MODEL.NAME names, on ``device`` (the card
-    when None; raises when there is none). GraphRCNN with a camera branch
-    raises (ROADMAP.md, queue 1: GraphRCNN's camera path)."""
+    when None; raises when there is none). A config with ``IMG_BACKBONE``
+    turns TF32 off for the process (:func:`~..device.full_f32`): the camera
+    branch computes in f32, as the JAX package does."""
     name = cfg['MODEL']['NAME']
     if name not in DETECTORS:
         raise NotImplementedError(f'detector {name} is not ported: an '
                                   f'unknown detector; have {list(DETECTORS)}')
+    if cfg['MODEL'].get('IMG_BACKBONE'):
+        full_f32()
     return DETECTORS[name](cfg).to(resolve_device(device)).eval()
 
 
@@ -414,7 +421,9 @@ def init_training_(model: nn.Module, seed: int) -> nn.Module:
     bias starts at -log(99) and its box kernel at N(0, 0.001^2), as the
     JAX package's ``AnchorHeadSingle`` sets them, and GraphRCNN's box
     output kernel ``reg_out`` at N(0, 0.001^2), as its ``GraphRCNNHead``
-    does."""
+    does; a DCN block's ``conv_offset_mask`` at 0 and its kernel He normal
+    (variance 2 / fan_in, truncated), as the JAX package's
+    ``DeformConvBNReLU``."""
     g = torch.Generator().manual_seed(seed)
     std_of_trunc = 0.87962566103423978  # std of N(0, 1) cut at +-2
     for mname, mod in model.named_modules():
@@ -422,12 +431,17 @@ def init_training_(model: nn.Module, seed: int) -> nn.Module:
         for name, p in mod.named_parameters(recurse=False):
             if name == 'tau' or (name == 'weight' and p.dim() == 1):
                 p.fill_(1.0)
+            elif leaf == 'conv_offset_mask':
+                p.zero_()
             elif p.dim() >= 2 and leaf in ('conv_box', 'reg_out'):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.001)
             elif p.dim() >= 2:
                 w = torch.empty(p.shape)
                 nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
-                p.copy_(w * (_fan_in(mod, p) ** -0.5 / std_of_trunc))
+                std = _fan_in(mod, p) ** -0.5
+                if isinstance(mod, DeformConvBNReLU):  # He: variance 2 / fan_in
+                    std *= 2 ** 0.5
+                p.copy_(w * (std / std_of_trunc))
             elif leaf == 'hm_out':
                 p.fill_(-2.19)
             elif leaf == 'conv_cls':

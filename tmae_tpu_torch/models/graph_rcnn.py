@@ -1,18 +1,27 @@
-"""GraphRCNN without cameras (counterpart of ``tmae_tpu/models/
-graph_rcnn.py``): the SECONDNet first stage (MeanVFE, VoxelBackBone8x,
-BaseBEVBackbone, AnchorHeadSingle), class-agnostic proposals, the RoI
-sampler when training, and the second stage: each RoI's DFVS pool of
-points (``ops/roi_pool.roilocal_dfvs_pool3d``: kernel ``DFPS`` on the
-card), a k-NN graph over them, a stack of edge convolutions with channel
+"""GraphRCNN (counterpart of ``tmae_tpu/models/graph_rcnn.py``): the
+SECONDNet first stage (MeanVFE, VoxelBackBone8x, BaseBEVBackbone,
+AnchorHeadSingle), class-agnostic proposals, the RoI sampler when
+training, and the second stage: each RoI's DFVS pool of points
+(``ops/roi_pool.roilocal_dfvs_pool3d``: kernel ``DFPS`` on the card), a
+k-NN graph over them, a stack of edge convolutions with channel
 calibration (``AttnGNNLayer``), and the RCNN class and box outputs.
 
+The camera branch (``MODEL.IMG_BACKBONE`` with ``ROI_HEAD.IMG_CONFIG``):
+DLASeg (``models/dla.py``) runs on the batch's ``images``, the head's
+``img_conv*`` 1x1 convolutions (``IMG_CONFIG.MLPS``) follow, and each
+pooled point, carried back to the world from its RoI's frame, takes the
+image features at its pixel (``models/point_sample.py``, with F16's
+scale), concatenated before the RoI's corner extents. As in the JAX
+package, a config with ``IMG_BACKBONE`` but no ``IMG_CONFIG`` runs DLASeg
+and leaves its features unused, and ``IMG_CONFIG`` without
+``IMG_BACKBONE`` has no image branch.
+
 Kernels on the card: ``NMS_MASK`` and ``NMS_SCAN`` (the proposals' NMS),
-``IOU_PAIRS`` (the sampler, training only) and ``DFPS`` (the pool). The
+``IOU_PAIRS`` (the sampler, training only) and ``DFPS`` (the pool); with
+cameras ``DCN_COLS``, ``DCN_COORD_BWD`` and ``BILINEAR_GRAD`` (DLASeg's
+DCNv2) and ``POINT_SAMPLE`` (and ``BILINEAR_GRAD`` in its backward). The
 k-NN and the pool's point-in-box test are torch ops: the JAX package has
 no Pallas kernel for them.
-
-The camera branch (``IMG_CONFIG``, ``IMG_BACKBONE``, a batch's
-``images``) is not ported: building or running it raises.
 
 Random draws: the sampler's uniform draw and the shortcut's dropout come
 from the generators handed to the forward (``generators``, the training
@@ -29,16 +38,15 @@ from torch import nn
 from ..ops.box_coder import ResidualCoder
 from ..ops.roi_pool import roilocal_dfvs_pool3d
 from .anchor_head import anchor_head_loss, anchor_head_predict
-from .layers import LinearBNReLU, MaskedBatchNorm
+from .dla import DLASeg
+from .layers import LinearBNReLU, MaskedBatchNorm, conv2d_nhwc
+from .point_sample import point_sample
 from .point_head_vote import enlarge_box3d
 from .roi_head import (assign_roi_targets, decode_rcnn_boxes,
                        proposal_layer, roi_head_loss)
 from .second_net import SECONDNet
 from .ssd3d import score_sorted_candidates
 
-CAMERA_REFUSAL = ('GraphRCNN\'s camera path (IMG_CONFIG, IMG_BACKBONE, '
-                  'images) is not ported yet (ROADMAP.md, queue 1: the '
-                  'camera path)')
 DROPOUT = 0.1  # ShortcutLayer's, fixed as in the JAX package
 
 
@@ -164,32 +172,76 @@ class AttnGNNLayer(nn.Module):
 
 
 class GraphRCNNHead(nn.Module):
-    """The DFVS pool of each (enlarged) RoI, each pooled point given the
-    RoI's corner extents, AttnGNNLayer, a shared LinearBNReLU(256), and
-    the class and box outputs (``rcnn_cls`` [B, M, 1], ``rcnn_reg`` [B, M,
-    code_size]). ``num_point_features``: x, y, z and the point features."""
+    """The DFVS pool of each (enlarged) RoI, with ``image_channels`` and
+    ``IMG_CONFIG`` each pooled point's image features, each pooled point
+    given the RoI's corner extents, AttnGNNLayer, a shared
+    LinearBNReLU(256), and the class and box outputs (``rcnn_cls`` [B, M,
+    1], ``rcnn_reg`` [B, M, code_size]). ``num_point_features``: x, y, z
+    and the point features; ``image_channels``: the width of the image
+    features handed in (0: no image branch)."""
 
-    def __init__(self, roi_cfg, num_point_features: int, num_class: int = 1):
+    def __init__(self, roi_cfg, num_point_features: int, num_class: int = 1,
+                 image_channels: int = 0):
         super().__init__()
-        if roi_cfg.get('IMG_CONFIG'):
-            raise NotImplementedError(CAMERA_REFUSAL)
         self.cfg = roi_cfg
-        self.attn_gnn = AttnGNNLayer(roi_cfg['ATTN_GNN_CONFIG'],
-                                     num_point_features + 6)
+        self.img_cfg = roi_cfg.get('IMG_CONFIG') if image_channels else None
+        cin = num_point_features + 6
+        if self.img_cfg:
+            c = image_channels
+            self.img_mlps = [int(w) for w in self.img_cfg.get('MLPS', [])]
+            for ci, w in enumerate(self.img_mlps):
+                setattr(self, f'img_conv{ci}', nn.Conv2d(c, w, 1, bias=False))
+                c = w
+            cin += c
+        self.attn_gnn = AttnGNNLayer(roi_cfg['ATTN_GNN_CONFIG'], cin)
         self.shared_fc = LinearBNReLU(self.attn_gnn.out_channels, 256)
         code_size = int(roi_cfg['TARGET_CONFIG'].get(
             'BOX_CODER_CONFIG', {}).get('code_size', 7))
         self.cls_out = nn.Linear(256, num_class)
         self.reg_out = nn.Linear(256, code_size)
 
+    def image_features(self, pooled, rois, image_inputs):
+        """The image features [B, M, K, C] at the pooled points [B, M, K,
+        3+] (canonical in their RoI's frame) through ``img_conv*``."""
+        feats2d = image_inputs['image_features']
+        for ci in range(len(self.img_mlps)):
+            feats2d = F.relu(conv2d_nhwc(
+                feats2d, getattr(self, f'img_conv{ci}').weight,
+                dtype=torch.float32))
+        c = torch.cos(rois[..., 6])[..., None]
+        s = torch.sin(rois[..., 6])[..., None]
+        cx = pooled[..., 0] * c - pooled[..., 1] * s
+        cy = pooled[..., 0] * s + pooled[..., 1] * c
+        world = torch.stack([cx, cy, pooled[..., 2]], -1) + rois[..., None, :3]
+        B, M, K, _ = world.shape
+        feats, _ = point_sample(
+            world.reshape(B, M * K, 3), feats2d,
+            image_inputs['trans_lidar_to_cam'],
+            image_inputs['trans_cam_to_img'], image_inputs['image_shape'],
+            image_inputs['image_scale'],
+            feat_stride=int(self.img_cfg.get('FEAT_STRIDE', 4)),
+            aug_inverse=image_inputs.get('aug_inverse'),
+            image_flip=image_inputs.get('image_flip'))
+        return feats.reshape(B, M, K, -1)
+
     def forward(self, points, point_mask, rois, roi_mask, keep=None,
-                generator=None):
+                generator=None, image_inputs=None):
+        """``image_inputs``: ``image_features`` [B, Hf, Wf, C] and the
+        batch's ``trans_lidar_to_cam``, ``trans_cam_to_img``,
+        ``image_shape``, ``image_scale`` (``aug_inverse`` and
+        ``image_flip`` where it has them); needed with an image branch."""
         dfvs = self.cfg['DFVS_CONFIG']
         width = float(dfvs.get('POOL_EXTRA_WIDTH', 1.0))
         pooled, empty = roilocal_dfvs_pool3d(
             points, point_mask, enlarge_box3d(rois[..., :7], [width] * 3),
             roi_mask, num_dvs_points=int(dfvs.get('NUM_DVS_POINTS', 256)),
             num_fps_points=int(dfvs.get('NUM_FPS_POINTS', 64)))
+        if self.img_cfg:
+            if image_inputs is None:
+                raise ValueError('GraphRCNNHead with IMG_CONFIG needs the '
+                                 'image inputs')
+            pooled = torch.cat(
+                [pooled, self.image_features(pooled, rois, image_inputs)], -1)
         half = rois[..., 3:6] / 2
         corners = torch.cat([-half, half], -1)
         B, M, K, _ = pooled.shape
@@ -206,16 +258,33 @@ class GraphRCNNHead(nn.Module):
 class GraphRCNN(SECONDNet):
     """SECONDNet's first stage (``vfe``, ``backbone_3d``, ``backbone_2d``,
     ``dense_head``) → proposals → (training: the RoI sampler) →
-    GraphRCNNHead (``roi_head``)."""
+    GraphRCNNHead (``roi_head``); with ``IMG_BACKBONE``, DLASeg
+    (``img_backbone``) on the batch's ``images``."""
 
     rng_streams = ('proposal', 'dropout')
 
     def __init__(self, cfg, spec, num_point_features):
-        if cfg['MODEL'].get('IMG_BACKBONE'):
-            raise NotImplementedError(CAMERA_REFUSAL)
         super().__init__(cfg, spec, num_point_features)
         self.roi_cfg = cfg['MODEL']['ROI_HEAD']
-        self.roi_head = GraphRCNNHead(self.roi_cfg, num_point_features)
+        img_cfg = cfg['MODEL'].get('IMG_BACKBONE')
+        self.img_backbone = DLASeg(img_cfg) if img_cfg else None
+        self.roi_head = GraphRCNNHead(
+            self.roi_cfg, num_point_features,
+            image_channels=(self.img_backbone.out_channels
+                            if self.img_backbone else 0))
+
+    def image_inputs(self, batch: dict):
+        """DLASeg's features of the batch's ``images`` [B, H, W, 3] and the
+        camera keys the head reads."""
+        if 'images' not in batch:
+            raise ValueError('GraphRCNN with IMG_BACKBONE needs the batch\'s '
+                             'images (DATA_CONFIG.CAMERA_CONFIG)')
+        out = {'image_features': self.img_backbone(batch['images'])}
+        for k in ('trans_lidar_to_cam', 'trans_cam_to_img', 'image_shape',
+                  'image_scale', 'aug_inverse', 'image_flip'):
+            if k in batch:
+                out[k] = batch[k]
+        return out
 
     def forward(self, batch: dict, generators=None, proposals=None,
                 roi_uniform=None, dropout_keep=None):
@@ -225,8 +294,6 @@ class GraphRCNN(SECONDNet):
         'dropout': ...} for the training draws; ``proposals`` (rois,
         scores, labels, mask), ``roi_uniform`` [B, N] and ``dropout_keep``
         (the shortcut's three keep masks) are taken as given instead."""
-        if 'images' in batch:
-            raise NotImplementedError(CAMERA_REFUSAL)
         gens = generators or {}
         out = super().forward(batch)
         cls_preds, box_preds = anchor_head_predict(self.dense_head,
@@ -249,9 +316,11 @@ class GraphRCNN(SECONDNet):
                 batch['gt_mask'], self.roi_cfg['TARGET_CONFIG'],
                 generator=gens.get('proposal'), uniform=roi_uniform)
             rois, roi_mask = targets['rois'], targets['roi_mask']
+        image_inputs = (self.image_inputs(batch) if self.img_backbone
+                        else None)
         rcnn_cls, rcnn_reg = self.roi_head(
             batch['points'], batch['point_mask'], rois, roi_mask,
-            dropout_keep, gens.get('dropout'))
+            dropout_keep, gens.get('dropout'), image_inputs)
         out.update(rois=rois, roi_scores=roi_scores, roi_labels=roi_labels,
                    roi_mask=roi_mask, roi_targets=targets, rcnn_cls=rcnn_cls,
                    rcnn_reg=rcnn_reg)

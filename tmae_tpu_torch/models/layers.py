@@ -1,6 +1,7 @@
 """Building blocks on NHWC carriers (counterpart of
 ``tmae_tpu/models/layers.py``): batch norms, the masked dense formulation of
-the sparse convolutions, the MLP block, and rematerialisation.
+the sparse convolutions, the MLP block, the modulated deformable
+convolution block of the camera branch, and rematerialisation.
 
 Dtypes follow the JAX package: convolutions take bf16 inputs and weights and
 give bf16 (the carrier); batch-norm statistics and normalisation run in f32.
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.dcn import deform_conv2d
 from ..ops.sparse_conv import subm_conv3x3
 from ..parallel.dist import global_mean, global_sum
 
@@ -240,3 +242,35 @@ class StridedSparseConvBlock(nn.Module):
         x = torch.where(occ_out[..., None], x,
                         torch.zeros((), dtype=x.dtype, device=x.device))
         return F.relu(self.bn(x, occ_out))
+
+
+class DeformConvBNReLU(nn.Module):
+    """DCNv2 block of the DLA image backbone (stride 1, f32): a 3x3 conv
+    ``conv_offset_mask`` (zero-initialised, 'SAME' padding, with bias)
+    predicts each tap's offset (the first 2 K channels, (dy, dx) per tap)
+    and its modulation (the last K, through a sigmoid: 0.5 at the start);
+    ``ops/dcn.deform_conv2d`` samples and contracts with ``weight`` (OIHW,
+    the JAX package's HWIO ``kernel`` transposed); then a dense batch norm
+    (eps 1e-5, torch momentum 0.1: flax's 0.9) and ReLU."""
+
+    def __init__(self, cin, features, kernel=3):
+        super().__init__()
+        self.kernel = kernel
+        self.conv_offset_mask = nn.Conv2d(cin, 3 * kernel * kernel, kernel)
+        nn.init.zeros_(self.conv_offset_mask.weight)
+        nn.init.zeros_(self.conv_offset_mask.bias)
+        self.weight = nn.Parameter(torch.empty(features, cin, kernel,
+                                               kernel))
+        nn.init.kaiming_normal_(self.weight)
+        self.bn = BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        K = self.kernel * self.kernel
+        pad = (self.kernel - 1) // 2
+        pred = conv2d_nhwc(x, self.conv_offset_mask.weight, 1, pad,
+                           bias=self.conv_offset_mask.bias,
+                           dtype=torch.float32)
+        y = deform_conv2d(x, pred[..., :2 * K],
+                          torch.sigmoid(pred[..., 2 * K:]),
+                          self.weight.permute(2, 3, 1, 0), padding=pad)
+        return F.relu(self.bn(y))

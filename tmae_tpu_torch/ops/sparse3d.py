@@ -5,6 +5,10 @@ no Pallas kernel): a dense int32 index grid of the active voxels' slots
 product ``[V, k^3 * Cin] x [k^3 * Cin, Cout]`` per convolution, in f32.
 
 Voxel sets: feat [B, V, C], coords [B, V, 3] (z, y, x), mask [B, V].
+
+The neighbour gather's backward sums each voxel's gradients in the order
+of the gathered rows (:func:`gather_rows`), so a training step repeats bit
+for bit on the card.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .voxelize import grid_compact
+from .voxelize import grid_compact, segment_sum
 
 
 def _flat(coords, dhw):
@@ -73,16 +77,40 @@ def gather_neighbors(index_grid: torch.Tensor, coords_zyx: torch.Tensor,
                           stride, kernel // 2)
 
 
+class _GatherRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, feat, idx):
+        B, V, C = feat.shape
+        ctx.save_for_backward(idx)
+        ctx.rows = V
+        safe = idx.clamp(0, V - 1).long()[..., None].expand(-1, -1, C)
+        return torch.where(idx[..., None] >= 0, torch.gather(feat, 1, safe),
+                           0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        V = ctx.rows
+        return segment_sum(g, torch.where(idx >= 0, idx.long(), V), V), None
+
+
+def gather_rows(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """feat [B, V, C] at idx [B, N] → [B, N, C], 0 where idx < 0. Its
+    backward sums each row's gradients in index order
+    (``voxelize.segment_sum``), where ``torch.gather``'s, a
+    ``scatter_add_``, sums with float atomics on the card in an order that
+    changes from run to run."""
+    return _GatherRows.apply(feat, idx)
+
+
 def sparse_conv3d_apply(feat: torch.Tensor, neighbors: torch.Tensor,
                         weights: torch.Tensor) -> torch.Tensor:
     """feat [B, V, Cin], neighbors [B, Vout, K], weights [K, Cin, Cout] →
     [B, Vout, Cout]; absent taps contribute 0."""
     B, V, Cin = feat.shape
     _, Vout, K = neighbors.shape
-    safe = neighbors.clamp(0, V - 1).long().reshape(B, Vout * K, 1)
-    g = torch.gather(feat, 1, safe.expand(B, Vout * K, Cin))
-    g = g.reshape(B, Vout, K, Cin)
-    g = torch.where(neighbors[..., None] >= 0, g, 0.0)
+    g = gather_rows(feat, neighbors.reshape(B, Vout * K))
     return g.reshape(B, Vout, K * Cin) @ weights.reshape(K * Cin, -1)
 
 

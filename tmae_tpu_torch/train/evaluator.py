@@ -44,7 +44,10 @@ MODEL_INPUTS = ('points', 'point_mask', 'points_prev', 'point_mask_prev',
                 # the host voxelization (RUNTIME.HOST_VOXELIZE)
                 'pv_cur', 'pvalid_cur', 'vcoords_cur', 'vmask_cur',
                 'pv_prv', 'pvalid_prv', 'vcoords_prv', 'vmask_prv',
-                'vmean_cur', 'vends_cur', 'vmean_prv', 'vends_prv')
+                'vmean_cur', 'vends_cur', 'vmean_prv', 'vends_prv',
+                # the camera branch
+                'images', 'trans_lidar_to_cam', 'trans_cam_to_img',
+                'image_shape', 'image_scale', 'image_flip', 'aug_inverse')
 
 
 def make_eval_step(model, cfg):

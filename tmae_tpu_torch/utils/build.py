@@ -27,13 +27,15 @@ CSRC = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
 SOURCES = ('windows.cu', 'encoder_layer_tiled.cu', 'encoder_layer_bwd.cu',
            'encoder_layer_narrow.cu', 'segment_max.cu', 'subm_conv.cu',
-           'iou_nms.cu', 'pointnet2.cu')
+           'iou_nms.cu', 'pointnet2.cu', 'dcn.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-# iou_nms.cu and pointnet2.cu repeat their plain versions' roundings: no
-# contraction of a product and a sum into one fused multiply-add
+# iou_nms.cu, pointnet2.cu and dcn.cu repeat their plain versions'
+# roundings: no contraction of a product and a sum into one fused
+# multiply-add
 SOURCE_FLAGS = {'iou_nms.cu': ('-fmad=false',),
-                'pointnet2.cu': ('-fmad=false',)}
+                'pointnet2.cu': ('-fmad=false',),
+                'dcn.cu': ('-fmad=false',)}
 
 
 def _flags(source: str) -> tuple:
@@ -41,6 +43,7 @@ def _flags(source: str) -> tuple:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -35,15 +35,17 @@ _MODULE_RENAME = {
     'Conv_0': 'conv',
     'MaskedBatchNorm_0': 'bn',
     'BatchNorm2d_0': 'bn',
+    'BatchNorm_0': 'bn',  # a bare nn.BatchNorm (the DLA image backbone's)
     'Dense_0': 'linear',
     'ConvTranspose_0': 'deconv',
 }
 _BN_LEAF = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
             'var': 'running_var'}
 # batch norms by owner: flax's auto-named ones, the named masked BN of a
-# half-width stage (SSTBlock.conv_down_bn) and GraphRCNN's ShortcutLayer's
+# half-width stage (SSTBlock.conv_down_bn), GraphRCNN's ShortcutLayer's and
+# the DLA image backbone's (BasicBlock.bn2, Tree.project_bn)
 _BN_OWNERS = ('MaskedBatchNorm_0', 'BatchNorm_0', 'conv_down_bn', 'norm1',
-              'norm2')
+              'norm2', 'bn2', 'project_bn')
 _LAYER_LINEAR = ('q', 'k', 'v', 'out', 'ffn1', 'ffn2')
 
 
